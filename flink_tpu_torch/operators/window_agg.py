@@ -1,0 +1,920 @@
+"""WindowAggOperator — keyed windowed aggregation on dense device state
+(port of ``flink_tpu/operators/window_agg.py``, main path).
+
+The slice carried here is the one the repo is built around: a keyed,
+event-time, tumbling windowed aggregate with
+
+- **the host emit tier**: a write-through host VALUE mirror of the
+  accumulator cells (numpy, f64/i64) serves fires and snapshots with no
+  device->host traffic beyond the probe lane's delta pulls;
+- **scatter sync**: every micro-batch also folds into the device replica, a
+  ``[K, P]`` pane ring per accumulator leaf plus an int32 ``[K, P]`` count
+  (K = key capacity, P = pane ring), so the replica stays equal to the mirror
+  (:meth:`verify_mirror`);
+- **the device key probe** (``device_probe="on"``): warm keys resolve on the
+  card (``state/device_keyindex.py``, kernel ``csrc/probe.cu``), their rows
+  fold into the replica and into a device DELTA ring in the mirror's dtypes
+  (f64 values, int32 counts), and the host pass touches only the compact miss
+  list.  The mirror catches up pane by pane when a pane is read (fire,
+  snapshot).  ``device_probe="off"`` is the plain lane: host key lookup, then
+  one device fold per batch.
+
+Where JAX donated buffers to a jitted step, this port updates the same
+tensors in place.  Batches are not padded: torch needs no static shapes, so
+a step sees exactly the batch's rows, and the miss list is one
+``torch.nonzero`` — the step's only host sync.  JAX's scoped ``enable_x64``
+goes away: torch keeps f64 and i64 on the card.
+
+Options of the JAX operator that belong to later slices raise
+``NotImplementedError`` here (see :data:`_LATER`); nothing falls back.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from flink_tpu_torch import DeviceLike, resolve_device
+from flink_tpu_torch.core.batch import (LONG_MIN, RecordBatch, StreamElement,
+                                        Watermark)
+from flink_tpu_torch.core.functions import (SCATTER_UFUNCS, AggregateFunction,
+                                            torch_dtype, tree_leaves,
+                                            tree_structure, tree_unflatten)
+from flink_tpu_torch.operators.base import StreamOperator
+from flink_tpu_torch.ops.scatter import scatter_fold_counts
+from flink_tpu_torch.ops.shapes import next_pow2 as _next_pow2
+from flink_tpu_torch.state.device_keyindex import DeviceKeyIndex, probe
+from flink_tpu_torch.state.keyindex import KeyIndex
+from flink_tpu_torch.windowing.assigners import WindowAssigner
+from flink_tpu_torch.windowing.triggers import EventTimeTrigger, Trigger
+
+#: what this slice leaves out, and the later slice that brings it
+_LATER = {
+    "auto": "the auto calibrations (emit tier, device sync, device probe) "
+            "come with the calibration slice",
+    "deferred": "device_sync='deferred' comes with the fused super-batch "
+                "slice (operators/fused_step.py)",
+    "device_tier": "the device emit tier comes with the device-fire slice",
+    "superbatch": "superbatch > 1 comes with the fused super-batch slice "
+                  "(operators/fused_step.py, pallas_probe_fold)",
+    "pipeline": "pipeline_depth > 0 comes with the pipelining slice",
+    "paging": "cold-key paging comes with the paging slice",
+    "sharding": "sharded state comes with the multi-GPU mesh slice",
+    "count": "count triggers come with the count-window slice",
+    "async_fire": "async_fire comes with the device-fire slice",
+    "late_output": "late side outputs come with the runtime-stack slice",
+    "incremental": "incremental snapshots come with the checkpoint slice",
+    "queryable": "queryable views come with the serving slice",
+    "native": "the native C mirror (native_emit=True) is a later slice of "
+              "its own",
+    "object_keys": "non-integer keys come with the object-key slice",
+    "processing_time": "processing-time windows come with the runtime-stack "
+                       "slice",
+    "evolution": "accumulator schema evolution on restore comes with the "
+                 "checkpoint slice",
+}
+
+
+def _later(what: str) -> NotImplementedError:
+    return NotImplementedError(f"not in this slice of flink_tpu_torch: "
+                               f"{_LATER[what]}")
+
+
+class _PhaseTimer:
+    """Accumulates host wall time into a dict entry (phase breakdown)."""
+
+    __slots__ = ("_d", "_k", "_t0")
+
+    def __init__(self, d: Dict[str, int], key: str):
+        self._d = d
+        self._k = key
+
+    def __enter__(self):
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self._d[self._k] = (self._d.get(self._k, 0)
+                            + time.perf_counter_ns() - self._t0)
+        return False
+
+
+class WindowAggOperator(StreamOperator):
+    """Keyed window aggregation: ``key_by(key_col).window(assigner).aggregate(agg)``.
+
+    The constructor takes the JAX operator's parameter names, so one set of
+    keyword arguments builds either; ``max_batch`` is accepted and unused
+    (as it is there), ``device`` is the port's own."""
+
+    def __init__(
+        self,
+        assigner: WindowAssigner,
+        agg: AggregateFunction,
+        key_column: str,
+        value_selector: Optional[Callable[[Dict[str, Any]], Any]] = None,
+        value_column: Optional[str] = None,
+        allowed_lateness_ms: int = 0,
+        trigger: Optional[Trigger] = None,
+        output_column: str = "result",
+        emit_window_bounds: bool = True,
+        initial_key_capacity: int = 1 << 10,
+        initial_panes: int = 16,
+        max_batch: int = 1 << 16,
+        name: str = "window-agg",
+        sharding=None,
+        async_fire: bool = False,
+        late_output_tag: Optional[str] = None,
+        emit_tier: str = "host",
+        snapshot_source: str = "mirror",
+        native_emit: bool = False,
+        device_sync: str = "scatter",
+        paging=None,
+        pipeline_depth: int = 0,
+        native_shards: int = 0,
+        device_probe: str = "on",
+        queryable: Optional[str] = None,
+        superbatch: int = 1,
+        device: DeviceLike = None,
+    ):
+        if trigger is None:
+            trigger = EventTimeTrigger()
+        refusals = [
+            ("auto", "auto" in (emit_tier, snapshot_source, device_sync,
+                                device_probe)),
+            ("deferred", device_sync == "deferred"),
+            ("device_tier", emit_tier == "device"
+             or snapshot_source == "device"),
+            ("superbatch", int(superbatch) != 1),
+            ("pipeline", int(pipeline_depth) != 0),
+            ("paging", paging is not None),
+            ("sharding", sharding is not None),
+            ("count", trigger.fires_on_count),
+            ("async_fire", bool(async_fire)),
+            ("late_output", late_output_tag is not None),
+            ("queryable", queryable is not None),
+            ("native", bool(native_emit) or int(native_shards) != 0),
+            ("processing_time", not assigner.is_event_time),
+        ]
+        for what, refused in refusals:
+            if refused:
+                raise _later(what)
+        if emit_tier != "host" or snapshot_source != "mirror" \
+                or device_sync != "scatter":
+            raise ValueError(
+                f"emit_tier/snapshot_source/device_sync must be "
+                f"host/mirror/scatter, got {emit_tier!r}/"
+                f"{snapshot_source!r}/{device_sync!r}")
+        if device_probe not in ("on", "off"):
+            raise ValueError(f"device_probe must be on|off, "
+                             f"got {device_probe!r}")
+        if not trigger.fires_on_time:
+            raise ValueError("the host emit tier needs a time-triggered window")
+        if not agg.supports_host_emit():
+            raise ValueError(
+                "emit_tier='host' requires an aggregate with numpy twins "
+                "(AggregateFunction.supports_host_emit)")
+        self.device = resolve_device(device)
+        self.assigner = assigner
+        self.agg = agg
+        self.key_column = key_column
+        if value_selector is not None:
+            self._select = value_selector
+        elif value_column is not None:
+            self._select = lambda cols: cols[value_column]
+        else:
+            self._select = lambda cols: cols
+        self.lateness = int(allowed_lateness_ms)
+        self.output_column = output_column
+        self.emit_window_bounds = emit_window_bounds
+        self.name = name
+        self.device_probe = device_probe
+
+        self.spec = agg.acc_spec()
+        self.kinds = agg.scatter_kind_leaves()
+        #: mirror leaf dtypes: integer leaves widen to int64, floats to
+        #: float64 — the host tier is the higher-precision replica
+        self._mirror_dtypes = tuple(
+            np.int64 if np.issubdtype(np.dtype(d), np.integer) else np.float64
+            for d in self.spec.leaf_dtypes)
+        #: host value mirror: pane id -> [counts int64 [K], leaf_0 [K], ...]
+        self._vmirror: Dict[int, list] = {}
+        #: per-phase host wall ns and transfer bytes
+        self.phase_ns: Dict[str, int] = {}
+        self.phase_bytes: Dict[str, int] = {}
+
+        # ring geometry — P must exceed the live pane span
+        self._P = _next_pow2(max(initial_panes, 2 * assigner.panes_per_window))
+        self._K = _next_pow2(initial_key_capacity)
+        self.key_index: Optional[KeyIndex] = None
+        self._leaves = None          # tuple of [K, P, *leaf] device tensors
+        self._counts = None          # int32 [K, P]
+        self.pane_base: Optional[int] = None   # smallest retained pane id
+        self.max_pane: Optional[int] = None    # largest pane seen
+        self.last_fired_window: Optional[int] = None
+        self.watermark: int = LONG_MIN
+        self.late_dropped: int = 0
+
+        # ---- device-resident key probe lane
+        self._dki: Optional[DeviceKeyIndex] = None
+        self._devprobe_resolved: Optional[bool] = None
+        self._delta_leaves = None             # mirror-dtype [K, P] tensors
+        self._delta_counts = None             # int32 [K, P]
+        self._delta_panes: set = set()        # panes with unsynced delta
+        self._dp_stats = {"probe_hits": 0, "probe_misses": 0,
+                          "miss_inserts": 0, "delta_syncs": 0}
+
+    # ------------------------------------------------------------------ state
+    def _alloc(self, K: int, P: int):
+        leaves = tuple(
+            torch.full((K, P) + tuple(shape), np.asarray(init).item(),
+                       dtype=torch_dtype(dtype), device=self.device)
+            for init, shape, dtype in zip(self.spec.leaf_inits,
+                                          self.spec.leaf_shapes,
+                                          self.spec.leaf_dtypes))
+        counts = torch.zeros((K, P), dtype=torch.int32, device=self.device)
+        return leaves, counts
+
+    def _ensure_alloc(self):
+        if self._leaves is None:
+            self._leaves, self._counts = self._alloc(self._K, self._P)
+
+    def _phase(self, name: str):
+        return _PhaseTimer(self.phase_ns, name)
+
+    def _to_device(self, values):
+        """Host value tree -> the same structure of device tensors."""
+        leaves = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                  for a in tree_leaves(values)]
+        self.phase_bytes["h2d"] = (self.phase_bytes.get("h2d", 0)
+                                   + sum(l.nbytes for l in leaves))
+        return tree_unflatten(tree_structure(values), leaves)
+
+    def _ids_to_device(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        self.phase_bytes["h2d"] = self.phase_bytes.get("h2d", 0) + t.nbytes
+        return t
+
+    # ----------------------------------------------- device-resident probe
+    def _devprobe_active(self) -> bool:
+        """Resolved once per key-index lifetime: "on" and eligible (scalar
+        add/min/max accumulator leaves — the delta fold contract)."""
+        if self._devprobe_resolved is None:
+            self._devprobe_resolved = (
+                self.device_probe == "on"
+                and self.kinds is not None
+                and all(tuple(s) == () for s in self.spec.leaf_shapes))
+        return self._devprobe_resolved
+
+    def device_probe_stats(self) -> Dict[str, Any]:
+        """Probe counters: hits, misses, table inserts, delta syncs."""
+        s = dict(self._dp_stats)
+        total = s["probe_hits"] + s["probe_misses"]
+        s["enabled"] = int(bool(self._devprobe_resolved))
+        s["probe_hit_rate"] = (s["probe_hits"] / total) if total else None
+        s["delta_d2h_bytes"] = int(self.phase_bytes.get("delta_d2h", 0))
+        return s
+
+    def _drop_delta(self) -> None:
+        self._delta_leaves = None
+        self._delta_counts = None
+        self._delta_panes = set()
+
+    def _ensure_delta(self) -> None:
+        """Allocate the device DELTA ring [K, P] in the mirror dtypes (f64 /
+        i64 values, int32 counts): warm-row folds carry exactly the
+        precision the host mirror fold would have."""
+        if self._delta_counts is not None \
+                and tuple(self._delta_counts.shape) == (self._K, self._P):
+            return
+        self._delta_leaves = tuple(
+            torch.full((self._K, self._P), np.asarray(init).astype(mdt).item(),
+                       dtype=torch_dtype(mdt), device=self.device)
+            for init, mdt in zip(self.spec.leaf_inits, self._mirror_dtypes))
+        self._delta_counts = torch.zeros((self._K, self._P), dtype=torch.int32,
+                                         device=self.device)
+        self._delta_panes = set()
+
+    def _flat_state(self, leaves, counts):
+        K, P = counts.shape
+        return (tuple(l.view((K * P,) + tuple(l.shape[2:])) for l in leaves),
+                counts.view(K * P))
+
+    def _probed_update_step(self, tab, key_lo, key_hi, start, pane_slots,
+                            values) -> torch.Tensor:
+        """One micro-batch with the key probe on the card: probe the table,
+        fold hit rows into the device replica (device precision) and the
+        delta ring (mirror precision), in place.  Miss rows carry the
+        dropped id K*P.  Returns the miss rows' indices (int64, ascending);
+        computing it is the step's one host sync."""
+        slot = probe(*tab, key_lo, key_hi, start)
+        hit = slot >= 0
+        K, P = self._counts.shape
+        flat = torch.where(hit, slot.to(torch.int64) * P + pane_slots, K * P)
+        lifted = tuple(tree_leaves(self.agg.lift(values)))
+        scatter_fold_counts(*self._flat_state(self._leaves, self._counts),
+                            flat, lifted, self.kinds)
+        scatter_fold_counts(*self._flat_state(self._delta_leaves,
+                                              self._delta_counts),
+                            flat, lifted, self.kinds)
+        return torch.nonzero(~hit).squeeze(1)
+
+    def _delta_clear_step(self, pane_slots: torch.Tensor) -> None:
+        """Reset synced (or expired) delta columns to identity, in place."""
+        for l, init, mdt in zip(self._delta_leaves, self.spec.leaf_inits,
+                                self._mirror_dtypes):
+            l[:, pane_slots] = np.asarray(init).astype(mdt).item()
+        self._delta_counts[:, pane_slots] = 0
+
+    def _devprobe_sync_mirror(self, panes=None) -> None:
+        """Pane-granular mirror catch-up: pull the delta columns of ``panes``
+        (None = every unsynced pane) for the live key rows, fold them into
+        the host value mirror, and reset those delta columns on the card.
+        Identity delta rows fold as no-ops, so no mask rides the pull."""
+        if self._delta_counts is None or not self._delta_panes:
+            return
+        if panes is None:
+            sync = sorted(self._delta_panes)
+        else:
+            want = {int(p) for p in np.asarray(panes).reshape(-1).tolist()}
+            sync = sorted(self._delta_panes & want)
+        if not sync:
+            return
+        n = self.key_index.num_keys if self.key_index is not None else 0
+        if n == 0:
+            self._delta_panes.difference_update(sync)
+            return
+        with self._phase("delta_sync"):
+            slots = torch.tensor([p % self._P for p in sync],
+                                 dtype=torch.int64, device=self.device)
+            cnt_np = self._delta_counts[:n].index_select(1, slots).cpu().numpy()
+            sel_np = [l[:n].index_select(1, slots).cpu().numpy()
+                      for l in self._delta_leaves]
+            self._delta_clear_step(slots)
+            self.phase_bytes["delta_d2h"] = (
+                self.phase_bytes.get("delta_d2h", 0) + cnt_np.nbytes
+                + sum(l.nbytes for l in sel_np))
+            for j, p in enumerate(sync):
+                col_cnt = cnt_np[:, j]
+                if not col_cnt.any():
+                    continue
+                entry = self._vmirror_pane(int(p))
+                entry[0][:n] += col_cnt
+                for k, kind in enumerate(self.kinds):
+                    entry[k + 1][:n] = SCATTER_UFUNCS[kind](
+                        entry[k + 1][:n],
+                        sel_np[k][:, j].astype(self._mirror_dtypes[k],
+                                               copy=False))
+            self._delta_panes.difference_update(sync)
+            self._dp_stats["delta_syncs"] += 1
+
+    def _hot_stage_devprobe(self, keys: np.ndarray, panes: np.ndarray,
+                            values, B: int) -> None:
+        """Probe-lane hot stage: one device step probes and folds the warm
+        rows; the host pass then touches only the compact miss list."""
+        self._ensure_alloc()
+        self._ensure_delta()
+        if self._dki is None:
+            self._dki = DeviceKeyIndex(
+                initial_capacity=max(1 << 16, 2 * self._K), device=self.device)
+        self._dki.ensure_loaded(self.key_index)   # bulk/restore load
+        with self._phase("device_probe"):
+            key_lo, key_hi, start = self._dki.prepare_batch(keys)
+            planes = self._ids_to_device(np.stack(
+                [key_lo, key_hi, start, (panes % self._P).astype(np.int32)]))
+            miss_idx = self._probed_update_step(
+                self._dki.table(), planes[0], planes[1], planes[2],
+                planes[3], self._to_device(values))
+            mc = int(miss_idx.numel())
+            self._delta_panes.update(int(p) for p in np.unique(panes).tolist())
+            self._dp_stats["probe_hits"] += B - mc
+            self._dp_stats["probe_misses"] += mc
+        if mc:
+            self._devprobe_handle_misses(keys, panes, values,
+                                         miss_idx.cpu().numpy())
+
+    def _devprobe_absorb_misses(self, mkeys, mpanes, mvalues) -> np.ndarray:
+        """Host pass over the miss rows: key insert, key growth (with a delta
+        drain and rebuild), numpy mirror fold, one table scatter.  Returns
+        the miss rows' slot ids."""
+        with self._phase("probe_mirror"):
+            mslots = self.key_index.lookup_or_insert(mkeys)
+        if self.key_index.num_keys > self._K:
+            # growth reallocates the delta ring: drain it into the mirror
+            # first so no warm contribution is lost, then rebuild at new K
+            self._devprobe_sync_mirror(None)
+            self._drop_delta()
+            self._grow_keys(self.key_index.num_keys)
+            self._ensure_delta()
+        with self._phase("mirror"):
+            self._vmirror_update(mslots, mpanes, mvalues)
+        self._dp_stats["miss_inserts"] += \
+            self._dki.ensure_loaded(self.key_index)
+        return mslots
+
+    def _devprobe_handle_misses(self, keys, panes, values,
+                                mi: np.ndarray) -> None:
+        """The host pass over the compact miss list, then the miss rows'
+        fold into the device replica."""
+        mkeys = np.ascontiguousarray(keys[mi])
+        mpanes = np.ascontiguousarray(panes[mi])
+        mvalues = tree_unflatten(tree_structure(values),
+                                 [np.asarray(a)[mi] for a in
+                                  tree_leaves(values)])
+        mslots = self._devprobe_absorb_misses(mkeys, mpanes, mvalues)
+        self._miss_replica_update(mslots, mpanes, mvalues)
+
+    def _miss_replica_update(self, mslots, mpanes, mvalues) -> None:
+        """Replica catch-up for probe-miss rows: host-built flat ids through
+        the plain update step."""
+        flat = mslots.astype(np.int64) * self._P + (mpanes % self._P)
+        with self._phase("device_dispatch"):
+            self._update_step(self._ids_to_device(flat),
+                              self._to_device(mvalues))
+
+    # ---------------------------------------------------- host value mirror
+    def _vmirror_pane(self, pane: int) -> list:
+        """[counts, *leaves] arrays of a pane, allocated/grown to K rows."""
+        need = self._K
+        entry = self._vmirror.get(pane)
+        if entry is None or entry[0].size < need:
+            fresh = [np.zeros(need, np.int64)]
+            for init, shape, mdt in zip(self.spec.leaf_inits,
+                                        self.spec.leaf_shapes,
+                                        self._mirror_dtypes):
+                arr = np.empty((need,) + tuple(shape), mdt)
+                arr[...] = np.asarray(init).astype(mdt)
+                fresh.append(arr)
+            if entry is not None:
+                n = entry[0].size
+                for f, o in zip(fresh, entry):
+                    f[:n] = o
+            entry = self._vmirror[pane] = fresh
+        return entry
+
+    @staticmethod
+    def _host_scatter(kind: str, arr: np.ndarray, slots: np.ndarray,
+                      vals: np.ndarray) -> None:
+        """In-place segment combine ``arr[slots] op= vals`` (numpy twin of
+        ops/scatter.py): add on scalar leaves is one bincount; min/max and
+        non-scalar leaves sort + ufunc.reduceat."""
+        if kind == "add" and vals.ndim == 1:
+            arr += np.bincount(slots, weights=vals,
+                               minlength=arr.size).astype(arr.dtype,
+                                                          copy=False)
+            return
+        ufunc = SCATTER_UFUNCS[kind]
+        order = np.argsort(slots, kind="stable")
+        ss = slots[order]
+        vv = vals[order]
+        starts = np.flatnonzero(np.r_[True, ss[1:] != ss[:-1]])
+        red = ufunc.reduceat(vv, starts, axis=0)
+        uniq = ss[starts]
+        arr[uniq] = ufunc(arr[uniq], red)
+
+    def _vmirror_update(self, slots: np.ndarray, panes: np.ndarray,
+                        values) -> None:
+        """Fold a batch into the host mirror — the same (slot, pane, value)
+        triples as the device fold, with the aggregate's numpy twins."""
+        lifted = [np.asarray(l)
+                  for l in tree_leaves(self.agg.host_lift(values))]
+        for p in np.unique(panes).tolist():
+            m = panes == p
+            s = slots[m] if not m.all() else slots
+            entry = self._vmirror_pane(int(p))
+            entry[0] += np.bincount(s, minlength=entry[0].size)
+            for j, (kind, leaf) in enumerate(zip(self.kinds, lifted)):
+                self._host_scatter(kind, entry[j + 1], s,
+                                   leaf[m] if not m.all() else leaf)
+
+    def _mirror_columns(self, panes, rows: int):
+        """Dense device-dtype columns of the mirror: counts int32 [rows,
+        len(panes)] plus one [rows, len(panes), *shape] array per leaf
+        (missing panes = identity).  Drains every unsynced delta first."""
+        self._devprobe_sync_mirror(None)
+        counts = np.zeros((rows, len(panes)), np.int32)
+        leaves = []
+        for init, shape, d in zip(self.spec.leaf_inits, self.spec.leaf_shapes,
+                                  self.spec.leaf_dtypes):
+            arr = np.empty((rows, len(panes)) + tuple(shape), d)
+            arr[...] = np.asarray(init).astype(d)
+            leaves.append(arr)
+        for j, p in enumerate(panes):
+            e = self._vmirror.get(int(p))
+            if e is None:
+                continue
+            counts[:, j] = e[0][:rows]
+            for k, dst in enumerate(leaves):
+                dst[:, j] = e[k + 1][:rows].astype(self.spec.leaf_dtypes[k],
+                                                   copy=False)
+        return counts, leaves
+
+    def verify_mirror(self, atol: float = 1e-3, rtol: float = 1e-4) -> bool:
+        """Download the device replica's live panes and compare with the
+        host mirror (compared in device precision: the mirror has more
+        bits).  Meant for tests and sampled validation."""
+        self._devprobe_sync_mirror(None)
+        if self._leaves is None or self.pane_base is None:
+            return True
+        n = self.key_index.num_keys if self.key_index else 0
+        for p in range(self.pane_base, (self.max_pane or 0) + 1):
+            slot = int(p) % self._P
+            host = self._vmirror.get(p)
+            host_counts = (host[0][:n] if host is not None
+                           else np.zeros(n, np.int64))
+            if not np.array_equal(self._counts[:n, slot].cpu().numpy(),
+                                  host_counts):
+                return False
+            for j in range(self.spec.num_leaves):
+                dev = self._leaves[j][:n, slot].cpu().numpy().astype(
+                    np.float64)
+                hst = (np.asarray(host[j + 1][:n], np.float64)
+                       if host is not None
+                       else np.broadcast_to(np.asarray(
+                           self.spec.leaf_inits[j], np.float64), dev.shape))
+                hst32 = hst.astype(self.spec.leaf_dtypes[j]).astype(np.float64)
+                if not np.allclose(dev, hst32, atol=atol, rtol=rtol,
+                                   equal_nan=True):
+                    return False
+        return True
+
+    # ------------------------------------------------------------- growth
+    def _grow_keys(self, needed: int):
+        newK = _next_pow2(needed, self._K)
+        if newK == self._K and self._leaves is not None:
+            return
+        old_leaves, old_counts = self._leaves, self._counts
+        self._K = newK
+        # grow every live mirror pane with the capacity: an untouched pane
+        # must still serve fires/snapshots at the new key count
+        for p in list(self._vmirror):
+            self._vmirror_pane(p)
+        fresh, fresh_counts = self._alloc(self._K, self._P)
+        if old_leaves is not None:
+            n = old_counts.shape[0]
+            for f, o in zip(fresh, old_leaves):
+                f[:n] = o
+            fresh_counts[:n] = old_counts
+        self._leaves, self._counts = fresh, fresh_counts
+
+    def _grow_panes(self, span: int):
+        """Double the pane ring until it holds ``span`` live panes, remapping
+        slot = pane % P_old -> pane % P_new for retained panes."""
+        newP = self._P
+        while newP < span:
+            newP <<= 1
+        if newP == self._P:
+            return
+        old_leaves, old_counts, oldP = self._leaves, self._counts, self._P
+        self._P = newP
+        fresh, fresh_counts = self._alloc(self._K, newP)
+        if old_leaves is not None and self.pane_base is not None:
+            panes = np.arange(self.pane_base, self.max_pane + 1,
+                              dtype=np.int64)
+            src = torch.from_numpy(panes % oldP).to(self.device)
+            dst = torch.from_numpy(panes % newP).to(self.device)
+            for f, o in zip(fresh, old_leaves):
+                f[:, dst] = o[:, src]
+            fresh_counts[:, dst] = old_counts[:, src]
+        self._leaves, self._counts = fresh, fresh_counts
+
+    def _grow_panes_guarded(self, span: int) -> None:
+        if self._delta_counts is not None and span > self._P:
+            # the delta ring reallocates with P: drain it into the mirror
+            # first, rebuild at the new P on the next probe step
+            self._devprobe_sync_mirror(None)
+            self._drop_delta()
+        self._ensure_alloc()
+        self._grow_panes(span)
+
+    # ------------------------------------------------------------- device ops
+    def _update_step(self, flat_ids: torch.Tensor, values) -> None:
+        """One micro-batch fold into the device replica, in place: lift +
+        scatter-combine.  flat_ids in [0, K*P]; K*P is a dropped row."""
+        lifted = tuple(tree_leaves(self.agg.lift(values)))
+        scatter_fold_counts(*self._flat_state(self._leaves, self._counts),
+                            flat_ids, lifted, self.kinds)
+
+    def _clear_panes_step(self, pane_slots: torch.Tensor) -> None:
+        """Reset ring columns of expired panes to identity, in place."""
+        for l, init in zip(self._leaves, self.spec.leaf_inits):
+            l[:, pane_slots] = np.asarray(init).item()
+        self._counts[:, pane_slots] = 0
+
+    def _rows_for(self, idx: np.ndarray, result,
+                  window) -> List[StreamElement]:
+        keys = np.asarray(self.key_index.reverse_keys())[idx]
+        n = len(keys)
+        cols: Dict[str, Any] = {self.key_column: keys}
+        if isinstance(result, dict):
+            cols.update(result)
+        else:
+            cols[self.output_column] = result
+        if self.emit_window_bounds:
+            cols["window_start"] = np.broadcast_to(np.int64(window.start),
+                                                   (n,))
+            cols["window_end"] = np.broadcast_to(np.int64(window.end), (n,))
+        ts = np.broadcast_to(np.int64(window.max_timestamp), (n,))
+        return [RecordBatch(cols, timestamps=ts)]
+
+    # --------------------------------------------------------------- batching
+    def process_batch(self, batch: RecordBatch) -> List[StreamElement]:
+        if len(batch) == 0:
+            return []
+        cols = batch.columns
+        keys = np.asarray(cols[self.key_column])
+        if self.key_index is None:
+            if keys.dtype.kind not in "iu":
+                raise _later("object_keys")
+            self.key_index = KeyIndex(
+                initial_capacity=max(1 << 16, 2 * self._K))
+        if batch.timestamps is None:
+            raise ValueError("event-time window requires timestamps")
+        ts = np.asarray(batch.timestamps, np.int64)
+        panes = self.assigner.pane_of(ts)
+
+        # ---- late-beyond-lateness drop, judged like the reference's
+        # WindowOperator.isElementLate: a record is late iff its pane's last
+        # covering window's cleanup time (end - 1 + lateness) was passed
+        gate_now = self.watermark
+        if gate_now != LONG_MIN:
+            p0, p1 = int(panes.min()), int(panes.max())
+            cand = (np.arange(p0, p1 + 1, dtype=np.int64)
+                    if p1 - p0 < 64 else np.unique(panes))
+            is_late = np.asarray(
+                [self.assigner.last_window_end_of_pane(int(p)) - 1
+                 + self.lateness <= gate_now for p in cand.tolist()])
+            if not is_late.any():
+                live = np.ones(0, bool)
+            elif np.all(is_late[:-1] >= is_late[1:]):
+                # lateness is a prefix of ascending panes
+                live = panes > int(cand[int(is_late.sum()) - 1])
+            else:
+                live = ~np.isin(panes, cand[is_late])
+            if live.size and not live.all():
+                self.late_dropped += int(np.count_nonzero(~live))
+                batch = batch.select(live)
+                if len(batch) == 0:
+                    return []
+                cols = batch.columns
+                keys = np.asarray(cols[self.key_column])
+                panes = panes[live]
+
+        pmin, pmax = int(panes.min()), int(panes.max())
+        values = self._select(cols)
+        self._hot_stage(keys, panes, values, len(batch), pmin, pmax)
+
+        out: List[StreamElement] = []
+        # ---- late re-fire: windows already passed by the watermark that
+        # this batch updated fire again (EventTimeTrigger.onElement FIRE)
+        if (self.last_fired_window is not None
+                and self.assigner.windows_of_pane(pmin)[0]
+                <= self.last_fired_window):
+            refire: List[int] = []
+            for p in np.unique(panes).tolist():
+                w0, w1 = self.assigner.windows_of_pane(int(p))
+                for w in range(w0, w1 + 1):
+                    max_ts = self.assigner.window_bounds(w).max_timestamp
+                    if (w <= self.last_fired_window
+                            and max_ts <= self.watermark
+                            and max_ts + self.lateness > self.watermark):
+                        refire.append(w)
+            for w in sorted(set(refire)):
+                out.extend(self._fire_window(w))
+        return out
+
+    def _hot_stage(self, keys: np.ndarray, panes: np.ndarray, values,
+                   B: int, pmin: int, pmax: int) -> None:
+        """Pane-ring bookkeeping/growth, then the probe lane or the plain
+        fold lane for one micro-batch."""
+        if self.pane_base is None:
+            self.pane_base = pmin
+            self.max_pane = pmax
+        else:
+            # grow BEFORE extending the live range: the remap copies the old
+            # [pane_base, max_pane], alias-free only in the old geometry
+            new_base = min(self.pane_base, pmin)
+            span = max(self.max_pane, pmax) - new_base + 1
+            if span > self._P:
+                self._grow_panes_guarded(span)
+            self.pane_base = new_base
+            self.max_pane = max(self.max_pane, pmax)
+        span = self.max_pane - self.pane_base + 1
+        if span > self._P:
+            self._grow_panes_guarded(span)
+        if self._devprobe_active():
+            self._hot_stage_devprobe(keys, panes, values, B)
+        else:
+            self._hot_stage_fold(keys, panes, values)
+
+    def _hot_stage_fold(self, keys: np.ndarray, panes: np.ndarray,
+                        values) -> None:
+        """Plain lane: host key lookup, one device fold, mirror fold."""
+        with self._phase("probe"):
+            slots = self.key_index.lookup_or_insert(keys)
+        if self.key_index.num_keys > self._K:
+            self._ensure_alloc()
+            self._grow_keys(self.key_index.num_keys)
+        self._ensure_alloc()
+        flat = slots.astype(np.int64) * self._P + (panes % self._P)
+        with self._phase("device_dispatch"):
+            self._update_step(self._ids_to_device(flat),
+                              self._to_device(values))
+        with self._phase("mirror"):
+            self._vmirror_update(slots, panes, values)
+
+    # ------------------------------------------------------------------ time
+    def _fired_horizon(self, now: int) -> int:
+        """Largest window id whose maxTimestamp (= end-1) has been passed."""
+        a = self.assigner
+        denom = a.pane_stride * a.pane_ms
+        w_max = (now + 1 - a._offset - a.panes_per_window * a.pane_ms) // denom
+        while a.window_bounds(w_max + 1).max_timestamp <= now:
+            w_max += 1
+        while a.window_bounds(w_max).max_timestamp > now:
+            w_max -= 1
+        return w_max
+
+    def process_watermark(self, watermark: Watermark) -> List[StreamElement]:
+        self.watermark = max(self.watermark, watermark.timestamp)
+        return self._advance_time(self.watermark)
+
+    def end_input(self) -> List[StreamElement]:
+        """Bounded input: fire everything outstanding."""
+        return self._advance_time(2 ** 62)
+
+    def _advance_time(self, now: int) -> List[StreamElement]:
+        if self.pane_base is None or self._leaves is None:
+            return []
+        a = self.assigner
+        out: List[StreamElement] = []
+        w_max = self._fired_horizon(now)
+        # bound firing to windows that can contain data
+        lo_window = a.windows_of_pane(self.pane_base)[0]
+        hi_window = a.windows_of_pane(self.max_pane)[1]
+        start = (self.last_fired_window + 1
+                 if self.last_fired_window is not None else lo_window)
+        start = max(start, lo_window)
+        for w in range(start, min(w_max, hi_window) + 1):
+            out.extend(self._fire_window(w))
+        if self.last_fired_window is None or w_max > self.last_fired_window:
+            self.last_fired_window = w_max
+        self._expire_panes(now)
+        return out
+
+    def _expire_panes(self, now: int):
+        """Clear panes whose last window's cleanup time (max_ts + lateness)
+        the watermark passed."""
+        if self.pane_base is None:
+            return
+        expired = []
+        p = self.pane_base
+        while (p <= self.max_pane
+               and self.assigner.last_window_end_of_pane(p) - 1
+               + self.lateness <= now):
+            expired.append(p)
+            p += 1
+        if not expired:
+            return
+        self.pane_base = p
+        slots = torch.from_numpy(
+            np.asarray(expired, np.int64) % self._P).to(self.device)
+        self._clear_panes_step(slots)
+        for ep in expired:
+            self._vmirror.pop(ep, None)
+        if self._delta_counts is not None:
+            # expired panes' unsynced delta is discarded with the mirror pane
+            # it would have folded into
+            dead = [q for q in expired if q in self._delta_panes]
+            if dead:
+                self._delta_clear_step(torch.from_numpy(
+                    np.asarray(dead, np.int64) % self._P).to(self.device))
+                self._delta_panes.difference_update(dead)
+        if self.pane_base > self.max_pane:
+            self.max_pane = self.pane_base
+
+    # ------------------------------------------------------------------ fires
+    def _fire_window(self, window_id: int) -> List[StreamElement]:
+        if self._leaves is None:
+            return []
+        first, last = self.assigner.window_panes(window_id)
+        if last < self.pane_base or first > self.max_pane:
+            return []
+        panes = np.arange(max(first, self.pane_base),
+                          min(last, self.max_pane) + 1, dtype=np.int64)
+        with self._phase("fire"):
+            return self._fire_window_host(window_id, panes)
+
+    def _fire_window_host(self, window_id: int,
+                          panes: np.ndarray) -> List[StreamElement]:
+        """Serve a fire from the host mirror, after the bounded delta pull
+        of exactly the panes about to fire."""
+        self._devprobe_sync_mirror(panes)
+        n = self.key_index.num_keys if self.key_index is not None else 0
+        if n == 0:
+            return []
+        entries = [self._vmirror[int(p)] for p in panes.tolist()
+                   if int(p) in self._vmirror]
+        if not entries:
+            return []
+        total = entries[0][0][:n].copy()
+        for e in entries[1:]:
+            total += e[0][:n]
+        idx = np.flatnonzero(total > 0)
+        if idx.size == 0:
+            return []
+        acc_leaves = []
+        for j, kind in enumerate(self.kinds):
+            ufunc = SCATTER_UFUNCS[kind]
+            leaf = entries[0][j + 1][idx]
+            for e in entries[1:]:
+                leaf = ufunc(leaf, e[j + 1][idx])
+            acc_leaves.append(leaf)
+        result = self.agg.host_get_result(self.spec.unflatten(acc_leaves))
+        return self._rows_for(idx, result,
+                              self.assigner.window_bounds(window_id))
+
+    # -------------------------------------------------------------- snapshots
+    def _leaf_schema(self) -> List[Dict[str, str]]:
+        return [{"name": n, "dtype": np.dtype(d).name}
+                for n, d in zip(self.spec.leaf_names, self.spec.leaf_dtypes)]
+
+    def snapshot_state(self) -> Dict[str, Any]:
+        """Dense numpy snapshot, served from the host mirror (the same
+        format as the JAX operator's mirror-sourced snapshot)."""
+        snap: Dict[str, Any] = {
+            "pane_base": self.pane_base,
+            "max_pane": self.max_pane,
+            "last_fired_window": self.last_fired_window,
+            "watermark": self.watermark,
+            "late_dropped": self.late_dropped,
+            "P": self._P,
+        }
+        if self.key_index is not None:
+            snap["key_index"] = self.key_index.snapshot()
+            snap["key_index_kind"] = "KeyIndex"
+        if self._leaves is not None and self.pane_base is not None \
+                and self.key_index is not None:
+            n = self.key_index.num_keys
+            panes = np.arange(self.pane_base, self.max_pane + 1,
+                              dtype=np.int64)
+            snap["panes"] = panes
+            with self._phase("snapshot"):
+                counts, leaves = self._mirror_columns(panes.tolist(), n)
+            snap["leaves"] = leaves
+            snap["counts"] = counts
+            snap["leaf_schema"] = self._leaf_schema()
+        return snap
+
+    def restore_state(self, snap: Dict[str, Any]) -> None:
+        for unsupported, what in (("shard_slices", "sharding"),
+                                  ("count_baselines", "count"),
+                                  ("value_baselines", "count"),
+                                  ("__increment__", "incremental")):
+            if snap.get(unsupported):
+                raise _later(what)
+        self.pane_base = snap["pane_base"]
+        self.max_pane = snap["max_pane"]
+        self.last_fired_window = snap["last_fired_window"]
+        self.watermark = snap["watermark"]
+        self.late_dropped = snap.get("late_dropped", 0)
+        self._P = snap["P"]
+        self._dki = None         # probe table rebuilds from the key index
+        self._drop_delta()
+        self._devprobe_resolved = None
+        if "key_index" in snap:
+            if snap["key_index_kind"] != "KeyIndex":
+                raise _later("object_keys")
+            self.key_index = KeyIndex.restore(snap["key_index"])
+            self._K = _next_pow2(max(self.key_index.num_keys, 1), self._K)
+        self._leaves = None
+        self._counts = None
+        self._vmirror = {}
+        if "leaves" in snap:
+            schema = snap.get("leaf_schema")
+            if (schema is not None and list(schema) != self._leaf_schema()) \
+                    or len(snap["leaves"]) != self.spec.num_leaves:
+                raise _later("evolution")
+            counts_np = np.asarray(snap["counts"])
+            n = counts_np.shape[0]
+            panes = np.asarray(snap["panes"], np.int64)
+            self._ensure_alloc()
+            slots = torch.from_numpy(panes % self._P).to(self.device)
+            restored = [np.asarray(l) for l in snap["leaves"]]
+            for l, src in zip(self._leaves, restored):
+                l[:n, slots] = torch.from_numpy(
+                    np.ascontiguousarray(src)).to(self.device, l.dtype)
+            self._counts[:n, slots] = torch.from_numpy(
+                np.ascontiguousarray(counts_np, np.int32)).to(self.device)
+            # re-seed the value mirror from the snapshot (device precision —
+            # the f64 surplus re-accumulates from here on)
+            for j, p in enumerate(panes.tolist()):
+                if not counts_np[:, j].any():
+                    continue
+                entry = self._vmirror_pane(int(p))
+                entry[0][:n] = counts_np[:, j]
+                for k, src in enumerate(restored):
+                    entry[k + 1][:n] = src[:, j].astype(
+                        self._mirror_dtypes[k])
