@@ -2,10 +2,10 @@
 // in an int64 -> int32 hash table held as three int32 planes.
 //
 // Replaces: flink_tpu/state/device_keyindex.py:139 `pallas_probe` (and its
-// portable twin `lax_probe`, :77).  Same arithmetic: start at
-// start[i] = _mix64(key) & (cap - 1), step linearly with (idx + 1) & (cap - 1);
-// a bucket whose slot1 plane is 0 is empty (-> miss, -1); a bucket whose
-// lo/hi planes equal the key is a hit (-> slot1 - 1).
+// portable twin `lax_probe`, :77).  The walk itself is `flink_probe_walk`
+// (probe_walk.cuh, shared with probe_fold.cu): start at
+// start[i] = _mix64(key) & (cap - 1), step linearly; an empty bucket is a
+// miss (-1), a matching bucket a hit (slot1 - 1).
 //
 // What bounds it on this card: memory, not arithmetic.  Each record streams
 // 12 B in (key_lo, key_hi, start) and 4 B out, and reads one 32-byte sector
@@ -16,11 +16,11 @@
 // design leans on L2 residency: read-only loads through the non-coherent
 // path (__ldg), the slot plane read first so an empty bucket costs one
 // sector, and one thread per record so a warp's streaming loads coalesce.
-// The walk is bounded at `cap` steps, so even a full table cannot hang the
-// kernel; at load <= 0.5 the bound never binds and results equal JAX's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "probe_walk.cuh"
 
 namespace {
 
@@ -33,21 +33,8 @@ __global__ void probe_kernel(const int32_t* __restrict__ tab_lo,
                              int32_t* __restrict__ out, int n, int cap) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int32_t klo = key_lo[i];
-  const int32_t khi = key_hi[i];
-  const uint32_t mask = static_cast<uint32_t>(cap) - 1u;
-  uint32_t idx = static_cast<uint32_t>(start[i]) & mask;
-  int32_t slot = -1;
-  for (int step = 0; step < cap; ++step) {
-    const int32_t s1 = __ldg(tab_slot1 + idx);
-    if (s1 == 0) break;  // empty bucket: the key is not in the table
-    if (__ldg(tab_lo + idx) == klo && __ldg(tab_hi + idx) == khi) {
-      slot = s1 - 1;
-      break;
-    }
-    idx = (idx + 1u) & mask;
-  }
-  out[i] = slot;
+  out[i] = flink_probe_walk(tab_lo, tab_hi, tab_slot1, key_lo[i], key_hi[i],
+                            start[i], cap);
 }
 
 }  // namespace

@@ -58,9 +58,13 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    """Where ``csrc/<source>`` builds to: named by a hash of source + flags."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<source>`` builds to: named by a hash of the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
@@ -107,4 +111,18 @@ def probe_lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
         fn.restype = ci
+    return lib
+
+
+def probe_fold_lib() -> ctypes.CDLL:
+    """``csrc/probe_fold.cu`` with its two entry points' C signatures
+    declared."""
+    lib = load("probe_fold.cu")
+    if lib.flink_probe_fold_probe.argtypes is None:
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flink_probe_fold_probe.argtypes = [vp] * 9 + [ci, ci, ci, cl, cl,
+                                                          vp]
+        lib.flink_probe_fold_probe.restype = ci
+        lib.flink_probe_fold_fold.argtypes = [vp] * 5 + [ci, ci, vp]
+        lib.flink_probe_fold_fold.restype = ci
     return lib

@@ -7,23 +7,36 @@ event-time, tumbling windowed aggregate with
 - **the host emit tier**: a write-through host VALUE mirror of the
   accumulator cells (numpy, f64/i64) serves fires and snapshots with no
   device->host traffic beyond the probe lane's delta pulls;
-- **scatter sync**: every micro-batch also folds into the device replica, a
-  ``[K, P]`` pane ring per accumulator leaf plus an int32 ``[K, P]`` count
-  (K = key capacity, P = pane ring), so the replica stays equal to the mirror
-  (:meth:`verify_mirror`);
+- **two sync cadences** for the device replica, a ``[K, P]`` pane ring per
+  accumulator leaf plus an int32 ``[K, P]`` count (K = key capacity, P = pane
+  ring).  ``device_sync="scatter"``: every micro-batch also folds into the
+  replica, so it stays equal to the mirror.  ``device_sync="deferred"``: the
+  mirror is the authority and the replica is stale between sync points;
+  :meth:`device_refresh` rebuilds it from the mirror (:meth:`verify_mirror`
+  refreshes first);
 - **the device key probe** (``device_probe="on"``): warm keys resolve on the
   card (``state/device_keyindex.py``, kernel ``csrc/probe.cu``), their rows
-  fold into the replica and into a device DELTA ring in the mirror's dtypes
-  (f64 values, int32 counts), and the host pass touches only the compact miss
-  list.  The mirror catches up pane by pane when a pane is read (fire,
-  snapshot).  ``device_probe="off"`` is the plain lane: host key lookup, then
-  one device fold per batch.
+  fold into a device DELTA ring in the mirror's dtypes (f64 values, int32
+  counts), and under scatter sync into the replica too; the host pass
+  touches only the compact miss list.  The mirror catches up pane by pane
+  when a pane is read (fire, snapshot).  ``device_probe="off"`` is the plain
+  lane: host key lookup, then (scatter sync) one device fold per batch;
+- **the fused super-batch lane** (``superbatch=N > 1``,
+  ``operators/fused_step.py``): batches park until N are staged, a fire
+  boundary passes, or any state read calls :meth:`flush_pipeline`; then all
+  of them advance in one pass.  With the probe on that pass is ONE device
+  step over the concatenated rows, and under deferred sync ONE
+  ``probe_fold`` launch (``csrc/probe_fold.cu``) probes them and folds the
+  warm rows into the delta ring in row order.
 
 Where JAX donated buffers to a jitted step, this port updates the same
 tensors in place.  Batches are not padded: torch needs no static shapes, so
 a step sees exactly the batch's rows, and the miss list is one
 ``torch.nonzero`` — the step's only host sync.  JAX's scoped ``enable_x64``
-goes away: torch keeps f64 and i64 on the card.
+goes away: torch keeps f64 and i64 on the card.  The sync cadence and the
+super-batch depth take pinned values only (no ``"auto"``), so JAX's
+``_resolve_device_sync`` and ``_fused_depth`` reduce to the constructor's
+checks.
 
 Options of the JAX operator that belong to later slices raise
 ``NotImplementedError`` here (see :data:`_LATER`); nothing falls back.
@@ -44,22 +57,23 @@ from flink_tpu_torch.core.functions import (SCATTER_UFUNCS, AggregateFunction,
                                             torch_dtype, tree_leaves,
                                             tree_structure, tree_unflatten)
 from flink_tpu_torch.operators.base import StreamOperator
+from flink_tpu_torch.operators.fused_step import (MAX_STAGED_ROWS,
+                                                  SuperBatchStage,
+                                                  concat_staged)
 from flink_tpu_torch.ops.scatter import scatter_fold_counts
 from flink_tpu_torch.ops.shapes import next_pow2 as _next_pow2
-from flink_tpu_torch.state.device_keyindex import DeviceKeyIndex, probe
+from flink_tpu_torch.state.device_keyindex import (DeviceKeyIndex, probe,
+                                                   probe_fold,
+                                                   probe_fold_available)
 from flink_tpu_torch.state.keyindex import KeyIndex
 from flink_tpu_torch.windowing.assigners import WindowAssigner
 from flink_tpu_torch.windowing.triggers import EventTimeTrigger, Trigger
 
 #: what this slice leaves out, and the later slice that brings it
 _LATER = {
-    "auto": "the auto calibrations (emit tier, device sync, device probe) "
-            "come with the calibration slice",
-    "deferred": "device_sync='deferred' comes with the fused super-batch "
-                "slice (operators/fused_step.py)",
+    "auto": "the auto calibrations (emit tier, device sync, device probe, "
+            "superbatch=0) come with the calibration slice",
     "device_tier": "the device emit tier comes with the device-fire slice",
-    "superbatch": "superbatch > 1 comes with the fused super-batch slice "
-                  "(operators/fused_step.py, pallas_probe_fold)",
     "pipeline": "pipeline_depth > 0 comes with the pipelining slice",
     "paging": "cold-key paging comes with the paging slice",
     "sharding": "sharded state comes with the multi-GPU mesh slice",
@@ -81,6 +95,12 @@ _LATER = {
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(f"not in this slice of flink_tpu_torch: "
                                f"{_LATER[what]}")
+
+
+def _take_rows(values, idx: np.ndarray):
+    """Rows ``idx`` of a host value tree."""
+    return tree_unflatten(tree_structure(values),
+                          [np.asarray(a)[idx] for a in tree_leaves(values)])
 
 
 class _PhaseTimer:
@@ -143,11 +163,9 @@ class WindowAggOperator(StreamOperator):
             trigger = EventTimeTrigger()
         refusals = [
             ("auto", "auto" in (emit_tier, snapshot_source, device_sync,
-                                device_probe)),
-            ("deferred", device_sync == "deferred"),
+                                device_probe) or int(superbatch) == 0),
             ("device_tier", emit_tier == "device"
              or snapshot_source == "device"),
-            ("superbatch", int(superbatch) != 1),
             ("pipeline", int(pipeline_depth) != 0),
             ("paging", paging is not None),
             ("sharding", sharding is not None),
@@ -161,15 +179,18 @@ class WindowAggOperator(StreamOperator):
         for what, refused in refusals:
             if refused:
                 raise _later(what)
-        if emit_tier != "host" or snapshot_source != "mirror" \
-                or device_sync != "scatter":
+        if emit_tier != "host" or snapshot_source != "mirror":
             raise ValueError(
-                f"emit_tier/snapshot_source/device_sync must be "
-                f"host/mirror/scatter, got {emit_tier!r}/"
-                f"{snapshot_source!r}/{device_sync!r}")
+                f"emit_tier/snapshot_source must be host/mirror, got "
+                f"{emit_tier!r}/{snapshot_source!r}")
+        if device_sync not in ("scatter", "deferred"):
+            raise ValueError(f"device_sync must be scatter|deferred, "
+                             f"got {device_sync!r}")
         if device_probe not in ("on", "off"):
             raise ValueError(f"device_probe must be on|off, "
                              f"got {device_probe!r}")
+        if int(superbatch) < 1:
+            raise ValueError(f"superbatch must be >= 1, got {superbatch!r}")
         if not trigger.fires_on_time:
             raise ValueError("the host emit tier needs a time-triggered window")
         if not agg.supports_host_emit():
@@ -191,6 +212,17 @@ class WindowAggOperator(StreamOperator):
         self.emit_window_bounds = emit_window_bounds
         self.name = name
         self.device_probe = device_probe
+        #: the replica's sync cadence (JAX's resolved attribute of the same
+        #: name; only pinned values exist here)
+        self.device_sync_mode = device_sync
+        #: deferred sync: the replica lags the mirror until device_refresh
+        self._device_stale = False
+        #: fused lane: staging depth (1 = off), stage and counters
+        self.superbatch = int(superbatch)
+        self._fused_stage = SuperBatchStage()
+        self._fused_counters = {"flushes": 0, "staged_batches": 0,
+                                "scan_dispatches": 0, "scan_steps": 0,
+                                "host_super_passes": 0}
 
         self.spec = agg.acc_spec()
         self.kinds = agg.scatter_kind_leaves()
@@ -321,6 +353,40 @@ class WindowAggOperator(StreamOperator):
                             flat, lifted, self.kinds)
         return torch.nonzero(~hit).squeeze(1)
 
+    def _probed_delta_step(self, tab, key_lo, key_hi, start, pane_slots,
+                           values) -> torch.Tensor:
+        """Deferred-sync twin of :meth:`_probed_update_step`: the mirror is
+        the authority, so hit rows fold into the delta ring only (the
+        replica catches up at :meth:`device_refresh`)."""
+        slot = probe(*tab, key_lo, key_hi, start)
+        hit = slot >= 0
+        K, P = self._delta_counts.shape
+        flat = torch.where(hit, slot.to(torch.int64) * P + pane_slots, K * P)
+        lifted = tuple(tree_leaves(self.agg.lift(values)))
+        scatter_fold_counts(*self._flat_state(self._delta_leaves,
+                                              self._delta_counts),
+                            flat, lifted, self.kinds)
+        return torch.nonzero(~hit).squeeze(1)
+
+    def _fused_scan_delta_step(self, tab, key_lo, key_hi, start, pane_slots,
+                               values) -> torch.Tensor:
+        """Deferred-sync step of the fused lane over a whole super-batch:
+        ONE ``probe_fold`` launch probes every row and folds the hit rows
+        into the delta ring in row order.  Where :func:`probe_fold_available`
+        says no (not a single ``add`` leaf), the block takes
+        :meth:`_probed_delta_step`, as JAX's scan body takes probe + scatter
+        when its Pallas gate says no.  Returns the miss rows (int64,
+        ascending)."""
+        if not probe_fold_available(self.kinds, self._delta_leaves[0].dtype):
+            return self._probed_delta_step(tab, key_lo, key_hi, start,
+                                           pane_slots, values)
+        (dsum,), dcnt = self._flat_state(self._delta_leaves,
+                                         self._delta_counts)
+        (vals,) = tree_leaves(self.agg.lift(values))
+        slot, _, _ = probe_fold(*tab, key_lo, key_hi, start, pane_slots,
+                                start.shape[0], vals, dsum, dcnt, self._P)
+        return torch.nonzero(slot < 0).squeeze(1)
+
     def _delta_clear_step(self, pane_slots: torch.Tensor) -> None:
         """Reset synced (or expired) delta columns to identity, in place."""
         for l, init, mdt in zip(self._delta_leaves, self.spec.leaf_inits,
@@ -370,30 +436,49 @@ class WindowAggOperator(StreamOperator):
             self._delta_panes.difference_update(sync)
             self._dp_stats["delta_syncs"] += 1
 
-    def _hot_stage_devprobe(self, keys: np.ndarray, panes: np.ndarray,
-                            values, B: int) -> None:
-        """Probe-lane hot stage: one device step probes and folds the warm
-        rows; the host pass then touches only the compact miss list."""
+    def _devprobe_begin(self) -> None:
+        """Probe-lane set-up: replica, delta ring and device table exist,
+        and the table holds every key of the key index."""
         self._ensure_alloc()
         self._ensure_delta()
         if self._dki is None:
             self._dki = DeviceKeyIndex(
                 initial_capacity=max(1 << 16, 2 * self._K), device=self.device)
         self._dki.ensure_loaded(self.key_index)   # bulk/restore load
+
+    def _devprobe_dispatch(self, step, keys: np.ndarray, panes: np.ndarray,
+                           values, B: int) -> np.ndarray:
+        """Upload a block of rows (host hash + split, one copy of the id
+        planes, one of the values) and run the probed ``step`` on it; count
+        hits and misses.  Returns the miss rows' indices on the host."""
+        key_lo, key_hi, start = self._dki.prepare_batch(keys)
+        planes = self._ids_to_device(np.stack(
+            [key_lo, key_hi, start, (panes % self._P).astype(np.int32)]))
+        miss_idx = step(self._dki.table(), planes[0], planes[1], planes[2],
+                        planes[3], self._to_device(values))
+        mc = int(miss_idx.numel())
+        self._delta_panes.update(int(p) for p in np.unique(panes).tolist())
+        self._dp_stats["probe_hits"] += B - mc
+        self._dp_stats["probe_misses"] += mc
+        if self.device_sync_mode == "deferred":
+            self._device_stale = True
+        return miss_idx.cpu().numpy() if mc else np.zeros(0, np.int64)
+
+    def _hot_stage_devprobe(self, keys: np.ndarray, panes: np.ndarray,
+                            values, B: int) -> None:
+        """Probe-lane hot stage of one batch: one device step probes and
+        folds the warm rows; the host pass then touches only the compact
+        miss list."""
+        self._devprobe_begin()
+        step = (self._probed_delta_step if self.device_sync_mode == "deferred"
+                else self._probed_update_step)
         with self._phase("device_probe"):
-            key_lo, key_hi, start = self._dki.prepare_batch(keys)
-            planes = self._ids_to_device(np.stack(
-                [key_lo, key_hi, start, (panes % self._P).astype(np.int32)]))
-            miss_idx = self._probed_update_step(
-                self._dki.table(), planes[0], planes[1], planes[2],
-                planes[3], self._to_device(values))
-            mc = int(miss_idx.numel())
-            self._delta_panes.update(int(p) for p in np.unique(panes).tolist())
-            self._dp_stats["probe_hits"] += B - mc
-            self._dp_stats["probe_misses"] += mc
-        if mc:
-            self._devprobe_handle_misses(keys, panes, values,
-                                         miss_idx.cpu().numpy())
+            mi = self._devprobe_dispatch(step, keys, panes, values, B)
+        if mi.size:
+            mslots, mpanes, mvalues = self._devprobe_absorb_rows(
+                keys, panes, values, mi)
+            if self.device_sync_mode == "scatter":
+                self._miss_replica_update(mslots, mpanes, mvalues)
 
     def _devprobe_absorb_misses(self, mkeys, mpanes, mvalues) -> np.ndarray:
         """Host pass over the miss rows: key insert, key growth (with a delta
@@ -414,17 +499,14 @@ class WindowAggOperator(StreamOperator):
             self._dki.ensure_loaded(self.key_index)
         return mslots
 
-    def _devprobe_handle_misses(self, keys, panes, values,
-                                mi: np.ndarray) -> None:
-        """The host pass over the compact miss list, then the miss rows'
-        fold into the device replica."""
+    def _devprobe_absorb_rows(self, keys, panes, values, mi: np.ndarray):
+        """The host pass over the miss rows ``mi`` of a block; returns their
+        (slots, panes, values) for the replica catch-up."""
         mkeys = np.ascontiguousarray(keys[mi])
         mpanes = np.ascontiguousarray(panes[mi])
-        mvalues = tree_unflatten(tree_structure(values),
-                                 [np.asarray(a)[mi] for a in
-                                  tree_leaves(values)])
-        mslots = self._devprobe_absorb_misses(mkeys, mpanes, mvalues)
-        self._miss_replica_update(mslots, mpanes, mvalues)
+        mvalues = _take_rows(values, mi)
+        return (self._devprobe_absorb_misses(mkeys, mpanes, mvalues),
+                mpanes, mvalues)
 
     def _miss_replica_update(self, mslots, mpanes, mvalues) -> None:
         """Replica catch-up for probe-miss rows: host-built flat ids through
@@ -433,6 +515,143 @@ class WindowAggOperator(StreamOperator):
         with self._phase("device_dispatch"):
             self._update_step(self._ids_to_device(flat),
                               self._to_device(mvalues))
+
+    # ------------------------------------------------------------ fused lane
+    def fused_stats(self) -> Dict[str, int]:
+        """Fused-lane counters, under JAX's names: batches staged, flushes,
+        one-step passes over a super-batch with the probe on
+        (``scan_dispatches``) and the batches they covered
+        (``scan_steps``), concatenated passes with the probe off
+        (``host_super_passes``), and the batches parked now."""
+        s = dict(self._fused_counters)
+        s["enabled"] = int(self.superbatch > 1)
+        s["depth"] = self.superbatch
+        s["staged_pending"] = len(self._fused_stage)
+        return s
+
+    def flush_pipeline(self) -> List[StreamElement]:
+        """Barrier before any state read: advance every staged batch.  The
+        operator calls it before fires, expiry, snapshots, restore,
+        verification, refresh and late re-fires; a task loop may call it at
+        idle points.  A no-op when nothing is staged."""
+        self._fused_flush()
+        return []
+
+    def _fused_flush(self) -> None:
+        """Advance every staged batch in one pass: with the probe on and
+        more than one batch staged, the one-step lane
+        (:meth:`_fused_flush_scan`); else the staged batches concatenate and
+        take the per-batch path once.  A single staged batch (drained by a
+        fire boundary or a state read) is the plain per-batch path, not a
+        super pass."""
+        if not self._fused_stage:
+            return
+        st = self._fused_stage.take()
+        self._fused_counters["flushes"] += 1
+        if len(st) > 1 and self._devprobe_active():
+            self._fused_flush_scan(st)
+            return
+        if len(st) == 1:
+            keys, panes, values, B = st[0]
+        else:
+            self._fused_counters["host_super_passes"] += 1
+            with self._phase("fused_scan"):
+                keys, panes, values, B = concat_staged(st)
+        self._advance_batch(keys, panes, values, B)
+
+    def _fused_flush_scan(self, st) -> None:
+        """The one-step lane (JAX's scan lane): the staged batches
+        concatenate into one block of R rows and ONE device step probes and
+        folds all of them — under deferred sync one ``probe_fold`` launch
+        (:meth:`_fused_scan_delta_step`), under scatter sync the probed
+        update step over the block.  JAX pads the batches into an ``[N, B]``
+        block and runs a ``lax.scan``; no scan is needed because the device
+        table does not change during the pass, so the N steps' probes are
+        independent and their folds equal one fold over the block in
+        step-then-row order.  The miss rows come back with one
+        ``torch.nonzero``, the flush's only host sync."""
+        self._devprobe_begin()
+        step = (self._fused_scan_delta_step
+                if self.device_sync_mode == "deferred"
+                else self._probed_update_step)
+        with self._phase("fused_scan"):
+            keys, panes, values, R = concat_staged(st)
+            mi = self._devprobe_dispatch(step, keys, panes, values, R)
+        self._fused_counters["scan_dispatches"] += 1
+        self._fused_counters["scan_steps"] += len(st)
+        if mi.size:
+            self._fused_handle_misses(st, keys, panes, values, mi)
+
+    def _fused_handle_misses(self, st, keys, panes, values,
+                             mi: np.ndarray) -> None:
+        """The host pass over a super-batch's miss rows (indices into the
+        concatenated block), split by step with the batches' offsets and
+        absorbed in step order, so new keys get the slot ids the per-batch
+        path assigns.  A key first seen in step i misses in every later step
+        too; those rows fold into the same mirror cells the warm path would
+        have used.  Under scatter sync ONE replica update then folds every
+        step's miss rows."""
+        bounds = np.cumsum([0] + [int(s[3]) for s in st])
+        cuts = np.searchsorted(mi, bounds)
+        slots = [self._devprobe_absorb_rows(keys, panes, values,
+                                            mi[lo:hi])[0]
+                 for lo, hi in zip(cuts[:-1], cuts[1:]) if hi > lo]
+        if self.device_sync_mode == "scatter":
+            self._miss_replica_update(np.concatenate(slots), panes[mi],
+                                      _take_rows(values, mi))
+
+    def _advance_batch(self, keys: np.ndarray, panes: np.ndarray, values,
+                       B: int) -> None:
+        """The probe lane or the plain fold lane for one block of rows."""
+        if self._devprobe_active():
+            self._hot_stage_devprobe(keys, panes, values, B)
+        else:
+            self._hot_stage_fold(keys, panes, values)
+
+    # -------------------------------------------------- deferred sync point
+    def device_refresh(self) -> None:
+        """Rebuild the device replica from the authoritative host mirror:
+        deferred sync's sync point (verification, or a caller's explicit
+        hand-off).  Set semantics over the whole ring: slots without a live
+        pane reset to identity, which also applies the expirations skipped
+        while deferred.  The upload covers live panes x live key rows.  A
+        no-op when the replica is current."""
+        self.flush_pipeline()
+        if not self._device_stale:
+            return
+        self._device_stale = False
+        if self.key_index is None or self.pane_base is None:
+            return
+        self._ensure_alloc()
+        # drain the delta BEFORE listing live panes: a pane whose rows all
+        # hit the probe exists only in the delta until then (the JAX
+        # operator lists first and leaves such a pane at identity)
+        self._devprobe_sync_mirror(None)
+        n = self.key_index.num_keys
+        live = [p for p in range(self.pane_base, self.max_pane + 1)
+                if p in self._vmirror]
+        counts_cols, leaf_cols = self._mirror_columns(live, n)
+        self._refresh_step(live, counts_cols, leaf_cols)
+        self.phase_bytes["h2d_refresh"] = (
+            self.phase_bytes.get("h2d_refresh", 0) + counts_cols.nbytes
+            + sum(l.nbytes for l in leaf_cols))
+
+    def _refresh_step(self, live, counts_cols, leaf_cols) -> None:
+        """Replace the whole ring in place: identity everywhere, then the
+        live panes' columns (``[rows, len(live)]``) at their ring slots."""
+        for l, init in zip(self._leaves, self.spec.leaf_inits):
+            l.fill_(np.asarray(init).item())
+        self._counts.zero_()
+        if not live:
+            return
+        rows = counts_cols.shape[0]
+        slots = torch.from_numpy(np.asarray(live, np.int64) % self._P).to(
+            self.device)
+        for l, col in zip(self._leaves, leaf_cols):
+            l[:rows, slots] = torch.from_numpy(np.ascontiguousarray(col)).to(
+                self.device, l.dtype)
+        self._counts[:rows, slots] = torch.from_numpy(counts_cols).to(
+            self.device)
 
     # ---------------------------------------------------- host value mirror
     def _vmirror_pane(self, pane: int) -> list:
@@ -514,7 +733,12 @@ class WindowAggOperator(StreamOperator):
     def verify_mirror(self, atol: float = 1e-3, rtol: float = 1e-4) -> bool:
         """Download the device replica's live panes and compare with the
         host mirror (compared in device precision: the mirror has more
-        bits).  Meant for tests and sampled validation."""
+        bits).  Meant for tests and sampled validation.  Under deferred sync
+        the replica is refreshed first, so the check covers the refresh
+        round trip (ring mapping, dtype casts, skipped expirations)."""
+        self.flush_pipeline()
+        if self.device_sync_mode == "deferred":
+            self.device_refresh()
         self._devprobe_sync_mirror(None)
         if self._leaves is None or self.pane_base is None:
             return True
@@ -672,6 +896,7 @@ class WindowAggOperator(StreamOperator):
         if (self.last_fired_window is not None
                 and self.assigner.windows_of_pane(pmin)[0]
                 <= self.last_fired_window):
+            self.flush_pipeline()   # re-fires read state
             refire: List[int] = []
             for p in np.unique(panes).tolist():
                 w0, w1 = self.assigner.windows_of_pane(int(p))
@@ -687,8 +912,9 @@ class WindowAggOperator(StreamOperator):
 
     def _hot_stage(self, keys: np.ndarray, panes: np.ndarray, values,
                    B: int, pmin: int, pmax: int) -> None:
-        """Pane-ring bookkeeping/growth, then the probe lane or the plain
-        fold lane for one micro-batch."""
+        """Pane-ring bookkeeping/growth, then, for one micro-batch, the
+        fused lane's stage (superbatch > 1), or the probe lane or the plain
+        fold lane."""
         if self.pane_base is None:
             self.pane_base = pmin
             self.max_pane = pmax
@@ -704,24 +930,37 @@ class WindowAggOperator(StreamOperator):
         span = self.max_pane - self.pane_base + 1
         if span > self._P:
             self._grow_panes_guarded(span)
-        if self._devprobe_active():
-            self._hot_stage_devprobe(keys, panes, values, B)
-        else:
-            self._hot_stage_fold(keys, panes, values)
+        if self.superbatch > 1:
+            # fused lane: park the batch; the whole super-batch advances in
+            # one pass at the flush boundary (depth or row bound here, a
+            # fire boundary or any state read through flush_pipeline)
+            self._fused_stage.push(keys, panes, values, B)
+            self._fused_counters["staged_batches"] += 1
+            if (len(self._fused_stage) >= self.superbatch
+                    or self._fused_stage.rows >= MAX_STAGED_ROWS):
+                self._fused_flush()
+            return
+        self._advance_batch(keys, panes, values, B)
 
     def _hot_stage_fold(self, keys: np.ndarray, panes: np.ndarray,
                         values) -> None:
-        """Plain lane: host key lookup, one device fold, mirror fold."""
+        """Plain lane: host key lookup, the device fold (scatter sync
+        only), mirror fold."""
         with self._phase("probe"):
             slots = self.key_index.lookup_or_insert(keys)
         if self.key_index.num_keys > self._K:
             self._ensure_alloc()
             self._grow_keys(self.key_index.num_keys)
         self._ensure_alloc()
-        flat = slots.astype(np.int64) * self._P + (panes % self._P)
-        with self._phase("device_dispatch"):
-            self._update_step(self._ids_to_device(flat),
-                              self._to_device(values))
+        if self.device_sync_mode == "deferred":
+            # the mirror (folded below) is the authority; the replica
+            # catches up at the next device_refresh
+            self._device_stale = True
+        else:
+            flat = slots.astype(np.int64) * self._P + (panes % self._P)
+            with self._phase("device_dispatch"):
+                self._update_step(self._ids_to_device(flat),
+                                  self._to_device(values))
         with self._phase("mirror"):
             self._vmirror_update(slots, panes, values)
 
@@ -739,13 +978,26 @@ class WindowAggOperator(StreamOperator):
 
     def process_watermark(self, watermark: Watermark) -> List[StreamElement]:
         self.watermark = max(self.watermark, watermark.timestamp)
+        if (self._fused_stage and self.lateness == 0
+                and self.last_fired_window is not None
+                and self._fired_horizon(self.watermark)
+                <= self.last_fired_window):
+            # the watermark passed no new window end, and with lateness 0
+            # pane expiry coincides with fires: nothing fires or expires, no
+            # state is read, and the staged batches stay parked
+            return []
         return self._advance_time(self.watermark)
+
+    def prepare_snapshot_pre_barrier(self) -> List[StreamElement]:
+        self.flush_pipeline()
+        return []
 
     def end_input(self) -> List[StreamElement]:
         """Bounded input: fire everything outstanding."""
         return self._advance_time(2 ** 62)
 
     def _advance_time(self, now: int) -> List[StreamElement]:
+        self.flush_pipeline()       # fires and expiry below read state
         if self.pane_base is None or self._leaves is None:
             return []
         a = self.assigner
@@ -779,9 +1031,13 @@ class WindowAggOperator(StreamOperator):
         if not expired:
             return
         self.pane_base = p
-        slots = torch.from_numpy(
-            np.asarray(expired, np.int64) % self._P).to(self.device)
-        self._clear_panes_step(slots)
+        if self.device_sync_mode == "deferred":
+            # no in-line device write: the next device_refresh rebuilds the
+            # whole ring (identity where no live pane), subsuming this clear
+            self._device_stale = True
+        else:
+            self._clear_panes_step(torch.from_numpy(
+                np.asarray(expired, np.int64) % self._P).to(self.device))
         for ep in expired:
             self._vmirror.pop(ep, None)
         if self._delta_counts is not None:
@@ -844,6 +1100,7 @@ class WindowAggOperator(StreamOperator):
     def snapshot_state(self) -> Dict[str, Any]:
         """Dense numpy snapshot, served from the host mirror (the same
         format as the JAX operator's mirror-sourced snapshot)."""
+        self.flush_pipeline()       # the snapshot must hold staged batches
         snap: Dict[str, Any] = {
             "pane_base": self.pane_base,
             "max_pane": self.max_pane,
@@ -869,6 +1126,7 @@ class WindowAggOperator(StreamOperator):
         return snap
 
     def restore_state(self, snap: Dict[str, Any]) -> None:
+        self.flush_pipeline()
         for unsupported, what in (("shard_slices", "sharding"),
                                   ("count_baselines", "count"),
                                   ("value_baselines", "count"),
@@ -900,14 +1158,20 @@ class WindowAggOperator(StreamOperator):
             counts_np = np.asarray(snap["counts"])
             n = counts_np.shape[0]
             panes = np.asarray(snap["panes"], np.int64)
-            self._ensure_alloc()
-            slots = torch.from_numpy(panes % self._P).to(self.device)
             restored = [np.asarray(l) for l in snap["leaves"]]
-            for l, src in zip(self._leaves, restored):
-                l[:n, slots] = torch.from_numpy(
-                    np.ascontiguousarray(src)).to(self.device, l.dtype)
-            self._counts[:n, slots] = torch.from_numpy(
-                np.ascontiguousarray(counts_np, np.int32)).to(self.device)
+            # allocated either way, so time and fire guards see live state
+            self._ensure_alloc()
+            if self.device_sync_mode == "deferred":
+                # the mirror (re-seeded below) is the authority: skip the
+                # replica upload, device_refresh catches it up
+                self._device_stale = True
+            else:
+                slots = torch.from_numpy(panes % self._P).to(self.device)
+                for l, src in zip(self._leaves, restored):
+                    l[:n, slots] = torch.from_numpy(
+                        np.ascontiguousarray(src)).to(self.device, l.dtype)
+                self._counts[:n, slots] = torch.from_numpy(
+                    np.ascontiguousarray(counts_np, np.int32)).to(self.device)
             # re-seed the value mirror from the snapshot (device precision —
             # the f64 surplus re-accumulates from here on)
             for j, p in enumerate(panes.tolist()):

@@ -13,6 +13,9 @@
 - :func:`probe` — the wrapper: on CPU tensors it runs :func:`torch_probe`; on
   CUDA tensors it launches the hand-written kernel ``csrc/probe.cu`` or
   raises.  ``probe.launches`` counts kernel launches.
+- :func:`torch_probe_fold` / :func:`probe_fold` — the same pair for the fused
+  probe + ordered delta fold (kernel ``csrc/probe_fold.cu``), gated by
+  :func:`probe_fold_available`; ``probe_fold.launches`` counts launches.
 - :class:`DeviceKeyIndex` — the host-side owner: a numpy occupancy shadow
   decides insert buckets (only our own scatters write the table, so shadow
   and table cannot diverge); ``ensure_loaded`` inserts whatever tail of the
@@ -27,7 +30,8 @@ import numpy as np
 import torch
 
 from flink_tpu_torch import DeviceLike, resolve_device
-from flink_tpu_torch.state.keyindex import _mix64
+from flink_tpu_torch.ops.scatter import scatter_fold_counts
+from flink_tpu_torch.state.keyindex import _mix64, unique_first
 
 #: probe miss marker in the slot output
 MISS = -1
@@ -129,6 +133,123 @@ probe.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the fused probe + ordered fold: gate, plain version, kernel wrapper
+# ---------------------------------------------------------------------------
+
+#: (value dtype, delta-plane dtype) pairs the fold kernel widens itself, with
+#: the kind code of ``csrc/probe_fold.cu``'s fold entry; other value dtypes
+#: are cast to the plane's dtype first
+_FOLD_KINDS = {(torch.float32, torch.float64): 0,
+               (torch.float64, torch.float64): 1,
+               (torch.int32, torch.int64): 2,
+               (torch.int64, torch.int64): 3}
+
+
+def probe_fold_available(kinds, delta_dtype) -> bool:
+    """True iff :func:`probe_fold` serves this accumulator: a single scalar
+    ``add`` leaf (the gate of JAX's ``pallas_probe_fold_available``) whose
+    delta plane is f64 (float leaves) or i64 (integer leaves).
+
+    JAX's gate also fits the table plus the flat delta planes into 12 MiB of
+    TPU VMEM, because the Pallas kernel pins both whole.  On the H100 the
+    planes stay in HBM and the kernel reads them through L2, so there is no
+    size budget: at the main path's full width (a 24 MiB table, a 192 MiB
+    delta ring) the kernel is on the path, where the TPU gate would have kept
+    the Pallas kernel off it."""
+    return (kinds is not None and tuple(kinds) == ("add",)
+            and delta_dtype in (torch.float64, torch.int64))
+
+
+def torch_probe_fold(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start,
+                     pane_slots, b: int, vals, dsum, dcnt, pane_mod: int):
+    """Plain version of the fused probe + fold (the counterpart of JAX's
+    ``lax_probe`` + ``scatter_fold_counts``): :func:`torch_probe`, then
+    every hit row ``k < b`` whose cell ``slot * pane_mod + pane_slots[k]``
+    lies in the planes folds into it, in row order: ``dsum += vals`` (cast
+    to dsum's dtype), ``dcnt += 1``, in place.  Returns
+    ``(slot, dsum, dcnt)``."""
+    slot = torch_probe(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start)
+    flat = slot.to(torch.int64) * pane_mod + pane_slots
+    rows = torch.arange(slot.shape[0], device=slot.device)
+    hit = torch.nonzero((rows < b) & (slot >= 0) & (flat >= 0)
+                        & (flat < dsum.shape[0])).squeeze(1)
+    scatter_fold_counts((dsum,), dcnt, flat.index_select(0, hit),
+                        (vals.index_select(0, hit),), ("add",))
+    return slot, dsum, dcnt
+
+
+def _check_fold_args(start, pane_slots, b, vals, dsum, dcnt, pane_mod):
+    dev = start.device
+    if pane_slots.dtype != torch.int32 or pane_slots.shape != start.shape \
+            or not pane_slots.is_contiguous():
+        raise ValueError("pane_slots must be contiguous int32 like start")
+    if vals.shape != start.shape or not vals.is_contiguous():
+        raise ValueError("vals must be one contiguous value per row")
+    if dsum.dtype not in (torch.float64, torch.int64):
+        raise TypeError(f"probe_fold folds into f64 or i64 planes, not "
+                        f"{dsum.dtype}")
+    if dcnt.dtype != torch.int32 or dsum.ndim != 1 or dcnt.ndim != 1 \
+            or dcnt.shape != dsum.shape or not dsum.is_contiguous() \
+            or not dcnt.is_contiguous():
+        raise ValueError("dsum and dcnt must be contiguous flat planes of one "
+                         "length, dcnt int32")
+    for a in (pane_slots, vals, dsum, dcnt):
+        if a.device != dev:
+            raise ValueError(f"probe_fold tensors on {a.device} and {dev}")
+    if not 0 <= int(b) <= start.shape[0] or int(pane_mod) <= 0:
+        raise ValueError(f"need 0 <= b <= rows and pane_mod > 0, got b={b} "
+                         f"pane_mod={pane_mod}")
+
+
+def probe_fold(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start, pane_slots,
+               b: int, vals, dsum, dcnt, pane_mod: int):
+    """Fused probe + ordered fold (JAX's ``pallas_probe_fold``): the probe of
+    :func:`probe`, then every hit row ``k < b`` folds into the flat delta
+    planes at ``slot * pane_mod + pane_slots[k]`` in row order, in place.
+    Returns ``(slot, dsum, dcnt)``.  CPU tensors take
+    :func:`torch_probe_fold`; CUDA tensors launch ``csrc/probe_fold.cu`` on
+    the current stream (probe kernel, a stable sort of the cell ids, fold
+    kernel) or raise.  ``probe_fold.launches`` counts launches."""
+    _check_probe_args(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start)
+    _check_fold_args(start, pane_slots, b, vals, dsum, dcnt, pane_mod)
+    if start.device.type == "cpu":
+        return torch_probe_fold(tab_lo, tab_hi, tab_slot1, key_lo, key_hi,
+                                start, pane_slots, b, vals, dsum, dcnt,
+                                pane_mod)
+    if start.device.type != "cuda":
+        raise ValueError(f"probe_fold runs on cpu or cuda, not {start.device}")
+    from flink_tpu_torch.kernels.build import probe_fold_lib
+    lib = probe_fold_lib()
+    if (vals.dtype, dsum.dtype) not in _FOLD_KINDS:
+        vals = vals.to(dsum.dtype)      # the plain fold's cast, done first
+    n = int(start.shape[0])
+    slot = torch.empty_like(start)
+    flat = torch.empty(n, dtype=torch.int64, device=start.device)
+    stream = torch.cuda.current_stream(start.device).cuda_stream
+    rc = lib.flink_probe_fold_probe(
+        tab_lo.data_ptr(), tab_hi.data_ptr(), tab_slot1.data_ptr(),
+        key_lo.data_ptr(), key_hi.data_ptr(), start.data_ptr(),
+        pane_slots.data_ptr(), slot.data_ptr(), flat.data_ptr(), n, int(b),
+        int(tab_slot1.shape[0]), int(pane_mod), int(dsum.shape[0]), stream)
+    if rc != 0:
+        raise RuntimeError(f"probe_fold probe kernel launch failed: "
+                           f"cudaError {rc}")
+    sflat, perm = torch.sort(flat, stable=True)
+    rc = lib.flink_probe_fold_fold(
+        sflat.data_ptr(), perm.data_ptr(), vals.data_ptr(), dsum.data_ptr(),
+        dcnt.data_ptr(), n, _FOLD_KINDS[(vals.dtype, dsum.dtype)], stream)
+    if rc != 0:
+        raise RuntimeError(f"probe_fold fold kernel launch failed: "
+                           f"cudaError {rc}")
+    probe_fold.launches += 1
+    return slot, dsum, dcnt
+
+
+#: launches of :func:`probe_fold` on the card (CPU calls do not count)
+probe_fold.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # DeviceKeyIndex — host-side owner of the device table
 # ---------------------------------------------------------------------------
 
@@ -175,7 +296,7 @@ class DeviceKeyIndex:
             f_pend = pending[free]
             f_idx = pidx[free]
             if f_pend.size:
-                win_idx, first = np.unique(f_idx, return_index=True)
+                win_idx, first = unique_first(f_idx)
                 self._shadow_used[win_idx] = True
                 buckets[f_pend[first]] = win_idx
             unresolved = buckets[pending] < 0

@@ -23,6 +23,26 @@ def _mix64(x: np.ndarray) -> np.ndarray:
     return x
 
 
+def unique_first(a: np.ndarray, return_inverse: bool = False):
+    """``np.unique(a, return_index=True[, return_inverse=True])`` with an
+    unstable sort: a value's first index is the least index in its run of
+    the sort.  np.unique's ``return_index`` takes a stable sort instead,
+    which costs ~3x more on unordered input (new keys arrive in row order,
+    i.e. in hash order, everywhere this is called)."""
+    perm = a.argsort()
+    sa = a[perm]
+    head = np.empty(a.size, bool)
+    head[:1] = True
+    np.not_equal(sa[1:], sa[:-1], out=head[1:])
+    starts = np.flatnonzero(head)
+    out = (sa[starts], np.minimum.reduceat(perm, starts))
+    if return_inverse:
+        inv = np.empty(a.size, np.intp)
+        inv[perm] = np.cumsum(head) - 1
+        out += (inv,)
+    return out
+
+
 class KeyIndex:
     """Vectorized int64-key -> dense int32 slot table (open addressing)."""
 
@@ -65,14 +85,21 @@ class KeyIndex:
         return out
 
     def lookup_or_insert(self, keys: np.ndarray) -> np.ndarray:
-        """Batch lookup, inserting unseen keys with fresh sequential slot ids."""
+        """Batch lookup, inserting unseen keys with fresh sequential slot ids
+        in order of first occurrence (the order of the JAX package's C
+        keydict).  So one call over concatenated batches assigns the slots
+        that one call per batch would, which the fused super-batch lane
+        relies on."""
         keys = np.ascontiguousarray(keys, np.int64)
         if keys.size == 0:
             return np.zeros(0, np.int32)
-        uniq, inv = np.unique(keys, return_inverse=True)
-        return self._lookup_or_insert_unique(uniq)[inv]
+        uniq, first, inv = unique_first(keys, return_inverse=True)
+        return self._lookup_or_insert_unique(uniq, first)[inv]
 
-    def _lookup_or_insert_unique(self, uniq: np.ndarray) -> np.ndarray:
+    def _lookup_or_insert_unique(self, uniq: np.ndarray,
+                                 first: np.ndarray) -> np.ndarray:
+        """Slots of sorted distinct keys; unseen keys are placed in probe
+        rounds, then numbered by ``first`` (their first row in the batch)."""
         if self._n + uniq.size > int(self._cap * self._max_load):
             # only truly-new keys consume slots: probe first
             n_new = int(np.count_nonzero(self.lookup(uniq) < 0))
@@ -80,31 +107,42 @@ class KeyIndex:
                 self._grow(max(self._cap * 2,
                                int((self._n + n_new) / self._max_load) + 1))
         out = np.full(uniq.shape, -1, np.int32)
+        fresh = np.zeros(uniq.shape, bool)
+        bucket = np.empty(uniq.shape, np.int64)
         pidx = (_mix64(uniq.view(np.uint64)) & self._mask).astype(np.int64)
         pending = np.arange(uniq.size, dtype=np.int64)
         while pending.size:
             occupied = self._used[pidx]
             hit = occupied & (self._keys[pidx] == uniq[pending])
             out[pending[hit]] = self._slots[pidx[hit]]
-            # empties: distinct keys racing for one bucket — np.unique picks
-            # the first as winner, losers re-probe
+            # empties: distinct keys racing for one bucket — the first
+            # claimant wins, losers re-probe
             empty = ~occupied
             e_pend = pending[empty]
             e_idx = pidx[empty]
             if e_pend.size:
-                win_idx, first = np.unique(e_idx, return_index=True)
-                w_pend = e_pend[first]
-                new_slots = self._n + np.arange(w_pend.size, dtype=np.int32)
+                win_idx, win = unique_first(e_idx)
+                w_pend = e_pend[win]
                 self._used[win_idx] = True
                 self._keys[win_idx] = uniq[w_pend]
-                self._slots[win_idx] = new_slots
-                self._ensure_reverse(self._n + w_pend.size)
-                self._reverse[self._n: self._n + w_pend.size] = uniq[w_pend]
-                self._n += int(w_pend.size)
-                out[w_pend] = new_slots
-            unresolved = out[pending] < 0
+                fresh[w_pend] = True
+                bucket[w_pend] = win_idx
+                out[w_pend] = 0          # placed; numbered below
+            unresolved = (out[pending] < 0)
             pending = pending[unresolved]
             pidx = (pidx[unresolved] + 1) & np.int64(self._mask)
+        new = np.flatnonzero(fresh)
+        if new.size:
+            # order by first row, distinct per key: a scatter, not a sort
+            by_row = np.full(int(first[new].max()) + 1, -1, np.int64)
+            by_row[first[new]] = new
+            new = by_row[by_row >= 0]
+            slots = self._n + np.arange(new.size, dtype=np.int32)
+            self._slots[bucket[new]] = slots
+            out[new] = slots
+            self._ensure_reverse(self._n + new.size)
+            self._reverse[self._n:self._n + new.size] = uniq[new]
+            self._n += int(new.size)
         return out
 
     def _ensure_reverse(self, n: int) -> None:

@@ -42,6 +42,7 @@ def test_every_module_imports_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages("
         "flink_tpu_torch.__path__, 'flink_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "assert 'flink_tpu_torch.operators.fused_step' in names\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules"
         " if sys.modules[m] is not None]\n"
@@ -50,7 +51,7 @@ def test_every_module_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 13
+    assert int(res.stdout.split()[-1]) >= 14
 
 
 def test_window_operator_default_device_raises_without_cuda(monkeypatch):

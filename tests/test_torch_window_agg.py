@@ -9,12 +9,12 @@ probe on, serial (``pipeline_depth=0``, ``superbatch=1``), built like
 1500 keys, 4000-row batches, key growth from ``initial_key_capacity=1<<10``,
 plus one out-of-order batch that the late-drop gate partly drops.
 
-Slot ids may differ between the packages (the JAX KeyIndex delegates to the
-C keydict, the port's is numpy, and they assign new slots in another
-order), so fires are compared per window sorted by key, and snapshots as
-key -> cell mappings.  Results are held to rtol=atol=1e-6 because the scatter
-order may differ; on the CPU they are in fact bit-equal today (both fold in
-row order into f64 mirrors).
+The JAX KeyIndex delegates to the C keydict and the port's is numpy; both
+number new keys in order of first occurrence, so slot ids agree, but the
+comparison does not rest on it: fires are compared per window sorted by
+key, and snapshots as key -> cell mappings.  Results are held to
+rtol=atol=1e-6 because the scatter order may differ; on the CPU they are in
+fact bit-equal today (both fold in row order into f64 mirrors).
 
 The reference's probe lane imports ``jax.experimental.enable_x64``, which
 the installed jax (0.9) has moved to ``jax.enable_x64``; the ``_jax_x64``
@@ -253,8 +253,8 @@ def test_interop_refuses_what_the_slice_does_not_carry(port_run):
 
 
 @pytest.mark.parametrize("kw", [
-    {"emit_tier": "device"}, {"device_sync": "deferred"},
-    {"device_probe": "auto"}, {"superbatch": 4}, {"pipeline_depth": 1},
+    {"emit_tier": "device"}, {"device_sync": "auto"},
+    {"device_probe": "auto"}, {"superbatch": 0}, {"pipeline_depth": 1},
     {"native_emit": True}, {"async_fire": True}, {"late_output_tag": "late"},
 ])
 def test_later_slices_refuse_honestly(kw):
