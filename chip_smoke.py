@@ -9,11 +9,16 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. build of every kernel of the port's main paths from
    ``flink_tpu_torch/csrc`` with nvcc (``sm_90a``), one nvcc per source, all
    started together;
-3. kernel phase, probe: the device key probe (``csrc/probe.cu``) at the main
-   path's shapes — a table of 1M keys at capacity 2^21, batches of 2^18
-   records, about 10% of them unseen — must equal the plain ``torch_probe``
-   exactly; its median time over CUDA-event-timed runs is printed beside its
-   bound and the plain version's time;
+3. kernel phase, probe: the device key probe (``csrc/probe.cu``, which
+   hashes the int64 keys on the card) at the main path's shapes — a table of
+   1M keys at capacity 2^21 (an interleaved ``[cap, 4]`` bucket array),
+   batches of 2^18 records, about 10% of them unseen — must equal the plain
+   ``torch_probe`` and ``KeyIndex.lookup`` exactly; its median time over
+   CUDA-event-timed runs (after a flush that writes L2, after one that
+   reads it, and warm) is printed beside the timing floor (an empty
+   kernel), its bound (and the bound's bytes under the earlier
+   three-plane interface, with host-made starts), and the plain version's
+   time;
 4. main path 1: the 1M-key tumbling-sum workload of ``bench.py`` (seed 7,
    1,000,000 keys, 2^18 records per batch, 5000 ms windows), 40 batches
    through ``WindowAggOperator(device="cuda", device_probe="on")`` (scatter
@@ -32,9 +37,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    flush of 8 staged batches of 2^18 records (the last one short, about 10%
    unseen keys) into f64/int32 delta planes of 2^20 x 16 cells with non-zero
    contents — must equal ``torch_probe_fold`` on CPU copies bit for bit; its
-   median time (L2 flushed and warm, and split into probe, sort and fold) is
+   median time (L2 flushed and warm, and split into its four steps: probe +
+   tile histogram, offsets, stable partition by tile, ordered fold) is
    printed beside its bound, the plain version's time and the unfused
-   route's (the probe kernel + ``index_add_``).
+   route's (the probe kernel + ``index_add_``).  A skewed flush, one key on
+   25% of the rows, is held to ``torch_probe_fold`` bit for bit too, and
+   timed beside the uniform one (a check of the kernel, not a main path).
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the kernel line reports the probe's launches from path 1
@@ -119,7 +127,8 @@ def cuda_time_ms(fn, runs: int, flush=None) -> float:
     """Median ms of ``fn()`` over ``runs`` CUDA-event-timed calls (after two
     warm-up calls).  Before each call ``flush()`` (if given) evicts L2, and a
     ~1 ms spin keeps the stream busy, so the host's launch overhead is not
-    inside the timed interval."""
+    inside the timed interval.  :func:`timing_floor_ms` is what the method
+    reads for an empty kernel."""
     import torch
     for _ in range(2):
         fn()
@@ -138,22 +147,41 @@ def cuda_time_ms(fn, runs: int, flush=None) -> float:
     return float(np.median(times))
 
 
-def probe_work(tab_slot1, tab_lo, tab_hi, key_lo, key_hi, start):
+def l2_flushes(device):
+    """Two ways to evict L2 before a timed call: ``dirty`` writes 256 MiB
+    (the flush the earlier kernel times were taken with, so the timed
+    kernel also writes back up to 50 MB of the flush's dirty lines), ``clean`` reads them (L2 then holds clean
+    lines, and the time is the kernel's own traffic)."""
+    import torch
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    return (lambda: scratch.fill_(1)), (lambda: scratch.sum())
+
+
+def timing_floor_ms() -> float:
+    """What :func:`cuda_time_ms` reads for an empty kernel (a one-cycle
+    spin): the events' and the launch's own share of every time."""
+    import torch
+    return cuda_time_ms(lambda: torch.cuda._sleep(1), 20)
+
+
+def probe_work(buckets, keys):
     """(probe steps, distinct buckets touched) this data needs: the same
     walk as the probe, counting bucket reads."""
     import torch
-    cap = tab_slot1.shape[0]
-    pending = torch.arange(start.shape[0], device=start.device)
-    idx = start.long()
+
+    from flink_tpu_torch.state import device_keyindex as dk
+    cap = buckets.shape[0]
+    pending = torch.arange(keys.shape[0], device=keys.device)
+    idx = dk.torch_probe_starts(keys, cap)
     steps = 0
-    touched = torch.zeros(cap, dtype=torch.bool, device=start.device)
+    touched = torch.zeros(cap, dtype=torch.bool, device=keys.device)
     while pending.numel():
         steps += pending.numel()
         touched[idx] = True
-        b_s = tab_slot1[idx]
-        hit = (b_s != 0) & (tab_lo[idx] == key_lo[pending]) \
-            & (tab_hi[idx] == key_hi[pending])
-        go_on = ~(hit | (b_s == 0))
+        rows = buckets[idx]
+        empty = rows[:, 2] == 0
+        hit = ~empty & (dk.bucket_keys(rows) == keys[pending])
+        go_on = ~(hit | empty)
         pending = pending[go_on]
         idx = (idx[go_on] + 1) & (cap - 1)
     return steps, int(touched.sum())
@@ -197,6 +225,11 @@ def load_table(device, rng):
     return ki, dki
 
 
+#: int32 operations a record spends on the hash: 9 uint64 operations
+#: (3 shifts, 3 xors, 2 multiplies, 1 and), counted as 2 each
+HASH_OPS = 18
+
+
 def kernel_phase(device, rng, ki, dki):
     import torch
 
@@ -205,51 +238,63 @@ def kernel_phase(device, rng, ki, dki):
     keys = rng.integers(0, N_KEYS, BATCH).astype(np.int64)
     unseen = rng.random(BATCH) < 0.1
     keys[unseen] = rng.integers(N_KEYS, 1 << 40, int(unseen.sum()))
-    planes = [torch.from_numpy(a).to(device) for a in dki.prepare_batch(keys)]
-    tab = dki.table()
+    kt = torch.from_numpy(keys).to(device)
+    buckets = dki.buckets
 
-    got = dk.probe(*tab, *planes)
+    got = dk.probe(buckets, kt)
     torch.cuda.synchronize()
-    want = dk.torch_probe(*tab, *planes)
+    want = dk.torch_probe(buckets, kt)
     check(torch.equal(got, want), "probe kernel != torch_probe")
     check(np.array_equal(got.cpu().numpy(), ki.lookup(keys)),
           "probe kernel != KeyIndex.lookup")
     max_abs_err = int((got.long() - want.long()).abs().max())
 
-    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    ms_cold = cuda_time_ms(lambda: dk.probe(*tab, *planes), 20,
-                           flush=lambda: scratch.fill_(1))
-    ms_warm = cuda_time_ms(lambda: dk.probe(*tab, *planes), 20)
-    plain_ms = cuda_time_ms(lambda: dk.torch_probe(*tab, *planes), 5)
-    del scratch
-    steps, touched = probe_work(tab[2], tab[0], tab[1], *planes)
-    bytes_ = 16 * BATCH + 12 * touched     # stream in/out + table words read
-    ops = 6 * steps                        # 3 compares, 2 ands, 1 step add
+    dirty, clean = l2_flushes(device)
+    ms_cold = cuda_time_ms(lambda: dk.probe(buckets, kt), 20, flush=dirty)
+    ms_clean = cuda_time_ms(lambda: dk.probe(buckets, kt), 20, flush=clean)
+    ms_warm = cuda_time_ms(lambda: dk.probe(buckets, kt), 20)
+    floor_ms = timing_floor_ms()
+    plain_ms = cuda_time_ms(lambda: dk.torch_probe(buckets, kt), 5)
+    del dirty, clean
+    steps, touched = probe_work(buckets, kt)
+    # the key streams in (8 B) and the slot out (4 B); each touched bucket's
+    # key words and slot (12 B) are read once, whatever the layout stores
+    bytes_ = 12 * BATCH + 12 * touched
+    old_bytes = 16 * BATCH + 12 * touched   # key_lo, key_hi, start in
+    ops = 6 * steps + HASH_OPS * BATCH     # 3 compares, 2 ands, 1 step add
     bound_ms, bound_by, bound_bytes_ms, bound_ops_ms = bound(bytes_, ops)
     print(f"probe kernel: cap={dki.capacity} B={BATCH} "
           f"unseen={int(unseen.sum())} hits={int((got >= 0).sum())}")
     print(f"probe kernel: median {ms_cold:.4f} ms with L2 flushed, "
-          f"{ms_warm:.4f} ms warm (20 runs each); plain torch_probe "
-          f"{plain_ms:.4f} ms")
-    print(f"probe bound: bytes = 16 B/record x {BATCH} + 12 B x {touched} "
+          f"{ms_clean:.4f} ms after a read-only flush, {ms_warm:.4f} ms warm "
+          f"(20 runs each); timing floor (an empty kernel) {floor_ms:.4f} ms; "
+          f"plain torch_probe {plain_ms:.4f} ms")
+    print(f"probe bound: bytes = 12 B/record x {BATCH} + 12 B x {touched} "
           f"distinct buckets touched = {bytes_} B over "
-          f"{HBM_BYTES_PER_S:.3g} B/s = {bound_bytes_ms:.4f} ms; "
-          f"ops = 6 x {steps} probe steps over {INT32_OPS_PER_S:.3g}/s = "
-          f"{bound_ops_ms:.6f} ms; bound by {bound_by}")
+          f"{HBM_BYTES_PER_S:.3g} B/s = {bound_bytes_ms:.5f} ms (the "
+          f"three-plane interface's 16 B/record: {old_bytes} B = "
+          f"{old_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms); ops = 6 x {steps} "
+          f"probe steps + {HASH_OPS} x {BATCH} hashes over "
+          f"{INT32_OPS_PER_S:.3g}/s = {bound_ops_ms:.6f} ms; bound by "
+          f"{bound_by}")
     print("probe library_ms: null — PyTorch has no single call that probes "
           "an open-addressing hash table")
     return {"name": "probe", "route": "cuda",
             "source": "flink_tpu_torch/csrc/probe.cu",
             "replaces": "flink_tpu/state/device_keyindex.py:139",
             "launches": 0, "max_abs_err": max_abs_err,
-            "ms": ms_cold, "ms_warm": ms_warm, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "ms": ms_cold, "ms_clean_l2": ms_clean, "ms_warm": ms_warm,
+            "timing_floor_ms": floor_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": bytes_, "old_bound_bytes": old_bytes,
+            "library_ms": None}
 
 
-def make_flush(rng, dki, device):
+def make_flush(rng, device, hot_key=None):
     """One flush of the fused lane at the main path's shapes: 8 staged
     batches of 2^18 records (the last one 4096 short), ~10% unseen keys,
-    pane slots of 5000 ms panes in a 16-pane ring, f32 values."""
+    pane slots of 5000 ms panes in a 16-pane ring, f32 values.  With
+    ``hot_key``, that key takes 25% of the rows (the skewed flush)."""
     import torch
     keys, panes, vals = [], [], []
     for i in range(SUPERBATCH):
@@ -257,51 +302,76 @@ def make_flush(rng, dki, device):
         k = rng.integers(0, N_KEYS, b).astype(np.int64)
         unseen = rng.random(b) < 0.1
         k[unseen] = rng.integers(N_KEYS, 1 << 40, int(unseen.sum()))
+        if hot_key is not None:
+            k[rng.random(b) < 0.25] = hot_key
         ts = i * 1000 + np.sort(rng.integers(0, 1000, b)).astype(np.int64)
         keys.append(k)
         panes.append((ts // WINDOW_MS % PANES).astype(np.int32))
         vals.append(rng.random(b).astype(np.float32))
-    keys = np.concatenate(keys)
-    planes = [torch.from_numpy(a).to(device) for a in
-              (*dki.prepare_batch(keys), np.concatenate(panes))]
-    return planes, torch.from_numpy(np.concatenate(vals)).to(device)
+    return [torch.from_numpy(np.concatenate(a)).to(device)
+            for a in (keys, panes, vals)]
 
 
-def probe_fold_split_ms(tab, planes, vals, ds, dc, runs: int, flush=None):
-    """Median ms of probe_fold's three steps (probe kernel, stable sort,
-    fold kernel), each between CUDA events: the wrapper's steps, called
-    one by one."""
+def probe_fold_split_ms(buckets, keys, panes, vals, ds, dc, runs: int,
+                        flush=None):
+    """Median ms of probe_fold's four steps (probe + tile histogram,
+    offsets, partition, fold), each between CUDA events: the wrapper's
+    launches, made one step at a time."""
     import torch
 
-    from flink_tpu_torch.kernels.build import probe_fold_lib
-    lib = probe_fold_lib()
-    n = int(planes[0].shape[0])
-    slot = torch.empty_like(planes[0])
-    flat = torch.empty(n, dtype=torch.int64, device=vals.device)
-    stream = torch.cuda.current_stream().cuda_stream
+    from flink_tpu_torch.state import device_keyindex as dk
+    n = int(keys.shape[0])
+    slot = torch.empty(n, dtype=torch.int32, device=keys.device)
+    scratch = dk.probe_fold_scratch(n, int(ds.shape[0]), vals)
     times = []
     for r in range(runs + 2):
         if flush is not None:
             flush()
         torch.cuda._sleep(2_000_000)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(dk.FOLD_STEPS) + 1)]
         ev[0].record()
-        rc = lib.flink_probe_fold_probe(
-            *(t.data_ptr() for t in (*tab, *planes)), slot.data_ptr(),
-            flat.data_ptr(), n, n, int(tab[2].shape[0]), PANES,
-            int(ds.shape[0]), stream)
-        ev[1].record()
-        sflat, perm = torch.sort(flat, stable=True)
-        ev[2].record()
-        rc |= lib.flink_probe_fold_fold(
-            sflat.data_ptr(), perm.data_ptr(), vals.data_ptr(),
-            ds.data_ptr(), dc.data_ptr(), n, 0, stream)
-        ev[3].record()
-        ev[3].synchronize()
-        check(rc == 0, f"probe_fold split launch failed: cudaError {rc}")
+        for i, step in enumerate(dk.FOLD_STEPS.values()):
+            dk.launch_probe_fold_steps(buckets, keys, panes, n, vals, ds, dc,
+                                       PANES, slot, scratch, step)
+            ev[i + 1].record()
+        ev[-1].synchronize()
         if r >= 2:
-            times.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
-    return [float(x) for x in np.median(np.asarray(times), axis=0)]
+            times.append([ev[i].elapsed_time(ev[i + 1])
+                          for i in range(len(dk.FOLD_STEPS))])
+    med = np.median(np.asarray(times), axis=0)
+    return {name: float(t) for name, t in zip(dk.FOLD_STEPS, med)}
+
+
+def _fold_check(device, buckets, flush_t, dsum0, dcnt0, label):
+    """One probe_fold on the card against torch_probe_fold on CPU copies,
+    bit for bit; returns (max abs errors, the plain version's slots, the
+    most rows folded into one cell)."""
+    import torch
+
+    from flink_tpu_torch.state import device_keyindex as dk
+    keys, panes, vals = flush_t
+    R = int(keys.shape[0])
+    ds, dc = dsum0.to(device, copy=True), dcnt0.to(device, copy=True)
+    slot, ds, dc = dk.probe_fold(buckets, keys, panes, R, vals, ds, dc, PANES)
+    torch.cuda.synchronize()
+    wslot, ws, wc = dk.torch_probe_fold(
+        buckets.cpu(), keys.cpu(), panes.cpu(), R, vals.cpu(), dsum0.clone(),
+        dcnt0.clone(), PANES)
+    got_slot, got_sum, got_cnt = slot.cpu(), ds.cpu(), dc.cpu()
+    errs = {"slot": int((got_slot.long() - wslot.long()).abs().max()),
+            "dcnt": int((got_cnt.long() - wc.long()).abs().max()),
+            "dsum": float((got_sum - ws).abs().max())}
+    check(max(errs.values()) == 0, f"probe_fold kernel != torch_probe_fold "
+          f"on the {label} flush: max abs errors {errs}")
+    check(torch.equal(got_sum.view(torch.int64), ws.view(torch.int64)),
+          f"probe_fold dsum differs from torch_probe_fold in its bits on "
+          f"the {label} flush")
+    return errs, wslot, (wc.long() - dcnt0.long()).max().item()
+
+
+def _steps(split) -> str:
+    return " + ".join(f"{k} {v:.4f}" for k, v in split.items())
 
 
 def probe_fold_phase(device, rng, dki):
@@ -310,73 +380,79 @@ def probe_fold_phase(device, rng, dki):
     from flink_tpu_torch.ops.scatter import scatter_fold_counts
     from flink_tpu_torch.state import device_keyindex as dk
 
-    tab = dki.table()
-    planes, vals = make_flush(rng, dki, device)
+    buckets = dki.buckets
+    keys, panes, vals = flush_t = make_flush(rng, device)
     R = int(vals.shape[0])
     n_cells = KEY_CAPACITY * PANES
     gen = torch.Generator().manual_seed(11)
     dsum0 = torch.rand(n_cells, dtype=torch.float64, generator=gen)
     dcnt0 = torch.randint(0, 5, (n_cells,), dtype=torch.int32, generator=gen)
 
-    ds, dc = dsum0.to(device, copy=True), dcnt0.to(device, copy=True)
-    slot, ds, dc = dk.probe_fold(*tab, *planes, R, vals, ds, dc, PANES)
-    torch.cuda.synchronize()
-    wslot, ws, wc = dk.torch_probe_fold(
-        *(t.cpu() for t in (*tab, *planes)), R, vals.cpu(), dsum0.clone(),
-        dcnt0.clone(), PANES)
-    got_slot, got_sum, got_cnt = slot.cpu(), ds.cpu(), dc.cpu()
-    errs = {"slot": int((got_slot.long() - wslot.long()).abs().max()),
-            "dcnt": int((got_cnt.long() - wc.long()).abs().max()),
-            "dsum": float((got_sum - ws).abs().max())}
-    check(max(errs.values()) == 0, f"probe_fold kernel != torch_probe_fold: "
-          f"max abs errors {errs}")
-    check(torch.equal(got_sum.view(torch.int64), ws.view(torch.int64)),
-          "probe_fold dsum differs from torch_probe_fold in its bits")
+    errs, wslot, _ = _fold_check(device, buckets, flush_t, dsum0, dcnt0,
+                                 "uniform")
     hits = int((wslot >= 0).sum())
-    flat_hit = (wslot.long() * PANES + planes[3].cpu().long())[wslot >= 0]
+    flat_hit = (wslot.long() * PANES + panes.cpu().long())[wslot >= 0]
     cells = int(torch.unique(flat_hit).numel())
+    hot_key = int(N_KEYS // 3)
+    skew_t = make_flush(rng, device, hot_key=hot_key)
+    skew_errs, _, hot_run = _fold_check(device, buckets, skew_t, dsum0,
+                                        dcnt0, "skewed")
 
-    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    flush = lambda: scratch.fill_(1)      # noqa: E731
-    run = lambda: dk.probe_fold(*tab, *planes, R, vals, ds, dc,  # noqa: E731
-                                PANES)
+    ds, dc = dsum0.to(device, copy=True), dcnt0.to(device, copy=True)
+    flush, clean = l2_flushes(device)
+    run = lambda: dk.probe_fold(buckets, keys, panes, R,  # noqa: E731
+                                vals, ds, dc, PANES)
     ms_cold = cuda_time_ms(run, 20, flush=flush)
+    ms_clean = cuda_time_ms(run, 20, flush=clean)
     ms_warm = cuda_time_ms(run, 20)
-    split_cold = probe_fold_split_ms(tab, planes, vals, ds, dc, 20, flush)
-    split_warm = probe_fold_split_ms(tab, planes, vals, ds, dc, 20)
+    split_cold = probe_fold_split_ms(buckets, keys, panes, vals, ds, dc, 20,
+                                     flush)
+    split_warm = probe_fold_split_ms(buckets, keys, panes, vals, ds, dc, 20)
+    skew_ms = cuda_time_ms(lambda: dk.probe_fold(
+        buckets, skew_t[0], skew_t[1], R, skew_t[2], ds, dc, PANES), 10,
+        flush=flush)
+    skew_split = probe_fold_split_ms(buckets, *skew_t, ds, dc, 10, flush)
 
     def unfused():
-        s = dk.probe(*tab, *planes[:3])
-        f = torch.where(s >= 0, s.long() * PANES + planes[3], n_cells)
+        s = dk.probe(buckets, keys)
+        f = torch.where(s >= 0, s.long() * PANES + panes, n_cells)
         scatter_fold_counts((ds,), dc, f, (vals,), ("add",))
 
     unfused_ms = cuda_time_ms(unfused, 20, flush=flush)
     plain_ms = cuda_time_ms(lambda: dk.torch_probe_fold(
-        *tab, *planes, R, vals, ds, dc, PANES), 5)
-    del scratch
-    steps, touched = probe_work(tab[2], tab[0], tab[1], *planes[:3])
-    # rows stream in (key_lo, key_hi, start, pane slot, value) and out
-    # (slot); table words read once; each touched cell's dsum/dcnt read and
-    # written once
-    bytes_ = 24 * R + 12 * touched + 24 * cells
+        buckets, keys, panes, R, vals, ds, dc, PANES), 5)
+    del flush, clean
+    steps, touched = probe_work(buckets, keys)
+    # rows stream in (key, pane slot, value) and out (slot); each touched
+    # bucket's key words and slot are read once; each touched cell's dsum
+    # and dcnt are read and written once
+    bytes_ = 20 * R + 12 * touched + 24 * cells
+    old_bytes = 24 * R + 12 * touched + 24 * cells
     bound_ms, bound_by, bound_bytes_ms, bound_ops_ms = bound(
-        bytes_, 6 * steps + hits, hits)
+        bytes_, 6 * steps + HASH_OPS * R + hits, hits)
+    bits, tiles, blocks = dk.fold_plan(R, n_cells)
     print(f"probe_fold kernel: cap={dki.capacity} R={R} rows "
           f"({SUPERBATCH} batches), hits={hits}, distinct cells={cells}, "
-          f"planes {n_cells} cells f64 + int32; max abs err {errs}")
+          f"planes {n_cells} cells f64 + int32 in {tiles} tiles of "
+          f"2^{bits} cells, {blocks} row blocks; max abs err {errs}")
     print(f"probe_fold kernel: median {ms_cold:.4f} ms with L2 flushed "
-          f"(probe {split_cold[0]:.4f} + sort {split_cold[1]:.4f} + fold "
-          f"{split_cold[2]:.4f}), {ms_warm:.4f} ms warm (probe "
-          f"{split_warm[0]:.4f} + sort {split_warm[1]:.4f} + fold "
-          f"{split_warm[2]:.4f}); 20 runs each")
+          f"({_steps(split_cold)}), {ms_clean:.4f} ms after a read-only "
+          f"flush, {ms_warm:.4f} ms warm ({_steps(split_warm)}); 20 runs "
+          f"each")
+    print(f"probe_fold skewed flush (key {hot_key} on 25% of the rows, its "
+          f"longest cell run {hot_run} rows; max abs err {skew_errs}): "
+          f"median {skew_ms:.4f} ms with L2 flushed ({_steps(skew_split)}; 10 "
+          f"runs) vs the uniform flush's {ms_cold:.4f} ms")
     print(f"probe_fold plain torch_probe_fold on the card {plain_ms:.4f} ms; "
           f"unfused route (probe kernel + index_add_, f64 atomics in no "
           f"fixed order) {unfused_ms:.4f} ms with L2 flushed")
-    print(f"probe_fold bound: bytes = 24 B/row x {R} + 12 B x {touched} "
+    print(f"probe_fold bound: bytes = 20 B/row x {R} + 12 B x {touched} "
           f"buckets + 24 B x {cells} cells = {bytes_} B over "
-          f"{HBM_BYTES_PER_S:.3g} B/s = {bound_bytes_ms:.4f} ms; ops = "
-          f"{6 * steps + hits} int32 + {hits} f64 = {bound_ops_ms:.6f} ms; "
-          f"bound by {bound_by}")
+          f"{HBM_BYTES_PER_S:.3g} B/s = {bound_bytes_ms:.5f} ms (the "
+          f"three-plane interface's 24 B/row: {old_bytes} B = "
+          f"{old_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms); ops = "
+          f"{6 * steps + HASH_OPS * R + hits} int32 + {hits} f64 = "
+          f"{bound_ops_ms:.6f} ms; bound by {bound_by}")
     print("probe_fold library_ms: null — no single PyTorch call probes a "
           "hash table and folds; the unfused route above is two calls and "
           "its float fold is unordered")
@@ -384,13 +460,13 @@ def probe_fold_phase(device, rng, dki):
             "source": "flink_tpu_torch/csrc/probe_fold.cu",
             "replaces": "flink_tpu/state/device_keyindex.py:228",
             "launches": 0, "max_abs_err": max(errs.values()),
-            "ms": ms_cold, "ms_warm": ms_warm,
-            "split_ms": {"probe": split_cold[0], "sort": split_cold[1],
-                         "fold": split_cold[2]},
-            "split_ms_warm": {"probe": split_warm[0], "sort": split_warm[1],
-                              "fold": split_warm[2]},
+            "ms": ms_cold, "ms_clean_l2": ms_clean, "ms_warm": ms_warm,
+            "split_ms": split_cold, "split_ms_warm": split_warm,
+            "skewed_ms": skew_ms, "skewed_split_ms": skew_split,
             "plain_ms": plain_ms, "unfused_ms": unfused_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": bytes_, "old_bound_bytes": old_bytes,
+            "library_ms": None}
 
 
 def build_op(device, device_sync: str, superbatch: int):

@@ -109,20 +109,17 @@ def probe_lib() -> ctypes.CDLL:
     fn = lib.flink_probe_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
+        fn.argtypes = [vp, vp, vp, ci, ci, vp]
         fn.restype = ci
     return lib
 
 
 def probe_fold_lib() -> ctypes.CDLL:
-    """``csrc/probe_fold.cu`` with its two entry points' C signatures
-    declared."""
+    """``csrc/probe_fold.cu`` with its entry point's C signature declared."""
     lib = load("probe_fold.cu")
-    if lib.flink_probe_fold_probe.argtypes is None:
+    fn = lib.flink_probe_fold_launch
+    if fn.argtypes is None:
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flink_probe_fold_probe.argtypes = [vp] * 9 + [ci, ci, ci, cl, cl,
-                                                          vp]
-        lib.flink_probe_fold_probe.restype = ci
-        lib.flink_probe_fold_fold.argtypes = [vp] * 5 + [ci, ci, vp]
-        lib.flink_probe_fold_fold.restype = ci
+        fn.argtypes = [vp] * 11 + [ci, ci, ci, cl, ci, ci, ci, ci, vp]
+        fn.restype = ci
     return lib

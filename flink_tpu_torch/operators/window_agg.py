@@ -15,7 +15,8 @@ event-time, tumbling windowed aggregate with
   :meth:`device_refresh` rebuilds it from the mirror (:meth:`verify_mirror`
   refreshes first);
 - **the device key probe** (``device_probe="on"``): warm keys resolve on the
-  card (``state/device_keyindex.py``, kernel ``csrc/probe.cu``), their rows
+  card (``state/device_keyindex.py``, kernel ``csrc/probe.cu``, which takes
+  the int64 keys and hashes them itself), their rows
   fold into a device DELTA ring in the mirror's dtypes (f64 values, int32
   counts), and under scatter sync into the replica too; the host pass
   touches only the compact miss list.  The mirror catches up pane by pane
@@ -334,14 +335,14 @@ class WindowAggOperator(StreamOperator):
         return (tuple(l.view((K * P,) + tuple(l.shape[2:])) for l in leaves),
                 counts.view(K * P))
 
-    def _probed_update_step(self, tab, key_lo, key_hi, start, pane_slots,
+    def _probed_update_step(self, buckets, keys, pane_slots,
                             values) -> torch.Tensor:
-        """One micro-batch with the key probe on the card: probe the table,
-        fold hit rows into the device replica (device precision) and the
-        delta ring (mirror precision), in place.  Miss rows carry the
-        dropped id K*P.  Returns the miss rows' indices (int64, ascending);
-        computing it is the step's one host sync."""
-        slot = probe(*tab, key_lo, key_hi, start)
+        """One micro-batch with the key probe on the card: probe the table
+        with the int64 keys, fold hit rows into the device replica (device
+        precision) and the delta ring (mirror precision), in place.  Miss
+        rows carry the dropped id K*P.  Returns the miss rows' indices
+        (int64, ascending); computing it is the step's one host sync."""
+        slot = probe(buckets, keys)
         hit = slot >= 0
         K, P = self._counts.shape
         flat = torch.where(hit, slot.to(torch.int64) * P + pane_slots, K * P)
@@ -353,12 +354,12 @@ class WindowAggOperator(StreamOperator):
                             flat, lifted, self.kinds)
         return torch.nonzero(~hit).squeeze(1)
 
-    def _probed_delta_step(self, tab, key_lo, key_hi, start, pane_slots,
+    def _probed_delta_step(self, buckets, keys, pane_slots,
                            values) -> torch.Tensor:
         """Deferred-sync twin of :meth:`_probed_update_step`: the mirror is
         the authority, so hit rows fold into the delta ring only (the
         replica catches up at :meth:`device_refresh`)."""
-        slot = probe(*tab, key_lo, key_hi, start)
+        slot = probe(buckets, keys)
         hit = slot >= 0
         K, P = self._delta_counts.shape
         flat = torch.where(hit, slot.to(torch.int64) * P + pane_slots, K * P)
@@ -368,7 +369,7 @@ class WindowAggOperator(StreamOperator):
                             flat, lifted, self.kinds)
         return torch.nonzero(~hit).squeeze(1)
 
-    def _fused_scan_delta_step(self, tab, key_lo, key_hi, start, pane_slots,
+    def _fused_scan_delta_step(self, buckets, keys, pane_slots,
                                values) -> torch.Tensor:
         """Deferred-sync step of the fused lane over a whole super-batch:
         ONE ``probe_fold`` launch probes every row and folds the hit rows
@@ -378,13 +379,13 @@ class WindowAggOperator(StreamOperator):
         when its Pallas gate says no.  Returns the miss rows (int64,
         ascending)."""
         if not probe_fold_available(self.kinds, self._delta_leaves[0].dtype):
-            return self._probed_delta_step(tab, key_lo, key_hi, start,
-                                           pane_slots, values)
+            return self._probed_delta_step(buckets, keys, pane_slots,
+                                           values)
         (dsum,), dcnt = self._flat_state(self._delta_leaves,
                                          self._delta_counts)
         (vals,) = tree_leaves(self.agg.lift(values))
-        slot, _, _ = probe_fold(*tab, key_lo, key_hi, start, pane_slots,
-                                start.shape[0], vals, dsum, dcnt, self._P)
+        slot, _, _ = probe_fold(buckets, keys, pane_slots, keys.shape[0],
+                                vals, dsum, dcnt, self._P)
         return torch.nonzero(slot < 0).squeeze(1)
 
     def _delta_clear_step(self, pane_slots: torch.Tensor) -> None:
@@ -448,14 +449,16 @@ class WindowAggOperator(StreamOperator):
 
     def _devprobe_dispatch(self, step, keys: np.ndarray, panes: np.ndarray,
                            values, B: int) -> np.ndarray:
-        """Upload a block of rows (host hash + split, one copy of the id
-        planes, one of the values) and run the probed ``step`` on it; count
-        hits and misses.  Returns the miss rows' indices on the host."""
-        key_lo, key_hi, start = self._dki.prepare_batch(keys)
-        planes = self._ids_to_device(np.stack(
-            [key_lo, key_hi, start, (panes % self._P).astype(np.int32)]))
-        miss_idx = step(self._dki.table(), planes[0], planes[1], planes[2],
-                        planes[3], self._to_device(values))
+        """Upload a block of rows (the int64 keys as they are, their pane
+        slots, the values) and run the probed ``step`` on it; count hits and
+        misses.  The card hashes the keys, so the host does no per-record
+        hash or split.  Returns the miss rows' indices on the host."""
+        miss_idx = step(self._dki.buckets,
+                        self._ids_to_device(np.ascontiguousarray(keys,
+                                                                 np.int64)),
+                        self._ids_to_device((panes % self._P).astype(
+                            np.int32)),
+                        self._to_device(values))
         mc = int(miss_idx.numel())
         self._delta_panes.update(int(p) for p in np.unique(panes).tolist())
         self._dp_stats["probe_hits"] += B - mc

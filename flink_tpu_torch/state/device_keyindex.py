@@ -1,12 +1,19 @@
 """Device-resident key index: probe warm keys on the card (port of
 ``flink_tpu/state/device_keyindex.py``).
 
-- An **open-addressing int64 -> int32 hash table as three int32 device
-  planes** (``tab_lo``, ``tab_hi``, ``tab_slot1``; a zero ``slot1`` is an
-  empty bucket).  The planes, bucket placement and slot ids are the JAX
-  package's, plane for plane.  Bucket starts come from the same splitmix64
-  ``_mix64`` as :mod:`flink_tpu_torch.state.keyindex`, computed on the host in
-  one streaming pass.
+- An **open-addressing int64 -> int32 hash table as one interleaved bucket
+  array**: ``buckets`` is a contiguous int32 ``[cap, 4]`` tensor whose rows
+  are ``(lo, hi, slot1, 0)``; a zero ``slot1`` is an empty bucket.  A row
+  is 16 bytes, so the kernels read a whole bucket with one load, and a
+  32-byte sector holds two neighbouring buckets of a linear walk.  The
+  JAX package keeps three planes; ``tab_lo``, ``tab_hi`` and ``tab_slot1``
+  here are column views of ``buckets``, and bucket placement and slot ids
+  are the JAX package's, plane for plane.
+- **The probe hashes on the card.**  :func:`probe` and :func:`probe_fold`
+  take the int64 keys; the bucket start is ``_mix64(key) & (cap - 1)``,
+  the splitmix64 finalizer of :mod:`flink_tpu_torch.state.keyindex`, which
+  the kernels compute in uint64 arithmetic and :func:`torch_mix64` on int64
+  tensors.  The host hashes only keys it inserts (:meth:`DeviceKeyIndex._place`).
 - :func:`torch_probe` — the plain PyTorch version of the probe (the
   counterpart of ``lax_probe``); the CPU path and the reference the kernel is
   held to.
@@ -14,7 +21,7 @@
   CUDA tensors it launches the hand-written kernel ``csrc/probe.cu`` or
   raises.  ``probe.launches`` counts kernel launches.
 - :func:`torch_probe_fold` / :func:`probe_fold` — the same pair for the fused
-  probe + ordered delta fold (kernel ``csrc/probe_fold.cu``), gated by
+  probe + ordered delta fold (kernels ``csrc/probe_fold.cu``), gated by
   :func:`probe_fold_available`; ``probe_fold.launches`` counts launches.
 - :class:`DeviceKeyIndex` — the host-side owner: a numpy occupancy shadow
   decides insert buckets (only our own scatters write the table, so shadow
@@ -24,7 +31,7 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +45,7 @@ MISS = -1
 
 
 # ---------------------------------------------------------------------------
-# host-side helpers: key split + bucket starts (streaming, no random access)
+# host-side helpers: key split + bucket starts, for key inserts and tests
 # ---------------------------------------------------------------------------
 
 def split_keys(keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -56,27 +63,61 @@ def probe_starts(keys: np.ndarray, capacity: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# the hash on torch tensors
+# ---------------------------------------------------------------------------
+
+#: splitmix64's multipliers as the signed int64 values of their bits
+_MIX_M1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_MIX_M2 = 0x94D049BB133111EB - (1 << 64)
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits: torch's ``>>`` sign-extends, so
+    the high ``s`` bits are masked off."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def torch_mix64(x: torch.Tensor) -> torch.Tensor:
+    """:func:`~flink_tpu_torch.state.keyindex._mix64` on an int64 tensor:
+    the same bits, read as int64 (products wrap mod 2^64 as uint64's do)."""
+    x = (x ^ _shr(x, 30)) * _MIX_M1
+    x = (x ^ _shr(x, 27)) * _MIX_M2
+    return x ^ _shr(x, 31)
+
+
+def torch_probe_starts(keys: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Bucket start per int64 key, as int64: :func:`probe_starts` on the
+    tensor's device."""
+    return torch_mix64(keys) & (capacity - 1)
+
+
+def bucket_keys(rows: torch.Tensor) -> torch.Tensor:
+    """The int64 key of each ``[m, 4]`` bucket row: ``hi * 2^32 + lo`` with
+    ``lo`` read unsigned (no product or sum leaves int64's range)."""
+    return rows[:, 1].long() * (1 << 32) + (rows[:, 0].long() & 0xFFFFFFFF)
+
+
+# ---------------------------------------------------------------------------
 # the probe: plain version, kernel wrapper
 # ---------------------------------------------------------------------------
 
-def torch_probe(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start):
+def torch_probe(buckets, keys):
     """Vectorized open-addressing probe: int32 slots, -1 = miss.
 
-    Each round gathers every still-pending record's bucket; hits resolve to
-    ``slot1 - 1``, empty buckets to a miss, buckets held by another key step
-    on.  Bounded at ``cap`` rounds like the kernel."""
-    cap = tab_slot1.shape[0]
-    slot = torch.full_like(start, MISS)
-    pending = torch.arange(start.shape[0], device=start.device)
-    idx = start.to(torch.int64)
+    Each round gathers every still-pending key's bucket row; hits resolve
+    to ``slot1 - 1``, empty buckets to a miss, buckets held by another key
+    step on.  Bounded at ``cap`` rounds like the kernel."""
+    cap = buckets.shape[0]
+    slot = torch.full(keys.shape, MISS, dtype=torch.int32, device=keys.device)
+    pending = torch.arange(keys.shape[0], device=keys.device)
+    idx = torch_probe_starts(keys, cap)
     for _ in range(cap):
         if pending.numel() == 0:
             break
-        b_s = tab_slot1.index_select(0, idx)
+        rows = buckets.index_select(0, idx)
+        b_s = rows[:, 2]
         empty = b_s == 0
-        hit = ((~empty)
-               & (tab_lo.index_select(0, idx) == key_lo.index_select(0, pending))
-               & (tab_hi.index_select(0, idx) == key_hi.index_select(0, pending)))
+        hit = (~empty) & (bucket_keys(rows) == keys.index_select(0, pending))
         h = torch.nonzero(hit).squeeze(1)
         slot.index_copy_(0, pending.index_select(0, h), b_s.index_select(0, h) - 1)
         go_on = torch.nonzero(~(hit | empty)).squeeze(1)
@@ -85,43 +126,48 @@ def torch_probe(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start):
     return slot
 
 
-def _check_probe_args(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start):
-    args = (tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start)
-    dev = start.device
-    for a in args:
-        if a.dtype != torch.int32:
-            raise TypeError(f"probe takes int32 planes, got {a.dtype}")
-        if a.ndim != 1 or not a.is_contiguous():
-            raise ValueError("probe takes contiguous 1-D planes")
-        if a.device != dev:
-            raise ValueError(f"probe planes on {a.device} and {dev}")
-    cap = tab_slot1.shape[0]
-    if cap <= 0 or cap & (cap - 1) or tab_lo.shape[0] != cap \
-            or tab_hi.shape[0] != cap:
-        raise ValueError("table planes must share one power-of-two length")
-    if key_lo.shape[0] != start.shape[0] or key_hi.shape[0] != start.shape[0]:
-        raise ValueError("key planes and starts must have one length")
-    if start.shape[0] >= 2 ** 31 or cap >= 2 ** 31:
+def _check_probe_args(buckets, keys):
+    if buckets.dtype != torch.int32 or buckets.ndim != 2 \
+            or buckets.shape[1] != 4 or not buckets.is_contiguous():
+        raise TypeError("probe takes a contiguous int32 [cap, 4] bucket "
+                        "array")
+    if keys.dtype != torch.int64:
+        raise TypeError(f"probe takes int64 keys, got {keys.dtype}")
+    if keys.ndim != 1 or not keys.is_contiguous():
+        raise ValueError("probe takes contiguous 1-D keys")
+    if buckets.device != keys.device:
+        raise ValueError(f"probe tensors on {buckets.device} and "
+                         f"{keys.device}")
+    cap = buckets.shape[0]
+    if cap <= 0 or cap & (cap - 1):
+        raise ValueError("the bucket array's length must be a power of two")
+    if keys.shape[0] >= 2 ** 31 or cap >= 2 ** 31:
         raise ValueError("probe sizes must fit int32")
+    if buckets.data_ptr() % 16:
+        raise ValueError("the bucket array must be 16-byte aligned")
 
 
-def probe(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start):
-    """Probe ``(key_lo, key_hi)`` from ``start`` in the table planes: int32
-    slots, -1 = miss.  CPU tensors take :func:`torch_probe`; CUDA tensors
-    launch ``csrc/probe.cu`` on the current stream or raise."""
-    _check_probe_args(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start)
-    if start.device.type == "cpu":
-        return torch_probe(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start)
-    if start.device.type != "cuda":
-        raise ValueError(f"probe runs on cpu or cuda, not {start.device}")
+def _device_of(keys) -> str:
+    if keys.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the probe runs on cpu or cuda, not {keys.device}")
+    return keys.device.type
+
+
+def probe(buckets, keys):
+    """Probe the int64 ``keys`` in the bucket array: int32 slots, -1 = miss.
+    CPU tensors take :func:`torch_probe`; CUDA tensors launch
+    ``csrc/probe.cu`` (which hashes the keys itself) on the current stream
+    or raise."""
+    _check_probe_args(buckets, keys)
+    if _device_of(keys) == "cpu":
+        return torch_probe(buckets, keys)
     from flink_tpu_torch.kernels.build import probe_lib
     lib = probe_lib()
-    out = torch.empty_like(start)
-    stream = torch.cuda.current_stream(start.device).cuda_stream
-    rc = lib.flink_probe_launch(
-        tab_lo.data_ptr(), tab_hi.data_ptr(), tab_slot1.data_ptr(),
-        key_lo.data_ptr(), key_hi.data_ptr(), start.data_ptr(),
-        out.data_ptr(), int(start.shape[0]), int(tab_slot1.shape[0]), stream)
+    out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    rc = lib.flink_probe_launch(buckets.data_ptr(), keys.data_ptr(),
+                                out.data_ptr(), int(keys.shape[0]),
+                                int(buckets.shape[0]), stream)
     if rc != 0:
         raise RuntimeError(f"probe kernel launch failed: cudaError {rc}")
     probe.launches += 1
@@ -137,12 +183,21 @@ probe.launches = 0
 # ---------------------------------------------------------------------------
 
 #: (value dtype, delta-plane dtype) pairs the fold kernel widens itself, with
-#: the kind code of ``csrc/probe_fold.cu``'s fold entry; other value dtypes
-#: are cast to the plane's dtype first
+#: the kind code of ``csrc/probe_fold.cu``; other value dtypes are cast to
+#: the plane's dtype first
 _FOLD_KINDS = {(torch.float32, torch.float64): 0,
                (torch.float64, torch.float64): 1,
                (torch.int32, torch.int64): 2,
                (torch.int64, torch.int64): 3}
+
+#: rows per block of the probe and partition steps (``kBlockRows``)
+FOLD_BLOCK_ROWS = 4096
+#: most cell tiles a flush is cut into (``kMaxTiles``)
+FOLD_MAX_TILES = 1024
+#: fewest cells a tile holds, as a power of two
+FOLD_MIN_TILE_BITS = 8
+#: the four steps of ``csrc/probe_fold.cu``, as bits of its ``steps`` mask
+FOLD_STEPS = {"probe": 1, "scan": 2, "scatter": 4, "fold": 8}
 
 
 def probe_fold_available(kinds, delta_dtype) -> bool:
@@ -153,22 +208,22 @@ def probe_fold_available(kinds, delta_dtype) -> bool:
     JAX's gate also fits the table plus the flat delta planes into 12 MiB of
     TPU VMEM, because the Pallas kernel pins both whole.  On the H100 the
     planes stay in HBM and the kernel reads them through L2, so there is no
-    size budget: at the main path's full width (a 24 MiB table, a 192 MiB
+    size budget: at the main path's full width (a 32 MiB table, a 192 MiB
     delta ring) the kernel is on the path, where the TPU gate would have kept
     the Pallas kernel off it."""
     return (kinds is not None and tuple(kinds) == ("add",)
             and delta_dtype in (torch.float64, torch.int64))
 
 
-def torch_probe_fold(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start,
-                     pane_slots, b: int, vals, dsum, dcnt, pane_mod: int):
+def torch_probe_fold(buckets, keys, pane_slots, b: int, vals, dsum, dcnt,
+                     pane_mod: int):
     """Plain version of the fused probe + fold (the counterpart of JAX's
     ``lax_probe`` + ``scatter_fold_counts``): :func:`torch_probe`, then
     every hit row ``k < b`` whose cell ``slot * pane_mod + pane_slots[k]``
     lies in the planes folds into it, in row order: ``dsum += vals`` (cast
     to dsum's dtype), ``dcnt += 1``, in place.  Returns
     ``(slot, dsum, dcnt)``."""
-    slot = torch_probe(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start)
+    slot = torch_probe(buckets, keys)
     flat = slot.to(torch.int64) * pane_mod + pane_slots
     rows = torch.arange(slot.shape[0], device=slot.device)
     hit = torch.nonzero((rows < b) & (slot >= 0) & (flat >= 0)
@@ -178,12 +233,12 @@ def torch_probe_fold(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start,
     return slot, dsum, dcnt
 
 
-def _check_fold_args(start, pane_slots, b, vals, dsum, dcnt, pane_mod):
-    dev = start.device
-    if pane_slots.dtype != torch.int32 or pane_slots.shape != start.shape \
+def _check_fold_args(keys, pane_slots, b, vals, dsum, dcnt, pane_mod):
+    dev = keys.device
+    if pane_slots.dtype != torch.int32 or pane_slots.shape != keys.shape \
             or not pane_slots.is_contiguous():
-        raise ValueError("pane_slots must be contiguous int32 like start")
-    if vals.shape != start.shape or not vals.is_contiguous():
+        raise ValueError("pane_slots must be contiguous int32, one per key")
+    if vals.shape != keys.shape or not vals.is_contiguous():
         raise ValueError("vals must be one contiguous value per row")
     if dsum.dtype not in (torch.float64, torch.int64):
         raise TypeError(f"probe_fold folds into f64 or i64 planes, not "
@@ -193,54 +248,92 @@ def _check_fold_args(start, pane_slots, b, vals, dsum, dcnt, pane_mod):
             or not dcnt.is_contiguous():
         raise ValueError("dsum and dcnt must be contiguous flat planes of one "
                          "length, dcnt int32")
+    if dsum.shape[0] >= 2 ** 31:
+        raise ValueError(f"probe_fold takes fewer than 2^31 cells, got "
+                         f"{dsum.shape[0]}")
     for a in (pane_slots, vals, dsum, dcnt):
         if a.device != dev:
             raise ValueError(f"probe_fold tensors on {a.device} and {dev}")
-    if not 0 <= int(b) <= start.shape[0] or int(pane_mod) <= 0:
-        raise ValueError(f"need 0 <= b <= rows and pane_mod > 0, got b={b} "
-                         f"pane_mod={pane_mod}")
+    if not 0 <= int(b) <= keys.shape[0] or not 0 < int(pane_mod) < 2 ** 31:
+        raise ValueError(f"need 0 <= b <= rows and 0 < pane_mod < 2^31, got "
+                         f"b={b} pane_mod={pane_mod}")
 
 
-def probe_fold(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start, pane_slots,
-               b: int, vals, dsum, dcnt, pane_mod: int):
+def fold_plan(n_rows: int, n_cells: int) -> Tuple[int, int, int]:
+    """``(tile_bits, tiles, blocks)`` of one ``probe_fold`` launch: cells
+    are cut into tiles of ``2^tile_bits`` (at least ``2^8``, and few enough
+    that at most :data:`FOLD_MAX_TILES` tiles cover the planes; the last may
+    be short), rows into blocks of :data:`FOLD_BLOCK_ROWS`."""
+    bits = max(FOLD_MIN_TILE_BITS, (max(n_cells, 1) - 1).bit_length()
+               - (FOLD_MAX_TILES.bit_length() - 1))
+    tiles = (n_cells + (1 << bits) - 1) >> bits
+    blocks = (n_rows + FOLD_BLOCK_ROWS - 1) // FOLD_BLOCK_ROWS
+    return bits, tiles, blocks
+
+
+def probe_fold_scratch(n_rows: int, n_cells: int,
+                       vals: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The device scratch of one launch: each row's cell id, the
+    ``[blocks, tiles]`` count matrix (then its offsets), the tiles' bases
+    (with the number of folding rows and a ticket of the offsets step after
+    them), and the partitioned rows, ``(cell's low bits, value)`` in 8 bytes for a
+    4-byte value and 16 for an 8-byte one."""
+    bits, tiles, blocks = fold_plan(n_rows, n_cells)
+    i32 = dict(dtype=torch.int32, device=vals.device)
+    return {"tile_bits": bits,
+            "cell": torch.empty(n_rows, **i32),
+            "counts": torch.empty(blocks * tiles, **i32),
+            "tile_base": torch.empty(tiles + 2, **i32),
+            "part": torch.empty((n_rows, 2 if vals.element_size() == 4
+                                 else 4), **i32)}
+
+
+def launch_probe_fold_steps(buckets, keys, pane_slots, b: int, vals, dsum,
+                            dcnt, pane_mod: int, slot, scratch,
+                            steps: int) -> None:
+    """Launch the steps of ``csrc/probe_fold.cu`` named by the ``steps``
+    mask (:data:`FOLD_STEPS`) on the current stream; :func:`probe_fold` runs
+    all four, a timing harness one at a time.  ``vals`` must already be of
+    a kind the kernel takes (:data:`_FOLD_KINDS`).  Counts no launch."""
+    from flink_tpu_torch.kernels.build import probe_fold_lib
+    lib = probe_fold_lib()
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    rc = lib.flink_probe_fold_launch(
+        buckets.data_ptr(), keys.data_ptr(), pane_slots.data_ptr(),
+        vals.data_ptr(), dsum.data_ptr(), dcnt.data_ptr(), slot.data_ptr(),
+        scratch["cell"].data_ptr(), scratch["counts"].data_ptr(),
+        scratch["tile_base"].data_ptr(), scratch["part"].data_ptr(),
+        int(keys.shape[0]), int(b),
+        int(buckets.shape[0]), int(pane_mod), int(dsum.shape[0]),
+        int(scratch["tile_bits"]), _FOLD_KINDS[(vals.dtype, dsum.dtype)],
+        int(steps), stream)
+    if rc != 0:
+        raise RuntimeError(f"probe_fold kernel launch failed: cudaError {rc}")
+
+
+def probe_fold(buckets, keys, pane_slots, b: int, vals, dsum, dcnt,
+               pane_mod: int):
     """Fused probe + ordered fold (JAX's ``pallas_probe_fold``): the probe of
     :func:`probe`, then every hit row ``k < b`` folds into the flat delta
     planes at ``slot * pane_mod + pane_slots[k]`` in row order, in place.
     Returns ``(slot, dsum, dcnt)``.  CPU tensors take
-    :func:`torch_probe_fold`; CUDA tensors launch ``csrc/probe_fold.cu`` on
-    the current stream (probe kernel, a stable sort of the cell ids, fold
-    kernel) or raise.  ``probe_fold.launches`` counts launches."""
-    _check_probe_args(tab_lo, tab_hi, tab_slot1, key_lo, key_hi, start)
-    _check_fold_args(start, pane_slots, b, vals, dsum, dcnt, pane_mod)
-    if start.device.type == "cpu":
-        return torch_probe_fold(tab_lo, tab_hi, tab_slot1, key_lo, key_hi,
-                                start, pane_slots, b, vals, dsum, dcnt,
-                                pane_mod)
-    if start.device.type != "cuda":
-        raise ValueError(f"probe_fold runs on cpu or cuda, not {start.device}")
-    from flink_tpu_torch.kernels.build import probe_fold_lib
-    lib = probe_fold_lib()
+    :func:`torch_probe_fold`; CUDA tensors launch the four kernels of
+    ``csrc/probe_fold.cu`` on the current stream (probe + tile histogram,
+    offsets, stable partition by tile, ordered fold per tile) or raise.
+    ``probe_fold.launches`` counts launches."""
+    _check_probe_args(buckets, keys)
+    _check_fold_args(keys, pane_slots, b, vals, dsum, dcnt, pane_mod)
+    if _device_of(keys) == "cpu":
+        return torch_probe_fold(buckets, keys, pane_slots, b, vals, dsum,
+                                dcnt, pane_mod)
     if (vals.dtype, dsum.dtype) not in _FOLD_KINDS:
         vals = vals.to(dsum.dtype)      # the plain fold's cast, done first
-    n = int(start.shape[0])
-    slot = torch.empty_like(start)
-    flat = torch.empty(n, dtype=torch.int64, device=start.device)
-    stream = torch.cuda.current_stream(start.device).cuda_stream
-    rc = lib.flink_probe_fold_probe(
-        tab_lo.data_ptr(), tab_hi.data_ptr(), tab_slot1.data_ptr(),
-        key_lo.data_ptr(), key_hi.data_ptr(), start.data_ptr(),
-        pane_slots.data_ptr(), slot.data_ptr(), flat.data_ptr(), n, int(b),
-        int(tab_slot1.shape[0]), int(pane_mod), int(dsum.shape[0]), stream)
-    if rc != 0:
-        raise RuntimeError(f"probe_fold probe kernel launch failed: "
-                           f"cudaError {rc}")
-    sflat, perm = torch.sort(flat, stable=True)
-    rc = lib.flink_probe_fold_fold(
-        sflat.data_ptr(), perm.data_ptr(), vals.data_ptr(), dsum.data_ptr(),
-        dcnt.data_ptr(), n, _FOLD_KINDS[(vals.dtype, dsum.dtype)], stream)
-    if rc != 0:
-        raise RuntimeError(f"probe_fold fold kernel launch failed: "
-                           f"cudaError {rc}")
+    n = int(keys.shape[0])
+    slot = torch.empty(n, dtype=torch.int32, device=keys.device)
+    launch_probe_fold_steps(buckets, keys, pane_slots, b, vals, dsum, dcnt,
+                            pane_mod, slot,
+                            probe_fold_scratch(n, int(dsum.shape[0]), vals),
+                            sum(FOLD_STEPS.values()))
     probe_fold.launches += 1
     return slot, dsum, dcnt
 
@@ -259,9 +352,9 @@ class DeviceKeyIndex:
     The KeyIndex stays the slot-id authority; ``ensure_loaded`` places
     whatever tail of slots the table has not seen in the host occupancy
     shadow (the same linear probing the device walk runs) and ships them as
-    one scatter per plane.  The device never inserts, so shadow and table
-    cannot diverge.  Capacity is a sticky pow2 high-water: growth rebuilds
-    shadow and table at the doubled size, never shrinks.
+    one scatter of bucket rows.  The device never inserts, so shadow and
+    table cannot diverge.  Capacity is a sticky pow2 high-water: growth
+    rebuilds shadow and table at the doubled size, never shrinks.
     """
 
     def __init__(self, initial_capacity: int = 1 << 16,
@@ -277,10 +370,10 @@ class DeviceKeyIndex:
     def _alloc(self, cap: int) -> None:
         self.capacity = cap
         self._shadow_used = np.zeros(cap, bool)
-        self.tab_lo = torch.zeros(cap, dtype=torch.int32, device=self.device)
-        self.tab_hi = torch.zeros(cap, dtype=torch.int32, device=self.device)
-        self.tab_slot1 = torch.zeros(cap, dtype=torch.int32,
-                                     device=self.device)
+        #: the table: int32 rows (lo, hi, slot1, 0)
+        self.buckets = torch.zeros((cap, 4), dtype=torch.int32,
+                                   device=self.device)
+        self.tab_lo, self.tab_hi, self.tab_slot1, _ = self.buckets.unbind(1)
 
     def _place(self, keys: np.ndarray) -> np.ndarray:
         """Claim one shadow bucket per (unique) key by linear probing;
@@ -305,12 +398,15 @@ class DeviceKeyIndex:
         return buckets
 
     def table(self):
+        """The three planes of the JAX package's table, as column views of
+        :attr:`buckets`."""
         return self.tab_lo, self.tab_hi, self.tab_slot1
 
     def prepare_batch(self, keys: np.ndarray
                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(key_lo, key_hi, start) int32 planes for one batch: the only
-        per-record host work of the probe lane (streaming hash + split)."""
+        """(key_lo, key_hi, start) int32 planes of a batch, as the JAX
+        package's probe takes them (the probe lane here ships the int64
+        keys and hashes on the card)."""
         lo, hi = split_keys(keys)
         return lo, hi, probe_starts(keys, self.capacity)
 
@@ -338,33 +434,32 @@ class DeviceKeyIndex:
 
     def _upload(self, buckets: np.ndarray, keys: np.ndarray,
                 slots1: np.ndarray) -> None:
-        """One scatter per plane (in place; JAX donated the planes)."""
-        lo, hi = split_keys(keys)
+        """One scatter of whole bucket rows (in place; JAX donated its
+        planes)."""
+        rows = np.zeros((keys.size, 4), np.int32)
+        rows[:, 0], rows[:, 1] = split_keys(keys)
+        rows[:, 2] = slots1
         b = torch.from_numpy(np.ascontiguousarray(buckets, np.int64)).to(
             self.device)
-        for plane, vals in ((self.tab_lo, lo), (self.tab_hi, hi),
-                            (self.tab_slot1, slots1)):
-            plane[b] = torch.from_numpy(np.ascontiguousarray(vals)).to(
-                self.device)
+        self.buckets[b] = torch.from_numpy(rows).to(self.device)
 
     def _grow(self, needed: int) -> None:
         """Sticky pow2 growth: double until ``needed`` fits the load factor,
-        re-place every loaded key (read back from the old planes), upload."""
+        re-place every loaded key (read back from the old table's columns),
+        upload."""
         cap = self.capacity
         while needed > int(cap * self._max_load):
             cap <<= 1
         if cap == self.capacity:
             return
         loaded = self._n
-        old_lo = self.tab_lo.cpu().numpy()
-        old_hi = self.tab_hi.cpu().numpy()
-        old_s1 = self.tab_slot1.cpu().numpy()
-        occ = old_s1 > 0
-        keys_u = (old_lo[occ].view(np.uint32).astype(np.uint64)
-                  | (old_hi[occ].view(np.uint32).astype(np.uint64)
+        old = self.buckets.cpu().numpy()
+        occ = old[:, 2] > 0
+        keys_u = (old[occ, 0].view(np.uint32).astype(np.uint64)
+                  | (old[occ, 1].view(np.uint32).astype(np.uint64)
                      << np.uint64(32)))
         keys = keys_u.view(np.int64)
-        slots1 = old_s1[occ]
+        slots1 = old[occ, 2]
         self._alloc(cap)
         self._n = loaded
         if keys.size:

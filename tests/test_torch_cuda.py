@@ -32,65 +32,115 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def test_probe_kernel_equals_torch_probe(cuda_device):
-    rng = np.random.default_rng(1234)
-    keys = rng.integers(-2 ** 62, 2 ** 62, 20000).astype(np.int64)
+_EXTREMES = np.array([0, 1, -1, 2 ** 31 - 1, -2 ** 31, 2 ** 32, 2 ** 62,
+                      2 ** 63 - 1, -2 ** 63, -2 ** 63 + 1], np.int64)
+
+
+def _loaded_table(device, keys, capacity=1 << 10):
     ki = KeyIndex()
     ki.lookup_or_insert(keys)
-    dki = dk.DeviceKeyIndex(initial_capacity=1 << 10, device=cuda_device)
+    dki = dk.DeviceKeyIndex(initial_capacity=capacity, device=device)
     dki.ensure_loaded(ki)
-    batch = np.concatenate([keys, rng.integers(2 ** 62, 2 ** 63 - 1, 3000)])
-    planes = [torch.from_numpy(a).to(cuda_device)
-              for a in dki.prepare_batch(batch)]
+    return ki, dki
+
+
+def test_probe_kernel_equals_torch_probe(cuda_device):
+    """Seen, unseen, negative and extreme keys (half of the extremes in the
+    table, half not); the kernel hashes on the card."""
+    rng = np.random.default_rng(1234)
+    keys = np.concatenate([rng.integers(-2 ** 62, 2 ** 62, 20000),
+                           _EXTREMES[::2]]).astype(np.int64)
+    ki, dki = _loaded_table(cuda_device, keys)
+    batch = np.concatenate([keys, rng.integers(2 ** 62, 2 ** 63 - 1, 3000),
+                            -rng.integers(1, 2 ** 62, 3000), _EXTREMES])
+    rng.shuffle(batch)
+    kt = torch.from_numpy(batch).to(cuda_device)
     before = dk.probe.launches
-    got = dk.probe(*dki.table(), *planes)
+    got = dk.probe(dki.buckets, kt)
     torch.cuda.synchronize()
     assert dk.probe.launches == before + 1
-    assert torch.equal(got, dk.torch_probe(*dki.table(), *planes))
+    assert torch.equal(got, dk.torch_probe(dki.buckets, kt))
     assert np.array_equal(got.cpu().numpy(), ki.lookup(batch))
 
 
-@pytest.mark.parametrize("value_kind", ["float", "int"])
-def test_probe_fold_kernel_equals_torch_probe_fold(cuda_device, value_kind):
-    """The fused kernel on the card against the plain version on CPU copies
-    of the same tensors: ``slot``, ``dcnt`` and ``dsum`` bit for bit (the
-    fold keeps row order per cell), with unseen keys, one hot cell and rows
-    past ``b``."""
-    rng = np.random.default_rng(99)
-    seen = rng.integers(-2 ** 62, 2 ** 62, 20000).astype(np.int64)
-    ki = KeyIndex()
-    ki.lookup_or_insert(seen)
-    dki = dk.DeviceKeyIndex(initial_capacity=1 << 10, device=cuda_device)
-    dki.ensure_loaded(ki)
-    n, P = 60000, 16
+def _fold_case(rng, case, value_kind):
+    """(seen keys, flush keys, pane slots, b, n_cells, P) of one case."""
+    P = 16
+    seen = np.concatenate([rng.integers(-2 ** 62, 2 ** 62, 20000),
+                           _EXTREMES]).astype(np.int64)
+    n = 60000
     keys = seen[rng.integers(0, seen.size, n)]
     keys[rng.random(n) < 0.1] = rng.integers(2 ** 62, 2 ** 63 - 1)
-    keys[rng.random(n) < 0.1] = seen[3]
     panes = rng.integers(0, P, n).astype(np.int32)
-    if value_kind == "float":
-        vals = (rng.standard_normal(n) * 10).astype(np.float32)
-        dsum = rng.standard_normal(32768 * P)
+    n_cells, b = 32768 * P, n - 700
+    if case == "hot_cell":          # one cell's run spans many fold chunks
+        hot = rng.random(n) < 0.25
+        keys[hot] = seen[3]
+        panes[hot] = 5
+    elif case == "many_tiles":      # 1024 tiles of 256 cells, all used
+        n_cells = 1 << 18
+    elif case == "empty_tiles":     # cells in a few tiles only
+        keys = seen[rng.integers(0, 40, n)]
+    elif case == "sparse_last_tile":   # n_cells not a multiple of the tile
+        n_cells = 20021 * P + 3
+    elif case == "outside":         # cells past n_cells, negative panes
+        n_cells = 7000 * P + 9
+        panes[rng.random(n) < 0.05] = -1
+    return seen, keys, panes, b, n_cells, P
+
+
+@pytest.mark.parametrize("value_kind", ["f32", "f64", "i32", "i64"])
+@pytest.mark.parametrize("case", ["uniform", "hot_cell", "many_tiles",
+                                  "empty_tiles", "sparse_last_tile",
+                                  "outside"])
+def test_probe_fold_kernel_equals_torch_probe_fold(cuda_device, case,
+                                                   value_kind):
+    """The fused kernels on the card against the plain version on CPU copies
+    of the same tensors: ``slot``, ``dcnt`` and ``dsum`` bit for bit (the
+    fold keeps row order per cell), with unseen keys, rows past ``b``, and
+    per case a hot cell longer than a fold chunk, cells over all 1024 tiles,
+    tiles left empty, a short last tile, and cells outside the planes."""
+    rng = np.random.default_rng(99)
+    seen, keys, panes, b, n_cells, P = _fold_case(rng, case, value_kind)
+    _ki, dki = _loaded_table(cuda_device, seen)
+    n = keys.size
+    vals = {"f32": (rng.standard_normal(n) * 10).astype(np.float32),
+            "f64": rng.standard_normal(n) * 10,
+            "i32": rng.integers(-1000, 1000, n).astype(np.int32),
+            "i64": rng.integers(-2 ** 40, 2 ** 40, n)}[value_kind]
+    if value_kind.startswith("f"):
+        dsum = rng.standard_normal(n_cells)
     else:
-        vals = rng.integers(-1000, 1000, n).astype(np.int32)
-        dsum = rng.integers(-10 ** 6, 10 ** 6, 32768 * P).astype(np.int64)
-    dcnt = rng.integers(0, 5, 32768 * P).astype(np.int32)
-    args = [*dki.table(),
-            *(torch.from_numpy(a).to(cuda_device)
-              for a in (*dki.prepare_batch(keys), panes))]
-    cpu_args = [a.cpu() for a in args]
+        dsum = rng.integers(-10 ** 6, 10 ** 6, n_cells).astype(np.int64)
+    dcnt = rng.integers(0, 5, n_cells).astype(np.int32)
+    bits, tiles, _ = dk.fold_plan(n, n_cells)
+    if case == "many_tiles":
+        assert tiles == dk.FOLD_MAX_TILES
+    if case == "sparse_last_tile":
+        assert n_cells % (1 << bits)
+    cpu = [torch.from_numpy(a) for a in (keys, panes, vals)]
+    args = [t.to(cuda_device) for t in cpu]
     before = dk.probe_fold.launches
-    got = dk.probe_fold(*args, n - 700, torch.from_numpy(vals).to(cuda_device),
+    got = dk.probe_fold(dki.buckets, args[0], args[1], b, args[2],
                         torch.from_numpy(dsum).to(cuda_device),
                         torch.from_numpy(dcnt).to(cuda_device), P)
     torch.cuda.synchronize()
     assert dk.probe_fold.launches == before + 1
-    want = dk.torch_probe_fold(*cpu_args, n - 700, torch.from_numpy(vals),
+    want = dk.torch_probe_fold(dki.buckets.cpu(), cpu[0], cpu[1], b, cpu[2],
                                torch.from_numpy(dsum.copy()),
                                torch.from_numpy(dcnt.copy()), P)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[2].cpu(), want[2])
     assert np.array_equal(got[1].cpu().numpy().view(np.int64),
                           want[1].numpy().view(np.int64))
+    folded = want[2].numpy().astype(np.int64) - dcnt
+    assert folded.sum() > 0
+    if case == "hot_cell":
+        assert folded.max() > 4 * 2048, "the hot run fits one fold chunk"
+    if case == "empty_tiles":
+        per_tile = np.bincount(np.flatnonzero(folded) >> bits,
+                               minlength=tiles)
+        assert (per_tile == 0).sum() > tiles // 2
 
 
 def _run(device, **kw):

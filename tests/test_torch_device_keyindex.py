@@ -2,8 +2,11 @@
 of ``flink_tpu_torch`` against ``flink_tpu/state/device_keyindex.py``.
 
 The JAX side of the probe is ``lax_probe`` under ``jax.jit`` (the Pallas
-kernels are gated to TPU backends); the port side is ``torch_probe`` through
-the ``probe`` wrapper on CPU tensors.  Slots are int32 and compared exactly.
+kernels are gated to TPU backends) over the JAX package's host-made
+``(key_lo, key_hi, start)`` planes; the port side is ``torch_probe`` through
+the ``probe`` wrapper on CPU tensors, over the port's interleaved bucket
+array and the int64 keys, which it hashes with ``torch_mix64``.  Slots are
+int32 and compared exactly.
 The fused probe + fold is held to what ``pallas_probe_fold``'s docstring
 names as its spec: ``lax_probe`` + ``ops.scatter.scatter_fold_counts``, run
 step by step under ``jax.enable_x64``; the port's plain version runs once
@@ -20,9 +23,11 @@ import torch
 
 from flink_tpu.state import device_keyindex as jdk
 from flink_tpu.state.keyindex import KeyIndex as JaxKeyIndex
+from flink_tpu.state.keyindex import _mix64 as jax_mix64
 from flink_tpu_torch.kernels import build
 from flink_tpu_torch.state import device_keyindex as tdk
 from flink_tpu_torch.state.keyindex import KeyIndex
+from flink_tpu_torch.state.keyindex import _mix64 as port_mix64
 
 
 def _lax(planes, klo, khi, start):
@@ -32,9 +37,7 @@ def _lax(planes, klo, khi, start):
 
 
 def _torch(dki, keys):
-    klo, khi, start = dki.prepare_batch(keys)
-    return tdk.probe(*dki.table(), *(torch.from_numpy(a)
-                                     for a in (klo, khi, start))).numpy()
+    return tdk.probe(dki.buckets, torch.from_numpy(keys)).numpy()
 
 
 def _keys(rng, n):
@@ -49,6 +52,76 @@ def test_split_keys_and_starts_bit_equal(rng, cap):
         assert a.dtype == b.dtype == np.int32 and np.array_equal(a, b)
     a, b = tdk.probe_starts(keys, cap), jdk.probe_starts(keys, cap)
     assert a.dtype == b.dtype == np.int32 and np.array_equal(a, b)
+
+
+_EXTREMES = np.array([0, 1, -1, 2, -2, 2 ** 31 - 1, -2 ** 31, 2 ** 32,
+                      -2 ** 32, 2 ** 62, 2 ** 63 - 1, -2 ** 63,
+                      -2 ** 63 + 1], np.int64)
+
+
+@pytest.mark.parametrize("kind", ["random", "negative", "extreme"])
+def test_torch_mix64_bit_equal_numpy(rng, kind):
+    """The torch hash (int64 arithmetic, masked shifts, signed multipliers)
+    gives numpy's uint64 ``_mix64`` bit for bit, the port's and the JAX
+    package's alike."""
+    keys = {"random": rng.integers(-2 ** 63, 2 ** 63 - 1, 20000,
+                                   dtype=np.int64, endpoint=True),
+            "negative": -rng.integers(1, 2 ** 63 - 1, 20000,
+                                      dtype=np.int64),
+            "extreme": np.concatenate([_EXTREMES, _EXTREMES + 7,
+                                       _EXTREMES - 7])}[kind]
+    got = tdk.torch_mix64(torch.from_numpy(keys)).numpy().view(np.uint64)
+    u = keys.view(np.uint64)
+    assert np.array_equal(got, port_mix64(u))
+    assert np.array_equal(got, jax_mix64(u))
+
+
+@pytest.mark.parametrize("cap", [1 << 10, 1 << 16, 1 << 21, 1 << 30])
+def test_torch_starts_equal_jax_prepare_batch(rng, cap):
+    """The plain versions' bucket starts equal the JAX package's host
+    starts, and the start plane of its ``prepare_batch`` (not built at
+    2^30, whose table would take 12 GiB)."""
+    keys = np.concatenate([_keys(rng, 5000), _EXTREMES])
+    got = tdk.torch_probe_starts(torch.from_numpy(keys), cap).numpy()
+    assert got.dtype == np.int64
+    assert np.array_equal(got, jdk.probe_starts(keys, cap))
+    assert np.array_equal(got, tdk.probe_starts(keys, cap))
+    if cap <= 1 << 21:
+        ref = jdk.DeviceKeyIndex(initial_capacity=cap)
+        assert ref.capacity == cap
+        assert np.array_equal(got, ref.prepare_batch(keys)[2])
+
+
+def test_bucket_keys_round_trip(rng):
+    keys = np.concatenate([_keys(rng, 3000), _EXTREMES])
+    rows = np.zeros((keys.size, 4), np.int32)
+    rows[:, 0], rows[:, 1] = tdk.split_keys(keys)
+    assert np.array_equal(tdk.bucket_keys(torch.from_numpy(rows)).numpy(),
+                          keys)
+
+
+def test_buckets_columns_equal_jax_planes_through_growth(rng):
+    """Waves of inserts with sticky growth from 2^10: after each wave the
+    port's bucket rows are (lo, hi, slot1, 0) and their columns equal the
+    JAX table's planes, loaded from one KeyIndex."""
+    ki = JaxKeyIndex()
+    port = tdk.DeviceKeyIndex(initial_capacity=1 << 10, device="cpu")
+    ref = jdk.DeviceKeyIndex(initial_capacity=1 << 10)
+    caps = []
+    for wave in range(4):
+        ki.lookup_or_insert(np.concatenate([_keys(rng, 1500),
+                                            _EXTREMES[wave::4]]))
+        assert port.ensure_loaded(ki) == ref.ensure_loaded(ki) > 0
+        assert port.capacity == ref.capacity
+        caps.append(port.capacity)
+        assert port.buckets.shape == (port.capacity, 4)
+        assert port.buckets.dtype == torch.int32
+        assert port.buckets.is_contiguous()
+        assert not port.buckets[:, 3].any()
+        for p, r in zip(port.table(), ref.table()):
+            assert p.data_ptr() >= port.buckets.data_ptr()   # a view
+            assert np.array_equal(p.numpy(), np.asarray(r)), f"wave {wave}"
+    assert caps == sorted(caps) and caps[-1] > caps[0]
 
 
 def test_planes_equal_jax_from_same_key_index(rng):
@@ -129,16 +202,18 @@ def test_probe_on_cpu_tensors_counts_no_launch(rng):
 
 
 def test_probe_checks_its_arguments():
-    z = torch.zeros(1024, dtype=torch.int32)
-    k = torch.zeros(8, dtype=torch.int32)
+    z = torch.zeros((1024, 4), dtype=torch.int32)
+    k = torch.zeros(8, dtype=torch.int64)
     with pytest.raises(TypeError):
-        tdk.probe(z, z, z, k, k, k.to(torch.int64))
+        tdk.probe(z, k.to(torch.int32))                    # int32 keys
+    with pytest.raises(TypeError):
+        tdk.probe(z[:, :3], k)                             # not [cap, 4]
+    with pytest.raises(TypeError):
+        tdk.probe(z.t().contiguous().t(), k)               # not contiguous
     with pytest.raises(ValueError):
-        tdk.probe(z[:1000], z[:1000], z[:1000], k, k, k)   # not pow2
+        tdk.probe(z[:1000], k)                             # not pow2
     with pytest.raises(ValueError):
-        tdk.probe(z, z, z, k, k, k[:4])                    # ragged
-    with pytest.raises(ValueError):
-        tdk.probe(z, z, z, k, k, torch.zeros(16, dtype=torch.int32)[::2])
+        tdk.probe(z, torch.zeros(16, dtype=torch.int64)[::2])
 
 
 def test_build_module_imports_without_nvcc(monkeypatch, tmp_path):
@@ -207,7 +282,7 @@ def _fold_inputs(rng, value_kind):
             vals = (rng.standard_normal(n) * 10).astype(np.float32)
         else:
             vals = rng.integers(-1000, 1000, n).astype(np.int32)
-        steps.append((*dki.prepare_batch(keys), panes, vals))
+        steps.append((keys, panes, vals))
     if value_kind == "float":
         dsum = rng.standard_normal(n_cells) * 3
     else:
@@ -226,11 +301,12 @@ def _jax_steps(dki, steps, dsum, dcnt):
     slots = []
     with jax.enable_x64(True):
         js, jc = jnp.asarray(dsum), jnp.asarray(dcnt)
-        for i, (klo, khi, start, panes, vals) in enumerate(steps):
-            b = B_LAST if i == len(steps) - 1 else len(klo)
+        for i, (keys, panes, vals) in enumerate(steps):
+            b = B_LAST if i == len(steps) - 1 else len(keys)
+            klo, khi, start = dki.prepare_batch(keys)
             slot = probe_fn(*tab, jnp.asarray(klo), jnp.asarray(khi),
                             jnp.asarray(start))
-            hit = (jnp.arange(len(klo)) < b) & (slot >= 0)
+            hit = (jnp.arange(len(keys)) < b) & (slot >= 0)
             flat = jnp.where(hit, slot * P_FOLD + jnp.asarray(panes), _PAD_ID)
             (js,), jc = scatter_fold_counts((js,), jc, flat,
                                             (jnp.asarray(vals),), ("add",))
@@ -250,8 +326,8 @@ def test_torch_probe_fold_equals_jax_steps(rng, value_kind):
     b = sum(STEPS) - (STEPS[-1] - B_LAST)
     before = tdk.probe_fold.launches
     slot, got_sum, got_cnt = tdk.probe_fold(
-        *dki.table(), *cat[:4], b, cat[4], torch.from_numpy(dsum.copy()),
-        torch.from_numpy(dcnt.copy()), P_FOLD)
+        dki.buckets, cat[0], cat[1], b, cat[2],
+        torch.from_numpy(dsum.copy()), torch.from_numpy(dcnt.copy()), P_FOLD)
     assert tdk.probe_fold.launches == before        # CPU: the plain version
     assert np.array_equal(slot.numpy(), want_slot)
     assert (slot.numpy() < 0).sum() > 0 and (slot.numpy() >= 0).sum() > 0
@@ -275,17 +351,59 @@ def test_probe_fold_gate(kinds, dtype, want):
 
 
 def test_probe_fold_checks_its_arguments():
-    z = torch.zeros(1024, dtype=torch.int32)
-    k = torch.zeros(8, dtype=torch.int32)
+    z = torch.zeros((1024, 4), dtype=torch.int32)
+    k = torch.zeros(8, dtype=torch.int64)
+    p = torch.zeros(8, dtype=torch.int32)
     v = torch.zeros(8, dtype=torch.float32)
     s, c = torch.zeros(64, dtype=torch.float64), torch.zeros(64,
                                                              dtype=torch.int32)
     with pytest.raises(TypeError):                  # f32 delta planes
-        tdk.probe_fold(z, z, z, k, k, k, k, 8, v, s.float(), c, 4)
+        tdk.probe_fold(z, k, p, 8, v, s.float(), c, 4)
+    with pytest.raises(TypeError):                  # int32 keys
+        tdk.probe_fold(z, p, p, 8, v, s, c, 4)
     with pytest.raises(ValueError):                 # b past the rows
-        tdk.probe_fold(z, z, z, k, k, k, k, 9, v, s, c, 4)
+        tdk.probe_fold(z, k, p, 9, v, s, c, 4)
     with pytest.raises(ValueError):                 # dcnt not int32
-        tdk.probe_fold(z, z, z, k, k, k, k, 8, v, s, c.long(), 4)
+        tdk.probe_fold(z, k, p, 8, v, s, c.long(), 4)
     with pytest.raises(ValueError):                 # ragged values
-        tdk.probe_fold(z, z, z, k, k, k, k, 8, v[:4], s, c, 4)
+        tdk.probe_fold(z, k, p, 8, v[:4], s, c, 4)
+    with pytest.raises(ValueError):                 # int64 pane slots
+        tdk.probe_fold(z, k, k, 8, v, s, c, 4)
+    with pytest.raises(ValueError):                 # pane_mod past int32
+        tdk.probe_fold(z, k, p, 8, v, s, c, 2 ** 31)
 
+
+@pytest.mark.parametrize("n_rows,n_cells", [
+    (0, 0), (1, 1), (100, 255), (5000, 4096), (4097, 16384),
+    (60000, 32768 * 16), (2_093_056, 1 << 24), (10, (1 << 24) + 1),
+    (10, 2 ** 31 - 1)])
+def test_fold_plan(n_rows, n_cells):
+    """Tiles of at least 2^8 cells, at most 1024 of them, covering every
+    cell (the last may be short); blocks of 4096 rows covering every row."""
+    bits, tiles, blocks = tdk.fold_plan(n_rows, n_cells)
+    assert bits >= tdk.FOLD_MIN_TILE_BITS
+    assert tiles <= tdk.FOLD_MAX_TILES
+    assert (tiles - 1) << bits < n_cells <= tiles << bits or tiles == 0
+    assert (blocks - 1) * tdk.FOLD_BLOCK_ROWS < n_rows \
+        <= blocks * tdk.FOLD_BLOCK_ROWS or blocks == n_rows == 0
+    if n_cells == 1 << 24:
+        assert (bits, tiles, blocks) == (14, 1024, 511)
+
+
+@pytest.mark.parametrize("dtype,words", [(torch.float32, 2),
+                                         (torch.int32, 2),
+                                         (torch.float64, 4),
+                                         (torch.int64, 4)])
+def test_probe_fold_scratch_shapes(dtype, words):
+    """The scratch ``csrc/probe_fold.cu`` writes: a cell id per row, the
+    count matrix, the tiles' bases, and an 8- or 16-byte partitioned row
+    per row."""
+    n, n_cells = 5000, 70000
+    sc = tdk.probe_fold_scratch(n, n_cells, torch.zeros(n, dtype=dtype))
+    bits, tiles, blocks = tdk.fold_plan(n, n_cells)
+    assert sc["tile_bits"] == bits
+    assert sc["cell"].shape == (n,) and sc["cell"].dtype == torch.int32
+    assert sc["counts"].shape == (blocks * tiles,)
+    assert sc["tile_base"].shape == (tiles + 2,)
+    assert sc["part"].shape == (n, words) and sc["part"].dtype == torch.int32
+    assert sc["part"].is_contiguous() and sc["part"].data_ptr() % 16 == 0

@@ -39,6 +39,7 @@ from flink_tpu_torch.core.functions import RuntimeContext, SumAggregator
 from flink_tpu_torch.interop import snapshot_from_jax, snapshot_to_jax
 from flink_tpu_torch.operators import window_agg as port_window_agg
 from flink_tpu_torch.operators.window_agg import WindowAggOperator
+from flink_tpu_torch.state import device_keyindex as port_dki
 from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
 
 RTOL = ATOL = 1e-6
@@ -301,7 +302,7 @@ def test_probe_fold_carries_the_deferred_fused_lane(monkeypatch, sync,
     real = port_window_agg.probe_fold
 
     def counting(*args):
-        calls.append(args[7])                       # b: the block's rows
+        calls.append(args[3])                       # b: the block's rows
         return real(*args)
 
     monkeypatch.setattr(port_window_agg, "probe_fold", counting)
@@ -311,6 +312,42 @@ def test_probe_fold_carries_the_deferred_fused_lane(monkeypatch, sync,
     assert scans > 0
     assert len(calls) == (scans if want_calls else 0)
     assert all(b > 4000 for b in calls), "a call covered a single batch"
+
+
+@pytest.mark.parametrize("sync,superbatch", [("scatter", 1),
+                                             ("deferred", 4),
+                                             ("scatter", 4)])
+def test_probe_lane_hashes_no_record_on_the_host(monkeypatch, sync,
+                                                 superbatch):
+    """The card hashes the keys: over a whole probe-lane run the host hashes
+    (``probe_starts``) and splits (``split_keys``) only the keys it inserts
+    into the device table, never a batch's records."""
+    hashed, split, placed = [], [], []
+    for name, log in (("probe_starts", hashed), ("split_keys", split)):
+        real = getattr(port_dki, name)
+
+        def counting(keys, *rest, _real=real, _log=log):
+            _log.append(int(np.asarray(keys).size))
+            return _real(keys, *rest)
+
+        monkeypatch.setattr(port_dki, name, counting)
+    real_place = port_dki.DeviceKeyIndex._place
+
+    def placing(self, keys):
+        placed.append(int(keys.size))
+        return real_place(self, keys)
+
+    monkeypatch.setattr(port_dki.DeviceKeyIndex, "_place", placing)
+    op = _port_op(device_sync=sync, superbatch=superbatch, device_probe="on")
+    _drive(op, BATCHES)
+    records = sum(len(b[0]) for b in BATCHES)
+    stats = op.device_probe_stats()
+    assert stats["probe_hits"] + stats["probe_misses"] == records
+    assert stats["probe_hits"] > records // 2
+    assert sum(placed) >= op.key_index.num_keys > 0
+    assert sum(hashed) == sum(placed), "a record was hashed on the host"
+    assert sum(split) == sum(placed), "a record was split on the host"
+    assert sum(hashed) < records // 2
 
 
 def test_watermark_fast_path_keeps_batches_staged():
