@@ -7,8 +7,9 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build of every kernel of the port's main paths from
-   ``flink_tpu_torch/csrc`` with nvcc (``sm_90a``), one nvcc per source, all
-   started together;
+   ``flink_tpu_torch/csrc`` with nvcc (``sm_90a``), one nvcc per source, and
+   of the C host layer (``csrc/host_mirror.cc``: the keydict and the window
+   value mirror) with g++, all started together;
 3. kernel phase, probe: the device key probe (``csrc/probe.cu``, which
    hashes the int64 keys on the card) at the main path's shapes — a table of
    1M keys at capacity 2^21 (an interleaved ``[cap, 4]`` bucket array),
@@ -32,6 +33,20 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``device_sync="deferred"``, ``superbatch=8``: the same checks, plus
    launches of ``probe_fold`` and a scan depth above 1;
 7. restore and replay of path 2, as in phase 5;
+7a. main paths 3 and 4: paths 1 and 2 with ``native_emit=True`` and
+   ``native_shards = min(4, os.cpu_count())``: the key index and the host
+   mirror are the C layer's, so each pair differs only in the mirror.  The
+   same checks, plus: the C mirror is active, both kernels still launch,
+   and every fire equals its numpy twin's (same keys in the same order,
+   values to rtol 1e-6; the card's unordered f64 atomics in the delta fold
+   allow no more).  Each is restored and replayed as in phase 5.  The paths
+   run in the order 1, 3, 2, 4, so each pair runs back to back;
+7b. host layer phase: the C layer's calls at the main paths' sizes, on the
+   host's clock (median of 5): the probe + mirror pass over one batch of
+   2^18 records into a warm 1M-key keydict at 1 and at ``native_shards``
+   threads, beside the numpy ``KeyIndex.lookup_or_insert`` of the same
+   keys; ``apply_delta`` of a 1M-row delta column into a pane whose pages
+   are fresh and into one already touched; one fire sweep over 1M rows;
 8. kernel phase, probe_fold: the fused probe + ordered fold
    (``csrc/probe_fold.cu``) at the fused lane's shapes — the same table, one
    flush of 8 staged batches of 2^18 records (the last one short, about 10%
@@ -45,16 +60,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    timed beside the uniform one (a check of the kernel, not a main path).
 
 Each main path runs with every launch count set to 0 just before it and
-read just after; the kernel line reports the probe's launches from path 1
-and probe_fold's from path 2.  Then one JSON line of kernel numbers, the
-nvidia-smi line, and, last, ``{"ok": true, "device": {...}}``.  Imports
-nothing of JAX.
+read just after; the kernel line reports each kernel's launches on every
+path (``launches_by_path``) and their sum (``launches``).  Then one JSON
+line of kernel numbers, the nvidia-smi line, and, last,
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -79,12 +95,24 @@ RTOL = 1e-6   # path 1's f64 atomics fold in no fixed order: ~1e-16 relative
 
 #: the kernels of the main paths, built together in phase 2
 SOURCES = ("probe.cu", "probe_fold.cu")
+#: the C host layer of paths 3 and 4, built beside them with g++
+HOST_SOURCE = "host_mirror.cc"
+#: host threads of the C probe + fold pass on paths 3 and 4 (pinned)
+NATIVE_SHARDS = min(4, os.cpu_count() or 1)
 
-#: the two main paths: slice 1's per-batch scatter lane, slice 2's fused lane
+#: the main paths: slice 1's per-batch scatter lane, slice 2's fused lane,
+#: and each of them on the C host layer (slice 4)
 PATHS = {
     "path 1": dict(device_sync="scatter", superbatch=1),
     "path 2": dict(device_sync="deferred", superbatch=SUPERBATCH),
+    "path 3": dict(device_sync="scatter", superbatch=1, native_emit=True),
+    "path 4": dict(device_sync="deferred", superbatch=SUPERBATCH,
+                   native_emit=True),
 }
+#: each native path's numpy twin
+TWIN = {"path 3": "path 1", "path 4": "path 2"}
+#: run order: each numpy/C pair back to back
+ORDER = ("path 1", "path 3", "path 2", "path 4")
 
 
 def fail(msg: str) -> None:
@@ -196,17 +224,25 @@ def bound(bytes_: int, int_ops: int, f64_ops: int = 0):
 
 
 def build_kernels():
-    """Phase 2: one nvcc per source, started together, then load each."""
+    """Phase 2: one nvcc per source and g++ for the host layer, started
+    together, then load each."""
     from flink_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        list(pool.map(build.build, SOURCES))
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        list(pool.map(lambda f: f(), [lambda s=s: build.build(s)
+                                      for s in SOURCES]
+                      + [lambda: build.build_host(HOST_SOURCE)]))
     build.probe_lib()
     build.probe_fold_lib()
-    print(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s "
-          f"wall (nvcc " + ", ".join(
+    host = build.host_mirror_lib()
+    print(f"build: {', '.join(SOURCES)}, {HOST_SOURCE} in "
+          f"{time.perf_counter() - t0:.2f} s wall (nvcc " + ", ".join(
               f"{s} {build.build_seconds.get(s, 0.0):.2f} s"
-              for s in SOURCES) + ")")
+              for s in SOURCES) + f"; g++ {HOST_SOURCE} "
+          f"{build.build_seconds.get(HOST_SOURCE, 0.0):.2f} s)")
+    print(f"host layer: ftt_hw_threads() = {host.ftt_hw_threads()}, "
+          f"os.cpu_count() = {os.cpu_count()}, native_shards = "
+          f"{NATIVE_SHARDS} on paths 3 and 4")
     for s in SOURCES:
         print(f"ptxas {s}: " + build.ptxas_report.get(s, "(cached)")
               .replace("\n", " | "))
@@ -469,7 +505,60 @@ def probe_fold_phase(device, rng, dki):
             "library_ms": None}
 
 
-def build_op(device, device_sync: str, superbatch: int):
+def host_ms(fn, runs: int = 5, setup=None) -> float:
+    """Median host wall ms of ``fn()`` over ``runs`` calls, each after
+    ``setup()`` if given (untimed)."""
+    times = []
+    for _ in range(runs):
+        if setup is not None:
+            setup()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def host_layer_phase(rng):
+    """Phase 7b: the C layer's calls timed alone on this host."""
+    from flink_tpu_torch.core.functions import SumAggregator
+    from flink_tpu_torch.state.keyindex import KeyIndex, NativeKeyIndex
+    from flink_tpu_torch.state.native_mirror import NativeWindowMirror
+
+    warm = rng.permutation(N_KEYS).astype(np.int64)
+    keys = rng.integers(0, N_KEYS, BATCH).astype(np.int64)
+    vals = rng.random(BATCH).astype(np.float32)
+    panes = np.zeros(BATCH, np.int64)
+    nki = NativeKeyIndex(initial_capacity=2 * KEY_CAPACITY)
+    nm = NativeWindowMirror.create(nki, SumAggregator().acc_spec(), ("add",),
+                                   (np.float64,))
+    nm.probe_update(warm, np.zeros(N_KEYS, np.int64),
+                    [np.zeros(N_KEYS, np.float32)])
+    pass_ms = {s: host_ms(lambda s=s: nm.probe_update(keys, panes, [vals],
+                                                      shards=s))
+               for s in sorted({1, NATIVE_SHARDS})}
+    ki = KeyIndex(initial_capacity=2 * KEY_CAPACITY)
+    ki.lookup_or_insert(warm)
+    numpy_ms = host_ms(lambda: ki.lookup_or_insert(keys))
+    cnt = np.ones(N_KEYS, np.int64)
+    col = rng.random(N_KEYS)
+    fresh = iter(range(1000, 2000))
+    pane = [0]
+    fresh_ms = host_ms(lambda: nm.apply_delta(pane[0], cnt, [col]),
+                       setup=lambda: pane.__setitem__(0, next(fresh)))
+    touched_ms = host_ms(lambda: nm.apply_delta(0, cnt, [col]))
+    fire_ms = host_ms(lambda: nm.fire(np.zeros(1, np.int64)))
+    print(f"host layer: probe + mirror pass over {BATCH} records into a "
+          f"warm {N_KEYS}-key keydict: " + ", ".join(
+              f"{v:.3f} ms at {k} shard(s)" for k, v in pass_ms.items())
+          + f"; numpy KeyIndex.lookup_or_insert of the same keys "
+          f"{numpy_ms:.3f} ms (no mirror fold)")
+    print(f"host layer: apply_delta of {N_KEYS} rows into a fresh pane "
+          f"{fresh_ms:.3f} ms, into a touched pane {touched_ms:.3f} ms; one "
+          f"fire sweep over {N_KEYS} rows {fire_ms:.3f} ms")
+
+
+def build_op(device, device_sync: str, superbatch: int,
+             native_emit: bool = False):
     import torch
 
     from flink_tpu_torch.core.functions import RuntimeContext, SumAggregator
@@ -479,7 +568,8 @@ def build_op(device, device_sync: str, superbatch: int):
         TumblingEventTimeWindows.of(WINDOW_MS), SumAggregator(torch.float32),
         key_column="k", value_column="v", initial_key_capacity=KEY_CAPACITY,
         emit_tier="host", snapshot_source="mirror", device_sync=device_sync,
-        device_probe="on", superbatch=superbatch, device=device)
+        device_probe="on", superbatch=superbatch, native_emit=native_emit,
+        native_shards=NATIVE_SHARDS if native_emit else 0, device=device)
     op.open(RuntimeContext())
     return op
 
@@ -522,10 +612,26 @@ def check_fires(fired, expect, label):
               f"abs {np.max(np.abs(res - sums[keys]))})")
 
 
+def check_twin(fired, twin, label):
+    """A native path's fires against its numpy twin's: the same windows,
+    keys in the same (slot) order, values to RTOL."""
+    check(len(fired) == len(twin), f"{label}: {len(fired)} fires, its twin "
+          f"{len(twin)}")
+    for a, b in zip(fired, twin):
+        w = int(a.column("window_start")[0])
+        check(w == int(b.column("window_start")[0])
+              and np.array_equal(np.asarray(a.column("k")),
+                                 np.asarray(b.column("k"))),
+              f"{label} window {w}: keys differ from the numpy twin's")
+        check(np.allclose(np.asarray(a.column("result")),
+                          np.asarray(b.column("result")), rtol=RTOL, atol=0),
+              f"{label} window {w}: values differ from the numpy twin's")
+
+
 def main_path(device, batches, expect, label):
     """Drive one main path with every launch count at 0 just before and
     read just after; returns (launches per kernel, first snapshot, digests
-    of the fires after it)."""
+    of the fires after it, every fire, the path's numbers)."""
     import torch
 
     from flink_tpu_torch.core.batch import RecordBatch, Watermark
@@ -568,6 +674,13 @@ def main_path(device, batches, expect, label):
     fused = op.fused_stats()
     check_fires(fired, expect, label)
     check(stats["probe_hits"] > 0, f"{label}: the probe never hit")
+    native = bool(PATHS[label].get("native_emit"))
+    check(op.native_mirror_active == native,
+          f"{label}: native_mirror_active is {op.native_mirror_active}")
+    check(native or "probe_mirror" in op.phase_ns and "mirror" in op.phase_ns,
+          f"{label}: the numpy lane's phases are missing")
+    check(not native or "mirror" not in op.phase_ns,
+          f"{label}: the C lane ran a numpy mirror fold")
     if PATHS[label]["superbatch"] > 1:
         check(launches["probe_fold"] > 0,
               f"{label} never launched the probe_fold kernel")
@@ -584,19 +697,23 @@ def main_path(device, batches, expect, label):
           f"= {n_records / elapsed:.1f} records/s; {len(fired)} windows "
           f"fired and matched the numpy reference (rtol {RTOL}); launches "
           f"{launches}; probe hits {stats['probe_hits']}, misses "
-          f"{stats['probe_misses']}")
+          f"{stats['probe_misses']}; native_mirror_active "
+          f"{op.native_mirror_active}")
     if fused["scan_dispatches"]:
         print(f"{label} fused lane: {fused}; scan depth "
               f"{fused['scan_steps'] / fused['scan_dispatches']:.3f} "
               f"batches per one-step pass")
+    p50, p99 = np.percentile(fire_ms, 50), np.percentile(fire_ms, 99)
     print(f"{label} fire latency ms over {len(fire_ms)} fires: p50 "
-          f"{np.percentile(fire_ms, 50):.3f} p99 "
-          f"{np.percentile(fire_ms, 99):.3f}")
+          f"{p50:.3f} p99 {p99:.3f}")
     print(f"{label} phase_ns: " + json.dumps(op.phase_ns, sort_keys=True))
     print(f"{label} phase_bytes: " + json.dumps(op.phase_bytes,
                                                 sort_keys=True))
     print(f"{label} peak device memory: {torch.cuda.max_memory_allocated()} B")
-    return launches, mid, digests(after_snap)
+    numbers = {"records_per_s": n_records / elapsed, "wall_s": elapsed,
+               "fire_p50_ms": p50, "fire_p99_ms": p99,
+               "phase_ms": {k: v / 1e6 for k, v in op.phase_ns.items()}}
+    return launches, mid, digests(after_snap), fired, numbers
 
 
 def _replay_once(device, batches, mid, label, prof=None):
@@ -673,17 +790,44 @@ def main() -> None:
     kernels = [kernel_phase(device, rng, ki, dki)]
     batches = make_batches(N_BATCHES * BATCH, N_KEYS, BATCH, WINDOW_MS)
     expect = reference(batches)
-    launches = {}
-    for label in PATHS:
-        launches[label], mid, after = main_path(device, batches, expect,
-                                                label)
+    launches, fires, numbers = {}, {}, {}
+    for label in ORDER:
+        launches[label], mid, after, fires[label], numbers[label] = \
+            main_path(device, batches, expect, label)
         check(mid is not None, f"{label}: no mid-run snapshot")
+        if label in TWIN:
+            check_twin(fires[label], fires[TWIN[label]], label)
+            print(f"{label} fires equal {TWIN[label]}'s: same keys in the "
+                  f"same order, values to rtol {RTOL}")
         replay(device, batches, mid, after, label)
+    del fires
+    for label, twin in TWIN.items():
+        a, b = numbers[label], numbers[twin]
+        host = lambda n: sum(n["phase_ms"].get(k, 0.0)  # noqa: E731
+                             for k in ("probe", "probe_mirror", "mirror"))
+        print(f"A/B {label} (C layer) vs {twin} (numpy), same batches, one "
+              f"process: records/s {a['records_per_s']:.1f} vs "
+              f"{b['records_per_s']:.1f} ({a['records_per_s'] / b['records_per_s']:.3f}x); "
+              f"probe/probe_mirror/mirror {host(a):.3f} vs {host(b):.3f} ms; "
+              f"fire {a['phase_ms'].get('fire', 0.0):.3f} vs "
+              f"{b['phase_ms'].get('fire', 0.0):.3f} ms (delta_sync "
+              f"{a['phase_ms'].get('delta_sync', 0.0):.3f} vs "
+              f"{b['phase_ms'].get('delta_sync', 0.0):.3f}); fire p50/p99 "
+              f"{a['fire_p50_ms']:.3f}/{a['fire_p99_ms']:.3f} vs "
+              f"{b['fire_p50_ms']:.3f}/{b['fire_p99_ms']:.3f} ms")
+    host_layer_phase(rng)
     # the fused kernel's phase runs last: its 2M-row CPU check and large
     # host tensors would otherwise perturb the paths' host-bound timings
     kernels.append(probe_fold_phase(device, rng, dki))
-    for label, kernel in zip(PATHS, kernels):
-        kernel["launches"] = launches[label][kernel["name"]]
+    for kernel in kernels:
+        by_path = {label: launches[label][kernel["name"]] for label in ORDER}
+        kernel["launches_by_path"] = by_path
+        kernel["launches"] = sum(by_path.values())
+    for label in ("path 1", "path 3"):
+        check(launches[label]["probe"] > 0, f"{label}: no probe launch")
+    for label in ("path 2", "path 4"):
+        check(launches[label]["probe_fold"] > 0,
+              f"{label}: no probe_fold launch")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,15 +10,17 @@ An aggregate is a commutative monoid over accumulators:
 Where the JAX package uses pytrees, the port uses plain Python structures:
 an accumulator is either one leaf (a tensor or numpy array) or a dict of
 leaves, flattened in sorted-key order (the order ``jax.tree_util`` uses), so
-leaf ``j`` here is leaf ``j`` there and snapshots line up.  This slice ports
-:class:`SumAggregator`; the other aggregates come with a later slice.
+leaf ``j`` here is leaf ``j`` there and snapshots line up.  The port carries
+the add/min/max aggregates (sum, min, max, count, average, and a tuple of
+them); JAX's x64 switch does not exist here, so the count is int32, the
+width JAX stores it in with x64 off.
 """
 
 from __future__ import annotations
 
 import abc
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -201,3 +203,144 @@ class SumAggregator(ReduceFunction):
     def scatter_kinds(self):
         return "add"
 
+
+
+def _extreme(dtype: torch.dtype, kind: str):
+    """The identity of min (``kind="min"``) or max: +-inf, or the integer
+    type's bound."""
+    if dtype.is_floating_point:
+        return float("inf") if kind == "min" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if kind == "min" else info.min
+
+
+class MinAggregator(ReduceFunction):
+    def __init__(self, dtype=torch.float32):
+        self._dtype = torch_dtype(dtype)
+
+    def identity(self):
+        return torch.tensor(_extreme(self._dtype, "min"), dtype=self._dtype)
+
+    def reduce(self, a, b):
+        return torch.minimum(a, b)
+
+    def scatter_kinds(self):
+        return "min"
+
+
+class MaxAggregator(ReduceFunction):
+    def __init__(self, dtype=torch.float32):
+        self._dtype = torch_dtype(dtype)
+
+    def identity(self):
+        return torch.tensor(_extreme(self._dtype, "max"), dtype=self._dtype)
+
+    def reduce(self, a, b):
+        return torch.maximum(a, b)
+
+    def scatter_kinds(self):
+        return "max"
+
+
+class CountAggregator(AggregateFunction):
+    """Records per key and window: an int32 count on the card, int64 in the
+    host mirror."""
+
+    def identity(self):
+        return torch.zeros((), dtype=torch.int32)
+
+    def lift(self, values):
+        leaf = tree_leaves(values)[0]
+        return torch.ones(leaf.shape[:1], dtype=torch.int32,
+                          device=leaf.device)
+
+    def combine(self, a, b):
+        return a + b
+
+    def host_lift(self, values):
+        leaf = tree_leaves(values)[0]
+        return np.ones(np.shape(leaf)[:1], np.int64)
+
+    def host_get_result(self, acc):
+        return acc
+
+    def scatter_kinds(self):
+        return "add"
+
+
+class AvgAggregator(AggregateFunction):
+    """Average: ACC = (sum, count)."""
+
+    def __init__(self, dtype=torch.float32):
+        self._dtype = torch_dtype(dtype)
+
+    def identity(self):
+        return {"sum": torch.zeros((), dtype=self._dtype),
+                "count": torch.zeros((), dtype=torch.int32)}
+
+    def lift(self, values):
+        v = values.to(self._dtype)
+        return {"sum": v, "count": torch.ones(v.shape[:1], dtype=torch.int32,
+                                              device=v.device)}
+
+    def combine(self, a, b):
+        return {"sum": a["sum"] + b["sum"], "count": a["count"] + b["count"]}
+
+    def get_result(self, acc):
+        return acc["sum"] / torch.clamp(acc["count"], min=1).to(self._dtype)
+
+    def host_lift(self, values):
+        v = np.asarray(values, np.float64)
+        return {"sum": v, "count": np.ones(v.shape[:1], np.int64)}
+
+    def host_get_result(self, acc):
+        cnt = np.maximum(np.asarray(acc["count"]), 1)
+        return np.asarray(acc["sum"]) / cnt
+
+    def scatter_kinds(self):
+        return {"sum": "add", "count": "add"}
+
+
+class TupleAggregator(AggregateFunction):
+    """Several aggregates over named value columns in one ACC dict:
+    ``aggs`` maps an output name to (value column, aggregate)."""
+
+    def __init__(self, aggs: Dict[str, Tuple[str, AggregateFunction]]):
+        self._aggs = aggs
+
+    def identity(self):
+        return {name: agg.identity() for name, (_, agg) in self._aggs.items()}
+
+    def lift(self, values):
+        return {name: agg.lift(values[col])
+                for name, (col, agg) in self._aggs.items()}
+
+    def combine(self, a, b):
+        return {name: agg.combine(a[name], b[name])
+                for name, (_, agg) in self._aggs.items()}
+
+    def get_result(self, acc):
+        return {name: agg.get_result(acc[name])
+                for name, (_, agg) in self._aggs.items()}
+
+    def host_lift(self, values):
+        return {name: agg.host_lift(values[col])
+                for name, (col, agg) in self._aggs.items()}
+
+    def host_get_result(self, acc):
+        return {name: agg.host_get_result(acc[name])
+                for name, (_, agg) in self._aggs.items()}
+
+    def supports_host_emit(self) -> bool:
+        return (self.scatter_kind_leaves() is not None
+                and all(agg.supports_host_emit()
+                        for _, agg in self._aggs.values()))
+
+    def scatter_kinds(self):
+        kinds = {}
+        for name, (_, agg) in self._aggs.items():
+            k = agg.scatter_kinds()
+            if k is None:
+                return None
+            kinds[name] = k
+        return kinds

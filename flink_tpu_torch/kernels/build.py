@@ -1,13 +1,17 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its native host
+layer.
 
 Each ``csrc/*.cu`` source is compiled with ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
 plain C interface, on first use, into ``flink_tpu_torch/_build/`` (listed in
-``.gitignore``).  The library's name carries a hash of its source and flags,
-so an edited source rebuilds and concurrent builds race benignly (write to
-a temporary name, then ``os.replace``).  Libraries are loaded with
-``ctypes``; nothing here runs at import time, so the CPU tests import this
-module on a machine with no ``nvcc``.
+``.gitignore``).  The host layer ``csrc/host_mirror.cc`` (the C keydict and
+the window value mirror) builds beside them with ``g++``
+(:func:`build_host`); it needs no card, so the CPU tests build and run it.
+A library's name carries a hash of its source and flags, so an edited
+source rebuilds and concurrent builds race benignly (write to a temporary
+name, then ``os.replace``).  Libraries are loaded with ``ctypes``; nothing
+here runs at import time, so the CPU tests import this module on a machine
+with no ``nvcc``.  A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -27,6 +31,12 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+              "-fvisibility=hidden")
+#: the host compiler of :func:`build_host`
+HOST_CXX = "g++"
+#: the native host layer's source
+HOST_SOURCE = "host_mirror.cc"
 
 #: where the CUDA toolkit installs nvcc when it is on neither path above
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
@@ -57,11 +67,18 @@ def find_nvcc() -> str:
                        "toolkit is installed")
 
 
+def _is_host(source: str) -> bool:
+    return source.endswith(".cc")
+
+
 def library_path(source: str) -> str:
     """Where ``csrc/<source>`` builds to: named by a hash of the source, the
-    shared headers (``csrc/*.cuh``) and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    shared headers (``csrc/*.cuh``, for a CUDA source) and the flags."""
+    host = _is_host(source)
+    digest = hashlib.sha256(" ".join(HOST_FLAGS if host
+                                     else NVCC_FLAGS).encode())
+    headers = [] if host else sorted(f for f in os.listdir(CSRC_DIR)
+                                     if f.endswith(".cuh"))
     for name in [source, *headers]:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             digest.update(f.read())
@@ -69,26 +86,51 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
 
-def build(source: str) -> str:
+def find_host_compiler() -> str:
+    """Path of :data:`HOST_CXX`; raises when it is not installed."""
+    found = shutil.which(HOST_CXX)
+    if found is None:
+        raise RuntimeError(f"{HOST_CXX} not found: the port's native host "
+                           f"layer (csrc/{HOST_SOURCE}) needs a C++17 "
+                           f"compiler")
+    return found
+
+
+def _compile(source: str, find_compiler, flags) -> str:
     """Compile ``csrc/<source>`` unless its hashed library exists; returns
-    the library path.  Raises with nvcc's output when the build fails."""
+    the library path.  The compiler is looked up (``find_compiler()``) only
+    when a build is needed.  Raises with the compiler's output when it
+    fails."""
     so_path = library_path(source)
     if os.path.exists(so_path):
         build_seconds.setdefault(source, 0.0)
         return so_path
-    nvcc = find_nvcc()
+    compiler = find_compiler()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so_path}.tmp.{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+    cmd = [compiler, *flags, "-o", tmp, os.path.join(CSRC_DIR, source)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source} ({res.returncode}):\n"
+        raise RuntimeError(f"{os.path.basename(compiler)} failed for "
+                           f"{source} ({res.returncode}):\n"
                            f"{res.stdout}\n{res.stderr}")
     os.replace(tmp, so_path)
     build_seconds[source] = time.perf_counter() - t0
     ptxas_report[source] = (res.stdout + res.stderr).strip()
     return so_path
+
+
+def build(source: str) -> str:
+    """Compile the CUDA source ``csrc/<source>`` with nvcc (see
+    :func:`_compile`)."""
+    return _compile(source, find_nvcc, NVCC_FLAGS)
+
+
+def build_host(source: str = HOST_SOURCE) -> str:
+    """Compile the C++ source ``csrc/<source>`` with :data:`HOST_CXX` and
+    :data:`HOST_FLAGS` (see :func:`_compile`)."""
+    return _compile(source, find_host_compiler, HOST_FLAGS)
 
 
 def load(source: str) -> ctypes.CDLL:
@@ -99,7 +141,8 @@ def load(source: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(source)
         if lib is None:
-            lib = _libs[source] = ctypes.CDLL(build(source))
+            path = build_host(source) if _is_host(source) else build(source)
+            lib = _libs[source] = ctypes.CDLL(path)
     return lib
 
 
@@ -122,4 +165,43 @@ def probe_fold_lib() -> ctypes.CDLL:
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [vp] * 11 + [ci, ci, ci, cl, ci, ci, ci, ci, vp]
         fn.restype = ci
+    return lib
+
+
+def host_mirror_lib() -> ctypes.CDLL:
+    """``csrc/host_mirror.cc`` (the C keydict, its worker pool and the
+    window value mirror) with every entry point's C signature declared."""
+    lib = load(HOST_SOURCE)
+    if lib.ftt_wm_import_pane.argtypes is not None:   # declared last
+        return lib
+    i64, i32 = ctypes.c_int64, ctypes.c_int32
+    vp, u8p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8)
+    sigs = {
+        "ftt_keydict_create": (vp, [i64]),
+        "ftt_keydict_destroy": (None, [vp]),
+        "ftt_keydict_size": (i64, [vp]),
+        "ftt_keydict_lookup_or_insert": (None, [vp, vp, i64, vp]),
+        "ftt_keydict_lookup": (None, [vp, vp, i64, vp]),
+        "ftt_keydict_reverse": (None, [vp, vp]),
+        "ftt_keydict_reverse_range": (None, [vp, i64, i64, vp]),
+        "ftt_hw_threads": (i32, []),
+        "ftt_wm_create": (vp, [vp, i32, u8p, u8p, vp]),
+        "ftt_wm_destroy": (None, [vp]),
+        "ftt_wm_drop_pane": (None, [vp, i64]),
+        "ftt_wm_pane_count": (i64, [vp]),
+        "ftt_wm_live_panes": (None, [vp, vp]),
+        "ftt_wm_probe_update": (None, [vp, vp, vp, i64, vp, u8p, vp, i64, vp,
+                                       i64, i32, i32]),
+        "ftt_wm_probe_update2": (None, [vp, vp, vp, i64, vp, u8p, vp, i64,
+                                        vp, i64, i32, i32, i64, vp]),
+        "ftt_wm_fire": (i64, [vp, vp, i32, vp, vp, vp]),
+        "ftt_wm_apply_delta": (None, [vp, i64, i64, vp, vp, u8p]),
+        "ftt_wm_export_pane": (i32, [vp, i64, i64, vp, vp]),
+        "ftt_wm_import_pane": (None, [vp, i64, i64, vp, vp]),
+    }
+    with _lock:
+        for name, (restype, argtypes) in sigs.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
     return lib

@@ -5,8 +5,15 @@ The slice carried here is the one the repo is built around: a keyed,
 event-time, tumbling windowed aggregate with
 
 - **the host emit tier**: a write-through host VALUE mirror of the
-  accumulator cells (numpy, f64/i64) serves fires and snapshots with no
-  device->host traffic beyond the probe lane's delta pulls;
+  accumulator cells (f64/i64) serves fires and snapshots with no
+  device->host traffic beyond the probe lane's delta pulls.  With
+  ``native_emit=True`` (the JAX operator's default) the mirror and the key
+  index are the port's C host layer (``csrc/host_mirror.cc``: the keydict
+  and ``WinMirror``, ``state/native_mirror.py``): one C pass per block of
+  rows inserts keys, folds the mirror and, under scatter sync, writes the
+  device scatter ids, and a fire is one C sweep.  ``native_shards=N``
+  splits that pass over N host threads, bit-identical at any N.  Without
+  it, the numpy ``KeyIndex`` and a numpy mirror;
 - **two sync cadences** for the device replica, a ``[K, P]`` pane ring per
   accumulator leaf plus an int32 ``[K, P]`` count (K = key capacity, P = pane
   ring).  ``device_sync="scatter"``: every micro-batch also folds into the
@@ -66,14 +73,16 @@ from flink_tpu_torch.ops.shapes import next_pow2 as _next_pow2
 from flink_tpu_torch.state.device_keyindex import (DeviceKeyIndex, probe,
                                                    probe_fold,
                                                    probe_fold_available)
-from flink_tpu_torch.state.keyindex import KeyIndex
+from flink_tpu_torch.state.keyindex import KeyIndex, NativeKeyIndex
+from flink_tpu_torch.state.native_mirror import NativeWindowMirror, ineligible
 from flink_tpu_torch.windowing.assigners import WindowAssigner
 from flink_tpu_torch.windowing.triggers import EventTimeTrigger, Trigger
 
 #: what this slice leaves out, and the later slice that brings it
 _LATER = {
     "auto": "the auto calibrations (emit tier, device sync, device probe, "
-            "superbatch=0) come with the calibration slice",
+            "superbatch=0, native_shards=0 with native_emit=True) come with "
+            "the calibration slice",
     "device_tier": "the device emit tier comes with the device-fire slice",
     "pipeline": "pipeline_depth > 0 comes with the pipelining slice",
     "paging": "cold-key paging comes with the paging slice",
@@ -83,8 +92,6 @@ _LATER = {
     "late_output": "late side outputs come with the runtime-stack slice",
     "incremental": "incremental snapshots come with the checkpoint slice",
     "queryable": "queryable views come with the serving slice",
-    "native": "the native C mirror (native_emit=True) is a later slice of "
-              "its own",
     "object_keys": "non-integer keys come with the object-key slice",
     "processing_time": "processing-time windows come with the runtime-stack "
                        "slice",
@@ -164,7 +171,8 @@ class WindowAggOperator(StreamOperator):
             trigger = EventTimeTrigger()
         refusals = [
             ("auto", "auto" in (emit_tier, snapshot_source, device_sync,
-                                device_probe) or int(superbatch) == 0),
+                                device_probe) or int(superbatch) == 0
+             or (bool(native_emit) and int(native_shards) == 0)),
             ("device_tier", emit_tier == "device"
              or snapshot_source == "device"),
             ("pipeline", int(pipeline_depth) != 0),
@@ -174,7 +182,6 @@ class WindowAggOperator(StreamOperator):
             ("async_fire", bool(async_fire)),
             ("late_output", late_output_tag is not None),
             ("queryable", queryable is not None),
-            ("native", bool(native_emit) or int(native_shards) != 0),
             ("processing_time", not assigner.is_event_time),
         ]
         for what, refused in refusals:
@@ -192,6 +199,9 @@ class WindowAggOperator(StreamOperator):
                              f"got {device_probe!r}")
         if int(superbatch) < 1:
             raise ValueError(f"superbatch must be >= 1, got {superbatch!r}")
+        if int(native_shards) < 0:
+            raise ValueError(f"native_shards must be >= 1, got "
+                             f"{native_shards!r}")
         if not trigger.fires_on_time:
             raise ValueError("the host emit tier needs a time-triggered window")
         if not agg.supports_host_emit():
@@ -232,6 +242,14 @@ class WindowAggOperator(StreamOperator):
         self._mirror_dtypes = tuple(
             np.int64 if np.issubdtype(np.dtype(d), np.integer) else np.float64
             for d in self.spec.leaf_dtypes)
+        #: the C host layer: keydict + WinMirror, bound per key index
+        self.native_emit = bool(native_emit)
+        self.native_shards = int(native_shards)
+        if self.native_emit:
+            why = ineligible(self.spec, self.kinds, self._mirror_dtypes)
+            if why is not None:
+                raise ValueError(f"native_emit=True: {why}")
+        self._nm: Optional[NativeWindowMirror] = None
         #: host value mirror: pane id -> [counts int64 [K], leaf_0 [K], ...]
         self._vmirror: Dict[int, list] = {}
         #: per-phase host wall ns and transfer bytes
@@ -241,7 +259,7 @@ class WindowAggOperator(StreamOperator):
         # ring geometry — P must exceed the live pane span
         self._P = _next_pow2(max(initial_panes, 2 * assigner.panes_per_window))
         self._K = _next_pow2(initial_key_capacity)
-        self.key_index: Optional[KeyIndex] = None
+        self.key_index = None        # KeyIndex, or NativeKeyIndex
         self._leaves = None          # tuple of [K, P, *leaf] device tensors
         self._counts = None          # int32 [K, P]
         self.pane_base: Optional[int] = None   # smallest retained pane id
@@ -289,6 +307,61 @@ class WindowAggOperator(StreamOperator):
         t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
         self.phase_bytes["h2d"] = self.phase_bytes.get("h2d", 0) + t.nbytes
         return t
+
+    # ------------------------------------------------- native host layer
+    @property
+    def native_mirror_active(self) -> bool:
+        """True while the C mirror serves this operator (native_emit=True,
+        from the first batch or a restore on)."""
+        return self._nm is not None
+
+    def _bind_key_index(self, snap=None) -> None:
+        """A fresh key index (restored from ``snap`` if given) and, with
+        native_emit, the C mirror sharing its keydict.  The old mirror is
+        dropped first: it pins the old keydict, never the new one."""
+        self._nm = None
+        cls = NativeKeyIndex if self.native_emit else KeyIndex
+        self.key_index = (cls.restore(snap) if snap is not None else
+                          cls(initial_capacity=max(1 << 16, 2 * self._K)))
+        if self.native_emit:
+            self._nm = NativeWindowMirror.create(
+                self.key_index, self.spec, self.kinds, self._mirror_dtypes)
+
+    def _native_probe_update(self, keys, panes, values, flat_out=None):
+        """The C pass over a block of rows: key inserts (numbered by first
+        occurrence) and the mirror fold; with ``flat_out`` also the device
+        scatter ids ``slot * P + pane % P``.  Returns the rows' slots."""
+        lifted = [np.asarray(l)
+                  for l in tree_leaves(self.agg.host_lift(values))]
+        return self._nm.probe_update(
+            keys, panes, lifted,
+            pane_mod=self._P if flat_out is not None else 0,
+            flat_out=flat_out, shards=self.native_shards)
+
+    def reset_state(self) -> None:
+        """Drop all keyed state and time progress (the key index, its C
+        mirror, the device state, the probe table, the stage and the
+        counters); the configuration stays.  The next batch binds a fresh
+        key index and mirror."""
+        self._fused_stage.take()
+        self.key_index = None
+        self._nm = None          # its keydict dies with the key index
+        self._leaves = None
+        self._counts = None
+        self._vmirror = {}
+        self.pane_base = None
+        self.max_pane = None
+        self.last_fired_window = None
+        self.watermark = LONG_MIN
+        self.late_dropped = 0
+        self.phase_ns = {}
+        self.phase_bytes = {}
+        self._fused_counters = {k: 0 for k in self._fused_counters}
+        self._device_stale = False
+        self._dki = None
+        self._drop_delta()
+        self._devprobe_resolved = None
+        self._dp_stats = {k: 0 for k in self._dp_stats}
 
     # ----------------------------------------------- device-resident probe
     def _devprobe_active(self) -> bool:
@@ -427,6 +500,10 @@ class WindowAggOperator(StreamOperator):
                 col_cnt = cnt_np[:, j]
                 if not col_cnt.any():
                     continue
+                if self._nm is not None:
+                    self._nm.apply_delta(int(p), col_cnt.astype(np.int64),
+                                         [l[:, j] for l in sel_np])
+                    continue
                 entry = self._vmirror_pane(int(p))
                 entry[0][:n] += col_cnt
                 for k, kind in enumerate(self.kinds):
@@ -484,11 +561,15 @@ class WindowAggOperator(StreamOperator):
                 self._miss_replica_update(mslots, mpanes, mvalues)
 
     def _devprobe_absorb_misses(self, mkeys, mpanes, mvalues) -> np.ndarray:
-        """Host pass over the miss rows: key insert, key growth (with a delta
-        drain and rebuild), numpy mirror fold, one table scatter.  Returns
-        the miss rows' slot ids."""
+        """Host pass over the miss rows: key insert and mirror fold (one C
+        pass with the native mirror; else the numpy key index, and the numpy
+        fold after growth), key growth (with a delta drain and rebuild), one
+        table scatter.  Returns the miss rows' slot ids."""
         with self._phase("probe_mirror"):
-            mslots = self.key_index.lookup_or_insert(mkeys)
+            if self._nm is not None:
+                mslots = self._native_probe_update(mkeys, mpanes, mvalues)
+            else:
+                mslots = self.key_index.lookup_or_insert(mkeys)
         if self.key_index.num_keys > self._K:
             # growth reallocates the delta ring: drain it into the mirror
             # first so no warm contribution is lost, then rebuild at new K
@@ -496,8 +577,9 @@ class WindowAggOperator(StreamOperator):
             self._drop_delta()
             self._grow_keys(self.key_index.num_keys)
             self._ensure_delta()
-        with self._phase("mirror"):
-            self._vmirror_update(mslots, mpanes, mvalues)
+        if self._nm is None:
+            with self._phase("mirror"):
+                self._vmirror_update(mslots, mpanes, mvalues)
         self._dp_stats["miss_inserts"] += \
             self._dki.ensure_loaded(self.key_index)
         return mslots
@@ -593,7 +675,21 @@ class WindowAggOperator(StreamOperator):
         path assigns.  A key first seen in step i misses in every later step
         too; those rows fold into the same mirror cells the warm path would
         have used.  Under scatter sync ONE replica update then folds every
-        step's miss rows."""
+        step's miss rows.
+
+        With the native mirror the miss rows take ONE C pass in block order.
+        It assigns the slots that one pass per step would (the keydict
+        numbers by first occurrence) and folds each cell in the same row
+        order, so the mirror's bits are the same too.  A key growth then
+        drains the delta once, after every step's rows rather than between
+        two steps, which changes no bit: the delta holds only keys that
+        were in the device table before the flush, and those never miss."""
+        if self._nm is not None:
+            slots = self._devprobe_absorb_rows(keys, panes, values, mi)[0]
+            if self.device_sync_mode == "scatter":
+                self._miss_replica_update(slots, panes[mi],
+                                          _take_rows(values, mi))
+            return
         bounds = np.cumsum([0] + [int(s[3]) for s in st])
         cuts = np.searchsorted(mi, bounds)
         slots = [self._devprobe_absorb_rows(keys, panes, values,
@@ -631,8 +727,10 @@ class WindowAggOperator(StreamOperator):
         # operator lists first and leaves such a pane at identity)
         self._devprobe_sync_mirror(None)
         n = self.key_index.num_keys
+        present = (set(self._nm.live_panes().tolist()) if self._nm is not None
+                   else set(self._vmirror))
         live = [p for p in range(self.pane_base, self.max_pane + 1)
-                if p in self._vmirror]
+                if p in present]
         counts_cols, leaf_cols = self._mirror_columns(live, n)
         self._refresh_step(live, counts_cols, leaf_cols)
         self.phase_bytes["h2d_refresh"] = (
@@ -724,9 +822,16 @@ class WindowAggOperator(StreamOperator):
             arr[...] = np.asarray(init).astype(d)
             leaves.append(arr)
         for j, p in enumerate(panes):
-            e = self._vmirror.get(int(p))
-            if e is None:
-                continue
+            if self._nm is not None:
+                # views of the export scratch: consumed before the next pane
+                ex, cnts, lvs = self._nm.export_pane(int(p), rows)
+                if not ex:
+                    continue
+                e = [cnts] + lvs
+            else:
+                e = self._vmirror.get(int(p))
+                if e is None:
+                    continue
             counts[:, j] = e[0][:rows]
             for k, dst in enumerate(leaves):
                 dst[:, j] = e[k + 1][:rows].astype(self.spec.leaf_dtypes[k],
@@ -748,7 +853,11 @@ class WindowAggOperator(StreamOperator):
         n = self.key_index.num_keys if self.key_index else 0
         for p in range(self.pane_base, (self.max_pane or 0) + 1):
             slot = int(p) % self._P
-            host = self._vmirror.get(p)
+            if self._nm is not None:
+                _ex, cnts, lvs = self._nm.export_pane(p, n)
+                host = [cnts] + lvs
+            else:
+                host = self._vmirror.get(p)
             host_counts = (host[0][:n] if host is not None
                            else np.zeros(n, np.int64))
             if not np.array_equal(self._counts[:n, slot].cpu().numpy(),
@@ -832,7 +941,11 @@ class WindowAggOperator(StreamOperator):
 
     def _rows_for(self, idx: np.ndarray, result,
                   window) -> List[StreamElement]:
-        keys = np.asarray(self.key_index.reverse_keys())[idx]
+        return self._rows_for_keys(
+            np.asarray(self.key_index.reverse_keys())[idx], result, window)
+
+    def _rows_for_keys(self, keys: np.ndarray, result,
+                       window) -> List[StreamElement]:
         n = len(keys)
         cols: Dict[str, Any] = {self.key_column: keys}
         if isinstance(result, dict):
@@ -855,8 +968,7 @@ class WindowAggOperator(StreamOperator):
         if self.key_index is None:
             if keys.dtype.kind not in "iu":
                 raise _later("object_keys")
-            self.key_index = KeyIndex(
-                initial_capacity=max(1 << 16, 2 * self._K))
+            self._bind_key_index()
         if batch.timestamps is None:
             raise ValueError("event-time window requires timestamps")
         ts = np.asarray(batch.timestamps, np.int64)
@@ -947,25 +1059,36 @@ class WindowAggOperator(StreamOperator):
 
     def _hot_stage_fold(self, keys: np.ndarray, panes: np.ndarray,
                         values) -> None:
-        """Plain lane: host key lookup, the device fold (scatter sync
-        only), mirror fold."""
-        with self._phase("probe"):
-            slots = self.key_index.lookup_or_insert(keys)
+        """Plain lane: host key lookup and mirror fold, the device fold
+        (scatter sync only).  With the native mirror, one C pass does the
+        lookup and the fold and, under scatter sync, writes the int32
+        scatter ids the device fold takes."""
+        flat = None
+        if self._nm is not None:
+            with self._phase("probe_mirror"):
+                if self.device_sync_mode == "scatter":
+                    flat = np.empty(len(keys), np.int32)
+                self._native_probe_update(keys, panes, values, flat)
+        else:
+            with self._phase("probe"):
+                slots = self.key_index.lookup_or_insert(keys)
         if self.key_index.num_keys > self._K:
             self._ensure_alloc()
             self._grow_keys(self.key_index.num_keys)
         self._ensure_alloc()
         if self.device_sync_mode == "deferred":
-            # the mirror (folded below) is the authority; the replica
-            # catches up at the next device_refresh
+            # the mirror is the authority; the replica catches up at the
+            # next device_refresh
             self._device_stale = True
         else:
-            flat = slots.astype(np.int64) * self._P + (panes % self._P)
+            if flat is None:
+                flat = slots.astype(np.int64) * self._P + (panes % self._P)
             with self._phase("device_dispatch"):
                 self._update_step(self._ids_to_device(flat),
                                   self._to_device(values))
-        with self._phase("mirror"):
-            self._vmirror_update(slots, panes, values)
+        if self._nm is None:
+            with self._phase("mirror"):
+                self._vmirror_update(slots, panes, values)
 
     # ------------------------------------------------------------------ time
     def _fired_horizon(self, now: int) -> int:
@@ -1043,6 +1166,8 @@ class WindowAggOperator(StreamOperator):
                 np.asarray(expired, np.int64) % self._P).to(self.device))
         for ep in expired:
             self._vmirror.pop(ep, None)
+            if self._nm is not None:
+                self._nm.drop_pane(ep)
         if self._delta_counts is not None:
             # expired panes' unsynced delta is discarded with the mirror pane
             # it would have folded into
@@ -1074,6 +1199,15 @@ class WindowAggOperator(StreamOperator):
         n = self.key_index.num_keys if self.key_index is not None else 0
         if n == 0:
             return []
+        if self._nm is not None:
+            # one C sweep: combine the panes, compact the non-empty rows in
+            # ascending slot order, resolve their keys
+            keys, _counts, leaves = self._nm.fire(panes)
+            if keys.size == 0:
+                return []
+            result = self.agg.host_get_result(self.spec.unflatten(leaves))
+            return self._rows_for_keys(keys, result,
+                                       self.assigner.window_bounds(window_id))
         entries = [self._vmirror[int(p)] for p in panes.tolist()
                    if int(p) in self._vmirror]
         if not entries:
@@ -1145,11 +1279,14 @@ class WindowAggOperator(StreamOperator):
         self._dki = None         # probe table rebuilds from the key index
         self._drop_delta()
         self._devprobe_resolved = None
+        self._nm = None          # rebinds to the restored key index below
         if "key_index" in snap:
             if snap["key_index_kind"] != "KeyIndex":
                 raise _later("object_keys")
-            self.key_index = KeyIndex.restore(snap["key_index"])
+            self._bind_key_index(snap["key_index"])
             self._K = _next_pow2(max(self.key_index.num_keys, 1), self._K)
+        else:
+            self.key_index = None    # no keys yet: the next batch binds
         self._leaves = None
         self._counts = None
         self._vmirror = {}
@@ -1179,6 +1316,10 @@ class WindowAggOperator(StreamOperator):
             # the f64 surplus re-accumulates from here on)
             for j, p in enumerate(panes.tolist()):
                 if not counts_np[:, j].any():
+                    continue
+                if self._nm is not None:
+                    self._nm.import_pane(int(p), counts_np[:, j],
+                                         [src[:, j] for src in restored])
                     continue
                 entry = self._vmirror_pane(int(p))
                 entry[0][:n] = counts_np[:, j]

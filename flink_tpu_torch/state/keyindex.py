@@ -2,12 +2,16 @@
 
 A vectorized open-addressing table for int64 keys: slot ids are dense
 (0..n-1, growing), stable for the life of the operator, and double as row
-indices into the device state.  The port carries the numpy table only; the C
-keydict of the JAX package is not loaded here.
+indices into the device state.  :class:`KeyIndex` is the numpy table;
+:class:`NativeKeyIndex` is the same surface over the port's C keydict
+(``csrc/host_mirror.cc``), whose handle the native window mirror shares.
+Both number new keys in order of first occurrence, so they assign equal slot
+ids, and both snapshot to ``{"reverse": int64[n]}``.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict
 
 import numpy as np
@@ -202,4 +206,82 @@ class KeyIndex:
         ki._ensure_reverse(rev.size)
         ki._reverse[: rev.size] = rev
         ki._n = int(rev.size)
+        return ki
+
+
+class NativeKeyIndex:
+    """:class:`KeyIndex`'s surface over the C keydict: one C call maps a
+    batch of keys (``lookup``/``lookup_or_insert``), and
+    :class:`~flink_tpu_torch.state.native_mirror.NativeWindowMirror` inserts
+    through the same :attr:`handle`.  The load factor is the keydict's own
+    (0.5).  ``reverse_keys`` keeps a host copy of the slot -> key table and
+    appends only the keys inserted since its last call, so calling it per
+    batch (``DeviceKeyIndex.ensure_loaded`` does) copies each key out of C
+    once.  Raises if the host layer does not build."""
+
+    def __init__(self, initial_capacity: int = 1 << 16):
+        from flink_tpu_torch.kernels.build import host_mirror_lib
+        self._lib = host_mirror_lib()
+        self._handle = self._lib.ftt_keydict_create(int(initial_capacity))
+        self._reverse = np.zeros(0, np.int64)   # host copy, [0, _copied)
+        self._copied = 0
+
+    def __del__(self):
+        h = getattr(self, "_handle", None)
+        if h:
+            try:
+                self._lib.ftt_keydict_destroy(h)
+            except Exception:  # noqa: BLE001 — interpreter teardown
+                pass
+            self._handle = None
+
+    @property
+    def handle(self) -> int:
+        """The keydict handle the native window mirror shares."""
+        return self._handle
+
+    @property
+    def num_keys(self) -> int:
+        return int(self._lib.ftt_keydict_size(self._handle))
+
+    def reverse_keys(self) -> np.ndarray:
+        """slot id -> raw key, length num_keys (a view of the host copy)."""
+        n = self.num_keys
+        if n > self._copied:
+            if n > self._reverse.size:
+                grown = np.empty(max(n, 2 * self._reverse.size), np.int64)
+                grown[:self._copied] = self._reverse[:self._copied]
+                self._reverse = grown
+            tail = self._reverse[self._copied:n]
+            self._lib.ftt_keydict_reverse_range(
+                self._handle, self._copied, n,
+                tail.ctypes.data_as(ctypes.c_void_p))
+            self._copied = n
+        return self._reverse[:n]
+
+    def _call(self, fn, keys: np.ndarray) -> np.ndarray:
+        keys = np.ascontiguousarray(keys, np.int64)
+        out = np.empty(keys.size, np.int32)
+        if keys.size:
+            fn(self._handle, keys.ctypes.data, keys.size, out.ctypes.data)
+        return out.reshape(keys.shape)
+
+    def lookup(self, keys: np.ndarray) -> np.ndarray:
+        """Batch lookup; returns int32 slot ids, -1 for absent keys."""
+        return self._call(self._lib.ftt_keydict_lookup, keys)
+
+    def lookup_or_insert(self, keys: np.ndarray) -> np.ndarray:
+        """Batch lookup, inserting unseen keys with fresh sequential slot ids
+        in order of first occurrence."""
+        return self._call(self._lib.ftt_keydict_lookup_or_insert, keys)
+
+    def snapshot(self) -> Dict[str, np.ndarray]:
+        return {"reverse": self.reverse_keys().copy()}
+
+    @classmethod
+    def restore(cls, snap: Dict[str, np.ndarray]) -> "NativeKeyIndex":
+        """Inserting the unique keys in slot order reproduces the slot ids."""
+        rev = np.asarray(snap["reverse"], np.int64)
+        ki = cls(initial_capacity=max(1 << 16, 2 * rev.size + 1))
+        ki.lookup_or_insert(rev)
         return ki

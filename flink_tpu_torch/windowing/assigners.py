@@ -2,13 +2,14 @@
 
 A pane is the gcd span shared by every window covering it; the per-record
 hot path only computes ``pane_of(timestamps)`` (one vectorized int op) and
-state is a ``[keys, panes]`` ring.  This slice carries the tumbling
-event-time assigner, where one pane is one window.
+state is a ``[keys, panes]`` ring.  The port carries the tumbling and the
+sliding event-time assigners.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from math import gcd
 from typing import Tuple
 
 import numpy as np
@@ -65,22 +66,40 @@ class WindowAssigner:
         return self.window_bounds(last_w).end
 
 
-class TumblingEventTimeWindows(WindowAssigner):
-    """``TumblingEventTimeWindows.of(size[, offset])`` — pane == window."""
+class SlidingEventTimeWindows(WindowAssigner):
+    """``SlidingEventTimeWindows.of(size, slide[, offset])``: windows overlap;
+    a record lands in one pane of gcd(size, slide), and a window combines
+    size / gcd panes when it fires."""
 
-    def __init__(self, size_ms: int, offset_ms: int = 0):
-        if size_ms <= 0:
-            raise ValueError(f"window size must be > 0, got {size_ms}")
+    def __init__(self, size_ms: int, slide_ms: int, offset_ms: int = 0):
+        if size_ms <= 0 or slide_ms <= 0:
+            raise ValueError(f"window size/slide must be > 0, got "
+                             f"size={size_ms} slide={slide_ms}")
+        if slide_ms > size_ms:
+            raise ValueError("slide must be <= size")
         self.size_ms = int(size_ms)
-        self.pane_ms = self.size_ms
-        self.panes_per_window = 1
-        self.pane_stride = 1
-        self._offset = int(offset_ms) % self.size_ms
+        self.slide_ms = int(slide_ms)
+        self.pane_ms = gcd(self.size_ms, self.slide_ms)
+        self.panes_per_window = self.size_ms // self.pane_ms
+        self.pane_stride = self.slide_ms // self.pane_ms
+        self._offset = int(offset_ms) % self.slide_ms
 
     @staticmethod
-    def of(size_ms: int, offset_ms: int = 0) -> "TumblingEventTimeWindows":
-        return TumblingEventTimeWindows(size_ms, offset_ms)
+    def of(size_ms: int, slide_ms: int,
+           offset_ms: int = 0) -> "SlidingEventTimeWindows":
+        return SlidingEventTimeWindows(size_ms, slide_ms, offset_ms)
 
     def pane_of(self, timestamps: np.ndarray) -> np.ndarray:
         ts = np.asarray(timestamps, np.int64)
         return (ts - self._offset) // np.int64(self.pane_ms)
+
+
+class TumblingEventTimeWindows(SlidingEventTimeWindows):
+    """``TumblingEventTimeWindows.of(size[, offset])`` — pane == window."""
+
+    def __init__(self, size_ms: int, offset_ms: int = 0):
+        super().__init__(size_ms, size_ms, offset_ms)
+
+    @staticmethod
+    def of(size_ms: int, offset_ms: int = 0) -> "TumblingEventTimeWindows":
+        return TumblingEventTimeWindows(size_ms, offset_ms)

@@ -1,9 +1,11 @@
 """The port stands alone: ``flink_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package, and the port's entry points
+neither JAX nor anything of the JAX package, its C host layer builds from
+its own source with its own symbol names, and the port's entry points
 never fall back to the CPU on their own."""
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -75,3 +77,56 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                              env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+def test_host_library_builds_from_its_own_source(monkeypatch, tmp_path):
+    """The port's C host layer compiles from ``csrc/host_mirror.cc`` alone:
+    the loader reads no file under ``native/`` or ``flink_tpu/`` (recorded
+    through the build's ``open`` and the compiler's command line), and its
+    source names none."""
+    from flink_tpu_torch.kernels import build
+    assert build.HOST_SOURCE == "host_mirror.cc"
+    src = Path(build.CSRC_DIR) / build.HOST_SOURCE
+    assert src.is_file() and src.parent == PORT / "csrc"
+    loader = (PORT / "kernels" / "build.py").read_text()
+    for bad in ("native/", "flink_tpu/", "flink_native"):
+        assert bad not in loader
+    assert "#include \"" not in src.read_text()   # no header of the repo
+    read, cmds = [], []
+    real_open = open
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setitem(build.__dict__, "open", lambda p, *a, **k: (
+        read.append(os.path.realpath(p)), real_open(p, *a, **k))[1])
+    real_run = build.subprocess.run
+    monkeypatch.setattr(build.subprocess, "run", lambda cmd, *a, **k: (
+        cmds.append(list(cmd)), real_run(cmd, *a, **k))[1])
+    lib = build.host_mirror_lib()
+    assert read == [str(src.resolve())]
+    (cmd,) = cmds
+    assert [c for c in cmd if c.endswith((".cc", ".cpp", ".h"))] == [str(src)]
+    assert not [c for c in cmd if "native" in c or "flink_tpu/" in c]
+    assert int(lib.ftt_keydict_size(lib.ftt_keydict_create(16))) == 0
+
+
+def test_host_library_exports_only_prefixed_symbols():
+    """Every entry point of ``csrc/host_mirror.cc`` carries the port's
+    ``ftt_`` prefix, in the source and in the built library's dynamic
+    symbols (std template code aside, which the linker merges as weak)."""
+    import re
+
+    from flink_tpu_torch.kernels import build
+    text = (PORT / "csrc" / "host_mirror.cc").read_text()
+    names = re.findall(r"^API\s+[\w\s\*]+?\b(\w+)\s*\(", text, re.M)
+    assert len(names) >= 19
+    assert all(n.startswith("ftt_") for n in names), names
+    nm = shutil.which("nm")
+    if nm is None:
+        pytest.skip("nm is not installed")
+    res = subprocess.run([nm, "-D", "--defined-only",
+                          build.build_host(build.HOST_SOURCE)],
+                         capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stderr
+    strong = [line.split()[-1] for line in res.stdout.splitlines()
+              if line.split()[-2] in ("T", "D", "B", "R")]
+    assert set(strong) == set(names)
