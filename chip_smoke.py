@@ -57,7 +57,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    printed beside its bound, the plain version's time and the unfused
    route's (the probe kernel + ``index_add_``).  A skewed flush, one key on
    25% of the rows, is held to ``torch_probe_fold`` bit for bit too, and
-   timed beside the uniform one (a check of the kernel, not a main path).
+   timed beside the uniform one (a check of the kernel, not a main path);
+9. main paths 5 and 6, the device emit tier: path 5 is
+   ``emit_tier="device"``, ``snapshot_source="device"``, scatter sync, one
+   batch at a time, ``native_emit=True`` (the C keydict, no value mirror);
+   path 6 is path 5 with ``async_fire=True`` and ``superbatch=8``.  Every
+   batch folds into the f32 replica through ``scatter_fold``; a fire gathers
+   the emitted rows on the card and downloads the values.  Every fire must
+   equal, bit for bit, a numpy reference that folds the same records into
+   f32 cells in record order (``np.add.at``); every fire must equal path 3's
+   (same keys in the same order, values to rtol 1e-5: f32 against the f64
+   mirror); path 6 must surface exactly path 5's fires, each at most one
+   batch later.  Each is restored and replayed, with fires equal bit for
+   bit;
+10. kernel phase, scatter_fold: the ordered replica fold
+   (``csrc/scatter_fold.cu``) at path 5's shapes — 2^18 int32 flat ids
+   (about 2% dropped) into an f32 ``[2^20, 16]`` replica and int32 counts
+   with non-zero contents, and a skewed batch with one key on 25% of the
+   rows — must equal its plain version on CPU copies bit for bit; its
+   median time (L2 flushed and warm, split into its four steps) is printed
+   beside its bound, the plain version's time and the two ``index_add_``
+   calls it replaces.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the kernel line reports each kernel's launches on every
@@ -69,6 +89,7 @@ line of kernel numbers, the nvidia-smi line, and, last,
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -94,25 +115,34 @@ SUPERBATCH = 8
 RTOL = 1e-6   # path 1's f64 atomics fold in no fixed order: ~1e-16 relative
 
 #: the kernels of the main paths, built together in phase 2
-SOURCES = ("probe.cu", "probe_fold.cu")
+SOURCES = ("probe.cu", "probe_fold.cu", "scatter_fold.cu")
 #: the C host layer of paths 3 and 4, built beside them with g++
 HOST_SOURCE = "host_mirror.cc"
 #: host threads of the C probe + fold pass on paths 3 and 4 (pinned)
 NATIVE_SHARDS = min(4, os.cpu_count() or 1)
 
 #: the main paths: slice 1's per-batch scatter lane, slice 2's fused lane,
-#: and each of them on the C host layer (slice 4)
+#: each of them on the C host layer (slice 4), and the device emit tier,
+#: synchronous and async (slice 5)
+DEVICE_TIER = dict(emit_tier="device", snapshot_source="device",
+                   device_sync="scatter", native_emit=True)
 PATHS = {
     "path 1": dict(device_sync="scatter", superbatch=1),
     "path 2": dict(device_sync="deferred", superbatch=SUPERBATCH),
     "path 3": dict(device_sync="scatter", superbatch=1, native_emit=True),
     "path 4": dict(device_sync="deferred", superbatch=SUPERBATCH,
                    native_emit=True),
+    "path 5": dict(DEVICE_TIER, superbatch=1),
+    "path 6": dict(DEVICE_TIER, superbatch=SUPERBATCH, async_fire=True),
 }
 #: each native path's numpy twin
 TWIN = {"path 3": "path 1", "path 4": "path 2"}
-#: run order: each numpy/C pair back to back
-ORDER = ("path 1", "path 3", "path 2", "path 4")
+#: the device-tier paths, and the host-tier path each is held to
+DEVICE_PATHS = {"path 5": "path 3", "path 6": "path 3"}
+#: run order: each numpy/C pair back to back, then the device tier
+ORDER = ("path 1", "path 3", "path 2", "path 4", "path 5", "path 6")
+#: device-tier fires against the host tier's f64 mirror
+DEVICE_VS_HOST_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -234,6 +264,7 @@ def build_kernels():
                       + [lambda: build.build_host(HOST_SOURCE)]))
     build.probe_lib()
     build.probe_fold_lib()
+    build.scatter_fold_lib()
     host = build.host_mirror_lib()
     print(f"build: {', '.join(SOURCES)}, {HOST_SOURCE} in "
           f"{time.perf_counter() - t0:.2f} s wall (nvcc " + ", ".join(
@@ -348,35 +379,43 @@ def make_flush(rng, device, hot_key=None):
             for a in (keys, panes, vals)]
 
 
-def probe_fold_split_ms(buckets, keys, panes, vals, ds, dc, runs: int,
-                        flush=None):
-    """Median ms of probe_fold's four steps (probe + tile histogram,
-    offsets, partition, fold), each between CUDA events: the wrapper's
-    launches, made one step at a time."""
+def split_ms(steps, launch, runs: int, flush=None):
+    """Median ms of each of a kernel's ``steps`` (name -> bit of its steps
+    mask), each between CUDA events: ``launch(bit)`` runs one step."""
     import torch
-
-    from flink_tpu_torch.state import device_keyindex as dk
-    n = int(keys.shape[0])
-    slot = torch.empty(n, dtype=torch.int32, device=keys.device)
-    scratch = dk.probe_fold_scratch(n, int(ds.shape[0]), vals)
     times = []
     for r in range(runs + 2):
         if flush is not None:
             flush()
         torch.cuda._sleep(2_000_000)
         ev = [torch.cuda.Event(enable_timing=True)
-              for _ in range(len(dk.FOLD_STEPS) + 1)]
+              for _ in range(len(steps) + 1)]
         ev[0].record()
-        for i, step in enumerate(dk.FOLD_STEPS.values()):
-            dk.launch_probe_fold_steps(buckets, keys, panes, n, vals, ds, dc,
-                                       PANES, slot, scratch, step)
+        for i, step in enumerate(steps.values()):
+            launch(step)
             ev[i + 1].record()
         ev[-1].synchronize()
         if r >= 2:
             times.append([ev[i].elapsed_time(ev[i + 1])
-                          for i in range(len(dk.FOLD_STEPS))])
+                          for i in range(len(steps))])
     med = np.median(np.asarray(times), axis=0)
-    return {name: float(t) for name, t in zip(dk.FOLD_STEPS, med)}
+    return {name: float(t) for name, t in zip(steps, med)}
+
+
+def probe_fold_split_ms(buckets, keys, panes, vals, ds, dc, runs: int,
+                        flush=None):
+    """Median ms of probe_fold's four steps (probe + tile histogram,
+    offsets, partition, fold): the wrapper's launches, made one step at a
+    time."""
+    import torch
+
+    from flink_tpu_torch.state import device_keyindex as dk
+    n = int(keys.shape[0])
+    slot = torch.empty(n, dtype=torch.int32, device=keys.device)
+    scratch = dk.probe_fold_scratch(n, int(ds.shape[0]), vals)
+    return split_ms(dk.FOLD_STEPS, lambda step: dk.launch_probe_fold_steps(
+        buckets, keys, panes, n, vals, ds, dc, PANES, slot, scratch, step),
+        runs, flush)
 
 
 def _fold_check(device, buckets, flush_t, dsum0, dcnt0, label):
@@ -505,6 +544,164 @@ def probe_fold_phase(device, rng, dki):
             "library_ms": None}
 
 
+def make_replica_batch(rng, device, hot_key=None):
+    """One batch of path 5's update step: 2^18 int32 flat ids ``slot * 16 +
+    pane slot`` of uniform keys into the ``[2^20, 16]`` replica, about 2% of
+    them the dropped id, f32 values.  With ``hot_key``, that key takes 25% of
+    the rows (the skewed batch)."""
+    import torch
+    n_cells = KEY_CAPACITY * PANES
+    slots = rng.integers(0, N_KEYS, BATCH)
+    if hot_key is not None:
+        slots[rng.random(BATCH) < 0.25] = hot_key
+    ids = slots * PANES + rng.integers(2, 4, BATCH)      # two live panes
+    ids[rng.random(BATCH) < 0.02] = n_cells
+    vals = rng.random(BATCH).astype(np.float32)
+    return [torch.from_numpy(a).to(device)
+            for a in (ids.astype(np.int32), vals)]
+
+
+def _scatter_fold_check(device, batch, plane0, counts0, label):
+    """One ``ordered_fold_counts`` on the card against its plain version on
+    CPU copies, bit for bit; returns (max abs errors, rows folded, distinct
+    cells touched, the longest run of one cell)."""
+    import torch
+
+    from flink_tpu_torch.ops import scatter as sc
+    ids, vals = batch
+    plane, counts = plane0.to(device, copy=True), counts0.to(device, copy=True)
+    sc.ordered_fold_counts((plane,), counts, ids, (vals,), ("add",))
+    torch.cuda.synchronize()
+    (want,), want_c = sc.scatter_fold_counts(
+        (plane0.clone(),), counts0.clone(), ids.cpu(), (vals.cpu(),),
+        ("add",))
+    got, got_c = plane.cpu(), counts.cpu()
+    errs = {"plane": float((got - want).abs().max()),
+            "counts": int((got_c.long() - want_c.long()).abs().max())}
+    check(max(errs.values()) == 0 and torch.equal(
+        got.view(torch.int32), want.view(torch.int32)),
+        f"scatter_fold kernel != its plain version on the {label} batch: "
+        f"max abs errors {errs}")
+    added = want_c.long() - counts0.long()
+    return (errs, int(added.sum()), int((added > 0).sum()),
+            int(added.max()))
+
+
+def scatter_fold_split_ms(batch, plane, counts, runs: int, flush=None):
+    """Median ms of scatter_fold's four steps (ids + tile histogram,
+    offsets, partition, fold)."""
+    from flink_tpu_torch.ops import scatter as sc
+    ids, vals = batch
+    scratch = sc.fold_scratch(int(ids.shape[0]), int(plane.shape[0]), 4,
+                              ids.device)
+    return split_ms(sc.SCATTER_FOLD_STEPS, lambda step:
+                    sc.launch_ordered_fold_steps(ids, vals, plane, counts,
+                                                 scratch, step), runs, flush)
+
+
+def scatter_fold_phase(device, rng):
+    import torch
+
+    from flink_tpu_torch.ops import scatter as sc
+    n_cells = KEY_CAPACITY * PANES
+    gen = torch.Generator().manual_seed(13)
+    plane0 = torch.rand(n_cells, dtype=torch.float32, generator=gen) * 100
+    counts0 = torch.randint(0, 5, (n_cells,), dtype=torch.int32,
+                            generator=gen)
+    batch = make_replica_batch(rng, device)
+    errs, rows, cells, _ = _scatter_fold_check(device, batch, plane0,
+                                               counts0, "uniform")
+    hot_key = int(N_KEYS // 3)
+    skew = make_replica_batch(rng, device, hot_key=hot_key)
+    skew_errs, _, _, hot_run = _scatter_fold_check(device, skew, plane0,
+                                                   counts0, "skewed")
+
+    ids, vals = batch
+    plane, counts = plane0.to(device), counts0.to(device)
+    flush, clean = l2_flushes(device)
+    run = lambda: sc.ordered_fold_counts(  # noqa: E731
+        (plane,), counts, ids, (vals,), ("add",))
+    ms_cold = cuda_time_ms(run, 20, flush=flush)
+    ms_clean = cuda_time_ms(run, 20, flush=clean)
+    ms_warm = cuda_time_ms(run, 20)
+    split_cold = scatter_fold_split_ms(batch, plane, counts, 20, flush)
+    split_warm = scatter_fold_split_ms(batch, plane, counts, 20)
+    skew_ms = cuda_time_ms(lambda: sc.ordered_fold_counts(
+        (plane,), counts, skew[0], (skew[1],), ("add",)), 10, flush=flush)
+    plain_ms = cuda_time_ms(lambda: sc.scatter_fold_counts(
+        (plane,), counts, ids, (vals,), ("add",)), 20, flush=flush)
+    # the library route: the two index_add_ calls alone, on ids already
+    # cleared of the dropped id (what the plain version spends around them
+    # is not counted)
+    keep = ids < n_cells
+    lib_ids = ids[keep].long()
+    lib_vals, lib_ones = vals[keep], torch.ones_like(lib_ids,
+                                                     dtype=torch.int32)
+
+    def library():
+        plane.index_add_(0, lib_ids, lib_vals)
+        counts.index_add_(0, lib_ids, lib_ones)
+
+    library_ms = cuda_time_ms(library, 20, flush=flush)
+    del flush, clean
+    # ids and values stream in (4 + 4 B a row); each touched cell of the
+    # replica and the counts is read and written once (4 + 4 B each way)
+    bytes_ = 8 * BATCH + 16 * cells
+    bound_ms, bound_by, bound_bytes_ms, bound_ops_ms = bound(bytes_,
+                                                             2 * rows)
+    bits, tiles, blocks = sc.fold_plan(BATCH, n_cells)
+    print(f"scatter_fold kernel: {BATCH} rows ({BATCH - rows} dropped) into "
+          f"an f32 replica and int32 counts of {n_cells} cells "
+          f"({cells} touched) in {tiles} tiles of 2^{bits} cells, {blocks} "
+          f"row blocks; max abs err {errs}")
+    print(f"scatter_fold kernel: median {ms_cold:.4f} ms with L2 flushed "
+          f"({_steps(split_cold)}), {ms_clean:.4f} ms after a read-only "
+          f"flush, {ms_warm:.4f} ms warm ({_steps(split_warm)}); 20 runs "
+          f"each")
+    print(f"scatter_fold skewed batch (key {hot_key} on 25% of the rows, its "
+          f"longest cell run {hot_run} rows; max abs err {skew_errs}): "
+          f"median {skew_ms:.4f} ms with L2 flushed (10 runs)")
+    print(f"scatter_fold plain version (scatter_fold_counts on the card: "
+          f"identity rewrite + index_add_ x2) {plain_ms:.4f} ms; library "
+          f"route (index_add_ x2, f32 atomics in no fixed order) "
+          f"{library_ms:.4f} ms; both with L2 flushed")
+    print(f"scatter_fold bound: bytes = 8 B/row x {BATCH} + 16 B x {cells} "
+          f"cells = {bytes_} B over {HBM_BYTES_PER_S:.3g} B/s = "
+          f"{bound_bytes_ms:.5f} ms; ops = {2 * rows} adds = "
+          f"{bound_ops_ms:.6f} ms; bound by {bound_by}")
+    return {"name": "scatter_fold", "route": "cuda",
+            "source": "flink_tpu_torch/csrc/scatter_fold.cu",
+            "replaces": "flink_tpu/ops/scatter.py:61 (scatter_fold_counts, "
+                        "an XLA scatter; no Pallas kernel)",
+            "launches": 0, "max_abs_err": max(errs.values()),
+            "ms": ms_cold, "ms_clean_l2": ms_clean, "ms_warm": ms_warm,
+            "split_ms": split_cold, "split_ms_warm": split_warm,
+            "skewed_ms": skew_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": bytes_, "library_ms": library_ms}
+
+
+def check_async(fired, sync, label, ref):
+    """An async path surfaces exactly the synchronous path's fires, in the
+    same order and bit for bit, each at most one batch later."""
+    check(len(fired) == len(sync), f"{label}: {len(fired)} fires, {ref} "
+          f"{len(sync)}")
+    lag = []
+    for (ia, a), (ib, b) in zip(fired, sync):
+        w = int(a.column("window_start")[0])
+        check(w == int(b.column("window_start")[0])
+              and np.asarray(a.column("k")).tobytes()
+              == np.asarray(b.column("k")).tobytes()
+              and np.asarray(a.column("result")).tobytes()
+              == np.asarray(b.column("result")).tobytes(),
+              f"{label} window {w}: differs from {ref}'s fire")
+        lag.append(ia - ib)
+    check(all(0 <= d <= 1 for d in lag), f"{label}: fires surfaced {lag} "
+          f"batches after {ref}'s")
+    print(f"{label} surfaces {ref}'s {len(sync)} fires bit for bit: "
+          f"{lag.count(1)} one batch later, {lag.count(0)} in the same batch")
+
+
 def host_ms(fn, runs: int = 5, setup=None) -> float:
     """Median host wall ms of ``fn()`` over ``runs`` calls, each after
     ``setup()`` if given (untimed)."""
@@ -558,7 +755,10 @@ def host_layer_phase(rng):
 
 
 def build_op(device, device_sync: str, superbatch: int,
-             native_emit: bool = False):
+             native_emit: bool = False, **tier):
+    """The operator of a path; ``tier`` sets the emit tier, the snapshot
+    source and async_fire (the host tier's mirror-sourced defaults
+    otherwise)."""
     import torch
 
     from flink_tpu_torch.core.functions import RuntimeContext, SumAggregator
@@ -567,16 +767,22 @@ def build_op(device, device_sync: str, superbatch: int,
     op = WindowAggOperator(
         TumblingEventTimeWindows.of(WINDOW_MS), SumAggregator(torch.float32),
         key_column="k", value_column="v", initial_key_capacity=KEY_CAPACITY,
-        emit_tier="host", snapshot_source="mirror", device_sync=device_sync,
-        device_probe="on", superbatch=superbatch, native_emit=native_emit,
-        native_shards=NATIVE_SHARDS if native_emit else 0, device=device)
+        device_sync=device_sync, device_probe="on", superbatch=superbatch,
+        native_emit=native_emit,
+        native_shards=NATIVE_SHARDS if native_emit else 0, device=device,
+        **{"emit_tier": "host", "snapshot_source": "mirror", **tier})
     op.open(RuntimeContext())
     return op
 
 
 def digests(out):
+    """(window start, rows, f64 sum of the results, hash of the keys' and
+    results' bytes) per fire."""
     return [(int(b.column("window_start")[0]), len(b),
-             float(np.asarray(b.column("result"), np.float64).sum()))
+             float(np.asarray(b.column("result"), np.float64).sum()),
+             hashlib.sha256(np.asarray(b.column("k")).tobytes()
+                            + np.asarray(b.column("result")).tobytes())
+             .hexdigest())
             for b in out]
 
 
@@ -596,6 +802,33 @@ def reference(batches):
     return expect
 
 
+def reference_f32(batches):
+    """The device tier's bits, independently: window start -> f32 cells per
+    key, each record added in record order (``np.add.at``); a tumbling
+    window is one pane, so its fire is the cell itself."""
+    cells = {}
+    for keys, vals, ts in batches:
+        starts = ts // WINDOW_MS * WINDOW_MS
+        for w in np.unique(starts).tolist():
+            m = starts == w
+            np.add.at(cells.setdefault(w, np.zeros(N_KEYS, np.float32)),
+                      keys[m], vals[m])
+    return cells
+
+
+def check_fires_bits(fired, cells, label):
+    """Every fire's values equal the f32 reference bit for bit."""
+    for b in fired:
+        w = int(b.column("window_start")[0])
+        res = np.asarray(b.column("result"))
+        want = cells[w][np.asarray(b.column("k"))]
+        check(res.dtype == np.float32 and np.array_equal(
+            res.view(np.uint32), want.view(np.uint32)),
+            f"{label} window {w}: results differ from the f32 ordered "
+            f"reference in their bits ({int((res != want).sum())} rows, max "
+            f"abs {np.max(np.abs(res - want))})")
+
+
 def check_fires(fired, expect, label):
     """Every window fired once, with the reference's keys and sums."""
     starts = [int(b.column("window_start")[0]) for b in fired]
@@ -612,9 +845,9 @@ def check_fires(fired, expect, label):
               f"abs {np.max(np.abs(res - sums[keys]))})")
 
 
-def check_twin(fired, twin, label):
-    """A native path's fires against its numpy twin's: the same windows,
-    keys in the same (slot) order, values to RTOL."""
+def check_twin(fired, twin, label, rtol=RTOL):
+    """A path's fires against another's: the same windows, keys in the same
+    (slot) order, values to ``rtol``."""
     check(len(fired) == len(twin), f"{label}: {len(fired)} fires, its twin "
           f"{len(twin)}")
     for a, b in zip(fired, twin):
@@ -624,41 +857,68 @@ def check_twin(fired, twin, label):
                                  np.asarray(b.column("k"))),
               f"{label} window {w}: keys differ from the numpy twin's")
         check(np.allclose(np.asarray(a.column("result")),
-                          np.asarray(b.column("result")), rtol=RTOL, atol=0),
+                          np.asarray(b.column("result")), rtol=rtol, atol=0),
               f"{label} window {w}: values differ from the numpy twin's")
+
+
+def reset_launches() -> None:
+    from flink_tpu_torch.ops import scatter as sc
+    from flink_tpu_torch.state import device_keyindex as dk
+    dk.probe.launches = 0
+    dk.probe_fold.launches = 0
+    sc.ordered_fold_counts.launches = 0
+
+
+def read_launches():
+    from flink_tpu_torch.ops import scatter as sc
+    from flink_tpu_torch.state import device_keyindex as dk
+    return {"probe": dk.probe.launches, "probe_fold": dk.probe_fold.launches,
+            "scatter_fold": sc.ordered_fold_counts.launches}
 
 
 def main_path(device, batches, expect, label):
     """Drive one main path with every launch count at 0 just before and
     read just after; returns (launches per kernel, first snapshot, digests
-    of the fires after it, every fire, the path's numbers)."""
+    of the fires after it, every fire with the batch it surfaced at, the
+    path's numbers)."""
     import torch
 
     from flink_tpu_torch.core.batch import RecordBatch, Watermark
-    from flink_tpu_torch.state import device_keyindex as dk
 
     op = build_op(device, **PATHS[label])
+    device_tier = op.emit_tier == "device"
     fire_ms = []
     fired = []
     after_snap = []
     mid = None
+    snaps, snap_d2h = 0, 0
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    dk.probe.launches = 0
-    dk.probe_fold.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     for i, (keys, vals, ts) in enumerate(batches):
-        op.process_batch(RecordBatch({"k": keys, "v": vals}, timestamps=ts))
+        out = op.process_batch(RecordBatch({"k": keys, "v": vals},
+                                           timestamps=ts))
+        pending = len(op._pending_fires)
         f0 = time.perf_counter()
-        out = op.process_watermark(Watermark(int(ts.max()) - 1))
-        if out:
+        wm_out = op.process_watermark(Watermark(int(ts.max()) - 1))
+        if wm_out or len(op._pending_fires) > pending:
+            # a call that fired (or, async, started a fire's download)
             fire_ms.append((time.perf_counter() - f0) * 1e3)
-        fired += out
+        out += wm_out
+        snapshot_now = (i + 1) % SNAPSHOT_EVERY == 0
+        if snapshot_now:
+            # async fires surface before the barrier
+            out += op.prepare_snapshot_pre_barrier()
+        fired += [(i, b) for b in out]
         if mid is not None:
             after_snap += out
-        if (i + 1) % SNAPSHOT_EVERY == 0:
+        if snapshot_now:
+            d0 = op.phase_bytes.get("d2h", 0)
             snap = op.snapshot_state()
+            snaps += 1
+            snap_d2h += op.phase_bytes.get("d2h", 0) - d0
             if mid is None:
                 mid = (i, snap)
     f0 = time.perf_counter()
@@ -666,52 +926,73 @@ def main_path(device, batches, expect, label):
     fire_ms.append((time.perf_counter() - f0) * 1e3)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"probe": dk.probe.launches,
-                "probe_fold": dk.probe_fold.launches}
-    fired += tail
+    launches = read_launches()
+    fired += [(len(batches), b) for b in tail]
     after_snap += tail
     stats = op.device_probe_stats()
     fused = op.fused_stats()
-    check_fires(fired, expect, label)
-    check(stats["probe_hits"] > 0, f"{label}: the probe never hit")
-    native = bool(PATHS[label].get("native_emit"))
+    check_fires([b for _, b in fired], expect, label)
+    native = bool(PATHS[label].get("native_emit")) and not device_tier
     check(op.native_mirror_active == native,
           f"{label}: native_mirror_active is {op.native_mirror_active}")
-    check(native or "probe_mirror" in op.phase_ns and "mirror" in op.phase_ns,
-          f"{label}: the numpy lane's phases are missing")
-    check(not native or "mirror" not in op.phase_ns,
-          f"{label}: the C lane ran a numpy mirror fold")
-    if PATHS[label]["superbatch"] > 1:
-        check(launches["probe_fold"] > 0,
-              f"{label} never launched the probe_fold kernel")
-        check(fused["scan_dispatches"] > 0, f"{label}: no one-step pass")
-        check(fused["scan_steps"] > fused["scan_dispatches"],
-              f"{label}: the one-step passes covered one batch each")
-        check(fused["staged_pending"] == 0, f"{label}: batches left staged")
+    if device_tier:
+        check(stats["enabled"] == 0 and stats["probe_hits"] == 0,
+              f"{label}: the device probe ran on the device tier")
+        check(launches["scatter_fold"] > 0 and launches["probe"] == 0
+              and launches["probe_fold"] == 0,
+              f"{label}: launches {launches}; the device tier folds through "
+              f"scatter_fold and launches neither TPU kernel")
+        check("emit_mirror" in op.phase_ns and "probe" in op.phase_ns
+              and "mirror" not in op.phase_ns,
+              f"{label}: the device tier's phases are wrong: "
+              f"{sorted(op.phase_ns)}")
+        check(not op._pending_fires, f"{label}: fires left pending")
     else:
-        check(launches["probe"] > 0,
-              f"{label} never launched the probe kernel")
+        check(stats["probe_hits"] > 0, f"{label}: the probe never hit")
+        check(native or "probe_mirror" in op.phase_ns
+              and "mirror" in op.phase_ns,
+              f"{label}: the numpy lane's phases are missing")
+        check(not native or "mirror" not in op.phase_ns,
+              f"{label}: the C lane ran a numpy mirror fold")
+        if PATHS[label]["superbatch"] > 1:
+            check(launches["probe_fold"] > 0,
+                  f"{label} never launched the probe_fold kernel")
+            check(fused["scan_dispatches"] > 0, f"{label}: no one-step pass")
+            check(fused["scan_steps"] > fused["scan_dispatches"],
+                  f"{label}: the one-step passes covered one batch each")
+        else:
+            check(launches["probe"] > 0,
+                  f"{label} never launched the probe kernel")
+    check(fused["staged_pending"] == 0, f"{label}: batches left staged")
     check(op.verify_mirror(), f"{label}: device replica != host mirror")
     n_records = sum(len(b[0]) for b in batches)
+    n_fires = len(fired)
     print(f"{label} {PATHS[label]}: {n_records} records in {elapsed:.3f} s "
-          f"= {n_records / elapsed:.1f} records/s; {len(fired)} windows "
+          f"= {n_records / elapsed:.1f} records/s; {n_fires} windows "
           f"fired and matched the numpy reference (rtol {RTOL}); launches "
           f"{launches}; probe hits {stats['probe_hits']}, misses "
           f"{stats['probe_misses']}; native_mirror_active "
           f"{op.native_mirror_active}")
-    if fused["scan_dispatches"]:
-        print(f"{label} fused lane: {fused}; scan depth "
-              f"{fused['scan_steps'] / fused['scan_dispatches']:.3f} "
-              f"batches per one-step pass")
+    if fused["scan_dispatches"] or fused["host_super_passes"]:
+        print(f"{label} fused lane: {fused}" + (
+            f"; scan depth {fused['scan_steps'] / fused['scan_dispatches']:.3f}"
+            f" batches per one-step pass" if fused["scan_dispatches"]
+            else ""))
     p50, p99 = np.percentile(fire_ms, 50), np.percentile(fire_ms, 99)
-    print(f"{label} fire latency ms over {len(fire_ms)} fires: p50 "
+    print(f"{label} fire latency ms over {len(fire_ms)} firing calls: p50 "
           f"{p50:.3f} p99 {p99:.3f}")
     print(f"{label} phase_ns: " + json.dumps(op.phase_ns, sort_keys=True))
     print(f"{label} phase_bytes: " + json.dumps(op.phase_bytes,
                                                 sort_keys=True))
+    fire_d2h = op.phase_bytes.get("d2h", 0) - snap_d2h
+    print(f"{label} d2h bytes: {fire_d2h / max(n_fires, 1):.0f} per fire "
+          f"({n_fires} fires), {snap_d2h / max(snaps, 1):.0f} per snapshot "
+          f"({snaps} snapshots)")
     print(f"{label} peak device memory: {torch.cuda.max_memory_allocated()} B")
     numbers = {"records_per_s": n_records / elapsed, "wall_s": elapsed,
                "fire_p50_ms": p50, "fire_p99_ms": p99,
+               "d2h_per_fire": fire_d2h / max(n_fires, 1),
+               "d2h_per_snapshot": snap_d2h / max(snaps, 1),
                "phase_ms": {k: v / 1e6 for k, v in op.phase_ns.items()}}
     return launches, mid, digests(after_snap), fired, numbers
 
@@ -752,11 +1033,18 @@ def replay(device, batches, mid, want, label):
     got = digests(out)
     check(len(got) == len(want) and len(got) > 0,
           f"{label} replay fired {len(got)} windows, the run {len(want)}")
-    for (w1, n1, s1), (w2, n2, s2) in zip(got, want):
-        check(w1 == w2 and n1 == n2 and abs(s1 - s2) <= 1e-6 * max(abs(s2), 1),
-              f"{label} replay digest {(w1, n1, s1)} != {(w2, n2, s2)}")
+    # the device tier folds in row order from the restored f32 cells, so
+    # its replay is bit-equal; the host tier re-seeds its f64 mirror from
+    # the snapshot's f32 cells, so its sums agree to 1e-6
+    exact = label in DEVICE_PATHS
+    for (w1, n1, s1, h1), (w2, n2, s2, h2) in zip(got, want):
+        check(w1 == w2 and n1 == n2 and abs(s1 - s2) <= 1e-6 * max(abs(s2), 1)
+              and (h1 == h2 or not exact),
+              f"{label} replay digest {(w1, n1, s1, h1)} != "
+              f"{(w2, n2, s2, h2)}")
     print(f"{label} restore+replay from batch {mid[0]}: {len(got)} window "
-          f"digests equal; wall {wall * 1e3:.3f} ms")
+          f"digests equal" + (" bit for bit" if exact else "")
+          + f"; wall {wall * 1e3:.3f} ms")
     prof = profile(activities=[ProfilerActivity.CUDA])
     _replay_once(device, batches, mid, label, prof)
     dev = sorted(((e.self_device_time_total, e.key)
@@ -790,16 +1078,34 @@ def main() -> None:
     kernels = [kernel_phase(device, rng, ki, dki)]
     batches = make_batches(N_BATCHES * BATCH, N_KEYS, BATCH, WINDOW_MS)
     expect = reference(batches)
+    cells = reference_f32(batches)
     launches, fires, numbers = {}, {}, {}
     for label in ORDER:
         launches[label], mid, after, fires[label], numbers[label] = \
             main_path(device, batches, expect, label)
         check(mid is not None, f"{label}: no mid-run snapshot")
+        plain = [b for _, b in fires[label]]
         if label in TWIN:
-            check_twin(fires[label], fires[TWIN[label]], label)
+            check_twin(plain, [b for _, b in fires[TWIN[label]]], label)
             print(f"{label} fires equal {TWIN[label]}'s: same keys in the "
                   f"same order, values to rtol {RTOL}")
+        if label in DEVICE_PATHS:
+            check_fires_bits(plain, cells, label)
+            host = DEVICE_PATHS[label]
+            check_twin(plain, [b for _, b in fires[host]], label,
+                       rtol=DEVICE_VS_HOST_RTOL)
+            print(f"{label} fires equal the f32 ordered reference bit for "
+                  f"bit, and {host}'s (same keys in the same order, values "
+                  f"to rtol {DEVICE_VS_HOST_RTOL})")
+        if label == "path 6":
+            check_async(fires["path 6"], fires["path 5"], label, "path 5")
         replay(device, batches, mid, after, label)
+        rest = ORDER[ORDER.index(label) + 1:]
+        needed = ({TWIN.get(k) for k in rest}
+                  | {DEVICE_PATHS.get(k) for k in rest}
+                  | ({"path 5"} if "path 6" in rest else set()))
+        for done in [k for k in fires if k not in needed]:
+            del fires[done]
     del fires
     for label, twin in TWIN.items():
         a, b = numbers[label], numbers[twin]
@@ -815,10 +1121,23 @@ def main() -> None:
               f"{b['phase_ms'].get('delta_sync', 0.0):.3f}); fire p50/p99 "
               f"{a['fire_p50_ms']:.3f}/{a['fire_p99_ms']:.3f} vs "
               f"{b['fire_p50_ms']:.3f}/{b['fire_p99_ms']:.3f} ms")
+    for label, ref in (("path 5", "path 3"), ("path 6", "path 5")):
+        a, b = numbers[label], numbers[ref]
+        print(f"A/B {label} vs {ref}, same batches, one process: records/s "
+              f"{a['records_per_s']:.1f} vs {b['records_per_s']:.1f} "
+              f"({a['records_per_s'] / b['records_per_s']:.3f}x); fire "
+              f"{a['phase_ms'].get('fire', 0.0):.3f} vs "
+              f"{b['phase_ms'].get('fire', 0.0):.3f} ms; fire p50/p99 "
+              f"{a['fire_p50_ms']:.3f}/{a['fire_p99_ms']:.3f} vs "
+              f"{b['fire_p50_ms']:.3f}/{b['fire_p99_ms']:.3f} ms; d2h per "
+              f"fire {a['d2h_per_fire']:.0f} vs {b['d2h_per_fire']:.0f} B, "
+              f"per snapshot {a['d2h_per_snapshot']:.0f} vs "
+              f"{b['d2h_per_snapshot']:.0f} B")
     host_layer_phase(rng)
     # the fused kernel's phase runs last: its 2M-row CPU check and large
     # host tensors would otherwise perturb the paths' host-bound timings
     kernels.append(probe_fold_phase(device, rng, dki))
+    kernels.append(scatter_fold_phase(device, rng))
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]] for label in ORDER}
         kernel["launches_by_path"] = by_path
@@ -828,6 +1147,9 @@ def main() -> None:
     for label in ("path 2", "path 4"):
         check(launches[label]["probe_fold"] > 0,
               f"{label}: no probe_fold launch")
+    for label in DEVICE_PATHS:
+        check(launches[label]["scatter_fold"] > 0,
+              f"{label}: no scatter_fold launch")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

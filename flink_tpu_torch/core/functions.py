@@ -121,6 +121,12 @@ class AggregateFunction(RichFunction, abc.ABC):
     def get_result(self, acc):
         return acc
 
+    def combine_leaves(self, a_leaves, b_leaves):
+        """Leaf-tuple view of ``combine`` (the fire-time pane combine)."""
+        spec = self.acc_spec()
+        return tuple(tree_leaves(self.combine(spec.unflatten(a_leaves),
+                                              spec.unflatten(b_leaves))))
+
     def host_lift(self, values):
         """numpy ``lift``; NotImplemented keeps an aggregate device-only."""
         return NotImplemented

@@ -168,6 +168,18 @@ def probe_fold_lib() -> ctypes.CDLL:
     return lib
 
 
+def scatter_fold_lib() -> ctypes.CDLL:
+    """``csrc/scatter_fold.cu`` with its entry point's C signature
+    declared."""
+    lib = load("scatter_fold.cu")
+    fn = lib.flink_scatter_fold_launch
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+        fn.restype = ci
+    return lib
+
+
 def host_mirror_lib() -> ctypes.CDLL:
     """``csrc/host_mirror.cc`` (the C keydict, its worker pool and the
     window value mirror) with every entry point's C signature declared."""

@@ -28,14 +28,28 @@ event-time, tumbling windowed aggregate with
   counts), and under scatter sync into the replica too; the host pass
   touches only the compact miss list.  The mirror catches up pane by pane
   when a pane is read (fire, snapshot).  ``device_probe="off"`` is the plain
-  lane: host key lookup, then (scatter sync) one device fold per batch;
+  lane: host key lookup, then (scatter sync) one device fold per batch,
+  ``csrc/scatter_fold.cu``'s ordered fold on the card;
 - **the fused super-batch lane** (``superbatch=N > 1``,
   ``operators/fused_step.py``): batches park until N are staged, a fire
   boundary passes, or any state read calls :meth:`flush_pipeline`; then all
   of them advance in one pass.  With the probe on that pass is ONE device
   step over the concatenated rows, and under deferred sync ONE
   ``probe_fold`` launch (``csrc/probe_fold.cu``) probes them and folds the
-  warm rows into the delta ring in row order.
+  warm rows into the delta ring in row order;
+- **the device emit tier** (``emit_tier="device"``, with
+  ``snapshot_source="device"``): there is no value mirror.  Every batch's
+  keys resolve on the host through the key index (``native_emit=True``: the
+  C keydict, with no ``WinMirror`` bound), every batch folds into the
+  ``[K, P]`` replica through the ordered fold, and a boolean host emit
+  mirror records which (key, pane) cells hold data.  A fire gathers exactly
+  those key rows' window panes on the card, combines them in JAX's pairwise
+  order and applies ``get_result``, and downloads only the result values; a
+  snapshot downloads the live panes, and a restore uploads them and rebuilds
+  the emit mirror from the counts.  With ``async_fire=True`` a fire's
+  download is started and its rows surface from a later call
+  (:meth:`drain_pending_fires`).  The device probe is inactive on this tier,
+  as in JAX; the fused lane concatenates the staged batches into one fold.
 
 Where JAX donated buffers to a jitted step, this port updates the same
 tensors in place.  Batches are not padded: torch needs no static shapes, so
@@ -45,6 +59,12 @@ goes away: torch keeps f64 and i64 on the card.  The sync cadence and the
 super-batch depth take pinned values only (no ``"auto"``), so JAX's
 ``_resolve_device_sync`` and ``_fused_depth`` reduce to the constructor's
 checks.
+
+JAX's device tier pads a fire's gather to a quantized width
+(``_quantize_cap``) for static shapes; here it gathers exactly the emitted
+rows.  JAX stages only on the host tier; here the device tier stages too
+(one fold over the concatenated batches adds each cell's rows in the same
+order as the per-batch folds, so the replica's bits are the same).
 
 Options of the JAX operator that belong to later slices raise
 ``NotImplementedError`` here (see :data:`_LATER`); nothing falls back.
@@ -68,7 +88,9 @@ from flink_tpu_torch.operators.base import StreamOperator
 from flink_tpu_torch.operators.fused_step import (MAX_STAGED_ROWS,
                                                   SuperBatchStage,
                                                   concat_staged)
-from flink_tpu_torch.ops.scatter import scatter_fold_counts
+from flink_tpu_torch.ops.scatter import (combine_along_axis,
+                                         ordered_fold_counts,
+                                         scatter_fold_counts)
 from flink_tpu_torch.ops.shapes import next_pow2 as _next_pow2
 from flink_tpu_torch.state.device_keyindex import (DeviceKeyIndex, probe,
                                                    probe_fold,
@@ -83,12 +105,10 @@ _LATER = {
     "auto": "the auto calibrations (emit tier, device sync, device probe, "
             "superbatch=0, native_shards=0 with native_emit=True) come with "
             "the calibration slice",
-    "device_tier": "the device emit tier comes with the device-fire slice",
     "pipeline": "pipeline_depth > 0 comes with the pipelining slice",
     "paging": "cold-key paging comes with the paging slice",
     "sharding": "sharded state comes with the multi-GPU mesh slice",
     "count": "count triggers come with the count-window slice",
-    "async_fire": "async_fire comes with the device-fire slice",
     "late_output": "late side outputs come with the runtime-stack slice",
     "incremental": "incremental snapshots come with the checkpoint slice",
     "queryable": "queryable views come with the serving slice",
@@ -97,6 +117,8 @@ _LATER = {
                        "slice",
     "evolution": "accumulator schema evolution on restore comes with the "
                  "checkpoint slice",
+    "generic": "aggregates without scatter kinds (scatter_generic) come "
+               "with the keyed-reduce slice",
 }
 
 
@@ -109,6 +131,36 @@ def _take_rows(values, idx: np.ndarray):
     """Rows ``idx`` of a host value tree."""
     return tree_unflatten(tree_structure(values),
                           [np.asarray(a)[idx] for a in tree_leaves(values)])
+
+
+def _fetch_enqueue(tensors) -> tuple:
+    """Start device->host copies of whole result tensors; returns a handle
+    for :func:`_fetch_collect`.  CUDA tensors copy ``non_blocking`` into
+    pinned host tensors, and an event recorded after the copies tells when
+    they are done; the device tensors stay referenced by the handle until it
+    is collected.  CPU tensors are ready at once (no event)."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return list(tensors), None, ()
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event, tuple(tensors)
+
+
+def _handle_ready(handle) -> bool:
+    """True when the handle's copies have completed (never blocks)."""
+    return handle[1] is None or handle[1].query()
+
+
+def _fetch_collect(handle) -> List[np.ndarray]:
+    """Wait for the handle's copies; the host arrays."""
+    host, event, _ = handle
+    if event is not None:
+        event.synchronize()
+    return [h.numpy() for h in host]
 
 
 class _PhaseTimer:
@@ -172,28 +224,40 @@ class WindowAggOperator(StreamOperator):
         refusals = [
             ("auto", "auto" in (emit_tier, snapshot_source, device_sync,
                                 device_probe) or int(superbatch) == 0
-             or (bool(native_emit) and int(native_shards) == 0)),
-            ("device_tier", emit_tier == "device"
-             or snapshot_source == "device"),
+             or (bool(native_emit) and int(native_shards) == 0
+                 and emit_tier == "host")),
             ("pipeline", int(pipeline_depth) != 0),
             ("paging", paging is not None),
             ("sharding", sharding is not None),
             ("count", trigger.fires_on_count),
-            ("async_fire", bool(async_fire)),
             ("late_output", late_output_tag is not None),
             ("queryable", queryable is not None),
             ("processing_time", not assigner.is_event_time),
+            ("generic", agg.scatter_kind_leaves() is None),
         ]
         for what, refused in refusals:
             if refused:
                 raise _later(what)
-        if emit_tier != "host" or snapshot_source != "mirror":
+        if emit_tier not in ("host", "device") \
+                or snapshot_source not in ("mirror", "device"):
             raise ValueError(
-                f"emit_tier/snapshot_source must be host/mirror, got "
-                f"{emit_tier!r}/{snapshot_source!r}")
+                f"emit_tier must be host|device and snapshot_source "
+                f"mirror|device, got {emit_tier!r}/{snapshot_source!r}")
+        if snapshot_source == "mirror" and emit_tier != "host":
+            raise ValueError("snapshot_source='mirror' requires the host "
+                             "emit tier")
         if device_sync not in ("scatter", "deferred"):
             raise ValueError(f"device_sync must be scatter|deferred, "
                              f"got {device_sync!r}")
+        if device_sync == "deferred" and emit_tier != "host":
+            raise ValueError(
+                "device_sync='deferred' requires the unsharded host emit "
+                "tier (the host mirror must be the authoritative copy)")
+        if device_sync == "deferred" and snapshot_source != "mirror":
+            raise ValueError(
+                "device_sync='deferred' requires snapshot_source="
+                "'mirror' (device-sourced snapshots would read a stale "
+                "replica)")
         if device_probe not in ("on", "off"):
             raise ValueError(f"device_probe must be on|off, "
                              f"got {device_probe!r}")
@@ -202,11 +266,11 @@ class WindowAggOperator(StreamOperator):
         if int(native_shards) < 0:
             raise ValueError(f"native_shards must be >= 1, got "
                              f"{native_shards!r}")
-        if not trigger.fires_on_time:
-            raise ValueError("the host emit tier needs a time-triggered window")
-        if not agg.supports_host_emit():
+        if emit_tier == "host" and (not trigger.fires_on_time
+                                    or not agg.supports_host_emit()):
             raise ValueError(
-                "emit_tier='host' requires an aggregate with numpy twins "
+                "emit_tier='host' requires a time-triggered window over an "
+                "aggregate with numpy twins "
                 "(AggregateFunction.supports_host_emit)")
         self.device = resolve_device(device)
         self.assigner = assigner
@@ -223,6 +287,14 @@ class WindowAggOperator(StreamOperator):
         self.emit_window_bounds = emit_window_bounds
         self.name = name
         self.device_probe = device_probe
+        #: which memory serves fires ("host": the value mirror; "device":
+        #: gathers from the replica) and snapshots ("mirror" / "device")
+        self.emit_tier = emit_tier
+        self.snapshot_source = snapshot_source
+        #: device tier: fires start their download and surface later
+        self.async_fire = bool(async_fire)
+        #: in-flight async fires: (window id, keys, fetch handle, structure)
+        self._pending_fires: List[tuple] = []
         #: the replica's sync cadence (JAX's resolved attribute of the same
         #: name; only pinned values exist here)
         self.device_sync_mode = device_sync
@@ -245,13 +317,17 @@ class WindowAggOperator(StreamOperator):
         #: the C host layer: keydict + WinMirror, bound per key index
         self.native_emit = bool(native_emit)
         self.native_shards = int(native_shards)
-        if self.native_emit:
+        if self.native_emit and emit_tier == "host":
             why = ineligible(self.spec, self.kinds, self._mirror_dtypes)
             if why is not None:
                 raise ValueError(f"native_emit=True: {why}")
         self._nm: Optional[NativeWindowMirror] = None
         #: host value mirror: pane id -> [counts int64 [K], leaf_0 [K], ...]
+        #: (host tier)
         self._vmirror: Dict[int, list] = {}
+        #: host emit mirror: pane id -> bool [K], the key slots holding data
+        #: in that pane (device tier)
+        self._mirror: Dict[int, np.ndarray] = {}
         #: per-phase host wall ns and transfer bytes
         self.phase_ns: Dict[str, int] = {}
         self.phase_bytes: Dict[str, int] = {}
@@ -317,13 +393,14 @@ class WindowAggOperator(StreamOperator):
 
     def _bind_key_index(self, snap=None) -> None:
         """A fresh key index (restored from ``snap`` if given) and, with
-        native_emit, the C mirror sharing its keydict.  The old mirror is
-        dropped first: it pins the old keydict, never the new one."""
+        native_emit on the host tier, the C mirror sharing its keydict (the
+        device tier binds the keydict alone, as JAX does).  The old mirror
+        is dropped first: it pins the old keydict, never the new one."""
         self._nm = None
         cls = NativeKeyIndex if self.native_emit else KeyIndex
         self.key_index = (cls.restore(snap) if snap is not None else
                           cls(initial_capacity=max(1 << 16, 2 * self._K)))
-        if self.native_emit:
+        if self.native_emit and self.emit_tier == "host":
             self._nm = NativeWindowMirror.create(
                 self.key_index, self.spec, self.kinds, self._mirror_dtypes)
 
@@ -349,6 +426,8 @@ class WindowAggOperator(StreamOperator):
         self._leaves = None
         self._counts = None
         self._vmirror = {}
+        self._mirror = {}
+        self._pending_fires = []
         self.pane_base = None
         self.max_pane = None
         self.last_fired_window = None
@@ -365,11 +444,13 @@ class WindowAggOperator(StreamOperator):
 
     # ----------------------------------------------- device-resident probe
     def _devprobe_active(self) -> bool:
-        """Resolved once per key-index lifetime: "on" and eligible (scalar
-        add/min/max accumulator leaves — the delta fold contract)."""
+        """Resolved once per key-index lifetime: "on" and eligible (the
+        host emit tier, scalar add/min/max accumulator leaves — the delta
+        fold contract), as JAX's ``_devprobe_eligible``."""
         if self._devprobe_resolved is None:
             self._devprobe_resolved = (
                 self.device_probe == "on"
+                and self.emit_tier == "host"
                 and self.kinds is not None
                 and all(tuple(s) == () for s in self.spec.leaf_shapes))
         return self._devprobe_resolved
@@ -754,6 +835,45 @@ class WindowAggOperator(StreamOperator):
         self._counts[:rows, slots] = torch.from_numpy(counts_cols).to(
             self.device)
 
+    # ---------------------------------------------------------- emit mirror
+    def _mirror_mark(self, pane: int, slots: np.ndarray) -> None:
+        """Record that key ``slots`` hold data in ``pane`` (device tier)."""
+        arr = self._mirror.get(pane)
+        if arr is None or arr.size < self._K:
+            grown = np.zeros(self._K, bool)
+            if arr is not None:
+                grown[:arr.size] = arr
+            arr = self._mirror[pane] = grown
+        arr[slots] = True
+
+    def _mirror_mark_batch(self, slots: np.ndarray,
+                           panes: np.ndarray) -> None:
+        """Mark a block's (slot, pane) cells, pane by pane."""
+        p0, p1 = int(panes.min()), int(panes.max())
+        if p0 == p1:
+            self._mirror_mark(p0, slots)
+            return
+        cand = (range(p0, p1 + 1) if p1 - p0 < 64
+                else np.unique(panes).tolist())
+        for p in cand:
+            m = panes == p
+            if m.any():
+                self._mirror_mark(int(p), slots[m])
+
+    def _mirror_emit_idx(self, panes: np.ndarray) -> np.ndarray:
+        """Exact ascending key-slot ids that hold data in any of ``panes``."""
+        n = self.key_index.num_keys if self.key_index is not None else 0
+        acc = None
+        for p in panes.tolist():
+            arr = self._mirror.get(int(p))
+            if arr is None:
+                continue
+            a = arr[:n] if arr.size >= n else np.pad(arr, (0, n - arr.size))
+            acc = a.copy() if acc is None else (acc | a)
+        if acc is None:
+            return np.empty(0, np.int64)
+        return np.flatnonzero(acc)
+
     # ---------------------------------------------------- host value mirror
     def _vmirror_pane(self, pane: int) -> list:
         """[counts, *leaves] arrays of a pane, allocated/grown to K rows."""
@@ -848,8 +968,9 @@ class WindowAggOperator(StreamOperator):
         if self.device_sync_mode == "deferred":
             self.device_refresh()
         self._devprobe_sync_mirror(None)
-        if self._leaves is None or self.pane_base is None:
-            return True
+        if self.emit_tier != "host" or self._leaves is None \
+                or self.pane_base is None:
+            return True     # the device tier has no value mirror
         n = self.key_index.num_keys if self.key_index else 0
         for p in range(self.pane_base, (self.max_pane or 0) + 1):
             slot = int(p) % self._P
@@ -928,9 +1049,11 @@ class WindowAggOperator(StreamOperator):
     # ------------------------------------------------------------- device ops
     def _update_step(self, flat_ids: torch.Tensor, values) -> None:
         """One micro-batch fold into the device replica, in place: lift +
-        scatter-combine.  flat_ids in [0, K*P]; K*P is a dropped row."""
+        the ordered fold (on the card ``csrc/scatter_fold.cu``, which adds
+        each cell's rows in row order).  flat_ids in [0, K*P]; K*P is a
+        dropped row."""
         lifted = tuple(tree_leaves(self.agg.lift(values)))
-        scatter_fold_counts(*self._flat_state(self._leaves, self._counts),
+        ordered_fold_counts(*self._flat_state(self._leaves, self._counts),
                             flat_ids, lifted, self.kinds)
 
     def _clear_panes_step(self, pane_slots: torch.Tensor) -> None:
@@ -961,8 +1084,9 @@ class WindowAggOperator(StreamOperator):
 
     # --------------------------------------------------------------- batching
     def process_batch(self, batch: RecordBatch) -> List[StreamElement]:
+        pending = self.drain_pending_fires() if self.async_fire else []
         if len(batch) == 0:
-            return []
+            return pending
         cols = batch.columns
         keys = np.asarray(cols[self.key_column])
         if self.key_index is None:
@@ -996,7 +1120,7 @@ class WindowAggOperator(StreamOperator):
                 self.late_dropped += int(np.count_nonzero(~live))
                 batch = batch.select(live)
                 if len(batch) == 0:
-                    return []
+                    return pending
                 cols = batch.columns
                 keys = np.asarray(cols[self.key_column])
                 panes = panes[live]
@@ -1005,7 +1129,7 @@ class WindowAggOperator(StreamOperator):
         values = self._select(cols)
         self._hot_stage(keys, panes, values, len(batch), pmin, pmax)
 
-        out: List[StreamElement] = []
+        out: List[StreamElement] = list(pending)
         # ---- late re-fire: windows already passed by the watermark that
         # this batch updated fire again (EventTimeTrigger.onElement FIRE)
         if (self.last_fired_window is not None
@@ -1062,7 +1186,9 @@ class WindowAggOperator(StreamOperator):
         """Plain lane: host key lookup and mirror fold, the device fold
         (scatter sync only).  With the native mirror, one C pass does the
         lookup and the fold and, under scatter sync, writes the int32
-        scatter ids the device fold takes."""
+        scatter ids the device fold takes.  On the device tier the key
+        index resolves the rows, the replica takes the fold, and the emit
+        mirror marks the cells."""
         flat = None
         if self._nm is not None:
             with self._phase("probe_mirror"):
@@ -1082,11 +1208,17 @@ class WindowAggOperator(StreamOperator):
             self._device_stale = True
         else:
             if flat is None:
-                flat = slots.astype(np.int64) * self._P + (panes % self._P)
+                # int32 ids where the cells fit: half the upload
+                idt = np.int32 if self._K * self._P < 2 ** 31 else np.int64
+                flat = (slots.astype(idt) * idt(self._P)
+                        + (panes % self._P).astype(idt))
             with self._phase("device_dispatch"):
                 self._update_step(self._ids_to_device(flat),
                                   self._to_device(values))
-        if self._nm is None:
+        if self.emit_tier == "device":
+            with self._phase("emit_mirror"):
+                self._mirror_mark_batch(slots, panes)
+        elif self._nm is None:
             with self._phase("mirror"):
                 self._vmirror_update(slots, panes, values)
 
@@ -1104,7 +1236,7 @@ class WindowAggOperator(StreamOperator):
 
     def process_watermark(self, watermark: Watermark) -> List[StreamElement]:
         self.watermark = max(self.watermark, watermark.timestamp)
-        if (self._fused_stage and self.lateness == 0
+        if (self._fused_stage and not self.async_fire and self.lateness == 0
                 and self.last_fired_window is not None
                 and self._fired_horizon(self.watermark)
                 <= self.last_fired_window):
@@ -1115,19 +1247,30 @@ class WindowAggOperator(StreamOperator):
         return self._advance_time(self.watermark)
 
     def prepare_snapshot_pre_barrier(self) -> List[StreamElement]:
+        """Advance the staged batches and drain every pending async fire, so
+        its rows travel downstream before the barrier; after this
+        :meth:`snapshot_state` is legal, ``async_fire`` included."""
         self.flush_pipeline()
+        if self.async_fire:
+            return self.drain_pending_fires(force=True)
         return []
 
     def end_input(self) -> List[StreamElement]:
-        """Bounded input: fire everything outstanding."""
-        return self._advance_time(2 ** 62)
+        """Bounded input: fire everything outstanding (and drain the async
+        fires that this starts)."""
+        out = self._advance_time(2 ** 62)
+        if self.async_fire:
+            out.extend(self.drain_pending_fires(force=True))
+        return out
 
     def _advance_time(self, now: int) -> List[StreamElement]:
         self.flush_pipeline()       # fires and expiry below read state
+        # async fires of earlier calls surface before any new ones
+        out: List[StreamElement] = (self.drain_pending_fires()
+                                    if self.async_fire else [])
         if self.pane_base is None or self._leaves is None:
-            return []
+            return out
         a = self.assigner
-        out: List[StreamElement] = []
         w_max = self._fired_horizon(now)
         # bound firing to windows that can contain data
         lo_window = a.windows_of_pane(self.pane_base)[0]
@@ -1165,6 +1308,7 @@ class WindowAggOperator(StreamOperator):
             self._clear_panes_step(torch.from_numpy(
                 np.asarray(expired, np.int64) % self._P).to(self.device))
         for ep in expired:
+            self._mirror.pop(ep, None)
             self._vmirror.pop(ep, None)
             if self._nm is not None:
                 self._nm.drop_pane(ep)
@@ -1189,7 +1333,64 @@ class WindowAggOperator(StreamOperator):
         panes = np.arange(max(first, self.pane_base),
                           min(last, self.max_pane) + 1, dtype=np.int64)
         with self._phase("fire"):
-            return self._fire_window_host(window_id, panes)
+            if self.emit_tier == "host":
+                return self._fire_window_host(window_id, panes)
+            return self._fire_window_gather(window_id, panes)
+
+    def _fire_gather_step(self, pane_slots: torch.Tensor,
+                          idx: torch.Tensor):
+        """Fire for a host-known emit set: gather the ``idx`` key rows'
+        window panes (``[n, len(panes)]`` cells of every leaf), combine the
+        panes in JAX's pairwise order, ``get_result``."""
+        cells = (idx.to(torch.int64).unsqueeze(1) * self._P
+                 + pane_slots.unsqueeze(0))
+        sel = tuple(l.view(-1).take(cells) for l in self._leaves)
+        combined = combine_along_axis(sel, self.agg.combine_leaves, axis=1)
+        return self.agg.get_result(self.spec.unflatten(combined))
+
+    def _fire_window_gather(self, window_id: int,
+                            panes: np.ndarray) -> List[StreamElement]:
+        """Device-tier fire: the exact emit set from the host emit mirror,
+        uploaded as int32; one gather step; one download of the result
+        values (started here, collected now or, with ``async_fire``, by a
+        later :meth:`drain_pending_fires`).  The keys resolve now."""
+        idx = self._mirror_emit_idx(panes)
+        if idx.size == 0:
+            return []
+        pane_slots = torch.from_numpy(panes % self._P).to(self.device)
+        result = self._fire_gather_step(
+            pane_slots, self._ids_to_device(idx.astype(np.int32)))
+        handle = _fetch_enqueue(tree_leaves(result))
+        keys = np.asarray(self.key_index.reverse_keys())[idx]
+        pending = (window_id, keys, handle, tree_structure(result))
+        if self.async_fire:
+            self._pending_fires.append(pending)
+            return []
+        return self._finish_gather_fire(*pending)
+
+    def drain_pending_fires(self, force: bool = False) -> List[StreamElement]:
+        """Surface async fires IN ORDER, but only those whose downloads have
+        completed (unless ``force``): waiting on one in flight would
+        serialize it with the next batch's work.  More than 3 pending forces
+        the drain, so memory stays bounded."""
+        if not self._pending_fires:
+            return []
+        if len(self._pending_fires) > 3:
+            force = True
+        out: List[StreamElement] = []
+        while self._pending_fires:
+            if not force and not _handle_ready(self._pending_fires[0][2]):
+                break
+            out.extend(self._finish_gather_fire(*self._pending_fires.pop(0)))
+        return out
+
+    def _finish_gather_fire(self, window_id: int, keys: np.ndarray, handle,
+                            structure) -> List[StreamElement]:
+        fetched = _fetch_collect(handle)
+        self.phase_bytes["d2h"] = (self.phase_bytes.get("d2h", 0)
+                                   + sum(f.nbytes for f in fetched))
+        return self._rows_for_keys(keys, tree_unflatten(structure, fetched),
+                                   self.assigner.window_bounds(window_id))
 
     def _fire_window_host(self, window_id: int,
                           panes: np.ndarray) -> List[StreamElement]:
@@ -1235,9 +1436,17 @@ class WindowAggOperator(StreamOperator):
                 for n, d in zip(self.spec.leaf_names, self.spec.leaf_dtypes)]
 
     def snapshot_state(self) -> Dict[str, Any]:
-        """Dense numpy snapshot, served from the host mirror (the same
-        format as the JAX operator's mirror-sourced snapshot)."""
+        """Dense numpy snapshot, served from the host mirror or, with
+        ``snapshot_source="device"``, downloaded from the replica (the same
+        format either way, and the JAX operator's)."""
         self.flush_pipeline()       # the snapshot must hold staged batches
+        if self._pending_fires:
+            # a snapshot with undrained async fires could neither replay nor
+            # hold those emissions: the runtime drains them first
+            raise ValueError(
+                "snapshot with in-flight async fires: the runtime must call "
+                "prepare_snapshot_pre_barrier() (and forward its elements) "
+                "before snapshot_state()")
         snap: Dict[str, Any] = {
             "pane_base": self.pane_base,
             "max_pane": self.max_pane,
@@ -1256,11 +1465,27 @@ class WindowAggOperator(StreamOperator):
                               dtype=np.int64)
             snap["panes"] = panes
             with self._phase("snapshot"):
-                counts, leaves = self._mirror_columns(panes.tolist(), n)
+                if self.snapshot_source == "mirror":
+                    counts, leaves = self._mirror_columns(panes.tolist(), n)
+                else:
+                    counts, leaves = self._device_columns(panes, n)
             snap["leaves"] = leaves
             snap["counts"] = counts
             snap["leaf_schema"] = self._leaf_schema()
         return snap
+
+    def _device_columns(self, panes: np.ndarray, rows: int):
+        """The replica's live columns: counts int32 ``[rows, len(panes)]``
+        and one ``[rows, len(panes)]`` array per leaf, each downloaded in one
+        gather (live keys x live panes)."""
+        slots = torch.from_numpy(panes % self._P).to(self.device)
+        leaves = [l[:rows].index_select(1, slots).cpu().numpy()
+                  for l in self._leaves]
+        counts = self._counts[:rows].index_select(1, slots).cpu().numpy()
+        self.phase_bytes["d2h"] = (self.phase_bytes.get("d2h", 0)
+                                   + counts.nbytes
+                                   + sum(l.nbytes for l in leaves))
+        return counts, leaves
 
     def restore_state(self, snap: Dict[str, Any]) -> None:
         self.flush_pipeline()
@@ -1290,6 +1515,7 @@ class WindowAggOperator(StreamOperator):
         self._leaves = None
         self._counts = None
         self._vmirror = {}
+        self._mirror = {}
         if "leaves" in snap:
             schema = snap.get("leaf_schema")
             if (schema is not None and list(schema) != self._leaf_schema()) \
@@ -1312,6 +1538,13 @@ class WindowAggOperator(StreamOperator):
                         np.ascontiguousarray(src)).to(self.device, l.dtype)
                 self._counts[:n, slots] = torch.from_numpy(
                     np.ascontiguousarray(counts_np, np.int32)).to(self.device)
+            if self.emit_tier == "device":
+                # rebuild the emit mirror from the snapshot's counts
+                for j, p in enumerate(panes.tolist()):
+                    nz = np.flatnonzero(counts_np[:, j] > 0)
+                    if nz.size:
+                        self._mirror_mark(int(p), nz)
+                return
             # re-seed the value mirror from the snapshot (device precision —
             # the f64 surplus re-accumulates from here on)
             for j, p in enumerate(panes.tolist()):

@@ -37,7 +37,10 @@ import numpy as np
 import torch
 
 from flink_tpu_torch import DeviceLike, resolve_device
-from flink_tpu_torch.ops.scatter import scatter_fold_counts
+from flink_tpu_torch.ops.scatter import (FOLD_BLOCK_ROWS,  # noqa: F401
+                                         FOLD_MAX_TILES, FOLD_MIN_TILE_BITS,
+                                         fold_plan, fold_scratch,
+                                         scatter_fold_counts)
 from flink_tpu_torch.state.keyindex import _mix64, unique_first
 
 #: probe miss marker in the slot output
@@ -190,12 +193,6 @@ _FOLD_KINDS = {(torch.float32, torch.float64): 0,
                (torch.int32, torch.int64): 2,
                (torch.int64, torch.int64): 3}
 
-#: rows per block of the probe and partition steps (``kBlockRows``)
-FOLD_BLOCK_ROWS = 4096
-#: most cell tiles a flush is cut into (``kMaxTiles``)
-FOLD_MAX_TILES = 1024
-#: fewest cells a tile holds, as a power of two
-FOLD_MIN_TILE_BITS = 8
 #: the four steps of ``csrc/probe_fold.cu``, as bits of its ``steps`` mask
 FOLD_STEPS = {"probe": 1, "scan": 2, "scatter": 4, "fold": 8}
 
@@ -259,33 +256,12 @@ def _check_fold_args(keys, pane_slots, b, vals, dsum, dcnt, pane_mod):
                          f"b={b} pane_mod={pane_mod}")
 
 
-def fold_plan(n_rows: int, n_cells: int) -> Tuple[int, int, int]:
-    """``(tile_bits, tiles, blocks)`` of one ``probe_fold`` launch: cells
-    are cut into tiles of ``2^tile_bits`` (at least ``2^8``, and few enough
-    that at most :data:`FOLD_MAX_TILES` tiles cover the planes; the last may
-    be short), rows into blocks of :data:`FOLD_BLOCK_ROWS`."""
-    bits = max(FOLD_MIN_TILE_BITS, (max(n_cells, 1) - 1).bit_length()
-               - (FOLD_MAX_TILES.bit_length() - 1))
-    tiles = (n_cells + (1 << bits) - 1) >> bits
-    blocks = (n_rows + FOLD_BLOCK_ROWS - 1) // FOLD_BLOCK_ROWS
-    return bits, tiles, blocks
-
-
 def probe_fold_scratch(n_rows: int, n_cells: int,
                        vals: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The device scratch of one launch: each row's cell id, the
-    ``[blocks, tiles]`` count matrix (then its offsets), the tiles' bases
-    (with the number of folding rows and a ticket of the offsets step after
-    them), and the partitioned rows, ``(cell's low bits, value)`` in 8 bytes for a
-    4-byte value and 16 for an 8-byte one."""
-    bits, tiles, blocks = fold_plan(n_rows, n_cells)
-    i32 = dict(dtype=torch.int32, device=vals.device)
-    return {"tile_bits": bits,
-            "cell": torch.empty(n_rows, **i32),
-            "counts": torch.empty(blocks * tiles, **i32),
-            "tile_base": torch.empty(tiles + 2, **i32),
-            "part": torch.empty((n_rows, 2 if vals.element_size() == 4
-                                 else 4), **i32)}
+    """The device scratch of one ``probe_fold`` launch
+    (:func:`~flink_tpu_torch.ops.scatter.fold_scratch`; the plan and the
+    steps 2-4 are those of ``csrc/ordered_fold.cuh``)."""
+    return fold_scratch(n_rows, n_cells, vals.element_size(), vals.device)
 
 
 def launch_probe_fold_steps(buckets, keys, pane_slots, b: int, vals, dsum,

@@ -1,6 +1,6 @@
-"""The port on the card: the probe and probe_fold kernels against their
-plain versions, and the window operator on CUDA against the same operator on
-the CPU.
+"""The port on the card: the probe, probe_fold and scatter_fold kernels
+against their plain versions, and the window operator on CUDA (host and
+device emit tiers) against the same operator on the CPU.
 
 These tests need an NVIDIA GPU and nvcc (the kernels have no CPU mode); they
 skip with a reason elsewhere.  This file imports nothing of JAX, so it runs
@@ -18,6 +18,7 @@ import torch
 from flink_tpu_torch.core.batch import RecordBatch, Watermark
 from flink_tpu_torch.core.functions import SumAggregator
 from flink_tpu_torch.operators.window_agg import WindowAggOperator
+from flink_tpu_torch.ops import scatter as sc
 from flink_tpu_torch.state import device_keyindex as dk
 from flink_tpu_torch.state.keyindex import KeyIndex
 from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
@@ -193,3 +194,104 @@ def test_fused_deferred_lane_on_the_card_is_bit_equal_to_the_cpu(cuda_device):
         assert np.array_equal(g.column("k"), c.column("k"))
         assert np.asarray(g.column("result")).tobytes() == \
             np.asarray(c.column("result")).tobytes()
+
+
+def _scatter_case(rng, case, n_cells=(1 << 14) * 16, n=70000):
+    """Host flat ids of one case (about 5% dropped, as the id n_cells)."""
+    ids = rng.integers(0, n_cells, n)
+    if case == "skewed":            # one cell on 25% of the rows
+        ids[rng.random(n) < 0.25] = 12345
+    elif case == "empty_tiles":     # cells in a few tiles only
+        ids = rng.integers(0, 4000, n)
+    ids[rng.random(n) < 0.05] = n_cells
+    return ids
+
+
+@pytest.mark.parametrize("ids_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("value_kind", ["f32", "f64", "i32", "i64"])
+@pytest.mark.parametrize("case", ["uniform", "skewed", "empty_tiles"])
+def test_scatter_fold_kernel_equals_its_plain_version(cuda_device, case,
+                                                      value_kind, ids_dtype):
+    """``ordered_fold_counts`` on the card (one ``csrc/scatter_fold.cu``
+    launch) against the plain version on CPU copies: the plane and the
+    counts bit for bit, dropped ids folding nothing."""
+    rng = np.random.default_rng(7)
+    n_cells = (1 << 14) * 16
+    ids = _scatter_case(rng, case, n_cells).astype(ids_dtype)
+    n = ids.size
+    dtype = {"f32": np.float32, "f64": np.float64, "i32": np.int32,
+             "i64": np.int64}[value_kind]
+    if value_kind.startswith("f"):
+        vals = (rng.standard_normal(n) * 10).astype(np.float32)
+        plane = rng.standard_normal(n_cells).astype(dtype)
+    else:
+        vals = rng.integers(-1000, 1000, n).astype(dtype)
+        plane = rng.integers(-10 ** 6, 10 ** 6, n_cells).astype(dtype)
+    counts = rng.integers(0, 5, n_cells).astype(np.int32)
+    cpu = [torch.from_numpy(a) for a in (plane, counts, ids, vals)]
+    dev = [t.to(cuda_device) for t in cpu]
+    before = sc.ordered_fold_counts.launches
+    (got,), got_c = sc.ordered_fold_counts((dev[0],), dev[1], dev[2],
+                                           (dev[3],), ("add",))
+    torch.cuda.synchronize()
+    assert sc.ordered_fold_counts.launches == before + 1
+    (want,), want_c = sc.scatter_fold_counts((cpu[0].clone(),),
+                                             cpu[1].clone(), cpu[2],
+                                             (cpu[3],), ("add",))
+    assert torch.equal(got_c.cpu(), want_c)
+    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+    assert (want_c.numpy() - counts).sum() == int((ids < n_cells).sum())
+    if case == "skewed":
+        assert (want_c.numpy() - counts).max() > 4 * 2048
+
+
+@pytest.mark.parametrize("kinds", [("add", "add"), ("min",), ("max", "add")])
+def test_scatter_fold_trees_fold_counts_once(cuda_device, kinds):
+    """Several leaves: each ``add`` leaf is one launch, the counts fold in
+    the first; with no ``add`` leaf the counts take one launch of ones;
+    ``min``/``max`` leaves take ``scatter_reduce_``.  Equal to the plain
+    version bit for bit."""
+    rng = np.random.default_rng(8)
+    n_cells = 5000 * 16
+    ids = _scatter_case(rng, "uniform", n_cells, 30000).astype(np.int32)
+    vals = [(rng.standard_normal(ids.size) * 10).astype(np.float32)
+            for _ in kinds]
+    init = {"add": 0.0, "min": np.inf, "max": -np.inf}
+    planes = [np.full(n_cells, init[k], np.float32) for k in kinds]
+    counts = np.zeros(n_cells, np.int32)
+    before = sc.ordered_fold_counts.launches
+    got, got_c = sc.ordered_fold_counts(
+        tuple(torch.from_numpy(p).to(cuda_device) for p in planes),
+        torch.from_numpy(counts).to(cuda_device),
+        torch.from_numpy(ids).to(cuda_device),
+        tuple(torch.from_numpy(v).to(cuda_device) for v in vals), kinds)
+    torch.cuda.synchronize()
+    assert sc.ordered_fold_counts.launches - before == max(
+        1, kinds.count("add"))
+    want, want_c = sc.scatter_fold_counts(
+        tuple(torch.from_numpy(p.copy()) for p in planes),
+        torch.from_numpy(counts.copy()), torch.from_numpy(ids),
+        tuple(torch.from_numpy(v) for v in vals), kinds)
+    assert torch.equal(got_c.cpu(), want_c)
+    for g, w in zip(got, want):
+        assert g.cpu().numpy().tobytes() == w.numpy().tobytes()
+
+
+def test_device_tier_on_the_card_is_bit_equal_to_the_cpu(cuda_device):
+    """The device emit tier (and its async twin) on the card: the replica
+    folds through ``scatter_fold`` in row order, fires gather from it, so
+    every fire equals the CPU's bit for bit."""
+    kw = dict(emit_tier="device", snapshot_source="device", superbatch=4,
+              native_emit=True, native_shards=1)
+    before = sc.ordered_fold_counts.launches
+    gpu, gstats = _run(cuda_device, **kw)
+    assert sc.ordered_fold_counts.launches > before
+    agpu, _ = _run(cuda_device, async_fire=True, **kw)
+    cpu, cstats = _run("cpu", **kw)
+    assert gstats == cstats and gstats["enabled"] == 0
+    assert len(gpu) == len(agpu) == len(cpu) > 0
+    for g, a, c in zip(gpu, agpu, cpu):
+        for b in (g, a):
+            assert np.array_equal(b.column("k"), c.column("k"))
+            assert np.asarray(b.column("result")).tobytes() == \
+                np.asarray(c.column("result")).tobytes()

@@ -130,3 +130,35 @@ def test_host_library_exports_only_prefixed_symbols():
     strong = [line.split()[-1] for line in res.stdout.splitlines()
               if line.split()[-2] in ("T", "D", "B", "R")]
     assert set(strong) == set(names)
+
+
+@pytest.mark.parametrize("src", sorted(
+    p.name for p in (PORT / "csrc").iterdir()
+    if p.suffix in (".cu", ".cuh")))
+def test_cuda_sources_include_only_the_port_and_the_toolkit(src):
+    """Every CUDA source builds from the port's ``csrc/`` alone: a quoted
+    include names a file there (``ordered_fold.cuh``, ``probe_walk.cuh``),
+    an angled one a header of the CUDA toolkit (CUB among them)."""
+    import re
+    text = (PORT / "csrc" / src).read_text()
+    quoted = re.findall(r'^#include\s+"([^"]+)"', text, re.M)
+    angled = re.findall(r"^#include\s+<([^>]+)>", text, re.M)
+    assert all("/" not in q and (PORT / "csrc" / q).is_file()
+               for q in quoted), quoted
+    assert all(a.split("/")[0] in ("cuda_runtime.h", "stdint.h", "cub")
+               for a in angled), angled
+
+
+def test_the_ordered_fold_is_shared():
+    """``probe_fold.cu`` and ``scatter_fold.cu`` take steps 2-4 from the
+    one header, and neither defines them itself."""
+    import re
+    steps = re.compile(r"__global__[^;{]*?\b(tile_scan_kernel|scatter_kernel"
+                       r"|fold_kernel)\(", re.S)
+    csrc = PORT / "csrc"
+    for src in ("probe_fold.cu", "scatter_fold.cu"):
+        text = (csrc / src).read_text()
+        assert '#include "ordered_fold.cuh"' in text
+        assert not steps.findall(text), src
+    assert sorted(steps.findall((csrc / "ordered_fold.cuh").read_text())) \
+        == ["fold_kernel", "scatter_kernel", "tile_scan_kernel"]

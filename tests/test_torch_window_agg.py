@@ -253,9 +253,11 @@ def test_interop_refuses_what_the_slice_does_not_carry(port_run):
 
 
 @pytest.mark.parametrize("kw", [
-    {"emit_tier": "device"}, {"device_sync": "auto"},
+    {"queryable": "q"}, {"device_sync": "auto"},
     {"device_probe": "auto"}, {"superbatch": 0}, {"pipeline_depth": 1},
-    {"native_emit": True}, {"async_fire": True}, {"late_output_tag": "late"},
+    {"native_emit": True},
+    {"emit_tier": "device", "snapshot_source": "device", "paging": object()},
+    {"late_output_tag": "late"},
 ])
 def test_later_slices_refuse_honestly(kw):
     base = dict(key_column="k", value_column="v", device="cpu")
