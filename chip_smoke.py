@@ -28,7 +28,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    (per window ``np.bincount`` in f64 over the same records);
 5. restore and replay of path 1: the first snapshot restored into a fresh
    operator and the remaining batches replayed must give the same
-   per-window digests; a profiled replay gives the device's busy share;
+   per-window digests, bit for bit for every window that starts after the
+   snapshot's (the window it cuts is re-seeded from the snapshot's f32
+   cells, as in the reference, so its sums agree to 1e-6); a profiled
+   replay gives the device's busy share and must equal the first replay
+   bit for bit;
 6. main path 2: the same 40 batches through the fused super-batch lane,
    ``device_sync="deferred"``, ``superbatch=8``: the same checks, plus
    launches of ``probe_fold`` and a scan depth above 1;
@@ -37,10 +41,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``native_shards = min(4, os.cpu_count())``: the key index and the host
    mirror are the C layer's, so each pair differs only in the mirror.  The
    same checks, plus: the C mirror is active, both kernels still launch,
-   and every fire equals its numpy twin's (same keys in the same order,
-   values to rtol 1e-6; the card's unordered f64 atomics in the delta fold
-   allow no more).  Each is restored and replayed as in phase 5.  The paths
-   run in the order 1, 3, 2, 4, so each pair runs back to back;
+   and every fire equals its numpy twin's bit for bit (same keys in the
+   same order; the probe lane folds the replica and the delta ring through
+   the ordered ``scatter_fold``, and both mirrors fold in row order).  Each
+   is restored and replayed as in phase 5.  The paths run in the order 1,
+   3, 2, 4, so each pair runs back to back;
 7b. host layer phase: the C layer's calls at the main paths' sizes, on the
    host's clock (median of 5): the probe + mirror pass over one batch of
    2^18 records into a warm 1M-key keydict at 1 and at ``native_shards``
@@ -70,14 +75,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    mirror); path 6 must surface exactly path 5's fires, each at most one
    batch later.  Each is restored and replayed, with fires equal bit for
    bit;
-10. kernel phase, scatter_fold: the ordered replica fold
-   (``csrc/scatter_fold.cu``) at path 5's shapes — 2^18 int32 flat ids
-   (about 2% dropped) into an f32 ``[2^20, 16]`` replica and int32 counts
-   with non-zero contents, and a skewed batch with one key on 25% of the
-   rows — must equal its plain version on CPU copies bit for bit; its
-   median time (L2 flushed and warm, split into its four steps) is printed
-   beside its bound, the plain version's time and the two ``index_add_``
-   calls it replaces.
+10. kernel phase, scatter_fold: the ordered fold (``csrc/scatter_fold.cu``)
+   at path 5's shapes — 2^18 int32 flat ids (about 2% dropped) into an f32
+   ``[2^20, 16]`` replica and int32 counts with non-zero contents, and a
+   skewed batch with one key on 25% of the rows — must equal its plain
+   version on CPU copies bit for bit; its median time (L2 flushed and warm,
+   split into its two steps, partition and fold) is printed beside its
+   bound, the plain version's time and the two ``index_add_`` calls it
+   replaces.  Then the multi-plane call at path 1's shapes (int64 ids, the
+   f32 replica and the f64 delta ring from one value column, both count
+   planes) is held to its plain version bit for bit and timed against two
+   single-plane calls and the ``index_add_`` route the probe lane ran
+   before.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the kernel line reports each kernel's launches on every
@@ -112,7 +121,7 @@ N_BATCHES = 40
 SNAPSHOT_EVERY = 16
 PANES = 16                      # the operator's pane ring at these windows
 SUPERBATCH = 8
-RTOL = 1e-6   # path 1's f64 atomics fold in no fixed order: ~1e-16 relative
+RTOL = 1e-6   # f32 results against the reference's f64 sums
 
 #: the kernels of the main paths, built together in phase 2
 SOURCES = ("probe.cu", "probe_fold.cu", "scatter_fold.cu")
@@ -587,16 +596,44 @@ def _scatter_fold_check(device, batch, plane0, counts0, label):
             int(added.max()))
 
 
-def scatter_fold_split_ms(batch, plane, counts, runs: int, flush=None):
-    """Median ms of scatter_fold's four steps (ids + tile histogram,
-    offsets, partition, fold)."""
+def scatter_fold_split_ms(ids, groups, runs: int, flush=None):
+    """Median ms of scatter_fold's two steps (partition, fold) for the
+    ``(leaves, counts, lifted)`` groups of one call: the wrapper's launch,
+    made one step at a time."""
     from flink_tpu_torch.ops import scatter as sc
-    ids, vals = batch
-    scratch = sc.fold_scratch(int(ids.shape[0]), int(plane.shape[0]), 4,
-                              ids.device)
+    ((sources, planes, counts),) = sc._fold_launches(groups, ("add",))
     return split_ms(sc.SCATTER_FOLD_STEPS, lambda step:
-                    sc.launch_ordered_fold_steps(ids, vals, plane, counts,
-                                                 scratch, step), runs, flush)
+                    sc.launch_ordered_fold_steps(ids, sources, planes, counts,
+                                                 step), runs, flush)
+
+
+def _multi_check(device, ids, vals, planes0, label):
+    """One multi-plane call on the card (the probe lane's replica and delta
+    ring with their counts) against a loop of the plain version on CPU
+    copies, bit for bit; returns the max abs errors."""
+    import torch
+
+    from flink_tpu_torch.ops import scatter as sc
+
+    def groups(dev, ids_, vals_):
+        t = [p.to(dev, copy=True) for p in planes0]
+        return [((t[0],), t[1], (vals_,)), ((t[2],), t[3], (vals_,))]
+
+    got = sc.ordered_fold_counts_multi(groups(device, ids, vals), ids,
+                                       ("add",))
+    torch.cuda.synchronize()
+    want = sc.scatter_fold_counts_multi(groups("cpu", ids.cpu(), vals.cpu()),
+                                        ids.cpu(), ("add",))
+    errs = {}
+    for name, (gl, gc), (wl, wc) in zip(("replica", "delta"), got, want):
+        g, w = gl[0].cpu(), wl[0]
+        errs[name] = float((g.double() - w.double()).abs().max())
+        errs[name + "_counts"] = int((gc.cpu().long() - wc.long()).abs().max())
+        check(g.numpy().tobytes() == w.numpy().tobytes()
+              and torch.equal(gc.cpu(), wc),
+              f"scatter_fold multi-plane call != its plain version on the "
+              f"{label} batch ({name}): max abs errors {errs}")
+    return errs
 
 
 def scatter_fold_phase(device, rng):
@@ -618,16 +655,19 @@ def scatter_fold_phase(device, rng):
 
     ids, vals = batch
     plane, counts = plane0.to(device), counts0.to(device)
+    one = [((plane,), counts, (vals,))]
     flush, clean = l2_flushes(device)
     run = lambda: sc.ordered_fold_counts(  # noqa: E731
         (plane,), counts, ids, (vals,), ("add",))
     ms_cold = cuda_time_ms(run, 20, flush=flush)
     ms_clean = cuda_time_ms(run, 20, flush=clean)
     ms_warm = cuda_time_ms(run, 20)
-    split_cold = scatter_fold_split_ms(batch, plane, counts, 20, flush)
-    split_warm = scatter_fold_split_ms(batch, plane, counts, 20)
+    split_cold = scatter_fold_split_ms(ids, one, 20, flush)
+    split_warm = scatter_fold_split_ms(ids, one, 20)
     skew_ms = cuda_time_ms(lambda: sc.ordered_fold_counts(
         (plane,), counts, skew[0], (skew[1],), ("add",)), 10, flush=flush)
+    skew_split = scatter_fold_split_ms(
+        skew[0], [((plane,), counts, (skew[1],))], 10, flush)
     plain_ms = cuda_time_ms(lambda: sc.scatter_fold_counts(
         (plane,), counts, ids, (vals,), ("add",)), 20, flush=flush)
     # the library route: the two index_add_ calls alone, on ids already
@@ -643,24 +683,58 @@ def scatter_fold_phase(device, rng):
         counts.index_add_(0, lib_ids, lib_ones)
 
     library_ms = cuda_time_ms(library, 20, flush=flush)
+
+    # the multi-plane call at path 1's shapes: the probe lane's int64 flat
+    # ids (misses carry the dropped id), the f32 replica and the f64 delta
+    # ring folded from one f32 column, both count planes
+    ids64 = ids.long()
+    delta0 = torch.rand(n_cells, dtype=torch.float64, generator=gen)
+    dcnt0 = torch.randint(0, 5, (n_cells,), dtype=torch.int32, generator=gen)
+    planes0 = (plane0, counts0, delta0, dcnt0)
+    multi_errs = _multi_check(device, ids64, vals, planes0, "uniform")
+    _multi_check(device, skew[0].long(), skew[1], planes0, "skewed")
+    delta, dcnt = delta0.to(device), dcnt0.to(device)
+    pair = [((plane,), counts, (vals,)), ((delta,), dcnt, (vals,))]
+    multi_ms = cuda_time_ms(lambda: sc.ordered_fold_counts_multi(
+        pair, ids64, ("add",)), 20, flush=flush)
+    multi_warm = cuda_time_ms(lambda: sc.ordered_fold_counts_multi(
+        pair, ids64, ("add",)), 20)
+    multi_split = scatter_fold_split_ms(ids64, pair, 20, flush)
+
+    def two_single():
+        sc.ordered_fold_counts((plane,), counts, ids64, (vals,), ("add",))
+        sc.ordered_fold_counts((delta,), dcnt, ids64, (vals,), ("add",))
+
+    def index_add_pair():       # the probe lane's fold before this design
+        sc.scatter_fold_counts((plane,), counts, ids64, (vals,), ("add",))
+        sc.scatter_fold_counts((delta,), dcnt, ids64, (vals,), ("add",))
+
+    two_ms = cuda_time_ms(two_single, 20, flush=flush)
+    pair_plain_ms = cuda_time_ms(index_add_pair, 20, flush=flush)
     del flush, clean
     # ids and values stream in (4 + 4 B a row); each touched cell of the
     # replica and the counts is read and written once (4 + 4 B each way)
     bytes_ = 8 * BATCH + 16 * cells
     bound_ms, bound_by, bound_bytes_ms, bound_ops_ms = bound(bytes_,
                                                              2 * rows)
-    bits, tiles, blocks = sc.fold_plan(BATCH, n_cells)
+    # int64 ids and f32 values in (12 B a row); each touched cell of the
+    # f32 replica, the f64 delta ring and both count planes read and
+    # written once (2 x (4 + 8 + 4 + 4) B)
+    multi_bytes = 12 * BATCH + 40 * cells
+    multi_bound, multi_by, _, _ = bound(multi_bytes, 4 * rows, rows)
+    bits, tiles, blocks = sc.scatter_plan(BATCH, n_cells)
     print(f"scatter_fold kernel: {BATCH} rows ({BATCH - rows} dropped) into "
           f"an f32 replica and int32 counts of {n_cells} cells "
           f"({cells} touched) in {tiles} tiles of 2^{bits} cells, {blocks} "
-          f"row blocks; max abs err {errs}")
+          f"partition blocks; max abs err {errs}")
     print(f"scatter_fold kernel: median {ms_cold:.4f} ms with L2 flushed "
           f"({_steps(split_cold)}), {ms_clean:.4f} ms after a read-only "
           f"flush, {ms_warm:.4f} ms warm ({_steps(split_warm)}); 20 runs "
           f"each")
     print(f"scatter_fold skewed batch (key {hot_key} on 25% of the rows, its "
           f"longest cell run {hot_run} rows; max abs err {skew_errs}): "
-          f"median {skew_ms:.4f} ms with L2 flushed (10 runs)")
+          f"median {skew_ms:.4f} ms with L2 flushed ({_steps(skew_split)}; "
+          f"10 runs)")
     print(f"scatter_fold plain version (scatter_fold_counts on the card: "
           f"identity rewrite + index_add_ x2) {plain_ms:.4f} ms; library "
           f"route (index_add_ x2, f32 atomics in no fixed order) "
@@ -669,6 +743,14 @@ def scatter_fold_phase(device, rng):
           f"cells = {bytes_} B over {HBM_BYTES_PER_S:.3g} B/s = "
           f"{bound_bytes_ms:.5f} ms; ops = {2 * rows} adds = "
           f"{bound_ops_ms:.6f} ms; bound by {bound_by}")
+    print(f"scatter_fold multi-plane call at path 1's shapes (int64 ids; f32 "
+          f"replica + f64 delta ring from one f32 column + two count planes; "
+          f"max abs err {multi_errs}): median {multi_ms:.4f} ms with L2 "
+          f"flushed ({_steps(multi_split)}), {multi_warm:.4f} ms warm; two "
+          f"single-plane calls {two_ms:.4f} ms; the index_add_ route the "
+          f"probe lane ran before (scatter_fold_counts x2) "
+          f"{pair_plain_ms:.4f} ms; bound {multi_bytes} B = "
+          f"{multi_bound:.5f} ms ({multi_by})")
     return {"name": "scatter_fold", "route": "cuda",
             "source": "flink_tpu_torch/csrc/scatter_fold.cu",
             "replaces": "flink_tpu/ops/scatter.py:61 (scatter_fold_counts, "
@@ -676,9 +758,14 @@ def scatter_fold_phase(device, rng):
             "launches": 0, "max_abs_err": max(errs.values()),
             "ms": ms_cold, "ms_clean_l2": ms_clean, "ms_warm": ms_warm,
             "split_ms": split_cold, "split_ms_warm": split_warm,
-            "skewed_ms": skew_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_bytes": bytes_, "library_ms": library_ms}
+            "skewed_ms": skew_ms, "skewed_split_ms": skew_split,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": bytes_, "library_ms": library_ms,
+            "multi_ms": multi_ms, "multi_ms_warm": multi_warm,
+            "multi_split_ms": multi_split, "two_single_ms": two_ms,
+            "multi_index_add_ms": pair_plain_ms,
+            "multi_bound_ms": multi_bound, "multi_bound_bytes": multi_bytes,
+            "multi_max_abs_err": max(multi_errs.values())}
 
 
 def check_async(fired, sync, label, ref):
@@ -845,9 +932,9 @@ def check_fires(fired, expect, label):
               f"abs {np.max(np.abs(res - sums[keys]))})")
 
 
-def check_twin(fired, twin, label, rtol=RTOL):
+def check_twin(fired, twin, label, rtol=None):
     """A path's fires against another's: the same windows, keys in the same
-    (slot) order, values to ``rtol``."""
+    (slot) order, values bit for bit, or to ``rtol`` where given."""
     check(len(fired) == len(twin), f"{label}: {len(fired)} fires, its twin "
           f"{len(twin)}")
     for a, b in zip(fired, twin):
@@ -856,9 +943,11 @@ def check_twin(fired, twin, label, rtol=RTOL):
               and np.array_equal(np.asarray(a.column("k")),
                                  np.asarray(b.column("k"))),
               f"{label} window {w}: keys differ from the numpy twin's")
-        check(np.allclose(np.asarray(a.column("result")),
-                          np.asarray(b.column("result")), rtol=rtol, atol=0),
-              f"{label} window {w}: values differ from the numpy twin's")
+        ra, rb = np.asarray(a.column("result")), np.asarray(b.column("result"))
+        check(ra.tobytes() == rb.tobytes() if rtol is None
+              else np.allclose(ra, rb, rtol=rtol, atol=0),
+              f"{label} window {w}: values differ from the twin's (max abs "
+              f"{np.max(np.abs(ra - rb))})")
 
 
 def reset_launches() -> None:
@@ -867,13 +956,20 @@ def reset_launches() -> None:
     dk.probe.launches = 0
     dk.probe_fold.launches = 0
     sc.ordered_fold_counts.launches = 0
+    sc.ordered_fold_counts_multi.launches = 0
 
 
 def read_launches():
+    """Launches per kernel; ``scatter_fold`` sums its two wrappers' counts,
+    each also given alone (``_single``: ``ordered_fold_counts``,
+    ``_multi``: ``ordered_fold_counts_multi``)."""
     from flink_tpu_torch.ops import scatter as sc
     from flink_tpu_torch.state import device_keyindex as dk
+    single = sc.ordered_fold_counts.launches
+    multi = sc.ordered_fold_counts_multi.launches
     return {"probe": dk.probe.launches, "probe_fold": dk.probe_fold.launches,
-            "scatter_fold": sc.ordered_fold_counts.launches}
+            "scatter_fold": single + multi, "scatter_fold_single": single,
+            "scatter_fold_multi": multi}
 
 
 def main_path(device, batches, expect, label):
@@ -963,6 +1059,9 @@ def main_path(device, batches, expect, label):
         else:
             check(launches["probe"] > 0,
                   f"{label} never launched the probe kernel")
+            check(launches["scatter_fold_multi"] > 0,
+                  f"{label}: the probe lane never folded its replica and "
+                  f"delta ring through the ordered scatter_fold")
     check(fused["staged_pending"] == 0, f"{label}: batches left staged")
     check(op.verify_mirror(), f"{label}: device replica != host mirror")
     n_records = sum(len(b[0]) for b in batches)
@@ -1033,20 +1132,29 @@ def replay(device, batches, mid, want, label):
     got = digests(out)
     check(len(got) == len(want) and len(got) > 0,
           f"{label} replay fired {len(got)} windows, the run {len(want)}")
-    # the device tier folds in row order from the restored f32 cells, so
-    # its replay is bit-equal; the host tier re-seeds its f64 mirror from
-    # the snapshot's f32 cells, so its sums agree to 1e-6
-    exact = label in DEVICE_PATHS
+    # every fold is ordered, so a window that starts after the snapshot
+    # replays bit for bit; the device tier's cut window too (it folds on
+    # from the restored f32 cells, as the run did), while the host tier
+    # re-seeds its f64 mirror from the snapshot's f32 cells, so the window
+    # the snapshot cuts agrees to 1e-6 there (as in the reference)
+    cut = mid[0] * 1000 // WINDOW_MS * WINDOW_MS
+    exact = 0
     for (w1, n1, s1, h1), (w2, n2, s2, h2) in zip(got, want):
+        bits = label in DEVICE_PATHS or w2 > cut
         check(w1 == w2 and n1 == n2 and abs(s1 - s2) <= 1e-6 * max(abs(s2), 1)
-              and (h1 == h2 or not exact),
+              and (h1 == h2 or not bits),
               f"{label} replay digest {(w1, n1, s1, h1)} != "
               f"{(w2, n2, s2, h2)}")
+        exact += h1 == h2
     print(f"{label} restore+replay from batch {mid[0]}: {len(got)} window "
-          f"digests equal" + (" bit for bit" if exact else "")
+          f"digests equal, {exact} of them bit for bit"
+          + ("" if label in DEVICE_PATHS else
+             f" (every window after the cut one, {cut} ms)")
           + f"; wall {wall * 1e3:.3f} ms")
     prof = profile(activities=[ProfilerActivity.CUDA])
-    _replay_once(device, batches, mid, label, prof)
+    _, again = _replay_once(device, batches, mid, label, prof)
+    check(digests(again) == got, f"{label}: a second replay differs from "
+          f"the first in its bits")
     dev = sorted(((e.self_device_time_total, e.key)
                   for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
@@ -1054,7 +1162,8 @@ def replay(device, batches, mid, want, label):
     busy_ms = sum(t for t, _ in dev) / 1e3
     share = busy_ms / (wall * 1e3)
     print(f"{label} replay device busy {busy_ms:.3f} ms of {wall * 1e3:.3f} "
-          f"ms wall = {100 * share:.2f}% (idle {100 - 100 * share:.2f}%)")
+          f"ms wall = {100 * share:.2f}% (idle {100 - 100 * share:.2f}%); "
+          f"a second, profiled replay equals the first bit for bit")
     print(f"{label} replay top device ops (ms): " + "; ".join(
         f"{k[:60]} {t / 1e3:.3f}" for t, k in dev[:8]))
 
@@ -1087,8 +1196,8 @@ def main() -> None:
         plain = [b for _, b in fires[label]]
         if label in TWIN:
             check_twin(plain, [b for _, b in fires[TWIN[label]]], label)
-            print(f"{label} fires equal {TWIN[label]}'s: same keys in the "
-                  f"same order, values to rtol {RTOL}")
+            print(f"{label} fires equal {TWIN[label]}'s bit for bit: same "
+                  f"keys in the same order, same values")
         if label in DEVICE_PATHS:
             check_fires_bits(plain, cells, label)
             host = DEVICE_PATHS[label]
@@ -1142,6 +1251,12 @@ def main() -> None:
         by_path = {label: launches[label][kernel["name"]] for label in ORDER}
         kernel["launches_by_path"] = by_path
         kernel["launches"] = sum(by_path.values())
+        print(f"{kernel['name']} launches by path: {by_path}")
+    for part in ("single", "multi"):
+        kernels[-1][f"launches_by_path_{part}"] = by_path = {
+            label: launches[label][f"scatter_fold_{part}"] for label in ORDER}
+        print(f"scatter_fold launches through ordered_fold_counts"
+              f"{'_multi' if part == 'multi' else ''} by path: {by_path}")
     for label in ("path 1", "path 3"):
         check(launches[label]["probe"] > 0, f"{label}: no probe launch")
     for label in ("path 2", "path 4"):

@@ -1,10 +1,11 @@
-// The ordered fold shared by probe_fold.cu and scatter_fold.cu: steps 2-4
-// of a fold of rows into flat cell planes that adds each cell's rows in row
-// order, with no atomic on values (see probe_fold.cu for the design and its
-// costs).  A file that includes it writes its own step 1: one cell id per
-// row (-1 for a row that folds nothing) into `cell`, and each block's row of
-// the [blocks, tiles] count matrix (the block's folding rows per tile of
-// 2^tile_bits cells), with block 0 zeroing step 2's ticket.  Then:
+// The ordered fold of probe_fold.cu: steps 2-4 of a fold of rows into flat
+// cell planes that adds each cell's rows in row order, with no atomic on
+// values (see probe_fold.cu for the design and its costs; scatter_fold.cu
+// has a design of its own).  A file that includes it writes its own step 1:
+// one cell id per row (-1 for a row that folds nothing) into `cell`, and
+// each block's row of the [blocks, tiles] count matrix (the block's folding
+// rows per tile of 2^tile_bits cells), with block 0 zeroing step 2's
+// ticket.  Then:
 //   2. tile_scan_kernel: the count matrix becomes each (block, tile)'s offset
 //      within its tile, and tile_base the tiles' bases;
 //   3. scatter_kernel<V>: each block writes its folding rows, stably

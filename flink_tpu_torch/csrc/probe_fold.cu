@@ -15,8 +15,7 @@
 // the cells are cut into at most kMaxTiles tiles of 2^tile_bits cells, and
 // the rows are partitioned by tile, stably, then folded tile by tile.  Four
 // steps on one stream: step 1 is this file's, steps 2-4 (with their
-// constants and launchers) live in ordered_fold.cuh, which scatter_fold.cu
-// shares:
+// constants and launchers) live in ordered_fold.cuh:
 //   1. probe_hist_kernel: one thread per row (kHistRows rows a thread,
 //      their keys, pane slots and first buckets loaded before any is waited
 //      on) writes slot[i] and the row's int32 cell id, or -1 for a row that

@@ -174,8 +174,9 @@ def scatter_fold_lib() -> ctypes.CDLL:
     lib = load("scatter_fold.cu")
     fn = lib.flink_scatter_fold_launch
     if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([vp] + [ci] * 5 + [vp, vp, ci, vp, vp, vp, ci, vp, vp,
+                                          vp, cl, vp, ci, vp])
         fn.restype = ci
     return lib
 

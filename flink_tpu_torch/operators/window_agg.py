@@ -25,7 +25,9 @@ event-time, tumbling windowed aggregate with
   card (``state/device_keyindex.py``, kernel ``csrc/probe.cu``, which takes
   the int64 keys and hashes them itself), their rows
   fold into a device DELTA ring in the mirror's dtypes (f64 values, int32
-  counts), and under scatter sync into the replica too; the host pass
+  counts), and under scatter sync into the replica too, both through the
+  ordered fold (``csrc/scatter_fold.cu`` on the card, one call for both
+  under scatter sync), so the ring is bit-equal to the CPU's; the host pass
   touches only the compact miss list.  The mirror catches up pane by pane
   when a pane is read (fire, snapshot).  ``device_probe="off"`` is the plain
   lane: host key lookup, then (scatter sync) one device fold per batch,
@@ -90,7 +92,7 @@ from flink_tpu_torch.operators.fused_step import (MAX_STAGED_ROWS,
                                                   concat_staged)
 from flink_tpu_torch.ops.scatter import (combine_along_axis,
                                          ordered_fold_counts,
-                                         scatter_fold_counts)
+                                         ordered_fold_counts_multi)
 from flink_tpu_torch.ops.shapes import next_pow2 as _next_pow2
 from flink_tpu_torch.state.device_keyindex import (DeviceKeyIndex, probe,
                                                    probe_fold,
@@ -493,32 +495,32 @@ class WindowAggOperator(StreamOperator):
                             values) -> torch.Tensor:
         """One micro-batch with the key probe on the card: probe the table
         with the int64 keys, fold hit rows into the device replica (device
-        precision) and the delta ring (mirror precision), in place.  Miss
-        rows carry the dropped id K*P.  Returns the miss rows' indices
-        (int64, ascending); computing it is the step's one host sync."""
+        precision) and the delta ring (mirror precision), in place, in row
+        order, both in one ordered fold over the same ids.  Miss rows carry
+        the dropped id K*P.  Returns the miss rows' indices (int64,
+        ascending); computing it is the step's one host sync."""
         slot = probe(buckets, keys)
         hit = slot >= 0
         K, P = self._counts.shape
         flat = torch.where(hit, slot.to(torch.int64) * P + pane_slots, K * P)
         lifted = tuple(tree_leaves(self.agg.lift(values)))
-        scatter_fold_counts(*self._flat_state(self._leaves, self._counts),
-                            flat, lifted, self.kinds)
-        scatter_fold_counts(*self._flat_state(self._delta_leaves,
-                                              self._delta_counts),
-                            flat, lifted, self.kinds)
+        ordered_fold_counts_multi(
+            ((*self._flat_state(self._leaves, self._counts), lifted),
+             (*self._flat_state(self._delta_leaves, self._delta_counts),
+              lifted)), flat, self.kinds)
         return torch.nonzero(~hit).squeeze(1)
 
     def _probed_delta_step(self, buckets, keys, pane_slots,
                            values) -> torch.Tensor:
         """Deferred-sync twin of :meth:`_probed_update_step`: the mirror is
-        the authority, so hit rows fold into the delta ring only (the
-        replica catches up at :meth:`device_refresh`)."""
+        the authority, so hit rows fold into the delta ring only, in row
+        order (the replica catches up at :meth:`device_refresh`)."""
         slot = probe(buckets, keys)
         hit = slot >= 0
         K, P = self._delta_counts.shape
         flat = torch.where(hit, slot.to(torch.int64) * P + pane_slots, K * P)
         lifted = tuple(tree_leaves(self.agg.lift(values)))
-        scatter_fold_counts(*self._flat_state(self._delta_leaves,
+        ordered_fold_counts(*self._flat_state(self._delta_leaves,
                                               self._delta_counts),
                             flat, lifted, self.kinds)
         return torch.nonzero(~hit).squeeze(1)

@@ -13,13 +13,17 @@ JAX computes these as XLA scatters outside any Pallas kernel.  Here:
   On the CPU the fold runs in row order like XLA's CPU scatter; on CUDA,
   ``index_add_`` on floats uses atomics in no fixed order, so sums into one
   cell may round differently from run to run.
-- :func:`ordered_fold_counts` is the replica fold of the update step: on the
-  CPU it is :func:`scatter_fold_counts`; on CUDA its ``add`` leaves and the
+- :func:`ordered_fold_counts` is the ordered fold of the update step and of
+  the probe lanes, and :func:`ordered_fold_counts_multi` folds several
+  trees over one set of ids (the probe lane's replica and delta ring): on
+  the CPU they are :func:`scatter_fold_counts` (and a loop of it, in
+  :func:`scatter_fold_counts_multi`); on CUDA their ``add`` leaves and the
   counts fold through the hand-written kernel ``csrc/scatter_fold.cu``,
-  which adds each cell's rows in row order, so the card's replica is
-  bit-equal to the CPU's.  :func:`fold_plan` cuts the cells into the tiles
-  of that kernel and of ``csrc/probe_fold.cu``, which share
-  ``csrc/ordered_fold.cuh``.
+  which partitions the rows once for every plane and adds each cell's rows
+  in row order, so the card's planes are bit-equal to the CPU's.
+  :func:`scatter_plan` cuts its cells into tiles sized to the rows;
+  :func:`fold_plan` cuts them into the tiles of ``csrc/probe_fold.cu``
+  (with ``csrc/ordered_fold.cuh``).
 - :func:`combine_along_axis` is the fire-time pane combine, plain torch ops
   in JAX's pairwise tree order.
 """
@@ -84,27 +88,46 @@ def scatter_fold_counts(flat_leaves, flat_counts, slot_ids, lifted_leaves,
 
 
 # ---------------------------------------------------------------------------
-# the ordered fold: tile plan, scratch, kernel wrapper
+# the ordered folds: tile plans, scratch, kernel wrapper
 # ---------------------------------------------------------------------------
 
-#: rows per block of the first and partition steps (``kBlockRows``)
+#: rows per block of ``csrc/probe_fold.cu``'s first and partition steps
+#: (``kBlockRows`` of ``csrc/ordered_fold.cuh``)
 FOLD_BLOCK_ROWS = 4096
-#: most cell tiles a fold is cut into (``kMaxTiles``)
+#: most cell tiles a ``probe_fold`` is cut into (``kMaxTiles``)
 FOLD_MAX_TILES = 1024
-#: fewest cells a tile holds, as a power of two
+#: fewest cells a ``probe_fold`` tile holds, as a power of two
 FOLD_MIN_TILE_BITS = 8
-#: the four steps of ``csrc/scatter_fold.cu``, as bits of its ``steps`` mask
-SCATTER_FOLD_STEPS = {"ids": 1, "scan": 2, "scatter": 4, "fold": 8}
+
+#: rows per block of ``csrc/scatter_fold.cu``'s partition step (``kPartRows``)
+SCATTER_PART_ROWS = 2048
+#: rows a ``scatter_fold`` fold block sorts at once (``kChunk``); the plan
+#: sizes a tile to hold about half of it
+SCATTER_CHUNK = 4096
+#: most cell tiles a ``scatter_fold`` is cut into (``kMaxTiles``)
+SCATTER_MAX_TILES = 1024
+#: fewest tiles :func:`scatter_plan` aims for, so that a small batch still
+#: spreads its fold over the card's SMs
+SCATTER_MIN_TILES = 128
+#: most value sources, planes and count planes one ``scatter_fold`` launch
+#: takes (``kMaxSources``, ``kMaxPlanes``, ``kMaxCounts``)
+SCATTER_MAX_OPERANDS = 8
+#: the two steps of ``csrc/scatter_fold.cu``, as bits of its ``steps`` mask
+SCATTER_FOLD_STEPS = {"partition": 1, "fold": 2}
 
 #: value (= plane) dtypes of ``csrc/scatter_fold.cu``, with its kind codes
 _SCATTER_FOLD_KINDS = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
                        torch.int64: 3}
+#: (plane, source) dtypes the kernel widens itself (exactly, as ``.to``)
+_SCATTER_FOLD_WIDEN = {(torch.float64, torch.float32),
+                       (torch.int64, torch.int32)}
 
 
 def fold_plan(n_rows: int, n_cells: int) -> Tuple[int, int, int]:
-    """``(tile_bits, tiles, blocks)`` of one ordered fold launch: cells are
-    cut into tiles of ``2^tile_bits`` (at least ``2^8``, and few enough that
-    at most :data:`FOLD_MAX_TILES` tiles cover the planes; the last may be
+    """``(tile_bits, tiles, blocks)`` of one ``probe_fold`` launch
+    (``csrc/probe_fold.cu`` with ``csrc/ordered_fold.cuh``): cells are cut
+    into tiles of ``2^tile_bits`` (at least ``2^8``, and few enough that at
+    most :data:`FOLD_MAX_TILES` tiles cover the planes; the last may be
     short), rows into blocks of :data:`FOLD_BLOCK_ROWS`.  More cells raise
     ``tile_bits``; no cell count below 2^31 is refused."""
     bits = max(FOLD_MIN_TILE_BITS, (max(n_cells, 1) - 1).bit_length()
@@ -116,7 +139,7 @@ def fold_plan(n_rows: int, n_cells: int) -> Tuple[int, int, int]:
 
 def fold_scratch(n_rows: int, n_cells: int, value_bytes: int,
                  device) -> Dict[str, torch.Tensor]:
-    """The device scratch of one ordered fold launch: each row's cell id,
+    """The device scratch of one ``probe_fold`` launch: each row's cell id,
     the ``[blocks, tiles]`` count matrix (then its offsets), the tiles'
     bases (with the number of folding rows and a ticket of the offsets step
     after them), and the partitioned rows, ``(cell's low bits, value)`` in 8
@@ -131,6 +154,60 @@ def fold_scratch(n_rows: int, n_cells: int, value_bytes: int,
                                 **i32)}
 
 
+def scatter_plan(n_rows: int, n_cells: int) -> Tuple[int, int, int]:
+    """``(tile_bits, tiles, blocks)`` of one ``scatter_fold`` launch, sized
+    to the rows: about one tile per ``SCATTER_CHUNK / 2`` rows (at least
+    :data:`SCATTER_MIN_TILES`, at most :data:`SCATTER_MAX_TILES`), each of
+    ``2^tile_bits`` cells (at least 2; the last may be short), so a uniform
+    batch gives each fold block one chunk about half full of real rows (at
+    the main path's 2^18 rows into 2^24 cells: 128 tiles of 2^17 cells).
+    Rows are cut into blocks of :data:`SCATTER_PART_ROWS`.  No cell count
+    below 2^31 is refused."""
+    want = min(SCATTER_MAX_TILES,
+               max(SCATTER_MIN_TILES, -(-n_rows // (SCATTER_CHUNK // 2))))
+    per_tile = -(-max(n_cells, 1) // want)
+    bits = max(1, (per_tile - 1).bit_length())
+    tiles = (n_cells + (1 << bits) - 1) >> bits
+    blocks = -(-n_rows // SCATTER_PART_ROWS)
+    return bits, tiles, blocks
+
+
+#: ``scatter_fold`` scratch per (device, stream), grown to the largest call
+_SCATTER_SCRATCH: Dict[tuple, Dict[str, torch.Tensor]] = {}
+
+
+def scatter_fold_scratch(n_rows: int, n_sources: int,
+                         device) -> Dict[str, torch.Tensor]:
+    """The device scratch of ``csrc/scatter_fold.cu`` on the current stream,
+    cached and reused: the partition's low bits (int32 ``[rows]``), its
+    value slots (8 bytes a row for each source, ``[sources, rows]``) and the
+    offset table (``[blocks, SCATTER_MAX_TILES + 1]``), ``rows`` a whole
+    number of blocks.  A call reuses the scratch of the call before it on
+    the same stream, which the stream orders after it; the cache is keyed by
+    stream, so two streams never share it.  It grows (to a power of two of
+    blocks) when a call needs more, and never allocates otherwise."""
+    device = torch.device(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device, stream)
+    blocks = max(1, -(-n_rows // SCATTER_PART_ROWS))
+    cur = _SCATTER_SCRATCH.get(key)
+    if cur is not None and cur["low"].shape[0] >= blocks * SCATTER_PART_ROWS \
+            and cur["vals"].shape[0] >= n_sources:
+        return cur
+    cap = 1 << (blocks - 1).bit_length()
+    if cur is not None:
+        cap = max(cap, cur["low"].shape[0] // SCATTER_PART_ROWS)
+        n_sources = max(n_sources, cur["vals"].shape[0])
+    rows = cap * SCATTER_PART_ROWS
+    cur = _SCATTER_SCRATCH[key] = {
+        "low": torch.empty(rows, dtype=torch.int32, device=device),
+        "vals": torch.empty((max(n_sources, 1), rows), dtype=torch.int64,
+                            device=device),
+        "offs": torch.empty(cap * (SCATTER_MAX_TILES + 1), dtype=torch.int32,
+                            device=device)}
+    return cur
+
+
 def _check_ordered_fold_args(flat_leaves, flat_counts, slot_ids,
                              lifted_leaves, kinds) -> None:
     dev = slot_ids.device
@@ -142,14 +219,17 @@ def _check_ordered_fold_args(flat_leaves, flat_counts, slot_ids,
             or not flat_counts.is_contiguous():
         raise ValueError("the ordered fold takes flat contiguous int32 counts")
     n_cells = flat_counts.shape[0]
-    if n_cells >= 2 ** 31 or slot_ids.shape[0] >= 2 ** 31:
+    if n_cells >= 2 ** 31 or slot_ids.shape[0] >= 2 ** 31 - SCATTER_PART_ROWS:
         raise ValueError(f"the ordered fold takes fewer than 2^31 cells and "
-                         f"rows, got {n_cells} and {slot_ids.shape[0]}")
+                         f"2^31 - {SCATTER_PART_ROWS} rows, got {n_cells} "
+                         f"and {slot_ids.shape[0]}")
+    if flat_counts.device != dev:
+        raise ValueError(f"ordered fold tensors on {flat_counts.device} and "
+                         f"{dev}")
     for leaf, lifted, kind in zip(flat_leaves, lifted_leaves, kinds):
         if kind not in SCATTER_KINDS:
             raise ValueError(f"unknown scatter kind {kind!r}")
-        if leaf.device != dev or lifted.device != dev \
-                or flat_counts.device != dev:
+        if leaf.device != dev or lifted.device != dev:
             raise ValueError(f"ordered fold tensors on {leaf.device}, "
                              f"{lifted.device} and {dev}")
         if kind == "add" and (leaf.shape != (n_cells,)
@@ -162,28 +242,156 @@ def _check_ordered_fold_args(flat_leaves, flat_counts, slot_ids,
                             f"leaves, not {leaf.dtype}")
 
 
-def launch_ordered_fold_steps(slot_ids, vals, plane, counts, scratch,
+def _fold_source(leaf, lifted):
+    """The value column a plane folds: ``lifted`` as it is where the plane
+    has its dtype or the kernel widens it exactly, else cast first (the
+    plain version's cast)."""
+    if lifted.dtype != leaf.dtype \
+            and (leaf.dtype, lifted.dtype) not in _SCATTER_FOLD_WIDEN:
+        lifted = lifted.to(leaf.dtype)
+    return lifted.contiguous()
+
+
+def _fold_launches(groups, kinds):
+    """The ``add`` leaves and count planes of ``groups`` packed into
+    launches of at most :data:`SCATTER_MAX_OPERANDS` sources, planes and
+    count planes each (one launch for any tree of up to eight ``add``
+    leaves): a list of ``(sources, planes as (tensor, source index),
+    counts)``.  Groups that fold the same lifted tensor share its
+    source."""
+    launches = [([], [], [])]
+
+    def room(need_src: bool, planes: int, counts: int) -> bool:
+        src, pl, cnt = launches[-1]
+        return (len(src) + need_src <= SCATTER_MAX_OPERANDS
+                and len(pl) + planes <= SCATTER_MAX_OPERANDS
+                and len(cnt) + counts <= SCATTER_MAX_OPERANDS)
+
+    for flat_leaves, flat_counts, lifted_leaves in groups:
+        for leaf, lifted, kind in zip(flat_leaves, lifted_leaves, kinds):
+            if kind != "add":
+                continue
+            vals = _fold_source(leaf, lifted)
+            src = launches[-1][0]
+            at = next((i for i, s in enumerate(src)
+                       if s.data_ptr() == vals.data_ptr()
+                       and s.dtype == vals.dtype), None)
+            if not room(at is None, 1, 0):
+                launches.append(([], [], []))
+                src, at = launches[-1][0], None
+            if at is None:
+                src.append(vals)
+                at = len(src) - 1
+            launches[-1][1].append((leaf, at))
+        if not room(False, 0, 1):
+            launches.append(([], [], []))
+        launches[-1][2].append(flat_counts)
+    return launches
+
+
+def launch_ordered_fold_steps(slot_ids, sources, planes, counts,
                               steps: int) -> None:
     """Launch the steps of ``csrc/scatter_fold.cu`` named by the ``steps``
-    mask (:data:`SCATTER_FOLD_STEPS`) on the current stream: ``plane[f] += vals`` in
-    row order for every id ``f`` in ``[0, len(plane))``, and ``counts[f] +=
-    1`` unless ``counts`` is None.  ``vals`` must have ``plane``'s dtype.
-    :func:`ordered_fold_counts` runs all four steps, a timing harness one at
-    a time.  Counts no launch."""
+    mask (:data:`SCATTER_FOLD_STEPS`: partition, then fold) on the current
+    stream, for every id ``f`` in ``[0, n_cells)``: ``plane[f] +=
+    sources[i][row]`` in row order for each ``(plane, i)`` of ``planes``,
+    and ``c[f] += 1`` for each int32 plane ``c`` of ``counts``.  A plane
+    has its source's dtype, or is f64 over f32 or i64 over i32 (widened
+    exactly).  :func:`ordered_fold_counts` runs both steps, a timing
+    harness one at a time (the scratch carries the partition from one to
+    the other).  Counts no launch."""
+    import ctypes
+
     from flink_tpu_torch.kernels.build import scatter_fold_lib
     lib = scatter_fold_lib()
+    n = int(slot_ids.shape[0])
+    n_cells = int(counts[0].shape[0] if counts else planes[0][0].shape[0])
+    bits, _, _ = scatter_plan(n, n_cells)
+    scratch = scatter_fold_scratch(n, len(sources), slot_ids.device)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    src_ptrs = (vp * max(1, len(sources)))(*[s.data_ptr() for s in sources])
+    src_kinds = (ci * max(1, len(sources)))(
+        *[_SCATTER_FOLD_KINDS[s.dtype] for s in sources])
+    dst_ptrs = (vp * max(1, len(planes)))(*[p.data_ptr() for p, _ in planes])
+    dst_kinds = (ci * max(1, len(planes)))(
+        *[_SCATTER_FOLD_KINDS[p.dtype] for p, _ in planes])
+    dst_src = (ci * max(1, len(planes)))(*[i for _, i in planes])
+    cnt_ptrs = (vp * max(1, len(counts)))(*[c.data_ptr() for c in counts])
+    vals = scratch["vals"]
     stream = torch.cuda.current_stream(slot_ids.device).cuda_stream
     rc = lib.flink_scatter_fold_launch(
-        slot_ids.data_ptr(), vals.data_ptr(), plane.data_ptr(),
-        None if counts is None else counts.data_ptr(),
-        scratch["cell"].data_ptr(), scratch["counts"].data_ptr(),
-        scratch["tile_base"].data_ptr(), scratch["part"].data_ptr(),
-        int(slot_ids.shape[0]), int(slot_ids.dtype == torch.int64),
-        int(plane.shape[0]), int(scratch["tile_bits"]),
-        _SCATTER_FOLD_KINDS[plane.dtype], int(steps), stream)
+        slot_ids.data_ptr(), int(slot_ids.dtype == torch.int64), n, n_cells,
+        bits, len(sources), ctypes.addressof(src_ptrs),
+        ctypes.addressof(src_kinds), len(planes), ctypes.addressof(dst_ptrs),
+        ctypes.addressof(dst_kinds), ctypes.addressof(dst_src), len(counts),
+        ctypes.addressof(cnt_ptrs), scratch["low"].data_ptr(),
+        vals.data_ptr(), vals.stride(0) * vals.element_size(),
+        scratch["offs"].data_ptr(), int(steps), stream)
     if rc != 0:
         raise RuntimeError(f"scatter_fold kernel launch failed: cudaError "
                            f"{rc}")
+
+
+def _ordered_fold(groups, slot_ids, kinds) -> int:
+    """The card's side of :func:`ordered_fold_counts_multi`: check, launch
+    ``csrc/scatter_fold.cu`` for the ``add`` leaves and the counts, fold
+    ``min``/``max`` leaves with ``scatter_reduce_``; returns the number of
+    launches (none for a batch with no rows or planes with no cells)."""
+    if slot_ids.device.type != "cuda":
+        raise ValueError(f"the ordered fold runs on cpu or cuda, not "
+                         f"{slot_ids.device}")
+    for flat_leaves, flat_counts, lifted_leaves in groups:
+        _check_ordered_fold_args(flat_leaves, flat_counts, slot_ids,
+                                 lifted_leaves, kinds)
+    if len({int(g[1].shape[0]) for g in groups}) > 1:
+        raise ValueError("the groups of one ordered fold fold into planes of "
+                         "one length")
+    launches = []
+    if slot_ids.shape[0] and groups[0][1].shape[0]:   # rows and cells
+        launches = _fold_launches(groups, kinds)
+    for sources, planes, counts in launches:
+        launch_ordered_fold_steps(slot_ids, sources, planes, counts,
+                                  sum(SCATTER_FOLD_STEPS.values()))
+    for flat_leaves, _, lifted_leaves in groups:
+        for j, kind in enumerate(kinds):
+            if kind != "add":
+                scatter_fast((flat_leaves[j],), slot_ids,
+                             (lifted_leaves[j],), (kind,))
+    return len(launches)
+
+
+def scatter_fold_counts_multi(groups, slot_ids, kinds: Sequence[str]):
+    """Plain version of :func:`ordered_fold_counts_multi`: one
+    :func:`scatter_fold_counts` per group, in order."""
+    return [scatter_fold_counts(flat_leaves, flat_counts, slot_ids,
+                                lifted_leaves, kinds)
+            for flat_leaves, flat_counts, lifted_leaves in groups]
+
+
+def ordered_fold_counts_multi(groups, slot_ids, kinds: Sequence[str]):
+    """Several folds over one set of flat ids, in place, each keeping row
+    order in every cell: ``groups`` is a sequence of ``(flat_leaves,
+    flat_counts, lifted_leaves)``, each folded as :func:`ordered_fold_counts`
+    folds it, all with ``kinds``.  The probe lane's update step folds its
+    f32 replica and its f64 delta ring (and both count planes) this way.
+
+    CPU tensors take :func:`scatter_fold_counts_multi`.  CUDA tensors launch
+    ``csrc/scatter_fold.cu`` once for every ``add`` leaf and count plane of
+    every group (the rows are partitioned once; up to
+    :data:`SCATTER_MAX_OPERANDS` of each a launch), or raise.  Returns a list
+    of ``(leaves, counts)``, one per group.
+    ``ordered_fold_counts_multi.launches`` counts its kernel launches."""
+    if slot_ids.device.type == "cpu":
+        return scatter_fold_counts_multi(groups, slot_ids, kinds)
+    ordered_fold_counts_multi.launches += _ordered_fold(groups, slot_ids,
+                                                        kinds)
+    return [(tuple(flat_leaves), flat_counts)
+            for flat_leaves, flat_counts, _ in groups]
+
+
+#: kernel launches of :func:`ordered_fold_counts_multi` (CPU calls do not
+#: count)
+ordered_fold_counts_multi.launches = 0
 
 
 def ordered_fold_counts(flat_leaves, flat_counts, slot_ids, lifted_leaves,
@@ -194,43 +402,20 @@ def ordered_fold_counts(flat_leaves, flat_counts, slot_ids, lifted_leaves,
 
     CPU tensors take :func:`scatter_fold_counts` (the plain version: CPU
     ``index_add_`` is sequential, bit-equal to XLA's scatter).  CUDA tensors
-    launch ``csrc/scatter_fold.cu`` once per ``add`` leaf, with the value
-    cast to the leaf's dtype first and summed in it (``state[f] += v`` in
-    row order), and the int32 counts folded by the first launch (with an
-    integer atomic, whose sum is the same in any order); a tree with no
-    ``add`` leaf folds the counts in one launch of ones.  ``min``/``max``
-    leaves keep ``scatter_reduce_``: their value does not depend on the order
-    of the rows, except which of -0.0 and +0.0 survives a tie and which NaN
-    payload a NaN carries.  Anything else raises; nothing falls back.
-    ``ordered_fold_counts.launches`` counts kernel launches."""
+    launch ``csrc/scatter_fold.cu`` once for the whole tree: every ``add``
+    leaf summed in its own dtype (``state[f] += v`` in row order, the value
+    cast to the leaf's dtype first) and the int32 counts (an integer
+    atomic, the same sum in any order); a tree with no ``add`` leaf folds
+    only the counts.  ``min``/``max`` leaves keep ``scatter_reduce_``: their
+    value does not depend on the order of the rows, except which of -0.0
+    and +0.0 survives a tie and which NaN payload a NaN carries.  Anything
+    else raises; nothing falls back.  ``ordered_fold_counts.launches``
+    counts kernel launches."""
     if slot_ids.device.type == "cpu":
         return scatter_fold_counts(flat_leaves, flat_counts, slot_ids,
                                    lifted_leaves, kinds)
-    if slot_ids.device.type != "cuda":
-        raise ValueError(f"the ordered fold runs on cpu or cuda, not "
-                         f"{slot_ids.device}")
-    _check_ordered_fold_args(flat_leaves, flat_counts, slot_ids,
-                             lifted_leaves, kinds)
-    n, n_cells = int(slot_ids.shape[0]), int(flat_counts.shape[0])
-    adds = [j for j, k in enumerate(kinds) if k == "add"]
-    widest = max([flat_leaves[j].element_size() for j in adds] + [4])
-    scratch = fold_scratch(n, n_cells, widest, slot_ids.device)
-    counts = flat_counts
-    for j in adds:
-        vals = lifted_leaves[j].to(flat_leaves[j].dtype).contiguous()
-        launch_ordered_fold_steps(slot_ids, vals, flat_leaves[j], counts,
-                                  scratch, sum(SCATTER_FOLD_STEPS.values()))
-        ordered_fold_counts.launches += 1
-        counts = None
-    if counts is not None:
-        ones = torch.ones(n, dtype=torch.int32, device=slot_ids.device)
-        launch_ordered_fold_steps(slot_ids, ones, counts, None, scratch,
-                                  sum(SCATTER_FOLD_STEPS.values()))
-        ordered_fold_counts.launches += 1
-    for j, kind in enumerate(kinds):
-        if kind != "add":
-            scatter_fast((flat_leaves[j],), slot_ids, (lifted_leaves[j],),
-                         (kind,))
+    ordered_fold_counts.launches += _ordered_fold(
+        ((flat_leaves, flat_counts, lifted_leaves),), slot_ids, kinds)
     return tuple(flat_leaves), flat_counts
 
 

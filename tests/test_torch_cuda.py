@@ -144,12 +144,15 @@ def test_probe_fold_kernel_equals_torch_probe_fold(cuda_device, case,
         assert (per_tile == 0).sum() > tiles // 2
 
 
-def _run(device, **kw):
+def _run(device, snapshot_at=None, **kw):
+    """The small seeded stream through one operator; with ``snapshot_at``
+    also the bytes of a snapshot taken after that batch."""
     rng = np.random.default_rng(11)
     op = WindowAggOperator(TumblingEventTimeWindows.of(100), SumAggregator(),
                            key_column="k", value_column="v", device=device,
                            **kw)
     out = []
+    snap = None
     for i in range(10):
         keys = rng.integers(0, 1500, 4000).astype(np.int64)
         vals = rng.random(4000).astype(np.float32)
@@ -157,26 +160,66 @@ def _run(device, **kw):
         out += op.process_batch(RecordBatch({"k": keys, "v": vals},
                                             timestamps=ts))
         out += op.process_watermark(Watermark(int(ts.max()) - 1))
+        if i == snapshot_at:
+            s = op.snapshot_state()
+            snap = (np.asarray(s["counts"]).tobytes(),
+                    [np.asarray(l).tobytes() for l in s["leaves"]])
     out += op.end_input()
     assert op.verify_mirror()
+    if snapshot_at is not None:
+        return out, op.device_probe_stats(), snap
     return out, op.device_probe_stats()
 
 
-def test_operator_on_the_card_fires_like_the_cpu(cuda_device):
-    """Same stream, same fires: slot ids agree (one numpy KeyIndex on both
-    sides), values to rtol 1e-6 (f64 atomics fold in no fixed order)."""
-    before = dk.probe.launches
-    gpu, gstats = _run(cuda_device)
-    assert dk.probe.launches - before == 10
-    cpu, cstats = _run("cpu")
-    assert gstats == cstats
-    assert len(gpu) == len(cpu)
+def _same_fires(gpu, cpu):
+    assert len(gpu) == len(cpu) > 0
     for g, c in zip(gpu, cpu):
         assert int(g.column("window_start")[0]) == \
             int(c.column("window_start")[0])
         assert np.array_equal(g.column("k"), c.column("k"))
-        np.testing.assert_allclose(g.column("result"), c.column("result"),
-                                   rtol=1e-6, atol=1e-6)
+        assert np.asarray(g.column("result")).tobytes() == \
+            np.asarray(c.column("result")).tobytes()
+
+
+def test_operator_on_the_card_fires_like_the_cpu(cuda_device):
+    """Same stream, same fires, bit for bit: slot ids agree (one numpy
+    KeyIndex on both sides), and the probe lane's replica and f64 delta
+    ring fold through the ordered ``scatter_fold`` (one multi-plane call a
+    batch), so the values are the CPU's."""
+    before = dk.probe.launches
+    multi = sc.ordered_fold_counts_multi.launches
+    gpu, gstats = _run(cuda_device)
+    assert dk.probe.launches - before == 10
+    assert sc.ordered_fold_counts_multi.launches - multi == 10
+    cpu, cstats = _run("cpu")
+    assert gstats == cstats
+    _same_fires(gpu, cpu)
+
+
+@pytest.mark.parametrize("lane", [
+    dict(device_sync="scatter", superbatch=1),                  # path 1
+    dict(device_sync="scatter", superbatch=1, native_emit=True,
+         native_shards=2),                                       # path 3
+    dict(device_sync="deferred", superbatch=1),
+    dict(device_sync="deferred", superbatch=1, native_emit=True,
+         native_shards=2)])
+def test_probe_lanes_on_the_card_are_bit_equal_to_the_cpu(cuda_device,
+                                                          lane):
+    """The probe-on host tier (the chip smoke's paths 1 and 3, and their
+    deferred twins, one batch at a time): the replica and delta folds go
+    through the ordered fold, never ``index_add_``, so every fire and the
+    mid-run snapshot's bytes equal the CPU run's bit for bit."""
+    single = sc.ordered_fold_counts.launches
+    multi = sc.ordered_fold_counts_multi.launches
+    gpu, gstats, gsnap = _run(cuda_device, snapshot_at=5, **lane)
+    if lane["device_sync"] == "scatter":
+        assert sc.ordered_fold_counts_multi.launches > multi
+    else:
+        assert sc.ordered_fold_counts.launches > single
+    cpu, cstats, csnap = _run("cpu", snapshot_at=5, **lane)
+    assert gstats == cstats and gstats["probe_hits"] > 0
+    assert gsnap == csnap
+    _same_fires(gpu, cpu)
 
 
 def test_fused_deferred_lane_on_the_card_is_bit_equal_to_the_cpu(cuda_device):
@@ -197,26 +240,34 @@ def test_fused_deferred_lane_on_the_card_is_bit_equal_to_the_cpu(cuda_device):
 
 
 def _scatter_case(rng, case, n_cells=(1 << 14) * 16, n=70000):
-    """Host flat ids of one case (about 5% dropped, as the id n_cells)."""
+    """Host flat ids of one case (about 5% dropped, as the id n_cells);
+    ``n`` is not a multiple of the partition's block."""
+    if case == "no_rows":
+        return np.zeros(0, np.int64)
     ids = rng.integers(0, n_cells, n)
     if case == "skewed":            # one cell on 25% of the rows
         ids[rng.random(n) < 0.25] = 12345
     elif case == "empty_tiles":     # cells in a few tiles only
         ids = rng.integers(0, 4000, n)
+    elif case == "all_dropped":
+        ids[:] = n_cells
+    elif case == "short_last_tile":     # the last tile's cells are hot
+        hot = rng.random(n) < 0.3
+        ids[hot] = n_cells - 1 - rng.integers(0, 3, int(hot.sum()))
     ids[rng.random(n) < 0.05] = n_cells
     return ids
 
 
-@pytest.mark.parametrize("ids_dtype", [np.int32, np.int64])
-@pytest.mark.parametrize("value_kind", ["f32", "f64", "i32", "i64"])
-@pytest.mark.parametrize("case", ["uniform", "skewed", "empty_tiles"])
-def test_scatter_fold_kernel_equals_its_plain_version(cuda_device, case,
-                                                      value_kind, ids_dtype):
-    """``ordered_fold_counts`` on the card (one ``csrc/scatter_fold.cu``
-    launch) against the plain version on CPU copies: the plane and the
-    counts bit for bit, dropped ids folding nothing."""
-    rng = np.random.default_rng(7)
-    n_cells = (1 << 14) * 16
+_SCATTER_CASES = ["uniform", "skewed", "empty_tiles", "no_rows",
+                  "all_dropped", "short_last_tile"]
+
+
+def _scatter_cells(case):
+    return (1 << 14) * 16 + (12345 if case == "short_last_tile" else 0)
+
+
+def _scatter_inputs(rng, case, value_kind, ids_dtype):
+    n_cells = _scatter_cells(case)
     ids = _scatter_case(rng, case, n_cells).astype(ids_dtype)
     n = ids.size
     dtype = {"f32": np.float32, "f64": np.float64, "i32": np.int32,
@@ -228,29 +279,52 @@ def test_scatter_fold_kernel_equals_its_plain_version(cuda_device, case,
         vals = rng.integers(-1000, 1000, n).astype(dtype)
         plane = rng.integers(-10 ** 6, 10 ** 6, n_cells).astype(dtype)
     counts = rng.integers(0, 5, n_cells).astype(np.int32)
+    return ids, vals, plane, counts
+
+
+@pytest.mark.parametrize("ids_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("value_kind", ["f32", "f64", "i32", "i64"])
+@pytest.mark.parametrize("case", _SCATTER_CASES)
+def test_scatter_fold_kernel_equals_its_plain_version(cuda_device, case,
+                                                      value_kind, ids_dtype):
+    """``ordered_fold_counts`` on the card (one ``csrc/scatter_fold.cu``
+    launch: partition, then fold) against the plain version on CPU copies:
+    the plane and the counts bit for bit, dropped ids folding nothing; a
+    hot cell longer than a fold chunk, tiles left empty, no rows (no
+    launch), every row dropped, and a short last tile full of rows."""
+    rng = np.random.default_rng(7)
+    ids, vals, plane, counts = _scatter_inputs(rng, case, value_kind,
+                                               ids_dtype)
+    n_cells = plane.size
+    bits, tiles, _ = sc.scatter_plan(ids.size, n_cells)
+    if case == "short_last_tile":
+        assert n_cells % (1 << bits)
     cpu = [torch.from_numpy(a) for a in (plane, counts, ids, vals)]
     dev = [t.to(cuda_device) for t in cpu]
     before = sc.ordered_fold_counts.launches
     (got,), got_c = sc.ordered_fold_counts((dev[0],), dev[1], dev[2],
                                            (dev[3],), ("add",))
     torch.cuda.synchronize()
-    assert sc.ordered_fold_counts.launches == before + 1
+    assert sc.ordered_fold_counts.launches == before + (ids.size > 0)
     (want,), want_c = sc.scatter_fold_counts((cpu[0].clone(),),
                                              cpu[1].clone(), cpu[2],
                                              (cpu[3],), ("add",))
     assert torch.equal(got_c.cpu(), want_c)
     assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
-    assert (want_c.numpy() - counts).sum() == int((ids < n_cells).sum())
+    folded = want_c.numpy() - counts
+    assert folded.sum() == int((ids < n_cells).sum())
     if case == "skewed":
-        assert (want_c.numpy() - counts).max() > 4 * 2048
+        assert folded.max() > 2 * sc.SCATTER_CHUNK
+    if case == "short_last_tile":
+        assert folded[(tiles - 1) << bits:].sum() > 2 * sc.SCATTER_CHUNK
 
 
 @pytest.mark.parametrize("kinds", [("add", "add"), ("min",), ("max", "add")])
 def test_scatter_fold_trees_fold_counts_once(cuda_device, kinds):
-    """Several leaves: each ``add`` leaf is one launch, the counts fold in
-    the first; with no ``add`` leaf the counts take one launch of ones;
-    ``min``/``max`` leaves take ``scatter_reduce_``.  Equal to the plain
-    version bit for bit."""
+    """Several leaves: every ``add`` leaf and the counts fold in one launch
+    (the rows are partitioned once); with no ``add`` leaf the launch folds
+    the counts alone, with no column of ones; ``min``/``max`` leaves take
+    ``scatter_reduce_``.  Equal to the plain version bit for bit."""
     rng = np.random.default_rng(8)
     n_cells = 5000 * 16
     ids = _scatter_case(rng, "uniform", n_cells, 30000).astype(np.int32)
@@ -266,8 +340,7 @@ def test_scatter_fold_trees_fold_counts_once(cuda_device, kinds):
         torch.from_numpy(ids).to(cuda_device),
         tuple(torch.from_numpy(v).to(cuda_device) for v in vals), kinds)
     torch.cuda.synchronize()
-    assert sc.ordered_fold_counts.launches - before == max(
-        1, kinds.count("add"))
+    assert sc.ordered_fold_counts.launches - before == 1
     want, want_c = sc.scatter_fold_counts(
         tuple(torch.from_numpy(p.copy()) for p in planes),
         torch.from_numpy(counts.copy()), torch.from_numpy(ids),
@@ -275,6 +348,52 @@ def test_scatter_fold_trees_fold_counts_once(cuda_device, kinds):
     assert torch.equal(got_c.cpu(), want_c)
     for g, w in zip(got, want):
         assert g.cpu().numpy().tobytes() == w.numpy().tobytes()
+
+
+@pytest.mark.parametrize("ids_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("case", ["uniform", "skewed", "all_dropped",
+                                  "short_last_tile"])
+@pytest.mark.parametrize("tree", ["sum", "avg"])
+def test_multi_plane_fold_equals_its_plain_version(cuda_device, tree, case,
+                                                   ids_dtype):
+    """``ordered_fold_counts_multi``: the probe lane's replica (f32, or an
+    f32 sum and an int32 count for ``avg``) and delta ring (f64, i64) over
+    one set of ids, from the same lifted columns (widened on the card), and
+    both int32 count planes, in one launch, bit for bit against a loop of
+    the plain version."""
+    rng = np.random.default_rng(21)
+    ids, vals, _, _ = _scatter_inputs(rng, case, "f32", ids_dtype)
+    n_cells = _scatter_cells(case)
+    lifted = [vals] + ([np.ones(ids.size, np.int32)] if tree == "avg"
+                       else [])
+    kinds = ("add",) * len(lifted)
+    rep = [rng.standard_normal(n_cells).astype(np.float32)] + (
+        [rng.integers(0, 9, n_cells).astype(np.int32)] if tree == "avg"
+        else [])
+    delta = [rng.standard_normal(n_cells)] + (
+        [rng.integers(0, 9, n_cells).astype(np.int64)] if tree == "avg"
+        else [])
+    cnts = [rng.integers(0, 5, n_cells).astype(np.int32) for _ in range(2)]
+
+    def groups(dev):
+        def up(a):
+            return torch.from_numpy(a.copy()).to(dev)
+        lift = tuple(up(v) for v in lifted)
+        return [(tuple(up(p) for p in rep), up(cnts[0]), lift),
+                (tuple(up(p) for p in delta), up(cnts[1]), lift)]
+
+    before = sc.ordered_fold_counts_multi.launches
+    got = sc.ordered_fold_counts_multi(
+        groups(cuda_device), torch.from_numpy(ids).to(cuda_device), kinds)
+    torch.cuda.synchronize()
+    assert sc.ordered_fold_counts_multi.launches - before == 1
+    want = sc.scatter_fold_counts_multi(groups("cpu"), torch.from_numpy(ids),
+                                        kinds)
+    for (gl, gc), (wl, wc) in zip(got, want):
+        assert torch.equal(gc.cpu(), wc)
+        for g, w in zip(gl, wl):
+            assert g.dtype == w.dtype
+            assert g.cpu().numpy().tobytes() == w.numpy().tobytes()
 
 
 def test_device_tier_on_the_card_is_bit_equal_to_the_cpu(cuda_device):

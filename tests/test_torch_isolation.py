@@ -150,15 +150,19 @@ def test_cuda_sources_include_only_the_port_and_the_toolkit(src):
 
 
 def test_the_ordered_fold_is_shared():
-    """``probe_fold.cu`` and ``scatter_fold.cu`` take steps 2-4 from the
-    one header, and neither defines them itself."""
+    """``probe_fold.cu`` takes steps 2-4 from the one header and defines none
+    of them itself; ``scatter_fold.cu``, redesigned for rows rather than
+    tiles, defines its own two steps and leaves the header, and with it
+    ``probe_fold``'s steps, alone."""
     import re
-    steps = re.compile(r"__global__[^;{]*?\b(tile_scan_kernel|scatter_kernel"
-                       r"|fold_kernel)\(", re.S)
+    steps = re.compile(r"__global__[^;{]*?\b(\w+_kernel)\(", re.S)
     csrc = PORT / "csrc"
-    for src in ("probe_fold.cu", "scatter_fold.cu"):
-        text = (csrc / src).read_text()
-        assert '#include "ordered_fold.cuh"' in text
-        assert not steps.findall(text), src
+    probe_fold = (csrc / "probe_fold.cu").read_text()
+    assert '#include "ordered_fold.cuh"' in probe_fold
+    assert steps.findall(probe_fold) == ["probe_hist_kernel"]
+    scatter_fold = (csrc / "scatter_fold.cu").read_text()
+    assert '#include "ordered_fold.cuh"' not in scatter_fold
+    assert sorted(steps.findall(scatter_fold)) == ["fold_kernel",
+                                                   "partition_kernel"]
     assert sorted(steps.findall((csrc / "ordered_fold.cuh").read_text())) \
         == ["fold_kernel", "scatter_kernel", "tile_scan_kernel"]
