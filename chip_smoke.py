@@ -75,6 +75,22 @@ Phases, each fatal on failure (exit code 1, no result line):
    mirror); path 6 must surface exactly path 5's fires, each at most one
    batch later.  Each is restored and replayed, with fires equal bit for
    bit;
+9a. main path 7, cold-key paging on the device tier: path 5 with
+   ``paging=PagingConfig(capacity=2^18, policy="clock", mem_budget=4 MiB)``
+   (``state/paging.py`` over the C spill store ``csrc/spill_store.cc``,
+   built with g++ in phase 2).  The ring holds a quarter of the key space,
+   so each 2^18-record batch splits in two (the reference splits batches
+   longer than K_cap / 2), cold keys page out to the store and back, and
+   the store's budget sends part of the spill tier to its disk log.  Every
+   fire must equal the f32 record-order reference bit for bit (compared by
+   key: the spilled keys fire after the resident ones), the set of
+   (window, key, value) must equal path 5's bit for bit, and the paging
+   counters must show a full ring (2^18 resident keys, the rest spilled),
+   evictions, promotions and log bytes.  The mid-run snapshot restores
+   into a paged operator at capacity 2^19 and replays bit for bit (twice);
+9b. spill store phase: the store's array entries at path 7's layout and
+   budget, on the host's clock: puts of 2^19 cells, gets in random order,
+   a promotion's get + delete, deletes (ns per cell);
 10. kernel phase, scatter_fold: the ordered fold (``csrc/scatter_fold.cu``)
    at path 5's shapes — 2^18 int32 flat ids (about 2% dropped) into an f32
    ``[2^20, 16]`` replica and int32 counts with non-zero contents, and a
@@ -125,8 +141,10 @@ RTOL = 1e-6   # f32 results against the reference's f64 sums
 
 #: the kernels of the main paths, built together in phase 2
 SOURCES = ("probe.cu", "probe_fold.cu", "scatter_fold.cu")
-#: the C host layer of paths 3 and 4, built beside them with g++
+#: the C host layer of paths 3 and 4, and the spill store of path 7, built
+#: beside them with g++
 HOST_SOURCE = "host_mirror.cc"
+SPILL_SOURCE = "spill_store.cc"
 #: host threads of the C probe + fold pass on paths 3 and 4 (pinned)
 NATIVE_SHARDS = min(4, os.cpu_count() or 1)
 
@@ -143,13 +161,29 @@ PATHS = {
                    native_emit=True),
     "path 5": dict(DEVICE_TIER, superbatch=1),
     "path 6": dict(DEVICE_TIER, superbatch=SUPERBATCH, async_fire=True),
+    # slice 7: the ring holds a quarter of the key space, as in the
+    # reference's acceptance run (64k rows for 256k keys).  A key's spilled
+    # cell lives as long as its window: about 73% of the keys show up in a
+    # 5-batch window (1 - e^-1.31), and roughly half a million of those are
+    # out of the ring at the window's end: 6-7 MB of 13-byte values, under
+    # an 8 MiB budget.  A 4 MiB budget keeps part of them in the store's
+    # disk log in every window
+    "path 7": dict(DEVICE_TIER, superbatch=1,
+                   paging=dict(capacity=1 << 18, policy="clock",
+                               mem_budget=4 << 20)),
 }
+#: the paged paths, the path each is held to bit for bit by key, and the
+#: ring capacity its restore replays at
+PAGED_PATHS = {"path 7": "path 5"}
+PAGED_REPLAY_CAPACITY = {"path 7": 1 << 19}
 #: each native path's numpy twin
 TWIN = {"path 3": "path 1", "path 4": "path 2"}
 #: the device-tier paths, and the host-tier path each is held to
 DEVICE_PATHS = {"path 5": "path 3", "path 6": "path 3"}
-#: run order: each numpy/C pair back to back, then the device tier
-ORDER = ("path 1", "path 3", "path 2", "path 4", "path 5", "path 6")
+#: run order: each numpy/C pair back to back, then the device tier, then
+#: paging
+ORDER = ("path 1", "path 3", "path 2", "path 4", "path 5", "path 6",
+         "path 7")
 #: device-tier fires against the host tier's f64 mirror
 DEVICE_VS_HOST_RTOL = 1e-5
 
@@ -267,19 +301,22 @@ def build_kernels():
     together, then load each."""
     from flink_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + 2) as pool:
         list(pool.map(lambda f: f(), [lambda s=s: build.build(s)
                                       for s in SOURCES]
-                      + [lambda: build.build_host(HOST_SOURCE)]))
+                      + [lambda s=s: build.build_host(s)
+                         for s in (HOST_SOURCE, SPILL_SOURCE)]))
     build.probe_lib()
     build.probe_fold_lib()
     build.scatter_fold_lib()
+    build.spill_store_lib()
     host = build.host_mirror_lib()
-    print(f"build: {', '.join(SOURCES)}, {HOST_SOURCE} in "
+    print(f"build: {', '.join(SOURCES)}, {HOST_SOURCE}, {SPILL_SOURCE} in "
           f"{time.perf_counter() - t0:.2f} s wall (nvcc " + ", ".join(
               f"{s} {build.build_seconds.get(s, 0.0):.2f} s"
-              for s in SOURCES) + f"; g++ {HOST_SOURCE} "
-          f"{build.build_seconds.get(HOST_SOURCE, 0.0):.2f} s)")
+              for s in SOURCES) + "; g++ " + ", ".join(
+              f"{s} {build.build_seconds.get(s, 0.0):.2f} s"
+              for s in (HOST_SOURCE, SPILL_SOURCE)) + ")")
     print(f"host layer: ftt_hw_threads() = {host.ftt_hw_threads()}, "
           f"os.cpu_count() = {os.cpu_count()}, native_shards = "
           f"{NATIVE_SHARDS} on paths 3 and 4")
@@ -841,16 +878,60 @@ def host_layer_phase(rng):
           f"fire sweep over {N_KEYS} rows {fire_ms:.3f} ms")
 
 
+def store_phase(rng):
+    """Phase 9b: the spill store's array entries timed alone on this host,
+    at path 7's layout (13-byte f32 cells) and budget: puts of 2^19 cells
+    (part of them evicted to the log), gets in random order from the log
+    and from memory, a promotion's get + delete, and deletes."""
+    from flink_tpu_torch.state.spill import PaneSpillStore
+    n = min(1 << 19, N_KEYS)
+    gids = rng.permutation(N_KEYS)[:n].astype(np.int64)
+    vals = [rng.random(n).astype(np.float32)]
+    ones = np.ones(n, np.int64)
+    store = PaneSpillStore(None, PATHS["path 7"]["paging"]["mem_budget"],
+                           (np.float32,), ((),))
+    try:
+        t0 = time.perf_counter()
+        store.put_many(gids, 0, 1, ones, vals)
+        put_ns = (time.perf_counter() - t0) / n * 1e9
+        log_bytes, mem = store.log_bytes(), store.mem_used()
+        order = rng.permutation(n)
+        t0 = time.perf_counter()
+        found, _, _, (got,) = store.get_many(gids[order], 0)
+        get_ns = (time.perf_counter() - t0) / n * 1e9
+        check(found.all() and got.tobytes() == vals[0][order].tobytes(),
+              "spill store: cells did not come back bit for bit")
+        half = order[: n // 2]
+        t0 = time.perf_counter()
+        found, _, _, _ = store.get_many(gids[half], 0, delete=True)
+        promote_ns = (time.perf_counter() - t0) / half.size * 1e9
+        rest = order[n // 2:]
+        t0 = time.perf_counter()
+        gone = store.delete_many(gids[rest], 0)
+        delete_ns = (time.perf_counter() - t0) / rest.size * 1e9
+        check(found.all() and gone == rest.size and len(store) == 0,
+              "spill store: promotions or deletes lost cells")
+    finally:
+        store.close()
+    print(f"spill store: {n} cells of 13 B ({mem} B resident, {log_bytes} B "
+          f"in the log after the puts): put {put_ns:.1f} ns/cell, get "
+          f"in random order {get_ns:.1f} ns/cell, get + delete (promotion) "
+          f"{promote_ns:.1f} ns/cell, delete {delete_ns:.1f} ns/cell")
+
+
 def build_op(device, device_sync: str, superbatch: int,
-             native_emit: bool = False, **tier):
+             native_emit: bool = False, paging=None, **tier):
     """The operator of a path; ``tier`` sets the emit tier, the snapshot
     source and async_fire (the host tier's mirror-sourced defaults
-    otherwise)."""
+    otherwise); ``paging`` the keyword arguments of a ``PagingConfig``."""
     import torch
 
     from flink_tpu_torch.core.functions import RuntimeContext, SumAggregator
     from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    from flink_tpu_torch.state.paging import PagingConfig
     from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
+    if paging is not None:
+        tier["paging"] = PagingConfig(**paging)
     op = WindowAggOperator(
         TumblingEventTimeWindows.of(WINDOW_MS), SumAggregator(torch.float32),
         key_column="k", value_column="v", initial_key_capacity=KEY_CAPACITY,
@@ -871,6 +952,32 @@ def digests(out):
                             + np.asarray(b.column("result")).tobytes())
              .hexdigest())
             for b in out]
+
+
+def by_window(fired):
+    """One batch per window, its rows sorted by key (a paged fire emits the
+    resident keys, then the spilled keys chunk by chunk, as several
+    batches)."""
+    from flink_tpu_torch.core.batch import RecordBatch
+    parts = {}
+    for b in fired:
+        parts.setdefault(int(b.column("window_start")[0]), []).append(b)
+    out = []
+    for bs in parts.values():
+        cols = {c: np.concatenate([np.asarray(b.column(c)) for b in bs])
+                for c in bs[0].columns}
+        order = np.argsort(cols["k"], kind="stable")
+        out.append(RecordBatch({c: v[order] for c, v in cols.items()}))
+    return out
+
+
+def window_digests(out):
+    """``digests`` of the fires merged per window and sorted by key."""
+    return digests(by_window(out))
+
+
+def digest_fn(label):
+    return window_digests if label in PAGED_PATHS else digests
 
 
 def reference(batches):
@@ -1027,7 +1134,9 @@ def main_path(device, batches, expect, label):
     after_snap += tail
     stats = op.device_probe_stats()
     fused = op.fused_stats()
-    check_fires([b for _, b in fired], expect, label)
+    paged = label in PAGED_PATHS
+    plain = [b for _, b in fired]
+    check_fires(by_window(plain) if paged else plain, expect, label)
     native = bool(PATHS[label].get("native_emit")) and not device_tier
     check(op.native_mirror_active == native,
           f"{label}: native_mirror_active is {op.native_mirror_active}")
@@ -1043,6 +1152,8 @@ def main_path(device, batches, expect, label):
               f"{label}: the device tier's phases are wrong: "
               f"{sorted(op.phase_ns)}")
         check(not op._pending_fires, f"{label}: fires left pending")
+        if paged:
+            check_paging(op, label)
     else:
         check(stats["probe_hits"] > 0, f"{label}: the probe never hit")
         check(native or "probe_mirror" in op.phase_ns
@@ -1065,7 +1176,9 @@ def main_path(device, batches, expect, label):
     check(fused["staged_pending"] == 0, f"{label}: batches left staged")
     check(op.verify_mirror(), f"{label}: device replica != host mirror")
     n_records = sum(len(b[0]) for b in batches)
-    n_fires = len(fired)
+    # a paged fire is several batches (the resident keys, then the spilled
+    # keys chunk by chunk): count windows
+    n_fires = len(by_window(plain)) if paged else len(fired)
     print(f"{label} {PATHS[label]}: {n_records} records in {elapsed:.3f} s "
           f"= {n_records / elapsed:.1f} records/s; {n_fires} windows "
           f"fired and matched the numpy reference (rtol {RTOL}); launches "
@@ -1088,12 +1201,48 @@ def main_path(device, batches, expect, label):
           f"({n_fires} fires), {snap_d2h / max(snaps, 1):.0f} per snapshot "
           f"({snaps} snapshots)")
     print(f"{label} peak device memory: {torch.cuda.max_memory_allocated()} B")
+    ring_bytes = sum(l.nbytes for l in op._leaves) + op._counts.nbytes
     numbers = {"records_per_s": n_records / elapsed, "wall_s": elapsed,
                "fire_p50_ms": p50, "fire_p99_ms": p99,
                "d2h_per_fire": fire_d2h / max(n_fires, 1),
                "d2h_per_snapshot": snap_d2h / max(snaps, 1),
-               "phase_ms": {k: v / 1e6 for k, v in op.phase_ns.items()}}
-    return launches, mid, digests(after_snap), fired, numbers
+               "phase_ms": {k: v / 1e6 for k, v in op.phase_ns.items()},
+               "ring_bytes": ring_bytes}
+    if paged:
+        numbers.update(
+            page_out_per_batch=op.phase_bytes.get("d2h_page_out", 0)
+            / len(batches),
+            page_in_per_batch=op.phase_bytes.get("h2d_page_in", 0)
+            / len(batches),
+            paging_stats=op.paging_stats())
+        print(f"{label} paging: ring {ring_bytes} B on the card "
+              f"({op._K} rows x {op._P} panes); d2h_page_out "
+              f"{numbers['page_out_per_batch']:.0f} B and h2d_page_in "
+              f"{numbers['page_in_per_batch']:.0f} B per batch; paging "
+              f"phase {op.phase_ns.get('paging', 0) / 1e6 / len(batches):.3f}"
+              f" ms per batch; paging_stats "
+              + json.dumps(numbers["paging_stats"], sort_keys=True))
+    op.close()
+    return launches, mid, digest_fn(label)(after_snap), fired, numbers
+
+
+def check_paging(op, label):
+    """A paged path ran the ring as a cache: full, with evictions,
+    promotions and a spill tier partly in its disk log."""
+    st = op.paging_stats()
+    n_keys = op.key_index.num_keys
+    cap = PATHS[label]["paging"]["capacity"]
+    check(st["capacity"] == cap and op._K == cap
+          and st["resident_keys"] == cap
+          and st["spilled_keys"] == n_keys - cap and st["evictions"] > 0
+          and st["promotions"] > 0 and st["spill_log_bytes"] > 0,
+          f"{label}: paging_stats {st} (capacity {cap}, {n_keys} keys)")
+    check("paging" in op.phase_ns and op.phase_bytes.get("d2h_page_out", 0)
+          > 0 and op.phase_bytes.get("h2d_page_in", 0) > 0,
+          f"{label}: no paging phase or page bytes: {sorted(op.phase_ns)}, "
+          f"{op.phase_bytes}")
+    check(op.fused_stats()["depth"] == 1, f"{label}: superbatch did not "
+          f"resolve to 1 under paging")
 
 
 def _replay_once(device, batches, mid, label, prof=None):
@@ -1104,7 +1253,11 @@ def _replay_once(device, batches, mid, label, prof=None):
     from flink_tpu_torch.core.batch import RecordBatch, Watermark
 
     i, snap = mid
-    op = build_op(device, **PATHS[label])
+    kw = dict(PATHS[label])
+    if label in PAGED_REPLAY_CAPACITY:
+        kw["paging"] = dict(kw["paging"],
+                            capacity=PAGED_REPLAY_CAPACITY[label])
+    op = build_op(device, **kw)
     out = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1116,7 +1269,12 @@ def _replay_once(device, batches, mid, label, prof=None):
             out += op.process_watermark(Watermark(int(ts.max()) - 1))
         out += op.end_input()
         torch.cuda.synchronize()
-    return time.perf_counter() - t0, out
+    wall = time.perf_counter() - t0
+    if label in PAGED_REPLAY_CAPACITY:
+        check(op.paging_stats()["capacity"] == PAGED_REPLAY_CAPACITY[label],
+              f"{label}: the replay's ring is {op.paging_stats()}")
+    op.close()
+    return wall, out
 
 
 def replay(device, batches, mid, want, label):
@@ -1129,7 +1287,7 @@ def replay(device, batches, mid, want, label):
     from torch.profiler import ProfilerActivity, profile
 
     wall, out = _replay_once(device, batches, mid, label)
-    got = digests(out)
+    got = digest_fn(label)(out)
     check(len(got) == len(want) and len(got) > 0,
           f"{label} replay fired {len(got)} windows, the run {len(want)}")
     # every fold is ordered, so a window that starts after the snapshot
@@ -1140,21 +1298,23 @@ def replay(device, batches, mid, want, label):
     cut = mid[0] * 1000 // WINDOW_MS * WINDOW_MS
     exact = 0
     for (w1, n1, s1, h1), (w2, n2, s2, h2) in zip(got, want):
-        bits = label in DEVICE_PATHS or w2 > cut
+        bits = label in DEVICE_PATHS or label in PAGED_PATHS or w2 > cut
         check(w1 == w2 and n1 == n2 and abs(s1 - s2) <= 1e-6 * max(abs(s2), 1)
               and (h1 == h2 or not bits),
               f"{label} replay digest {(w1, n1, s1, h1)} != "
               f"{(w2, n2, s2, h2)}")
         exact += h1 == h2
-    print(f"{label} restore+replay from batch {mid[0]}: {len(got)} window "
-          f"digests equal, {exact} of them bit for bit"
-          + ("" if label in DEVICE_PATHS else
+    print(f"{label} restore+replay from batch {mid[0]}"
+          + (f" into a ring of {PAGED_REPLAY_CAPACITY[label]} rows"
+             if label in PAGED_REPLAY_CAPACITY else "")
+          + f": {len(got)} window digests equal, {exact} of them bit for bit"
+          + ("" if label in DEVICE_PATHS or label in PAGED_PATHS else
              f" (every window after the cut one, {cut} ms)")
           + f"; wall {wall * 1e3:.3f} ms")
     prof = profile(activities=[ProfilerActivity.CUDA])
     _, again = _replay_once(device, batches, mid, label, prof)
-    check(digests(again) == got, f"{label}: a second replay differs from "
-          f"the first in its bits")
+    check(digest_fn(label)(again) == got, f"{label}: a second replay "
+          f"differs from the first in its bits")
     dev = sorted(((e.self_device_time_total, e.key)
                   for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
@@ -1208,10 +1368,19 @@ def main() -> None:
                   f"to rtol {DEVICE_VS_HOST_RTOL})")
         if label == "path 6":
             check_async(fires["path 6"], fires["path 5"], label, "path 5")
+        if label in PAGED_PATHS:
+            merged = by_window(plain)
+            check_fires_bits(merged, cells, label)
+            ref = PAGED_PATHS[label]
+            check_twin(merged, by_window([b for _, b in fires[ref]]), label)
+            print(f"{label} fires equal the f32 ordered reference bit for "
+                  f"bit by key, and the (window, key, value) set of {ref}'s "
+                  f"bit for bit")
         replay(device, batches, mid, after, label)
         rest = ORDER[ORDER.index(label) + 1:]
         needed = ({TWIN.get(k) for k in rest}
                   | {DEVICE_PATHS.get(k) for k in rest}
+                  | {PAGED_PATHS.get(k) for k in rest}
                   | ({"path 5"} if "path 6" in rest else set()))
         for done in [k for k in fires if k not in needed]:
             del fires[done]
@@ -1242,7 +1411,27 @@ def main() -> None:
               f"fire {a['d2h_per_fire']:.0f} vs {b['d2h_per_fire']:.0f} B, "
               f"per snapshot {a['d2h_per_snapshot']:.0f} vs "
               f"{b['d2h_per_snapshot']:.0f} B")
+    for label, ref in PAGED_PATHS.items():
+        a, b = numbers[label], numbers[ref]
+        print(f"A/B {label} (paged, ring {a['ring_bytes']} B) vs {ref} "
+              f"(resident, ring {b['ring_bytes']} B), same batches, one "
+              f"process: records/s {a['records_per_s']:.1f} vs "
+              f"{b['records_per_s']:.1f} "
+              f"({a['records_per_s'] / b['records_per_s']:.3f}x); paging "
+              f"{a['phase_ms'].get('paging', 0.0):.3f} ms; probe "
+              f"{a['phase_ms'].get('probe', 0.0):.3f} vs "
+              f"{b['phase_ms'].get('probe', 0.0):.3f} ms; fire "
+              f"{a['phase_ms'].get('fire', 0.0):.3f} vs "
+              f"{b['phase_ms'].get('fire', 0.0):.3f} ms; fire p50/p99 "
+              f"{a['fire_p50_ms']:.3f}/{a['fire_p99_ms']:.3f} vs "
+              f"{b['fire_p50_ms']:.3f}/{b['fire_p99_ms']:.3f} ms; d2h per "
+              f"fire {a['d2h_per_fire']:.0f} vs {b['d2h_per_fire']:.0f} B, "
+              f"per snapshot {a['d2h_per_snapshot']:.0f} vs "
+              f"{b['d2h_per_snapshot']:.0f} B; page-out "
+              f"{a['page_out_per_batch']:.0f} B and page-in "
+              f"{a['page_in_per_batch']:.0f} B per batch")
     host_layer_phase(rng)
+    store_phase(rng)
     # the fused kernel's phase runs last: its 2M-row CPU check and large
     # host tensors would otherwise perturb the paths' host-bound timings
     kernels.append(probe_fold_phase(device, rng, dki))
@@ -1262,7 +1451,7 @@ def main() -> None:
     for label in ("path 2", "path 4"):
         check(launches[label]["probe_fold"] > 0,
               f"{label}: no probe_fold launch")
-    for label in DEVICE_PATHS:
+    for label in (*DEVICE_PATHS, *PAGED_PATHS):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
 

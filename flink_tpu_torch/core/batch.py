@@ -72,6 +72,13 @@ class RecordBatch(StreamElement):
               else np.asarray(self.timestamps)[mask])
         return RecordBatch(cols, ts)
 
+    def take(self, indices: np.ndarray) -> "RecordBatch":
+        """Host-side row gather by index."""
+        cols = {k: np.asarray(v)[indices] for k, v in self.columns.items()}
+        ts = (None if self.timestamps is None
+              else np.asarray(self.timestamps)[indices])
+        return RecordBatch(cols, ts)
+
     def __repr__(self) -> str:
         cols = {k: f"{np.asarray(v).dtype}{list(np.shape(v))}"
                 for k, v in self.columns.items()}

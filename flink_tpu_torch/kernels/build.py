@@ -5,8 +5,9 @@ Each ``csrc/*.cu`` source is compiled with ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
 plain C interface, on first use, into ``flink_tpu_torch/_build/`` (listed in
 ``.gitignore``).  The host layer ``csrc/host_mirror.cc`` (the C keydict and
-the window value mirror) builds beside them with ``g++``
-(:func:`build_host`); it needs no card, so the CPU tests build and run it.
+the window value mirror) and the spill store of cold-key paging
+``csrc/spill_store.cc`` build beside them with ``g++`` (:func:`build_host`);
+they need no card, so the CPU tests build and run them.
 A library's name carries a hash of its source and flags, so an edited
 source rebuilds and concurrent builds race benignly (write to a temporary
 name, then ``os.replace``).  Libraries are loaded with ``ctypes``; nothing
@@ -37,6 +38,8 @@ HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
 HOST_CXX = "g++"
 #: the native host layer's source
 HOST_SOURCE = "host_mirror.cc"
+#: the spill store's source (the storage tier of cold-key paging)
+SPILL_SOURCE = "spill_store.cc"
 
 #: where the CUDA toolkit installs nvcc when it is on neither path above
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
@@ -91,8 +94,8 @@ def find_host_compiler() -> str:
     found = shutil.which(HOST_CXX)
     if found is None:
         raise RuntimeError(f"{HOST_CXX} not found: the port's native host "
-                           f"layer (csrc/{HOST_SOURCE}) needs a C++17 "
-                           f"compiler")
+                           f"code (csrc/{HOST_SOURCE}, csrc/{SPILL_SOURCE}) "
+                           f"needs a C++17 compiler")
     return found
 
 
@@ -211,6 +214,34 @@ def host_mirror_lib() -> ctypes.CDLL:
         "ftt_wm_apply_delta": (None, [vp, i64, i64, vp, vp, u8p]),
         "ftt_wm_export_pane": (i32, [vp, i64, i64, vp, vp]),
         "ftt_wm_import_pane": (None, [vp, i64, i64, vp, vp]),
+    }
+    with _lock:
+        for name, (restype, argtypes) in sigs.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+    return lib
+
+
+def spill_store_lib() -> ctypes.CDLL:
+    """``csrc/spill_store.cc`` (the paging tier's spill store) with every
+    entry point's C signature declared."""
+    lib = load(SPILL_SOURCE)
+    if lib.ftt_spill_log_bytes.argtypes is not None:   # declared last
+        return lib
+    i64, ci, vp, cp = (ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_char_p)
+    sigs = {
+        "ftt_spill_open": (vp, [cp, i64, i64]),
+        "ftt_spill_close": (None, [vp]),
+        "ftt_spill_put_cells": (i64, [vp, i64, vp, vp, vp, vp, ci, vp, vp]),
+        "ftt_spill_get_cells": (i64, [vp, i64, vp, vp, ci, vp, vp, vp, ci, vp,
+                                      vp]),
+        "ftt_spill_delete_cells": (i64, [vp, i64, vp, vp]),
+        "ftt_spill_clear": (None, [vp]),
+        "ftt_spill_count": (i64, [vp]),
+        "ftt_spill_mem_used": (i64, [vp]),
+        "ftt_spill_log_bytes": (i64, [vp]),
     }
     with _lock:
         for name, (restype, argtypes) in sigs.items():

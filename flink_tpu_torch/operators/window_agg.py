@@ -51,7 +51,17 @@ event-time, tumbling windowed aggregate with
   the emit mirror from the counts.  With ``async_fire=True`` a fire's
   download is started and its rows surface from a later call
   (:meth:`drain_pending_fires`).  The device probe is inactive on this tier,
-  as in JAX; the fused lane concatenates the staged batches into one fold.
+  as in JAX; the fused lane concatenates the staged batches into one fold;
+- **cold-key paging** (``paging=PagingConfig(...)``, device emit tier only,
+  ``state/paging.py``): the ring is pinned at ``K_cap`` rows, a cache of
+  the hot keys.  After the key lookup each batch's key ids map to ring
+  rows; keys that do not fit page their live cells out to the spill store
+  (one gather and download), and keys coming back page in (one upload and
+  set).  A fire gathers the resident rows, then combines the spilled keys'
+  uploaded cells in the same order; a snapshot merges both tiers into the
+  dense gid-indexed format, and a restore at any capacity uploads the first
+  ``K_cap`` keys and spills the rest.  Batches longer than ``K_cap / 2``
+  split, and the super-batch depth resolves to 1.
 
 Where JAX donated buffers to a jitted step, this port updates the same
 tensors in place.  Batches are not padded: torch needs no static shapes, so
@@ -91,14 +101,17 @@ from flink_tpu_torch.operators.fused_step import (MAX_STAGED_ROWS,
                                                   SuperBatchStage,
                                                   concat_staged)
 from flink_tpu_torch.ops.scatter import (combine_along_axis,
+                                         gather_row_pane_columns,
                                          ordered_fold_counts,
-                                         ordered_fold_counts_multi)
+                                         ordered_fold_counts_multi,
+                                         reset_rows, set_row_pane_columns)
 from flink_tpu_torch.ops.shapes import next_pow2 as _next_pow2
 from flink_tpu_torch.state.device_keyindex import (DeviceKeyIndex, probe,
                                                    probe_fold,
                                                    probe_fold_available)
 from flink_tpu_torch.state.keyindex import KeyIndex, NativeKeyIndex
 from flink_tpu_torch.state.native_mirror import NativeWindowMirror, ineligible
+from flink_tpu_torch.state.paging import DevicePager, identity_grid
 from flink_tpu_torch.windowing.assigners import WindowAssigner
 from flink_tpu_torch.windowing.triggers import EventTimeTrigger, Trigger
 
@@ -108,7 +121,6 @@ _LATER = {
             "superbatch=0, native_shards=0 with native_emit=True) come with "
             "the calibration slice",
     "pipeline": "pipeline_depth > 0 comes with the pipelining slice",
-    "paging": "cold-key paging comes with the paging slice",
     "sharding": "sharded state comes with the multi-GPU mesh slice",
     "count": "count triggers come with the count-window slice",
     "late_output": "late side outputs come with the runtime-stack slice",
@@ -223,13 +235,21 @@ class WindowAggOperator(StreamOperator):
     ):
         if trigger is None:
             trigger = EventTimeTrigger()
+        if paging is not None:
+            # the JAX operator's checks, before this slice's refusals: the
+            # same configurations raise the same ValueErrors
+            if trigger.fires_on_count or not trigger.fires_on_time:
+                raise ValueError("paging requires time-triggered time "
+                                 "windows (no count triggers/GlobalWindows)")
+            if emit_tier != "device":
+                raise ValueError("paging pins the device emit tier (the "
+                                 "host mirror is unbounded host state)")
         refusals = [
             ("auto", "auto" in (emit_tier, snapshot_source, device_sync,
                                 device_probe) or int(superbatch) == 0
              or (bool(native_emit) and int(native_shards) == 0
                  and emit_tier == "host")),
             ("pipeline", int(pipeline_depth) != 0),
-            ("paging", paging is not None),
             ("sharding", sharding is not None),
             ("count", trigger.fires_on_count),
             ("late_output", late_output_tag is not None),
@@ -302,8 +322,9 @@ class WindowAggOperator(StreamOperator):
         self.device_sync_mode = device_sync
         #: deferred sync: the replica lags the mirror until device_refresh
         self._device_stale = False
-        #: fused lane: staging depth (1 = off), stage and counters
-        self.superbatch = int(superbatch)
+        #: fused lane: staging depth (1 = off; paging resolves it to 1, as
+        #: JAX's ``_fused_depth`` does), stage and counters
+        self.superbatch = 1 if paging is not None else int(superbatch)
         self._fused_stage = SuperBatchStage()
         self._fused_counters = {"flushes": 0, "staged_batches": 0,
                                 "scan_dispatches": 0, "scan_steps": 0,
@@ -336,7 +357,15 @@ class WindowAggOperator(StreamOperator):
 
         # ring geometry — P must exceed the live pane span
         self._P = _next_pow2(max(initial_panes, 2 * assigner.panes_per_window))
-        self._K = _next_pow2(initial_key_capacity)
+        # paged: K_cap is the FIXED resident capacity — the ring never grows
+        # with key cardinality; cold keys page out instead
+        self._K = _next_pow2(paging.capacity if paging is not None
+                             else initial_key_capacity)
+        #: cold-key paging (``state/paging.py``): the ring is a cache of the
+        #: hot keys' rows, and the device tier's slots are ring rows
+        self._pager: Optional[DevicePager] = (
+            DevicePager(paging, self.spec, self._K) if paging is not None
+            else None)
         self.key_index = None        # KeyIndex, or NativeKeyIndex
         self._leaves = None          # tuple of [K, P, *leaf] device tensors
         self._counts = None          # int32 [K, P]
@@ -419,9 +448,9 @@ class WindowAggOperator(StreamOperator):
 
     def reset_state(self) -> None:
         """Drop all keyed state and time progress (the key index, its C
-        mirror, the device state, the probe table, the stage and the
-        counters); the configuration stays.  The next batch binds a fresh
-        key index and mirror."""
+        mirror, the device state, the probe table, the stage, the pager's
+        residency and spill tier, and the counters); the configuration
+        stays.  The next batch binds a fresh key index and mirror."""
         self._fused_stage.take()
         self.key_index = None
         self._nm = None          # its keydict dies with the key index
@@ -443,6 +472,17 @@ class WindowAggOperator(StreamOperator):
         self._drop_delta()
         self._devprobe_resolved = None
         self._dp_stats = {k: 0 for k in self._dp_stats}
+        if self._pager is not None:
+            self._pager.reset()
+
+    def close(self) -> None:
+        """Advance the staged batches, then release the pager's spill
+        store."""
+        try:
+            self.flush_pipeline()
+        finally:
+            if self._pager is not None:
+                self._pager.close()
 
     # ----------------------------------------------- device-resident probe
     def _devprobe_active(self) -> bool:
@@ -863,8 +903,14 @@ class WindowAggOperator(StreamOperator):
                 self._mirror_mark(int(p), slots[m])
 
     def _mirror_emit_idx(self, panes: np.ndarray) -> np.ndarray:
-        """Exact ascending key-slot ids that hold data in any of ``panes``."""
-        n = self.key_index.num_keys if self.key_index is not None else 0
+        """Exact ascending key-slot ids (ring rows, when paged) that hold
+        data in any of ``panes``."""
+        if self._pager is not None:
+            # paged: live rows are bounded by the assigned-row high-water
+            # mark, not by the key count
+            n = self._pager.row_high_water
+        else:
+            n = self.key_index.num_keys if self.key_index is not None else 0
         acc = None
         for p in panes.tolist():
             arr = self._mirror.get(int(p))
@@ -1089,6 +1135,16 @@ class WindowAggOperator(StreamOperator):
         pending = self.drain_pending_fires() if self.async_fire else []
         if len(batch) == 0:
             return pending
+        step = max(self._K // 2, 1) if self._pager is not None else 0
+        if step and len(batch) > step:
+            # a batch's distinct keys (plus their eviction protections) must
+            # fit the resident capacity: split oversized batches (comparing
+            # against the clamped step keeps K_cap=1 from recursing forever)
+            out = list(pending)
+            for lo in range(0, len(batch), step):
+                out.extend(self.process_batch(
+                    batch.take(np.arange(lo, min(lo + step, len(batch))))))
+            return out
         cols = batch.columns
         keys = np.asarray(cols[self.key_column])
         if self.key_index is None:
@@ -1200,10 +1256,15 @@ class WindowAggOperator(StreamOperator):
         else:
             with self._phase("probe"):
                 slots = self.key_index.lookup_or_insert(keys)
-        if self.key_index.num_keys > self._K:
+        if self._pager is None and self.key_index.num_keys > self._K:
             self._ensure_alloc()
             self._grow_keys(self.key_index.num_keys)
         self._ensure_alloc()
+        if self._pager is not None:
+            # key ids -> resident ring rows, paging cold keys out and
+            # promoted keys in; the flat ids and the emit marks use rows
+            with self._phase("paging"):
+                slots = self._page_slots(slots)
         if self.device_sync_mode == "deferred":
             # the mirror is the authority; the replica catches up at the
             # next device_refresh
@@ -1314,6 +1375,8 @@ class WindowAggOperator(StreamOperator):
             self._vmirror.pop(ep, None)
             if self._nm is not None:
                 self._nm.drop_pane(ep)
+        if self._pager is not None:
+            self._pager.drop_panes(expired)
         if self._delta_counts is not None:
             # expired panes' unsynced delta is discarded with the mirror pane
             # it would have folded into
@@ -1337,7 +1400,12 @@ class WindowAggOperator(StreamOperator):
         with self._phase("fire"):
             if self.emit_tier == "host":
                 return self._fire_window_host(window_id, panes)
-            return self._fire_window_gather(window_id, panes)
+            out = self._fire_window_gather(window_id, panes)
+            if self._pager is not None:
+                # spilled keys are first-class in fires: their cells upload
+                # and run the same pane combine, after the resident keys
+                out = out + self._fire_window_spilled(window_id, panes)
+            return out
 
     def _fire_gather_step(self, pane_slots: torch.Tensor,
                           idx: torch.Tensor):
@@ -1355,7 +1423,8 @@ class WindowAggOperator(StreamOperator):
         """Device-tier fire: the exact emit set from the host emit mirror,
         uploaded as int32; one gather step; one download of the result
         values (started here, collected now or, with ``async_fire``, by a
-        later :meth:`drain_pending_fires`).  The keys resolve now."""
+        later :meth:`drain_pending_fires`).  The keys resolve now (paged:
+        through the rows' current tenants)."""
         idx = self._mirror_emit_idx(panes)
         if idx.size == 0:
             return []
@@ -1363,6 +1432,10 @@ class WindowAggOperator(StreamOperator):
         result = self._fire_gather_step(
             pane_slots, self._ids_to_device(idx.astype(np.int32)))
         handle = _fetch_enqueue(tree_leaves(result))
+        if self._pager is not None:
+            # rows -> global ids NOW: by the time an async fire drains, a
+            # row may have been evicted and reassigned to another key
+            idx = self._pager.gid_of[idx]
         keys = np.asarray(self.key_index.reverse_keys())[idx]
         pending = (window_id, keys, handle, tree_structure(result))
         if self.async_fire:
@@ -1432,6 +1505,193 @@ class WindowAggOperator(StreamOperator):
         return self._rows_for(idx, result,
                               self.assigner.window_bounds(window_id))
 
+    # ------------------------------------------------------------- paging
+    def _live_panes(self) -> np.ndarray:
+        return np.arange(self.pane_base, self.max_pane + 1, dtype=np.int64)
+
+    def _host_ids(self, arr: np.ndarray) -> torch.Tensor:
+        """Row or pane-slot ids for an indexing step on the device."""
+        return torch.from_numpy(np.ascontiguousarray(arr, np.int64)).to(
+            self.device)
+
+    def _page_slots(self, gids: np.ndarray) -> np.ndarray:
+        """Map global key ids to resident ring rows, evicting cold keys and
+        promoting/initializing missing ones.  At most one page-out gather
+        and one page-in set per micro-batch."""
+        pager = self._pager
+        pager.ensure_gids(self.key_index.num_keys)
+        uniq = np.unique(gids)
+        rows_u = pager.rows(uniq)
+        missing = uniq[rows_u < 0]
+        if missing.size:
+            live = self._live_panes()
+            n_evict = int(missing.size) - pager.free_count()
+            if n_evict > 0:
+                victims = pager.pick_victims(n_evict, rows_u[rows_u >= 0])
+                counts, leaves = self._gather_rows(victims, live)
+                bits = self._mirror_bits_rows(victims, live)
+                pager.spill_rows(victims, live, counts, leaves, bits)
+                self._clear_mirror_rows(victims)
+            rows_new, recycled = pager.assign_rows(missing)
+            if pager.any_spilled(missing, live):
+                counts_cols, leaf_cols, bits, _found = pager.load_entries(
+                    missing, live, delete=True)
+                self._page_in(rows_new, live, counts_cols, leaf_cols)
+                for j, p in enumerate(live.tolist()):
+                    hit = bits[:, j]
+                    if hit.any():
+                        self._mirror_mark(int(p), rows_new[hit])
+            elif recycled:
+                # recycled rows carry the previous tenant's stale cells:
+                # reset them even when nothing was promoted from spill
+                reset_rows(self._leaves, self._counts,
+                           self._host_ids(rows_new), self.spec.leaf_inits)
+        rows = pager.rows(gids)
+        pager.touch(pager.rows(uniq))
+        return rows
+
+    def _gather_rows(self, rows: np.ndarray, panes: np.ndarray,
+                     bytes_key: str = "d2h_page_out"):
+        """Download the ``rows x panes`` cell grid (page-out, or a paged
+        snapshot's resident rows under ``bytes_key="d2h"``): (counts [V, m],
+        leaves [V, m, *leaf]) as numpy."""
+        c, ls = gather_row_pane_columns(self._leaves, self._counts,
+                                        self._host_ids(rows),
+                                        self._host_ids(panes % self._P))
+        counts = c.cpu().numpy()
+        leaves = [l.cpu().numpy() for l in ls]
+        self.phase_bytes[bytes_key] = (self.phase_bytes.get(bytes_key, 0)
+                                       + counts.nbytes
+                                       + sum(l.nbytes for l in leaves))
+        return counts, leaves
+
+    def _page_in(self, rows: np.ndarray, panes: np.ndarray,
+                 counts_cols: np.ndarray, leaf_cols) -> None:
+        """Upload promoted cells into freshly assigned rows (whole rows
+        reset first — recycled rows carry the previous tenant's cells)."""
+        cc = torch.from_numpy(counts_cols).to(self.device)
+        lc = [torch.from_numpy(c).to(self.device) for c in leaf_cols]
+        set_row_pane_columns(self._leaves, self._counts, self._host_ids(rows),
+                             self._host_ids(panes % self._P), lc, cc,
+                             self.spec.leaf_inits)
+        self.phase_bytes["h2d_page_in"] = (
+            self.phase_bytes.get("h2d_page_in", 0) + cc.nbytes
+            + sum(l.nbytes for l in lc))
+
+    def _mirror_bits_rows(self, rows: np.ndarray,
+                          panes: np.ndarray) -> np.ndarray:
+        """Emit-mirror bits of the ``rows x panes`` grid (spilled alongside
+        counts so promotion restores the exact emit set)."""
+        out = np.zeros((rows.size, panes.size), bool)
+        for j, p in enumerate(panes.tolist()):
+            arr = self._mirror.get(int(p))
+            if arr is not None:
+                out[:, j] = arr[rows]
+        return out
+
+    def _clear_mirror_rows(self, rows: np.ndarray) -> None:
+        for arr in self._mirror.values():
+            arr[rows] = False
+
+    def _spill_fire_step(self, counts_cols: torch.Tensor, leaf_cols):
+        """Window fire over UPLOADED spilled cells: the same pane combine +
+        ``get_result`` the resident gather fire runs (same dtypes, same tree
+        order over the same pane axis), so a key's emitted value does not
+        depend on which tier held it."""
+        total = counts_cols.sum(dim=1)
+        combined = combine_along_axis(leaf_cols, self.agg.combine_leaves,
+                                      axis=1)
+        result = self.agg.get_result(self.spec.unflatten(combined))
+        return total > 0, result
+
+    def _fire_window_spilled(self, window_id: int,
+                             panes: np.ndarray) -> List[StreamElement]:
+        """Fire contribution of COLD keys: load their spilled cells for the
+        window's panes, upload them as dense columns, combine on the device,
+        download the results.  Chunks of 2^14 keys bound the memory at any
+        spilled cardinality; synchronous even under ``async_fire``, as in
+        JAX."""
+        pager = self._pager
+        gids = pager.spilled_gids(panes)
+        if gids.size == 0:
+            return []
+        out: List[StreamElement] = []
+        window = self.assigner.window_bounds(window_id)
+        reverse = np.asarray(self.key_index.reverse_keys())
+        CH = 1 << 14
+        for lo in range(0, int(gids.size), CH):
+            g = gids[lo: lo + CH]
+            counts, leaves, _bits, _found = pager.load_entries(
+                g, panes, delete=False)
+            cc = torch.from_numpy(counts).to(self.device)
+            lc = tuple(torch.from_numpy(l).to(self.device) for l in leaves)
+            self.phase_bytes["h2d"] = (self.phase_bytes.get("h2d", 0)
+                                       + cc.nbytes
+                                       + sum(l.nbytes for l in lc))
+            mask, result = self._spill_fire_step(cc, lc)
+            mask_np = mask.cpu().numpy()
+            idx = np.flatnonzero(mask_np)
+            if idx.size == 0:
+                continue
+            res_np = [l.cpu().numpy()[idx] for l in tree_leaves(result)]
+            self.phase_bytes["d2h"] = (self.phase_bytes.get("d2h", 0)
+                                       + mask_np.nbytes
+                                       + sum(a.nbytes for a in res_np))
+            out.extend(self._rows_for_keys(
+                reverse[g[idx]], tree_unflatten(tree_structure(result),
+                                                res_np), window))
+        return out
+
+    def paging_stats(self) -> Optional[Dict[str, int]]:
+        """Occupancy + eviction/promotion counters, or None when paging is
+        off.  No barrier: staged batches are not advanced for it."""
+        if self._pager is None:
+            return None
+        n = self.key_index.num_keys if self.key_index is not None else 0
+        return self._pager.stats(n)
+
+    def _paged_snapshot_rows(self, n: int, panes: np.ndarray):
+        """Dense gid-indexed snapshot arrays merging both tiers: counts
+        int32 [n, m] + one [n, m, *leaf] per ACC leaf; the resident rows in
+        one gather, the spilled cells filled in from the store."""
+        m = int(panes.size)
+        counts = np.zeros((n, m), np.int32)
+        leaves = identity_grid(self.spec, n, m)
+        rows, gids = self._pager.resident_pairs()
+        if rows.size:
+            res_counts, res_leaves = self._gather_rows(rows, panes, "d2h")
+            counts[gids] = res_counts
+            for dst, src in zip(leaves, res_leaves):
+                dst[gids] = src
+        self._pager.fill_snapshot(counts, leaves, panes)
+        return counts, leaves
+
+    def _paged_restore_rows(self, n: int, panes: np.ndarray,
+                            counts_np: np.ndarray, leaves_np) -> None:
+        """Restore a dense snapshot at THIS operator's K_cap: the first
+        ``min(n, K_cap)`` keys become resident rows ``0..R-1`` (one upload),
+        the overflow pages straight into the spill tier — a snapshot written
+        at any capacity, paged or resident, restores at any other.  Runs
+        after :meth:`restore_state` reset the pager and the emit mirror."""
+        pager = self._pager
+        pager.ensure_gids(max(n, 1))
+        R = min(n, self._K)
+        if R:
+            pager.assign_rows(np.arange(R, dtype=np.int64))
+            slots = self._host_ids(panes % self._P)
+            for l, src in zip(self._leaves, leaves_np):
+                l[:R, slots] = torch.from_numpy(
+                    np.ascontiguousarray(src[:R])).to(self.device, l.dtype)
+            self._counts[:R, slots] = torch.from_numpy(
+                np.ascontiguousarray(counts_np[:R], np.int32)).to(self.device)
+            for j, p in enumerate(panes.tolist()):
+                nz = np.flatnonzero(counts_np[:R, j] > 0)
+                if nz.size:
+                    self._mirror_mark(int(p), nz)
+        if n > R:
+            pager.import_rows(np.arange(R, n, dtype=np.int64), panes,
+                              counts_np, leaves_np)
+
     # -------------------------------------------------------------- snapshots
     def _leaf_schema(self) -> List[Dict[str, str]]:
         return [{"name": n, "dtype": np.dtype(d).name}
@@ -1439,8 +1699,10 @@ class WindowAggOperator(StreamOperator):
 
     def snapshot_state(self) -> Dict[str, Any]:
         """Dense numpy snapshot, served from the host mirror or, with
-        ``snapshot_source="device"``, downloaded from the replica (the same
-        format either way, and the JAX operator's)."""
+        ``snapshot_source="device"``, downloaded from the replica (paged:
+        the resident rows downloaded, the spilled cells filled in from the
+        store; the same gid-indexed format every way, and the JAX
+        operator's, with ``paging_stats`` beside it when paged)."""
         self.flush_pipeline()       # the snapshot must hold staged batches
         if self._pending_fires:
             # a snapshot with undrained async fires could neither replay nor
@@ -1469,11 +1731,15 @@ class WindowAggOperator(StreamOperator):
             with self._phase("snapshot"):
                 if self.snapshot_source == "mirror":
                     counts, leaves = self._mirror_columns(panes.tolist(), n)
+                elif self._pager is not None:
+                    counts, leaves = self._paged_snapshot_rows(n, panes)
                 else:
                     counts, leaves = self._device_columns(panes, n)
             snap["leaves"] = leaves
             snap["counts"] = counts
             snap["leaf_schema"] = self._leaf_schema()
+        if self._pager is not None:
+            snap["paging_stats"] = self.paging_stats()
         return snap
 
     def _device_columns(self, panes: np.ndarray, rows: int):
@@ -1511,13 +1777,17 @@ class WindowAggOperator(StreamOperator):
             if snap["key_index_kind"] != "KeyIndex":
                 raise _later("object_keys")
             self._bind_key_index(snap["key_index"])
-            self._K = _next_pow2(max(self.key_index.num_keys, 1), self._K)
+            if self._pager is None:   # a paged ring stays at its K_cap
+                self._K = _next_pow2(max(self.key_index.num_keys, 1),
+                                     self._K)
         else:
             self.key_index = None    # no keys yet: the next batch binds
         self._leaves = None
         self._counts = None
         self._vmirror = {}
         self._mirror = {}
+        if self._pager is not None:
+            self._pager.reset()
         if "leaves" in snap:
             schema = snap.get("leaf_schema")
             if (schema is not None and list(schema) != self._leaf_schema()) \
@@ -1529,6 +1799,11 @@ class WindowAggOperator(StreamOperator):
             restored = [np.asarray(l) for l in snap["leaves"]]
             # allocated either way, so time and fire guards see live state
             self._ensure_alloc()
+            if self._pager is not None:
+                # the resident prefix uploads, the overflow spills: works at
+                # ANY K_cap relative to the snapshot's key count
+                self._paged_restore_rows(n, panes, counts_np, restored)
+                return
             if self.device_sync_mode == "deferred":
                 # the mirror (re-seeded below) is the authority: skip the
                 # replica upload, device_refresh catches it up

@@ -26,12 +26,16 @@ JAX computes these as XLA scatters outside any Pallas kernel.  Here:
   (with ``csrc/ordered_fold.cuh``).
 - :func:`combine_along_axis` is the fire-time pane combine, plain torch ops
   in JAX's pairwise tree order.
+- :func:`gather_row_pane_columns`, :func:`reset_rows` and
+  :func:`set_row_pane_columns` are the paging tier's page-out gather and
+  page-in set, plain indexing into unique rows (deterministic), in place.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 #: scatter kinds an accumulator leaf may declare
@@ -421,6 +425,45 @@ def ordered_fold_counts(flat_leaves, flat_counts, slot_ids, lifted_leaves,
 
 #: kernel launches of :func:`ordered_fold_counts` (CPU calls do not count)
 ordered_fold_counts.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# row x pane sub-grids of [K, P] state: the paging tier's page-out and
+# page-in (JAX computes these as XLA gathers and sets outside any kernel)
+# ---------------------------------------------------------------------------
+
+def gather_row_pane_columns(state_leaves, counts, rows, pane_slots):
+    """Page-out gather: the ``rows x pane_slots`` sub-grid of ``[K, P, ...]``
+    keyed state — ``(counts[V, m], leaves[V, m, *leaf])``.  Every id must be
+    in range: JAX pads with ids that ``jnp.take`` clips, the callers here
+    pass exactly the rows and panes they mean."""
+    sel_counts = counts.index_select(0, rows).index_select(1, pane_slots)
+    sel_leaves = tuple(l.index_select(0, rows).index_select(1, pane_slots)
+                       for l in state_leaves)
+    return sel_counts, sel_leaves
+
+
+def reset_rows(state_leaves, counts, rows, leaf_inits) -> None:
+    """Reset whole key rows (every pane slot) to the accumulator identity,
+    in place.  ``rows`` are unique and in range (JAX pads with K and drops
+    it; ``index_put_`` would raise on such an id)."""
+    for l, init in zip(state_leaves, leaf_inits):
+        l.index_fill_(0, rows, np.asarray(init).item())
+    counts.index_fill_(0, rows, 0)
+
+
+def set_row_pane_columns(state_leaves, counts, rows, pane_slots,
+                         leaf_cols, counts_cols, leaf_inits) -> None:
+    """Page-in, in place: reset the target rows across the whole ring, then
+    set their ``pane_slots`` columns from the promoted cells
+    (``counts_cols [R, m]``, one ``[R, m, *leaf]`` per leaf; identity where
+    nothing was spilled).  Rows and panes unique and in range, as in
+    :func:`reset_rows`."""
+    reset_rows(state_leaves, counts, rows, leaf_inits)
+    at = (rows.unsqueeze(1), pane_slots.unsqueeze(0))
+    for l, col in zip(state_leaves, leaf_cols):
+        l.index_put_(at, col.to(l.dtype))
+    counts.index_put_(at, counts_cols.to(counts.dtype))
 
 
 # ---------------------------------------------------------------------------

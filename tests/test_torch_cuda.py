@@ -414,3 +414,80 @@ def test_device_tier_on_the_card_is_bit_equal_to_the_cpu(cuda_device):
             assert np.array_equal(b.column("k"), c.column("k"))
             assert np.asarray(b.column("result")).tobytes() == \
                 np.asarray(c.column("result")).tobytes()
+
+
+def _paged_run(device, policy):
+    """The small seeded stream through a paged device-tier operator (a ring
+    of 256 rows under 1500 keys, a spill budget that sends cells to the
+    log); fires, the bytes of a mid-run snapshot, and the counters."""
+    from flink_tpu_torch.state.paging import PagingConfig
+    rng = np.random.default_rng(11)
+    op = WindowAggOperator(
+        TumblingEventTimeWindows.of(100), SumAggregator(), key_column="k",
+        value_column="v", device=device, emit_tier="device",
+        snapshot_source="device", native_emit=True, native_shards=1,
+        paging=PagingConfig(256, policy=policy, mem_budget=4096))
+    out, snap = [], None
+    for i in range(10):
+        keys = rng.integers(0, 1500, 4000).astype(np.int64)
+        vals = rng.random(4000).astype(np.float32)
+        ts = i * 50 + np.sort(rng.integers(0, 50, 4000)).astype(np.int64)
+        out += op.process_batch(RecordBatch({"k": keys, "v": vals},
+                                            timestamps=ts))
+        out += op.process_watermark(Watermark(int(ts.max()) - 1))
+        if i == 5:
+            s = op.snapshot_state()
+            snap = (np.asarray(s["counts"]).tobytes(),
+                    [np.asarray(l).tobytes() for l in s["leaves"]],
+                    s["paging_stats"])
+    out += op.end_input()
+    stats = op.paging_stats()
+    op.close()
+    return out, snap, stats
+
+
+@pytest.mark.parametrize("policy", ["clock", "lru"])
+def test_paged_device_tier_on_the_card_is_bit_equal_to_the_cpu(cuda_device,
+                                                                policy):
+    """Paging on the card: page-outs gather and download, promotions upload
+    and set, spilled keys fire from uploaded cells, and every fire, the
+    mid-run snapshot's bytes and the counters equal the CPU run's."""
+    before = sc.ordered_fold_counts.launches
+    gpu, gsnap, gstats = _paged_run(cuda_device, policy)
+    assert sc.ordered_fold_counts.launches > before
+    cpu, csnap, cstats = _paged_run("cpu", policy)
+    assert gstats == cstats
+    assert gstats["evictions"] > 0 and gstats["promotions"] > 0
+    assert gstats["spill_log_bytes"] > 0
+    assert gsnap == csnap
+    _same_fires(gpu, cpu)
+
+
+def test_row_pane_helpers_on_the_card_equal_the_cpu(cuda_device):
+    """The page-out gather and the page-in reset and set on the card, with
+    row and pane ids at the ring's edges, equal the CPU's bit for bit."""
+    K, P = 1 << 12, 16
+    rng = np.random.default_rng(3)
+    leaf = torch.from_numpy((rng.random((K, P)) * 10).astype(np.float32))
+    counts = torch.from_numpy(rng.integers(0, 5, (K, P)).astype(np.int32))
+    rows = torch.from_numpy(np.r_[K - 1, 0, rng.choice(
+        np.arange(1, K - 1), 500, replace=False)].astype(np.int64))
+    slots = torch.tensor([P - 1, 0, 7], dtype=torch.int64)
+    cols = torch.from_numpy((rng.random((rows.numel(), 3)) * 3)
+                            .astype(np.float32))
+    ccols = torch.from_numpy(rng.integers(1, 9, (rows.numel(), 3))
+                             .astype(np.int32))
+    inits = (np.float32(0),)
+
+    def on(dev):
+        d = lambda t: t.to(dev, copy=True)  # noqa: E731
+        gc, (gl,) = sc.gather_row_pane_columns((d(leaf),), d(counts),
+                                               d(rows), d(slots))
+        l2, c2 = d(leaf), d(counts)
+        sc.set_row_pane_columns((l2,), c2, d(rows), d(slots), (d(cols),),
+                                d(ccols), inits)
+        l3, c3 = d(leaf), d(counts)
+        sc.reset_rows((l3,), c3, d(rows[::2]), inits)
+        return [t.cpu().numpy().tobytes() for t in (gc, gl, l2, c2, l3, c3)]
+
+    assert on(cuda_device) == on("cpu")

@@ -166,3 +166,56 @@ def test_the_ordered_fold_is_shared():
                                                    "partition_kernel"]
     assert sorted(steps.findall((csrc / "ordered_fold.cuh").read_text())) \
         == ["fold_kernel", "scatter_kernel", "tile_scan_kernel"]
+
+
+def test_spill_library_builds_from_its_own_source(monkeypatch, tmp_path):
+    """The paging tier's spill store compiles from ``csrc/spill_store.cc``
+    alone: the loader reads no other file, the compiler's command line names
+    no file of ``native/`` or ``flink_tpu/``, and the source includes only
+    system headers."""
+    import re
+
+    from flink_tpu_torch.kernels import build
+    src = Path(build.CSRC_DIR) / build.SPILL_SOURCE
+    assert src.is_file() and src.parent == PORT / "csrc"
+    text = src.read_text()
+    assert re.findall(r'^#include\s+"', text, re.M) == []
+    read, cmds = [], []
+    real_open = open
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setitem(build.__dict__, "open", lambda p, *a, **k: (
+        read.append(os.path.realpath(p)), real_open(p, *a, **k))[1])
+    real_run = build.subprocess.run
+    monkeypatch.setattr(build.subprocess, "run", lambda cmd, *a, **k: (
+        cmds.append(list(cmd)), real_run(cmd, *a, **k))[1])
+    lib = build.spill_store_lib()
+    assert read == [str(src.resolve())]
+    (cmd,) = cmds
+    assert [c for c in cmd if c.endswith((".cc", ".cpp", ".h"))] == [str(src)]
+    assert not [c for c in cmd if "native" in c or "flink_tpu/" in c]
+    h = lib.ftt_spill_open(str(tmp_path / "store").encode(), 1024, 13)
+    assert h and int(lib.ftt_spill_count(h)) == 0
+    lib.ftt_spill_close(h)
+
+
+def test_spill_library_exports_only_prefixed_symbols():
+    """Every entry point of ``csrc/spill_store.cc`` carries the ``ftt_``
+    prefix, in the source and in the built library's dynamic symbols."""
+    import re
+
+    from flink_tpu_torch.kernels import build
+    text = (PORT / "csrc" / build.SPILL_SOURCE).read_text()
+    names = re.findall(r"^API\s+[\w\s\*]+?\b(\w+)\s*\(", text, re.M)
+    assert len(names) == 9
+    assert all(n.startswith("ftt_spill_") for n in names), names
+    nm = shutil.which("nm")
+    if nm is None:
+        pytest.skip("nm is not installed")
+    res = subprocess.run([nm, "-D", "--defined-only",
+                          build.build_host(build.SPILL_SOURCE)],
+                         capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stderr
+    strong = [line.split()[-1] for line in res.stdout.splitlines()
+              if line.split()[-2] in ("T", "D", "B", "R")]
+    assert set(strong) == set(names)

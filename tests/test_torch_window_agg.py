@@ -256,7 +256,7 @@ def test_interop_refuses_what_the_slice_does_not_carry(port_run):
     {"queryable": "q"}, {"device_sync": "auto"},
     {"device_probe": "auto"}, {"superbatch": 0}, {"pipeline_depth": 1},
     {"native_emit": True},
-    {"emit_tier": "device", "snapshot_source": "device", "paging": object()},
+    {"sharding": object()},
     {"late_output_tag": "late"},
 ])
 def test_later_slices_refuse_honestly(kw):
