@@ -88,7 +88,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    counters must show a full ring (2^18 resident keys, the rest spilled),
    evictions, promotions and log bytes.  The mid-run snapshot restores
    into a paged operator at capacity 2^19 and replays bit for bit (twice);
-9b. spill store phase: the store's array entries at path 7's layout and
+9b. main path 8, the ``auto`` settings (slice 8):
+   ``WindowAggOperator(device="cuda", superbatch=0)`` with every other
+   option at its default, the JAX operator's, run after the process's
+   calibration verdicts are reset so that it calibrates on the card: the
+   emit tier (the host tier on a card) and snapshot source, the sync
+   cadence (its first batches time their own update steps), the C pass's
+   shard count, the super-batch depth, and the device probe (the probe
+   kernel and ``scatter_fold`` against the C pass: their launches count
+   under path 8).  One line prints the resolved lane and every
+   calibration's numbers.  A pinned twin, built with exactly the resolved
+   settings, runs next: path 8's fires and mid-run snapshot must equal
+   its bit for bit, and its counters from the first batch after the
+   calibration; fires are held to the numpy reference (on the device tier
+   to the f32 reference, bit for bit);
+9c. main paths 9 and 10: paths 3 and 7 with ``pipeline_depth=2`` (the hot
+   stage on a worker thread): the fires (at the same calls), the mid-run
+   snapshot's bytes, every counter and the replay must equal paths 3's and
+   7's bit for bit, and path 10 is held as path 7 is.  Then an A/B of path
+   9 against path 3 on batches generated inside the timed loop from the
+   seed (turns 3, 9, 9, 3; every run bit-equal to path 3's fires): records/s
+   and, from one profiled run each, the device's idle share;
+9d. spill store phase: the store's array entries at path 7's layout and
    budget, on the host's clock: puts of 2^19 cells, gets in random order,
    a promotion's get + delete, deletes (ns per cell);
 10. kernel phase, scatter_fold: the ordered fold (``csrc/scatter_fold.cu``)
@@ -150,15 +171,20 @@ NATIVE_SHARDS = min(4, os.cpu_count() or 1)
 
 #: the main paths: slice 1's per-batch scatter lane, slice 2's fused lane,
 #: each of them on the C host layer (slice 4), and the device emit tier,
-#: synchronous and async (slice 5)
+#: synchronous and async (slice 5), each with every option pinned; slice 8's
+#: ``auto`` path takes the defaults (the JAX operator's)
+HOST_TIER = dict(emit_tier="host", snapshot_source="mirror",
+                 device_probe="on", native_emit=False)
+C_LAYER = dict(native_emit=True, native_shards=NATIVE_SHARDS)
 DEVICE_TIER = dict(emit_tier="device", snapshot_source="device",
-                   device_sync="scatter", native_emit=True)
+                   device_sync="scatter", device_probe="on", **C_LAYER)
 PATHS = {
-    "path 1": dict(device_sync="scatter", superbatch=1),
-    "path 2": dict(device_sync="deferred", superbatch=SUPERBATCH),
-    "path 3": dict(device_sync="scatter", superbatch=1, native_emit=True),
-    "path 4": dict(device_sync="deferred", superbatch=SUPERBATCH,
-                   native_emit=True),
+    "path 1": dict(HOST_TIER, device_sync="scatter", superbatch=1),
+    "path 2": dict(HOST_TIER, device_sync="deferred", superbatch=SUPERBATCH),
+    "path 3": dict(HOST_TIER, device_sync="scatter", superbatch=1,
+                   **C_LAYER),
+    "path 4": dict(HOST_TIER, device_sync="deferred", superbatch=SUPERBATCH,
+                   **C_LAYER),
     "path 5": dict(DEVICE_TIER, superbatch=1),
     "path 6": dict(DEVICE_TIER, superbatch=SUPERBATCH, async_fire=True),
     # slice 7: the ring holds a quarter of the key space, as in the
@@ -171,19 +197,27 @@ PATHS = {
     "path 7": dict(DEVICE_TIER, superbatch=1,
                    paging=dict(capacity=1 << 18, policy="clock",
                                mem_budget=4 << 20)),
+    # slice 8: every option at its default (``auto``), the super-batch
+    # depth measured too; the process's verdicts are reset before it runs
+    "path 8": dict(superbatch=0),
 }
+# slice 8: paths 3 and 7 with the hot stage on the pipeline's worker
+PATHS["path 9"] = dict(PATHS["path 3"], pipeline_depth=2)
+PATHS["path 10"] = dict(PATHS["path 7"], pipeline_depth=2)
+#: the pipelined paths and the serial path each equals bit for bit
+PIPELINED = {"path 9": "path 3", "path 10": "path 7"}
 #: the paged paths, the path each is held to bit for bit by key, and the
 #: ring capacity its restore replays at
-PAGED_PATHS = {"path 7": "path 5"}
-PAGED_REPLAY_CAPACITY = {"path 7": 1 << 19}
+PAGED_PATHS = {"path 7": "path 5", "path 10": "path 5"}
+PAGED_REPLAY_CAPACITY = {"path 7": 1 << 19, "path 10": 1 << 19}
 #: each native path's numpy twin
 TWIN = {"path 3": "path 1", "path 4": "path 2"}
 #: the device-tier paths, and the host-tier path each is held to
 DEVICE_PATHS = {"path 5": "path 3", "path 6": "path 3"}
 #: run order: each numpy/C pair back to back, then the device tier, then
-#: paging
+#: paging, then slice 8's paths
 ORDER = ("path 1", "path 3", "path 2", "path 4", "path 5", "path 6",
-         "path 7")
+         "path 7", "path 8", "path 9", "path 10")
 #: device-tier fires against the host tier's f64 mirror
 DEVICE_VS_HOST_RTOL = 1e-5
 
@@ -879,7 +913,7 @@ def host_layer_phase(rng):
 
 
 def store_phase(rng):
-    """Phase 9b: the spill store's array entries timed alone on this host,
+    """Phase 9d: the spill store's array entries timed alone on this host,
     at path 7's layout (13-byte f32 cells) and budget: puts of 2^19 cells
     (part of them evicted to the log), gets in random order from the log
     and from memory, a promotion's get + delete, and deletes."""
@@ -919,11 +953,10 @@ def store_phase(rng):
           f"{promote_ns:.1f} ns/cell, delete {delete_ns:.1f} ns/cell")
 
 
-def build_op(device, device_sync: str, superbatch: int,
-             native_emit: bool = False, paging=None, **tier):
-    """The operator of a path; ``tier`` sets the emit tier, the snapshot
-    source and async_fire (the host tier's mirror-sourced defaults
-    otherwise); ``paging`` the keyword arguments of a ``PagingConfig``."""
+def build_op(device, paging=None, **options):
+    """The operator of a path: the headline workload's arguments and the
+    path's ``options`` (the JAX operator's defaults for any it leaves
+    out); ``paging`` the keyword arguments of a ``PagingConfig``."""
     import torch
 
     from flink_tpu_torch.core.functions import RuntimeContext, SumAggregator
@@ -931,14 +964,11 @@ def build_op(device, device_sync: str, superbatch: int,
     from flink_tpu_torch.state.paging import PagingConfig
     from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
     if paging is not None:
-        tier["paging"] = PagingConfig(**paging)
+        options["paging"] = PagingConfig(**paging)
     op = WindowAggOperator(
         TumblingEventTimeWindows.of(WINDOW_MS), SumAggregator(torch.float32),
         key_column="k", value_column="v", initial_key_capacity=KEY_CAPACITY,
-        device_sync=device_sync, device_probe="on", superbatch=superbatch,
-        native_emit=native_emit,
-        native_shards=NATIVE_SHARDS if native_emit else 0, device=device,
-        **{"emit_tier": "host", "snapshot_source": "mirror", **tier})
+        device=device, **options)
     op.open(RuntimeContext())
     return op
 
@@ -1079,6 +1109,39 @@ def read_launches():
             "scatter_fold_multi": multi}
 
 
+def lane_of(op) -> dict:
+    """The lane an operator resolved to (slice 8's ``auto`` settings)."""
+    stats, fused = op.device_probe_stats(), op.fused_stats()
+    return {"emit_tier": op.emit_tier,
+            "snapshot_source": op.snapshot_source,
+            "device_sync_mode": op.device_sync_mode,
+            "device_probe": bool(stats["enabled"]),
+            "superbatch": fused["depth"] or 1,
+            "native_mirror_active": op.native_mirror_active,
+            "nm_shards": op._nm_shards,
+            "calibrating_batches": op._calib_batches}
+
+
+def counters_of(op) -> dict:
+    """Every counter a run leaves: the probe's, the fused lane's, the
+    pager's and the operator's own."""
+    return {"probe": op.device_probe_stats(), "fused": op.fused_stats(),
+            "paging": op.paging_stats(), "late_dropped": op.late_dropped,
+            "num_keys": op.key_index.num_keys, "watermark": op.watermark,
+            "last_fired_window": op.last_fired_window}
+
+
+def snap_bytes(snap) -> tuple:
+    """A snapshot's arrays as bytes and its scalars, for bit comparisons."""
+    return (tuple(snap[k] for k in ("pane_base", "max_pane",
+                                    "last_fired_window", "watermark",
+                                    "late_dropped", "P")),
+            np.asarray(snap["panes"]).tobytes(),
+            np.asarray(snap["counts"]).tobytes(),
+            tuple(np.asarray(l).tobytes() for l in snap["leaves"]),
+            np.asarray(snap["key_index"]["reverse"]).tobytes())
+
+
 def main_path(device, batches, expect, label):
     """Drive one main path with every launch count at 0 just before and
     read just after; returns (launches per kernel, first snapshot, digests
@@ -1095,6 +1158,7 @@ def main_path(device, batches, expect, label):
     after_snap = []
     mid = None
     snaps, snap_d2h = 0, 0
+    per_batch = []
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1124,6 +1188,8 @@ def main_path(device, batches, expect, label):
             snap_d2h += op.phase_bytes.get("d2h", 0) - d0
             if mid is None:
                 mid = (i, snap)
+        per_batch.append(dict(op.device_probe_stats(),
+                              staged=op.fused_stats()["staged_batches"]))
     f0 = time.perf_counter()
     tail = op.end_input()
     fire_ms.append((time.perf_counter() - f0) * 1e3)
@@ -1134,19 +1200,22 @@ def main_path(device, batches, expect, label):
     after_snap += tail
     stats = op.device_probe_stats()
     fused = op.fused_stats()
+    lane = lane_of(op)
     paged = label in PAGED_PATHS
     plain = [b for _, b in fired]
     check_fires(by_window(plain) if paged else plain, expect, label)
-    native = bool(PATHS[label].get("native_emit")) and not device_tier
+    native = op.native_emit and not device_tier
     check(op.native_mirror_active == native,
           f"{label}: native_mirror_active is {op.native_mirror_active}")
     if device_tier:
         check(stats["enabled"] == 0 and stats["probe_hits"] == 0,
               f"{label}: the device probe ran on the device tier")
-        check(launches["scatter_fold"] > 0 and launches["probe"] == 0
-              and launches["probe_fold"] == 0,
+        check(launches["scatter_fold"] > 0 and launches["probe_fold"] == 0,
               f"{label}: launches {launches}; the device tier folds through "
-              f"scatter_fold and launches neither TPU kernel")
+              f"scatter_fold and launches no probe_fold")
+        check(launches["probe"] == 0 or label == "path 8",
+              f"{label}: launches {launches}; the device tier launches no "
+              f"probe (outside path 8's calibration)")
         check("emit_mirror" in op.phase_ns and "probe" in op.phase_ns
               and "mirror" not in op.phase_ns,
               f"{label}: the device tier's phases are wrong: "
@@ -1155,24 +1224,31 @@ def main_path(device, batches, expect, label):
         if paged:
             check_paging(op, label)
     else:
-        check(stats["probe_hits"] > 0, f"{label}: the probe never hit")
+        check(stats["probe_hits"] > 0 or not stats["enabled"],
+              f"{label}: the probe never hit")
         check(native or "probe_mirror" in op.phase_ns
               and "mirror" in op.phase_ns,
               f"{label}: the numpy lane's phases are missing")
         check(not native or "mirror" not in op.phase_ns,
               f"{label}: the C lane ran a numpy mirror fold")
-        if PATHS[label]["superbatch"] > 1:
-            check(launches["probe_fold"] > 0,
-                  f"{label} never launched the probe_fold kernel")
+        deferred = op.device_sync_mode == "deferred"
+        if stats["enabled"] and fused["depth"] > 1:
+            check(launches["probe_fold" if deferred else "probe"] > 0,
+                  f"{label}: the one-step passes launched no "
+                  f"{'probe_fold' if deferred else 'probe'}: {launches}")
             check(fused["scan_dispatches"] > 0, f"{label}: no one-step pass")
             check(fused["scan_steps"] > fused["scan_dispatches"],
                   f"{label}: the one-step passes covered one batch each")
-        else:
+        elif stats["enabled"]:
             check(launches["probe"] > 0,
                   f"{label} never launched the probe kernel")
-            check(launches["scatter_fold_multi"] > 0,
+            check(deferred or launches["scatter_fold_multi"] > 0,
                   f"{label}: the probe lane never folded its replica and "
                   f"delta ring through the ordered scatter_fold")
+        else:
+            check(deferred or launches["scatter_fold_single"] > 0,
+                  f"{label}: the probe-off scatter lane never launched "
+                  f"scatter_fold")
     check(fused["staged_pending"] == 0, f"{label}: batches left staged")
     check(op.verify_mirror(), f"{label}: device replica != host mirror")
     n_records = sum(len(b[0]) for b in batches)
@@ -1207,7 +1283,8 @@ def main_path(device, batches, expect, label):
                "d2h_per_fire": fire_d2h / max(n_fires, 1),
                "d2h_per_snapshot": snap_d2h / max(snaps, 1),
                "phase_ms": {k: v / 1e6 for k, v in op.phase_ns.items()},
-               "ring_bytes": ring_bytes}
+               "ring_bytes": ring_bytes, "lane": lane,
+               "counters": counters_of(op), "per_batch": per_batch}
     if paged:
         numbers.update(
             page_out_per_batch=op.phase_bytes.get("d2h_page_out", 0)
@@ -1283,7 +1360,6 @@ def replay(device, batches, mid, want, label):
     ``torch.profiler`` for the device's busy time — kernel and copy time
     summed over the trace — taken as a share of the plain run's wall time
     (the profiler's own host overhead would lengthen a profiled wall)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     wall, out = _replay_once(device, batches, mid, label)
@@ -1315,17 +1391,179 @@ def replay(device, batches, mid, want, label):
     _, again = _replay_once(device, batches, mid, label, prof)
     check(digest_fn(label)(again) == got, f"{label}: a second replay "
           f"differs from the first in its bits")
-    dev = sorted(((e.self_device_time_total, e.key)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0), reverse=True)
-    busy_ms = sum(t for t, _ in dev) / 1e3
+    busy_ms, dev = device_busy_ms(prof)
     share = busy_ms / (wall * 1e3)
     print(f"{label} replay device busy {busy_ms:.3f} ms of {wall * 1e3:.3f} "
           f"ms wall = {100 * share:.2f}% (idle {100 - 100 * share:.2f}%); "
           f"a second, profiled replay equals the first bit for bit")
     print(f"{label} replay top device ops (ms): " + "; ".join(
         f"{k[:60]} {t / 1e3:.3f}" for t, k in dev[:8]))
+    return got
+
+
+def device_busy_ms(prof):
+    """(device busy ms summed over the trace's kernels and copies, the ops
+    by time) of a finished ``torch.profiler`` run."""
+    from torch.autograd import DeviceType
+    dev = sorted(((e.self_device_time_total, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0), reverse=True)
+    return sum(t for t, _ in dev) / 1e3, dev
+
+
+def reset_verdicts() -> None:
+    """Drop the process's calibration verdicts (transport, shard counts,
+    super-batch depth, device probe), so path 8 measures them on the
+    card."""
+    from flink_tpu_torch.operators import fused_step
+    from flink_tpu_torch.state import device_keyindex, native_mirror
+    from flink_tpu_torch.utils import transport
+    transport.reset()
+    fused_step._reset_calibration_for_tests()
+    native_mirror._calibrated_shards = None
+    native_mirror.last_shard_s.clear()
+    device_keyindex._calibrated_probe = None
+    device_keyindex.last_measurement.clear()
+    for env in ("FLINK_TPU_NATIVE_SHARDS", "FLINK_TPU_SUPERBATCH",
+                "FLINK_TPU_DEVICE_PROBE"):
+        check(env not in os.environ, f"{env} is set: path 8 must measure")
+
+
+def report_auto(lane) -> None:
+    """Path 8's resolved lane and what each calibration measured."""
+    from flink_tpu_torch.operators import fused_step
+    from flink_tpu_torch.state import device_keyindex, native_mirror
+    from flink_tpu_torch.utils import transport
+    calib = {"transport_ms_per_mb": transport.dispatch_ms_per_mb(),
+             "transport_taxed": transport.dispatch_taxed(),
+             "device_probe_s": dict(device_keyindex.last_measurement),
+             "superbatch_s": {k: v for k, v in
+                              fused_step.last_measurement.items()
+                              if k != "super_shard_s"},
+             "shard_s": dict(native_mirror.last_shard_s),
+             "super_shard_s": dict(fused_step.last_measurement.get(
+                 "super_shard_s", {}))}
+    print("path 8 resolved lane: " + json.dumps(lane, sort_keys=True)
+          + "; calibrations (seconds unless named): "
+          + json.dumps(calib, sort_keys=True, default=str))
+
+
+def twin_options(lane) -> dict:
+    """The options that pin path 8's resolved lane."""
+    return dict(emit_tier=lane["emit_tier"],
+                snapshot_source=lane["snapshot_source"],
+                device_sync=lane["device_sync_mode"],
+                device_probe="on" if lane["device_probe"] else "off",
+                superbatch=lane["superbatch"], native_emit=True,
+                native_shards=lane["nm_shards"], pipeline_depth=0)
+
+
+def check_auto_twin(auto, twin, label="path 8"):
+    """Path 8 against its pinned twin: the same fires and mid-run snapshot
+    bit for bit, the same operator counters, and from the first batch after
+    calibration the same probe counters (per-batch lanes; a super-batch
+    groups batches from its own start, so only staging counts there)."""
+    (a_fires, a_mid, a_num), (t_fires, t_mid, t_num) = auto, twin
+    check_twin([b for _, b in a_fires], [b for _, b in t_fires], label)
+    check(snap_bytes(a_mid[1]) == snap_bytes(t_mid[1]),
+          f"{label}: the mid-run snapshot differs from the pinned twin's")
+    ac, tc = a_num["counters"], t_num["counters"]
+    for k in ("late_dropped", "num_keys", "watermark", "last_fired_window"):
+        check(ac[k] == tc[k], f"{label}: {k} {ac[k]} != twin {tc[k]}")
+    c = a_num["lane"]["calibrating_batches"]
+    keys = (("staged",) if a_num["lane"]["superbatch"] > 1 else
+            ("staged", "probe_hits", "probe_misses", "miss_inserts"))
+    final = lambda n: dict(n["counters"]["probe"],  # noqa: E731
+                           staged=n["counters"]["fused"]["staged_batches"])
+    base = lambda n: (n["per_batch"][c - 1] if c else  # noqa: E731
+                      {k: 0 for k in keys})
+    for k in keys:
+        da = final(a_num)[k] - base(a_num)[k]
+        dt = final(t_num)[k] - base(t_num)[k]
+        check(da == dt, f"{label}: {k} after the {c} calibrating batches "
+              f"{da} != the pinned twin's {dt}")
+    print(f"{label} equals its pinned twin {PATHS[label + ' twin']} bit for "
+          f"bit: fires, mid-run snapshot, counters ({', '.join(keys)} "
+          f"counted from batch {c + 1}, after {c} calibrating batches); "
+          f"records/s {a_num['records_per_s']:.1f} vs twin "
+          f"{t_num['records_per_s']:.1f}")
+
+
+def check_pipelined(label, ref, run, ref_run):
+    """A pipelined path against its serial twin: the same fires in the
+    same order and calls, the same mid-run snapshot and every counter, bit
+    for bit."""
+    (fires, mid, numbers), (rfires, rmid, rnumbers) = run, ref_run
+    check([i for i, _ in fires] == [i for i, _ in rfires],
+          f"{label}: fires surfaced at other batches than {ref}'s")
+    check_twin([b for _, b in fires], [b for _, b in rfires], label)
+    check(mid[0] == rmid[0] and snap_bytes(mid[1]) == snap_bytes(rmid[1]),
+          f"{label}: the mid-run snapshot differs from {ref}'s")
+    check(numbers["counters"] == rnumbers["counters"],
+          f"{label}: counters {numbers['counters']} != {ref}'s "
+          f"{rnumbers['counters']}")
+    print(f"{label} equals {ref} bit for bit: fires (same calls, keys, "
+          f"values), mid-run snapshot bytes, probe/fused/paging counters")
+
+
+def generated_run(device, options, prof=None):
+    """Path 3's workload with each batch generated inside the timed loop
+    from the seed (``make_batches``' own sequence), standing in for the
+    source decode the pipeline overlaps; returns (wall s, digests)."""
+    import torch
+
+    from flink_tpu_torch.core.batch import RecordBatch, Watermark
+    op = build_op(device, **options)
+    rng = np.random.default_rng(7)
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with prof if prof is not None else contextlib.nullcontext():
+        for i in range(N_BATCHES):
+            keys = rng.integers(0, N_KEYS, BATCH).astype(np.int64)
+            vals = rng.random(BATCH).astype(np.float32)
+            ts = i * 1000 + np.sort(rng.integers(0, 1000, BATCH)).astype(
+                np.int64)
+            out += op.process_batch(RecordBatch({"k": keys, "v": vals},
+                                                timestamps=ts))
+            out += op.process_watermark(Watermark(int(ts.max()) - 1))
+        out += op.end_input()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    op.close()
+    return wall, digests(out)
+
+
+def pipeline_ab(device, label, ref, want) -> None:
+    """Path ``label`` (pipelined) against ``ref`` (depth 0) on generated
+    batches, in turns ref, label, label, ref, each held to ``want`` bit
+    for bit; then one profiled run of each for the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    n = N_BATCHES * BATCH
+    walls = {ref: [], label: []}
+    for side in (ref, label, label, ref):
+        wall, got = generated_run(device, PATHS[side])
+        check(got == want, f"A/B {side}: generated batches fired other "
+              f"digests than {ref}'s run")
+        walls[side].append(wall)
+    idle = {}
+    for side in (ref, label):
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        wall, got = generated_run(device, PATHS[side], prof)
+        check(got == want, f"A/B {side}: a profiled run differs")
+        busy, _ = device_busy_ms(prof)
+        idle[side] = 100 - 100 * busy / (wall * 1e3)
+    rate = {k: [n / w for w in v] for k, v in walls.items()}
+    ratio = np.median(rate[label]) / np.median(rate[ref])
+    print(f"A/B {label} (pipeline_depth=2) vs {ref} (depth 0), batches "
+          f"generated in the timed loop, turns {ref}, {label}, {label}, "
+          f"{ref}: records/s " + ", ".join(
+              f"{k} " + " / ".join(f"{r:.1f}" for r in v)
+              for k, v in rate.items())
+          + f" (median ratio {ratio:.3f}x); device idle {idle[label]:.2f}% "
+          f"vs {idle[ref]:.2f}% (one profiled run each); every run "
+          f"bit-equal to {ref}'s digests")
 
 
 def main() -> None:
@@ -1348,12 +1586,32 @@ def main() -> None:
     batches = make_batches(N_BATCHES * BATCH, N_KEYS, BATCH, WINDOW_MS)
     expect = reference(batches)
     cells = reference_f32(batches)
-    launches, fires, numbers = {}, {}, {}
+    launches, fires, numbers, mids, replays = {}, {}, {}, {}, {}
     for label in ORDER:
+        if label == "path 8":
+            reset_verdicts()
         launches[label], mid, after, fires[label], numbers[label] = \
             main_path(device, batches, expect, label)
         check(mid is not None, f"{label}: no mid-run snapshot")
+        mids[label] = mid
         plain = [b for _, b in fires[label]]
+        if label == "path 3":
+            # the fires path 9's A/B runs are held to
+            ab_want = digests(plain)
+        if label == "path 8":
+            report_auto(numbers[label]["lane"])
+            if numbers[label]["lane"]["emit_tier"] == "device":
+                check_fires_bits(plain, cells, label)
+            PATHS["path 8 twin"] = twin_options(numbers[label]["lane"])
+            _, tmid, _, tfires, tnumbers = main_path(device, batches, expect,
+                                                     "path 8 twin")
+            check_auto_twin((fires[label], mid, numbers[label]),
+                            (tfires, tmid, tnumbers))
+            del tfires, tmid
+        if label in PIPELINED:
+            ref = PIPELINED[label]
+            check_pipelined(label, ref, (fires[label], mid, numbers[label]),
+                            (fires[ref], mids[ref], numbers[ref]))
         if label in TWIN:
             check_twin(plain, [b for _, b in fires[TWIN[label]]], label)
             print(f"{label} fires equal {TWIN[label]}'s bit for bit: same "
@@ -1376,15 +1634,23 @@ def main() -> None:
             print(f"{label} fires equal the f32 ordered reference bit for "
                   f"bit by key, and the (window, key, value) set of {ref}'s "
                   f"bit for bit")
-        replay(device, batches, mid, after, label)
+        replays[label] = replay(device, batches, mid, after, label)
+        if label in PIPELINED:
+            check(replays[label] == replays[PIPELINED[label]],
+                  f"{label}: its replay differs from {PIPELINED[label]}'s")
+            print(f"{label} replay equals {PIPELINED[label]}'s bit for bit, "
+                  f"every window")
         rest = ORDER[ORDER.index(label) + 1:]
         needed = ({TWIN.get(k) for k in rest}
                   | {DEVICE_PATHS.get(k) for k in rest}
                   | {PAGED_PATHS.get(k) for k in rest}
+                  | {PIPELINED.get(k) for k in rest}
                   | ({"path 5"} if "path 6" in rest else set()))
         for done in [k for k in fires if k not in needed]:
             del fires[done]
-    del fires
+            del mids[done]
+    del fires, mids
+    pipeline_ab(device, "path 9", "path 3", ab_want)
     for label, twin in TWIN.items():
         a, b = numbers[label], numbers[twin]
         host = lambda n: sum(n["phase_ms"].get(k, 0.0)  # noqa: E731
@@ -1430,6 +1696,17 @@ def main() -> None:
               f"{b['d2h_per_snapshot']:.0f} B; page-out "
               f"{a['page_out_per_batch']:.0f} B and page-in "
               f"{a['page_in_per_batch']:.0f} B per batch")
+    for label, ref in PIPELINED.items():
+        a, b = numbers[label], numbers[ref]
+        phases = sorted(set(a["phase_ms"]) | set(b["phase_ms"]))
+        print(f"A/B {label} (pipeline_depth=2) vs {ref} (depth 0), same "
+              f"batches, one process: records/s {a['records_per_s']:.1f} vs "
+              f"{b['records_per_s']:.1f} "
+              f"({a['records_per_s'] / b['records_per_s']:.3f}x); fire "
+              f"p50/p99 {a['fire_p50_ms']:.3f}/{a['fire_p99_ms']:.3f} vs "
+              f"{b['fire_p50_ms']:.3f}/{b['fire_p99_ms']:.3f} ms; phase ms "
+              + ", ".join(f"{k} {a['phase_ms'].get(k, 0.0):.3f} vs "
+                          f"{b['phase_ms'].get(k, 0.0):.3f}" for k in phases))
     host_layer_phase(rng)
     store_phase(rng)
     # the fused kernel's phase runs last: its 2M-row CPU check and large
@@ -1451,9 +1728,16 @@ def main() -> None:
     for label in ("path 2", "path 4"):
         check(launches[label]["probe_fold"] > 0,
               f"{label}: no probe_fold launch")
-    for label in (*DEVICE_PATHS, *PAGED_PATHS):
+    for label in (*DEVICE_PATHS, *PAGED_PATHS, "path 8", "path 9"):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
+    # path 8's probe launches come from the device-probe calibration, which
+    # runs where the probe is eligible: the host tier, as auto picks on a
+    # card
+    for label in ("path 8", "path 9"):
+        check(launches[label]["probe"] > 0
+              or numbers[label]["lane"]["emit_tier"] == "device",
+              f"{label}: no probe launch")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

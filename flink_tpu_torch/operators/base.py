@@ -31,6 +31,12 @@ class StreamOperator:
         """Bounded-input flush (``BoundedOneInput.endInput`` analog)."""
         return []
 
+    def flush_pipeline(self) -> List[StreamElement]:
+        """Pipeline barrier: operators that pipeline or stage their hot
+        path complete it here; a task loop calls it at idle points, so
+        pipelined work never waits for the next batch.  Default: no-op."""
+        return []
+
     def prepare_snapshot_pre_barrier(self) -> List[StreamElement]:
         """Called before the snapshot: elements to forward ahead of it."""
         return []

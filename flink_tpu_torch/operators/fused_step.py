@@ -22,14 +22,20 @@ in which f32/int contributions add exactly, so regrouping records across
 batches or across the warm/miss split changes no fire digest, snapshot byte
 or counter.  Per-batch probe hit/miss counts may differ.
 
-``calibrated_superbatch``/``calibrated_super_shards`` measure the JAX
-package's native C pass, which the port does not load; they stay out, and
-``superbatch=0`` (auto) is refused by the operator.
+``superbatch=0`` asks :func:`calibrated_superbatch`: one C probe + fold
+pass over ``AUTO_DEPTH`` concatenated batches (the concatenation timed
+with it) against ``AUTO_DEPTH`` per-batch passes, measured once a process
+on the port's C host layer (``state/native_mirror.py``);
+:func:`calibrated_super_shards` measures the shard count of that super pass
+at its own size.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import os
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -40,15 +46,30 @@ from flink_tpu_torch.core.functions import (tree_leaves, tree_structure,
 #: depth (staging trades latency and memory for fewer passes)
 MAX_STAGED_ROWS = 1 << 21
 
-#: the JAX package's auto-calibration candidate depth (kept for parity; the
-#: port has no calibration)
+#: auto-calibration's candidate depth (the measured A/B compares this
+#: against the per-batch path; FLINK_TPU_SUPERBATCH overrides)
 AUTO_DEPTH = 8
+
+#: env override, under the JAX package's name: "<N>" pins the depth (1 =
+#: off), "auto" or "" measures
+_ENV = "FLINK_TPU_SUPERBATCH"
+
+_calibrated_depth: Optional[int] = None
+_calibrated_shards: Optional[int] = None
+_calib_lock = threading.Lock()
+#: what the last measurements read, in seconds (``t_per``, ``t_super``,
+#: ``super_shard_s``: shard count -> pass time), for the chip smoke's report
+last_measurement: Dict[str, object] = {}
 
 
 class SuperBatchStage:
     """Host-side stage of pending micro-batches ``(keys, panes, values, B)``.
 
-    Single-threaded: batches are staged and flushed on the task thread."""
+    Single-threaded by construction: batches are staged wherever the hot
+    stage runs (the pipeline worker, or the task thread) and flushed there
+    (depth reached) or on the task thread after a pipeline barrier; the two
+    never overlap, because the task thread touches the stage only after
+    the pipeline's ``flush()`` returned."""
 
     __slots__ = ("batches", "rows")
 
@@ -87,3 +108,108 @@ def concat_staged(staged: List[tuple]) -> Tuple[np.ndarray, np.ndarray,
            for j in range(len(per[0]))]
     return (keys, panes, tree_unflatten(structure, cat),
             int(sum(s[3] for s in staged)))
+
+
+# ---------------------------------------------------------------------------
+# measured auto-calibration (the superbatch=0 verdict)
+# ---------------------------------------------------------------------------
+
+def _super_shards_locked() -> int:
+    """Body of :func:`calibrated_super_shards`; the caller holds
+    ``_calib_lock``."""
+    global _calibrated_shards
+    if _calibrated_shards is not None:
+        return _calibrated_shards
+    from flink_tpu_torch.kernels.build import host_mirror_lib
+    from flink_tpu_torch.state.native_mirror import (auto_shards,
+                                                     measure_fused_probe)
+    auto = auto_shards()
+    if auto <= 1:
+        _calibrated_shards = 1
+        return 1
+    n_keys = 1 << 19
+    B = AUTO_DEPTH << 17               # one super-batch worth of rows
+    rng = np.random.default_rng(29)
+    keys = rng.integers(0, n_keys, 3 * B).astype(np.int64)
+    vals = rng.random(3 * B).astype(np.float32)
+    timings = {s: measure_fused_probe(host_mirror_lib(), s, n_keys, B, keys,
+                                      vals)
+               for s in (1, auto)}
+    last_measurement["super_shard_s"] = timings
+    _calibrated_shards = min(timings, key=timings.get)
+    return _calibrated_shards
+
+
+def calibrated_super_shards() -> int:
+    """Shard count of the SUPER-batch C pass, measured at super-batch size
+    and cached process-wide: ``calibrated_shards`` measures one
+    micro-batch, where waking the thread pool can eat the win; a
+    super-batch spreads that wake over N times the rows."""
+    if _calibrated_shards is not None:
+        return _calibrated_shards
+    with _calib_lock:
+        return _super_shards_locked()
+
+
+def calibrated_superbatch() -> int:
+    """The MEASURED super-batch depth, cached process-wide: does ONE C probe
+    + fold pass over ``AUTO_DEPTH`` concatenated micro-batches (at the
+    super-batch shard count) beat ``AUTO_DEPTH`` per-batch passes at the
+    per-batch shard count?  Returns the depth to stage (1 = staging off).
+    ``FLINK_TPU_SUPERBATCH`` pins the verdict without measuring."""
+    global _calibrated_depth
+    if _calibrated_depth is not None:
+        return _calibrated_depth
+    with _calib_lock:
+        if _calibrated_depth is not None:
+            return _calibrated_depth
+        env = os.environ.get(_ENV, "").strip().lower()
+        if env and env != "auto":
+            try:
+                _calibrated_depth = max(1, int(env))
+                return _calibrated_depth
+            except ValueError:
+                pass
+        _calibrated_depth = _measure_superbatch()
+        return _calibrated_depth
+
+
+def _measure_superbatch() -> int:
+    """The A/B at the headline batch geometry (a toy super-batch fits the
+    last-level cache and hides the staging copies' memory traffic).  Runs
+    under ``_calib_lock``: it takes the LOCKED shard helper, since the lock
+    is not reentrant and the public wrapper would deadlock."""
+    from flink_tpu_torch.kernels.build import host_mirror_lib
+    from flink_tpu_torch.state.native_mirror import (calibrated_shards,
+                                                     measure_fused_probe)
+    lib = host_mirror_lib()
+    n_keys = 1 << 19
+    B = 1 << 17
+    N = AUTO_DEPTH
+    rng = np.random.default_rng(31)
+    keys = rng.integers(0, n_keys, 3 * N * B).astype(np.int64)
+    vals = rng.random(3 * N * B).astype(np.float32)
+    # per-batch side: one B-row pass at the per-batch shard count, times N
+    t_per = measure_fused_probe(lib, calibrated_shards(), n_keys, B,
+                                keys[:3 * B], vals[:3 * B]) * N
+    # super side end to end: the staging concatenation (N-1 extra copies of
+    # every staged column) is part of the lane's cost
+    t0 = time.perf_counter()
+    np.concatenate([keys[i * B:(i + 1) * B] for i in range(N)])
+    np.concatenate([np.zeros(B, np.int64) for _ in range(N)])
+    np.concatenate([vals[i * B:(i + 1) * B] for i in range(N)])
+    t_concat = time.perf_counter() - t0
+    t_super = measure_fused_probe(lib, _super_shards_locked(), n_keys,
+                                  N * B, keys, vals) + t_concat
+    last_measurement.update(t_per=t_per, t_super=t_super)
+    # <=: a tie goes to staging (the per-batch glue it saves is upside)
+    return N if t_super <= t_per else 1
+
+
+def _reset_calibration_for_tests() -> None:
+    """Drop the process-wide verdicts (tests, the chip smoke)."""
+    global _calibrated_depth, _calibrated_shards
+    with _calib_lock:
+        _calibrated_depth = None
+        _calibrated_shards = None
+        last_measurement.clear()

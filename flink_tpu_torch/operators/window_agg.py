@@ -61,16 +61,28 @@ event-time, tumbling windowed aggregate with
   uploaded cells in the same order; a snapshot merges both tiers into the
   dense gid-indexed format, and a restore at any capacity uploads the first
   ``K_cap`` keys and spills the rest.  Batches longer than ``K_cap / 2``
-  split, and the super-batch depth resolves to 1.
+  split, and the super-batch depth resolves to 1;
+- **the ``auto`` settings**, the JAX operator's defaults: the emit tier
+  (``host`` on the card, ``device`` on the CPU), the snapshot source (the
+  emit tier's), the sync cadence (the first host-tier batches time their
+  own update steps, ``utils/transport.py``), the device probe
+  (``calibrated_device_probe``), the super-batch depth
+  (``superbatch=0``, ``calibrated_superbatch``) and the C pass's shard
+  count (``native_shards=0``, ``calibrated_shards``), each measured once a
+  process and resolved once per operator (the probe once per key index);
+- **the two-stage pipeline** (``pipeline_depth=N > 0``): the hot stage of a
+  batch (pane bookkeeping, the probe and mirror pass, paging, the device
+  step) runs on one worker thread behind the task loop, in order, with at
+  most N stages queued; every state read waits for it
+  (:meth:`flush_pipeline`), so fires, snapshots and counters are the
+  serial path's bit for bit.  On the card, the scatter lane's uploads go
+  through reusable pinned buffers (:class:`_Staging`).
 
 Where JAX donated buffers to a jitted step, this port updates the same
 tensors in place.  Batches are not padded: torch needs no static shapes, so
 a step sees exactly the batch's rows, and the miss list is one
 ``torch.nonzero`` — the step's only host sync.  JAX's scoped ``enable_x64``
-goes away: torch keeps f64 and i64 on the card.  The sync cadence and the
-super-batch depth take pinned values only (no ``"auto"``), so JAX's
-``_resolve_device_sync`` and ``_fused_depth`` reduce to the constructor's
-checks.
+goes away: torch keeps f64 and i64 on the card.
 
 JAX's device tier pads a fire's gather to a quantized width
 (``_quantize_cap``) for static shapes; here it gathers exactly the emitted
@@ -84,6 +96,8 @@ Options of the JAX operator that belong to later slices raise
 
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -99,6 +113,8 @@ from flink_tpu_torch.core.functions import (SCATTER_UFUNCS, AggregateFunction,
 from flink_tpu_torch.operators.base import StreamOperator
 from flink_tpu_torch.operators.fused_step import (MAX_STAGED_ROWS,
                                                   SuperBatchStage,
+                                                  calibrated_super_shards,
+                                                  calibrated_superbatch,
                                                   concat_staged)
 from flink_tpu_torch.ops.scatter import (combine_along_axis,
                                          gather_row_pane_columns,
@@ -106,21 +122,20 @@ from flink_tpu_torch.ops.scatter import (combine_along_axis,
                                          ordered_fold_counts_multi,
                                          reset_rows, set_row_pane_columns)
 from flink_tpu_torch.ops.shapes import next_pow2 as _next_pow2
-from flink_tpu_torch.state.device_keyindex import (DeviceKeyIndex, probe,
-                                                   probe_fold,
+from flink_tpu_torch.state.device_keyindex import (DeviceKeyIndex,
+                                                   calibrated_device_probe,
+                                                   probe, probe_fold,
                                                    probe_fold_available)
 from flink_tpu_torch.state.keyindex import KeyIndex, NativeKeyIndex
-from flink_tpu_torch.state.native_mirror import NativeWindowMirror, ineligible
+from flink_tpu_torch.state.native_mirror import (NativeWindowMirror,
+                                                 calibrated_shards, ineligible)
 from flink_tpu_torch.state.paging import DevicePager, identity_grid
+from flink_tpu_torch.utils import transport
 from flink_tpu_torch.windowing.assigners import WindowAssigner
 from flink_tpu_torch.windowing.triggers import EventTimeTrigger, Trigger
 
 #: what this slice leaves out, and the later slice that brings it
 _LATER = {
-    "auto": "the auto calibrations (emit tier, device sync, device probe, "
-            "superbatch=0, native_shards=0 with native_emit=True) come with "
-            "the calibration slice",
-    "pipeline": "pipeline_depth > 0 comes with the pipelining slice",
     "sharding": "sharded state comes with the multi-GPU mesh slice",
     "count": "count triggers come with the count-window slice",
     "late_output": "late side outputs come with the runtime-stack slice",
@@ -177,6 +192,120 @@ def _fetch_collect(handle) -> List[np.ndarray]:
     return [h.numpy() for h in host]
 
 
+class _HotPipeline:
+    """One background worker running hot-path stages IN ORDER.
+
+    The two-stage pipeline of :meth:`WindowAggOperator.process_batch`: the
+    hot stage of batch N (probe and mirror pass, paging, device step) runs
+    here while the task thread returns to its loop for batch N+1.  One
+    worker, so stages run strictly one after another and mutate state in
+    the serial path's order; only the thread changes.  ``depth`` bounds the
+    QUEUE: ``submit`` blocks once ``depth`` stages wait, so at most
+    ``depth + 1`` batches are held (queued plus running).
+
+    Each stage runs with the operator's card as the thread's current CUDA
+    device (the current device is per host thread), on the thread's default
+    stream, which is the task thread's too (the legacy default stream), so
+    the stages' launches and the task thread's are ordered on one stream.
+
+    Errors are sticky: a stage error parks the worker (later stages are
+    skipped) and re-raises at EVERY later ``flush()``/``submit()``, a CUDA
+    error raised in a stage included, so a monitoring caller cannot consume
+    the failure the task thread's own next barrier must see.  Only
+    ``close()`` clears it.
+    """
+
+    __slots__ = ("depth", "device", "_q", "_err", "_t")
+
+    def __init__(self, depth: int, device: torch.device):
+        self.depth = max(1, int(depth))
+        self.device = device
+        self._q: queue.Queue = queue.Queue(maxsize=self.depth)
+        self._err: Optional[BaseException] = None
+        self._t: Optional[threading.Thread] = None
+
+    def _loop(self) -> None:
+        while True:
+            fn = self._q.get()
+            try:
+                if fn is None:
+                    return
+                if self._err is None:
+                    if self.device.type == "cuda":
+                        with torch.cuda.device(self.device):
+                            fn()
+                    else:
+                        fn()
+            except BaseException as e:  # noqa: BLE001 — re-raised at flush
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def submit(self, fn) -> None:
+        if self._err is not None:
+            self.flush()
+        if self._t is None:
+            self._t = threading.Thread(target=self._loop, daemon=True,
+                                       name="winagg-pipeline")
+            self._t.start()
+        self._q.put(fn)  # blocks at depth: the bounded pipeline
+
+    def pending(self) -> bool:
+        return self._q.unfinished_tasks > 0
+
+    def flush(self) -> None:
+        """Barrier: block until every submitted stage completed.  A parked
+        stage error re-raises here and STAYS parked."""
+        if self._t is not None:
+            self._q.join()
+        if self._err is not None:
+            raise self._err
+
+    def close(self) -> None:
+        self._err = None
+        if self._t is not None:
+            self._q.put(None)
+            self._t.join(timeout=10)
+            self._t = None
+
+
+class _Staging:
+    """One reusable upload set of the scatter lane: the flat ids and one
+    buffer per value leaf, ``rows`` long (a power of two of at least 64;
+    a batch fills a prefix).  On the card the buffers are pinned and feed
+    ``non_blocking`` copies; ``token`` is a CUDA event recorded after the
+    launches that consumed them, and the set is free again once it has
+    completed.  On the CPU the buffers are plain, the fold reads them
+    before the call returns, and ``token`` stays None."""
+
+    __slots__ = ("flat", "bufs", "token")
+
+    def __init__(self, rows: int, flat_dtype, leaves, pin: bool):
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, pin_memory=pin)
+        self.flat = empty((rows,), torch_dtype(flat_dtype))
+        self.bufs = [empty((rows,) + a.shape[1:], torch_dtype(a.dtype))
+                     for a in leaves]
+        self.token = None
+
+    def ready(self) -> bool:
+        return self.token is None or bool(self.token.query())
+
+    def fill(self, flat: Optional[np.ndarray], leaves, B: int):
+        """Copy the batch into the set; returns the host tensors of its
+        ``B`` rows (the flat ids, then the leaves).  ``flat`` None: the C
+        pass already wrote the ids into :meth:`flat_out`."""
+        if flat is not None:
+            self.flat.numpy()[:B] = flat
+        for buf, a in zip(self.bufs, leaves):
+            buf.numpy()[:B] = a
+        return self.flat[:B], [buf[:B] for buf in self.bufs]
+
+    def flat_out(self, B: int) -> np.ndarray:
+        """The ids buffer's first ``B`` rows as numpy, for the C pass."""
+        return self.flat.numpy()[:B]
+
+
 class _PhaseTimer:
     """Accumulates host wall time into a dict entry (phase breakdown)."""
 
@@ -221,35 +350,34 @@ class WindowAggOperator(StreamOperator):
         sharding=None,
         async_fire: bool = False,
         late_output_tag: Optional[str] = None,
-        emit_tier: str = "host",
-        snapshot_source: str = "mirror",
-        native_emit: bool = False,
-        device_sync: str = "scatter",
+        emit_tier: str = "auto",
+        snapshot_source: str = "auto",
+        native_emit: bool = True,
+        device_sync: str = "auto",
         paging=None,
         pipeline_depth: int = 0,
         native_shards: int = 0,
-        device_probe: str = "on",
+        device_probe: str = "auto",
         queryable: Optional[str] = None,
         superbatch: int = 1,
         device: DeviceLike = None,
     ):
         if trigger is None:
             trigger = EventTimeTrigger()
+        if int(pipeline_depth) < 0:
+            raise ValueError("pipeline_depth must be >= 0")
         if paging is not None:
             # the JAX operator's checks, before this slice's refusals: the
             # same configurations raise the same ValueErrors
             if trigger.fires_on_count or not trigger.fires_on_time:
                 raise ValueError("paging requires time-triggered time "
                                  "windows (no count triggers/GlobalWindows)")
+            if emit_tier == "auto":
+                emit_tier = "device"
             if emit_tier != "device":
                 raise ValueError("paging pins the device emit tier (the "
                                  "host mirror is unbounded host state)")
         refusals = [
-            ("auto", "auto" in (emit_tier, snapshot_source, device_sync,
-                                device_probe) or int(superbatch) == 0
-             or (bool(native_emit) and int(native_shards) == 0
-                 and emit_tier == "host")),
-            ("pipeline", int(pipeline_depth) != 0),
             ("sharding", sharding is not None),
             ("count", trigger.fires_on_count),
             ("late_output", late_output_tag is not None),
@@ -260,16 +388,34 @@ class WindowAggOperator(StreamOperator):
         for what, refused in refusals:
             if refused:
                 raise _later(what)
-        if emit_tier not in ("host", "device") \
-                or snapshot_source not in ("mirror", "device"):
+        self.device = resolve_device(device)
+        # ---- the emit tier: "auto" picks the host value mirror exactly
+        # when the aggregate has numpy twins, fires are time-triggered and
+        # the state lives on a card (on the CPU there is no transfer to
+        # save), as JAX picks it off ``jax.default_backend()``
+        host_capable = agg.supports_host_emit() and trigger.fires_on_time
+        if emit_tier == "auto":
+            emit_tier = ("host" if host_capable and self.device.type != "cpu"
+                         else "device")
+        if emit_tier not in ("host", "device"):
+            raise ValueError(f"emit_tier must be auto|host|device, got "
+                             f"{emit_tier!r}")
+        if emit_tier == "host" and not host_capable:
             raise ValueError(
-                f"emit_tier must be host|device and snapshot_source "
-                f"mirror|device, got {emit_tier!r}/{snapshot_source!r}")
+                "emit_tier='host' requires an unsharded, time-triggered "
+                "window over an aggregate with numpy twins "
+                "(AggregateFunction.supports_host_emit)")
+        # snapshots follow the emit tier under "auto"
+        if snapshot_source == "auto":
+            snapshot_source = "mirror" if emit_tier == "host" else "device"
+        if snapshot_source not in ("mirror", "device"):
+            raise ValueError(f"snapshot_source must be auto|mirror|device, "
+                             f"got {snapshot_source!r}")
         if snapshot_source == "mirror" and emit_tier != "host":
             raise ValueError("snapshot_source='mirror' requires the host "
                              "emit tier")
-        if device_sync not in ("scatter", "deferred"):
-            raise ValueError(f"device_sync must be scatter|deferred, "
+        if device_sync not in ("auto", "scatter", "deferred"):
+            raise ValueError(f"device_sync must be auto|scatter|deferred, "
                              f"got {device_sync!r}")
         if device_sync == "deferred" and emit_tier != "host":
             raise ValueError(
@@ -280,21 +426,14 @@ class WindowAggOperator(StreamOperator):
                 "device_sync='deferred' requires snapshot_source="
                 "'mirror' (device-sourced snapshots would read a stale "
                 "replica)")
-        if device_probe not in ("on", "off"):
-            raise ValueError(f"device_probe must be on|off, "
+        if device_probe not in ("auto", "on", "off"):
+            raise ValueError(f"device_probe must be auto|on|off, "
                              f"got {device_probe!r}")
-        if int(superbatch) < 1:
-            raise ValueError(f"superbatch must be >= 1, got {superbatch!r}")
+        if int(superbatch) < 0:
+            raise ValueError("superbatch must be >= 0 (0 = auto)")
         if int(native_shards) < 0:
-            raise ValueError(f"native_shards must be >= 1, got "
+            raise ValueError(f"native_shards must be >= 0 (0 = auto), got "
                              f"{native_shards!r}")
-        if emit_tier == "host" and (not trigger.fires_on_time
-                                    or not agg.supports_host_emit()):
-            raise ValueError(
-                "emit_tier='host' requires a time-triggered window over an "
-                "aggregate with numpy twins "
-                "(AggregateFunction.supports_host_emit)")
-        self.device = resolve_device(device)
         self.assigner = assigner
         self.agg = agg
         self.key_column = key_column
@@ -317,14 +456,28 @@ class WindowAggOperator(StreamOperator):
         self.async_fire = bool(async_fire)
         #: in-flight async fires: (window id, keys, fetch handle, structure)
         self._pending_fires: List[tuple] = []
-        #: the replica's sync cadence (JAX's resolved attribute of the same
-        #: name; only pinned values exist here)
-        self.device_sync_mode = device_sync
+        #: the replica's sync cadence as asked ("auto" | "scatter" |
+        #: "deferred") and as resolved on the first batch or restore
+        #: (``device_sync_mode``: "scatter" | "deferred"; None until then)
+        self.device_sync = device_sync
+        self.device_sync_mode: Optional[str] = None
+        #: auto sync: calibrating batches so far (at most 8: batches too
+        #: small to give a sample settle on scatter)
+        self._calib_batches = 0
         #: deferred sync: the replica lags the mirror until device_refresh
         self._device_stale = False
-        #: fused lane: staging depth (1 = off; paging resolves it to 1, as
-        #: JAX's ``_fused_depth`` does), stage and counters
-        self.superbatch = 1 if paging is not None else int(superbatch)
+        #: two-stage pipeline depth (0 = serial) and its worker
+        self.pipeline_depth = int(pipeline_depth)
+        self._pipe: Optional[_HotPipeline] = None
+        #: reusable upload sets of the scatter lane, by (rows, id dtype,
+        #: value leaves' dtypes and shapes)
+        self._staging_pool: Dict[tuple, List[_Staging]] = {}
+        #: fused lane: staging depth as asked (1 = off, 0 = auto) and as
+        #: resolved on the first resolved batch (1 under paging, as JAX's
+        #: ``_fused_depth``), the stage and counters
+        self.superbatch = int(superbatch)
+        self._fused_resolved: Optional[int] = None
+        self._fused_shards = 0   # super-pass C shard count (0 = unresolved)
         self._fused_stage = SuperBatchStage()
         self._fused_counters = {"flushes": 0, "staged_batches": 0,
                                 "scan_dispatches": 0, "scan_steps": 0,
@@ -337,13 +490,12 @@ class WindowAggOperator(StreamOperator):
         self._mirror_dtypes = tuple(
             np.int64 if np.issubdtype(np.dtype(d), np.integer) else np.float64
             for d in self.spec.leaf_dtypes)
-        #: the C host layer: keydict + WinMirror, bound per key index
+        #: the C host layer: keydict + WinMirror, bound per key index (an
+        #: accumulator the C mirror cannot hold keeps the numpy mirror, as
+        #: in JAX); its pass's shard count (0 = measured, on binding)
         self.native_emit = bool(native_emit)
         self.native_shards = int(native_shards)
-        if self.native_emit and emit_tier == "host":
-            why = ineligible(self.spec, self.kinds, self._mirror_dtypes)
-            if why is not None:
-                raise ValueError(f"native_emit=True: {why}")
+        self._nm_shards = 1
         self._nm: Optional[NativeWindowMirror] = None
         #: host value mirror: pane id -> [counts int64 [K], leaf_0 [K], ...]
         #: (host tier)
@@ -431,27 +583,38 @@ class WindowAggOperator(StreamOperator):
         cls = NativeKeyIndex if self.native_emit else KeyIndex
         self.key_index = (cls.restore(snap) if snap is not None else
                           cls(initial_capacity=max(1 << 16, 2 * self._K)))
-        if self.native_emit and self.emit_tier == "host":
+        if (self.native_emit and self.emit_tier == "host"
+                and ineligible(self.spec, self.kinds,
+                               self._mirror_dtypes) is None):
             self._nm = NativeWindowMirror.create(
                 self.key_index, self.spec, self.kinds, self._mirror_dtypes)
+            # 0 = auto: measured once a process (calibrated_shards)
+            self._nm_shards = self.native_shards or calibrated_shards()
 
-    def _native_probe_update(self, keys, panes, values, flat_out=None):
+    def _native_probe_update(self, keys, panes, values, flat_out=None,
+                             shards: Optional[int] = None):
         """The C pass over a block of rows: key inserts (numbered by first
         occurrence) and the mirror fold; with ``flat_out`` also the device
-        scatter ids ``slot * P + pane % P``.  Returns the rows' slots."""
+        scatter ids ``slot * P + pane % P``.  Returns the rows' slots.
+        ``shards`` defaults to the per-batch count."""
         lifted = [np.asarray(l)
                   for l in tree_leaves(self.agg.host_lift(values))]
         return self._nm.probe_update(
             keys, panes, lifted,
             pane_mod=self._P if flat_out is not None else 0,
-            flat_out=flat_out, shards=self.native_shards)
+            flat_out=flat_out, shards=shards or self._nm_shards)
 
     def reset_state(self) -> None:
         """Drop all keyed state and time progress (the key index, its C
         mirror, the device state, the probe table, the stage, the pager's
-        residency and spill tier, and the counters); the configuration
-        stays.  The next batch binds a fresh key index and mirror."""
+        residency and spill tier, and the counters); the configuration and
+        the resolved sync cadence and super-batch depth stay.  In-flight
+        pipeline stages complete first (they still write this state).  The
+        next batch binds a fresh key index and mirror."""
+        if self._pipe is not None:
+            self._pipe.flush()
         self._fused_stage.take()
+        self._staging_pool = {}
         self.key_index = None
         self._nm = None          # its keydict dies with the key index
         self._leaves = None
@@ -476,25 +639,45 @@ class WindowAggOperator(StreamOperator):
             self._pager.reset()
 
     def close(self) -> None:
-        """Advance the staged batches, then release the pager's spill
-        store."""
+        """Complete the pipeline and advance the staged batches, then stop
+        the pipeline's worker and release the pager's spill store.  A
+        parked stage error re-raises here once more, and is then
+        cleared."""
         try:
             self.flush_pipeline()
         finally:
+            if self._pipe is not None:
+                self._pipe.close()
+                self._pipe = None
             if self._pager is not None:
                 self._pager.close()
 
     # ----------------------------------------------- device-resident probe
-    def _devprobe_active(self) -> bool:
-        """Resolved once per key-index lifetime: "on" and eligible (the
-        host emit tier, scalar add/min/max accumulator leaves — the delta
-        fold contract), as JAX's ``_devprobe_eligible``."""
-        if self._devprobe_resolved is None:
-            self._devprobe_resolved = (
-                self.device_probe == "on"
+    def _devprobe_eligible(self) -> bool:
+        """Static eligibility, as JAX's: not "off", the host emit tier,
+        scalar add/min/max accumulator leaves (the delta fold contract) and
+        no paging (the pager needs every record's key id on the host)."""
+        return (self.device_probe != "off"
                 and self.emit_tier == "host"
+                and self._pager is None
                 and self.kinds is not None
                 and all(tuple(s) == () for s in self.spec.leaf_shapes))
+
+    def _devprobe_active(self, sync: str) -> bool:
+        """The probe lane's gate for a batch under the resolved ``sync``:
+        off while the sync cadence calibrates; otherwise resolved once per
+        key-index lifetime ("on" forces, "auto" asks the measured
+        :func:`calibrated_device_probe`)."""
+        if sync not in ("scatter", "deferred"):
+            return False
+        if self._devprobe_resolved is None:
+            if not self._devprobe_eligible():
+                self._devprobe_resolved = False
+            elif self.device_probe == "on":
+                self._devprobe_resolved = True
+            else:
+                self._devprobe_resolved = calibrated_device_probe(
+                    self.device)
         return self._devprobe_resolved
 
     def device_probe_stats(self) -> Dict[str, Any]:
@@ -725,25 +908,107 @@ class WindowAggOperator(StreamOperator):
                               self._to_device(mvalues))
 
     # ------------------------------------------------------------ fused lane
+    def _fused_depth(self, sync: str) -> int:
+        """The super-batch staging depth for a batch under the resolved
+        ``sync`` (1 = off), resolved once per operator: forced by
+        ``superbatch > 1``, measured by :func:`calibrated_superbatch` under
+        0 on the host tier (JAX stages only there; here a forced depth
+        stages the device tier too), 1 under paging.  Batches stay unfused
+        while the sync cadence calibrates (it times per-batch steps)."""
+        if sync not in ("scatter", "deferred"):
+            return 1
+        if self._fused_resolved is None:
+            if self._pager is not None or self.superbatch == 1:
+                self._fused_resolved = 1
+            elif self.superbatch > 1:
+                self._fused_resolved = self.superbatch
+            elif self.emit_tier != "host":
+                self._fused_resolved = 1
+            else:
+                self._fused_resolved = calibrated_superbatch()
+        return self._fused_resolved
+
+    def _fused_super_shards(self) -> int:
+        """Shard count of the C pass over a concatenated super-batch: with
+        ``native_shards=0``, the larger of the per-batch count and the one
+        measured at super-batch size (:func:`calibrated_super_shards`)."""
+        if self.native_shards:
+            return self._nm_shards
+        if not self._fused_shards:
+            self._fused_shards = calibrated_super_shards()
+        return max(self._nm_shards, self._fused_shards)
+
     def fused_stats(self) -> Dict[str, int]:
         """Fused-lane counters, under JAX's names: batches staged, flushes,
         one-step passes over a super-batch with the probe on
         (``scan_dispatches``) and the batches they covered
         (``scan_steps``), concatenated passes with the probe off
-        (``host_super_passes``), and the batches parked now."""
+        (``host_super_passes``), and the batches parked now.  No pipeline
+        barrier (monitoring-grade)."""
         s = dict(self._fused_counters)
-        s["enabled"] = int(self.superbatch > 1)
-        s["depth"] = self.superbatch
+        s["enabled"] = int((self._fused_resolved or 1) > 1)
+        s["depth"] = self._fused_resolved or (
+            self.superbatch if self.superbatch > 1 else 0)
         s["staged_pending"] = len(self._fused_stage)
         return s
 
+    # ------------------------------------------------------------- pipeline
+    def _pipe_pending(self) -> bool:
+        return self._pipe is not None and self._pipe.pending()
+
     def flush_pipeline(self) -> List[StreamElement]:
-        """Barrier before any state read: advance every staged batch.  The
-        operator calls it before fires, expiry, snapshots, restore,
-        verification, refresh and late re-fires; a task loop may call it at
-        idle points.  A no-op when nothing is staged."""
+        """Barrier before any state read: complete every in-flight hot stage
+        (a parked stage error re-raises here), then advance every staged
+        batch.  The operator calls it before fires, expiry, snapshots,
+        restore, verification, refresh and late re-fires; a task loop may
+        call it at idle points.  A no-op when nothing is in flight or
+        staged."""
+        if self._pipe is not None:
+            self._pipe.flush()
         self._fused_flush()
         return []
+
+    def _staging_acquire(self, rows: int, flat_dtype, leaves) -> _Staging:
+        """A free upload set for ``rows`` (a power of two), reused once its
+        token is ready; at most 4 sets are kept per key (past that the
+        device is the backlog, and a fresh set is not pooled)."""
+        key = (rows, np.dtype(flat_dtype).str,
+               tuple((a.dtype.str, a.shape[1:]) for a in leaves))
+        pool = self._staging_pool.setdefault(key, [])
+        for st in pool:
+            if st.ready():
+                st.token = None
+                return st
+        st = _Staging(rows, flat_dtype, leaves, self.device.type == "cuda")
+        if len(pool) < 4:
+            pool.append(st)
+        return st
+
+    def _resolve_device_sync(self) -> str:
+        """The sync cadence for this batch: "scatter", "deferred", or
+        "calibrating" (scatter, and the batch's step is timed).  Off the
+        host tier, or with a device-sourced snapshot, the replica is the
+        authority and always scatters.  Under "auto" the first batches
+        feed :mod:`~flink_tpu_torch.utils.transport` until it has a verdict
+        (process-wide); after 8 batches too small to give a sample the
+        lane settles on scatter."""
+        if self.device_sync_mode is not None:
+            return self.device_sync_mode
+        if (self.device_sync == "scatter" or self.emit_tier != "host"
+                or self.snapshot_source != "mirror"):
+            self.device_sync_mode = "scatter"
+        elif self.device_sync == "deferred":
+            self.device_sync_mode = "deferred"
+        else:
+            taxed = transport.dispatch_taxed()
+            if taxed is None:
+                if self._calib_batches < 8:
+                    self._calib_batches += 1
+                    return "calibrating"
+                self.device_sync_mode = "scatter"
+            else:
+                self.device_sync_mode = "deferred" if taxed else "scatter"
+        return self.device_sync_mode
 
     def _fused_flush(self) -> None:
         """Advance every staged batch in one pass: with the probe on and
@@ -756,7 +1021,8 @@ class WindowAggOperator(StreamOperator):
             return
         st = self._fused_stage.take()
         self._fused_counters["flushes"] += 1
-        if len(st) > 1 and self._devprobe_active():
+        sync = self.device_sync_mode
+        if len(st) > 1 and self._devprobe_active(sync):
             self._fused_flush_scan(st)
             return
         if len(st) == 1:
@@ -765,7 +1031,8 @@ class WindowAggOperator(StreamOperator):
             self._fused_counters["host_super_passes"] += 1
             with self._phase("fused_scan"):
                 keys, panes, values, B = concat_staged(st)
-        self._advance_batch(keys, panes, values, B)
+        self._advance_batch(keys, panes, values, B, sync,
+                            super_pass=len(st) > 1)
 
     def _fused_flush_scan(self, st) -> None:
         """The one-step lane (JAX's scan lane): the staged batches
@@ -823,12 +1090,13 @@ class WindowAggOperator(StreamOperator):
                                       _take_rows(values, mi))
 
     def _advance_batch(self, keys: np.ndarray, panes: np.ndarray, values,
-                       B: int) -> None:
-        """The probe lane or the plain fold lane for one block of rows."""
-        if self._devprobe_active():
+                       B: int, sync: str, super_pass: bool = False) -> None:
+        """The probe lane or the plain fold lane for one block of rows
+        (``super_pass``: a concatenated super-batch)."""
+        if self._devprobe_active(sync):
             self._hot_stage_devprobe(keys, panes, values, B)
         else:
-            self._hot_stage_fold(keys, panes, values)
+            self._hot_stage_fold(keys, panes, values, sync, super_pass)
 
     # -------------------------------------------------- deferred sync point
     def device_refresh(self) -> None:
@@ -1094,6 +1362,31 @@ class WindowAggOperator(StreamOperator):
         self._ensure_alloc()
         self._grow_panes(span)
 
+    def _staged_update(self, staging: _Staging, flat: Optional[np.ndarray],
+                       values, leaves, B: int, calibrating: bool) -> None:
+        """Upload one batch through its upload set and fold it into the
+        replica; on the card the copies are ``non_blocking`` from pinned
+        buffers, and an event after the launches frees the set.  While the
+        sync cadence calibrates, the upload, the launches and the wait for
+        the card are timed into :mod:`~flink_tpu_torch.utils.transport`."""
+        t0 = time.perf_counter()
+        with self._phase("device_dispatch"):
+            host_flat, host_leaves = staging.fill(flat, leaves, B)
+            flat_t = host_flat.to(self.device, non_blocking=True)
+            dev = [a.to(self.device, non_blocking=True) for a in host_leaves]
+            nbytes = host_flat.nbytes + sum(a.nbytes for a in host_leaves)
+            self.phase_bytes["h2d"] = self.phase_bytes.get("h2d", 0) + nbytes
+            self._update_step(flat_t, tree_unflatten(tree_structure(values),
+                                                     dev))
+            if self.device.type == "cuda":
+                staging.token = torch.cuda.Event()
+                staging.token.record()
+        if calibrating:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            transport.record_dispatch_cost(nbytes / 1e6,
+                                           time.perf_counter() - t0)
+
     # ------------------------------------------------------------- device ops
     def _update_step(self, flat_ids: torch.Tensor, values) -> None:
         """One micro-batch fold into the device replica, in place: lift +
@@ -1185,7 +1478,17 @@ class WindowAggOperator(StreamOperator):
 
         pmin, pmax = int(panes.min()), int(panes.max())
         values = self._select(cols)
-        self._hot_stage(keys, panes, values, len(batch), pmin, pmax)
+        if self.pipeline_depth > 0:
+            # the two-stage pipeline: the hot stage runs on the worker while
+            # this thread returns to its loop; every state read below and
+            # elsewhere waits for it (flush_pipeline)
+            if self._pipe is None:
+                self._pipe = _HotPipeline(self.pipeline_depth, self.device)
+            B = len(batch)
+            self._pipe.submit(lambda: self._hot_stage(keys, panes, values,
+                                                      B, pmin, pmax))
+        else:
+            self._hot_stage(keys, panes, values, len(batch), pmin, pmax)
 
         out: List[StreamElement] = list(pending)
         # ---- late re-fire: windows already passed by the watermark that
@@ -1209,9 +1512,10 @@ class WindowAggOperator(StreamOperator):
 
     def _hot_stage(self, keys: np.ndarray, panes: np.ndarray, values,
                    B: int, pmin: int, pmax: int) -> None:
-        """Pane-ring bookkeeping/growth, then, for one micro-batch, the
-        fused lane's stage (superbatch > 1), or the probe lane or the plain
-        fold lane."""
+        """The hot stage of one micro-batch: pane-ring bookkeeping/growth,
+        then the fused lane's stage (depth > 1), or the probe lane or the
+        plain fold lane.  Inline when the pipeline is off, on its worker
+        when on: the same code in the same order either way."""
         if self.pane_base is None:
             self.pane_base = pmin
             self.max_pane = pmax
@@ -1227,32 +1531,42 @@ class WindowAggOperator(StreamOperator):
         span = self.max_pane - self.pane_base + 1
         if span > self._P:
             self._grow_panes_guarded(span)
-        if self.superbatch > 1:
+        sync = self._resolve_device_sync()
+        if self._fused_depth(sync) > 1:
             # fused lane: park the batch; the whole super-batch advances in
             # one pass at the flush boundary (depth or row bound here, a
             # fire boundary or any state read through flush_pipeline)
             self._fused_stage.push(keys, panes, values, B)
             self._fused_counters["staged_batches"] += 1
-            if (len(self._fused_stage) >= self.superbatch
+            if (len(self._fused_stage) >= self._fused_resolved
                     or self._fused_stage.rows >= MAX_STAGED_ROWS):
                 self._fused_flush()
             return
-        self._advance_batch(keys, panes, values, B)
+        self._advance_batch(keys, panes, values, B, sync)
 
-    def _hot_stage_fold(self, keys: np.ndarray, panes: np.ndarray,
-                        values) -> None:
+    def _hot_stage_fold(self, keys: np.ndarray, panes: np.ndarray, values,
+                        sync: str, super_pass: bool = False) -> None:
         """Plain lane: host key lookup and mirror fold, the device fold
-        (scatter sync only).  With the native mirror, one C pass does the
-        lookup and the fold and, under scatter sync, writes the int32
-        scatter ids the device fold takes.  On the device tier the key
+        (scatter sync only; "calibrating" folds as scatter and times the
+        step).  With the native mirror, one C pass does the lookup and the
+        fold and, under scatter sync, writes the int32 scatter ids the
+        device fold takes into the upload set.  On the device tier the key
         index resolves the rows, the replica takes the fold, and the emit
         mirror marks the cells."""
-        flat = None
+        B = len(keys)
+        leaves = [np.asarray(a) for a in tree_leaves(values)]
+        staging = None
         if self._nm is not None:
             with self._phase("probe_mirror"):
-                if self.device_sync_mode == "scatter":
-                    flat = np.empty(len(keys), np.int32)
-                self._native_probe_update(keys, panes, values, flat)
+                flat_out = None
+                if sync != "deferred":
+                    staging = self._staging_acquire(_next_pow2(B, 64),
+                                                    np.int32, leaves)
+                    flat_out = staging.flat_out(B)
+                self._native_probe_update(
+                    keys, panes, values, flat_out,
+                    shards=self._fused_super_shards() if super_pass
+                    else None)
         else:
             with self._phase("probe"):
                 slots = self.key_index.lookup_or_insert(keys)
@@ -1265,19 +1579,21 @@ class WindowAggOperator(StreamOperator):
             # promoted keys in; the flat ids and the emit marks use rows
             with self._phase("paging"):
                 slots = self._page_slots(slots)
-        if self.device_sync_mode == "deferred":
+        if sync == "deferred":
             # the mirror is the authority; the replica catches up at the
             # next device_refresh
             self._device_stale = True
         else:
-            if flat is None:
+            flat = None
+            if staging is None:
                 # int32 ids where the cells fit: half the upload
                 idt = np.int32 if self._K * self._P < 2 ** 31 else np.int64
                 flat = (slots.astype(idt) * idt(self._P)
                         + (panes % self._P).astype(idt))
-            with self._phase("device_dispatch"):
-                self._update_step(self._ids_to_device(flat),
-                                  self._to_device(values))
+                staging = self._staging_acquire(_next_pow2(B, 64), idt,
+                                                leaves)
+            self._staged_update(staging, flat, values, leaves, B,
+                                calibrating=sync == "calibrating")
         if self.emit_tier == "device":
             with self._phase("emit_mirror"):
                 self._mirror_mark_batch(slots, panes)
@@ -1299,13 +1615,16 @@ class WindowAggOperator(StreamOperator):
 
     def process_watermark(self, watermark: Watermark) -> List[StreamElement]:
         self.watermark = max(self.watermark, watermark.timestamp)
-        if (self._fused_stage and not self.async_fire and self.lateness == 0
+        if ((self._pipe_pending() or self._fused_stage)
+                and not self.async_fire and self.lateness == 0
                 and self.last_fired_window is not None
                 and self._fired_horizon(self.watermark)
                 <= self.last_fired_window):
             # the watermark passed no new window end, and with lateness 0
             # pane expiry coincides with fires: nothing fires or expires, no
-            # state is read, and the staged batches stay parked
+            # state is read, and the in-flight stages stay in flight and
+            # the staged batches parked (the pipeline's overlap comes from
+            # here on task loops that send a watermark after every batch)
             return []
         return self._advance_time(self.watermark)
 
@@ -1804,9 +2123,10 @@ class WindowAggOperator(StreamOperator):
                 # ANY K_cap relative to the snapshot's key count
                 self._paged_restore_rows(n, panes, counts_np, restored)
                 return
-            if self.device_sync_mode == "deferred":
-                # the mirror (re-seeded below) is the authority: skip the
-                # replica upload, device_refresh catches it up
+            # resolve the cadence NOW (a process-wide verdict may exist): a
+            # deferred restore skips the replica upload, device_refresh
+            # catches it up from the mirror re-seeded below
+            if self._resolve_device_sync() == "deferred":
                 self._device_stale = True
             else:
                 slots = torch.from_numpy(panes % self._P).to(self.device)

@@ -27,11 +27,17 @@
   decides insert buckets (only our own scatters write the table, so shadow
   and table cannot diverge); ``ensure_loaded`` inserts whatever tail of the
   KeyIndex the table lacks; capacity is a sticky pow2 high-water.
+- :func:`calibrated_device_probe` — the ``device_probe="auto"`` verdict,
+  measured once a process: the probe lane (the ``probe`` kernel and the
+  ordered fold into an f64 delta plane) against the C host pass.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import os
+import threading
+import time
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -440,3 +446,86 @@ class DeviceKeyIndex:
         self._n = loaded
         if keys.size:
             self._upload(self._place(keys), keys, slots1)
+
+
+# ---------------------------------------------------------------------------
+# measured A/B calibration (the device_probe="auto" verdict)
+# ---------------------------------------------------------------------------
+
+_calibrated_probe: Optional[bool] = None
+_calib_lock = threading.Lock()
+#: what the last measurement read: best host and device seconds a batch
+#: (the chip smoke's report)
+last_measurement: Dict[str, float] = {}
+
+#: env override, under the JAX package's name: "on"/"off" skip the
+#: measurement ("auto" measures)
+_ENV = "FLINK_TPU_DEVICE_PROBE"
+
+
+def calibrated_device_probe(device: DeviceLike = None) -> bool:
+    """The MEASURED verdict, cached process-wide: does the probe lane (the
+    card resolves warm keys and folds them into the delta ring) beat the C
+    host pass?  The first operator to ask measures on its own ``device``;
+    the answer then holds for the process.  ``FLINK_TPU_DEVICE_PROBE=on|off``
+    skips the measurement."""
+    global _calibrated_probe
+    if _calibrated_probe is not None:
+        return _calibrated_probe
+    with _calib_lock:
+        if _calibrated_probe is not None:
+            return _calibrated_probe
+        env = os.environ.get(_ENV, "").lower()
+        if env in ("on", "1", "true"):
+            _calibrated_probe = True
+        elif env in ("off", "0", "false"):
+            _calibrated_probe = False
+        else:
+            _calibrated_probe = _measure_device_probe(resolve_device(device))
+        return _calibrated_probe
+
+
+def _measure_device_probe(device: torch.device) -> bool:
+    """A warm 32k-key table over real-sized batches.  Host side: the C
+    probe + fold pass at the shard count the host lane would use.  Device
+    side: what ``_probed_delta_step`` runs, the ``probe`` kernel and the
+    ordered fold (``csrc/scatter_fold.cu``) into an f64 delta plane and
+    int32 counts, each sample timing the key and value upload, the launches
+    and the wait for the card.  One untimed round first builds the kernels
+    and warms the card; on the CPU the same code runs the plain versions."""
+    from flink_tpu_torch.kernels.build import host_mirror_lib
+    from flink_tpu_torch.ops.scatter import ordered_fold_counts
+    from flink_tpu_torch.state.keyindex import KeyIndex
+    from flink_tpu_torch.state.native_mirror import (calibrated_shards,
+                                                     measure_fused_probe)
+    n_keys = 1 << 15
+    B = 1 << 15
+    rng = np.random.default_rng(23)
+    keys_all = rng.integers(0, n_keys, 3 * B).astype(np.int64)
+    vals_all = rng.random(3 * B).astype(np.float32)
+    host_best = measure_fused_probe(host_mirror_lib(), calibrated_shards(),
+                                    n_keys, B, keys_all, vals_all)
+
+    ki = KeyIndex(initial_capacity=2 * n_keys)
+    ki.lookup_or_insert(np.arange(n_keys, dtype=np.int64))
+    dki = DeviceKeyIndex(initial_capacity=2 * n_keys, device=device)
+    dki.ensure_loaded(ki)
+    dsum = torch.zeros(n_keys, dtype=torch.float64, device=device)
+    dcnt = torch.zeros(n_keys, dtype=torch.int32, device=device)
+
+    def sample(i: int) -> float:
+        t0 = time.perf_counter()
+        keys = torch.from_numpy(keys_all[i * B:(i + 1) * B]).to(device)
+        vals = torch.from_numpy(vals_all[i * B:(i + 1) * B]).to(device)
+        slot = probe(dki.buckets, keys)
+        ids = torch.where(slot >= 0, slot.to(torch.int64), n_keys)
+        ordered_fold_counts((dsum,), dcnt, ids, (vals,), ("add",))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter() - t0
+
+    sample(0)     # untimed: builds the kernels, as JAX's round 0 compiles
+    dev_best = min(sample(i) for i in (1, 2))
+    last_measurement.clear()
+    last_measurement.update(host_s=host_best, device_s=dev_best)
+    return dev_best < host_best

@@ -16,17 +16,23 @@ accumulator cells, so fires and snapshots read no device state.  With
   window's panes, compacts the non-empty rows and resolves their keys.
 
 Eligibility (:func:`ineligible`): scalar accumulator leaves, add/min/max
-combine kinds, f64/i64 mirror leaves.  The JAX package keeps its numpy
-mirror for other configurations; the port's operator refuses them instead,
-since no aggregate of this slice is ineligible.  The shard calibrations
-(``auto_shards``, ``calibrated_shards``, ``measure_fused_probe``) are the
-calibration slice's: the port takes a pinned shard count.
+combine kinds, f64/i64 mirror leaves.  Other accumulators keep the
+operator's numpy mirror, as in the JAX package.
+
+The shard count of the C pass is measured, not assumed
+(:func:`calibrated_shards`, over :func:`measure_fused_probe`): on shared or
+steal-heavy cores one thread's prefetching can already saturate memory and
+extra shards lose.  ``FLINK_TPU_NATIVE_SHARDS`` pins it, under the JAX
+package's name, so one environment pins both packages.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+import os
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -50,6 +56,109 @@ def ineligible(spec, kinds: Optional[Sequence[str]],
     if not 1 <= spec.num_leaves <= 16:
         return f"{spec.num_leaves} accumulator leaves (1..16 fit)"
     return None
+
+
+def auto_shards() -> int:
+    """Default shard count of the C pass: one shard per core up to 4 (the
+    pass is memory-latency bound; past a few cores the misses in flight
+    saturate the memory controller).  ``FLINK_TPU_NATIVE_SHARDS``
+    overrides."""
+    env = os.environ.get("FLINK_TPU_NATIVE_SHARDS")
+    if env:
+        try:
+            return max(1, int(env))
+        except ValueError:
+            pass
+    from flink_tpu_torch.kernels.build import host_mirror_lib
+    cores = int(host_mirror_lib().ftt_hw_threads())  # the C pool's view
+    return max(1, min(4, cores or os.cpu_count() or 1))
+
+
+_calibrated_shards: Optional[int] = None
+#: the last shard A/B's pass times in seconds by shard count (the chip
+#: smoke's report)
+last_shard_s: Dict[int, float] = {}
+#: module-scope: creating the lock lazily would itself be a check-then-act
+#: race between the first two calibrating threads
+_calib_lock = threading.Lock()
+
+
+def measure_fused_probe(lib, shards: int, n_keys: int, B: int,
+                        keys_all: np.ndarray, vals_all: np.ndarray,
+                        rounds: int = 3) -> float:
+    """Best-of-``rounds`` wall seconds of the C probe + fold pass
+    (``ftt_wm_probe_update2``) at ``shards`` over a warm ``n_keys``
+    keydict: the measurement harness of the shard A/B, the super-batch
+    calibration and the device-probe calibration.  ``keys_all`` and
+    ``vals_all`` (f32) hold ``rounds`` consecutive batches of ``B``.  The
+    throwaway keydict and mirror are freed even if the measurement
+    fails."""
+    d = lib.ftt_keydict_create(2 * n_keys)
+    if not d:
+        raise RuntimeError("ftt_keydict_create failed")
+    h = None
+    try:
+        kind = (ctypes.c_uint8 * 1)(0)   # add
+        lt = (ctypes.c_uint8 * 1)(0)     # f64 storage
+        init = np.zeros(1, np.uint64)
+        h = lib.ftt_wm_create(d, 1, kind, lt,
+                              init.ctypes.data_as(ctypes.c_void_p))
+        if not h:
+            raise RuntimeError("ftt_wm_create failed")
+        vdt = (ctypes.c_uint8 * 1)(_VDT[np.dtype(np.float32)])
+
+        def run(keys, panes, vals, slots):
+            vp = (ctypes.c_void_p * 1)(vals.ctypes.data)
+            lib.ftt_wm_probe_update2(h, keys.ctypes.data, panes.ctypes.data,
+                                     keys.size, vp, vdt, slots.ctypes.data,
+                                     0, 0, 0, 0, shards, 0, 0)
+
+        run(np.arange(n_keys, dtype=np.int64), np.zeros(n_keys, np.int64),
+            np.zeros(n_keys, np.float32), np.empty(n_keys, np.int32))
+        panes = np.zeros(B, np.int64)
+        slots = np.empty(B, np.int32)
+        best = float("inf")
+        for i in range(rounds):
+            k = np.ascontiguousarray(keys_all[i * B:(i + 1) * B], np.int64)
+            v = np.ascontiguousarray(vals_all[i * B:(i + 1) * B], np.float32)
+            t0 = time.perf_counter()
+            run(k, panes, v, slots)
+            best = min(best, time.perf_counter() - t0)
+        return best
+    finally:
+        if h:
+            lib.ftt_wm_destroy(h)
+        lib.ftt_keydict_destroy(d)
+
+
+def calibrated_shards() -> int:
+    """The MEASURED shard count of the C pass, cached process-wide: the
+    pass serially against :func:`auto_shards` threads on a throwaway
+    keydict and mirror (tens of ms, once a process), the faster wins.
+    ``FLINK_TPU_NATIVE_SHARDS`` skips the measurement."""
+    global _calibrated_shards
+    if _calibrated_shards is not None:
+        return _calibrated_shards
+    with _calib_lock:
+        if _calibrated_shards is not None:
+            return _calibrated_shards
+        auto = auto_shards()
+        if os.environ.get("FLINK_TPU_NATIVE_SHARDS") or auto <= 1:
+            _calibrated_shards = auto
+            return auto
+        from flink_tpu_torch.kernels.build import host_mirror_lib
+        n_keys = 1 << 15
+        B = 1 << 15  # >= the C pass's parallel threshold
+        rng = np.random.default_rng(17)
+        keys_all = rng.integers(0, n_keys, 3 * B).astype(np.int64)
+        vals_all = rng.random(3 * B).astype(np.float32)
+        timings = {shards: measure_fused_probe(host_mirror_lib(), shards,
+                                               n_keys, B, keys_all, vals_all)
+                   for shards in (1, auto)}
+        last_shard_s.clear()
+        last_shard_s.update(timings)
+        _calibrated_shards = min(timings, key=timings.get)
+        return _calibrated_shards
 
 
 def _value_ptrs(leaves, nl: int):

@@ -144,13 +144,20 @@ def test_probe_fold_kernel_equals_torch_probe_fold(cuda_device, case,
         assert (per_tile == 0).sum() > tiles // 2
 
 
+#: the lane ``_run`` builds where a test leaves an option out: the host
+#: tier, numpy mirror, scatter sync, probe on (pinned on both devices: the
+#: ``auto`` defaults would resolve differently on the card and the CPU)
+PINNED = dict(emit_tier="host", snapshot_source="mirror", native_emit=False,
+              device_sync="scatter", device_probe="on")
+
+
 def _run(device, snapshot_at=None, **kw):
     """The small seeded stream through one operator; with ``snapshot_at``
     also the bytes of a snapshot taken after that batch."""
     rng = np.random.default_rng(11)
     op = WindowAggOperator(TumblingEventTimeWindows.of(100), SumAggregator(),
                            key_column="k", value_column="v", device=device,
-                           **kw)
+                           **{**PINNED, **kw})
     out = []
     snap = None
     for i in range(10):
@@ -416,7 +423,7 @@ def test_device_tier_on_the_card_is_bit_equal_to_the_cpu(cuda_device):
                 np.asarray(c.column("result")).tobytes()
 
 
-def _paged_run(device, policy):
+def _paged_run(device, policy, pipeline_depth=0):
     """The small seeded stream through a paged device-tier operator (a ring
     of 256 rows under 1500 keys, a spill budget that sends cells to the
     log); fires, the bytes of a mid-run snapshot, and the counters."""
@@ -426,7 +433,8 @@ def _paged_run(device, policy):
         TumblingEventTimeWindows.of(100), SumAggregator(), key_column="k",
         value_column="v", device=device, emit_tier="device",
         snapshot_source="device", native_emit=True, native_shards=1,
-        paging=PagingConfig(256, policy=policy, mem_budget=4096))
+        paging=PagingConfig(256, policy=policy, mem_budget=4096),
+        pipeline_depth=pipeline_depth)
     out, snap = [], None
     for i in range(10):
         keys = rng.integers(0, 1500, 4000).astype(np.int64)
@@ -491,3 +499,138 @@ def test_row_pane_helpers_on_the_card_equal_the_cpu(cuda_device):
         return [t.cpu().numpy().tobytes() for t in (gc, gl, l2, c2, l3, c3)]
 
     assert on(cuda_device) == on("cpu")
+
+
+# ---------------------------------------------------------------------------
+# the pipeline, the calibration and the upload sets on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lane", [
+    dict(native_emit=True, native_shards=2),                    # path 9
+    dict(device_sync="deferred", superbatch=4),
+    dict(emit_tier="device", snapshot_source="device", native_emit=True,
+         native_shards=1)])
+def test_pipelined_runs_on_the_card_are_bit_equal_to_depth_0(cuda_device,
+                                                             lane):
+    """The hot stage on the worker thread (its launches on the card, under
+    the operator's device): fires, the mid-run snapshot's bytes and the
+    probe counters equal the serial run's and the CPU's bit for bit."""
+    serial = _run(cuda_device, snapshot_at=5, **lane)
+    for depth in (1, 2):
+        got = _run(cuda_device, snapshot_at=5, pipeline_depth=depth, **lane)
+        assert got[1] == serial[1] and got[2] == serial[2]
+        _same_fires(got[0], serial[0])
+    cpu = _run("cpu", snapshot_at=5, pipeline_depth=2, **lane)
+    assert cpu[1] == serial[1] and cpu[2] == serial[2]
+    _same_fires(cpu[0], serial[0])
+
+
+def test_pipelined_paged_run_on_the_card_is_bit_equal_to_depth_0(
+        cuda_device):
+    """Path 10's lane at a small size: paging behind the pipeline."""
+    serial = _paged_run(cuda_device, "clock")
+    got = _paged_run(cuda_device, "clock", pipeline_depth=2)
+    assert got[2] == serial[2] and got[2]["evictions"] > 0
+    assert got[1] == serial[1]
+    _same_fires(got[0], serial[0])
+
+
+def test_device_probe_calibration_launches_the_kernels(cuda_device,
+                                                       monkeypatch):
+    """``calibrated_device_probe`` on the card: an untimed round and two
+    timed ones, each a ``probe`` launch and an ordered fold launch, and a
+    bool verdict from both sides' seconds (the verdict is put back)."""
+    from flink_tpu_torch.state import native_mirror as nm
+    monkeypatch.delenv("FLINK_TPU_DEVICE_PROBE", raising=False)
+    monkeypatch.setattr(dk, "_calibrated_probe", None)
+    monkeypatch.setattr(dk, "last_measurement", {})
+    monkeypatch.setattr(nm, "_calibrated_shards", 1)
+    before = (dk.probe.launches, sc.ordered_fold_counts.launches)
+    verdict = dk.calibrated_device_probe(cuda_device)
+    assert isinstance(verdict, bool)
+    assert dk.probe.launches == before[0] + 3
+    assert sc.ordered_fold_counts.launches == before[1] + 3
+    m = dk.last_measurement
+    assert m["host_s"] > 0 and m["device_s"] > 0
+    assert verdict == (m["device_s"] < m["host_s"])
+
+
+def _tight_loop(device, pageable, n_batches=24, B=1 << 16):
+    """Back-to-back batches through the scatter lane, the card held busy
+    before every upload (so the uploads of batch i are still queued while
+    the host fills batch i+1): the fires, the final snapshot's bytes and,
+    per batch, whether the set it took was one already used."""
+    op = WindowAggOperator(TumblingEventTimeWindows.of(10_000),
+                           SumAggregator(), key_column="k", value_column="v",
+                           device=device, **{**PINNED, "device_probe": "off"})
+    staged = op._staged_update
+    seen, reused = set(), []
+
+    def busy_then_upload(staging, *a, **kw):
+        torch.cuda._sleep(2_000_000)
+        reused.append(id(staging) in seen)
+        seen.add(id(staging))
+        staged(staging, *a, **kw)
+
+    op._staged_update = busy_then_upload
+    if pageable:
+        from flink_tpu_torch.operators import window_agg as wa
+        op._staging_acquire = lambda rows, dt, leaves: wa._Staging(
+            rows, dt, leaves, pin=False)
+    rng = np.random.default_rng(21)
+    out = []
+    for i in range(n_batches):
+        keys = rng.integers(0, 50_000, B).astype(np.int64)
+        vals = rng.random(B).astype(np.float32)
+        ts = np.full(B, i * 100, np.int64)
+        out += op.process_batch(RecordBatch({"k": keys, "v": vals},
+                                            timestamps=ts))
+    snap = op.snapshot_state()
+    out += op.end_input()
+    torch.cuda.synchronize()
+    return out, (np.asarray(snap["counts"]).tobytes(),
+                 [np.asarray(l).tobytes() for l in snap["leaves"]]), \
+        reused, op
+
+
+def test_pinned_staging_reuse_is_bit_equal_to_pageable_uploads(cuda_device):
+    """Pinned upload sets reused under a tight loop (a set goes back into
+    use only once the event after its launches completed) give the fires
+    and replica of pageable uploads bit for bit; a set reused while its
+    copy was still queued would corrupt a later batch silently."""
+    got, gsnap, reused, op = _tight_loop(cuda_device, pageable=False)
+    pool = [s for sets in op._staging_pool.values() for s in sets]
+    assert pool and all(s.flat.is_pinned() for s in pool)
+    assert any(reused), "no upload set was reused"
+    assert op.verify_mirror()
+    want, wsnap, _, _ = _tight_loop(cuda_device, pageable=True)
+    assert gsnap == wsnap
+    _same_fires(got, want)
+
+
+def test_worker_cuda_error_reraises_at_every_barrier(cuda_device):
+    """A CUDA error raised in a stage on the worker (a device allocation
+    that fails, made in place of the device step) parks the worker and
+    re-raises at every barrier until ``close()``; the card stays usable."""
+    op = WindowAggOperator(TumblingEventTimeWindows.of(100), SumAggregator(),
+                           key_column="k", value_column="v",
+                           device=cuda_device, pipeline_depth=2,
+                           **{**PINNED, "device_probe": "off"})
+
+    def failing_step(flat_ids, values):
+        torch.empty(1 << 50, dtype=torch.uint8, device=flat_ids.device)
+
+    op._update_step = failing_step
+    batch = RecordBatch({"k": np.arange(64, dtype=np.int64),
+                         "v": np.ones(64, np.float32)},
+                        timestamps=np.zeros(64, np.int64))
+    op.process_batch(batch)
+    for barrier in (op.flush_pipeline, lambda: op.process_batch(batch),
+                    op.snapshot_state, op.end_input):
+        with pytest.raises(torch.OutOfMemoryError):
+            barrier()
+    with pytest.raises(torch.OutOfMemoryError):
+        op.close()
+    assert op.flush_pipeline() == []
+    ok = _run(cuda_device)
+    assert len(ok[0]) > 0

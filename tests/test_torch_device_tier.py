@@ -251,7 +251,7 @@ def test_device_tier_lanes_keep_the_probe_off_and_no_value_mirror():
     assert op.phase_bytes["d2h"] > 0 and op.phase_bytes["h2d"] > 0
     assert "emit_mirror" in op.phase_ns and "fire" in op.phase_ns
     assert op.verify_mirror()                      # no mirror to disagree
-    _, _, _, plain = _run("port", "sum", "tumbling")
+    _, _, _, plain = _run("port", "sum", "tumbling", native_emit=False)
     assert isinstance(plain.key_index, KeyIndex)
 
 

@@ -93,6 +93,8 @@ def _jax_op(**kw):
 
 
 def _port_op(**kw):
+    # the probe pinned on where a test leaves it out, never measured
+    kw.setdefault("device_probe", "on")
     op = WindowAggOperator(TumblingEventTimeWindows.of(100), SumAggregator(),
                            key_column="k", value_column="v",
                            emit_tier="host", snapshot_source="mirror",

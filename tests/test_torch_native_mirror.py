@@ -611,18 +611,22 @@ def test_failed_host_build_raises(monkeypatch, tmp_path):
     assert not list(tmp_path.glob("*.so"))
 
 
-def test_native_emit_options():
-    """native_shards=0 is JAX's measured auto, which the calibration slice
-    brings; a negative count is refused; the numpy lane stays the
-    default."""
-    with pytest.raises(NotImplementedError, match="calibration"):
-        _Side("port", shards=0)
+def test_native_emit_options(monkeypatch):
+    """native_shards=0 is JAX's measured auto (here pinned through
+    ``FLINK_TPU_NATIVE_SHARDS``, the cached verdict put back after); a
+    negative count is refused; the C lane is the default, as in JAX."""
+    from flink_tpu_torch.state import native_mirror as pnm
+    monkeypatch.setattr(pnm, "_calibrated_shards", None)
+    monkeypatch.setenv("FLINK_TPU_NATIVE_SHARDS", "3")
+    s = _Side("port", shards=0)
+    s.feed(np.arange(8), np.ones(8), np.zeros(8, np.int64))
+    assert s.native_active and s.op._nm_shards == 3
     with pytest.raises(ValueError, match="native_shards"):
         _Side("port", shards=-1)
     op = WindowAggOperator(pwin.TumblingEventTimeWindows.of(100),
                            pfn.SumAggregator(), key_column="k",
-                           value_column="v", device="cpu")
-    assert op.native_emit is False and not op.native_mirror_active
+                           value_column="v", device="cpu", emit_tier="host")
+    assert op.native_emit is True
 
 
 def test_host_library_loads_beside_the_jax_library():

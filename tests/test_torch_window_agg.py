@@ -23,6 +23,7 @@ in ``flink_tpu`` changes.
 """
 
 import contextlib
+import inspect
 
 import numpy as np
 import pytest
@@ -42,6 +43,7 @@ from flink_tpu_torch.core.functions import RuntimeContext, SumAggregator
 from flink_tpu_torch.interop import snapshot_from_jax, snapshot_to_jax
 from flink_tpu_torch.operators.window_agg import WindowAggOperator
 from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
+from test_torch_calibration import verdicts  # noqa: F401 — the fixture
 
 RTOL = ATOL = 1e-6
 SNAP_AT = 6
@@ -253,9 +255,7 @@ def test_interop_refuses_what_the_slice_does_not_carry(port_run):
 
 
 @pytest.mark.parametrize("kw", [
-    {"queryable": "q"}, {"device_sync": "auto"},
-    {"device_probe": "auto"}, {"superbatch": 0}, {"pipeline_depth": 1},
-    {"native_emit": True},
+    {"queryable": "q"},
     {"sharding": object()},
     {"late_output_tag": "late"},
 ])
@@ -264,6 +264,71 @@ def test_later_slices_refuse_honestly(kw):
     with pytest.raises(NotImplementedError, match="not in this slice"):
         WindowAggOperator(TumblingEventTimeWindows.of(100), SumAggregator(),
                           **{**base, **kw})
+
+
+#: options the calibration and pipelining slice lifted from the refusals:
+#: (keyword arguments, pinned verdicts, the resolved lane after one batch)
+LIFTED = {
+    "device_sync-auto-healthy": (dict(device_sync="auto"),
+                                 dict(taxed=False),
+                                 dict(device_sync_mode="scatter")),
+    "device_sync-auto-taxed": (dict(device_sync="auto"), dict(taxed=True),
+                               dict(device_sync_mode="deferred")),
+    "device_probe-auto-on": (dict(device_probe="auto"), dict(probe=True),
+                             dict(probe=1)),
+    "device_probe-auto-off": (dict(device_probe="auto"), dict(probe=False),
+                              dict(probe=0)),
+    "superbatch-0": (dict(superbatch=0), dict(depth=4), dict(depth=4)),
+    "pipeline_depth-1": (dict(pipeline_depth=1), {}, dict(pipelined=True)),
+    "native_emit-shards-0": (dict(native_emit=True, native_shards=0),
+                             dict(shards=3), dict(native=True, shards=3)),
+    "emit_tier-auto-cpu": (dict(emit_tier="auto", snapshot_source="auto"),
+                           {}, dict(emit_tier="device",
+                                    snapshot_source="device")),
+}
+
+
+@pytest.mark.parametrize("case", list(LIFTED))
+def test_lifted_options_resolve_to_the_documented_lane(verdicts, case):
+    """Each option the earlier slices refused now builds and resolves to
+    its documented lane on the first batch (the host tier pinned with the
+    probe on and scatter sync, except the option under test)."""
+    kw, pins, want = LIFTED[case]
+    verdicts(**{"taxed": False, "probe": True, **pins})
+    base = dict(emit_tier="host", snapshot_source="mirror",
+                device_sync="scatter", native_emit=False, device_probe="on",
+                superbatch=1)
+    op = WindowAggOperator(TumblingEventTimeWindows.of(100), SumAggregator(),
+                           key_column="k", value_column="v", device="cpu",
+                           **{**base, **kw})
+    op.open(RuntimeContext())
+    keys, vals, ts = BATCHES[0]
+    op.process_batch(RecordBatch({"k": keys, "v": vals}, timestamps=ts))
+    op.flush_pipeline()
+    got = {"device_sync_mode": op.device_sync_mode,
+           "probe": op.device_probe_stats()["enabled"],
+           "depth": op.fused_stats()["depth"],
+           "pipelined": op._pipe is not None,
+           "native": op.native_mirror_active,
+           "shards": op._nm_shards,
+           "emit_tier": op.emit_tier,
+           "snapshot_source": op.snapshot_source}
+    assert {k: got[k] for k in want} == want
+    assert op.key_index.num_keys == np.unique(keys).size
+    op.close()
+
+
+def test_constructor_defaults_equal_jax():
+    """The same keyword arguments build the same lane: every parameter the
+    JAX operator takes has the same default here (``device`` is the port's
+    own)."""
+    jax_params = inspect.signature(JaxOp.__init__).parameters
+    port_params = inspect.signature(WindowAggOperator.__init__).parameters
+    assert set(port_params) - set(jax_params) == {"device"}
+    for name, param in jax_params.items():
+        assert port_params[name].default == param.default, name
+    from flink_tpu_torch.operators.window_agg import _LATER
+    assert not {"auto", "pipeline"} & set(_LATER)
 
 
 def test_fire_rows_match_an_independent_reference():
