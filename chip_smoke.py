@@ -112,6 +112,30 @@ Phases, each fatal on failure (exit code 1, no result line):
 9d. spill store phase: the store's array entries at path 7's layout and
    budget, on the host's clock: puts of 2^19 cells, gets in random order,
    a promotion's get + delete, deletes (ns per cell);
+9e. main paths 11-13, the device watchdog (slice 9), each under a fast
+   monitor (0.25 s deadline floor, 30 s grace for a new geometry, no
+   background healer) and a fault schedule of the port's own injector
+   (``FAULTS``): path 11 is path 5 with ``WedgedDevice(at=12)`` (batch
+   11's fold wedges; the tier migrates its ring to the host mirror, the
+   batches up to the re-promotion fold there, the snapshot at batch 15 is
+   taken degraded, the schedule heals after batch 19 and the state goes
+   back on the card at batch 31's barrier); path 12 is path 3 with a wedge
+   in batch 11's guarded probe step (the f64 delta ring is salvaged from
+   the card; heal and re-promotion as path 11, then ``verify_mirror``);
+   path 13 is path 7 whose third dispatch fails with an OOM (one forced
+   page-out, no quarantine).  Windows the quarantine did not touch must
+   equal the base path's bit for bit, every window the numpy reference;
+   path 12's touched windows equal path 3's to ``F64_REASSOCIATION_RTOL``,
+   path 13's every fire path 7's by key bit for bit, with more evictions.
+   Every path, 1-10 included, checks its monitor's counters against what
+   its schedule injects (``EXPECT_MONITOR``, else ``QUIET``), that the
+   tier ends healthy and the state on the card.  Paths 11 and 12 replay
+   their degraded snapshot under a healthy and a still quarantined
+   monitor.  Then the guard's A/B (paths 3, 5 and 9 with
+   ``FLINK_TPU_DEVICE_WATCHDOG=off`` against the default, same batches,
+   turns on, off, off, on, twice: records/s, phases, dispatches a batch, the
+   hand-off to the lane and back), the round trip of an empty guarded
+   thunk, and the healer's subprocess probe on the card;
 10. kernel phase, scatter_fold: the ordered fold (``csrc/scatter_fold.cu``)
    at path 5's shapes — 2^18 int32 flat ids (about 2% dropped) into an f32
    ``[2^20, 16]`` replica and int32 counts with non-zero contents, and a
@@ -214,10 +238,57 @@ PAGED_REPLAY_CAPACITY = {"path 7": 1 << 19, "path 10": 1 << 19}
 TWIN = {"path 3": "path 1", "path 4": "path 2"}
 #: the device-tier paths, and the host-tier path each is held to
 DEVICE_PATHS = {"path 5": "path 3", "path 6": "path 3"}
+#: slice 9: the watchdog's paths, each a main path under a fault schedule
+#: of the port's own injector: ``base`` is the path whose options it runs
+#: and whose fires it is held to; ``schedule(chaos, fired)`` is injected
+#: on ``device.dispatch`` before batch ``inject_at`` (``fired``: the
+#: point's firings so far), and heals after batch ``heal_at``.  Path 11
+#: wedges the device tier's 12th dispatch (batch 11's fold); path 12
+#: wedges batch 11's guarded probe step (the probe lane has one or two
+#: dispatches a batch, so the point is counted when the batch starts);
+#: path 13's third dispatch (batch 1's first half) fails with an OOM
+OOM_ACTION = ("fail", "RESOURCE_EXHAUSTED: out of memory allocating the "
+              "replica fold's scratch (injected)")
+FAULTS = {
+    "path 11": dict(base="path 5", inject_at=0, heal_at=19,
+                    schedule=lambda ch, fired: ch.WedgedDevice(at=12)),
+    "path 12": dict(base="path 3", inject_at=11, heal_at=19,
+                    schedule=lambda ch, fired: ch.WedgedDevice(at=fired + 1)),
+    "path 13": dict(base="path 7", inject_at=0, heal_at=None,
+                    schedule=lambda ch, fired: ch.ActionSequence(
+                        ["ok", "ok", OOM_ACTION])),
+}
+for _label, _fault in FAULTS.items():
+    PATHS[_label] = dict(PATHS[_fault["base"]])
+PAGED_PATHS["path 13"] = "path 5"
+PAGED_REPLAY_CAPACITY["path 13"] = 1 << 19
+#: the reference tests' fast monitor, for the watchdog's paths (every other
+#: path runs under a fresh monitor of the default configuration)
+FAST_WATCHDOG = dict(deadline_floor_s=0.25, first_dispatch_grace_s=30.0)
+#: what each path's monitor must count at its end; any other count (a
+#: quarantine, a timeout, a retry or a page-out the script did not inject)
+#: fails the smoke
+QUIET = dict(quarantines=0, heals=0, watchdog_timeouts=0,
+             transient_retries=0, oom_pageouts=0)
+EXPECT_MONITOR = {"path 11": dict(QUIET, quarantines=1, heals=1,
+                                  watchdog_timeouts=1),
+                  "path 12": dict(QUIET, quarantines=1, heals=1,
+                                  watchdog_timeouts=1),
+                  "path 13": dict(QUIET, oom_pageouts=1)}
+#: the paths whose runs the guard's A/B repeats with the watchdog on and
+#: off: the host tier's probe lane, the device tier, and the probe lane
+#: behind the pipeline's worker (three threads: driver, worker, lane)
+GUARD_AB = ("path 3", "path 5", "path 9")
+#: path 12's windows the quarantine touched against path 3's: the same
+#: records summed in f64 in another association (a degraded batch folds
+#: every row into the mirror in row order; the probe lane sums its warm
+#: rows in the delta ring, then adds them), a cell holding a few values
+F64_REASSOCIATION_RTOL = 1e-12
 #: run order: each numpy/C pair back to back, then the device tier, then
-#: paging, then slice 8's paths
+#: paging, then slice 8's paths, then slice 9's
 ORDER = ("path 1", "path 3", "path 2", "path 4", "path 5", "path 6",
-         "path 7", "path 8", "path 9", "path 10")
+         "path 7", "path 8", "path 9", "path 10", "path 11", "path 12",
+         "path 13")
 #: device-tier fires against the host tier's f64 mirror
 DEVICE_VS_HOST_RTOL = 1e-5
 
@@ -1150,8 +1221,18 @@ def main_path(device, batches, expect, label):
     import torch
 
     from flink_tpu_torch.core.batch import RecordBatch, Watermark
+    from flink_tpu_torch.runtime import device_health
+    from flink_tpu_torch.testing import chaos
 
+    fault = FAULTS.get(label)
+    mon = (device_health.DeviceHealthMonitor(
+        device_health.WatchdogConfig(**FAST_WATCHDOG), heal_async=False)
+        if fault else device_health.DeviceHealthMonitor())
+    device_health.set_monitor(mon)
     op = build_op(device, **PATHS[label])
+    watch = watch_tiers(op) if fault else None
+    inj = chaos.FaultInjector(seed=7) if fault else None
+    sched = None
     device_tier = op.emit_tier == "device"
     fire_ms = []
     fired = []
@@ -1163,10 +1244,17 @@ def main_path(device, batches, expect, label):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    if fault:
+        chaos.install(inj)
     t0 = time.perf_counter()
     for i, (keys, vals, ts) in enumerate(batches):
+        if fault and i == fault["inject_at"]:
+            sched = inj.inject("device.dispatch", fault["schedule"](
+                chaos, inj.fired("device.dispatch")))
         out = op.process_batch(RecordBatch({"k": keys, "v": vals},
                                            timestamps=ts))
+        if watch is not None:
+            watch["batches"].append(op._degraded)
         pending = len(op._pending_fires)
         f0 = time.perf_counter()
         wm_out = op.process_watermark(Watermark(int(ts.max()) - 1))
@@ -1190,12 +1278,18 @@ def main_path(device, batches, expect, label):
                 mid = (i, snap)
         per_batch.append(dict(op.device_probe_stats(),
                               staged=op.fused_stats()["staged_batches"]))
+        if fault and i == fault["heal_at"]:
+            sched.heal()
+            check(mon.probe_now(), f"{label}: the healed schedule's probe "
+                  f"failed")
     f0 = time.perf_counter()
     tail = op.end_input()
     fire_ms.append((time.perf_counter() - f0) * 1e3)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
+    chaos.uninstall()
     launches = read_launches()
+    health = check_monitor(op, mon, label, device)
     fired += [(len(batches), b) for b in tail]
     after_snap += tail
     stats = op.device_probe_stats()
@@ -1217,7 +1311,8 @@ def main_path(device, batches, expect, label):
               f"{label}: launches {launches}; the device tier launches no "
               f"probe (outside path 8's calibration)")
         check("emit_mirror" in op.phase_ns and "probe" in op.phase_ns
-              and "mirror" not in op.phase_ns,
+              and ("mirror" not in op.phase_ns
+                   or health["quarantine_migrations"]),
               f"{label}: the device tier's phases are wrong: "
               f"{sorted(op.phase_ns)}")
         check(not op._pending_fires, f"{label}: fires left pending")
@@ -1284,7 +1379,16 @@ def main_path(device, batches, expect, label):
                "d2h_per_snapshot": snap_d2h / max(snaps, 1),
                "phase_ms": {k: v / 1e6 for k, v in op.phase_ns.items()},
                "ring_bytes": ring_bytes, "lane": lane,
-               "counters": counters_of(op), "per_batch": per_batch}
+               "counters": counters_of(op), "per_batch": per_batch,
+               "monitor": dict(mon.counters), "health": health,
+               "hot_dispatches": op.fused_stats()["hot_dispatches"]}
+    print(f"{label} watchdog: {mon.counters['dispatches']} guarded "
+          f"dispatches ({mon.counters['dispatches'] / len(batches):.2f} a "
+          f"batch; labels {json.dumps(mon.label_counts, sort_keys=True)}); "
+          f"monitor {json.dumps(mon.counters, sort_keys=True)}; "
+          f"device_health_stats {json.dumps(health, sort_keys=True)}")
+    if watch is not None:
+        numbers["watch"] = report_watch(label, watch, mon)
     if paged:
         numbers.update(
             page_out_per_batch=op.phase_bytes.get("d2h_page_out", 0)
@@ -1301,6 +1405,314 @@ def main_path(device, batches, expect, label):
               + json.dumps(numbers["paging_stats"], sort_keys=True))
     op.close()
     return launches, mid, digest_fn(label)(after_snap), fired, numbers
+
+
+def check_monitor(op, mon, label, device) -> dict:
+    """The no-fallback checks of every path: its monitor counted exactly
+    what the path's schedule injects (on paths 1-10: no quarantine, no
+    timeout, no retry, no page-out), the tier ends healthy with every
+    migration re-promoted, and the state is back on the card.  Returns
+    ``device_health_stats()``."""
+    want = EXPECT_MONITOR.get(label, QUIET)
+    got = {k: mon.counters[k] for k in want}
+    check(got == want, f"{label}: the monitor counted {got}, expected {want}"
+          f" (last failure: {mon.last_failure})")
+    check(mon.healthy, f"{label}: the tier ends quarantined")
+    health = op.device_health_stats()
+    moved = want["quarantines"]
+    check(health == {"degraded": 0, "quarantine_migrations": moved,
+                     "repromotions": moved},
+          f"{label}: device_health_stats {health}")
+    check(op._leaves is not None and all(
+        t.device.type == device.type for t in (*op._leaves, op._counts)),
+        f"{label}: the state is not on the card")
+    return health
+
+
+def watch_tiers(op) -> dict:
+    """Times a watchdog path's tier moves on ``op``: each salvage (the
+    migration's ring download, or the probe lane's delta pull, on the
+    monitor's lane) and each re-promotion that happened; the loop appends
+    the per-batch degraded flags to ``batches``."""
+    watch = {"batches": [], "salvage": [], "repromote": []}
+    salvage, repromote = op._salvage, op._maybe_repromote
+
+    def timed_salvage(err, read, what):
+        t0 = time.perf_counter()
+        try:
+            return salvage(err, read, what)
+        finally:
+            watch["salvage"].append((what, (time.perf_counter() - t0) * 1e3))
+
+    def timed_repromote():
+        t0 = time.perf_counter()
+        done = repromote()
+        if done:
+            watch["repromote"].append((time.perf_counter() - t0) * 1e3)
+        return done
+    op._salvage = timed_salvage
+    op._maybe_repromote = timed_repromote
+    return watch
+
+
+def report_watch(label, watch, mon) -> dict:
+    """A watchdog path's tier moves: the degraded batches (one contiguous
+    run when a quarantine was injected), salvage and re-promotion times."""
+    flags = watch["batches"]
+    degraded = [i for i, d in enumerate(flags) if d]
+    out = {"degraded_batches": len(degraded),
+           "wedge_batch": degraded[0] if degraded else None,
+           "repromote_batch": degraded[-1] if degraded else None,
+           "salvage_ms": watch["salvage"], "repromote_ms": watch["repromote"]}
+    if EXPECT_MONITOR[label]["quarantines"]:
+        check(degraded and degraded == list(range(degraded[0],
+                                                  degraded[-1] + 1))
+              and len(watch["repromote"]) == 1,
+              f"{label}: degraded batches {degraded}, re-promotions "
+              f"{watch['repromote']}")
+    print(f"{label} tier moves: {len(degraded)} degraded batches"
+          + (f" ({degraded[0]}..{degraded[-1]}: the wedge in batch "
+             f"{degraded[0]}, re-promotion at batch {degraded[-1]}'s "
+             f"checkpoint barrier)" if degraded else "")
+          + "; salvage " + (", ".join(f"{w} {ms:.3f} ms" for w, ms in
+                                      watch["salvage"]) or "none")
+          + "; re-promotion " + (", ".join(f"{ms:.3f} ms" for ms in
+                                           watch["repromote"]) or "none")
+          + f"; last failure: {mon.last_failure}")
+    return out
+
+
+def touched_windows(watch) -> set:
+    """Starts of the windows a quarantine touched: those live at the
+    migration (fired in or after the wedge batch's watermark) that hold a
+    batch up to the re-promotion.  Window j holds batches 5j..5j+4 and
+    fires in batch 5j+5's watermark."""
+    w, r = watch["wedge_batch"], watch["repromote_batch"]
+    per = WINDOW_MS // 1000
+    return {j * WINDOW_MS for j in range(N_BATCHES // per + 1)
+            if j * per + per >= w and j * per <= r}
+
+
+def check_fault_path(label, plain, numbers, base_fires, base_numbers,
+                     cells):
+    """A watchdog path against its base path.  Path 11: untouched windows
+    equal path 5's and the f32 reference bit for bit (every window is held
+    to the numpy reference at rtol 1e-6 by ``main_path``).  Path 12:
+    untouched windows equal path 3's bit for bit, touched ones to
+    ``F64_REASSOCIATION_RTOL``.  Path 13: path 7's fires by key bit for
+    bit, more evictions than path 7."""
+    base = [b for _, b in base_fires]
+    if label == "path 13":
+        check_twin(by_window(plain), by_window(base), label)
+        ev = numbers["counters"]["paging"]["evictions"]
+        ev7 = base_numbers["counters"]["paging"]["evictions"]
+        check(ev > ev7, f"{label}: {ev} evictions, path 7 {ev7}: the forced "
+              f"page-out evicted nothing")
+        print(f"{label} fires equal path 7's by key bit for bit; the OOM's "
+              f"forced page-out: {ev} evictions against path 7's {ev7}, "
+              f"oom_pageouts {numbers['monitor']['oom_pageouts']}, "
+              f"quarantines {numbers['monitor']['quarantines']}")
+        return
+    touched = touched_windows(numbers["watch"])
+    untouched = [b for b in plain
+                 if int(b.column("window_start")[0]) not in touched]
+    want = [b for b in base
+            if int(b.column("window_start")[0]) not in touched]
+    check(len(untouched) >= 2 and len(plain) == len(base),
+          f"{label}: {len(untouched)} untouched of {len(plain)} windows")
+    check_twin(untouched, want, label)
+    if label == "path 11":
+        check_fires_bits(untouched, cells, label)
+    else:
+        check_twin([b for b in plain if int(b.column("window_start")[0])
+                    in touched],
+                   [b for b in base if int(b.column("window_start")[0])
+                    in touched], label, rtol=F64_REASSOCIATION_RTOL)
+    print(f"{label}: windows {sorted(touched)} touched by the quarantine "
+          f"(held to the numpy reference at rtol {RTOL}"
+          + ("" if label == "path 11" else
+             f" and to {FAULTS[label]['base']}'s at rtol "
+             f"{F64_REASSOCIATION_RTOL}")
+          + f"); the other {len(untouched)} equal "
+          f"{FAULTS[label]['base']}'s bit for bit"
+          + (" and the f32 ordered reference" if label == "path 11" else ""))
+
+
+def fault_replays(device, batches, mid, want, label):
+    """The mid-quarantine snapshot restored under a healthy monitor and
+    under one still quarantined (whose first dispatch migrates the replay
+    at once): both replays fire the run's windows and rows, with sums to
+    rtol 1e-6 (the run re-promoted mid-replay; the replays stay on one tier
+    each), and the quarantined one ends degraded."""
+    from flink_tpu_torch.runtime import device_health
+    got = {}
+    for quarantined in (False, True):
+        mon = device_health.DeviceHealthMonitor(
+            device_health.WatchdogConfig(**FAST_WATCHDOG), heal_async=False)
+        if quarantined:
+            mon.quarantine("chip smoke: the card is still wedged")
+        device_health.set_monitor(mon)
+        wall, out, health = _replay_once(device, batches, mid, label)
+        check(health["degraded"] == health["quarantine_migrations"]
+              == int(quarantined),
+              f"{label} replay (quarantined={quarantined}): {health}")
+        got[quarantined] = digests(out)
+        check(len(got[quarantined]) == len(want) and len(want) > 0
+              and all(w1 == w2 and n1 == n2
+                      and abs(s1 - s2) <= 1e-6 * max(abs(s2), 1)
+                      for (w1, n1, s1, _), (w2, n2, s2, _) in
+                      zip(got[quarantined], want)),
+              f"{label} replay (quarantined={quarantined}) differs from "
+              f"the run")
+        state = "quarantined" if quarantined else "healthy"
+        print(f"{label} restore+replay from batch {mid[0]} (snapshot taken "
+              f"degraded) under a {state} monitor: {len(want)} windows with the run's rows and sums; "
+              f"wall {wall * 1e3:.3f} ms; device_health_stats {health}")
+    same = sum(a[3] == b[3] for a, b in zip(got[False], got[True]))
+    print(f"{label} the two replays fire the same windows and keys; "
+          f"{same} of {len(want)} windows bit for bit")
+
+
+def guard_run(device, batches, label, guarded):
+    """One run of a path's options over the batches, with the watchdog on
+    (a fresh monitor of the default configuration) or off
+    (``FLINK_TPU_DEVICE_WATCHDOG=off``); returns (wall s, digests, phase ms,
+    guarded dispatches, hot dispatches, per-dispatch medians in ms of the
+    hand-off to the thunk, the thunk, the hand-back to the caller).  The
+    dispatches are timed through a wrapper of ``guarded_dispatch`` in both
+    modes."""
+    import torch
+
+    from flink_tpu_torch.core.batch import RecordBatch, Watermark
+    from flink_tpu_torch.runtime import device_health
+    mon = device_health.DeviceHealthMonitor()
+    device_health.set_monitor(mon)
+    if not guarded:
+        os.environ["FLINK_TPU_DEVICE_WATCHDOG"] = "off"
+    real, marks = device_health.guarded_dispatch, []
+
+    def timed_dispatch(fn, **kw):
+        mark = {}
+
+        def thunk():
+            mark["s"] = time.perf_counter()
+            try:
+                return fn()
+            finally:
+                mark["e"] = time.perf_counter()
+        t0 = time.perf_counter()
+        out = real(thunk, **kw)
+        marks.append((mark["s"] - t0, mark["e"] - mark["s"],
+                      time.perf_counter() - mark["e"]))
+        return out
+    device_health.guarded_dispatch = timed_dispatch
+    try:
+        op = build_op(device, **PATHS[label])
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for keys, vals, ts in batches:
+            out += op.process_batch(RecordBatch({"k": keys, "v": vals},
+                                                timestamps=ts))
+            out += op.process_watermark(Watermark(int(ts.max()) - 1))
+        out += op.end_input()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hot = op.fused_stats()["hot_dispatches"]
+        phase = {k: v / 1e6 for k, v in op.phase_ns.items()}
+        op.close()
+    finally:
+        os.environ.pop("FLINK_TPU_DEVICE_WATCHDOG", None)
+        device_health.guarded_dispatch = real
+    check(mon.counters["quarantines"] == 0
+          and mon.counters["dispatches"] == (hot if guarded else 0)
+          and len(marks) == hot,
+          f"guard A/B {label}: monitor {mon.counters}, {hot} dispatches, "
+          f"{len(marks)} timed")
+    return (wall, digests(out), phase, mon.counters["dispatches"], hot,
+            tuple(np.median(np.asarray(marks) * 1e3, axis=0)))
+
+
+def guard_ab(device, batches, want) -> dict:
+    """The guard's cost: each of ``GUARD_AB`` with the watchdog on and off,
+    on the same batches, in turns on, off, off, on, twice, each run's fires
+    bit-equal to the path's main run; records/s, the phases, dispatches a
+    batch and a dispatch's hand-off times."""
+    n = sum(len(b[0]) for b in batches)
+    result = {}
+    for label in GUARD_AB:
+        runs = {True: [], False: []}
+        for guarded in (True, False, False, True) * 2:
+            wall, got, phase, dispatches, hot, marks = guard_run(
+                device, batches, label, guarded)
+            check(got == want[label], f"guard A/B {label} (watchdog "
+                  f"{'on' if guarded else 'off'}): fires differ from "
+                  f"{label}'s run")
+            runs[guarded].append((n / wall, phase, dispatches, hot, marks))
+        result[label] = runs
+        phases = sorted(set(runs[True][0][1]) | set(runs[False][0][1]))
+        ph = lambda r, k: " / ".join(  # noqa: E731
+            f"{x[1].get(k, 0.0):.3f}" for x in r)
+        ratio = (np.median([x[0] for x in runs[True]])
+                 / np.median([x[0] for x in runs[False]]))
+        print(f"A/B guard {label} watchdog on vs off, same batches, turns "
+              f"on, off, off, on, twice: records/s on "
+              + " / ".join(f"{x[0]:.1f}" for x in runs[True]) + ", off "
+              + " / ".join(f"{x[0]:.1f}" for x in runs[False])
+              + f" (median ratio {ratio:.3f}x); "
+              f"guarded dispatches a batch on "
+              f"{runs[True][0][2] / len(batches):.3f} (hot_dispatches "
+              f"{runs[True][0][3]}), off {runs[False][0][2]} (hot_dispatches "
+              f"{runs[False][0][3]}); a dispatch's medians (ms; hand-off "
+              f"to the thunk, the thunk, hand-back) on "
+              + " / ".join("(%.3f, %.3f, %.3f)" % x[4] for x in runs[True])
+              + ", off "
+              + " / ".join("(%.3f, %.3f, %.3f)" % x[4] for x in runs[False])
+              + "; phase ms on | off: "
+              + "; ".join(f"{k} {ph(runs[True], k)} | {ph(runs[False], k)}"
+                          for k in phases)
+              + f"; every run bit-equal to {label}'s fires")
+    lane_round_trip()
+    return result
+
+
+def lane_round_trip(n: int = 400, rounds: int = 5) -> None:
+    """What the guard itself costs a dispatch, alone: an empty thunk
+    through ``run_guarded`` (a queue hand-off to the lane thread and an
+    event wait back) against the same thunk called inline; medians of
+    ``rounds`` rounds of ``n`` calls, host clock."""
+    from flink_tpu_torch.runtime import device_health
+    mon = device_health.DeviceHealthMonitor()
+    noop = lambda: None  # noqa: E731
+    mon.run_guarded(noop)
+    guarded, inline = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            mon.run_guarded(noop)
+        guarded.append((time.perf_counter_ns() - t0) / n / 1e3)
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            noop()
+        inline.append((time.perf_counter_ns() - t0) / n / 1e3)
+    print(f"guard round trip: an empty thunk through run_guarded "
+          f"{np.median(guarded):.1f} us (rounds "
+          + " / ".join(f"{g:.1f}" for g in guarded)
+          + f"), inline {np.median(inline):.3f} us; {n} calls a round")
+
+
+def healer_phase() -> float:
+    """The healer's card check: one throwaway process launches on the card
+    and synchronizes; must report healthy.  Returns its seconds."""
+    from flink_tpu_torch.runtime import device_health
+    t0 = time.perf_counter()
+    ok = device_health.probe_backend_subprocess(timeout_s=120)
+    seconds = time.perf_counter() - t0
+    check(ok, "the healer's subprocess probe reported the card unhealthy")
+    print(f"healer probe: probe_backend_subprocess(timeout_s=120) True in "
+          f"{seconds:.3f} s (a fresh process: import torch, one launch, "
+          f"synchronize)")
+    return seconds
 
 
 def check_paging(op, label):
@@ -1324,7 +1736,7 @@ def check_paging(op, label):
 
 def _replay_once(device, batches, mid, label, prof=None):
     """Restore ``mid`` into a fresh operator and replay the rest; returns
-    (wall seconds, fired batches)."""
+    (wall seconds, fired batches, ``device_health_stats()``)."""
     import torch
 
     from flink_tpu_torch.core.batch import RecordBatch, Watermark
@@ -1350,8 +1762,9 @@ def _replay_once(device, batches, mid, label, prof=None):
     if label in PAGED_REPLAY_CAPACITY:
         check(op.paging_stats()["capacity"] == PAGED_REPLAY_CAPACITY[label],
               f"{label}: the replay's ring is {op.paging_stats()}")
+    health = op.device_health_stats()
     op.close()
-    return wall, out
+    return wall, out, health
 
 
 def replay(device, batches, mid, want, label):
@@ -1362,7 +1775,7 @@ def replay(device, batches, mid, want, label):
     (the profiler's own host overhead would lengthen a profiled wall)."""
     from torch.profiler import ProfilerActivity, profile
 
-    wall, out = _replay_once(device, batches, mid, label)
+    wall, out, _ = _replay_once(device, batches, mid, label)
     got = digest_fn(label)(out)
     check(len(got) == len(want) and len(got) > 0,
           f"{label} replay fired {len(got)} windows, the run {len(want)}")
@@ -1388,7 +1801,7 @@ def replay(device, batches, mid, want, label):
              f" (every window after the cut one, {cut} ms)")
           + f"; wall {wall * 1e3:.3f} ms")
     prof = profile(activities=[ProfilerActivity.CUDA])
-    _, again = _replay_once(device, batches, mid, label, prof)
+    _, again, _ = _replay_once(device, batches, mid, label, prof)
     check(digest_fn(label)(again) == got, f"{label}: a second replay "
           f"differs from the first in its bits")
     busy_ms, dev = device_busy_ms(prof)
@@ -1587,6 +2000,7 @@ def main() -> None:
     expect = reference(batches)
     cells = reference_f32(batches)
     launches, fires, numbers, mids, replays = {}, {}, {}, {}, {}
+    ab_want = {}
     for label in ORDER:
         if label == "path 8":
             reset_verdicts()
@@ -1595,9 +2009,9 @@ def main() -> None:
         check(mid is not None, f"{label}: no mid-run snapshot")
         mids[label] = mid
         plain = [b for _, b in fires[label]]
-        if label == "path 3":
-            # the fires path 9's A/B runs are held to
-            ab_want = digests(plain)
+        if label in GUARD_AB:
+            # the fires the A/B runs are held to
+            ab_want[label] = digests(plain)
         if label == "path 8":
             report_auto(numbers[label]["lane"])
             if numbers[label]["lane"]["emit_tier"] == "device":
@@ -1634,7 +2048,14 @@ def main() -> None:
             print(f"{label} fires equal the f32 ordered reference bit for "
                   f"bit by key, and the (window, key, value) set of {ref}'s "
                   f"bit for bit")
-        replays[label] = replay(device, batches, mid, after, label)
+        if label in FAULTS:
+            base = FAULTS[label]["base"]
+            check_fault_path(label, plain, numbers[label], fires[base],
+                             numbers[base], cells)
+        if label in FAULTS and label not in PAGED_PATHS:
+            fault_replays(device, batches, mid, after, label)
+        else:
+            replays[label] = replay(device, batches, mid, after, label)
         if label in PIPELINED:
             check(replays[label] == replays[PIPELINED[label]],
                   f"{label}: its replay differs from {PIPELINED[label]}'s")
@@ -1645,12 +2066,15 @@ def main() -> None:
                   | {DEVICE_PATHS.get(k) for k in rest}
                   | {PAGED_PATHS.get(k) for k in rest}
                   | {PIPELINED.get(k) for k in rest}
+                  | {FAULTS[k]["base"] for k in rest if k in FAULTS}
                   | ({"path 5"} if "path 6" in rest else set()))
         for done in [k for k in fires if k not in needed]:
             del fires[done]
             del mids[done]
     del fires, mids
-    pipeline_ab(device, "path 9", "path 3", ab_want)
+    pipeline_ab(device, "path 9", "path 3", ab_want["path 3"])
+    guard_ab(device, batches, ab_want)
+    healer_phase()
     for label, twin in TWIN.items():
         a, b = numbers[label], numbers[twin]
         host = lambda n: sum(n["phase_ms"].get(k, 0.0)  # noqa: E731
@@ -1728,9 +2152,10 @@ def main() -> None:
     for label in ("path 2", "path 4"):
         check(launches[label]["probe_fold"] > 0,
               f"{label}: no probe_fold launch")
-    for label in (*DEVICE_PATHS, *PAGED_PATHS, "path 8", "path 9"):
+    for label in (*DEVICE_PATHS, *PAGED_PATHS, *FAULTS, "path 8", "path 9"):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
+    check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")
     # path 8's probe launches come from the device-probe calibration, which
     # runs where the probe is eligible: the host tier, as auto picks on a
     # card

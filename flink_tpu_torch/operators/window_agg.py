@@ -76,7 +76,16 @@ event-time, tumbling windowed aggregate with
   most N stages queued; every state read waits for it
   (:meth:`flush_pipeline`), so fires, snapshots and counters are the
   serial path's bit for bit.  On the card, the scatter lane's uploads go
-  through reusable pinned buffers (:class:`_Staging`).
+  through reusable pinned buffers (:class:`_Staging`);
+- **the device watchdog** (``runtime/device_health.py``): every hot-path
+  dispatch (the replica fold, the probe step and its miss catch-up, the
+  fused pass) runs on the process-wide monitor's lane thread under a
+  deadline, behind a one-deep CUDA event fence (:meth:`_guarded`).  A
+  wedge or exhausted retries quarantine the card: the operator moves to
+  its host tier mid-job (the device tier downloads its ring into a host
+  value mirror under a bounded salvage), an OOM on a paged operator forces
+  a page-out and retries, and after a heal the state goes back on the card
+  at the next ``prepare_snapshot_pre_barrier``.
 
 Where JAX donated buffers to a jitted step, this port updates the same
 tensors in place.  Batches are not padded: torch needs no static shapes, so
@@ -96,6 +105,7 @@ Options of the JAX operator that belong to later slices raise
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -122,6 +132,8 @@ from flink_tpu_torch.ops.scatter import (combine_along_axis,
                                          ordered_fold_counts_multi,
                                          reset_rows, set_row_pane_columns)
 from flink_tpu_torch.ops.shapes import next_pow2 as _next_pow2
+from flink_tpu_torch.runtime import device_health
+from flink_tpu_torch.runtime.device_health import DeviceQuarantinedError
 from flink_tpu_torch.state.device_keyindex import (DeviceKeyIndex,
                                                    calibrated_device_probe,
                                                    probe, probe_fold,
@@ -536,6 +548,37 @@ class WindowAggOperator(StreamOperator):
         self._dp_stats = {"probe_hits": 0, "probe_misses": 0,
                           "miss_inserts": 0, "delta_syncs": 0}
 
+        # ---- device-lane health (runtime/device_health.py): every hot-path
+        # dispatch runs under the process-wide watchdog.  ``_degraded`` is
+        # True while this operator runs on its host tier after the monitor
+        # quarantined the card: the host tier just stops dispatching (its
+        # mirror is the authority), the device tier materializes its pane
+        # ring into the host value mirror and serves fires and snapshots
+        # from it until re-promotion at a checkpoint-aligned safe point
+        self._degraded = False
+        self._quarantine_migrations = 0
+        self._repromotions = 0
+        #: tier-transition fencing: every degrade or abandoned promotion
+        #: bumps the epoch; a re-promotion commits, and a guarded dispatch
+        #: writes, only under the epoch it started with
+        self._tier_epoch = 0
+        self._tier_lock = threading.Lock()
+        #: guarded hot-path dispatches (``fused_stats()["hot_dispatches"]``)
+        self._hot_dispatches = 0
+        #: the geometry of each dispatch site's last guarded dispatch
+        self._dispatch_geoms: Dict[str, tuple] = {}
+        #: the CUDA event recorded after the last guarded dispatch's
+        #: launches: the next guarded dispatch waits on it under its own
+        #: deadline (the one-deep event fence)
+        self._fence = None
+        #: True from a guarded dispatch's first in-place write until it
+        #: returns (in-place state has no donated buffers to test): left set
+        #: by an attempt that died or was abandoned mid-write
+        self._writing = False
+        #: paged: the ring rows of the batch in flight, protected from the
+        #: OOM page-out
+        self._active_rows = None
+
     # ------------------------------------------------------------------ state
     def _alloc(self, K: int, P: int):
         leaves = tuple(
@@ -614,7 +657,6 @@ class WindowAggOperator(StreamOperator):
         if self._pipe is not None:
             self._pipe.flush()
         self._fused_stage.take()
-        self._staging_pool = {}
         self.key_index = None
         self._nm = None          # its keydict dies with the key index
         self._leaves = None
@@ -630,7 +672,12 @@ class WindowAggOperator(StreamOperator):
         self.phase_ns = {}
         self.phase_bytes = {}
         self._fused_counters = {k: 0 for k in self._fused_counters}
+        self._hot_dispatches = 0
         self._device_stale = False
+        self._degraded = False      # fresh state starts on the device
+        self._cut_dispatches()
+        self._active_rows = None
+        self._writing = False
         self._dki = None
         self._drop_delta()
         self._devprobe_resolved = None
@@ -667,8 +714,8 @@ class WindowAggOperator(StreamOperator):
         """The probe lane's gate for a batch under the resolved ``sync``:
         off while the sync cadence calibrates; otherwise resolved once per
         key-index lifetime ("on" forces, "auto" asks the measured
-        :func:`calibrated_device_probe`)."""
-        if sync not in ("scatter", "deferred"):
+        :func:`calibrated_device_probe`).  Off while the tier is degraded."""
+        if self._degraded or sync not in ("scatter", "deferred"):
             return False
         if self._devprobe_resolved is None:
             if not self._devprobe_eligible():
@@ -714,58 +761,66 @@ class WindowAggOperator(StreamOperator):
         return (tuple(l.view((K * P,) + tuple(l.shape[2:])) for l in leaves),
                 counts.view(K * P))
 
-    def _probed_update_step(self, buckets, keys, pane_slots,
-                            values) -> torch.Tensor:
+    def _probed_update_step(self, buckets, keys, pane_slots, values):
         """One micro-batch with the key probe on the card: probe the table
-        with the int64 keys, fold hit rows into the device replica (device
-        precision) and the delta ring (mirror precision), in place, in row
-        order, both in one ordered fold over the same ids.  Miss rows carry
-        the dropped id K*P.  Returns the miss rows' indices (int64,
-        ascending); computing it is the step's one host sync."""
+        with the int64 keys and list the miss rows (int64, ascending; the
+        step's one host sync).  Returns the write: one ordered fold of the
+        hit rows into the device replica (device precision) and the delta
+        ring (mirror precision), in place, in row order; miss rows carry the
+        dropped id K*P.  The write returns the miss rows."""
         slot = probe(buckets, keys)
         hit = slot >= 0
         K, P = self._counts.shape
         flat = torch.where(hit, slot.to(torch.int64) * P + pane_slots, K * P)
         lifted = tuple(tree_leaves(self.agg.lift(values)))
-        ordered_fold_counts_multi(
-            ((*self._flat_state(self._leaves, self._counts), lifted),
-             (*self._flat_state(self._delta_leaves, self._delta_counts),
-              lifted)), flat, self.kinds)
-        return torch.nonzero(~hit).squeeze(1)
+        miss = torch.nonzero(~hit).squeeze(1)
 
-    def _probed_delta_step(self, buckets, keys, pane_slots,
-                           values) -> torch.Tensor:
+        def write():
+            ordered_fold_counts_multi(
+                ((*self._flat_state(self._leaves, self._counts), lifted),
+                 (*self._flat_state(self._delta_leaves, self._delta_counts),
+                  lifted)), flat, self.kinds)
+            return miss
+        return write
+
+    def _probed_delta_step(self, buckets, keys, pane_slots, values):
         """Deferred-sync twin of :meth:`_probed_update_step`: the mirror is
-        the authority, so hit rows fold into the delta ring only, in row
-        order (the replica catches up at :meth:`device_refresh`)."""
+        the authority, so the write folds hit rows into the delta ring only,
+        in row order (the replica catches up at :meth:`device_refresh`)."""
         slot = probe(buckets, keys)
         hit = slot >= 0
         K, P = self._delta_counts.shape
         flat = torch.where(hit, slot.to(torch.int64) * P + pane_slots, K * P)
         lifted = tuple(tree_leaves(self.agg.lift(values)))
-        ordered_fold_counts(*self._flat_state(self._delta_leaves,
-                                              self._delta_counts),
-                            flat, lifted, self.kinds)
-        return torch.nonzero(~hit).squeeze(1)
+        miss = torch.nonzero(~hit).squeeze(1)
 
-    def _fused_scan_delta_step(self, buckets, keys, pane_slots,
-                               values) -> torch.Tensor:
+        def write():
+            ordered_fold_counts(*self._flat_state(self._delta_leaves,
+                                                  self._delta_counts),
+                                flat, lifted, self.kinds)
+            return miss
+        return write
+
+    def _fused_scan_delta_step(self, buckets, keys, pane_slots, values):
         """Deferred-sync step of the fused lane over a whole super-batch:
-        ONE ``probe_fold`` launch probes every row and folds the hit rows
-        into the delta ring in row order.  Where :func:`probe_fold_available`
+        the write is ONE ``probe_fold`` launch that probes every row and
+        folds the hit rows into the delta ring in row order, then lists the
+        miss rows (int64, ascending).  Where :func:`probe_fold_available`
         says no (not a single ``add`` leaf), the block takes
         :meth:`_probed_delta_step`, as JAX's scan body takes probe + scatter
-        when its Pallas gate says no.  Returns the miss rows (int64,
-        ascending)."""
+        when its Pallas gate says no."""
         if not probe_fold_available(self.kinds, self._delta_leaves[0].dtype):
             return self._probed_delta_step(buckets, keys, pane_slots,
                                            values)
         (dsum,), dcnt = self._flat_state(self._delta_leaves,
                                          self._delta_counts)
         (vals,) = tree_leaves(self.agg.lift(values))
-        slot, _, _ = probe_fold(buckets, keys, pane_slots, keys.shape[0],
-                                vals, dsum, dcnt, self._P)
-        return torch.nonzero(slot < 0).squeeze(1)
+
+        def write():
+            slot, _, _ = probe_fold(buckets, keys, pane_slots, keys.shape[0],
+                                    vals, dsum, dcnt, self._P)
+            return torch.nonzero(slot < 0).squeeze(1)
+        return write
 
     def _delta_clear_step(self, pane_slots: torch.Tensor) -> None:
         """Reset synced (or expired) delta columns to identity, in place."""
@@ -831,17 +886,27 @@ class WindowAggOperator(StreamOperator):
         self._dki.ensure_loaded(self.key_index)   # bulk/restore load
 
     def _devprobe_dispatch(self, step, keys: np.ndarray, panes: np.ndarray,
-                           values, B: int) -> np.ndarray:
+                           values, B: int, label: str) -> np.ndarray:
         """Upload a block of rows (the int64 keys as they are, their pane
-        slots, the values) and run the probed ``step`` on it; count hits and
-        misses.  The card hashes the keys, so the host does no per-record
-        hash or split.  Returns the miss rows' indices on the host."""
-        miss_idx = step(self._dki.buckets,
-                        self._ids_to_device(np.ascontiguousarray(keys,
-                                                                 np.int64)),
-                        self._ids_to_device((panes % self._P).astype(
-                            np.int32)),
-                        self._to_device(values))
+        slots, the values) and run the probed ``step`` on it, one guarded
+        dispatch under ``label`` (``device_probe``, or ``fused_scan`` for a
+        super-batch); count hits and misses.  The card hashes the keys, so
+        the host does no per-record hash or split.  Returns the miss rows'
+        indices on the host; raises :class:`DeviceQuarantinedError` for the
+        caller to degrade."""
+        leaves = [np.asarray(a) for a in tree_leaves(values)]
+        geom = (label, self._dki.capacity, self._K, self._P,
+                _next_pow2(B, 64),
+                tuple((a.dtype.str, a.shape[1:]) for a in leaves))
+        mb = (12 * B + sum(a.nbytes for a in leaves)) / 1e6
+        miss_idx = self._guarded(
+            label, geom, mb,
+            lambda: step(self._dki.buckets,
+                         self._ids_to_device(np.ascontiguousarray(keys,
+                                                                  np.int64)),
+                         self._ids_to_device((panes % self._P).astype(
+                             np.int32)),
+                         self._to_device(values)))
         mc = int(miss_idx.numel())
         self._delta_panes.update(int(p) for p in np.unique(panes).tolist())
         self._dp_stats["probe_hits"] += B - mc
@@ -858,8 +923,13 @@ class WindowAggOperator(StreamOperator):
         self._devprobe_begin()
         step = (self._probed_delta_step if self.device_sync_mode == "deferred"
                 else self._probed_update_step)
-        with self._phase("device_probe"):
-            mi = self._devprobe_dispatch(step, keys, panes, values, B)
+        try:
+            with self._phase("device_probe"):
+                mi = self._devprobe_dispatch(step, keys, panes, values, B,
+                                             "device_probe")
+        except DeviceQuarantinedError as err:
+            self._devprobe_degrade(err, keys, panes, values)
+            return
         if mi.size:
             mslots, mpanes, mvalues = self._devprobe_absorb_rows(
                 keys, panes, values, mi)
@@ -901,11 +971,20 @@ class WindowAggOperator(StreamOperator):
 
     def _miss_replica_update(self, mslots, mpanes, mvalues) -> None:
         """Replica catch-up for probe-miss rows: host-built flat ids through
-        the plain update step."""
+        the plain (guarded) update step.  Callers reach here only after
+        every record is accounted for in the mirror (warm rows in the delta,
+        miss rows folded), so a quarantine degrades without refolding."""
         flat = mslots.astype(np.int64) * self._P + (mpanes % self._P)
-        with self._phase("device_dispatch"):
-            self._update_step(self._ids_to_device(flat),
-                              self._to_device(mvalues))
+        leaves = [np.asarray(a) for a in tree_leaves(mvalues)]
+        try:
+            with self._phase("device_dispatch"):
+                self._guarded_update(
+                    lambda: self._update_step(self._ids_to_device(flat),
+                                              self._to_device(mvalues)),
+                    int(flat.size), leaves,
+                    (flat.nbytes + sum(a.nbytes for a in leaves)) / 1e6)
+        except DeviceQuarantinedError as err:
+            self._devprobe_degrade(err)
 
     # ------------------------------------------------------------ fused lane
     def _fused_depth(self, sync: str) -> int:
@@ -943,13 +1022,15 @@ class WindowAggOperator(StreamOperator):
         one-step passes over a super-batch with the probe on
         (``scan_dispatches``) and the batches they covered
         (``scan_steps``), concatenated passes with the probe off
-        (``host_super_passes``), and the batches parked now.  No pipeline
-        barrier (monitoring-grade)."""
+        (``host_super_passes``), the batches parked now, and the guarded
+        hot-path dispatches (``hot_dispatches``: dispatches per batch).  No
+        pipeline barrier (monitoring-grade)."""
         s = dict(self._fused_counters)
         s["enabled"] = int((self._fused_resolved or 1) > 1)
         s["depth"] = self._fused_resolved or (
             self.superbatch if self.superbatch > 1 else 0)
         s["staged_pending"] = len(self._fused_stage)
+        s["hot_dispatches"] = self._hot_dispatches
         return s
 
     # ------------------------------------------------------------- pipeline
@@ -1021,7 +1102,8 @@ class WindowAggOperator(StreamOperator):
             return
         st = self._fused_stage.take()
         self._fused_counters["flushes"] += 1
-        sync = self.device_sync_mode
+        # a degraded host tier folds the mirror only (deferred semantics)
+        sync = "deferred" if self._degraded else self.device_sync_mode
         if len(st) > 1 and self._devprobe_active(sync):
             self._fused_flush_scan(st)
             return
@@ -1051,7 +1133,17 @@ class WindowAggOperator(StreamOperator):
                 else self._probed_update_step)
         with self._phase("fused_scan"):
             keys, panes, values, R = concat_staged(st)
-            mi = self._devprobe_dispatch(step, keys, panes, values, R)
+            try:
+                mi = self._devprobe_dispatch(step, keys, panes, values, R,
+                                             "fused_scan")
+            except DeviceQuarantinedError as err:
+                # whatever this pass wrote is dropped (the delta ring) or
+                # rebuilt at re-promotion (the replica), and a pass stopped
+                # mid-write refuses the delta salvage: salvage the prior
+                # delta, degrade, and refold EVERY staged batch through the
+                # host pass (JAX's _fused_scan_degrade)
+                self._devprobe_degrade(err, keys, panes, values)
+                return
         self._fused_counters["scan_dispatches"] += 1
         self._fused_counters["scan_steps"] += len(st)
         if mi.size:
@@ -1105,9 +1197,10 @@ class WindowAggOperator(StreamOperator):
         hand-off).  Set semantics over the whole ring: slots without a live
         pane reset to identity, which also applies the expirations skipped
         while deferred.  The upload covers live panes x live key rows.  A
-        no-op when the replica is current."""
+        no-op when the replica is current, and while degraded (re-promotion
+        rebuilds it)."""
         self.flush_pipeline()
-        if not self._device_stale:
+        if self._degraded or not self._device_stale:
             return
         self._device_stale = False
         if self.key_index is None or self.pane_base is None:
@@ -1192,8 +1285,12 @@ class WindowAggOperator(StreamOperator):
 
     # ---------------------------------------------------- host value mirror
     def _vmirror_pane(self, pane: int) -> list:
-        """[counts, *leaves] arrays of a pane, allocated/grown to K rows."""
+        """[counts, *leaves] arrays of a pane, allocated/grown to K rows — or
+        past K while degraded: a degraded paged operator holds every key in
+        the mirror, not just the ring's."""
         need = self._K
+        if self._degraded and self.key_index is not None:
+            need = max(need, _next_pow2(max(self.key_index.num_keys, 1)))
         entry = self._vmirror.get(pane)
         if entry is None or entry[0].size < need:
             fresh = [np.zeros(need, np.int64)]
@@ -1279,8 +1376,11 @@ class WindowAggOperator(StreamOperator):
         host mirror (compared in device precision: the mirror has more
         bits).  Meant for tests and sampled validation.  Under deferred sync
         the replica is refreshed first, so the check covers the refresh
-        round trip (ring mapping, dtype casts, skipped expirations)."""
+        round trip (ring mapping, dtype casts, skipped expirations).  True
+        while degraded: the replica is stale or gone on purpose."""
         self.flush_pipeline()
+        if self._degraded:
+            return True
         if self.device_sync_mode == "deferred":
             self.device_refresh()
         self._devprobe_sync_mirror(None)
@@ -1354,6 +1454,13 @@ class WindowAggOperator(StreamOperator):
         self._leaves, self._counts = fresh, fresh_counts
 
     def _grow_panes_guarded(self, span: int) -> None:
+        """Ring growth.  A degraded device tier has no device ring (its
+        state lives in the host value mirror, keyed by pane id): only ``P``
+        advances, and re-promotion allocates at the final geometry."""
+        if self._degraded and self.emit_tier != "host":
+            while self._P < span:
+                self._P <<= 1
+            return
         if self._delta_counts is not None and span > self._P:
             # the delta ring reallocates with P: drain it into the mirror
             # first, rebuild at the new P on the next probe step
@@ -1365,22 +1472,26 @@ class WindowAggOperator(StreamOperator):
     def _staged_update(self, staging: _Staging, flat: Optional[np.ndarray],
                        values, leaves, B: int, calibrating: bool) -> None:
         """Upload one batch through its upload set and fold it into the
-        replica; on the card the copies are ``non_blocking`` from pinned
-        buffers, and an event after the launches frees the set.  While the
-        sync cadence calibrates, the upload, the launches and the wait for
-        the card are timed into :mod:`~flink_tpu_torch.utils.transport`."""
+        replica, one guarded dispatch; on the card the copies are
+        ``non_blocking`` from pinned buffers, and the dispatch's fence event
+        frees the set.  While the sync cadence calibrates, the upload, the
+        launches and the wait for the card are timed into
+        :mod:`~flink_tpu_torch.utils.transport`.  Raises
+        :class:`DeviceQuarantinedError` for the caller to degrade."""
         t0 = time.perf_counter()
         with self._phase("device_dispatch"):
             host_flat, host_leaves = staging.fill(flat, leaves, B)
-            flat_t = host_flat.to(self.device, non_blocking=True)
-            dev = [a.to(self.device, non_blocking=True) for a in host_leaves]
             nbytes = host_flat.nbytes + sum(a.nbytes for a in host_leaves)
+
+            def prepare():
+                flat_t = host_flat.to(self.device, non_blocking=True)
+                dev = [a.to(self.device, non_blocking=True)
+                       for a in host_leaves]
+                return self._update_step(
+                    flat_t, tree_unflatten(tree_structure(values), dev))
+            self._guarded_update(prepare, B, leaves, nbytes / 1e6)
             self.phase_bytes["h2d"] = self.phase_bytes.get("h2d", 0) + nbytes
-            self._update_step(flat_t, tree_unflatten(tree_structure(values),
-                                                     dev))
-            if self.device.type == "cuda":
-                staging.token = torch.cuda.Event()
-                staging.token.record()
+            staging.token = self._fence
         if calibrating:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -1388,14 +1499,319 @@ class WindowAggOperator(StreamOperator):
                                            time.perf_counter() - t0)
 
     # ------------------------------------------------------------- device ops
-    def _update_step(self, flat_ids: torch.Tensor, values) -> None:
-        """One micro-batch fold into the device replica, in place: lift +
-        the ordered fold (on the card ``csrc/scatter_fold.cu``, which adds
-        each cell's rows in row order).  flat_ids in [0, K*P]; K*P is a
-        dropped row."""
+    def _update_step(self, flat_ids: torch.Tensor, values):
+        """One micro-batch fold into the device replica: lifts now and
+        returns the write, the ordered fold in place (on the card
+        ``csrc/scatter_fold.cu``, which adds each cell's rows in row order).
+        flat_ids in [0, K*P]; K*P is a dropped row."""
         lifted = tuple(tree_leaves(self.agg.lift(values)))
-        ordered_fold_counts(*self._flat_state(self._leaves, self._counts),
-                            flat_ids, lifted, self.kinds)
+        return lambda: ordered_fold_counts(
+            *self._flat_state(self._leaves, self._counts), flat_ids, lifted,
+            self.kinds)
+
+    # ------------------------------------------ device-lane health (guard)
+    def _on_card(self):
+        """The operator's card as the calling thread's current CUDA device
+        (the current device is per host thread; a lane thread starts on
+        device 0); a no-op on the CPU."""
+        return (torch.cuda.device(self.device) if self.device.type == "cuda"
+                else contextlib.nullcontext())
+
+    def _guarded(self, label: str, geom: tuple, mb: float,
+                 prepare: Callable[[], Callable[[], Any]],
+                 on_oom: Optional[Callable[[], None]] = None):
+        """One hot-path dispatch under the process-wide watchdog
+        (``runtime/device_health.py``): bounded deadline, transient retry
+        with backoff, ``on_oom`` then one retry, wedge -> quarantine (raised
+        as :class:`DeviceQuarantinedError` for the caller to degrade).
+
+        ``prepare`` does every allocation and upload and returns the write,
+        which does the in-place writes and returns the dispatch's result.
+        The thunk, on the caller's lane thread under :meth:`_on_card`:
+
+        1. refuses (FATAL, the restart path) if an earlier attempt stopped
+           after its first in-place write: in-place state has no donated
+           buffers, so a retry of such an attempt would fold rows twice;
+        2. waits on the previous guarded dispatch's CUDA event (the fence:
+           a CUDA launch returns before the card runs it, so a kernel that
+           never ends trips THIS dispatch's deadline);
+        3. prepares, then, under ``_tier_lock``, refuses if a tier
+           migration began since the dispatch did (an attempt abandoned in
+           its fence wait or its prepare wakes when the card comes back,
+           as the migration's own download does, and must not write into
+           the state that download reads) and sets ``_writing``;
+        4. writes, records the new fence event, clears ``_writing``.
+
+        ``geom``: the first dispatch of a site (``label``) after a change of
+        K, P, batch rows (pow2) or leaf dtypes gets the compile grace — an
+        nvcc build or a first allocation after growth.  JAX's rule, kept
+        per site: JAX keeps one geometry for all sites, so where two sites
+        alternate (the probe step and its miss catch-up) every dispatch
+        reads as new and gets the grace."""
+        fresh = self._dispatch_geoms.get(label) != geom
+        self._dispatch_geoms[label] = geom
+        self._hot_dispatches += 1
+        with self._tier_lock:
+            epoch = self._tier_epoch
+
+        def thunk():
+            with self._on_card():
+                if self._writing:
+                    raise RuntimeError(
+                        f"{self.name}.{label}: an earlier attempt stopped "
+                        f"after its first in-place write; the state cannot "
+                        f"be trusted in process")
+                if self._fence is not None:
+                    self._fence.synchronize()
+                write = prepare()
+                with self._tier_lock:
+                    if epoch != self._tier_epoch:
+                        raise DeviceQuarantinedError(
+                            f"{self.name}.{label}: superseded by a tier "
+                            f"migration")
+                    self._writing = True
+                out = write()
+                if self.device.type == "cuda":
+                    self._fence = torch.cuda.Event()
+                    self._fence.record()
+                self._writing = False
+                return out
+
+        return device_health.guarded_dispatch(
+            thunk, mb=mb, on_oom=on_oom, label=f"{self.name}.{label}",
+            compile_grace=fresh)
+
+    def _guarded_update(self, prepare, rows: int, leaves, mb: float) -> None:
+        """The replica fold (:meth:`_update_step`) under the watchdog, label
+        ``update_step``; on a paged operator an OOM forces a page-out
+        (:meth:`_forced_page_out`) and retries once."""
+        geom = (self._K, self._P, _next_pow2(rows, 64),
+                tuple((a.dtype.str, a.shape[1:]) for a in leaves))
+        self._guarded("update_step", geom, mb, prepare,
+                      on_oom=(self._forced_page_out
+                              if self._pager is not None else None))
+
+    # ------------------------------------------ device-lane health (tiers)
+    def _salvage(self, err: BaseException, read: Callable[[], Any],
+                 label: str):
+        """A migration's state download, run under the monitor's bounded
+        salvage deadline on the caller's lane (under :meth:`_on_card`).
+        Where the state cannot be read back in process — an attempt stopped
+        after its first in-place write (the port's counterpart of JAX's
+        donated-and-deleted buffers), the card misses the deadline, or the
+        read fails — ``err`` re-raises from that cause: the task takes the
+        restart path and recovers from its last checkpoint.  The tier epoch
+        moves first, with the flag read under the same lock: from here on
+        no abandoned dispatch starts a write."""
+        def on_card():
+            with self._on_card():
+                return read()
+        with self._tier_lock:
+            self._tier_epoch += 1
+            writing = self._writing
+        try:
+            if writing:
+                raise RuntimeError(
+                    f"{self.name}: a dispatch stopped after its first "
+                    f"in-place write; in-process salvage is impossible")
+            mon = device_health.get_monitor(create=False)
+            return (mon.run_salvage(on_card, label=label) if mon is not None
+                    else on_card())
+        except Exception as cause:  # noqa: BLE001 — state unrecoverable
+            raise err from cause
+
+    def _devprobe_degrade(self, err: BaseException, keys=None, panes=None,
+                          values=None) -> None:
+        """Quarantine with the device probe active: salvage the unsynced
+        delta ring into the mirror (:meth:`_salvage`), drop the delta ring
+        and the device table, degrade the tier, and — when ``keys`` is
+        given — fold those rows, not yet accounted for, through the host
+        pass so no record is lost.  Call sites that fail after every record
+        reached the mirror (warm rows in the delta, misses folded) pass no
+        rows."""
+        if self._delta_counts is not None and self._delta_panes:
+            self._salvage(err, lambda: self._devprobe_sync_mirror(None),
+                          f"{self.name} delta salvage")
+        self._drop_delta()
+        self._dki = None
+        self._devprobe_resolved = None   # re-resolved after a heal
+        self._enter_degraded(err)        # host tier: flags only
+        if keys is None or len(keys) == 0:
+            return
+        with self._phase("probe_mirror"):
+            if self._nm is not None:
+                self._native_probe_update(keys, panes, values)
+            else:
+                slots = self.key_index.lookup_or_insert(keys)
+                self._vmirror_update(slots, panes, values)
+
+    def _enter_degraded(self, err: BaseException) -> None:
+        """Quarantine migration: leave the device tier MID-JOB.  The host
+        tier just stops dispatching (its mirror is the authority); the
+        device tier downloads its live pane ring through the dense
+        gid-indexed snapshot path (both pager tiers merged) into the host
+        value mirror, then drops its device state.  An aggregate with no
+        host twin re-raises: the task fails and the restart path recovers
+        it.  (JAX also refuses sharded state, count triggers and
+        GlobalWindows here; this slice refuses them at construction.)"""
+        if not self.agg.supports_host_emit():
+            raise err
+        self._quarantine_migrations += 1
+        if self.emit_tier == "host":
+            self._degraded = True
+            self._device_stale = True
+            self._cut_dispatches()
+            return
+        n = self.key_index.num_keys if self.key_index is not None else 0
+        if self._leaves is not None and self.pane_base is not None and n:
+            panes = self._live_panes()
+
+            def gather():
+                if self._pager is not None:
+                    return self._paged_snapshot_rows(n, panes)
+                return self._device_columns(panes, n)
+            counts, leaves = self._salvage(err, gather,
+                                           f"{self.name} migration")
+            self._degraded = True   # _vmirror_pane sizes past K now
+            self._vmirror = {}
+            for j, p in enumerate(panes.tolist()):
+                if not counts[:, j].any():
+                    continue
+                entry = self._vmirror_pane(int(p))
+                entry[0][:n] = counts[:, j]
+                for k, src in enumerate(leaves):
+                    entry[k + 1][:n] = src[:, j].astype(
+                        self._mirror_dtypes[k])
+        self._degraded = True
+        self._drop_device_arrays()
+
+    def _cut_dispatches(self) -> None:
+        """Bump the tier epoch, so an in-flight promotion or an abandoned
+        dispatch can no longer commit or write, and drop the fence and the
+        upload sets of the old tier."""
+        with self._tier_lock:
+            self._tier_epoch += 1
+        self._fence = None
+        self._staging_pool = {}
+
+    def _drop_device_arrays(self) -> None:
+        """Tear down the device tier's in-process state (the mirror stays
+        authoritative): the migration's and the false heal's one copy."""
+        self._cut_dispatches()
+        self._leaves = None
+        self._counts = None
+        self._mirror = {}
+        self._active_rows = None
+        if self._pager is not None:
+            self._pager.reset()
+
+    def _forced_page_out(self) -> None:
+        """Device-OOM pressure valve (the monitor's ``on_oom``): spill the
+        cold half of the resident rows so the retried dispatch has memory.
+        The batch's own rows stay protected — its flat ids reference
+        them."""
+        pager = self._pager
+        if pager is None or self.pane_base is None:
+            return
+        rows, _gids = pager.resident_pairs()
+        protected = (self._active_rows if self._active_rows is not None
+                     else np.empty(0, np.int64))
+        evictable = int(rows.size) - int(protected.size)
+        k = max(1, evictable // 2) if evictable > 0 else 0
+        if k <= 0:
+            return
+        live = self._live_panes()
+        victims = pager.pick_victims(k, protected)
+        if victims.size == 0:
+            return
+        counts, leaves = self._gather_rows(victims, live)
+        bits = self._mirror_bits_rows(victims, live)
+        pager.spill_rows(victims, live, counts, leaves, bits)
+        self._clear_mirror_rows(victims)
+
+    def _maybe_repromote(self) -> bool:
+        """Checkpoint-aligned safe point: if the process-wide monitor healed
+        the card, re-promote this operator's state and leave degraded mode.
+        The upload runs guarded (a subprocess probe can read healthy while
+        this process's card still hangs: a false heal must not hang the task
+        thread) and ends with a synchronize, so a card that still hangs
+        trips its deadline.  The commit happens here, on the task thread,
+        after the guarded upload returned; a false heal rolls back and bumps
+        the epoch.  Returns True when a re-promotion happened."""
+        if not self._degraded:
+            return False
+        mon = device_health.get_monitor(create=False)
+        if mon is None or not mon.healthy:
+            return False
+        self.flush_pipeline()
+
+        def promote():
+            with self._on_card():
+                if self.emit_tier == "host":
+                    self._degraded = False   # device_refresh no-ops otherwise
+                    try:
+                        self.device_refresh()  # the stale replica, rebuilt
+                    except BaseException:
+                        self._degraded = True
+                        raise
+                else:
+                    self._repromote_device()   # uploads only, no commit
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+
+        try:
+            mon.run_guarded(promote, label=f"{self.name} re-promotion",
+                            compile_grace=True)
+        except DeviceQuarantinedError:
+            # false heal: stay on the host tier (the mirror, dropped only
+            # after a committed promotion, is still the authority); the
+            # epoch bump fences the abandoned attempt out of committing
+            self._degraded = True
+            self._device_stale = True
+            if self.emit_tier != "host":
+                self._drop_device_arrays()
+            else:
+                self._cut_dispatches()
+            return False
+        if self.emit_tier != "host":
+            self._degraded = False
+            self._vmirror = {}
+            self._device_stale = False
+        self._repromotions += 1
+        return True
+
+    def _repromote_device(self) -> None:
+        """The device tier's quarantine exit, UPLOAD HALF: rebuild the pane
+        ring (and the pager's residency) from the host value mirror through
+        the restore path.  Commits no tier flag and keeps ``_vmirror``;
+        the writes are fenced on the tier epoch taken at entry, so an
+        abandoned attempt that limps on later aborts instead of landing
+        stale state."""
+        n = self.key_index.num_keys if self.key_index is not None else 0
+        if n == 0 or self.pane_base is None:
+            return
+        with self._tier_lock:
+            epoch = self._tier_epoch
+        panes = self._live_panes()
+        counts, leaves = self._mirror_columns(panes.tolist(), n)
+        with self._tier_lock:
+            if epoch != self._tier_epoch:
+                raise DeviceQuarantinedError("re-promotion superseded")
+            if self._pager is None:
+                self._K = _next_pow2(max(n, 1), self._K)
+            self._ensure_alloc()
+            self._mirror = {}
+            if self._pager is not None:
+                self._paged_restore_rows(n, panes, counts, leaves)
+            else:
+                self._upload_columns(panes, counts, leaves)
+
+    def device_health_stats(self) -> Dict[str, int]:
+        """Tier-degradation counters (no pipeline barrier, as
+        ``paging_stats``): degraded now, migrations, re-promotions."""
+        return {"degraded": int(self._degraded),
+                "quarantine_migrations": self._quarantine_migrations,
+                "repromotions": self._repromotions}
 
     def _clear_panes_step(self, pane_slots: torch.Tensor) -> None:
         """Reset ring columns of expired panes to identity, in place."""
@@ -1531,7 +1947,24 @@ class WindowAggOperator(StreamOperator):
         span = self.max_pane - self.pane_base + 1
         if span > self._P:
             self._grow_panes_guarded(span)
+        if self._degraded and self.emit_tier != "host":
+            # quarantined device tier: the host value mirror is the
+            # authority — key lookup + numpy fold only (no paging, no
+            # device dispatch) until re-promotion
+            with self._phase("probe"):
+                slots = self.key_index.lookup_or_insert(keys)
+            with self._phase("mirror"):
+                # grow EVERY live pane with the key count: an untouched
+                # pane must still serve fires, snapshots and re-promotion
+                for p in list(self._vmirror):
+                    self._vmirror_pane(p)
+                self._vmirror_update(slots, panes, values)
+            return
         sync = self._resolve_device_sync()
+        if self._degraded:
+            # quarantined host tier: the mirror is the authority anyway —
+            # skip the replica dispatch (deferred semantics)
+            sync = "deferred"
         if self._fused_depth(sync) > 1:
             # fused lane: park the batch; the whole super-batch advances in
             # one pass at the flush boundary (depth or row bound here, a
@@ -1574,6 +2007,8 @@ class WindowAggOperator(StreamOperator):
             self._ensure_alloc()
             self._grow_keys(self.key_index.num_keys)
         self._ensure_alloc()
+        # key ids before paging: a quarantine migration folds by global id
+        gids = slots if self._nm is None else None
         if self._pager is not None:
             # key ids -> resident ring rows, paging cold keys out and
             # promoted keys in; the flat ids and the emit marks use rows
@@ -1592,8 +2027,19 @@ class WindowAggOperator(StreamOperator):
                         + (panes % self._P).astype(idt))
                 staging = self._staging_acquire(_next_pow2(B, 64), idt,
                                                 leaves)
-            self._staged_update(staging, flat, values, leaves, B,
-                                calibrating=sync == "calibrating")
+            try:
+                self._staged_update(staging, flat, values, leaves, B,
+                                    calibrating=sync == "calibrating")
+            except DeviceQuarantinedError as err:
+                # the card wedged mid-batch: migrate to the host tier and
+                # fold THIS batch there — no record is dropped
+                self._enter_degraded(err)
+                with self._phase("mirror"):
+                    if self.emit_tier == "device":
+                        self._vmirror_update(gids, panes, values)
+                    elif self._nm is None:   # the C pass already folded
+                        self._vmirror_update(slots, panes, values)
+                return
         if self.emit_tier == "device":
             with self._phase("emit_mirror"):
                 self._mirror_mark_batch(slots, panes)
@@ -1631,8 +2077,13 @@ class WindowAggOperator(StreamOperator):
     def prepare_snapshot_pre_barrier(self) -> List[StreamElement]:
         """Advance the staged batches and drain every pending async fire, so
         its rows travel downstream before the barrier; after this
-        :meth:`snapshot_state` is legal, ``async_fire`` included."""
+        :meth:`snapshot_state` is legal, ``async_fire`` included.  Also the
+        checkpoint-aligned safe point of device-lane healing: a degraded
+        operator whose monitor probed healthy re-promotes here
+        (:meth:`_maybe_repromote`), so the snapshot that follows is the
+        card's and no barrier sees half-migrated state."""
         self.flush_pipeline()
+        self._maybe_repromote()
         if self.async_fire:
             return self.drain_pending_fires(force=True)
         return []
@@ -1650,7 +2101,8 @@ class WindowAggOperator(StreamOperator):
         # async fires of earlier calls surface before any new ones
         out: List[StreamElement] = (self.drain_pending_fires()
                                     if self.async_fire else [])
-        if self.pane_base is None or self._leaves is None:
+        if self.pane_base is None or (self._leaves is None
+                                      and not self._degraded):
             return out
         a = self.assigner
         w_max = self._fired_horizon(now)
@@ -1682,9 +2134,11 @@ class WindowAggOperator(StreamOperator):
         if not expired:
             return
         self.pane_base = p
-        if self.device_sync_mode == "deferred":
-            # no in-line device write: the next device_refresh rebuilds the
-            # whole ring (identity where no live pane), subsuming this clear
+        if (self.device_sync_mode == "deferred" or self._degraded
+                or self._leaves is None):
+            # no in-line device write: the next device_refresh (or
+            # re-promotion) rebuilds the whole ring (identity where no live
+            # pane), subsuming this clear
             self._device_stale = True
         else:
             self._clear_panes_step(torch.from_numpy(
@@ -1694,9 +2148,9 @@ class WindowAggOperator(StreamOperator):
             self._vmirror.pop(ep, None)
             if self._nm is not None:
                 self._nm.drop_pane(ep)
-        if self._pager is not None:
+        if self._pager is not None and not self._degraded:
             self._pager.drop_panes(expired)
-        if self._delta_counts is not None:
+        if self._delta_counts is not None and not self._degraded:
             # expired panes' unsynced delta is discarded with the mirror pane
             # it would have folded into
             dead = [q for q in expired if q in self._delta_panes]
@@ -1709,7 +2163,10 @@ class WindowAggOperator(StreamOperator):
 
     # ------------------------------------------------------------------ fires
     def _fire_window(self, window_id: int) -> List[StreamElement]:
-        if self._leaves is None:
+        # a degraded device tier serves its fires from the host value
+        # mirror (no device op), with the host tier's pane combine
+        degraded = self._degraded and self.emit_tier != "host"
+        if self._leaves is None and not degraded:
             return []
         first, last = self.assigner.window_panes(window_id)
         if last < self.pane_base or first > self.max_pane:
@@ -1717,7 +2174,7 @@ class WindowAggOperator(StreamOperator):
         panes = np.arange(max(first, self.pane_base),
                           min(last, self.max_pane) + 1, dtype=np.int64)
         with self._phase("fire"):
-            if self.emit_tier == "host":
+            if self.emit_tier == "host" or degraded:
                 return self._fire_window_host(window_id, panes)
             out = self._fire_window_gather(window_id, panes)
             if self._pager is not None:
@@ -1836,7 +2293,8 @@ class WindowAggOperator(StreamOperator):
     def _page_slots(self, gids: np.ndarray) -> np.ndarray:
         """Map global key ids to resident ring rows, evicting cold keys and
         promoting/initializing missing ones.  At most one page-out gather
-        and one page-in set per micro-batch."""
+        and one page-in set per micro-batch.  The batch's rows are protected
+        from the OOM page-out (``_active_rows``)."""
         pager = self._pager
         pager.ensure_gids(self.key_index.num_keys)
         uniq = np.unique(gids)
@@ -1866,7 +2324,8 @@ class WindowAggOperator(StreamOperator):
                 reset_rows(self._leaves, self._counts,
                            self._host_ids(rows_new), self.spec.leaf_inits)
         rows = pager.rows(gids)
-        pager.touch(pager.rows(uniq))
+        self._active_rows = pager.rows(uniq)
+        pager.touch(self._active_rows)
         return rows
 
     def _gather_rows(self, rows: np.ndarray, panes: np.ndarray,
@@ -1997,19 +2456,29 @@ class WindowAggOperator(StreamOperator):
         R = min(n, self._K)
         if R:
             pager.assign_rows(np.arange(R, dtype=np.int64))
-            slots = self._host_ids(panes % self._P)
-            for l, src in zip(self._leaves, leaves_np):
-                l[:R, slots] = torch.from_numpy(
-                    np.ascontiguousarray(src[:R])).to(self.device, l.dtype)
-            self._counts[:R, slots] = torch.from_numpy(
-                np.ascontiguousarray(counts_np[:R], np.int32)).to(self.device)
-            for j, p in enumerate(panes.tolist()):
-                nz = np.flatnonzero(counts_np[:R, j] > 0)
-                if nz.size:
-                    self._mirror_mark(int(p), nz)
+            self._upload_columns(panes, counts_np[:R], leaves_np)
         if n > R:
             pager.import_rows(np.arange(R, n, dtype=np.int64), panes,
                               counts_np, leaves_np)
+
+    def _upload_columns(self, panes: np.ndarray, counts_np: np.ndarray,
+                        leaves_np) -> None:
+        """Set the ring's first ``rows`` key rows x ``panes`` from dense
+        host columns (counts ``[rows, m]``; each leaf's first ``rows`` rows),
+        in place; on the device tier, mark the cells holding data in the
+        emit mirror.  Restores and re-promotion."""
+        rows = counts_np.shape[0]
+        slots = self._host_ids(panes % self._P)
+        for l, src in zip(self._leaves, leaves_np):
+            l[:rows, slots] = torch.from_numpy(
+                np.ascontiguousarray(src[:rows])).to(self.device, l.dtype)
+        self._counts[:rows, slots] = torch.from_numpy(
+            np.ascontiguousarray(counts_np, np.int32)).to(self.device)
+        if self.emit_tier == "device":
+            for j, p in enumerate(panes.tolist()):
+                nz = np.flatnonzero(counts_np[:, j] > 0)
+                if nz.size:
+                    self._mirror_mark(int(p), nz)
 
     # -------------------------------------------------------------- snapshots
     def _leaf_schema(self) -> List[Dict[str, str]]:
@@ -2041,14 +2510,17 @@ class WindowAggOperator(StreamOperator):
         if self.key_index is not None:
             snap["key_index"] = self.key_index.snapshot()
             snap["key_index_kind"] = "KeyIndex"
-        if self._leaves is not None and self.pane_base is not None \
-                and self.key_index is not None:
+        if (self._leaves is not None or self._degraded) \
+                and self.pane_base is not None and self.key_index is not None:
             n = self.key_index.num_keys
             panes = np.arange(self.pane_base, self.max_pane + 1,
                               dtype=np.int64)
             snap["panes"] = panes
             with self._phase("snapshot"):
-                if self.snapshot_source == "mirror":
+                # degraded: the host value mirror IS the state, in the same
+                # dense gid-indexed format, so a checkpoint taken during a
+                # quarantine restores on either tier
+                if self.snapshot_source == "mirror" or self._degraded:
                     counts, leaves = self._mirror_columns(panes.tolist(), n)
                 elif self._pager is not None:
                     counts, leaves = self._paged_snapshot_rows(n, panes)
@@ -2088,6 +2560,13 @@ class WindowAggOperator(StreamOperator):
         self.watermark = snap["watermark"]
         self.late_dropped = snap.get("late_dropped", 0)
         self._P = snap["P"]
+        # restores land on the device tier; if the monitor is still
+        # quarantined, the first dispatch migrates again (the snapshot
+        # format is tier-agnostic)
+        self._degraded = False
+        self._cut_dispatches()
+        self._active_rows = None
+        self._writing = False
         self._dki = None         # probe table rebuilds from the key index
         self._drop_delta()
         self._devprobe_resolved = None
@@ -2129,18 +2608,9 @@ class WindowAggOperator(StreamOperator):
             if self._resolve_device_sync() == "deferred":
                 self._device_stale = True
             else:
-                slots = torch.from_numpy(panes % self._P).to(self.device)
-                for l, src in zip(self._leaves, restored):
-                    l[:n, slots] = torch.from_numpy(
-                        np.ascontiguousarray(src)).to(self.device, l.dtype)
-                self._counts[:n, slots] = torch.from_numpy(
-                    np.ascontiguousarray(counts_np, np.int32)).to(self.device)
+                # (the device tier's emit mirror rebuilds from the counts)
+                self._upload_columns(panes, counts_np, restored)
             if self.emit_tier == "device":
-                # rebuild the emit mirror from the snapshot's counts
-                for j, p in enumerate(panes.tolist()):
-                    nz = np.flatnonzero(counts_np[:, j] > 0)
-                    if nz.size:
-                        self._mirror_mark(int(p), nz)
                 return
             # re-seed the value mirror from the snapshot (device precision —
             # the f64 surplus re-accumulates from here on)

@@ -608,10 +608,14 @@ def test_pinned_staging_reuse_is_bit_equal_to_pageable_uploads(cuda_device):
     _same_fires(got, want)
 
 
-def test_worker_cuda_error_reraises_at_every_barrier(cuda_device):
+def test_worker_cuda_error_reraises_at_every_barrier(cuda_device,
+                                                     monkeypatch):
     """A CUDA error raised in a stage on the worker (a device allocation
     that fails, made in place of the device step) parks the worker and
-    re-raises at every barrier until ``close()``; the card stays usable."""
+    re-raises at every barrier until ``close()``; the card stays usable.
+    The watchdog is off here: under it an OOM with no pager retries and
+    quarantines (``test_real_out_of_memory_error_classifies_as_oom``)."""
+    monkeypatch.setenv("FLINK_TPU_DEVICE_WATCHDOG", "off")
     op = WindowAggOperator(TumblingEventTimeWindows.of(100), SumAggregator(),
                            key_column="k", value_column="v",
                            device=cuda_device, pipeline_depth=2,
@@ -634,3 +638,156 @@ def test_worker_cuda_error_reraises_at_every_barrier(cuda_device):
     assert op.flush_pipeline() == []
     ok = _run(cuda_device)
     assert len(ok[0]) > 0
+
+
+# ---------------------------------------------------------------------------
+# the device watchdog on the card
+# ---------------------------------------------------------------------------
+
+def _fast_monitor(**kw):
+    from flink_tpu_torch.runtime import device_health as dh
+    cfg = dh.WatchdogConfig(deadline_floor_s=0.25,
+                            first_dispatch_grace_s=60.0,
+                            backoff_initial_s=0.001, backoff_max_s=0.01)
+    mon = dh.DeviceHealthMonitor(cfg, heal_async=False, **kw)
+    dh.set_monitor(mon)
+    return mon
+
+
+@pytest.fixture
+def monitor():
+    """A fast monitor for the test, the process's put back after it."""
+    from flink_tpu_torch.runtime import device_health as dh
+    from flink_tpu_torch.testing import chaos
+    prev = dh.get_monitor(create=False)
+    yield _fast_monitor
+    dh.set_monitor(prev)
+    chaos.uninstall()
+
+
+def _device_tier(device, **kw):
+    return WindowAggOperator(TumblingEventTimeWindows.of(100),
+                             SumAggregator(), key_column="k",
+                             value_column="v", device=device,
+                             emit_tier="device", snapshot_source="device",
+                             device_sync="scatter", **kw)
+
+
+def _small_batches(n=10, seed=11):
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        keys = rng.integers(0, 1500, 4000).astype(np.int64)
+        vals = rng.random(4000).astype(np.float32)
+        ts = i * 50 + np.sort(rng.integers(0, 50, 4000)).astype(np.int64)
+        yield i, RecordBatch({"k": keys, "v": vals}, timestamps=ts), ts
+
+
+def test_guarded_dispatch_launches_scatter_fold_on_a_lane_thread(
+        cuda_device, monitor, monkeypatch):
+    """Each batch's replica fold is one guarded dispatch: it runs on the
+    monitor's lane thread (not the caller's), with the operator's card as
+    that thread's current device, and launches ``scatter_fold``."""
+    import threading
+
+    from flink_tpu_torch.operators import window_agg as wa
+    mon = monitor()
+    seen = []
+    real = wa.ordered_fold_counts
+
+    def recording(*args, **kw):
+        seen.append((threading.current_thread().name,
+                     torch.cuda.current_device()))
+        return real(*args, **kw)
+    monkeypatch.setattr(wa, "ordered_fold_counts", recording)
+    op = _device_tier(cuda_device)
+    before = sc.ordered_fold_counts.launches
+    for _, batch, ts in _small_batches(4):
+        op.process_batch(batch)
+    torch.cuda.synchronize()
+    assert len(seen) == 4 and sc.ordered_fold_counts.launches == before + 4
+    assert all(name.startswith("device-lane")
+               and dev == (cuda_device.index or 0) for name, dev in seen)
+    assert mon.counters["dispatches"] == 4
+    assert op.fused_stats()["hot_dispatches"] == 4
+    assert op._fence is not None and op._fence.query()
+
+
+def _cycle(device, wedge_at=None, busy_at=None, n=10):
+    """The device tier over the small stream (one guarded dispatch a
+    batch; a window fires in the watermark after every even batch from 2
+    on, and the fire's download waits for the card); ``wedge_at``: a
+    chaos wedge at that dispatch; ``busy_at``: the card held busy
+    (``torch.cuda._sleep``, about 2 s, which ends by itself) before that
+    (odd, non-firing) batch, so the NEXT dispatch's fence wait trips its
+    deadline.  Heal after batch 6 and re-promote at batch 8.  Returns
+    (fires, health stats, monitor)."""
+    from flink_tpu_torch.runtime import device_health as dh
+    from flink_tpu_torch.testing import chaos
+    mon = dh.get_monitor()
+    inj = chaos.FaultInjector(seed=1)
+    sched = (inj.inject("device.dispatch", chaos.WedgedDevice(at=wedge_at))
+             if wedge_at else None)
+    op = _device_tier(device)
+    out = []
+    with chaos.installed(inj):
+        for i, batch, ts in _small_batches(n):
+            if busy_at == i:
+                torch.cuda._sleep(4_000_000_000)
+            out += op.process_batch(batch)
+            out += op.process_watermark(Watermark(int(ts.max()) - 1))
+            if i == 6:
+                if sched is not None:
+                    sched.heal()
+                assert mon.probe_now()
+            if i == 8:
+                out += op.prepare_snapshot_pre_barrier()
+        out += op.end_input()
+    return out, op.device_health_stats(), mon
+
+
+def test_event_fence_trips_on_a_kernel_held_busy(cuda_device, monitor):
+    """A kernel that outlasts the deadline (``torch.cuda._sleep`` before
+    batch 3, behind which batch 3's fold queues) trips batch 4's fence wait
+    (dispatch 5): the tier quarantines, migrates (the salvage waits the
+    kernel out), continues on the host tier, and re-promotes after the
+    heal.  The fires equal the CPU's under a chaos wedge at the same
+    dispatch, bit for bit."""
+    mon = monitor(probe_fn=lambda: True)
+    gpu, ghealth, _ = _cycle(cuda_device, busy_at=3)
+    assert mon.counters["watchdog_timeouts"] == 1
+    assert mon.counters["quarantines"] == 1 and mon.counters["heals"] == 1
+    assert ghealth == {"degraded": 0, "quarantine_migrations": 1,
+                       "repromotions": 1}
+    monitor()
+    cpu, chealth, _ = _cycle("cpu", wedge_at=5)
+    assert chealth == ghealth
+    _same_fires(gpu, cpu)
+
+
+def test_real_out_of_memory_error_classifies_as_oom(cuda_device):
+    from flink_tpu_torch.runtime import device_health as dh
+    with pytest.raises(torch.OutOfMemoryError) as ei:
+        torch.empty(1 << 50, dtype=torch.uint8, device=cuda_device)
+    assert dh.classify_failure(ei.value) == dh.OOM
+    torch.ones(1, device=cuda_device).add_(1)   # the card is still usable
+    torch.cuda.synchronize()
+
+
+def test_quarantine_cycle_on_the_card_equals_the_cpu(cuda_device, monitor):
+    """The same chaos wedge (dispatch 4) on the card and on the CPU: the
+    same migration, heal and re-promotion, the same fires bit for bit."""
+    monitor()
+    gpu, ghealth, gmon = _cycle(cuda_device, wedge_at=4)
+    monitor()
+    cpu, chealth, cmon = _cycle("cpu", wedge_at=4)
+    assert ghealth == chealth == {"degraded": 0, "quarantine_migrations": 1,
+                                  "repromotions": 1}
+    assert gmon.counters["quarantines"] == cmon.counters["quarantines"] == 1
+    _same_fires(gpu, cpu)
+
+
+def test_healer_probe_subprocess_sees_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the probe launches on the card")
+    from flink_tpu_torch.runtime import device_health as dh
+    assert dh.probe_backend_subprocess(timeout_s=120) is True

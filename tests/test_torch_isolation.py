@@ -46,6 +46,8 @@ def test_every_module_imports_with_jax_blocked():
         "for n in names: importlib.import_module(n)\n"
         "assert 'flink_tpu_torch.operators.fused_step' in names\n"
         "assert 'flink_tpu_torch.utils.transport' in names\n"
+        "assert 'flink_tpu_torch.runtime.device_health' in names\n"
+        "assert 'flink_tpu_torch.testing.chaos' in names\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules"
         " if sys.modules[m] is not None]\n"
