@@ -136,6 +136,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    turns on, off, off, on, twice: records/s, phases, dispatches a batch, the
    hand-off to the lane and back), the round trip of an empty guarded
    thunk, and the healer's subprocess probe on the card;
+9f. main paths 14-17, the key-group mesh (slice 10): a
+   ``MeshWindowAggOperator`` over ``MESH_BLOCKS = 4`` row blocks of the
+   state on the one card (``make_mesh(devices=[card] * 4)``; on one card
+   the exchange crosses no interconnect, so these runs price the sharded
+   code: the host routing, the buckets, one ``scatter_fold`` a block, the
+   full-capacity fire).  Path 14 is path 3 on the mesh (the C pass sharded
+   by the blocks' slot ranges, ``native_shards=4``; the probe on position
+   0, the delta and replica folds through the exchange): its fires equal
+   path 3's bit for bit (same calls, keys, values), its mid-run snapshot,
+   densified, equals path 3's byte for byte, and the C pass times each of
+   its 4 shards.  Path 15 is path 5 on the mesh (the full-capacity fire,
+   sliced snapshots): its fires equal path 5's bit for bit, and its
+   mid-run snapshot restored at 2 blocks and at 1 (the single-card
+   operator) replays bit for bit.  Path 16 is path 15 under path 11's
+   wedge: the whole mesh migrates to the host mirror, heals and
+   re-promotes into 4 blocks; held as path 11 is (to path 15), and its
+   fires equal path 11's bit for bit.  Path 17 is path 7 on the mesh (the
+   ring's 2^18 rows as 4 blocks of 2^16): its fires equal path 7's by key
+   and every paging counter path 7's.  Then each mesh path is timed
+   against its twin in turns (twin, mesh, mesh, twin);
 10. kernel phase, scatter_fold: the ordered fold (``csrc/scatter_fold.cu``)
    at path 5's shapes — 2^18 int32 flat ids (about 2% dropped) into an f32
    ``[2^20, 16]`` replica and int32 counts with non-zero contents, and a
@@ -262,6 +282,32 @@ for _label, _fault in FAULTS.items():
     PATHS[_label] = dict(PATHS[_fault["base"]])
 PAGED_PATHS["path 13"] = "path 5"
 PAGED_REPLAY_CAPACITY["path 13"] = 1 << 19
+#: slice 10: the key-group mesh, ``MESH_BLOCKS`` row blocks of the state on
+#: the one card (``make_mesh(devices=[card] * 4)``): path 14 is path 3 on
+#: the mesh (the C pass sharded by the blocks' slot ranges), path 15 path
+#: 5 (the full-capacity sharded fire, sliced snapshots), path 16 path 15
+#: under path 11's wedge (the whole mesh degrades and re-promotes into its
+#: blocks), path 17 path 7 (paged, 2^16 ring rows a block)
+MESH_BLOCKS = 4
+PATHS["path 14"] = dict(PATHS["path 3"], native_shards=MESH_BLOCKS,
+                        mesh_blocks=MESH_BLOCKS)
+PATHS["path 15"] = dict(PATHS["path 5"], mesh_blocks=MESH_BLOCKS)
+PATHS["path 17"] = dict(PATHS["path 7"], mesh_blocks=MESH_BLOCKS)
+FAULTS["path 16"] = dict(base="path 15", inject_at=0, heal_at=19,
+                         schedule=lambda ch, fired: ch.WedgedDevice(at=12))
+PATHS["path 16"] = dict(PATHS["path 15"])
+DEVICE_PATHS["path 15"] = "path 3"
+PAGED_PATHS["path 17"] = "path 5"
+PAGED_REPLAY_CAPACITY["path 17"] = 1 << 19
+#: each mesh path and the single-block path it equals bit for bit (fires;
+#: path 14's snapshot too, densified), and is timed against in turns
+MESH_TWIN = {"path 14": "path 3", "path 15": "path 5", "path 16": "path 11",
+             "path 17": "path 7"}
+#: the mesh sizes path 15's mid-run snapshot is restored at (rescale)
+RESCALE_BLOCKS = (2, 1)
+#: the watchdog's paths on the device tier (their untouched windows also
+#: equal the f32 reference bit for bit)
+DEVICE_FAULTS = ("path 11", "path 16")
 #: the reference tests' fast monitor, for the watchdog's paths (every other
 #: path runs under a fresh monitor of the default configuration)
 FAST_WATCHDOG = dict(deadline_floor_s=0.25, first_dispatch_grace_s=30.0)
@@ -275,6 +321,7 @@ EXPECT_MONITOR = {"path 11": dict(QUIET, quarantines=1, heals=1,
                   "path 12": dict(QUIET, quarantines=1, heals=1,
                                   watchdog_timeouts=1),
                   "path 13": dict(QUIET, oom_pageouts=1)}
+EXPECT_MONITOR["path 16"] = EXPECT_MONITOR["path 11"]
 #: the paths whose runs the guard's A/B repeats with the watchdog on and
 #: off: the host tier's probe lane, the device tier, and the probe lane
 #: behind the pipeline's worker (three threads: driver, worker, lane)
@@ -288,7 +335,7 @@ F64_REASSOCIATION_RTOL = 1e-12
 #: paging, then slice 8's paths, then slice 9's
 ORDER = ("path 1", "path 3", "path 2", "path 4", "path 5", "path 6",
          "path 7", "path 8", "path 9", "path 10", "path 11", "path 12",
-         "path 13")
+         "path 13", "path 14", "path 15", "path 16", "path 17")
 #: device-tier fires against the host tier's f64 mirror
 DEVICE_VS_HOST_RTOL = 1e-5
 
@@ -1024,22 +1071,32 @@ def store_phase(rng):
           f"{promote_ns:.1f} ns/cell, delete {delete_ns:.1f} ns/cell")
 
 
-def build_op(device, paging=None, **options):
+def build_op(device, paging=None, mesh_blocks=0, **options):
     """The operator of a path: the headline workload's arguments and the
     path's ``options`` (the JAX operator's defaults for any it leaves
-    out); ``paging`` the keyword arguments of a ``PagingConfig``."""
+    out); ``paging`` the keyword arguments of a ``PagingConfig``;
+    ``mesh_blocks`` > 0: a ``MeshWindowAggOperator`` over that many row
+    blocks on the card."""
     import torch
 
     from flink_tpu_torch.core.functions import RuntimeContext, SumAggregator
     from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.mesh_runtime import MeshWindowAggOperator
     from flink_tpu_torch.state.paging import PagingConfig
     from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
     if paging is not None:
         options["paging"] = PagingConfig(**paging)
-    op = WindowAggOperator(
+    if mesh_blocks:
+        options["mesh"] = make_mesh(devices=[device] * mesh_blocks)
+        cls = MeshWindowAggOperator
+    else:
+        options["device"] = device
+        cls = WindowAggOperator
+    op = cls(
         TumblingEventTimeWindows.of(WINDOW_MS), SumAggregator(torch.float32),
         key_column="k", value_column="v", initial_key_capacity=KEY_CAPACITY,
-        device=device, **options)
+        **options)
     op.open(RuntimeContext())
     return op
 
@@ -1225,6 +1282,7 @@ def main_path(device, batches, expect, label):
     from flink_tpu_torch.testing import chaos
 
     fault = FAULTS.get(label)
+    sharded = bool(PATHS[label].get("mesh_blocks"))
     mon = (device_health.DeviceHealthMonitor(
         device_health.WatchdogConfig(**FAST_WATCHDOG), heal_async=False)
         if fault else device_health.DeviceHealthMonitor())
@@ -1310,7 +1368,9 @@ def main_path(device, batches, expect, label):
         check(launches["probe"] == 0 or label == "path 8",
               f"{label}: launches {launches}; the device tier launches no "
               f"probe (outside path 8's calibration)")
-        check("emit_mirror" in op.phase_ns and "probe" in op.phase_ns
+        # (the unpaged mesh fires at full capacity: no emit mirror)
+        check(("emit_mirror" in op.phase_ns
+               or sharded and op._pager is None) and "probe" in op.phase_ns
               and ("mirror" not in op.phase_ns
                    or health["quarantine_migrations"]),
               f"{label}: the device tier's phases are wrong: "
@@ -1337,7 +1397,10 @@ def main_path(device, batches, expect, label):
         elif stats["enabled"]:
             check(launches["probe"] > 0,
                   f"{label} never launched the probe kernel")
-            check(deferred or launches["scatter_fold_multi"] > 0,
+            # (the mesh folds the delta ring and the replica block by
+            # block, each through the single-tree scatter_fold)
+            check(deferred or launches["scatter_fold_single" if sharded
+                                       else "scatter_fold_multi"] > 0,
                   f"{label}: the probe lane never folded its replica and "
                   f"delta ring through the ordered scatter_fold")
         else:
@@ -1372,7 +1435,7 @@ def main_path(device, batches, expect, label):
           f"({n_fires} fires), {snap_d2h / max(snaps, 1):.0f} per snapshot "
           f"({snaps} snapshots)")
     print(f"{label} peak device memory: {torch.cuda.max_memory_allocated()} B")
-    ring_bytes = sum(l.nbytes for l in op._leaves) + op._counts.nbytes
+    ring_bytes = sum(t.nbytes for t in state_tensors(op))
     numbers = {"records_per_s": n_records / elapsed, "wall_s": elapsed,
                "fire_p50_ms": p50, "fire_p99_ms": p99,
                "d2h_per_fire": fire_d2h / max(n_fires, 1),
@@ -1381,7 +1444,21 @@ def main_path(device, batches, expect, label):
                "ring_bytes": ring_bytes, "lane": lane,
                "counters": counters_of(op), "per_batch": per_batch,
                "monitor": dict(mon.counters), "health": health,
-               "hot_dispatches": op.fused_stats()["hot_dispatches"]}
+               "hot_dispatches": op.fused_stats()["hot_dispatches"],
+               "shard_ns": {k: v.tolist()
+                            for k, v in op.phase_shard_ns.items()}}
+    if sharded:
+        check(len(op._counts) == MESH_BLOCKS
+              and all(c.shape[0] == op._K // MESH_BLOCKS
+                      for c in op._counts),
+              f"{label}: the state is not {MESH_BLOCKS} row blocks")
+        print(f"{label} mesh: {MESH_BLOCKS} blocks of {op._K // MESH_BLOCKS}"
+              f" rows on {device}; exchange capacity {op._exchange_cap_hw} "
+              f"rows a (source, destination) pair, "
+              f"{op.mesh_step_cache_size()} exchange geometries; "
+              f"phase_shard_ns (ms) " + json.dumps(
+                  {k: [round(x / 1e6, 3) for x in v]
+                   for k, v in op.phase_shard_ns.items()}))
     print(f"{label} watchdog: {mon.counters['dispatches']} guarded "
           f"dispatches ({mon.counters['dispatches'] / len(batches):.2f} a "
           f"batch; labels {json.dumps(mon.label_counts, sort_keys=True)}); "
@@ -1424,9 +1501,15 @@ def check_monitor(op, mon, label, device) -> dict:
                      "repromotions": moved},
           f"{label}: device_health_stats {health}")
     check(op._leaves is not None and all(
-        t.device.type == device.type for t in (*op._leaves, op._counts)),
+        t.device.type == device.type for t in state_tensors(op)),
         f"{label}: the state is not on the card")
     return health
+
+
+def state_tensors(op) -> list:
+    """Every tensor of an operator's ring (each block's, when sharded)."""
+    return [t for _, leaves, counts in op._row_blocks(op._leaves, op._counts)
+            for t in (*leaves, counts)]
 
 
 def watch_tiers(op) -> dict:
@@ -1521,7 +1604,7 @@ def check_fault_path(label, plain, numbers, base_fires, base_numbers,
     check(len(untouched) >= 2 and len(plain) == len(base),
           f"{label}: {len(untouched)} untouched of {len(plain)} windows")
     check_twin(untouched, want, label)
-    if label == "path 11":
+    if label in DEVICE_FAULTS:
         check_fires_bits(untouched, cells, label)
     else:
         check_twin([b for b in plain if int(b.column("window_start")[0])
@@ -1530,12 +1613,13 @@ def check_fault_path(label, plain, numbers, base_fires, base_numbers,
                     in touched], label, rtol=F64_REASSOCIATION_RTOL)
     print(f"{label}: windows {sorted(touched)} touched by the quarantine "
           f"(held to the numpy reference at rtol {RTOL}"
-          + ("" if label == "path 11" else
+          + ("" if label in DEVICE_FAULTS else
              f" and to {FAULTS[label]['base']}'s at rtol "
              f"{F64_REASSOCIATION_RTOL}")
           + f"); the other {len(untouched)} equal "
           f"{FAULTS[label]['base']}'s bit for bit"
-          + (" and the f32 ordered reference" if label == "path 11" else ""))
+          + (" and the f32 ordered reference" if label in DEVICE_FAULTS
+             else ""))
 
 
 def fault_replays(device, batches, mid, want, label):
@@ -1571,6 +1655,138 @@ def fault_replays(device, batches, mid, want, label):
     same = sum(a[3] == b[3] for a, b in zip(got[False], got[True]))
     print(f"{label} the two replays fire the same windows and keys; "
           f"{same} of {len(want)} windows bit for bit")
+
+
+def check_mesh_path(label, fires, mids, numbers) -> None:
+    """A mesh path against its single-block twin (``MESH_TWIN``), in the
+    same process on the same batches: path 14's and 15's fires surface at
+    the same calls with the same keys in the same order and the same bytes,
+    path 14's mid-run snapshot, densified, is path 3's byte for byte, and
+    its C pass reports one time per block; path 16's fires equal path
+    11's (the same wedge, migration and re-promotion, of 4 blocks against
+    one); path 17's fires equal path 7's by key, and every paging counter
+    does."""
+    from flink_tpu_torch.state.shard_layout import (densify_keyed_snapshot,
+                                                    has_shard_slices)
+    twin = MESH_TWIN[label]
+    plain = [b for _, b in fires[label]]
+    base = [b for _, b in fires[twin]]
+    if label in PAGED_PATHS:
+        check_twin(by_window(plain), by_window(base), label)
+        a = numbers[label]["counters"]["paging"]
+        b = numbers[twin]["counters"]["paging"]
+        check(a == b, f"{label}: paging_stats {a} != {twin}'s {b}")
+        print(f"{label} fires equal {twin}'s by key bit for bit, and every "
+              f"paging counter equals {twin}'s: {json.dumps(a)}")
+        return
+    check([i for i, _ in fires[label]] == [i for i, _ in fires[twin]],
+          f"{label}: fires surfaced at other batches than {twin}'s")
+    check_twin(plain, base, label)
+    snap = mids[label][1]
+    check(has_shard_slices(snap), f"{label}: the mid-run snapshot has no "
+          f"per-shard slices")
+    if label == "path 14":
+        dense = densify_keyed_snapshot(snap)
+        check(mids[label][0] == mids[twin][0]
+              and snap_bytes(dense) == snap_bytes(mids[twin][1]),
+              f"{label}: the densified mid-run snapshot differs from "
+              f"{twin}'s")
+        per_shard = numbers[label]["shard_ns"].get("probe_mirror", [])
+        check(len(per_shard) == MESH_BLOCKS and sum(per_shard) > 0,
+              f"{label}: phase_shard_ns['probe_mirror'] {per_shard}")
+    print(f"{label} fires equal {twin}'s bit for bit (same calls, keys in "
+          f"the same order, values)"
+          + ("; its densified mid-run snapshot equals path 3's byte for "
+             "byte; the C pass reported its "
+             f"{MESH_BLOCKS} shards' times" if label == "path 14" else ""))
+
+
+def rescale_replays(device, batches, mid, want, label) -> None:
+    """Path 15's mid-run snapshot (4 blocks) restored at the mesh sizes of
+    ``RESCALE_BLOCKS`` (1: the single-card operator) and replayed: every
+    window digest equals path 15's bit for bit."""
+    for blocks in RESCALE_BLOCKS:
+        opts = dict(PATHS[label], mesh_blocks=blocks if blocks > 1 else 0)
+        wall, out, _ = _replay_once(device, batches, mid, label,
+                                    options=opts)
+        got = digests(out)
+        check(got == want, f"{label}: the replay rescaled to {blocks} "
+              f"block(s) differs from the run")
+        print(f"{label} rescale: the mid-run snapshot of batch {mid[0]} "
+              f"({MESH_BLOCKS} blocks) restored at {blocks} block(s) "
+              f"replays {len(got)} windows bit for bit; wall "
+              f"{wall * 1e3:.3f} ms")
+
+
+def ab_run(device, batches, label):
+    """One run of a path as ``main_path`` drives it (snapshots, its fault
+    schedule and monitor), timed; returns (wall s, digests of its fires)."""
+    import torch
+
+    from flink_tpu_torch.core.batch import RecordBatch, Watermark
+    from flink_tpu_torch.runtime import device_health
+    from flink_tpu_torch.testing import chaos
+
+    fault = FAULTS.get(label)
+    mon = (device_health.DeviceHealthMonitor(
+        device_health.WatchdogConfig(**FAST_WATCHDOG), heal_async=False)
+        if fault else device_health.DeviceHealthMonitor())
+    device_health.set_monitor(mon)
+    op = build_op(device, **PATHS[label])
+    inj = chaos.FaultInjector(seed=7) if fault else None
+    sched, out = None, []
+    if fault:
+        chaos.install(inj)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for i, (keys, vals, ts) in enumerate(batches):
+            if fault and i == fault["inject_at"]:
+                sched = inj.inject("device.dispatch", fault["schedule"](
+                    chaos, inj.fired("device.dispatch")))
+            out += op.process_batch(RecordBatch({"k": keys, "v": vals},
+                                                timestamps=ts))
+            out += op.process_watermark(Watermark(int(ts.max()) - 1))
+            if (i + 1) % SNAPSHOT_EVERY == 0:
+                out += op.prepare_snapshot_pre_barrier()
+                op.snapshot_state()
+            if fault and i == fault["heal_at"]:
+                sched.heal()
+                check(mon.probe_now(), f"A/B {label}: the healed "
+                      f"schedule's probe failed")
+        out += op.end_input()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        chaos.uninstall()
+    check_monitor(op, mon, label, device)
+    op.close()
+    return wall, digest_fn(label)(out)
+
+
+def mesh_ab(device, batches, want, card) -> dict:
+    """Each mesh path against its single-block twin on the same batches,
+    in turns twin, mesh, mesh, twin, each run's fires bit-equal to its
+    path's main run: records/s and their median ratio, beside the card's
+    nvidia-smi line."""
+    n = sum(len(b[0]) for b in batches)
+    ratios = {}
+    for label, twin in MESH_TWIN.items():
+        rate = {twin: [], label: []}
+        for side in (twin, label, label, twin):
+            wall, got = ab_run(device, batches, side)
+            check(got == want[side], f"A/B {side}: fires differ from "
+                  f"{side}'s run")
+            rate[side].append(n / wall)
+        ratios[label] = np.median(rate[label]) / np.median(rate[twin])
+        print(f"A/B {label} ({MESH_BLOCKS} blocks on one card) vs {twin} "
+              f"(one block), same batches, turns {twin}, {label}, {label}, "
+              f"{twin}: records/s " + ", ".join(
+                  f"{k} " + " / ".join(f"{r:.1f}" for r in v)
+                  for k, v in rate.items())
+              + f" (median ratio {ratios[label]:.3f}x); every run bit-equal "
+              f"to its path's fires; card: {card}")
+    return ratios
 
 
 def guard_run(device, batches, label, guarded):
@@ -1734,15 +1950,16 @@ def check_paging(op, label):
           f"resolve to 1 under paging")
 
 
-def _replay_once(device, batches, mid, label, prof=None):
-    """Restore ``mid`` into a fresh operator and replay the rest; returns
-    (wall seconds, fired batches, ``device_health_stats()``)."""
+def _replay_once(device, batches, mid, label, prof=None, options=None):
+    """Restore ``mid`` into a fresh operator (of ``label``'s options, or
+    ``options``) and replay the rest; returns (wall seconds, fired batches,
+    ``device_health_stats()``)."""
     import torch
 
     from flink_tpu_torch.core.batch import RecordBatch, Watermark
 
     i, snap = mid
-    kw = dict(PATHS[label])
+    kw = dict(PATHS[label] if options is None else options)
     if label in PAGED_REPLAY_CAPACITY:
         kw["paging"] = dict(kw["paging"],
                             capacity=PAGED_REPLAY_CAPACITY[label])
@@ -2009,9 +2226,10 @@ def main() -> None:
         check(mid is not None, f"{label}: no mid-run snapshot")
         mids[label] = mid
         plain = [b for _, b in fires[label]]
-        if label in GUARD_AB:
+        if label in GUARD_AB or label in MESH_TWIN \
+                or label in MESH_TWIN.values():
             # the fires the A/B runs are held to
-            ab_want[label] = digests(plain)
+            ab_want[label] = digest_fn(label)(plain)
         if label == "path 8":
             report_auto(numbers[label]["lane"])
             if numbers[label]["lane"]["emit_tier"] == "device":
@@ -2052,10 +2270,14 @@ def main() -> None:
             base = FAULTS[label]["base"]
             check_fault_path(label, plain, numbers[label], fires[base],
                              numbers[base], cells)
+        if label in MESH_TWIN:
+            check_mesh_path(label, fires, mids, numbers)
         if label in FAULTS and label not in PAGED_PATHS:
             fault_replays(device, batches, mid, after, label)
         else:
             replays[label] = replay(device, batches, mid, after, label)
+        if label == "path 15":
+            rescale_replays(device, batches, mid, after, label)
         if label in PIPELINED:
             check(replays[label] == replays[PIPELINED[label]],
                   f"{label}: its replay differs from {PIPELINED[label]}'s")
@@ -2067,6 +2289,7 @@ def main() -> None:
                   | {PAGED_PATHS.get(k) for k in rest}
                   | {PIPELINED.get(k) for k in rest}
                   | {FAULTS[k]["base"] for k in rest if k in FAULTS}
+                  | {MESH_TWIN.get(k) for k in rest}
                   | ({"path 5"} if "path 6" in rest else set()))
         for done in [k for k in fires if k not in needed]:
             del fires[done]
@@ -2074,6 +2297,7 @@ def main() -> None:
     del fires, mids
     pipeline_ab(device, "path 9", "path 3", ab_want["path 3"])
     guard_ab(device, batches, ab_want)
+    mesh_ab(device, batches, ab_want, card)
     healer_phase()
     for label, twin in TWIN.items():
         a, b = numbers[label], numbers[twin]
@@ -2156,6 +2380,9 @@ def main() -> None:
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
     check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")
+    check(launches["path 14"]["probe"] > 0
+          and launches["path 14"]["scatter_fold"] > 0,
+          "path 14: no probe or scatter_fold launch")
     # path 8's probe launches come from the device-probe calibration, which
     # runs where the probe is eligible: the host tier, as auto picks on a
     # card

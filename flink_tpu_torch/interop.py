@@ -9,8 +9,11 @@ JAX operator's mirror-sourced snapshot):
     panes int64[m], counts int32[n, m], leaves [f32[n, m], ...], leaf_schema
 
 so :func:`snapshot_from_jax` and :func:`snapshot_to_jax` mostly validate and
-fix dtypes.  Snapshot features this slice does not carry (sharded slices,
-count-trigger baselines, incremental increments, object keys) are refused.
+fix dtypes.  A mesh snapshot's per-shard slices (``shard_slices`` with its
+``shard_layout`` manifest, ``state/shard_layout.py``) cross over as slices,
+each slice's arrays fixed like the dense ones.  Snapshot features this slice
+does not carry (count-trigger baselines, incremental increments, object
+keys) are refused.
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ from typing import Any, Dict
 
 import numpy as np
 
+from flink_tpu_torch.state.shard_layout import (LAYOUT_KEY, SLICES_KEY,
+                                                densify_keyed_snapshot)
+
 _SCALARS = ("pane_base", "max_pane", "last_fired_window", "watermark",
             "late_dropped", "P")
-_REFUSED = ("shard_slices", "shard_layout", "count_baselines",
-            "value_baselines", "__increment__")
+_REFUSED = ("count_baselines", "value_baselines", "__increment__")
 
 
 def _optional_int(v):
@@ -48,6 +53,20 @@ def _normalize(snap: Dict[str, Any], source: str) -> Dict[str, Any]:
         out["key_index"] = {"reverse": np.ascontiguousarray(
             snap["key_index"]["reverse"], np.int64)}
         out["key_index_kind"] = "KeyIndex"
+    if SLICES_KEY in snap:
+        # validate the slices as the dense state they tile, then carry them
+        dense = _normalize(densify_keyed_snapshot(snap), source)
+        out["panes"] = dense["panes"]
+        out["leaf_schema"] = dense["leaf_schema"]
+        out[SLICES_KEY] = [
+            {"shard": int(s["shard"]),
+             "row_range": tuple(int(r) for r in s["row_range"]),
+             "key_groups": tuple(int(g) for g in s["key_groups"]),
+             "counts": np.ascontiguousarray(s["counts"], np.int32),
+             "leaves": [np.ascontiguousarray(l) for l in s["leaves"]]}
+            for s in snap[SLICES_KEY]]
+        out[LAYOUT_KEY] = {k: int(v) for k, v in snap[LAYOUT_KEY].items()}
+        return out
     if "leaves" in snap:
         panes = np.ascontiguousarray(snap["panes"], np.int64)
         counts = np.ascontiguousarray(snap["counts"], np.int32)

@@ -85,7 +85,17 @@ event-time, tumbling windowed aggregate with
   its host tier mid-job (the device tier downloads its ring into a host
   value mirror under a bounded salvage), an OOM on a paged operator forces
   a page-out and retries, and after a heal the state goes back on the card
-  at the next ``prepare_snapshot_pre_barrier``.
+  at the next ``prepare_snapshot_pre_barrier``;
+- **sharded state** (``sharding=state_sharding(mesh)``, ``parallel/``):
+  the ``[K, P]`` rings are kept as D row blocks ``[K/D, P]``, block ``d``
+  on ``mesh.devices[d]`` (K rounded up to a multiple of D), reached through
+  a few seams: :meth:`_row_blocks` for every whole-ring read or write
+  (columns, clears, growth, refresh, restore), per-block versions of the
+  hot writes, and the full-capacity fire :meth:`_fire_step` for the
+  unpaged device tier, which keeps no emit mirror.  This class alone is
+  JAX's placement-only operator (every block folds the rows of its range);
+  ``parallel/mesh_runtime.MeshWindowAggOperator`` adds the record exchange,
+  the sharded host tier, paging and degrade, and sliced snapshots.
 
 Where JAX donated buffers to a jitted step, this port updates the same
 tensors in place.  Batches are not padded: torch needs no static shapes, so
@@ -106,6 +116,7 @@ Options of the JAX operator that belong to later slices raise
 from __future__ import annotations
 
 import contextlib
+import math
 import queue
 import threading
 import time
@@ -142,13 +153,15 @@ from flink_tpu_torch.state.keyindex import KeyIndex, NativeKeyIndex
 from flink_tpu_torch.state.native_mirror import (NativeWindowMirror,
                                                  calibrated_shards, ineligible)
 from flink_tpu_torch.state.paging import DevicePager, identity_grid
+from flink_tpu_torch.state.redistribute import (merge_keyed_snapshots,
+                                                split_keyed_snapshot)
+from flink_tpu_torch.state.shard_layout import densify_keyed_snapshot
 from flink_tpu_torch.utils import transport
 from flink_tpu_torch.windowing.assigners import WindowAssigner
 from flink_tpu_torch.windowing.triggers import EventTimeTrigger, Trigger
 
 #: what this slice leaves out, and the later slice that brings it
 _LATER = {
-    "sharding": "sharded state comes with the multi-GPU mesh slice",
     "count": "count triggers come with the count-window slice",
     "late_output": "late side outputs come with the runtime-stack slice",
     "incremental": "incremental snapshots come with the checkpoint slice",
@@ -318,6 +331,23 @@ class _Staging:
         return self.flat.numpy()[:B]
 
 
+class _EventSet:
+    """The fence of a dispatch that launched on several cards: one CUDA
+    event per card, with an event's ``query``/``synchronize``."""
+
+    __slots__ = ("events",)
+
+    def __init__(self, events):
+        self.events = tuple(events)
+
+    def query(self) -> bool:
+        return all(e.query() for e in self.events)
+
+    def synchronize(self) -> None:
+        for e in self.events:
+            e.synchronize()
+
+
 class _PhaseTimer:
     """Accumulates host wall time into a dict entry (phase breakdown)."""
 
@@ -343,6 +373,18 @@ class WindowAggOperator(StreamOperator):
     The constructor takes the JAX operator's parameter names, so one set of
     keyword arguments builds either; ``max_batch`` is accepted and unused
     (as it is there), ``device`` is the port's own."""
+
+    #: sharded-state capabilities, overridden by the mesh subclass: with
+    #: ``sharding`` set this class is placement only (no host tier, no
+    #: paging, no degrade); the mesh operator runs all three per shard
+    _SHARDED_HOST_TIER = False
+    _SHARDED_PAGING = False
+    _SHARDED_DEGRADE = False
+    #: the one-step lane over a super-batch (:meth:`_fused_flush_scan`);
+    #: the mesh stages through the concatenated host pass instead
+    _FUSED_SCAN = True
+    #: the row fields of a keyed snapshot (rescale split and merge)
+    ROW_FIELDS = ("leaves", "counts")
 
     def __init__(
         self,
@@ -381,6 +423,9 @@ class WindowAggOperator(StreamOperator):
         if paging is not None:
             # the JAX operator's checks, before this slice's refusals: the
             # same configurations raise the same ValueErrors
+            if sharding is not None and not self._SHARDED_PAGING:
+                raise ValueError("paging requires unsharded state (shard "
+                                 "first, page within each shard)")
             if trigger.fires_on_count or not trigger.fires_on_time:
                 raise ValueError("paging requires time-triggered time "
                                  "windows (no count triggers/GlobalWindows)")
@@ -390,7 +435,6 @@ class WindowAggOperator(StreamOperator):
                 raise ValueError("paging pins the device emit tier (the "
                                  "host mirror is unbounded host state)")
         refusals = [
-            ("sharding", sharding is not None),
             ("count", trigger.fires_on_count),
             ("late_output", late_output_tag is not None),
             ("queryable", queryable is not None),
@@ -400,12 +444,21 @@ class WindowAggOperator(StreamOperator):
         for what, refused in refusals:
             if refused:
                 raise _later(what)
+        if sharding is not None:
+            # sharded state lives on the mesh; the operator's own device
+            # (the probe table, uploads before routing) is position 0
+            home = sharding.mesh.devices[0]
+            if device is not None and resolve_device(device) != home:
+                raise ValueError(f"device={device!r} but the mesh starts at "
+                                 f"{home}")
+            device = home
         self.device = resolve_device(device)
         # ---- the emit tier: "auto" picks the host value mirror exactly
         # when the aggregate has numpy twins, fires are time-triggered and
         # the state lives on a card (on the CPU there is no transfer to
         # save), as JAX picks it off ``jax.default_backend()``
-        host_capable = agg.supports_host_emit() and trigger.fires_on_time
+        host_capable = (agg.supports_host_emit() and trigger.fires_on_time
+                        and (sharding is None or self._SHARDED_HOST_TIER))
         if emit_tier == "auto":
             emit_tier = ("host" if host_capable and self.device.type != "cpu"
                          else "device")
@@ -518,6 +571,10 @@ class WindowAggOperator(StreamOperator):
         #: per-phase host wall ns and transfer bytes
         self.phase_ns: Dict[str, int] = {}
         self.phase_bytes: Dict[str, int] = {}
+        #: per-shard phase ns: phase -> int64 [shards], filled when the C
+        #: pass runs sharded with a timing buffer (the mesh's per-shard
+        #: probe breakdown; empty otherwise)
+        self.phase_shard_ns: Dict[str, np.ndarray] = {}
 
         # ring geometry — P must exceed the live pane span
         self._P = _next_pow2(max(initial_panes, 2 * assigner.panes_per_window))
@@ -525,6 +582,12 @@ class WindowAggOperator(StreamOperator):
         # with key cardinality; cold keys page out instead
         self._K = _next_pow2(paging.capacity if paging is not None
                              else initial_key_capacity)
+        #: the placement of the state (None: one ring on ``device``)
+        self.sharding = sharding
+        if sharding is not None:
+            # even blocks: K rounds up to lcm(K, D); doubling keeps it
+            nsh = sharding.mesh.size
+            self._K = self._K * nsh // math.gcd(self._K, nsh)
         #: cold-key paging (``state/paging.py``): the ring is a cache of the
         #: hot keys' rows, and the device tier's slots are ring rows
         self._pager: Optional[DevicePager] = (
@@ -581,14 +644,123 @@ class WindowAggOperator(StreamOperator):
 
     # ------------------------------------------------------------------ state
     def _alloc(self, K: int, P: int):
-        leaves = tuple(
-            torch.full((K, P) + tuple(shape), np.asarray(init).item(),
-                       dtype=torch_dtype(dtype), device=self.device)
-            for init, shape, dtype in zip(self.spec.leaf_inits,
-                                          self.spec.leaf_shapes,
-                                          self.spec.leaf_dtypes))
-        counts = torch.zeros((K, P), dtype=torch.int32, device=self.device)
-        return leaves, counts
+        return self._new_ring(K, P, self.spec.leaf_inits,
+                              self.spec.leaf_dtypes, self.spec.leaf_shapes)
+
+    def _state_devices(self) -> List[torch.device]:
+        """Each device that holds state, once."""
+        return ([self.device] if self.sharding is None
+                else self.sharding.mesh.distinct_devices())
+
+    def _new_ring(self, K: int, P: int, inits, dtypes, shapes):
+        """A fresh ``[K, P, *shape]`` ring per leaf (at its identity) and an
+        int32 ``[K, P]`` count ring; with sharded state each is a list of D
+        ``[K/D, P]`` row blocks, block ``d`` on the mesh's ``d``-th device
+        (then ``leaves[j][d]`` is leaf ``j``'s block ``d``)."""
+        def ring(shape, fill, dtype, rows, dev):
+            return torch.full((rows, P) + tuple(shape), fill,
+                              dtype=torch_dtype(dtype), device=dev)
+        if self.sharding is None:
+            return (tuple(ring(shape, np.asarray(init).item(), dtype, K,
+                               self.device)
+                          for init, shape, dtype in zip(inits, shapes,
+                                                        dtypes)),
+                    ring((), 0, np.int32, K, self.device))
+        devices = self.sharding.mesh.devices
+        kd = K // len(devices)
+        return (tuple([ring(shape, np.asarray(init).item(), dtype, kd, dev)
+                       for dev in devices]
+                      for init, shape, dtype in zip(inits, shapes, dtypes)),
+                [ring((), 0, np.int32, kd, dev) for dev in devices])
+
+    @staticmethod
+    def _row_blocks(leaves, counts) -> list:
+        """(first row, leaf blocks, count block) of each row block of a
+        ring: the ring itself, or one block per mesh position when the
+        state is sharded."""
+        if not isinstance(counts, list):
+            return [(0, tuple(leaves), counts)]
+        kd = counts[0].shape[0]
+        return [(d * kd, tuple(l[d] for l in leaves), c)
+                for d, c in enumerate(counts)]
+
+    @staticmethod
+    def _ring_shape(counts) -> tuple:
+        """(K, P) of a ring (K: the rows of every block)."""
+        if isinstance(counts, list):
+            return sum(c.shape[0] for c in counts), counts[0].shape[1]
+        return tuple(counts.shape)
+
+    @staticmethod
+    def _on_device(dev: torch.device):
+        """``dev`` as the calling thread's current CUDA device (a no-op on
+        the CPU)."""
+        return (torch.cuda.device(dev) if dev.type == "cuda"
+                else contextlib.nullcontext())
+
+    def _ring_columns(self, leaves, counts, pane_slots: np.ndarray,
+                      rows: int):
+        """Download columns ``pane_slots`` of a ring's first ``rows`` rows:
+        counts ``[rows, m]`` and one ``[rows, m, *leaf]`` array per leaf,
+        block by block."""
+        cnt, lvs = [], [[] for _ in leaves]
+        for lo, lb, cb in self._row_blocks(leaves, counts):
+            r = min(cb.shape[0], rows - lo)
+            if r <= 0 and cnt:
+                break
+            s = torch.from_numpy(np.asarray(pane_slots, np.int64)).to(
+                cb.device)
+            cnt.append(cb[:max(r, 0)].index_select(1, s).cpu().numpy())
+            for acc, l in zip(lvs, lb):
+                acc.append(l[:max(r, 0)].index_select(1, s).cpu().numpy())
+
+        def cat(parts):
+            return parts[0] if len(parts) == 1 else np.concatenate(parts)
+        return cat(cnt), [cat(p) for p in lvs]
+
+    def _set_columns(self, leaves, counts, pane_slots: np.ndarray,
+                     counts_np: np.ndarray, leaves_np) -> None:
+        """Set columns ``pane_slots`` of a ring's first ``counts_np.shape[0]``
+        rows from dense host columns (counts ``[rows, m]``; each leaf's
+        first rows), in place, block by block."""
+        rows = counts_np.shape[0]
+        for lo, lb, cb in self._row_blocks(leaves, counts):
+            r = min(cb.shape[0], rows - lo)
+            if r <= 0:
+                break
+            s = torch.from_numpy(np.asarray(pane_slots, np.int64)).to(
+                cb.device)
+            for l, src in zip(lb, leaves_np):
+                l[:r, s] = torch.from_numpy(
+                    np.ascontiguousarray(src[lo:lo + r])).to(cb.device,
+                                                            l.dtype)
+            cb[:r, s] = torch.from_numpy(
+                np.ascontiguousarray(counts_np[lo:lo + r], np.int32)).to(
+                    cb.device)
+
+    def _clear_columns(self, leaves, counts, pane_slots: torch.Tensor,
+                       inits) -> None:
+        """Reset ring columns ``pane_slots`` to identity, in place."""
+        for _, lb, cb in self._row_blocks(leaves, counts):
+            s = pane_slots.to(cb.device)
+            for l, init in zip(lb, inits):
+                l[:, s] = init
+            cb[:, s] = 0
+
+    def _copy_rows(self, src_leaves, src_counts, dst_leaves,
+                   dst_counts) -> None:
+        """Copy every row of a ring into the same global rows of a larger
+        one (key growth: with sharded state the block boundaries move)."""
+        src = self._row_blocks(src_leaves, src_counts)
+        for dlo, dl, dc in self._row_blocks(dst_leaves, dst_counts):
+            for slo, sl, sc in src:
+                a = max(dlo, slo)
+                b = min(dlo + dc.shape[0], slo + sc.shape[0])
+                if a >= b:
+                    continue
+                for f, o in zip(dl, sl):
+                    f[a - dlo:b - dlo] = o[a - slo:b - slo].to(dc.device)
+                dc[a - dlo:b - dlo] = sc[a - slo:b - slo].to(dc.device)
 
     def _ensure_alloc(self):
         if self._leaves is None:
@@ -635,17 +807,43 @@ class WindowAggOperator(StreamOperator):
             self._nm_shards = self.native_shards or calibrated_shards()
 
     def _native_probe_update(self, keys, panes, values, flat_out=None,
-                             shards: Optional[int] = None):
+                             super_pass: bool = False):
         """The C pass over a block of rows: key inserts (numbered by first
         occurrence) and the mirror fold; with ``flat_out`` also the device
-        scatter ids ``slot * P + pane % P``.  Returns the rows' slots.
-        ``shards`` defaults to the per-batch count."""
+        scatter ids ``slot * P + pane % P``.  Returns the rows' slots.  Its
+        shards are the per-batch ones (:meth:`_probe_shards`), or a
+        super-batch's (``super_pass``); per-shard wall times, where the
+        shards report them, add to ``phase_shard_ns["probe_mirror"]``."""
         lifted = [np.asarray(l)
                   for l in tree_leaves(self.agg.host_lift(values))]
-        return self._nm.probe_update(
+        shards, shard_div, shard_ns = (self._fused_super_shards()
+                                       if super_pass
+                                       else self._probe_shards())
+        slots = self._nm.probe_update(
             keys, panes, lifted,
             pane_mod=self._P if flat_out is not None else 0,
-            flat_out=flat_out, shards=shards or self._nm_shards)
+            flat_out=flat_out, shards=shards, shard_div=shard_div,
+            shard_ns=shard_ns)
+        self._record_shard_ns("probe_mirror", shard_ns)
+        return slots
+
+    def _probe_shards(self):
+        """(shards, shard_div, shard_ns) of the C pass: the shard count, the
+        contiguous-range ownership divisor (0: ``slot % shards`` classes)
+        and an optional int64 per-shard timing buffer.  The mesh aligns
+        them with its blocks."""
+        return self._nm_shards, 0, None
+
+    def _record_shard_ns(self, phase: str, shard_ns) -> None:
+        if shard_ns is None:
+            return
+        acc = self.phase_shard_ns.get(phase)
+        if acc is None or acc.size < shard_ns.size:
+            grown = np.zeros(shard_ns.size, np.int64)
+            if acc is not None:
+                grown[:acc.size] = acc
+            acc = self.phase_shard_ns[phase] = grown
+        acc[:shard_ns.size] += shard_ns
 
     def reset_state(self) -> None:
         """Drop all keyed state and time progress (the key index, its C
@@ -671,6 +869,7 @@ class WindowAggOperator(StreamOperator):
         self.late_dropped = 0
         self.phase_ns = {}
         self.phase_bytes = {}
+        self.phase_shard_ns = {}
         self._fused_counters = {k: 0 for k in self._fused_counters}
         self._hot_dispatches = 0
         self._device_stale = False
@@ -746,14 +945,14 @@ class WindowAggOperator(StreamOperator):
         i64 values, int32 counts): warm-row folds carry exactly the
         precision the host mirror fold would have."""
         if self._delta_counts is not None \
-                and tuple(self._delta_counts.shape) == (self._K, self._P):
+                and self._ring_shape(self._delta_counts) == (self._K,
+                                                             self._P):
             return
-        self._delta_leaves = tuple(
-            torch.full((self._K, self._P), np.asarray(init).astype(mdt).item(),
-                       dtype=torch_dtype(mdt), device=self.device)
-            for init, mdt in zip(self.spec.leaf_inits, self._mirror_dtypes))
-        self._delta_counts = torch.zeros((self._K, self._P), dtype=torch.int32,
-                                         device=self.device)
+        self._delta_leaves, self._delta_counts = self._new_ring(
+            self._K, self._P,
+            [np.asarray(init).astype(mdt)
+             for init, mdt in zip(self.spec.leaf_inits, self._mirror_dtypes)],
+            self._mirror_dtypes, [()] * self.spec.num_leaves)
         self._delta_panes = set()
 
     def _flat_state(self, leaves, counts):
@@ -824,10 +1023,10 @@ class WindowAggOperator(StreamOperator):
 
     def _delta_clear_step(self, pane_slots: torch.Tensor) -> None:
         """Reset synced (or expired) delta columns to identity, in place."""
-        for l, init, mdt in zip(self._delta_leaves, self.spec.leaf_inits,
-                                self._mirror_dtypes):
-            l[:, pane_slots] = np.asarray(init).astype(mdt).item()
-        self._delta_counts[:, pane_slots] = 0
+        self._clear_columns(
+            self._delta_leaves, self._delta_counts, pane_slots,
+            [np.asarray(init).astype(mdt).item()
+             for init, mdt in zip(self.spec.leaf_inits, self._mirror_dtypes)])
 
     def _devprobe_sync_mirror(self, panes=None) -> None:
         """Pane-granular mirror catch-up: pull the delta columns of ``panes``
@@ -848,12 +1047,10 @@ class WindowAggOperator(StreamOperator):
             self._delta_panes.difference_update(sync)
             return
         with self._phase("delta_sync"):
-            slots = torch.tensor([p % self._P for p in sync],
-                                 dtype=torch.int64, device=self.device)
-            cnt_np = self._delta_counts[:n].index_select(1, slots).cpu().numpy()
-            sel_np = [l[:n].index_select(1, slots).cpu().numpy()
-                      for l in self._delta_leaves]
-            self._delta_clear_step(slots)
+            slots_np = np.asarray([p % self._P for p in sync], np.int64)
+            cnt_np, sel_np = self._ring_columns(
+                self._delta_leaves, self._delta_counts, slots_np, n)
+            self._delta_clear_step(torch.from_numpy(slots_np).to(self.device))
             self.phase_bytes["delta_d2h"] = (
                 self.phase_bytes.get("delta_d2h", 0) + cnt_np.nbytes
                 + sum(l.nbytes for l in sel_np))
@@ -882,8 +1079,15 @@ class WindowAggOperator(StreamOperator):
         self._ensure_delta()
         if self._dki is None:
             self._dki = DeviceKeyIndex(
-                initial_capacity=max(1 << 16, 2 * self._K), device=self.device)
+                initial_capacity=max(1 << 16, 2 * self._K),
+                device=self._devprobe_table_sharding() or self.device)
         self._dki.ensure_loaded(self.key_index)   # bulk/restore load
+
+    def _devprobe_table_sharding(self):
+        """Placement of the device probe table (None: the operator's
+        device).  The mesh keeps it unsharded too: the probe runs as one
+        plain dispatch on position 0, only the folds ride the exchange."""
+        return None
 
     def _devprobe_dispatch(self, step, keys: np.ndarray, panes: np.ndarray,
                            values, B: int, label: str) -> np.ndarray:
@@ -1007,15 +1211,18 @@ class WindowAggOperator(StreamOperator):
                 self._fused_resolved = calibrated_superbatch()
         return self._fused_resolved
 
-    def _fused_super_shards(self) -> int:
-        """Shard count of the C pass over a concatenated super-batch: with
-        ``native_shards=0``, the larger of the per-batch count and the one
-        measured at super-batch size (:func:`calibrated_super_shards`)."""
-        if self.native_shards:
-            return self._nm_shards
-        if not self._fused_shards:
-            self._fused_shards = calibrated_super_shards()
-        return max(self._nm_shards, self._fused_shards)
+    def _fused_super_shards(self):
+        """(shards, shard_div, shard_ns) of the C pass over a concatenated
+        super-batch: with ``native_shards=0``, the larger of the per-batch
+        count and the one measured at super-batch size
+        (:func:`calibrated_super_shards`); the mesh keeps its block-aligned
+        ranges."""
+        shards, shard_div, shard_ns = self._probe_shards()
+        if shard_div == 0 and self.native_shards == 0:
+            if not self._fused_shards:
+                self._fused_shards = calibrated_super_shards()
+            shards = max(shards, self._fused_shards)
+        return shards, shard_div, shard_ns
 
     def fused_stats(self) -> Dict[str, int]:
         """Fused-lane counters, under JAX's names: batches staged, flushes,
@@ -1104,7 +1311,7 @@ class WindowAggOperator(StreamOperator):
         self._fused_counters["flushes"] += 1
         # a degraded host tier folds the mirror only (deferred semantics)
         sync = "deferred" if self._degraded else self.device_sync_mode
-        if len(st) > 1 and self._devprobe_active(sync):
+        if self._FUSED_SCAN and len(st) > 1 and self._devprobe_active(sync):
             self._fused_flush_scan(st)
             return
         if len(st) == 1:
@@ -1224,19 +1431,15 @@ class WindowAggOperator(StreamOperator):
     def _refresh_step(self, live, counts_cols, leaf_cols) -> None:
         """Replace the whole ring in place: identity everywhere, then the
         live panes' columns (``[rows, len(live)]``) at their ring slots."""
-        for l, init in zip(self._leaves, self.spec.leaf_inits):
-            l.fill_(np.asarray(init).item())
-        self._counts.zero_()
+        for _, lb, cb in self._row_blocks(self._leaves, self._counts):
+            for l, init in zip(lb, self.spec.leaf_inits):
+                l.fill_(np.asarray(init).item())
+            cb.zero_()
         if not live:
             return
-        rows = counts_cols.shape[0]
-        slots = torch.from_numpy(np.asarray(live, np.int64) % self._P).to(
-            self.device)
-        for l, col in zip(self._leaves, leaf_cols):
-            l[:rows, slots] = torch.from_numpy(np.ascontiguousarray(col)).to(
-                self.device, l.dtype)
-        self._counts[:rows, slots] = torch.from_numpy(counts_cols).to(
-            self.device)
+        self._set_columns(self._leaves, self._counts,
+                          np.asarray(live, np.int64) % self._P, counts_cols,
+                          leaf_cols)
 
     # ---------------------------------------------------------- emit mirror
     def _mirror_mark(self, pane: int, slots: np.ndarray) -> None:
@@ -1390,6 +1593,8 @@ class WindowAggOperator(StreamOperator):
         n = self.key_index.num_keys if self.key_index else 0
         for p in range(self.pane_base, (self.max_pane or 0) + 1):
             slot = int(p) % self._P
+            dev_counts, dev_leaves = self._ring_columns(
+                self._leaves, self._counts, np.asarray([slot]), n)
             if self._nm is not None:
                 _ex, cnts, lvs = self._nm.export_pane(p, n)
                 host = [cnts] + lvs
@@ -1397,12 +1602,10 @@ class WindowAggOperator(StreamOperator):
                 host = self._vmirror.get(p)
             host_counts = (host[0][:n] if host is not None
                            else np.zeros(n, np.int64))
-            if not np.array_equal(self._counts[:n, slot].cpu().numpy(),
-                                  host_counts):
+            if not np.array_equal(dev_counts[:, 0], host_counts):
                 return False
             for j in range(self.spec.num_leaves):
-                dev = self._leaves[j][:n, slot].cpu().numpy().astype(
-                    np.float64)
+                dev = dev_leaves[j][:, 0].astype(np.float64)
                 hst = (np.asarray(host[j + 1][:n], np.float64)
                        if host is not None
                        else np.broadcast_to(np.asarray(
@@ -1414,8 +1617,16 @@ class WindowAggOperator(StreamOperator):
         return True
 
     # ------------------------------------------------------------- growth
+    def _round_key_capacity(self, needed: int) -> int:
+        """The key capacity for ``needed`` keys: powers of two from the
+        current one; the mesh strengthens it (a multiple of D).  Paged
+        state never grows: overflow pages out."""
+        if self._pager is not None:
+            return self._K
+        return _next_pow2(needed, self._K)
+
     def _grow_keys(self, needed: int):
-        newK = _next_pow2(needed, self._K)
+        newK = self._round_key_capacity(needed)
         if newK == self._K and self._leaves is not None:
             return
         old_leaves, old_counts = self._leaves, self._counts
@@ -1426,10 +1637,7 @@ class WindowAggOperator(StreamOperator):
             self._vmirror_pane(p)
         fresh, fresh_counts = self._alloc(self._K, self._P)
         if old_leaves is not None:
-            n = old_counts.shape[0]
-            for f, o in zip(fresh, old_leaves):
-                f[:n] = o
-            fresh_counts[:n] = old_counts
+            self._copy_rows(old_leaves, old_counts, fresh, fresh_counts)
         self._leaves, self._counts = fresh, fresh_counts
 
     def _grow_panes(self, span: int):
@@ -1446,11 +1654,15 @@ class WindowAggOperator(StreamOperator):
         if old_leaves is not None and self.pane_base is not None:
             panes = np.arange(self.pane_base, self.max_pane + 1,
                               dtype=np.int64)
-            src = torch.from_numpy(panes % oldP).to(self.device)
-            dst = torch.from_numpy(panes % newP).to(self.device)
-            for f, o in zip(fresh, old_leaves):
-                f[:, dst] = o[:, src]
-            fresh_counts[:, dst] = old_counts[:, src]
+            src = torch.from_numpy(panes % oldP)
+            dst = torch.from_numpy(panes % newP)
+            for (_, fl, fc), (_, ol, oc) in zip(
+                    self._row_blocks(fresh, fresh_counts),
+                    self._row_blocks(old_leaves, old_counts)):
+                s, t = src.to(fc.device), dst.to(fc.device)
+                for f, o in zip(fl, ol):
+                    f[:, t] = o[:, s]
+                fc[:, t] = oc[:, s]
         self._leaves, self._counts = fresh, fresh_counts
 
     def _grow_panes_guarded(self, span: int) -> None:
@@ -1503,19 +1715,49 @@ class WindowAggOperator(StreamOperator):
         """One micro-batch fold into the device replica: lifts now and
         returns the write, the ordered fold in place (on the card
         ``csrc/scatter_fold.cu``, which adds each cell's rows in row order).
-        flat_ids in [0, K*P]; K*P is a dropped row."""
+        flat_ids in [0, K*P]; K*P is a dropped row.  With sharded state
+        (placement, no exchange) every block folds the rows of its range,
+        in row order, each on its own device."""
         lifted = tuple(tree_leaves(self.agg.lift(values)))
-        return lambda: ordered_fold_counts(
-            *self._flat_state(self._leaves, self._counts), flat_ids, lifted,
-            self.kinds)
+        if self.sharding is None:
+            return lambda: ordered_fold_counts(
+                *self._flat_state(self._leaves, self._counts), flat_ids,
+                lifted, self.kinds)
+
+        def write():
+            P = self._P
+            for lo, lb, cb in self._row_blocks(self._leaves, self._counts):
+                cells = cb.shape[0] * P
+                with self._on_device(cb.device):
+                    ids = flat_ids.to(cb.device, torch.int64) - lo * P
+                    ids = torch.where((ids >= 0) & (ids < cells), ids, cells)
+                    ordered_fold_counts(*self._flat_state(lb, cb), ids,
+                                        tuple(l.to(cb.device)
+                                              for l in lifted), self.kinds)
+        return write
 
     # ------------------------------------------ device-lane health (guard)
     def _on_card(self):
         """The operator's card as the calling thread's current CUDA device
         (the current device is per host thread; a lane thread starts on
         device 0); a no-op on the CPU."""
-        return (torch.cuda.device(self.device) if self.device.type == "cuda"
-                else contextlib.nullcontext())
+        return self._on_device(self.device)
+
+    def _record_fence(self):
+        """A CUDA event recorded after the launches on every device that
+        holds state (one event, or an :class:`_EventSet` over several
+        cards); None on the CPU."""
+        events = []
+        for dev in self._state_devices():
+            if dev.type != "cuda":
+                continue
+            with self._on_device(dev):
+                ev = torch.cuda.Event()
+                ev.record()
+            events.append(ev)
+        if not events:
+            return None
+        return events[0] if len(events) == 1 else _EventSet(events)
 
     def _guarded(self, label: str, geom: tuple, mb: float,
                  prepare: Callable[[], Callable[[], Any]],
@@ -1540,7 +1782,8 @@ class WindowAggOperator(StreamOperator):
            its fence wait or its prepare wakes when the card comes back,
            as the migration's own download does, and must not write into
            the state that download reads) and sets ``_writing``;
-        4. writes, records the new fence event, clears ``_writing``.
+        4. writes, records the new fence event (one on each card that holds
+           state, :meth:`_record_fence`), clears ``_writing``.
 
         ``geom``: the first dispatch of a site (``label``) after a change of
         K, P, batch rows (pow2) or leaf dtypes gets the compile grace — an
@@ -1572,8 +1815,7 @@ class WindowAggOperator(StreamOperator):
                     self._writing = True
                 out = write()
                 if self.device.type == "cuda":
-                    self._fence = torch.cuda.Event()
-                    self._fence.record()
+                    self._fence = self._record_fence()
                 self._writing = False
                 return out
 
@@ -1651,10 +1893,12 @@ class WindowAggOperator(StreamOperator):
         device tier downloads its live pane ring through the dense
         gid-indexed snapshot path (both pager tiers merged) into the host
         value mirror, then drops its device state.  An aggregate with no
-        host twin re-raises: the task fails and the restart path recovers
-        it.  (JAX also refuses sharded state, count triggers and
+        host twin re-raises, and so does sharded state without the mesh's
+        whole-mesh degrade (``_SHARDED_DEGRADE``): the task fails and the
+        restart path recovers it.  (JAX also refuses count triggers and
         GlobalWindows here; this slice refuses them at construction.)"""
-        if not self.agg.supports_host_emit():
+        if not self.agg.supports_host_emit() or (
+                self.sharding is not None and not self._SHARDED_DEGRADE):
             raise err
         self._quarantine_migrations += 1
         if self.emit_tier == "host":
@@ -1797,8 +2041,7 @@ class WindowAggOperator(StreamOperator):
         with self._tier_lock:
             if epoch != self._tier_epoch:
                 raise DeviceQuarantinedError("re-promotion superseded")
-            if self._pager is None:
-                self._K = _next_pow2(max(n, 1), self._K)
+            self._K = self._round_key_capacity(max(n, 1))
             self._ensure_alloc()
             self._mirror = {}
             if self._pager is not None:
@@ -1815,9 +2058,9 @@ class WindowAggOperator(StreamOperator):
 
     def _clear_panes_step(self, pane_slots: torch.Tensor) -> None:
         """Reset ring columns of expired panes to identity, in place."""
-        for l, init in zip(self._leaves, self.spec.leaf_inits):
-            l[:, pane_slots] = np.asarray(init).item()
-        self._counts[:, pane_slots] = 0
+        self._clear_columns(self._leaves, self._counts, pane_slots,
+                            [np.asarray(i).item()
+                             for i in self.spec.leaf_inits])
 
     def _rows_for(self, idx: np.ndarray, result,
                   window) -> List[StreamElement]:
@@ -1996,10 +2239,8 @@ class WindowAggOperator(StreamOperator):
                     staging = self._staging_acquire(_next_pow2(B, 64),
                                                     np.int32, leaves)
                     flat_out = staging.flat_out(B)
-                self._native_probe_update(
-                    keys, panes, values, flat_out,
-                    shards=self._fused_super_shards() if super_pass
-                    else None)
+                self._native_probe_update(keys, panes, values, flat_out,
+                                          super_pass=super_pass)
         else:
             with self._phase("probe"):
                 slots = self.key_index.lookup_or_insert(keys)
@@ -2041,8 +2282,11 @@ class WindowAggOperator(StreamOperator):
                         self._vmirror_update(slots, panes, values)
                 return
         if self.emit_tier == "device":
-            with self._phase("emit_mirror"):
-                self._mirror_mark_batch(slots, panes)
+            # sharded unpaged state fires at full capacity and keeps no
+            # emit mirror (JAX's); the paged mesh keeps it for its fires
+            if self.sharding is None or self._pager is not None:
+                with self._phase("emit_mirror"):
+                    self._mirror_mark_batch(slots, panes)
         elif self._nm is None:
             with self._phase("mirror"):
                 self._vmirror_update(slots, panes, values)
@@ -2176,6 +2420,11 @@ class WindowAggOperator(StreamOperator):
         with self._phase("fire"):
             if self.emit_tier == "host" or degraded:
                 return self._fire_window_host(window_id, panes)
+            if self.sharding is not None and self._pager is None:
+                # no emit mirror: every block's rows over the window's
+                # panes, unclipped as in JAX
+                return self._fire_window_full(
+                    window_id, np.arange(first, last + 1, dtype=np.int64))
             out = self._fire_window_gather(window_id, panes)
             if self._pager is not None:
                 # spilled keys are first-class in fires: their cells upload
@@ -2184,15 +2433,100 @@ class WindowAggOperator(StreamOperator):
             return out
 
     def _fire_gather_step(self, pane_slots: torch.Tensor,
-                          idx: torch.Tensor):
+                          idx: torch.Tensor, leaves=None):
         """Fire for a host-known emit set: gather the ``idx`` key rows'
-        window panes (``[n, len(panes)]`` cells of every leaf), combine the
-        panes in JAX's pairwise order, ``get_result``."""
+        window panes (``[n, len(panes)]`` cells of every leaf; of
+        ``leaves``, one row block, where given), combine the panes in JAX's
+        pairwise order, ``get_result``."""
         cells = (idx.to(torch.int64).unsqueeze(1) * self._P
                  + pane_slots.unsqueeze(0))
-        sel = tuple(l.view(-1).take(cells) for l in self._leaves)
+        sel = tuple(l.reshape(-1).take(cells)
+                    for l in (self._leaves if leaves is None else leaves))
         combined = combine_along_axis(sel, self.agg.combine_leaves, axis=1)
         return self.agg.get_result(self.spec.unflatten(combined))
+
+    def _fire_gather_blocks(self, panes: np.ndarray, idx: np.ndarray):
+        """:meth:`_fire_gather_step` over sharded state (the paged mesh):
+        each block gathers the emitted rows it holds, on its device; the
+        results come together on the operator's device in ascending row
+        order."""
+        parts = []
+        for lo, lb, cb in self._row_blocks(self._leaves, self._counts):
+            sel = idx[(idx >= lo) & (idx < lo + cb.shape[0])] - lo
+            if not sel.size:
+                continue
+            with self._on_device(cb.device):
+                res = self._fire_gather_step(
+                    torch.from_numpy(panes % self._P).to(cb.device),
+                    self._ids_to_device(sel.astype(np.int32)).to(cb.device),
+                    lb)
+            parts.append([r.to(self.device) for r in tree_leaves(res)])
+        return tree_unflatten(tree_structure(res),
+                              [torch.cat(c) for c in zip(*parts)])
+
+    def _k_active(self) -> int:
+        """Live key rows a full-capacity fire reads (0: all of them).
+        Sharded state reads every row: a slice would break the even split
+        over the blocks."""
+        if self.sharding is not None or self.key_index is None:
+            return 0
+        n = (self._pager.row_high_water if self._pager is not None
+             else self.key_index.num_keys)
+        ka = 4096
+        while ka < n:
+            ka <<= 2
+        return min(ka, self._K)
+
+    def _fire_step(self, pane_slots: np.ndarray, k_active: int):
+        """The full-capacity fire (JAX's, for sharded state without an emit
+        mirror): on each block, on its own device, gather the window's
+        pane columns of the first ``k_active`` rows (0: every row), combine
+        them in JAX's pairwise order, ``get_result``.  Returns one ``(mask,
+        result)`` a block: mask = the rows with data in the window."""
+        out = []
+        for _, lb, cb in self._row_blocks(self._leaves, self._counts):
+            rows = k_active or cb.shape[0]
+            with self._on_device(cb.device):
+                s = torch.from_numpy(pane_slots).to(cb.device)
+                sel = tuple(l[:rows].index_select(1, s) for l in lb)
+                total = cb[:rows].index_select(1, s).sum(dim=1)
+                combined = combine_along_axis(sel, self.agg.combine_leaves,
+                                              axis=1)
+                out.append((total > 0, self.agg.get_result(
+                    self.spec.unflatten(combined))))
+        return out
+
+    def _fire_window_full(self, window_id: int,
+                          panes: np.ndarray) -> List[StreamElement]:
+        """Fire through :meth:`_fire_step` and :meth:`_emit`."""
+        return self._emit(self._fire_step(panes % self._P, self._k_active()),
+                          self.assigner.window_bounds(window_id))
+
+    def _emit(self, blocks, window) -> List[StreamElement]:
+        """Rows of a full-capacity fire, in ascending slot order: each
+        block's mask over its live keys and its results at the masked rows
+        come down (one download each); the keys resolve on the host."""
+        n = self.key_index.num_keys
+        idx, res, structure, lo = [], [], None, 0
+        for mask, result in blocks:
+            rows = min(mask.shape[0], n - lo)
+            if rows > 0:
+                m = mask[:rows]
+                mask_np = m.cpu().numpy()
+                vals = [l[:rows][m].cpu().numpy()
+                        for l in tree_leaves(result)]
+                self.phase_bytes["d2h"] = (self.phase_bytes.get("d2h", 0)
+                                           + mask_np.nbytes
+                                           + sum(v.nbytes for v in vals))
+                idx.append(np.flatnonzero(mask_np) + lo)
+                res.append(vals)
+            structure = tree_structure(result)
+            lo += mask.shape[0]
+        if not idx or not sum(i.size for i in idx):
+            return []
+        out = tree_unflatten(structure, [np.concatenate(c)
+                                         for c in zip(*res)])
+        return self._rows_for(np.concatenate(idx), out, window)
 
     def _fire_window_gather(self, window_id: int,
                             panes: np.ndarray) -> List[StreamElement]:
@@ -2204,9 +2538,12 @@ class WindowAggOperator(StreamOperator):
         idx = self._mirror_emit_idx(panes)
         if idx.size == 0:
             return []
-        pane_slots = torch.from_numpy(panes % self._P).to(self.device)
-        result = self._fire_gather_step(
-            pane_slots, self._ids_to_device(idx.astype(np.int32)))
+        if self.sharding is None:
+            result = self._fire_gather_step(
+                torch.from_numpy(panes % self._P).to(self.device),
+                self._ids_to_device(idx.astype(np.int32)))
+        else:
+            result = self._fire_gather_blocks(panes, idx)
         handle = _fetch_enqueue(tree_leaves(result))
         if self._pager is not None:
             # rows -> global ids NOW: by the time an async fire drains, a
@@ -2285,10 +2622,19 @@ class WindowAggOperator(StreamOperator):
     def _live_panes(self) -> np.ndarray:
         return np.arange(self.pane_base, self.max_pane + 1, dtype=np.int64)
 
-    def _host_ids(self, arr: np.ndarray) -> torch.Tensor:
-        """Row or pane-slot ids for an indexing step on the device."""
+    def _host_ids(self, arr: np.ndarray, device=None) -> torch.Tensor:
+        """Row or pane-slot ids for an indexing step on ``device`` (the
+        operator's by default)."""
         return torch.from_numpy(np.ascontiguousarray(arr, np.int64)).to(
-            self.device)
+            self.device if device is None else device)
+
+    def _rows_by_block(self, rows: np.ndarray):
+        """For each row block holding any of the global ``rows``: (leaf
+        blocks, count block, positions in ``rows``, block-local rows)."""
+        for lo, lb, cb in self._row_blocks(self._leaves, self._counts):
+            sel = np.flatnonzero((rows >= lo) & (rows < lo + cb.shape[0]))
+            if sel.size:
+                yield lb, cb, sel, rows[sel] - lo
 
     def _page_slots(self, gids: np.ndarray) -> np.ndarray:
         """Map global key ids to resident ring rows, evicting cold keys and
@@ -2321,8 +2667,9 @@ class WindowAggOperator(StreamOperator):
             elif recycled:
                 # recycled rows carry the previous tenant's stale cells:
                 # reset them even when nothing was promoted from spill
-                reset_rows(self._leaves, self._counts,
-                           self._host_ids(rows_new), self.spec.leaf_inits)
+                for lb, cb, _sel, local in self._rows_by_block(rows_new):
+                    reset_rows(lb, cb, self._host_ids(local, cb.device),
+                               self.spec.leaf_inits)
         rows = pager.rows(gids)
         self._active_rows = pager.rows(uniq)
         pager.touch(self._active_rows)
@@ -2333,11 +2680,17 @@ class WindowAggOperator(StreamOperator):
         """Download the ``rows x panes`` cell grid (page-out, or a paged
         snapshot's resident rows under ``bytes_key="d2h"``): (counts [V, m],
         leaves [V, m, *leaf]) as numpy."""
-        c, ls = gather_row_pane_columns(self._leaves, self._counts,
-                                        self._host_ids(rows),
-                                        self._host_ids(panes % self._P))
-        counts = c.cpu().numpy()
-        leaves = [l.cpu().numpy() for l in ls]
+        counts = np.empty((rows.size, panes.size), np.int32)
+        leaves = [np.empty((rows.size, panes.size) + tuple(shape), d)
+                  for shape, d in zip(self.spec.leaf_shapes,
+                                      self.spec.leaf_dtypes)]
+        for lb, cb, sel, local in self._rows_by_block(rows):
+            c, ls = gather_row_pane_columns(
+                lb, cb, self._host_ids(local, cb.device),
+                self._host_ids(panes % self._P, cb.device))
+            counts[sel] = c.cpu().numpy()
+            for dst, l in zip(leaves, ls):
+                dst[sel] = l.cpu().numpy()
         self.phase_bytes[bytes_key] = (self.phase_bytes.get(bytes_key, 0)
                                        + counts.nbytes
                                        + sum(l.nbytes for l in leaves))
@@ -2347,14 +2700,17 @@ class WindowAggOperator(StreamOperator):
                  counts_cols: np.ndarray, leaf_cols) -> None:
         """Upload promoted cells into freshly assigned rows (whole rows
         reset first — recycled rows carry the previous tenant's cells)."""
-        cc = torch.from_numpy(counts_cols).to(self.device)
-        lc = [torch.from_numpy(c).to(self.device) for c in leaf_cols]
-        set_row_pane_columns(self._leaves, self._counts, self._host_ids(rows),
-                             self._host_ids(panes % self._P), lc, cc,
-                             self.spec.leaf_inits)
-        self.phase_bytes["h2d_page_in"] = (
-            self.phase_bytes.get("h2d_page_in", 0) + cc.nbytes
-            + sum(l.nbytes for l in lc))
+        for lb, cb, sel, local in self._rows_by_block(rows):
+            cc = torch.from_numpy(np.ascontiguousarray(
+                counts_cols[sel])).to(cb.device)
+            lc = [torch.from_numpy(np.ascontiguousarray(c[sel])).to(
+                cb.device) for c in leaf_cols]
+            set_row_pane_columns(lb, cb, self._host_ids(local, cb.device),
+                                 self._host_ids(panes % self._P, cb.device),
+                                 lc, cc, self.spec.leaf_inits)
+            self.phase_bytes["h2d_page_in"] = (
+                self.phase_bytes.get("h2d_page_in", 0) + cc.nbytes
+                + sum(l.nbytes for l in lc))
 
     def _mirror_bits_rows(self, rows: np.ndarray,
                           panes: np.ndarray) -> np.ndarray:
@@ -2467,13 +2823,8 @@ class WindowAggOperator(StreamOperator):
         host columns (counts ``[rows, m]``; each leaf's first ``rows`` rows),
         in place; on the device tier, mark the cells holding data in the
         emit mirror.  Restores and re-promotion."""
-        rows = counts_np.shape[0]
-        slots = self._host_ids(panes % self._P)
-        for l, src in zip(self._leaves, leaves_np):
-            l[:rows, slots] = torch.from_numpy(
-                np.ascontiguousarray(src[:rows])).to(self.device, l.dtype)
-        self._counts[:rows, slots] = torch.from_numpy(
-            np.ascontiguousarray(counts_np, np.int32)).to(self.device)
+        self._set_columns(self._leaves, self._counts, panes % self._P,
+                          counts_np, leaves_np)
         if self.emit_tier == "device":
             for j, p in enumerate(panes.tolist()):
                 nz = np.flatnonzero(counts_np[:, j] > 0)
@@ -2481,6 +2832,77 @@ class WindowAggOperator(StreamOperator):
                     self._mirror_mark(int(p), nz)
 
     # -------------------------------------------------------------- snapshots
+    @staticmethod
+    def split_snapshot(snap: Dict[str, Any], max_parallelism: int,
+                       new_parallelism: int) -> List[Dict[str, Any]]:
+        """Rescale a snapshot across key-group ranges
+        (``StateAssignmentOperation.reDistributeKeyedStates``); a mesh
+        snapshot's slices are densified first."""
+        snap = densify_keyed_snapshot(snap)
+        if snap.get("count_baselines") or snap.get("value_baselines"):
+            raise _later("count")
+        return split_keyed_snapshot(snap, WindowAggOperator.ROW_FIELDS,
+                                    max_parallelism, new_parallelism)
+
+    @staticmethod
+    def merge_snapshots(snaps: List[Dict[str, Any]]) -> Dict[str, Any]:
+        """Merge the snapshots of one checkpoint's subtasks (scale-down).
+        Their keys are disjoint (key-group partitioned); parts whose pane
+        progress differs (an unaligned checkpoint) are first expanded onto
+        the union pane range, and the merge resumes from the slowest part's
+        watermark and last fired window, as in JAX."""
+        snaps = [densify_keyed_snapshot(s) for s in snaps]
+        if any(s.get("count_baselines") or s.get("value_baselines")
+               for s in snaps):
+            raise _later("count")
+        live = [s for s in snaps if "panes" in s]
+        if live and any(not np.array_equal(s["panes"], live[0]["panes"])
+                        for s in live[1:]):
+            snaps = WindowAggOperator._align_pane_progress(snaps)
+            live = [s for s in snaps if "panes" in s]
+        merged = merge_keyed_snapshots(snaps, WindowAggOperator.ROW_FIELDS)
+        if live:
+            merged["watermark"] = min(s["watermark"] for s in live)
+            lf = [s.get("last_fired_window") for s in live]
+            merged["last_fired_window"] = (None if any(w is None for w in lf)
+                                           else min(lf))
+        return merged
+
+    @staticmethod
+    def _align_pane_progress(snaps: List[Dict[str, Any]]
+                             ) -> List[Dict[str, Any]]:
+        """Expand each part's pane-indexed row fields onto the union pane
+        range (zero cells where a part expired or never reached a pane, as
+        JAX fills them); P grows to cover the union span."""
+        live = [s for s in snaps if "panes" in s]
+        base = min(int(s["pane_base"]) for s in live)
+        top = max(int(s["max_pane"]) for s in live)
+        union = np.arange(base, top + 1, dtype=np.int64)
+        ring = max(int(s.get("P", 2)) for s in live)
+        while ring < len(union):
+            ring <<= 1
+        out = []
+        for s in snaps:
+            if "panes" not in s:
+                out.append(s)
+                continue
+            s2 = dict(s)
+            off = int(s["pane_base"]) - base
+
+            def widen(a):
+                a = np.asarray(a)
+                w = np.zeros((a.shape[0], len(union)) + a.shape[2:], a.dtype)
+                w[:, off:off + a.shape[1]] = a
+                return w
+            s2["counts"] = widen(s["counts"])
+            s2["leaves"] = [widen(l) for l in s["leaves"]]
+            s2["panes"] = union
+            s2["pane_base"] = base
+            s2["max_pane"] = top
+            s2["P"] = ring
+            out.append(s2)
+        return out
+
     def _leaf_schema(self) -> List[Dict[str, str]]:
         return [{"name": n, "dtype": np.dtype(d).name}
                 for n, d in zip(self.spec.leaf_names, self.spec.leaf_dtypes)]
@@ -2537,10 +2959,8 @@ class WindowAggOperator(StreamOperator):
         """The replica's live columns: counts int32 ``[rows, len(panes)]``
         and one ``[rows, len(panes)]`` array per leaf, each downloaded in one
         gather (live keys x live panes)."""
-        slots = torch.from_numpy(panes % self._P).to(self.device)
-        leaves = [l[:rows].index_select(1, slots).cpu().numpy()
-                  for l in self._leaves]
-        counts = self._counts[:rows].index_select(1, slots).cpu().numpy()
+        counts, leaves = self._ring_columns(self._leaves, self._counts,
+                                            panes % self._P, rows)
         self.phase_bytes["d2h"] = (self.phase_bytes.get("d2h", 0)
                                    + counts.nbytes
                                    + sum(l.nbytes for l in leaves))
@@ -2548,8 +2968,11 @@ class WindowAggOperator(StreamOperator):
 
     def restore_state(self, snap: Dict[str, Any]) -> None:
         self.flush_pipeline()
-        for unsupported, what in (("shard_slices", "sharding"),
-                                  ("count_baselines", "count"),
+        # a mesh snapshot's per-shard slices merge into the dense layout:
+        # restore at ANY mesh size (1 included) re-slices by this
+        # operator's layout, not the writer's
+        snap = densify_keyed_snapshot(snap)
+        for unsupported, what in (("count_baselines", "count"),
                                   ("value_baselines", "count"),
                                   ("__increment__", "incremental")):
             if snap.get(unsupported):
@@ -2575,9 +2998,9 @@ class WindowAggOperator(StreamOperator):
             if snap["key_index_kind"] != "KeyIndex":
                 raise _later("object_keys")
             self._bind_key_index(snap["key_index"])
-            if self._pager is None:   # a paged ring stays at its K_cap
-                self._K = _next_pow2(max(self.key_index.num_keys, 1),
-                                     self._K)
+            # (a paged ring stays at its K_cap)
+            self._K = self._round_key_capacity(
+                max(self.key_index.num_keys, 1))
         else:
             self.key_index = None    # no keys yet: the next batch binds
         self._leaves = None

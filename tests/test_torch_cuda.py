@@ -791,3 +791,103 @@ def test_healer_probe_subprocess_sees_the_card():
         pytest.skip("needs an NVIDIA GPU: the probe launches on the card")
     from flink_tpu_torch.runtime import device_health as dh
     assert dh.probe_backend_subprocess(timeout_s=120) is True
+
+
+# ---------------------------------------------------------------------------
+# the key-group mesh on the card
+# ---------------------------------------------------------------------------
+
+def _mesh_run(devices, tier="device", keys_fn=None, n=10, **kw):
+    """The small seeded stream through a ``MeshWindowAggOperator`` over
+    ``devices`` (``["cpu"] * D`` for the CPU twin); fires, the bytes of a
+    mid-run snapshot densified, and the counters."""
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.mesh_runtime import MeshWindowAggOperator
+    from flink_tpu_torch.state.shard_layout import densify_keyed_snapshot
+    rng = np.random.default_rng(11)
+    opts = dict(PINNED, emit_tier=tier,
+                snapshot_source="mirror" if tier == "host" else "device",
+                native_emit=True, native_shards=len(devices))
+    opts.update(kw)
+    op = MeshWindowAggOperator(TumblingEventTimeWindows.of(100),
+                               SumAggregator(), key_column="k",
+                               value_column="v",
+                               mesh=make_mesh(devices=devices), **opts)
+    out, snap = [], None
+    for i in range(n):
+        keys = (keys_fn(rng, i) if keys_fn is not None
+                else rng.integers(0, 1500, 4000).astype(np.int64))
+        vals = rng.random(keys.size).astype(np.float32)
+        ts = i * 50 + np.sort(rng.integers(0, 50, keys.size)).astype(
+            np.int64)
+        out += op.process_batch(RecordBatch({"k": keys, "v": vals},
+                                            timestamps=ts))
+        out += op.process_watermark(Watermark(int(ts.max()) - 1))
+        if i == 5:
+            out += op.prepare_snapshot_pre_barrier()
+            s = densify_keyed_snapshot(op.snapshot_state())
+            snap = (np.asarray(s["counts"]).tobytes(),
+                    [np.asarray(l).tobytes() for l in s["leaves"]])
+    out += op.end_input()
+    assert op.verify_mirror()
+    stats = (op.device_probe_stats(), op.late_dropped, op._K,
+             op.key_index.num_keys)
+    op.close()
+    return out, snap, stats
+
+
+@pytest.mark.parametrize("tier", ["device", "host"])
+def test_mesh_fold_on_four_blocks_of_one_card_equals_the_cpu(cuda_device,
+                                                             tier):
+    """Four shard blocks on one card: every block folds its received rows
+    through ``scatter_fold`` (the host tier's probe through ``probe``), so
+    fires and the snapshot equal the CPU mesh's bit for bit."""
+    folds = sc.ordered_fold_counts.launches
+    probes = dk.probe.launches
+    gpu, gsnap, gstats = _mesh_run([cuda_device] * 4, tier)
+    torch.cuda.synchronize()
+    assert sc.ordered_fold_counts.launches - folds >= 4 * 10
+    if tier == "host":
+        assert dk.probe.launches - probes == 10
+    cpu, csnap, cstats = _mesh_run(["cpu"] * 4, tier)
+    assert gstats == cstats and gsnap == csnap
+    _same_fires(gpu, cpu)
+
+
+def test_mesh_skewed_batch_on_the_card_equals_the_cpu(cuda_device):
+    """One hot key on 40% of the rows: one block takes most of every batch
+    and the bucket capacity grows to hold it."""
+    def skewed(rng, i):
+        keys = rng.integers(0, 1500, 4000).astype(np.int64)
+        keys[rng.random(4000) < 0.4] = 7
+        return keys
+    gpu, gsnap, gstats = _mesh_run([cuda_device] * 4, keys_fn=skewed)
+    cpu, csnap, cstats = _mesh_run(["cpu"] * 4, keys_fn=skewed)
+    assert gstats == cstats and gsnap == csnap
+    _same_fires(gpu, cpu)
+
+
+def test_mesh_growth_across_blocks_on_the_card_equals_the_cpu(cuda_device):
+    """Key growth (1500 keys into an initial capacity of 256 at D = 4):
+    doubling K moves block boundaries, so rows re-home between blocks."""
+    def growing(rng, i):
+        return rng.integers(0, 150 * (i + 1), 4000).astype(np.int64)
+    gpu, gsnap, gstats = _mesh_run([cuda_device] * 4, keys_fn=growing,
+                                   initial_key_capacity=256)
+    cpu, csnap, cstats = _mesh_run(["cpu"] * 4, keys_fn=growing,
+                                   initial_key_capacity=256)
+    assert gstats == cstats and gstats[2] >= 2048
+    assert gsnap == csnap
+    _same_fires(gpu, cpu)
+
+
+def test_mesh_over_two_cards_equals_the_cpu(cuda_device):
+    """Blocks on two distinct cards: the exchange copies across cards, each
+    block's work runs under its card, and the fence waits on both."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    devices = [torch.device("cuda", 0), torch.device("cuda", 1)] * 2
+    gpu, gsnap, gstats = _mesh_run(devices, "host")
+    cpu, csnap, cstats = _mesh_run(["cpu"] * 4, "host")
+    assert gstats == cstats and gsnap == csnap
+    _same_fires(gpu, cpu)

@@ -43,6 +43,7 @@ from flink_tpu_torch.core.functions import RuntimeContext, SumAggregator
 from flink_tpu_torch.interop import snapshot_from_jax, snapshot_to_jax
 from flink_tpu_torch.operators.window_agg import WindowAggOperator
 from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
+from flink_tpu_torch.windowing.triggers import Trigger
 from test_torch_calibration import verdicts  # noqa: F401 — the fixture
 
 RTOL = ATOL = 1e-6
@@ -254,9 +255,15 @@ def test_interop_refuses_what_the_slice_does_not_carry(port_run):
         snapshot_to_jax(snap)
 
 
+class _CountTrigger(Trigger):
+    """A count trigger's declaration (the count-window slice ports one)."""
+
+    fires_on_count = True
+
+
 @pytest.mark.parametrize("kw", [
     {"queryable": "q"},
-    {"sharding": object()},
+    {"trigger": _CountTrigger()},     # sharding is accepted since the mesh
     {"late_output_tag": "late"},
 ])
 def test_later_slices_refuse_honestly(kw):
