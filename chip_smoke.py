@@ -168,6 +168,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    planes) is held to its plain version bit for bit and timed against two
    single-plane calls and the ``index_add_`` route the probe lane ran
    before.
+9g. main paths 18-21 (slice 11), after path 17, over the same stream: path
+   18 is path 5 with ``LambdaReduce(lambda a, b: a + b, 0.0)`` (no scatter
+   kinds: every batch folds through ``scatter_generic``, the stable sort
+   and JAX's segmented scan in torch ops, and no ``scatter_fold``); path 19
+   is path 5 under ``PurgingTrigger.of(CountTrigger.of(2))`` (after every
+   batch the touched pane's counts column comes down and the keys at 2
+   fire and purge); path 20 is ``GlobalWindows`` with
+   ``CountTrigger.of(4, purge=True)`` (``countWindow(4)``) and a sum; path
+   21 is ``KeyedReduceOperator(SumAggregator)`` (every record's running
+   sum comes down).  Each is held (a) to the same operator on the CPU over
+   the first ``SLICE11_CPU_BATCHES`` batches, bit for bit, (b) to a numpy
+   semantics of its own (f64 sums; rtol ``RTOL``, path 21
+   ``REDUCE_RTOL``), (c) to a restore of its mid-run snapshot replayed on
+   the card, bit for bit, twice, the second under ``torch.profiler`` (the
+   device's busy share, its kernels a batch).  Paths 19 and 20 must launch
+   ``scatter_fold``, paths 18 and 21 must not; each is timed against path
+   5.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the kernel line reports each kernel's launches on every
@@ -338,6 +355,23 @@ ORDER = ("path 1", "path 3", "path 2", "path 4", "path 5", "path 6",
          "path 13", "path 14", "path 15", "path 16", "path 17")
 #: device-tier fires against the host tier's f64 mirror
 DEVICE_VS_HOST_RTOL = 1e-5
+#: slice 11's paths, run after path 17 over the same stream: the generic
+#: fold (path 18: path 5 with ``LambdaReduce(a + b)``), count triggers over
+#: tumbling windows (path 19: path 5 under ``PurgingTrigger(CountTrigger(
+#: 2))``) and over GlobalWindows (path 20: ``countWindow(4)``), and the
+#: keyed running reduce (path 21: ``KeyedReduceOperator``)
+SLICE11 = ("path 18", "path 19", "path 20", "path 21")
+COUNT_WINDOW_N = 2      # path 19's threshold
+GLOBAL_COUNT_N = 4      # path 20's threshold
+#: the first batches each slice-11 path also runs on the CPU, its fires
+#: held to the card's bit for bit
+SLICE11_CPU_BATCHES = 10
+#: path 21's running sums (f32, a key's up to a few tens of records
+#: grouped by the scan) against a sequential f64 running sum
+REDUCE_RTOL = 1e-5
+#: the slice-11 paths that fold through scatter_fold (SumAggregator);
+#: paths 18 and 21 launch no hand-written kernel (the scan is torch ops)
+SLICE11_SCATTER = ("path 19", "path 20")
 
 
 def fail(msg: str) -> None:
@@ -2196,6 +2230,263 @@ def pipeline_ab(device, label, ref, want) -> None:
           f"bit-equal to {ref}'s digests")
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the generic fold, count triggers and the keyed reduce
+# ---------------------------------------------------------------------------
+
+def slice11_op(device, label):
+    """The operator of a slice-11 path on ``device``."""
+    import torch
+
+    from flink_tpu_torch.core.functions import (LambdaReduce, RuntimeContext,
+                                                SumAggregator)
+    from flink_tpu_torch.operators.basic import KeyedReduceOperator
+    from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    from flink_tpu_torch.windowing.assigners import (GlobalWindows,
+                                                     TumblingEventTimeWindows)
+    from flink_tpu_torch.windowing.triggers import CountTrigger, PurgingTrigger
+    if label == "path 21":
+        op = KeyedReduceOperator(SumAggregator(torch.float32), key_column="k",
+                                 value_column="v", device=device,
+                                 initial_key_capacity=KEY_CAPACITY)
+    else:
+        tumbling = TumblingEventTimeWindows.of(WINDOW_MS)
+        assigner, agg, trigger = {
+            "path 18": (tumbling, LambdaReduce(lambda a, b: a + b, 0.0),
+                        None),
+            "path 19": (tumbling, SumAggregator(torch.float32),
+                        PurgingTrigger.of(CountTrigger.of(COUNT_WINDOW_N))),
+            "path 20": (GlobalWindows.create(), SumAggregator(torch.float32),
+                        CountTrigger.of(GLOBAL_COUNT_N, purge=True)),
+        }[label]
+        op = WindowAggOperator(assigner, agg, key_column="k",
+                               value_column="v", trigger=trigger,
+                               device=device,
+                               initial_key_capacity=KEY_CAPACITY,
+                               **PATHS["path 5"])
+    op.open(RuntimeContext())
+    return op
+
+
+def slice11_drive(op, batches, start=0, snap_at=None, fire_ms=None):
+    """Feed ``batches[start:]`` (a watermark after each) and end the input;
+    returns every output as (call, batch) and the snapshot taken after
+    batch ``snap_at``.  ``fire_ms`` collects the host ms of each call
+    whose watermark or count fired."""
+    from flink_tpu_torch.core.batch import RecordBatch, Watermark
+    fired, snap = [], None
+    for i, (keys, vals, ts) in enumerate(batches):
+        if i < start:
+            continue
+        f0 = time.perf_counter()
+        out = op.process_batch(RecordBatch({"k": keys, "v": vals},
+                                           timestamps=ts))
+        f1 = time.perf_counter()
+        wm = op.process_watermark(Watermark(int(ts.max()) - 1))
+        if fire_ms is not None and (out or wm):
+            # the call that emitted: the watermark's (time fires), else
+            # the batch's (count fires; the keyed reduce's every batch,
+            # its fold included)
+            fire_ms.append(((time.perf_counter() - f1) if wm
+                            else (f1 - f0)) * 1e3)
+        out += wm
+        if i == snap_at:
+            out += op.prepare_snapshot_pre_barrier()
+            snap = op.snapshot_state()
+        fired += [(i, b) for b in out]
+    fired += [(len(batches), b) for b in op.end_input()]
+    return fired, snap
+
+
+def slice11_digests(fired):
+    """Per output: the call, then the bytes of its keys, results, window
+    start and timestamps (the bit-for-bit view)."""
+    def col(b, c):
+        return np.asarray(b.column(c)).tobytes() if c in b.columns else b""
+    return [(i, col(b, "k"), col(b, "result"), col(b, "window_start"),
+             b"" if b.timestamps is None
+             else np.asarray(b.timestamps).tobytes())
+            for i, b in fired]
+
+
+def count_reference(batches, label):
+    """Independent numpy semantics of paths 19 and 20: per (key, window)
+    counts and f64 sums; after each batch, for each touched window in
+    order, every key at or over the threshold fires its sum and is purged.
+    A tumbling window retires when the watermark passes its end; at the end
+    of input the windows still live fire every key that holds records (a
+    time fire, as the window operator's ``end_input`` does), GlobalWindows
+    nothing.  Returns [(call, window start, keys ascending, f64 sums)]."""
+    glob = label == "path 20"
+    thr = GLOBAL_COUNT_N if glob else COUNT_WINDOW_N
+    state, out = {}, []
+    for i, (keys, vals, ts) in enumerate(batches):
+        wins = (np.zeros(len(keys), np.int64) if glob
+                else ts // WINDOW_MS)
+        for w in np.unique(wins).tolist():
+            m = wins == w
+            sums, cnt = state.setdefault(w, (np.zeros(N_KEYS),
+                                             np.zeros(N_KEYS, np.int64)))
+            sums += np.bincount(keys[m], weights=vals[m].astype(np.float64),
+                                minlength=N_KEYS)
+            cnt += np.bincount(keys[m], minlength=N_KEYS)
+            fired = np.flatnonzero(cnt >= thr)
+            if fired.size:
+                start = -(2 ** 63) if glob else w * WINDOW_MS
+                out.append((i, start, fired, sums[fired].copy()))
+                sums[fired] = 0
+                cnt[fired] = 0
+        if not glob:
+            wm = int(ts.max()) - 1
+            for w in [w for w in state if (w + 1) * WINDOW_MS - 1 <= wm]:
+                del state[w]
+    if not glob:
+        for w in sorted(state):
+            sums, cnt = state[w]
+            live = np.flatnonzero(cnt > 0)
+            if live.size:
+                out.append((len(batches), w * WINDOW_MS, live, sums[live]))
+    return out
+
+
+def reduce_reference(batches):
+    """Independent numpy semantics of path 21: every record's running f64
+    sum of its key, in record order."""
+    totals = np.zeros(N_KEYS)
+    out = []
+    for keys, vals, _ in batches:
+        order = np.argsort(keys, kind="stable")
+        k, v = keys[order], vals[order].astype(np.float64)
+        first = np.r_[True, k[1:] != k[:-1]]
+        cs = np.cumsum(v)
+        base = np.maximum.accumulate(np.where(first, np.arange(len(k)), 0))
+        run = cs - cs[base] + v[base] + totals[k]
+        res = np.empty(len(k))
+        res[order] = run
+        last = np.r_[k[1:] != k[:-1], True]
+        totals[k[last]] = run[last]
+        out.append(res)
+    return out
+
+
+def check_slice11_reference(label, fired, batches, expect):
+    """(b): the path's outputs against the numpy semantics."""
+    plain = [b for _, b in fired]
+    if label == "path 18":
+        check_fires(plain, expect, label)
+        return f"every window's keys and sums (rtol {RTOL})"
+    if label == "path 21":
+        want = reduce_reference(batches)
+        check(len(plain) == len(want), f"{label}: {len(plain)} outputs")
+        for i, (b, w) in enumerate(zip(plain, want)):
+            res = np.asarray(b.column("result"))
+            check(res.dtype == np.float32
+                  and np.allclose(res, w, rtol=REDUCE_RTOL, atol=0),
+                  f"{label} batch {i}: running sums differ from the f64 "
+                  f"reference (max abs {np.max(np.abs(res - w))})")
+        return f"every record's running sum (rtol {REDUCE_RTOL})"
+    want = count_reference(batches, label)
+    check(len(fired) == len(want), f"{label}: {len(fired)} fires, the "
+          f"reference {len(want)}")
+    for (i, b), (wi, ws, wkeys, wsums) in zip(fired, want):
+        keys = np.asarray(b.column("k"))
+        order = np.argsort(keys, kind="stable")
+        res = np.asarray(b.column("result"))[order]
+        check(i == wi and int(b.column("window_start")[0]) == ws
+              and np.array_equal(keys[order], wkeys)
+              and np.allclose(res, wsums, rtol=RTOL, atol=0),
+              f"{label} call {i}: the fire differs from the reference's "
+              f"(call {wi}, {len(keys)} vs {len(wkeys)} keys)")
+    return (f"{len(want)} fires: the calls, windows, keys and sums "
+            f"(rtol {RTOL})")
+
+
+def slice11_path(device, batches, expect, label):
+    """Drive one slice-11 path on the card with every launch count at 0
+    just before and read just after, and hold it (a) to the same operator
+    on the CPU over the first batches bit for bit, (b) to the numpy
+    semantics, (c) to a restore of its mid-run snapshot replayed on the
+    card, bit for bit, twice (the second under ``torch.profiler``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    op = slice11_op(device, label)
+    fire_ms = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    fired, snap = slice11_drive(op, batches, snap_at=SNAPSHOT_EVERY - 1,
+                                fire_ms=fire_ms)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["probe"] == 0 and launches["probe_fold"] == 0,
+          f"{label}: launches {launches}")
+    check((launches["scatter_fold"] > 0) == (label in SLICE11_SCATTER),
+          f"{label}: launches {launches}; scatter_fold runs on paths "
+          f"{SLICE11_SCATTER} only")
+    check(any(len(b) for _, b in fired), f"{label}: nothing fired")
+    what = check_slice11_reference(label, fired, batches, expect)
+    digests_ = slice11_digests(fired)
+    n_cpu = SLICE11_CPU_BATCHES
+    cpu_fired, _ = slice11_drive(slice11_op(torch.device("cpu"), label),
+                                 batches[:n_cpu])
+    cpu_d = [d for d in slice11_digests(cpu_fired) if d[0] < n_cpu]
+    check(cpu_d == [d for d in digests_ if d[0] < n_cpu] and cpu_d,
+          f"{label}: the card's first {n_cpu} batches differ from the "
+          f"CPU's in their bits")
+    after = [d for d in digests_ if d[0] >= SNAPSHOT_EVERY]
+    replay_wall, busy_ms, kernels_per_batch, top = None, 0.0, 0.0, []
+    for prof in (None, profile(activities=[ProfilerActivity.CUDA])):
+        rop = slice11_op(device, label)
+        torch.cuda.synchronize()
+        r0 = time.perf_counter()
+        with prof if prof is not None else contextlib.nullcontext():
+            rop.restore_state(snap)
+            got, _ = slice11_drive(rop, batches, start=SNAPSHOT_EVERY)
+            torch.cuda.synchronize()
+        check(slice11_digests(got) == after and after,
+              f"{label}: the restore+replay differs from the run in its "
+              f"bits" + (" (profiled)" if prof is not None else ""))
+        if prof is None:
+            replay_wall = time.perf_counter() - r0
+            continue
+        busy_ms, dev = device_busy_ms(prof)
+        n_kernels = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and e.self_device_time_total > 0)
+        kernels_per_batch = n_kernels / (len(batches) - SNAPSHOT_EVERY)
+        top = dev[:6]
+    n_records = sum(len(b[0]) for b in batches)
+    p50 = float(np.percentile(fire_ms, 50)) if fire_ms else 0.0
+    p99 = float(np.percentile(fire_ms, 99)) if fire_ms else 0.0
+    share = busy_ms / (replay_wall * 1e3)
+    print(f"{label}: {n_records} records in {elapsed:.3f} s = "
+          f"{n_records / elapsed:.1f} records/s; {len(fired)} outputs held "
+          f"to the numpy semantics ({what}); the first {n_cpu} batches "
+          f"equal the CPU run bit for bit; launches {launches}; peak device "
+          f"memory {torch.cuda.max_memory_allocated()} B")
+    print(f"{label} fire latency ms over {len(fire_ms)} firing calls: p50 "
+          f"{p50:.3f} p99 {p99:.3f}")
+    print(f"{label} phase_ns: " + json.dumps(op.phase_ns, sort_keys=True))
+    if hasattr(op, "phase_bytes"):
+        print(f"{label} phase_bytes: " + json.dumps(op.phase_bytes,
+                                                    sort_keys=True))
+    print(f"{label} restore+replay from batch {SNAPSHOT_EVERY - 1}: "
+          f"{len(after)} outputs bit for bit, twice; wall "
+          f"{replay_wall * 1e3:.3f} ms; device busy {busy_ms:.3f} ms = "
+          f"{100 * share:.2f}% (idle {100 - 100 * share:.2f}%); "
+          f"{kernels_per_batch:.1f} device kernels and copies a batch; top "
+          f"device ops (ms): " + "; ".join(f"{k[:50]} {t / 1e3:.3f}"
+                                            for t, k in top))
+    return launches, {"records_per_s": n_records / elapsed,
+                      "fire_p50_ms": p50, "fire_p99_ms": p99,
+                      "busy_share": share,
+                      "kernels_per_batch": kernels_per_batch}
+
+
 def main() -> None:
     try:
         import torch
@@ -2295,6 +2586,15 @@ def main() -> None:
             del fires[done]
             del mids[done]
     del fires, mids
+    for label in SLICE11:
+        launches[label], numbers[label] = slice11_path(device, batches,
+                                                       expect, label)
+        a, b = numbers[label], numbers["path 5"]
+        print(f"A/B {label} vs path 5, same batches, one process: records/s "
+              f"{a['records_per_s']:.1f} vs {b['records_per_s']:.1f} "
+              f"({a['records_per_s'] / b['records_per_s']:.3f}x); fire "
+              f"p50/p99 {a['fire_p50_ms']:.3f}/{a['fire_p99_ms']:.3f} vs "
+              f"{b['fire_p50_ms']:.3f}/{b['fire_p99_ms']:.3f} ms")
     pipeline_ab(device, "path 9", "path 3", ab_want["path 3"])
     guard_ab(device, batches, ab_want)
     mesh_ab(device, batches, ab_want, card)
@@ -2362,13 +2662,15 @@ def main() -> None:
     kernels.append(probe_fold_phase(device, rng, dki))
     kernels.append(scatter_fold_phase(device, rng))
     for kernel in kernels:
-        by_path = {label: launches[label][kernel["name"]] for label in ORDER}
+        by_path = {label: launches[label][kernel["name"]]
+                   for label in ORDER + SLICE11}
         kernel["launches_by_path"] = by_path
         kernel["launches"] = sum(by_path.values())
         print(f"{kernel['name']} launches by path: {by_path}")
     for part in ("single", "multi"):
         kernels[-1][f"launches_by_path_{part}"] = by_path = {
-            label: launches[label][f"scatter_fold_{part}"] for label in ORDER}
+            label: launches[label][f"scatter_fold_{part}"]
+            for label in ORDER + SLICE11}
         print(f"scatter_fold launches through ordered_fold_counts"
               f"{'_multi' if part == 'multi' else ''} by path: {by_path}")
     for label in ("path 1", "path 3"):
@@ -2376,7 +2678,8 @@ def main() -> None:
     for label in ("path 2", "path 4"):
         check(launches[label]["probe_fold"] > 0,
               f"{label}: no probe_fold launch")
-    for label in (*DEVICE_PATHS, *PAGED_PATHS, *FAULTS, "path 8", "path 9"):
+    for label in (*DEVICE_PATHS, *PAGED_PATHS, *FAULTS, "path 8", "path 9",
+                  *SLICE11_SCATTER):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
     check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")

@@ -12,15 +12,18 @@ an accumulator is either one leaf (a tensor or numpy array) or a dict of
 leaves, flattened in sorted-key order (the order ``jax.tree_util`` uses), so
 leaf ``j`` here is leaf ``j`` there and snapshots line up.  The port carries
 the add/min/max aggregates (sum, min, max, count, average, and a tuple of
-them); JAX's x64 switch does not exist here, so the count is int32, the
-width JAX stores it in with x64 off.
+them) and :class:`LambdaReduce`, a reduce by any function, which has no
+scatter kinds and folds through ``ops/scatter.py`` ``scatter_generic``.
+JAX's x64 switch does not exist here, so the count is int32, the width JAX
+stores it in with x64 off, and where JAX would canonicalize a 64-bit value
+or identity to 32 bits, :func:`canonical_tensor` does the same.
 """
 
 from __future__ import annotations
 
 import abc
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +59,31 @@ def torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros((), np.dtype(dtype))).dtype
 
 
+#: 64-bit dtypes and the 32-bit ones JAX stores them as with x64 off
+_X64_OFF = {torch.float64: torch.float32, torch.int64: torch.int32,
+            torch.complex128: torch.complex64}
+
+
+def canonical_tensor(value) -> torch.Tensor:
+    """``value`` (a Python scalar, numpy array or tensor) as the tensor JAX
+    would make of it with x64 off: 64-bit floats and ints narrow to 32
+    bits, a Python float is float32 and a Python int int32."""
+    if isinstance(value, bool):
+        return torch.tensor(value)
+    if isinstance(value, int):
+        return torch.tensor(value, dtype=torch.int32)
+    if isinstance(value, float):
+        return torch.tensor(value, dtype=torch.float32)
+    t = value if isinstance(value, torch.Tensor) else torch.as_tensor(
+        np.asarray(value))
+    narrow = _X64_OFF.get(t.dtype)
+    return t if narrow is None else t.to(narrow)
+
+
+class Function:
+    """Marker base for all user functions (``Function.java``)."""
+
+
 class RuntimeContext:
     """Runtime info handed to rich functions (``RuntimeContext.java`` analog)."""
 
@@ -69,7 +97,7 @@ class RuntimeContext:
         self.metrics = metrics
 
 
-class RichFunction:
+class RichFunction(Function):
     """open/close lifecycle."""
 
     def open(self, ctx: RuntimeContext) -> None:
@@ -142,6 +170,15 @@ class AggregateFunction(RichFunction, abc.ABC):
                 and type(self).host_get_result
                 is not AggregateFunction.host_get_result)
 
+    def supports_retraction(self) -> bool:
+        """Every leaf combines by addition (sum/count/avg): the aggregate is
+        invertible, so a fired window's contents can be purged logically by
+        subtracting a per-(key, window) value baseline — what a purging
+        count trigger over sliding windows, whose panes overlapping windows
+        share, needs."""
+        kinds = self.scatter_kind_leaves()
+        return kinds is not None and all(k == "add" for k in kinds)
+
     def scatter_kinds(self):
         """``"add"``/``"min"``/``"max"`` per leaf (same structure as
         ``identity()``) when ``combine`` is that elementwise op; None for
@@ -192,6 +229,24 @@ class ReduceFunction(AggregateFunction):
     @abc.abstractmethod
     def reduce(self, a, b):
         ...
+
+
+class LambdaReduce(ReduceFunction):
+    """``reduce(fn)``: any associative, commutative ``fn(a, b)`` on
+    tensors, with the identity ``identity_value``.  It declares no scatter
+    kinds, so it folds through the generic scan and fires on the device
+    tier.  The identity is canonicalized as JAX does with x64 off (a
+    Python ``0.0`` is float32, ``0`` int32)."""
+
+    def __init__(self, fn: Callable, identity_value):
+        self._fn = fn
+        self._identity = identity_value
+
+    def identity(self):
+        return canonical_tensor(self._identity)
+
+    def reduce(self, a, b):
+        return self._fn(a, b)
 
 
 class SumAggregator(ReduceFunction):
@@ -350,3 +405,29 @@ class TupleAggregator(AggregateFunction):
                 return None
             kinds[name] = k
         return kinds
+
+
+# ---------------------------------------------------------------------------
+# Elementwise / host functions
+# ---------------------------------------------------------------------------
+
+class MapFunction(Function):
+    """Vectorized map over batch columns (``MapFunction.java``): ``map``
+    takes the batch's column dict and returns a new column dict."""
+
+    def map(self, columns: Dict[str, Any]) -> Dict[str, Any]:
+        raise NotImplementedError
+
+
+class FilterFunction(Function):
+    """Vectorized predicate: returns a boolean mask ``[B]``."""
+
+    def filter(self, columns: Dict[str, Any]):
+        raise NotImplementedError
+
+
+class FlatMapFunction(Function):
+    """Host-side flatMap: columns -> (columns, source row per output row)."""
+
+    def flat_map(self, columns: Dict[str, Any]):
+        raise NotImplementedError

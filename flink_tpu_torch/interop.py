@@ -11,9 +11,16 @@ JAX operator's mirror-sourced snapshot):
 so :func:`snapshot_from_jax` and :func:`snapshot_to_jax` mostly validate and
 fix dtypes.  A mesh snapshot's per-shard slices (``shard_slices`` with its
 ``shard_layout`` manifest, ``state/shard_layout.py``) cross over as slices,
-each slice's arrays fixed like the dense ones.  Snapshot features this slice
-does not carry (count-trigger baselines, incremental increments, object
-keys) are refused.
+each slice's arrays fixed like the dense ones.  Count-trigger registers
+cross over both ways (``count_baselines``: window -> int64 ``[n]``;
+``value_baselines``: window -> one array per accumulator leaf, in the leaf
+dtypes).  Snapshot features this slice does not carry (incremental
+increments, object keys) are refused.
+
+The basic operators' keyed snapshots (``KeyedReduceOperator``:
+``keys``/``key_index_kind``/``leaves``; ``ExtremumByOperator``:
+``state.vals``/``state.rows``) cross over through
+:func:`keyed_snapshot_from_jax` and :func:`keyed_snapshot_to_jax`.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from flink_tpu_torch.state.shard_layout import (LAYOUT_KEY, SLICES_KEY,
 
 _SCALARS = ("pane_base", "max_pane", "last_fired_window", "watermark",
             "late_dropped", "P")
-_REFUSED = ("count_baselines", "value_baselines", "__increment__")
+_REFUSED = ("__increment__",)
 
 
 def _optional_int(v):
@@ -53,6 +60,7 @@ def _normalize(snap: Dict[str, Any], source: str) -> Dict[str, Any]:
         out["key_index"] = {"reverse": np.ascontiguousarray(
             snap["key_index"]["reverse"], np.int64)}
         out["key_index_kind"] = "KeyIndex"
+    _baselines(snap, out)
     if SLICES_KEY in snap:
         # validate the slices as the dense state they tile, then carry them
         dense = _normalize(densify_keyed_snapshot(snap), source)
@@ -94,6 +102,65 @@ def _normalize(snap: Dict[str, Any], source: str) -> Dict[str, Any]:
                 raise ValueError(f"{source} snapshot leaf {s['name']!r} is "
                                  f"{l.dtype}, its schema says {s['dtype']}")
     return out
+
+
+def _baselines(snap: Dict[str, Any], out: Dict[str, Any]) -> None:
+    """The count-trigger registers, dtypes fixed: int64 counts, and the
+    value baselines in their leaf dtypes (the schema's, where the snapshot
+    has one)."""
+    if snap.get("count_baselines"):
+        out["count_baselines"] = {
+            int(w): np.ascontiguousarray(b, np.int64)
+            for w, b in snap["count_baselines"].items()}
+    if snap.get("value_baselines"):
+        dtypes = [np.dtype(s["dtype"]) for s in snap.get("leaf_schema")
+                  or ()]
+        out["value_baselines"] = {
+            int(w): [np.ascontiguousarray(l, dtypes[j] if j < len(dtypes)
+                                          else None)
+                     for j, l in enumerate(leaves)]
+            for w, leaves in snap["value_baselines"].items()}
+
+
+def _keyed_index(snap: Dict[str, Any], source: str) -> Dict[str, Any]:
+    kind = snap.get("key_index_kind", "KeyIndex")
+    if kind != "KeyIndex":
+        raise ValueError(f"{source} snapshot key index is {kind!r}; only "
+                         f"int64 keys (KeyIndex) cross over in this slice")
+    return {"reverse": np.ascontiguousarray(snap["keys"]["reverse"],
+                                            np.int64)}
+
+
+def _normalize_keyed(snap: Dict[str, Any], source: str) -> Dict[str, Any]:
+    if snap.get("empty", True):
+        return {"empty": True}
+    out: Dict[str, Any] = {"empty": False,
+                           "keys": _keyed_index(snap, source),
+                           "key_index_kind": "KeyIndex"}
+    n = out["keys"]["reverse"].size
+    if "leaves" in snap:
+        out["leaves"] = [np.ascontiguousarray(l) for l in snap["leaves"]]
+        rows = [l.shape[0] for l in out["leaves"]]
+    else:
+        out["state.vals"] = np.ascontiguousarray(snap["state.vals"],
+                                                 np.float64)
+        out["state.rows"] = np.asarray(snap["state.rows"], object)
+        rows = [out["state.vals"].shape[0], out["state.rows"].shape[0]]
+    if any(r != n for r in rows):
+        raise ValueError(f"{source} keyed snapshot rows {rows} do not match "
+                         f"{n} keys")
+    return out
+
+
+def keyed_snapshot_from_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX basic operator's keyed snapshot (``KeyedReduceOperator``,
+    ``ExtremumByOperator``) -> the port's format."""
+    return _normalize_keyed(snap, "JAX")
+
+
+def keyed_snapshot_to_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
+    """A port basic operator's keyed snapshot -> the JAX operator's."""
+    return _normalize_keyed(snap, "port")
 
 
 def snapshot_from_jax(snap: Dict[str, Any]) -> Dict[str, Any]:

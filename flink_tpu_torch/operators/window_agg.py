@@ -109,6 +109,24 @@ rows.  JAX stages only on the host tier; here the device tier stages too
 (one fold over the concatenated batches adds each cell's rows in the same
 order as the per-batch folds, so the replica's bits are the same).
 
+An aggregate with no scatter kinds (``LambdaReduce``, or any
+``AggregateFunction`` whose ``scatter_kinds()`` is None) folds through
+``ops/scatter.py`` ``scatter_generic`` (a stable sort, JAX's segmented
+associative scan, one write per segment end, bit-equal to JAX's), on the
+device tier, one batch at a time; its counts add with ``index_add_``.
+
+**Count triggers** (``CountTrigger``, ``PurgingTrigger``, ``GlobalWindows``
+with its ``NeverTrigger``) fire after each micro-batch from the device
+counts, on the device tier, through the full-capacity fire
+(:meth:`_fire_step`): GlobalWindows by key (:meth:`_fire_by_count`), a
+purging trigger over tumbling windows by touched pane
+(:meth:`_fire_count_in_panes`), and sliding windows or a non-purging
+trigger through per-(key, window) count baselines, with value baselines
+subtracted where a purge over sliding windows is logical
+(:meth:`_fire_count_sliding`).  The baselines expire with their windows and
+ride snapshots, rescales and restores.  Count triggers keep the hot path
+serial (no pipeline, no super-batch), as in JAX.
+
 Options of the JAX operator that belong to later slices raise
 ``NotImplementedError`` here (see :data:`_LATER`); nothing falls back.
 """
@@ -129,8 +147,9 @@ from flink_tpu_torch import DeviceLike, resolve_device
 from flink_tpu_torch.core.batch import (LONG_MIN, RecordBatch, StreamElement,
                                         Watermark)
 from flink_tpu_torch.core.functions import (SCATTER_UFUNCS, AggregateFunction,
-                                            torch_dtype, tree_leaves,
-                                            tree_structure, tree_unflatten)
+                                            canonical_tensor, torch_dtype,
+                                            tree_leaves, tree_structure,
+                                            tree_unflatten)
 from flink_tpu_torch.operators.base import StreamOperator
 from flink_tpu_torch.operators.fused_step import (MAX_STAGED_ROWS,
                                                   SuperBatchStage,
@@ -141,7 +160,8 @@ from flink_tpu_torch.ops.scatter import (combine_along_axis,
                                          gather_row_pane_columns,
                                          ordered_fold_counts,
                                          ordered_fold_counts_multi,
-                                         reset_rows, set_row_pane_columns)
+                                         reset_rows, scatter_generic,
+                                         segment_fold, set_row_pane_columns)
 from flink_tpu_torch.ops.shapes import next_pow2 as _next_pow2
 from flink_tpu_torch.runtime import device_health
 from flink_tpu_torch.runtime.device_health import DeviceQuarantinedError
@@ -157,12 +177,12 @@ from flink_tpu_torch.state.redistribute import (merge_keyed_snapshots,
                                                 split_keyed_snapshot)
 from flink_tpu_torch.state.shard_layout import densify_keyed_snapshot
 from flink_tpu_torch.utils import transport
-from flink_tpu_torch.windowing.assigners import WindowAssigner
-from flink_tpu_torch.windowing.triggers import EventTimeTrigger, Trigger
+from flink_tpu_torch.windowing.assigners import GlobalWindows, WindowAssigner
+from flink_tpu_torch.windowing.triggers import (EventTimeTrigger, NeverTrigger,
+                                                Trigger)
 
 #: what this slice leaves out, and the later slice that brings it
 _LATER = {
-    "count": "count triggers come with the count-window slice",
     "late_output": "late side outputs come with the runtime-stack slice",
     "incremental": "incremental snapshots come with the checkpoint slice",
     "queryable": "queryable views come with the serving slice",
@@ -171,14 +191,22 @@ _LATER = {
                        "slice",
     "evolution": "accumulator schema evolution on restore comes with the "
                  "checkpoint slice",
-    "generic": "aggregates without scatter kinds (scatter_generic) come "
-               "with the keyed-reduce slice",
 }
 
 
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(f"not in this slice of flink_tpu_torch: "
                                f"{_LATER[what]}")
+
+
+def _add_counts(flat_counts: torch.Tensor, ids: torch.Tensor,
+                cells: int) -> None:
+    """``flat_counts[id] += 1`` per row, in place, ids outside ``[0,
+    cells)`` dropped (the generic fold's counts: an integer sum, the same in
+    any order; no host sync)."""
+    keep = (ids >= 0) & (ids < cells)
+    flat_counts.index_add_(0, torch.where(keep, ids, 0).to(torch.int64),
+                           keep.to(flat_counts.dtype))
 
 
 def _take_rows(values, idx: np.ndarray):
@@ -417,7 +445,23 @@ class WindowAggOperator(StreamOperator):
         device: DeviceLike = None,
     ):
         if trigger is None:
-            trigger = EventTimeTrigger()
+            # GlobalWindows defaults to NeverTrigger (GlobalWindows.java
+            # getDefaultTrigger), time windows to EventTimeTrigger
+            trigger = (NeverTrigger() if isinstance(assigner, GlobalWindows)
+                       else EventTimeTrigger())
+        if trigger.fires_on_count and not isinstance(assigner, GlobalWindows) \
+                and assigner.panes_per_window != 1 \
+                and trigger.purges_on_fire \
+                and not agg.supports_retraction():
+            raise NotImplementedError(
+                "PURGING count triggers over MULTI-PANE (sliding) assigners "
+                "need an INVERTIBLE aggregate (all-'add' ACC leaves: "
+                "sum/count/avg): overlapping windows share panes, so the "
+                "purge is logical — a per-(key, window) value baseline is "
+                "subtracted instead of clearing shared cells.  Min/max "
+                "cannot retract; use a plain CountTrigger (fire without "
+                "purge) for those.")
+        self.trigger = trigger
         if int(pipeline_depth) < 0:
             raise ValueError("pipeline_depth must be >= 0")
         if paging is not None:
@@ -426,7 +470,8 @@ class WindowAggOperator(StreamOperator):
             if sharding is not None and not self._SHARDED_PAGING:
                 raise ValueError("paging requires unsharded state (shard "
                                  "first, page within each shard)")
-            if trigger.fires_on_count or not trigger.fires_on_time:
+            if isinstance(assigner, GlobalWindows) \
+                    or trigger.fires_on_count or not trigger.fires_on_time:
                 raise ValueError("paging requires time-triggered time "
                                  "windows (no count triggers/GlobalWindows)")
             if emit_tier == "auto":
@@ -435,11 +480,9 @@ class WindowAggOperator(StreamOperator):
                 raise ValueError("paging pins the device emit tier (the "
                                  "host mirror is unbounded host state)")
         refusals = [
-            ("count", trigger.fires_on_count),
             ("late_output", late_output_tag is not None),
             ("queryable", queryable is not None),
             ("processing_time", not assigner.is_event_time),
-            ("generic", agg.scatter_kind_leaves() is None),
         ]
         for what, refused in refusals:
             if refused:
@@ -458,6 +501,8 @@ class WindowAggOperator(StreamOperator):
         # the state lives on a card (on the CPU there is no transfer to
         # save), as JAX picks it off ``jax.default_backend()``
         host_capable = (agg.supports_host_emit() and trigger.fires_on_time
+                        and not trigger.fires_on_count
+                        and not isinstance(assigner, GlobalWindows)
                         and (sharding is None or self._SHARDED_HOST_TIER))
         if emit_tier == "auto":
             emit_tier = ("host" if host_capable and self.device.type != "cpu"
@@ -596,6 +641,15 @@ class WindowAggOperator(StreamOperator):
         self.key_index = None        # KeyIndex, or NativeKeyIndex
         self._leaves = None          # tuple of [K, P, *leaf] device tensors
         self._counts = None          # int32 [K, P]
+        #: count triggers: window id -> int64 [<=K] count already fired per
+        #: key slot (the CountTrigger count register, which clears on FIRE:
+        #: the next fire needs n MORE elements)
+        self._count_baselines: Dict[int, np.ndarray] = {}
+        #: purging count triggers over sliding windows: window id -> the
+        #: fired-so-far accumulator per leaf (leaf dtypes), subtracted from
+        #: the live pane combine (a logical purge: overlapping windows share
+        #: the pane cells)
+        self._value_baselines: Dict[int, List[np.ndarray]] = {}
         self.pane_base: Optional[int] = None   # smallest retained pane id
         self.max_pane: Optional[int] = None    # largest pane seen
         self.last_fired_window: Optional[int] = None
@@ -859,6 +913,8 @@ class WindowAggOperator(StreamOperator):
         self._nm = None          # its keydict dies with the key index
         self._leaves = None
         self._counts = None
+        self._count_baselines = {}
+        self._value_baselines = {}
         self._vmirror = {}
         self._mirror = {}
         self._pending_fires = []
@@ -907,7 +963,8 @@ class WindowAggOperator(StreamOperator):
                 and self.emit_tier == "host"
                 and self._pager is None
                 and self.kinds is not None
-                and all(tuple(s) == () for s in self.spec.leaf_shapes))
+                and all(tuple(s) == () for s in self.spec.leaf_shapes)
+                and not self.trigger.fires_on_count)
 
     def _devprobe_active(self, sync: str) -> bool:
         """The probe lane's gate for a batch under the resolved ``sync``:
@@ -1196,12 +1253,17 @@ class WindowAggOperator(StreamOperator):
         ``sync`` (1 = off), resolved once per operator: forced by
         ``superbatch > 1``, measured by :func:`calibrated_superbatch` under
         0 on the host tier (JAX stages only there; here a forced depth
-        stages the device tier too), 1 under paging.  Batches stay unfused
+        stages the device tier too), 1 under paging, count triggers and
+        aggregates with no scatter kinds.  Batches stay unfused
         while the sync cadence calibrates (it times per-batch steps)."""
         if sync not in ("scatter", "deferred"):
             return 1
         if self._fused_resolved is None:
-            if self._pager is not None or self.superbatch == 1:
+            # count triggers read the counts after every batch (JAX stages
+            # neither them nor the device tier); a generic fold over a
+            # concatenated super-batch would group its combines otherwise
+            if (self._pager is not None or self.superbatch == 1
+                    or self.trigger.fires_on_count or self.kinds is None):
                 self._fused_resolved = 1
             elif self.superbatch > 1:
                 self._fused_resolved = self.superbatch
@@ -1717,7 +1779,10 @@ class WindowAggOperator(StreamOperator):
         ``csrc/scatter_fold.cu``, which adds each cell's rows in row order).
         flat_ids in [0, K*P]; K*P is a dropped row.  With sharded state
         (placement, no exchange) every block folds the rows of its range,
-        in row order, each on its own device."""
+        in row order, each on its own device.  An aggregate with no scatter
+        kinds takes the generic fold (:meth:`_generic_fold`)."""
+        if self.kinds is None:
+            return self._generic_update(flat_ids, values)
         lifted = tuple(tree_leaves(self.agg.lift(values)))
         if self.sharding is None:
             return lambda: ordered_fold_counts(
@@ -1735,6 +1800,69 @@ class WindowAggOperator(StreamOperator):
                                         tuple(l.to(cb.device)
                                               for l in lifted), self.kinds)
         return write
+
+    def _generic_values(self, values, rows: int):
+        """A batch's value tree for the generic fold, as JAX's step sees
+        it: 64-bit leaves narrowed to 32 bits (x64 off), and padded with
+        zero rows to ``rows``."""
+        def leaf(a):
+            a = canonical_tensor(a)
+            if a.shape[0] == rows:
+                return a
+            pad = torch.zeros((rows - a.shape[0],) + tuple(a.shape[1:]),
+                              dtype=a.dtype, device=a.device)
+            return torch.cat([a, pad])
+        return tree_unflatten(tree_structure(values),
+                              [leaf(a) for a in tree_leaves(values)])
+
+    def _generic_update(self, flat_ids: torch.Tensor, values):
+        """:meth:`_update_step` for an aggregate with no scatter kinds: the
+        batch padded to JAX's staged length (``next_pow2(B, 64)`` rows, the
+        pad rows dropped), lifted now; the write is the generic fold."""
+        B = flat_ids.shape[0]
+        Bp = _next_pow2(B, 64)
+        cells = self._K * self._P
+        ids = torch.cat([flat_ids, torch.full((Bp - B,), cells,
+                                              dtype=flat_ids.dtype,
+                                              device=flat_ids.device)])
+        lifted = tuple(tree_leaves(self.agg.lift(
+            self._generic_values(values, Bp))))
+        return lambda: self._generic_fold(self._leaves, self._counts, ids,
+                                          lifted)
+
+    def _generic_fold(self, leaves, counts, flat_ids: torch.Tensor,
+                      lifted) -> None:
+        """The generic fold of a batch into ``[K, P]`` state, in place:
+        ``scatter_generic`` over the flat cells (a stable sort, JAX's
+        segmented scan, one write per segment end) and the counts added
+        with ``index_add_`` (integers: the order does not matter).  With
+        row blocks the scan runs once over the global ids, as JAX's single
+        partitioned step does, and each block combines and writes its own
+        segment ends on its device."""
+        combine = self.agg.combine_leaves
+        P = self._P
+        blocks = self._row_blocks(leaves, counts)
+        if len(blocks) == 1:
+            flat_leaves, flat_counts = self._flat_state(*blocks[0][1:])
+            cells = flat_counts.shape[0]
+            scatter_generic(flat_leaves, flat_ids, lifted, combine, cells)
+            _add_counts(flat_counts, flat_ids, cells)
+            return
+        sids, is_end, folded = segment_fold(flat_ids, lifted, combine)
+        for lo, lb, cb in blocks:
+            cells = cb.shape[0] * P
+            with self._on_device(cb.device):
+                flat_leaves, flat_counts = self._flat_state(lb, cb)
+                local = sids.to(cb.device, torch.int64) - lo * P
+                keep = is_end.to(cb.device) & (local >= 0) & (local < cells)
+                idx = local[keep]
+                cur = tuple(l[idx] for l in flat_leaves)
+                merged = combine(cur, tuple(f.to(cb.device)[keep]
+                                            for f in folded))
+                for l, m in zip(flat_leaves, merged):
+                    l[idx] = m.to(l.dtype)
+                ids = flat_ids.to(cb.device, torch.int64) - lo * P
+                _add_counts(flat_counts, ids, cells)
 
     # ------------------------------------------ device-lane health (guard)
     def _on_card(self):
@@ -1895,10 +2023,12 @@ class WindowAggOperator(StreamOperator):
         value mirror, then drops its device state.  An aggregate with no
         host twin re-raises, and so does sharded state without the mesh's
         whole-mesh degrade (``_SHARDED_DEGRADE``): the task fails and the
-        restart path recovers it.  (JAX also refuses count triggers and
-        GlobalWindows here; this slice refuses them at construction.)"""
-        if not self.agg.supports_host_emit() or (
-                self.sharding is not None and not self._SHARDED_DEGRADE):
+        restart path recovers it; so do count triggers and GlobalWindows,
+        whose per-key fire registers have no host tier."""
+        if (not self.agg.supports_host_emit()
+                or (self.sharding is not None and not self._SHARDED_DEGRADE)
+                or self.trigger.fires_on_count
+                or isinstance(self.assigner, GlobalWindows)):
             raise err
         self._quarantine_migrations += 1
         if self.emit_tier == "host":
@@ -2106,13 +2236,14 @@ class WindowAggOperator(StreamOperator):
         if batch.timestamps is None:
             raise ValueError("event-time window requires timestamps")
         ts = np.asarray(batch.timestamps, np.int64)
+        global_windows = isinstance(self.assigner, GlobalWindows)
         panes = self.assigner.pane_of(ts)
 
         # ---- late-beyond-lateness drop, judged like the reference's
         # WindowOperator.isElementLate: a record is late iff its pane's last
         # covering window's cleanup time (end - 1 + lateness) was passed
         gate_now = self.watermark
-        if gate_now != LONG_MIN:
+        if gate_now != LONG_MIN and not global_windows:
             p0, p1 = int(panes.min()), int(panes.max())
             cand = (np.arange(p0, p1 + 1, dtype=np.int64)
                     if p1 - p0 < 64 else np.unique(panes))
@@ -2137,10 +2268,11 @@ class WindowAggOperator(StreamOperator):
 
         pmin, pmax = int(panes.min()), int(panes.max())
         values = self._select(cols)
-        if self.pipeline_depth > 0:
+        if self.pipeline_depth > 0 and not self.trigger.fires_on_count:
             # the two-stage pipeline: the hot stage runs on the worker while
             # this thread returns to its loop; every state read below and
-            # elsewhere waits for it (flush_pipeline)
+            # elsewhere waits for it (flush_pipeline).  Count triggers read
+            # the counts after every batch, so they stay serial (JAX's)
             if self._pipe is None:
                 self._pipe = _HotPipeline(self.pipeline_depth, self.device)
             B = len(batch)
@@ -2150,9 +2282,18 @@ class WindowAggOperator(StreamOperator):
             self._hot_stage(keys, panes, values, len(batch), pmin, pmax)
 
         out: List[StreamElement] = list(pending)
+        if self.trigger.fires_on_count:
+            with self._phase("fire"):
+                if global_windows:
+                    out.extend(self._fire_by_count())
+                else:
+                    # over time windows: the (key, window) cells whose
+                    # count crossed the threshold
+                    out.extend(self._fire_count_in_panes(np.unique(panes)))
         # ---- late re-fire: windows already passed by the watermark that
         # this batch updated fire again (EventTimeTrigger.onElement FIRE)
-        if (self.last_fired_window is not None
+        if (self.trigger.fires_on_time
+                and self.last_fired_window is not None
                 and self.assigner.windows_of_pane(pmin)[0]
                 <= self.last_fired_window):
             self.flush_pipeline()   # re-fires read state
@@ -2307,6 +2448,8 @@ class WindowAggOperator(StreamOperator):
         self.watermark = max(self.watermark, watermark.timestamp)
         if ((self._pipe_pending() or self._fused_stage)
                 and not self.async_fire and self.lateness == 0
+                and self.trigger.fires_on_time
+                and not isinstance(self.assigner, GlobalWindows)
                 and self.last_fired_window is not None
                 and self._fired_horizon(self.watermark)
                 <= self.last_fired_window):
@@ -2315,6 +2458,17 @@ class WindowAggOperator(StreamOperator):
             # state is read, and the in-flight stages stay in flight and
             # the staged batches parked (the pipeline's overlap comes from
             # here on task loops that send a watermark after every batch)
+            return []
+        if not self.trigger.fires_on_time:
+            # count triggers do not FIRE on time, but window state still
+            # retires at window end + lateness (the reference registers
+            # cleanup timers whatever the trigger)
+            self.flush_pipeline()
+            if (self.trigger.fires_on_count
+                    and not isinstance(self.assigner, GlobalWindows)
+                    and self._leaves is not None
+                    and self.pane_base is not None):
+                self._expire_panes(self.watermark)
             return []
         return self._advance_time(self.watermark)
 
@@ -2334,7 +2488,16 @@ class WindowAggOperator(StreamOperator):
 
     def end_input(self) -> List[StreamElement]:
         """Bounded input: fire everything outstanding (and drain the async
-        fires that this starts)."""
+        fires that this starts).  GlobalWindows under a time-firing trigger
+        fire every key at the end of input; NeverTrigger and partial count
+        windows emit nothing, as in the reference, where a trailing partial
+        ``countWindow`` is dropped."""
+        if isinstance(self.assigner, GlobalWindows):
+            self.flush_pipeline()
+            pending = self.drain_pending_fires() if self.async_fire else []
+            if self.trigger.fires_on_time:
+                return pending + self._fire_by_count(force=True)
+            return pending
         out = self._advance_time(2 ** 62)
         if self.async_fire:
             out.extend(self.drain_pending_fires(force=True))
@@ -2349,6 +2512,8 @@ class WindowAggOperator(StreamOperator):
                                       and not self._degraded):
             return out
         a = self.assigner
+        if isinstance(a, GlobalWindows):   # no time-bounded panes to fire
+            return out
         w_max = self._fired_horizon(now)
         # bound firing to windows that can contain data
         lo_window = a.windows_of_pane(self.pane_base)[0]
@@ -2404,6 +2569,12 @@ class WindowAggOperator(StreamOperator):
                 self._delta_panes.difference_update(dead)
         if self.pane_base > self.max_pane:
             self.max_pane = self.pane_base
+        if self._count_baselines or self._value_baselines:
+            # count-trigger registers of windows wholly behind retention
+            lo_w = self.assigner.windows_of_pane(self.pane_base)[0]
+            for reg in (self._count_baselines, self._value_baselines):
+                for w in [w for w in reg if w < lo_w]:
+                    del reg[w]
 
     # ------------------------------------------------------------------ fires
     def _fire_window(self, window_id: int) -> List[StreamElement]:
@@ -2502,17 +2673,24 @@ class WindowAggOperator(StreamOperator):
         return self._emit(self._fire_step(panes % self._P, self._k_active()),
                           self.assigner.window_bounds(window_id))
 
-    def _emit(self, blocks, window) -> List[StreamElement]:
+    def _emit(self, blocks, window,
+              host_mask: Optional[np.ndarray] = None) -> List[StreamElement]:
         """Rows of a full-capacity fire, in ascending slot order: each
         block's mask over its live keys and its results at the masked rows
-        come down (one download each); the keys resolve on the host."""
+        come down (one download each); the keys resolve on the host.  A
+        ``host_mask`` over the rows (a count fire's, computed on the host)
+        replaces the blocks' masks and is not downloaded."""
         n = self.key_index.num_keys
         idx, res, structure, lo = [], [], None, 0
         for mask, result in blocks:
             rows = min(mask.shape[0], n - lo)
             if rows > 0:
-                m = mask[:rows]
-                mask_np = m.cpu().numpy()
+                if host_mask is not None:
+                    mask_np = host_mask[lo:lo + rows]
+                    m = torch.from_numpy(mask_np).to(mask.device)
+                else:
+                    m = mask[:rows]
+                    mask_np = m.cpu().numpy()
                 vals = [l[:rows][m].cpu().numpy()
                         for l in tree_leaves(result)]
                 self.phase_bytes["d2h"] = (self.phase_bytes.get("d2h", 0)
@@ -2527,6 +2705,206 @@ class WindowAggOperator(StreamOperator):
         out = tree_unflatten(structure, [np.concatenate(c)
                                          for c in zip(*res)])
         return self._rows_for(np.concatenate(idx), out, window)
+
+    # ------------------------------------------------------- count triggers
+    def _count_column(self, pane_slots: np.ndarray, ka: int) -> np.ndarray:
+        """int64 ``[ka]``: the counts of the first ``ka`` key rows summed
+        over ``pane_slots``, downloaded as int32 (JAX's count dtype), one
+        column a block."""
+        parts = []
+        for lo, _, cb in self._row_blocks(self._leaves, self._counts):
+            rows = min(cb.shape[0], ka - lo)
+            if rows <= 0:
+                break
+            s = torch.from_numpy(pane_slots).to(cb.device)
+            parts.append(cb[:rows].index_select(1, s).sum(
+                dim=1, dtype=torch.int32).cpu().numpy())
+        self.phase_bytes["d2h"] = (self.phase_bytes.get("d2h", 0)
+                                   + sum(p.nbytes for p in parts))
+        return np.concatenate(parts).astype(np.int64)
+
+    @staticmethod
+    def _grown(base: Optional[np.ndarray], ka: int) -> np.ndarray:
+        """A count register at least ``ka`` long (new slots zero)."""
+        if base is not None and len(base) >= ka:
+            return base
+        grown = np.zeros(ka, np.int64)
+        if base is not None:
+            grown[:len(base)] = base
+        return grown
+
+    def _fire_by_count(self, force: bool = False) -> List[StreamElement]:
+        """GlobalWindows: fire the keys whose count reached the threshold
+        (every key with data under ``force``, the end of input), then purge
+        their rows when the trigger purges; a non-purging trigger tracks
+        what it fired in the count baseline of window 0."""
+        if self._leaves is None:
+            return []
+        thr = 1 if force else self.trigger.count_threshold
+        ka = self._k_active() or self._K
+        counts0 = self._count_column(np.zeros(1, np.int64), ka)
+        base = None
+        if not force and not self.trigger.purges_on_fire:
+            # FIRE only: the state persists, so "n more elements" is
+            # tracked by a baseline of already-fired counts per key
+            base = self._count_baselines[0] = self._grown(
+                self._count_baselines.get(0), ka)
+            over = (counts0 - base[:ka]) >= thr
+        else:
+            over = counts0 >= thr
+        if not over.any():     # skip the K-wide fire
+            return []
+        fired = over & (counts0 > 0)
+        out = self._emit(self._fire_step(np.zeros(1, np.int64),
+                                         self._k_active()),
+                         self.assigner.window_bounds(0), fired)
+        if base is not None:
+            base[:ka] = np.where(fired, counts0, base[:ka])
+        if self.trigger.purges_on_fire and out:
+            self._purge_keys_step(fired)
+            for arr in self._mirror.values():   # whole key rows purged
+                arr[:fired.size][fired[:arr.size]] = False
+        return out
+
+    def _fire_count_in_panes(self, touched_panes) -> List[StreamElement]:
+        """CountTrigger FIRE over time windows, after a batch: a purging
+        trigger over tumbling windows (one pane a window) fires, per touched
+        pane, the keys at or over the threshold and purges those cells;
+        sliding windows and non-purging triggers go through the count
+        baselines (:meth:`_fire_count_sliding`)."""
+        if self.assigner.panes_per_window != 1 \
+                or not self.trigger.purges_on_fire:
+            return self._fire_count_sliding(touched_panes)
+        out: List[StreamElement] = []
+        thr = self.trigger.count_threshold
+        ka = self._k_active() or self._K
+        for p in np.asarray(touched_panes).tolist():
+            slots = np.asarray([int(p) % self._P], np.int64)
+            col = self._count_column(slots, ka)
+            over = col >= thr
+            if not over.any():
+                continue
+            fired = over & (col > 0)
+            window = self.assigner.window_bounds(
+                self.assigner.windows_of_pane(int(p))[0])
+            out.extend(self._emit(self._fire_step(slots, self._k_active()),
+                                  window, fired))
+            self._purge_cells_step(fired, slots)
+            marr = self._mirror.get(int(p))
+            if marr is not None:
+                marr[:fired.size][fired[:marr.size]] = False
+        return out
+
+    def _fire_count_sliding(self, touched_panes) -> List[StreamElement]:
+        """CountTrigger FIRE for sliding windows, or any non-purging count
+        trigger: a (key, window) fires when the sum of the window's pane
+        counts grew by >= n since its last fire; the per-(key, window)
+        baseline is the CountTrigger count register, which clears on FIRE.
+        A purge over sliding windows is logical: the fired accumulator is
+        kept as a value baseline and subtracted from later emissions
+        (:meth:`_emit_purging_sliding`), so the shared pane cells stay."""
+        out: List[StreamElement] = []
+        thr = self.trigger.count_threshold
+        purging = self.trigger.purges_on_fire
+        ka = self._k_active() or self._K
+        wins: set = set()
+        for p in np.asarray(touched_panes).tolist():
+            w0, w1 = self.assigner.windows_of_pane(int(p))
+            wins.update(range(w0, w1 + 1))
+        for w in sorted(wins):
+            first, last = self.assigner.window_panes(w)
+            lo, hi = max(first, self.pane_base), min(last, self.max_pane)
+            if lo > hi:
+                continue
+            slots = np.arange(lo, hi + 1, dtype=np.int64) % self._P
+            counts_w = self._count_column(slots, ka)
+            base = self._grown(self._count_baselines.get(w), ka)
+            over = (counts_w - base[:ka]) >= thr
+            if over.any():
+                if purging:
+                    out.extend(self._emit_purging_sliding(w, slots, ka,
+                                                          over))
+                else:
+                    out.extend(self._emit(
+                        self._fire_step(slots, self._k_active()),
+                        self.assigner.window_bounds(w),
+                        over & (counts_w > 0)))
+                base[:ka] = np.where(over, counts_w, base[:ka])
+            self._count_baselines[w] = base
+        return out
+
+    def _fire_acc_step(self, pane_slots: np.ndarray,
+                       k_active: int) -> List[np.ndarray]:
+        """:meth:`_fire_step` before ``get_result``: the window's combined
+        accumulator leaves of the first ``k_active`` rows (0: every row),
+        downloaded, blocks in row order."""
+        parts = []
+        for _, lb, cb in self._row_blocks(self._leaves, self._counts):
+            rows = k_active or cb.shape[0]
+            with self._on_device(cb.device):
+                s = torch.from_numpy(pane_slots).to(cb.device)
+                sel = tuple(l[:rows].index_select(1, s) for l in lb)
+                parts.append([c.cpu().numpy() for c in combine_along_axis(
+                    sel, self.agg.combine_leaves, axis=1)])
+        return [np.concatenate(c) for c in zip(*parts)]
+
+    def _emit_purging_sliding(self, w: int, slots: np.ndarray, ka: int,
+                              over: np.ndarray) -> List[StreamElement]:
+        """One FIRE_AND_PURGE over sliding window ``w``: download the
+        combined accumulator, subtract the value baseline (what was already
+        fired and purged), emit, and advance the baseline of the fired
+        keys."""
+        comb = self._fire_acc_step(slots, self._k_active())
+        self.phase_bytes["d2h"] = (self.phase_bytes.get("d2h", 0)
+                                   + sum(c.nbytes for c in comb))
+        vb = self._value_baselines.get(w)
+        if vb is None or vb[0].shape[0] < ka:
+            grown = [np.zeros_like(c) for c in comb]
+            if vb is not None:
+                for g, o in zip(grown, vb):
+                    g[:o.shape[0]] = o
+            vb = grown
+        emit_leaves = [c - b[:ka] for c, b in zip(comb, vb)]
+        result = self.agg.get_result(self.spec.unflatten(
+            [torch.from_numpy(np.ascontiguousarray(l))
+             for l in emit_leaves]))
+        idx = np.flatnonzero(over[:self.key_index.num_keys])
+        out = []
+        if idx.size:
+            picked = tree_unflatten(tree_structure(result), [
+                r.numpy()[idx] for r in tree_leaves(result)])
+            out = self._rows_for(idx, picked, self.assigner.window_bounds(w))
+        for b, c in zip(vb, comb):
+            sel = over.reshape((-1,) + (1,) * (b.ndim - 1))
+            b[:ka] = np.where(sel, c, b[:ka])
+        self._value_baselines[w] = vb
+        return out
+
+    def _purge_keys_step(self, fired: np.ndarray) -> None:
+        """FIRE_AND_PURGE by key (GlobalWindows): the ``fired`` rows (a
+        bool mask over the first rows) back to identity in every pane, in
+        place."""
+        inits = self.spec.leaf_inits
+        for lo, lb, cb in self._row_blocks(self._leaves, self._counts):
+            rows = np.flatnonzero(fired[lo:lo + cb.shape[0]])
+            if rows.size:
+                reset_rows(lb, cb, torch.from_numpy(rows).to(cb.device),
+                           inits)
+
+    def _purge_cells_step(self, fired: np.ndarray,
+                          pane_slots: np.ndarray) -> None:
+        """FIRE_AND_PURGE by cell (tumbling windows): the ``fired`` rows'
+        cells at ``pane_slots`` back to identity, in place."""
+        inits = [np.asarray(i).item() for i in self.spec.leaf_inits]
+        for lo, lb, cb in self._row_blocks(self._leaves, self._counts):
+            rows = np.flatnonzero(fired[lo:lo + cb.shape[0]])
+            if not rows.size:
+                continue
+            at = (torch.from_numpy(rows).to(cb.device).unsqueeze(1),
+                  torch.from_numpy(pane_slots).to(cb.device).unsqueeze(0))
+            for l, init in zip(lb, inits):
+                l[at] = init
+            cb[at] = 0
 
     def _fire_window_gather(self, window_id: int,
                             panes: np.ndarray) -> List[StreamElement]:
@@ -2839,10 +3217,39 @@ class WindowAggOperator(StreamOperator):
         (``StateAssignmentOperation.reDistributeKeyedStates``); a mesh
         snapshot's slices are densified first."""
         snap = densify_keyed_snapshot(snap)
-        if snap.get("count_baselines") or snap.get("value_baselines"):
-            raise _later("count")
-        return split_keyed_snapshot(snap, WindowAggOperator.ROW_FIELDS,
-                                    max_parallelism, new_parallelism)
+        snap, extra = WindowAggOperator._pack_baselines(snap)
+        parts = split_keyed_snapshot(snap,
+                                     WindowAggOperator.ROW_FIELDS + extra,
+                                     max_parallelism, new_parallelism)
+        return [WindowAggOperator._unpack_baselines(p) for p in parts]
+
+    @staticmethod
+    def _pack_baselines(snap: Dict[str, Any],
+                        windows: Optional[List[int]] = None):
+        """The count baselines (window -> slot-row array) as a list-valued
+        row field aligned on ``windows`` (zeros where this snapshot lacks a
+        window), so the redistribution splits and concatenates them by row
+        like the leaves.  Returns ``(snapshot, extra row fields)``."""
+        snap = dict(snap)
+        cb = snap.pop("count_baselines", None) or {}
+        if windows is None:
+            if not cb:
+                return snap, ()
+            windows = sorted(cb)
+        n = next((len(np.asarray(v)) for v in cb.values()),
+                 snap["counts"].shape[0] if "counts" in snap else 0)
+        snap["count_baseline_windows"] = list(windows)
+        snap["count_baseline_rows"] = [
+            np.asarray(cb.get(w, np.zeros(n, np.int64))) for w in windows]
+        return snap, ("count_baseline_rows",)
+
+    @staticmethod
+    def _unpack_baselines(snap: Dict[str, Any]) -> Dict[str, Any]:
+        wins = snap.pop("count_baseline_windows", None)
+        rows = snap.pop("count_baseline_rows", None)
+        if wins:
+            snap["count_baselines"] = dict(zip(wins, rows))
+        return snap
 
     @staticmethod
     def merge_snapshots(snaps: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -2852,15 +3259,23 @@ class WindowAggOperator(StreamOperator):
         the union pane range, and the merge resumes from the slowest part's
         watermark and last fired window, as in JAX."""
         snaps = [densify_keyed_snapshot(s) for s in snaps]
-        if any(s.get("count_baselines") or s.get("value_baselines")
-               for s in snaps):
-            raise _later("count")
         live = [s for s in snaps if "panes" in s]
         if live and any(not np.array_equal(s["panes"], live[0]["panes"])
                         for s in live[1:]):
             snaps = WindowAggOperator._align_pane_progress(snaps)
             live = [s for s in snaps if "panes" in s]
-        merged = merge_keyed_snapshots(snaps, WindowAggOperator.ROW_FIELDS)
+        all_windows = sorted({w for s in snaps
+                              for w in (s.get("count_baselines") or {})})
+        extra = ()
+        if all_windows:
+            packed = []
+            for s in snaps:
+                p, e = WindowAggOperator._pack_baselines(s, all_windows)
+                packed.append(p)
+                extra = e or extra
+            snaps = packed
+        merged = WindowAggOperator._unpack_baselines(merge_keyed_snapshots(
+            snaps, WindowAggOperator.ROW_FIELDS + extra))
         if live:
             merged["watermark"] = min(s["watermark"] for s in live)
             lf = [s.get("last_fired_window") for s in live]
@@ -2953,6 +3368,18 @@ class WindowAggOperator(StreamOperator):
             snap["leaf_schema"] = self._leaf_schema()
         if self._pager is not None:
             snap["paging_stats"] = self.paging_stats()
+        if self._count_baselines:
+            n = self.key_index.num_keys if self.key_index else 0
+            packed = {}
+            for w, b in self._count_baselines.items():
+                arr = np.zeros(n, np.int64)  # slot-aligned with the leaves
+                arr[:min(len(b), n)] = np.asarray(b)[:n]
+                packed[w] = arr
+            snap["count_baselines"] = packed
+        if self._value_baselines:
+            snap["value_baselines"] = {
+                w: [np.asarray(l).copy() for l in leaves]
+                for w, leaves in self._value_baselines.items()}
         return snap
 
     def _device_columns(self, panes: np.ndarray, rows: int):
@@ -2972,11 +3399,8 @@ class WindowAggOperator(StreamOperator):
         # restore at ANY mesh size (1 included) re-slices by this
         # operator's layout, not the writer's
         snap = densify_keyed_snapshot(snap)
-        for unsupported, what in (("count_baselines", "count"),
-                                  ("value_baselines", "count"),
-                                  ("__increment__", "incremental")):
-            if snap.get(unsupported):
-                raise _later(what)
+        if snap.get("__increment__"):
+            raise _later("incremental")
         self.pane_base = snap["pane_base"]
         self.max_pane = snap["max_pane"]
         self.last_fired_window = snap["last_fired_window"]
@@ -3009,6 +3433,14 @@ class WindowAggOperator(StreamOperator):
         self._mirror = {}
         if self._pager is not None:
             self._pager.reset()
+        # the count-trigger registers (a paged operator holds none: it
+        # refuses count triggers, and JAX's paged restore drops them)
+        self._count_baselines = {} if self._pager is not None else {
+            w: np.asarray(b, np.int64).copy()
+            for w, b in (snap.get("count_baselines") or {}).items()}
+        self._value_baselines = {} if self._pager is not None else {
+            w: [np.asarray(l).copy() for l in leaves]
+            for w, leaves in (snap.get("value_baselines") or {}).items()}
         if "leaves" in snap:
             schema = snap.get("leaf_schema")
             if (schema is not None and list(schema) != self._leaf_schema()) \

@@ -26,6 +26,15 @@ JAX computes these as XLA scatters outside any Pallas kernel.  Here:
   (with ``csrc/ordered_fold.cuh``).
 - :func:`combine_along_axis` is the fire-time pane combine, plain torch ops
   in JAX's pairwise tree order.
+- :func:`segment_running_fold`, :func:`segment_fold` and
+  :func:`scatter_generic` are the generic fold of aggregates with no scatter
+  kinds (an arbitrary ``combine``, such as ``LambdaReduce``'s): a stable
+  sort by slot id, a segmented inclusive scan, and one write per segment
+  end.  The combine is user code, a Python function on tensors, so there is
+  no hand-written kernel here: the scan is :func:`_associative_scan`, a
+  copy of JAX's ``lax.associative_scan`` recursion in torch ops (about
+  ``log2(B)`` levels of the combine), whose grouping of each segment's
+  combines, and so its float bits, is JAX's.
 - :func:`gather_row_pane_columns`, :func:`reset_rows` and
   :func:`set_row_pane_columns` are the paging tier's page-out gather and
   page-in set, plain indexing into unique rows (deterministic), in place.
@@ -464,6 +473,105 @@ def set_row_pane_columns(state_leaves, counts, rows, pane_slots,
     for l, col in zip(state_leaves, leaf_cols):
         l.index_put_(at, col.to(l.dtype))
     counts.index_put_(at, counts_cols.to(counts.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the generic fold: a segmented associative scan in JAX's grouping
+# ---------------------------------------------------------------------------
+
+def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a[0], b[0], a[1], b[1], ...`` along axis 0 (``len(a)`` is
+    ``len(b)`` or one more), as JAX's ``_interleave`` builds it: both padded
+    with zeros into the other's positions and ADDED (OR for bool), so a
+    ``-0.0`` comes out as ``+0.0`` there too."""
+    shape = (a.shape[0] + b.shape[0],) + tuple(a.shape[1:])
+    ap = torch.zeros(shape, dtype=a.dtype, device=a.device)
+    bp = torch.zeros(shape, dtype=b.dtype, device=b.device)
+    ap[0::2] = a
+    bp[1::2] = b
+    return ap | bp if a.dtype == torch.bool else ap + bp
+
+
+def _associative_scan(fn: Callable, elems) -> list:
+    """Inclusive scan of the list of ``[n, ...]`` tensors ``elems`` along
+    axis 0 with the associative ``fn(a_list, b_list) -> list`` — the
+    odd/even recursion of ``jax.lax.associative_scan`` (jax 0.9): combine
+    the pairs ``(0,1), (2,3), ...``, scan those recursively (the odd
+    outputs), combine each odd output with the next even input (the even
+    outputs), put ``elems[0]`` first and interleave."""
+    elems = list(elems)
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    reduced = fn([e[0:n - 1:2] for e in elems], [e[1::2] for e in elems])
+    odd = _associative_scan(fn, reduced)
+    if n % 2 == 0:
+        even = fn([e[:-1] for e in odd], [e[2::2] for e in elems])
+    else:
+        even = fn(odd, [e[2::2] for e in elems])
+    even = [torch.cat([e[:1], r]) for e, r in zip(elems, even)]
+    return [_interleave(a, b) for a, b in zip(even, odd)]
+
+
+def segment_running_fold(slot_ids, lifted_leaves, combine_leaves: Callable):
+    """Per-record *running* segment fold (keyed ``reduce()`` semantics:
+    every input record emits its key's fold-so-far within the batch).
+
+    Returns ``(order[B], sids[B], is_end[B], prefix_leaves[B, ...])``:
+    ``order`` maps sorted position -> original row (a stable sort, as
+    ``jnp.argsort``), ``prefix_leaves[i]`` is the inclusive fold of the
+    sorted rows of ``sids[i]``'s slot up to ``i``, and ``is_end`` flags the
+    last row of each slot."""
+    order = torch.argsort(slot_ids, stable=True)
+    sids = slot_ids[order]
+    svals = [l[order] for l in lifted_leaves]
+    one = torch.ones((1,), dtype=torch.bool, device=sids.device)
+    change = sids[1:] != sids[:-1]
+    first = torch.cat([one, change])
+
+    def seg_op(a, b):
+        fa, va = a[0], a[1:]
+        fb, vb = b[0], b[1:]
+        merged = combine_leaves(tuple(va), tuple(vb))
+        vals = [torch.where(_bcast(fb, m), y, m)
+                for m, y in zip(merged, vb)]
+        return [fa | fb] + vals
+
+    scanned = _associative_scan(seg_op, [first] + svals)
+    is_end = torch.cat([change, one])
+    return order, sids, is_end, tuple(scanned[1:])
+
+
+def segment_fold(slot_ids, lifted_leaves, combine_leaves: Callable,
+                 num_slots: int = 0):
+    """Generic per-batch segment reduction: ``(sids[B], is_end[B],
+    folded_leaves[B, ...])``, where the rows flagged as segment ends hold
+    the whole fold of their slot's records in this batch."""
+    _, sids, is_end, folded = segment_running_fold(slot_ids, lifted_leaves,
+                                                   combine_leaves)
+    return sids, is_end, folded
+
+
+def scatter_generic(state_leaves, slot_ids, lifted_leaves,
+                    combine_leaves: Callable, num_slots: int):
+    """Fold a batch into ``[num_slots, ...]`` state with an arbitrary
+    monoid, in place: segment-fold the batch per slot, gather the current
+    state at each segment's slot (clamped into range, as JAX's gather
+    clamps), combine ``(current, folded)`` and write each segment end, cast
+    to the state dtype.  Non-ends and ids outside ``[0, num_slots)`` are not
+    written (JAX's ``mode="drop"``); the written ids are unique, so the
+    write is race-free and deterministic on the card.  Plain torch ops on
+    either device (the combine is user code)."""
+    sids, is_end, folded = segment_fold(slot_ids, lifted_leaves,
+                                        combine_leaves, num_slots)
+    safe = torch.clamp(sids, max=num_slots - 1).to(torch.int64)
+    current = tuple(l[safe] for l in state_leaves)
+    merged = combine_leaves(current, folded)
+    keep = is_end & (sids >= 0) & (sids < num_slots)
+    idx = safe[keep]
+    for l, m in zip(state_leaves, merged):
+        l[idx] = m[keep].to(l.dtype)
+    return tuple(state_leaves)
 
 
 # ---------------------------------------------------------------------------

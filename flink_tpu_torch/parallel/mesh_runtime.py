@@ -218,6 +218,9 @@ class MeshWindowAggOperator(WindowAggOperator):
         for d, dev in enumerate(self.mesh.devices):
             with self._on_device(dev):
                 vals = tree_unflatten(treedef, [r[d] for r in rx[2:]])
+                if self.kinds is None:
+                    # the generic fold's values as JAX's step sees them
+                    vals = self._generic_values(vals, rx[0][d].shape[0])
                 out.append((rx[0][d], rx[1][d],
                             tuple(tree_leaves(self.agg.lift(vals)))))
         return out
@@ -225,7 +228,9 @@ class MeshWindowAggOperator(WindowAggOperator):
     def _mesh_fold(self, leaves, counts, received) -> None:
         """Each block folds its received rows, in row order, on its own
         device: local flat id ``(slot - d*K/D) * P + pane``; rows of other
-        blocks and pad rows take the dropped id ``(K/D) * P``."""
+        blocks and pad rows take the dropped id ``(K/D) * P``.  An aggregate
+        with no scatter kinds folds through ``scatter_generic`` over the
+        local ids, as each of JAX's blocks does."""
         K = self._K
         for (lo, lb, cb), (r_slots, r_panes, lifted) in zip(
                 self._row_blocks(leaves, counts), received):
@@ -235,8 +240,11 @@ class MeshWindowAggOperator(WindowAggOperator):
                 local = r_slots.to(idt) - lo
                 ok = (r_slots < K) & (local >= 0) & (local < kd)
                 lflat = torch.where(ok, local * P + r_panes.to(idt), kd * P)
-                ordered_fold_counts(*self._flat_state(lb, cb), lflat, lifted,
-                                    self.kinds)
+                if self.kinds is None:
+                    self._generic_fold(lb, cb, lflat, lifted)
+                else:
+                    ordered_fold_counts(*self._flat_state(lb, cb), lflat,
+                                        lifted, self.kinds)
 
     def _mesh_update_step(self, received) -> None:
         """The exchanged rows folded into the replica's blocks."""

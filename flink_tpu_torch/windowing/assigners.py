@@ -3,7 +3,7 @@
 A pane is the gcd span shared by every window covering it; the per-record
 hot path only computes ``pane_of(timestamps)`` (one vectorized int op) and
 state is a ``[keys, panes]`` ring.  The port carries the tumbling and the
-sliding event-time assigners.
+sliding event-time assigners and :class:`GlobalWindows`.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ from math import gcd
 from typing import Tuple
 
 import numpy as np
+
+from flink_tpu_torch.core.batch import LONG_MAX, LONG_MIN
 
 
 @dataclass(frozen=True, order=True)
@@ -103,3 +105,26 @@ class TumblingEventTimeWindows(SlidingEventTimeWindows):
     @staticmethod
     def of(size_ms: int, offset_ms: int = 0) -> "TumblingEventTimeWindows":
         return TumblingEventTimeWindows(size_ms, offset_ms)
+
+
+class GlobalWindows(WindowAssigner):
+    """One window covering everything (``GlobalWindows.java``), which only
+    a count trigger fires: a single pane of an effectively infinite width."""
+
+    is_event_time = True
+    pane_ms = LONG_MAX // 4
+    panes_per_window = 1
+    pane_stride = 1
+
+    def pane_of(self, timestamps: np.ndarray) -> np.ndarray:
+        return np.zeros(np.shape(timestamps)[0], np.int64)
+
+    def window_bounds(self, window_id: int) -> TimeWindow:
+        return TimeWindow(LONG_MIN, LONG_MAX)
+
+    def last_window_end_of_pane(self, pane_id: int) -> int:
+        return LONG_MAX
+
+    @staticmethod
+    def create() -> "GlobalWindows":
+        return GlobalWindows()

@@ -891,3 +891,107 @@ def test_mesh_over_two_cards_equals_the_cpu(cuda_device):
     cpu, csnap, cstats = _mesh_run(["cpu"] * 4, "host")
     assert gstats == cstats and gsnap == csnap
     _same_fires(gpu, cpu)
+
+
+# ---------------------------------------------------------------------------
+# the generic fold, count triggers and the keyed reduce on the card
+# ---------------------------------------------------------------------------
+
+def _combine_add(a, b):
+    return (a[0] + b[0],)
+
+
+def test_generic_scan_on_the_card_equals_the_cpu(cuda_device):
+    """``segment_running_fold`` and ``scatter_generic`` (torch ops: a
+    stable sort, JAX's scan recursion, one write per segment end) on a
+    2^18-row batch: the card's bits are the CPU's."""
+    rng = np.random.default_rng(5)
+    B, N = 1 << 18, 1 << 16
+    ids = rng.integers(0, N + 1, B).astype(np.int32)   # N: dropped rows
+    vals = (rng.standard_normal(B) * 10).astype(np.float32)
+    vals[rng.random(B) < 0.05] = -0.0
+    state = rng.standard_normal(N).astype(np.float32)
+    want = sc.segment_running_fold(torch.from_numpy(ids),
+                                   (torch.from_numpy(vals),), _combine_add)
+    got = sc.segment_running_fold(torch.from_numpy(ids).to(cuda_device),
+                                  (torch.from_numpy(vals).to(cuda_device),),
+                                  _combine_add)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[2].cpu(), want[2])
+    assert got[3][0].cpu().numpy().tobytes() == \
+        want[3][0].numpy().tobytes()
+    cpu_state = torch.from_numpy(state.copy())
+    gpu_state = torch.from_numpy(state.copy()).to(cuda_device)
+    sc.scatter_generic((cpu_state,), torch.from_numpy(ids),
+                       (torch.from_numpy(vals),), _combine_add, N)
+    sc.scatter_generic((gpu_state,), torch.from_numpy(ids).to(cuda_device),
+                       (torch.from_numpy(vals).to(cuda_device),),
+                       _combine_add, N)
+    assert gpu_state.cpu().numpy().tobytes() == cpu_state.numpy().tobytes()
+
+
+def _count_run(device, assigner, trigger, agg=None):
+    """A small seeded stream through a count-triggered (or generic)
+    device-tier operator: every fire's keys and result bytes."""
+    rng = np.random.default_rng(13)
+    op = WindowAggOperator(assigner, agg or SumAggregator(), key_column="k",
+                           value_column="v", device=device, trigger=trigger,
+                           emit_tier="device", snapshot_source="device",
+                           initial_key_capacity=256)
+    out = []
+    for i in range(8):
+        keys = rng.integers(0, 200 * (i + 1), 3000).astype(np.int64)
+        vals = rng.standard_normal(3000).astype(np.float32)
+        ts = i * 50 + np.sort(rng.integers(0, 50, 3000)).astype(np.int64)
+        out += op.process_batch(RecordBatch({"k": keys, "v": vals},
+                                            timestamps=ts))
+        out += op.process_watermark(Watermark(int(ts.max()) - 1))
+    out += op.end_input()
+    return [(np.asarray(b.column("k")).tobytes(),
+             np.asarray(b.column("result")).tobytes()) for b in out]
+
+
+@pytest.mark.parametrize("case", ["tumbling-purging", "global-purging",
+                                  "sliding-running", "lambda"])
+def test_count_trigger_and_generic_operators_on_the_card_equal_the_cpu(
+        cuda_device, case):
+    from flink_tpu_torch.core.functions import LambdaReduce
+    from flink_tpu_torch.windowing.assigners import (GlobalWindows,
+                                                     SlidingEventTimeWindows)
+    from flink_tpu_torch.windowing.triggers import CountTrigger
+    args = {
+        "tumbling-purging": lambda: (TumblingEventTimeWindows.of(100),
+                                     CountTrigger.of(2, purge=True)),
+        "global-purging": lambda: (GlobalWindows.create(),
+                                   CountTrigger.of(4, purge=True)),
+        "sliding-running": lambda: (SlidingEventTimeWindows.of(300, 100),
+                                    CountTrigger.of(3)),
+        "lambda": lambda: (TumblingEventTimeWindows.of(100), None,
+                           LambdaReduce(lambda a, b: a + b, 0.0)),
+    }[case]
+    before = sc.ordered_fold_counts.launches
+    gpu = _count_run(cuda_device, *args())
+    launched = sc.ordered_fold_counts.launches - before
+    cpu = _count_run("cpu", *args())
+    assert gpu == cpu and gpu
+    # the count cases fold through scatter_fold; the generic one never does
+    assert (launched > 0) == (case != "lambda")
+
+
+def test_keyed_reduce_on_the_card_equals_the_cpu(cuda_device):
+    from flink_tpu_torch.operators.basic import KeyedReduceOperator
+    rng = np.random.default_rng(17)
+    runs = {}
+    for dev in (cuda_device, "cpu"):
+        op = KeyedReduceOperator(SumAggregator(), key_column="k",
+                                 value_column="v", device=dev)
+        outs = []
+        for B in (1 << 16, 1000, 37, 5000):
+            keys = rng.integers(0, 3000, B).astype(np.int64)
+            vals = rng.standard_normal(B).astype(np.float32)
+            (b,) = op.process_batch(RecordBatch({"k": keys, "v": vals}))
+            outs.append(np.asarray(b.column("result")).tobytes())
+        snap = op.snapshot_state()
+        runs[str(dev)] = (outs, [l.tobytes() for l in snap["leaves"]])
+        rng = np.random.default_rng(17)
+    assert runs[str(cuda_device)] == runs["cpu"]

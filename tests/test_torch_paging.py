@@ -46,7 +46,7 @@ from flink_tpu_torch.ops import scatter as tsc
 from flink_tpu_torch.state import paging as ppg
 from flink_tpu_torch.state.spill import PaneSpillStore
 from flink_tpu_torch.windowing import assigners as pwin
-from flink_tpu_torch.windowing.triggers import Trigger
+from flink_tpu_torch.windowing.triggers import CountTrigger as PortCountTrigger
 
 DEVICE_TIER = dict(emit_tier="device", snapshot_source="device",
                    device_sync="scatter", pipeline_depth=0)
@@ -475,12 +475,6 @@ def test_pager_protected_rows_and_too_few_eligible(policy):
         pager.close()
 
 
-class _CountTrigger(Trigger):
-    """A count trigger (the port carries none yet): enough for the check."""
-
-    fires_on_count = True
-
-
 @pytest.mark.parametrize("case", ["policy", "host_tier", "count_trigger"])
 def test_paging_config_validation_matches_jax(case):
     """The ValueErrors of ``tests/test_paging.py``'s validation test, raised
@@ -493,7 +487,7 @@ def test_paging_config_validation_matches_jax(case):
         extra = dict(kw[1])
         if case == "count_trigger":
             extra["trigger"] = (CountTrigger.of(3) if side == "jax"
-                                else _CountTrigger())
+                                else PortCountTrigger.of(3))
         with pytest.raises(ValueError):
             _make(side, kw[0]["paging"], **extra)
 

@@ -43,7 +43,6 @@ from flink_tpu_torch.core.functions import RuntimeContext, SumAggregator
 from flink_tpu_torch.interop import snapshot_from_jax, snapshot_to_jax
 from flink_tpu_torch.operators.window_agg import WindowAggOperator
 from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
-from flink_tpu_torch.windowing.triggers import Trigger
 from test_torch_calibration import verdicts  # noqa: F401 — the fixture
 
 RTOL = ATOL = 1e-6
@@ -247,30 +246,34 @@ def test_state_carried_from_the_port_into_jax(port_run):
 
 def test_interop_refuses_what_the_slice_does_not_carry(port_run):
     snap = dict(port_run[2])
-    snap["count_baselines"] = {3: np.zeros(4, np.int64)}
-    with pytest.raises(ValueError, match="count_baselines"):
+    snap["__increment__"] = {"base": 1}
+    with pytest.raises(ValueError, match="__increment__"):
         snapshot_from_jax(snap)
     snap = dict(port_run[2], key_index_kind="ObjectKeyIndex")
     with pytest.raises(ValueError, match="ObjectKeyIndex"):
         snapshot_to_jax(snap)
 
 
-class _CountTrigger(Trigger):
-    """A count trigger's declaration (the count-window slice ports one)."""
+class _ProcessingTimeWindows(TumblingEventTimeWindows):
+    """A processing-time assigner's declaration (the runtime-stack slice
+    ports them)."""
 
-    fires_on_count = True
+    is_event_time = False
 
 
 @pytest.mark.parametrize("kw", [
     {"queryable": "q"},
-    {"trigger": _CountTrigger()},     # sharding is accepted since the mesh
+    # sharding is accepted since the mesh, count triggers since the
+    # count-trigger slice
+    {"assigner": _ProcessingTimeWindows(100)},
     {"late_output_tag": "late"},
 ])
 def test_later_slices_refuse_honestly(kw):
+    kw = dict(kw)
+    assigner = kw.pop("assigner", TumblingEventTimeWindows.of(100))
     base = dict(key_column="k", value_column="v", device="cpu")
     with pytest.raises(NotImplementedError, match="not in this slice"):
-        WindowAggOperator(TumblingEventTimeWindows.of(100), SumAggregator(),
-                          **{**base, **kw})
+        WindowAggOperator(assigner, SumAggregator(), **{**base, **kw})
 
 
 #: options the calibration and pipelining slice lifted from the refusals:
