@@ -185,6 +185,31 @@ Phases, each fatal on failure (exit code 1, no result line):
    device's busy share, its kernels a batch).  Paths 19 and 20 must launch
    ``scatter_fold``, paths 18 and 21 must not; each is timed against path
    5.
+9h. main paths 22-25 (slice 12), after path 21: path 22 is
+   ``SessionWindowOperator`` (host only, as in JAX) on config 4 of
+   ``BASELINE.json`` at ``bench.py`` ``run_config4``'s full size (seed 17,
+   2^21 records in 64 batches of 2^15, keys ``(zipf(1.3) - 1) % 100000``,
+   bursts of 800 ms every 3000 ms, gap 1000 ms, an f32 sum, a watermark of
+   ``max(ts) - 1`` after each batch, then the end-of-input watermark); path
+   23 is ``MeshSessionWindowOperator`` over ``MESH_BLOCKS`` blocks of the
+   card on the same batches (the fold through the exchange and
+   ``scatter_fold``, one call a block a batch).  Both are held to a
+   pure-Python model (``bench.py``'s heap pass with the operator's
+   boundaries): the same (key, start, end) at the same calls, each sum
+   within ``n * U32`` of the model's f64 sum; path 23's sessions equal path
+   22's, and its first ``SESSION_CPU_BATCHES`` batches equal a CPU mesh's
+   bit for bit.  Path 24 is ``DeviceEvictingWindowOperator`` on the 1M-key
+   stream (tumbling 5000 ms, ``CountEvictor.of(1)``, f32 sum): every fire
+   equals a numpy model (each key's last arrival) bit for bit; path 25 is
+   path 24 with ``TimeEvictor.of(1000)`` and an f32 average, held bit for
+   bit to an f32 ``np.add.at`` model of each key's kept records in arrival
+   order.  Paths 24 and 25 equal the CPU over the first
+   ``EVICT_CPU_BATCHES`` batches bit for bit, guard one ``append_step``
+   dispatch a batch, and launch ``scatter_fold`` once a fire.  Each path's
+   mid-run snapshot is restored and replayed twice (the second under
+   ``torch.profiler``): the same outputs at the same calls, each value bit
+   for bit.  A/B lines: path 23 against path 22, paths 24 and 25 against
+   path 5.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the kernel line reports each kernel's launches on every
@@ -372,6 +397,30 @@ REDUCE_RTOL = 1e-5
 #: the slice-11 paths that fold through scatter_fold (SumAggregator);
 #: paths 18 and 21 launch no hand-written kernel (the scan is torch ops)
 SLICE11_SCATTER = ("path 19", "path 20")
+#: slice 12's paths, after path 21: session windows at config 4 of
+#: ``BASELINE.json`` (path 22: ``SessionWindowOperator``, host only; path
+#: 23: ``MeshSessionWindowOperator`` over ``MESH_BLOCKS`` blocks of the
+#: card) and the device evicting lane on the 1M-key stream (path 24:
+#: ``CountEvictor.of(1)`` + sum; path 25: ``TimeEvictor.of(1000)`` + avg)
+SLICE12 = ("path 22", "path 23", "path 24", "path 25")
+#: ``bench.py`` ``run_config4`` at its full (non-smoke) size
+SESSION_RECORDS = 1 << 21
+SESSION_BATCH = 1 << 15
+SESSION_KEYS = 100_000
+SESSION_GAP_MS = 1000
+SESSION_SEED = 17
+#: the session paths' mid-run snapshot (after this batch of 64)
+SESSION_SNAPSHOT_AT = 31
+#: the first batches path 23 also runs on a CPU mesh, bit for bit
+SESSION_CPU_BATCHES = 16
+#: the first batches paths 24 and 25 also run on the CPU, bit for bit
+EVICT_CPU_BATCHES = 10
+#: f32 unit roundoff: an f32 sum of n non-negative f32 values, in any
+#: association, is within (n - 1) * U32 * (the exact sum) of the exact sum
+#: (Higham, gamma_{n-1}); the sessions' sums are held to n * U32 against
+#: the f64 model
+U32 = 2.0 ** -24
+EVICT_LABEL = "evicting-window-device.append_step"
 
 
 def fail(msg: str) -> None:
@@ -2487,6 +2536,378 @@ def slice11_path(device, batches, expect, label):
                       "kernels_per_batch": kernels_per_batch}
 
 
+def make_session_batches():
+    """Copy of ``bench.py`` ``run_config4``'s generator at its full size:
+    Zipf(1.3) keys over 100,000, f32 values, bursts of 800 ms every 3000 ms
+    (so sessions close between bursts)."""
+    rng = np.random.default_rng(SESSION_SEED)
+    batches = []
+    t = 0
+    for lo in range(0, SESSION_RECORDS, SESSION_BATCH):
+        b = min(SESSION_BATCH, SESSION_RECORDS - lo)
+        keys = (rng.zipf(1.3, b).astype(np.int64) - 1) % SESSION_KEYS
+        vals = rng.random(b).astype(np.float32)
+        ts = t + np.sort(rng.integers(0, 800, b)).astype(np.int64)
+        t += 3000
+        batches.append((keys, vals, ts))
+    return batches
+
+
+def session_model(batches):
+    """Independent pure-Python sessions: ``bench.py``'s heap pass (per key
+    a list of ``[start, end, f64 sum, records]``, merged record by record,
+    the MergingWindowSet analog) run to the end, with the session
+    operator's boundaries: a record's window is ``[t, t + gap)``, two
+    windows merge when they overlap, and a session fires once the watermark
+    (``max(ts) - 1`` after each batch, then the end of input) reaches its
+    end.  Returns ``{(call, key, start, end): (sum, records)}``."""
+    sessions, out = {}, {}
+    gap = SESSION_GAP_MS
+
+    def fire(call, wm):
+        for k in list(sessions):
+            keep = []
+            for s in sessions[k]:
+                if s[1] <= wm:
+                    out[(call, k, s[0], s[1])] = (s[2], s[3])
+                else:
+                    keep.append(s)
+            if keep:
+                sessions[k] = keep
+            else:
+                del sessions[k]
+
+    for i, (keys, vals, ts) in enumerate(batches):
+        for k, v, t in zip(keys.tolist(), vals.tolist(), ts.tolist()):
+            lst = sessions.setdefault(k, [])
+            new = [t, t + gap, v, 1]
+            merged = []
+            for s in lst:
+                if s[0] < new[1] and new[0] < s[1]:
+                    new = [min(s[0], new[0]), max(s[1], new[1]),
+                           s[2] + new[2], s[3] + new[3]]
+                else:
+                    merged.append(s)
+            merged.append(new)
+            sessions[k] = merged
+        fire(i, int(ts.max()) - 1)
+    fire(len(batches), 2 ** 63 - 1)
+    return out
+
+
+def slice12_op(device, label, cpu_mesh=False):
+    """The operator of a slice-12 path (``cpu_mesh``: path 23's operator
+    over ``MESH_BLOCKS`` CPU blocks)."""
+    import torch
+
+    from flink_tpu_torch.core.functions import (AvgAggregator, RuntimeContext,
+                                                SumAggregator)
+    from flink_tpu_torch.operators.evicting_device import \
+        DeviceEvictingWindowOperator
+    from flink_tpu_torch.operators.session_window import \
+        SessionWindowOperator
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.mesh_runtime import \
+        MeshSessionWindowOperator
+    from flink_tpu_torch.windowing.assigners import (EventTimeSessionWindows,
+                                                     TumblingEventTimeWindows)
+    from flink_tpu_torch.windowing.evictors import CountEvictor, TimeEvictor
+    sessions = EventTimeSessionWindows(SESSION_GAP_MS)
+    if label == "path 22":
+        op = SessionWindowOperator(sessions, SumAggregator(torch.float32),
+                                   key_column="k", value_column="v")
+    elif label == "path 23":
+        dev = torch.device("cpu") if cpu_mesh else device
+        op = MeshSessionWindowOperator(
+            sessions, SumAggregator(torch.float32), key_column="k",
+            value_column="v", mesh=make_mesh(devices=[dev] * MESH_BLOCKS))
+    else:
+        evictor, agg = {
+            "path 24": (CountEvictor.of(1), SumAggregator(torch.float32)),
+            "path 25": (TimeEvictor.of(1000), AvgAggregator(torch.float32)),
+        }[label]
+        op = DeviceEvictingWindowOperator(
+            TumblingEventTimeWindows.of(WINDOW_MS), evictor, agg,
+            key_column="k", value_column="v",
+            initial_key_capacity=KEY_CAPACITY, device=device)
+    op.open(RuntimeContext())
+    return op
+
+
+def slice12_drive(op, batches, start=0, snap_at=None, fire_ms=None,
+                  stop=None):
+    """Feed ``batches[start:stop]`` (a watermark of ``max(ts) - 1`` after
+    each); with ``stop`` None, then the end-of-input watermark and
+    ``end_input``.  Returns every output as (call, batch), the snapshot
+    taken after batch ``snap_at`` and the buffer rows' high-water (the
+    evicting lane's).  ``fire_ms`` collects the host ms of each watermark
+    call that fired."""
+    from flink_tpu_torch.core.batch import MAX_WATERMARK, RecordBatch, \
+        Watermark
+    fired, snap, high = [], None, 0
+    end = len(batches) if stop is None else stop
+    for i in range(start, end):
+        keys, vals, ts = batches[i]
+        out = op.process_batch(RecordBatch({"k": keys, "v": vals},
+                                           timestamps=ts))
+        high = max(high, getattr(op, "_C", 0))
+        f0 = time.perf_counter()
+        wm = op.process_watermark(Watermark(int(ts.max()) - 1))
+        if fire_ms is not None and wm:
+            fire_ms.append((time.perf_counter() - f0) * 1e3)
+        fired += [(i, b) for b in out + wm]
+        if i == snap_at:
+            snap = op.snapshot_state()
+    if stop is None:
+        f0 = time.perf_counter()
+        tail = op.process_watermark(Watermark(MAX_WATERMARK)) + op.end_input()
+        if fire_ms is not None and tail:
+            fire_ms.append((time.perf_counter() - f0) * 1e3)
+        fired += [(len(batches), b) for b in tail]
+    return fired, snap, high
+
+
+def slice12_rows(fired):
+    """Per call, its output rows as (key, window start, window end, result
+    bits), sorted: the view in which a restored session operator (whose key
+    index numbers keys in snapshot order) must equal the run."""
+    out = {}
+    for i, b in fired:
+        res = np.asarray(b.column("result"))
+        out.setdefault(i, []).extend(zip(
+            np.asarray(b.column("k")).tolist(),
+            np.asarray(b.column("window_start")).tolist(),
+            np.asarray(b.column("window_end")).tolist(),
+            [r.tobytes() for r in res]))
+    return {i: sorted(rows) for i, rows in out.items()}
+
+
+def check_sessions(label, fired, model):
+    """(key, start, end) at the same calls as the model, exactly; each f32
+    sum within ``n * U32`` of the model's f64 sum of its n records."""
+    got = {}
+    for i, b in fired:
+        res = np.asarray(b.column("result"))
+        check(res.dtype == np.float32, f"{label}: result dtype {res.dtype}")
+        for k, s, e, r in zip(np.asarray(b.column("k")).tolist(),
+                              np.asarray(b.column("window_start")).tolist(),
+                              np.asarray(b.column("window_end")).tolist(),
+                              res.tolist()):
+            check((i, k, s, e) not in got, f"{label}: session {(k, s, e)} "
+                  f"fired twice at call {i}")
+            got[(i, k, s, e)] = r
+    check(set(got) == set(model), f"{label}: {len(got)} sessions, the model "
+          f"{len(model)}; {len(set(got) ^ set(model))} differ")
+    worst = 0.0
+    for key, r in got.items():
+        s, n = model[key]
+        err = abs(r - s)
+        check(err <= n * U32 * s + 1e-30, f"{label} session {key}: sum {r} "
+              f"vs the model's {s} over {n} records")
+        worst = max(worst, err / max(n * U32 * s, 1e-30))
+    return len(got), worst
+
+
+def evict_model(batches, label):
+    """Independent numpy semantics of paths 24 and 25, per 5000 ms window:
+    path 24 (``CountEvictor.of(1)``, sum) each key's last arrival's value;
+    path 25 (``TimeEvictor.of(1000)``, average) each key's records within
+    1000 ms of its newest, summed in f32 in arrival order (``np.add.at``)
+    and divided by their count in f32.  Returns {window start: (keys
+    ascending, f32 results)}."""
+    keys = np.concatenate([b[0] for b in batches])
+    vals = np.concatenate([b[1] for b in batches])
+    ts = np.concatenate([b[2] for b in batches])
+    win = ts // WINDOW_MS
+    out = {}
+    for w in np.unique(win).tolist():
+        m = win == w
+        k, v, t = keys[m], vals[m], ts[m]
+        uniq, inv = np.unique(k, return_inverse=True)
+        if label == "path 24":
+            last = np.full(uniq.size, -1, np.int64)
+            last[inv] = np.arange(k.size)       # the last write wins
+            out[w * WINDOW_MS] = (uniq, np.float32(0) + v[last])
+            continue
+        tmax = np.full(uniq.size, np.iinfo(np.int64).min)
+        np.maximum.at(tmax, inv, t)
+        kept = t >= tmax[inv] - 1000
+        sums = np.zeros(uniq.size, np.float32)
+        np.add.at(sums, inv[kept], v[kept])
+        cnt = np.bincount(inv[kept], minlength=uniq.size).astype(np.int32)
+        out[w * WINDOW_MS] = (uniq,
+                              sums / np.maximum(cnt, 1).astype(np.float32))
+    return out
+
+
+def check_evictions(label, fired, model):
+    """Every fire against the model, bit for bit (keys compared in
+    ascending order)."""
+    check(len(fired) == len(model), f"{label}: {len(fired)} fires, the "
+          f"model {len(model)} windows")
+    for i, b in fired:
+        w = int(np.asarray(b.column("window_start"))[0])
+        k = np.asarray(b.column("k"))
+        r = np.asarray(b.column("result"))
+        order = np.argsort(k, kind="stable")
+        mk, mr = model[w]
+        check(r.dtype == np.float32 and np.array_equal(k[order], mk)
+              and r[order].tobytes() == mr.tobytes(),
+              f"{label} window {w} (call {i}): the fire differs from the "
+              f"model in its bits ({k.size} vs {mk.size} keys)")
+    return f"{len(fired)} fires bit for bit"
+
+
+def slice12_path(device, label, batches, ref):
+    """Drive one slice-12 path with every launch count at 0 just before and
+    read just after, hold it to its model and its CPU twin, and restore and
+    replay its mid-run snapshot twice (the second under
+    ``torch.profiler``).  ``ref``: path 22's outputs for path 23."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_tpu_torch.runtime import device_health
+
+    session = label in ("path 22", "path 23")
+    snap_at = SESSION_SNAPSHOT_AT if session else SNAPSHOT_EVERY - 1
+    mon = device_health.DeviceHealthMonitor()
+    device_health.set_monitor(mon)
+    op = slice12_op(device, label)
+    fire_ms = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    fired, snap, high = slice12_drive(op, batches, snap_at=snap_at,
+                                      fire_ms=fire_ms)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["probe"] == 0 and launches["probe_fold"] == 0,
+          f"{label}: launches {launches}")
+    check(snap is not None, f"{label}: no mid-run snapshot")
+    n_out = sum(len(b) for _, b in fired)
+    extra = ""
+    if session:
+        n_sess, worst = check_sessions(label, fired, ref["model"])
+        what = (f"{n_sess} sessions: (key, start, end) at the model's calls "
+                f"exactly, sums within n * 2^-24 of its f64 sums (worst "
+                f"{worst:.4f} of the bound)")
+        if label == "path 22":
+            check(launches["scatter_fold"] == 0, f"{label}: launches "
+                  f"{launches}; the host operator launches nothing")
+        else:
+            check(launches["scatter_fold"] > 0,
+                  f"{label}: no scatter_fold launch")
+            mine = {i: [r[:3] for r in rows]
+                    for i, rows in slice12_rows(fired).items()}
+            theirs = {i: [r[:3] for r in rows]
+                      for i, rows in slice12_rows(ref["path 22"]).items()}
+            check(mine == theirs, f"{label}: its sessions differ from path "
+                  f"22's")
+            n_cpu = SESSION_CPU_BATCHES
+            cpu_fired, _, _ = slice12_drive(
+                slice12_op(device, label, cpu_mesh=True), batches,
+                stop=n_cpu)
+            cpu_d = slice11_digests(cpu_fired)
+            check(cpu_d and cpu_d == [d for d in slice11_digests(fired)
+                                      if d[0] < n_cpu],
+                  f"{label}: the card's first {n_cpu} batches differ from "
+                  f"the CPU mesh's in their bits")
+            extra = (f"; (key, start, end) equal path 22's at every call; "
+                     f"the first {n_cpu} batches equal the same operator on "
+                     f"a CPU mesh of {MESH_BLOCKS} bit for bit")
+    else:
+        what = check_evictions(label, fired, evict_model(batches, label))
+        check(launches["scatter_fold"] == op.fire_steps == len(fired) > 0,
+              f"{label}: launches {launches}, {op.fire_steps} fire steps, "
+              f"{len(fired)} fires")
+        labels = dict(mon.label_counts)
+        check(labels.get(EVICT_LABEL) == len(batches)
+              and mon.counters["dispatches"] == len(batches),
+              f"{label}: guarded dispatches {labels}, "
+              f"{mon.counters['dispatches']}")
+        n_cpu = EVICT_CPU_BATCHES
+        cpu_fired, _, _ = slice12_drive(
+            slice12_op(torch.device("cpu"), label), batches, stop=n_cpu)
+        cpu_d = slice11_digests(cpu_fired)
+        check(cpu_d and cpu_d == [d for d in slice11_digests(fired)
+                                  if d[0] < n_cpu],
+              f"{label}: the card's first {n_cpu} batches differ from the "
+              f"CPU's in their bits")
+        extra = (f"; the first {n_cpu} batches equal the CPU bit for bit; "
+                 f"one guarded {EVICT_LABEL} a batch ({labels})")
+    # a restored session operator numbers keys in snapshot order, so its
+    # rows come out in another order: compare each call's sorted rows; the
+    # evicting lane restores its slot ids, so its fires compare as bytes
+    view = slice12_rows if session else slice11_digests
+    after = view([(i, b) for i, b in fired if i > snap_at])
+    replay_wall, busy_ms, ops_per_batch, top = None, 0.0, 0.0, []
+    for prof in (None, profile(activities=[ProfilerActivity.CUDA])):
+        rop = slice12_op(device, label)
+        torch.cuda.synchronize()
+        r0 = time.perf_counter()
+        with prof if prof is not None else contextlib.nullcontext():
+            rop.restore_state(snap)
+            got, _, _ = slice12_drive(rop, batches, start=snap_at + 1)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - r0
+        check(view(got) == after and after,
+              f"{label}: the restore+replay differs from the run"
+              + (" (profiled)" if prof is not None else ""))
+        if prof is None:
+            replay_wall = wall
+            continue
+        busy_ms, dev = device_busy_ms(prof)
+        n_ops = sum(e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0)
+        ops_per_batch = n_ops / (len(batches) - snap_at - 1)
+        top = dev[:6]
+    device_health.set_monitor(None)
+    n_records = sum(len(b[0]) for b in batches)
+    n_fires = len(fired)
+    p50 = float(np.percentile(fire_ms, 50))
+    p99 = float(np.percentile(fire_ms, 99))
+    share = busy_ms / (replay_wall * 1e3)
+    d2h = op.phase_bytes.get("d2h", 0)
+    print(f"{label}: {n_records} records in {elapsed:.3f} s = "
+          f"{n_records / elapsed:.1f} records/s; {n_fires} fires of "
+          f"{n_out} rows held to the model ({what}){extra}; launches "
+          f"{launches}; peak device memory {peak} B")
+    print(f"{label} fire latency ms over {len(fire_ms)} firing calls: p50 "
+          f"{p50:.3f} p99 {p99:.3f}")
+    print(f"{label} phase_ns: " + json.dumps(op.phase_ns, sort_keys=True))
+    print(f"{label} phase_bytes: " + json.dumps(op.phase_bytes,
+                                                sort_keys=True))
+    if session:
+        # the mesh downloads each batch's folded accumulators; a fire reads
+        # the host's session store
+        print(f"{label} d2h bytes: 0 per fire ({n_fires} fires); "
+              f"{d2h / len(batches):.0f} per batch (the folded sessions)")
+    else:
+        print(f"{label} d2h bytes: {d2h / max(n_fires, 1):.0f} per fire "
+              f"({n_fires} fires), "
+              f"{op.phase_bytes.get('d2h_snapshot', 0)} for the snapshot; "
+              f"element buffer {16 * high} B on the card at its largest "
+              f"({high} rows)")
+    print(f"{label} restore+replay from batch {snap_at}: {len(after)} "
+          f"calls' outputs equal the run's, each value bit for bit, twice; "
+          f"wall {replay_wall * 1e3:.3f} ms; device busy {busy_ms:.3f} ms "
+          f"= {100 * share:.2f}% (idle {100 - 100 * share:.2f}%); "
+          f"{ops_per_batch:.1f} device kernels and copies a batch; top "
+          f"device ops (ms): " + "; ".join(f"{k[:50]} {t / 1e3:.3f}"
+                                            for t, k in top))
+    return launches, fired, {
+        "records_per_s": n_records / elapsed, "fire_p50_ms": p50,
+        "fire_p99_ms": p99,
+        "d2h_per_fire": 0.0 if session else d2h / max(n_fires, 1),
+        "buffer_bytes": 16 * high, "busy_share": share,
+        "kernels_per_batch": ops_per_batch}
+
+
 def main() -> None:
     try:
         import torch
@@ -2595,6 +3016,35 @@ def main() -> None:
               f"({a['records_per_s'] / b['records_per_s']:.3f}x); fire "
               f"p50/p99 {a['fire_p50_ms']:.3f}/{a['fire_p99_ms']:.3f} vs "
               f"{b['fire_p50_ms']:.3f}/{b['fire_p99_ms']:.3f} ms")
+    session_batches = make_session_batches()
+    session_ref = {"model": session_model(session_batches)}
+    for label in SLICE12:
+        stream = session_batches if label in ("path 22", "path 23") \
+            else batches
+        launches[label], fired_12, numbers[label] = slice12_path(
+            device, label, stream, session_ref)
+        if label == "path 22":
+            session_ref["path 22"] = fired_12
+        del fired_12
+    a, b = numbers["path 23"], numbers["path 22"]
+    print(f"A/B path 23 (mesh, {MESH_BLOCKS} blocks on the card) vs path 22 "
+          f"(host), same batches, one process: records/s "
+          f"{a['records_per_s']:.1f} vs {b['records_per_s']:.1f} "
+          f"({a['records_per_s'] / b['records_per_s']:.3f}x); session-fire "
+          f"p50/p99 {a['fire_p50_ms']:.3f}/{a['fire_p99_ms']:.3f} vs "
+          f"{b['fire_p50_ms']:.3f}/{b['fire_p99_ms']:.3f} ms")
+    del session_batches, session_ref
+    for label in ("path 24", "path 25"):
+        a, b = numbers[label], numbers["path 5"]
+        print(f"A/B {label} (evicting lane) vs path 5 (device tier), same "
+              f"batches, one process: records/s {a['records_per_s']:.1f} vs "
+              f"{b['records_per_s']:.1f} "
+              f"({a['records_per_s'] / b['records_per_s']:.3f}x); fire "
+              f"p50/p99 {a['fire_p50_ms']:.3f}/{a['fire_p99_ms']:.3f} vs "
+              f"{b['fire_p50_ms']:.3f}/{b['fire_p99_ms']:.3f} ms; d2h per "
+              f"fire {a['d2h_per_fire']:.0f} vs {b['d2h_per_fire']:.0f} B; "
+              f"state on the card: element buffer {a['buffer_bytes']} B vs "
+              f"ring {b['ring_bytes']} B")
     pipeline_ab(device, "path 9", "path 3", ab_want["path 3"])
     guard_ab(device, batches, ab_want)
     mesh_ab(device, batches, ab_want, card)
@@ -2663,14 +3113,14 @@ def main() -> None:
     kernels.append(scatter_fold_phase(device, rng))
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]]
-                   for label in ORDER + SLICE11}
+                   for label in ORDER + SLICE11 + SLICE12}
         kernel["launches_by_path"] = by_path
         kernel["launches"] = sum(by_path.values())
         print(f"{kernel['name']} launches by path: {by_path}")
     for part in ("single", "multi"):
         kernels[-1][f"launches_by_path_{part}"] = by_path = {
             label: launches[label][f"scatter_fold_{part}"]
-            for label in ORDER + SLICE11}
+            for label in ORDER + SLICE11 + SLICE12}
         print(f"scatter_fold launches through ordered_fold_counts"
               f"{'_multi' if part == 'multi' else ''} by path: {by_path}")
     for label in ("path 1", "path 3"):
@@ -2679,7 +3129,7 @@ def main() -> None:
         check(launches[label]["probe_fold"] > 0,
               f"{label}: no probe_fold launch")
     for label in (*DEVICE_PATHS, *PAGED_PATHS, *FAULTS, "path 8", "path 9",
-                  *SLICE11_SCATTER):
+                  *SLICE11_SCATTER, "path 23", "path 24", "path 25"):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
     check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")

@@ -21,6 +21,19 @@ The basic operators' keyed snapshots (``KeyedReduceOperator``:
 ``keys``/``key_index_kind``/``leaves``; ``ExtremumByOperator``:
 ``state.vals``/``state.rows``) cross over through
 :func:`keyed_snapshot_from_jax` and :func:`keyed_snapshot_to_jax`.
+
+Session snapshots (``SessionWindowOperator`` and its mesh subclass: raw
+``session_keys``, ``start``/``end``/``fired`` per live session, ``acc`` one
+array per accumulator leaf, ``watermark``, ``late_dropped``, optional
+distinct ``sets``) cross over through :func:`session_snapshot_from_jax` and
+:func:`session_snapshot_to_jax`; the evicting lane's
+(``DeviceEvictingWindowOperator``: the pane bookkeeping, the key index and
+the live raw elements ``vals`` f32, ``keys`` int32, absolute ``panes`` and
+``ts`` int64) through :func:`evicting_snapshot_from_jax` and
+:func:`evicting_snapshot_to_jax`.  Session accumulator leaves go to JAX in
+the dtypes JAX holds them in with x64 off: a 64-bit leaf (the port's
+``SumAggregator(torch.int64)``) narrows to 32 bits, as JAX would have
+folded it.
 """
 
 from __future__ import annotations
@@ -173,3 +186,87 @@ def snapshot_to_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
     """A port ``WindowAggOperator.snapshot_state()`` dict -> the JAX
     operator's format (ready for its ``restore_state``)."""
     return _normalize(snap, "port")
+
+
+#: 64-bit dtypes and the 32-bit ones JAX stores them as with x64 off
+_X64_OFF = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+            np.dtype(np.uint64): np.uint32}
+
+
+def _normalize_session(snap: Dict[str, Any], source: str,
+                       x64_off: bool = False) -> Dict[str, Any]:
+    keys = np.ascontiguousarray(snap.get("session_keys", ()), np.int64)
+    n = keys.size
+    out: Dict[str, Any] = {
+        "session_keys": keys,
+        "start": np.ascontiguousarray(snap.get("start", ()), np.int64),
+        "end": np.ascontiguousarray(snap.get("end", ()), np.int64),
+        "fired": np.ascontiguousarray(snap.get("fired", ()), bool),
+        "watermark": int(snap.get("watermark", -(2 ** 63))),
+        "late_dropped": int(snap.get("late_dropped", 0)),
+    }
+    acc = [np.asarray(a) for a in snap.get("acc", ())]
+    if x64_off:
+        acc = [a.astype(_X64_OFF.get(a.dtype, a.dtype), copy=False)
+               for a in acc]
+    out["acc"] = tuple(np.ascontiguousarray(a) for a in acc)
+    rows = [out[f].shape[0] for f in ("start", "end", "fired")] + [
+        a.shape[0] for a in out["acc"]]
+    if "sets" in snap:
+        out["sets"] = [list(s) for s in snap["sets"]]
+        rows.append(len(out["sets"]))
+    if any(r != n for r in rows):
+        raise ValueError(f"{source} session snapshot rows {rows} do not "
+                         f"match {n} session keys")
+    return out
+
+
+def session_snapshot_from_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX session operator's snapshot -> the port's format (a restore
+    casts each leaf into the port's accumulator dtype)."""
+    return _normalize_session(snap, "JAX")
+
+
+def session_snapshot_to_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
+    """A port session operator's snapshot -> the JAX operator's format, its
+    64-bit accumulator leaves narrowed as JAX holds them with x64 off."""
+    return _normalize_session(snap, "port", x64_off=True)
+
+
+def _normalize_evicting(snap: Dict[str, Any], source: str) -> Dict[str, Any]:
+    missing = [k for k in ("pane_base", "max_pane", "last_fired_window",
+                           "watermark") if k not in snap]
+    if missing:
+        raise ValueError(f"{source} evicting snapshot lacks {missing}")
+    out: Dict[str, Any] = {k: _optional_int(snap[k])
+                           for k in ("pane_base", "max_pane",
+                                     "last_fired_window", "watermark")}
+    out["late_dropped"] = int(snap.get("late_dropped", 0))
+    if "key_index" in snap:
+        if snap.get("key_index_kind") != "KeyIndex":
+            raise ValueError(f"{source} snapshot key index is "
+                             f"{snap.get('key_index_kind')!r}; only int64 "
+                             f"keys (KeyIndex) cross over in this slice")
+        out["key_index"] = {"reverse": np.ascontiguousarray(
+            snap["key_index"]["reverse"], np.int64)}
+        out["key_index_kind"] = "KeyIndex"
+    if "vals" in snap:
+        cols = {"vals": np.float32, "keys": np.int32, "panes": np.int64,
+                "ts": np.int64}
+        for k, dt in cols.items():
+            out[k] = np.ascontiguousarray(snap[k], dt)
+        rows = {k: out[k].shape for k in cols}
+        if len(set(rows.values())) != 1 or out["vals"].ndim != 1:
+            raise ValueError(f"{source} evicting snapshot columns {rows} "
+                             f"differ")
+    return out
+
+
+def evicting_snapshot_from_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX ``DeviceEvictingWindowOperator`` snapshot -> the port's."""
+    return _normalize_evicting(snap, "JAX")
+
+
+def evicting_snapshot_to_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
+    """A port ``DeviceEvictingWindowOperator`` snapshot -> JAX's."""
+    return _normalize_evicting(snap, "port")

@@ -32,23 +32,19 @@ from flink_tpu_torch.core.watermarks import WatermarkGenerator
 from flink_tpu_torch.operators.base import StreamOperator
 from flink_tpu_torch.operators.window_agg import _PhaseTimer
 from flink_tpu_torch.ops.scatter import segment_running_fold
-from flink_tpu_torch.state.keyindex import KeyIndex
+from flink_tpu_torch.state.keyindex import (NativeKeyIndex, make_key_index,
+                                            restore_key_index)
 
 
-def _key_index(keys: np.ndarray, snap=None) -> KeyIndex:
-    """The int64 key index (a fresh one, or restored from ``snap``);
-    non-integer keys belong to the object-key slice."""
+def _key_index(keys: np.ndarray, snap=None) -> NativeKeyIndex:
+    """The key index, as JAX's operators pick it (``make_key_index``): a
+    fresh one for ``keys``, or restored from ``snap``.  Integer keys take
+    the C keydict; non-integer keys belong to the object-key slice."""
     if snap is not None:
-        if snap.get("key_index_kind", "KeyIndex") != "KeyIndex":
-            raise NotImplementedError(
-                "not in this slice of flink_tpu_torch: non-integer keys come "
-                "with the object-key slice")
-        return KeyIndex.restore(snap["keys"])
-    if np.asarray(keys).dtype.kind not in "iu":
-        raise NotImplementedError(
-            "not in this slice of flink_tpu_torch: non-integer keys come "
-            "with the object-key slice")
-    return KeyIndex()
+        return restore_key_index(snap["keys"],
+                                 snap.get("key_index_kind", "KeyIndex"))
+    keys = np.asarray(keys)
+    return make_key_index(keys[0] if keys.ndim else keys)
 
 
 class MapOperator(StreamOperator):
@@ -177,9 +173,9 @@ class KeyedReduceOperator(StreamOperator):
     tensors on ``device`` (the card unless the CPU is asked for); ``K``
     doubles from ``max(1024, initial_key_capacity)`` as keys arrive.
     ``phase_ns`` times the host's share of each batch: ``probe`` (the key
-    index), ``device_dispatch`` (padding, uploads and the step's
-    launches) and ``emit`` (the running values' download and the output
-    batch)."""
+    index: the C keydict, as JAX's ``make_key_index`` picks),
+    ``device_dispatch`` (padding, uploads and the step's launches) and
+    ``emit`` (the running values' download and the output batch)."""
 
     def __init__(self, agg: AggregateFunction, key_column: str,
                  value_column: Optional[str] = None,
@@ -194,7 +190,7 @@ class KeyedReduceOperator(StreamOperator):
         self.device = resolve_device(device)
         self.spec = agg.acc_spec()
         self._K = max(1 << 10, initial_key_capacity)
-        self.key_index: Optional[KeyIndex] = None
+        self.key_index: Optional[NativeKeyIndex] = None
         self._leaves = None
         self.phase_ns: Dict[str, int] = {}
 
@@ -387,7 +383,7 @@ class ExtremumByOperator(StreamOperator):
         self.value_column = value_column
         self.is_min = is_min
         self.name = name
-        self.key_index: Optional[KeyIndex] = None
+        self.key_index: Optional[NativeKeyIndex] = None
         self._vals = np.zeros(0, np.float64)   # slot -> extreme value
         self._rows = np.zeros(0, object)       # slot -> extreme row dict
 

@@ -38,7 +38,7 @@ from flink_tpu_torch.core.functions import (SCATTER_UFUNCS, AggregateFunction,
                                             RuntimeContext, tree_leaves)
 from flink_tpu_torch.operators.base import StreamOperator
 from flink_tpu_torch.operators.basic import _key_index
-from flink_tpu_torch.state.keyindex import KeyIndex
+from flink_tpu_torch.state.keyindex import NativeKeyIndex
 
 
 class CountSlideWindowOperator(StreamOperator):
@@ -64,7 +64,7 @@ class CountSlideWindowOperator(StreamOperator):
         self.output_column = output_column
         self.name = name
         self._K = max(64, initial_key_capacity)
-        self.key_index: Optional[KeyIndex] = None
+        self.key_index: Optional[NativeKeyIndex] = None
         self._ring: Optional[np.ndarray] = None      # f64 [K, size]
         self._count: Optional[np.ndarray] = None     # i64 [K]
         self._fired: Optional[np.ndarray] = None     # i64 [K] slide multiples

@@ -1,5 +1,7 @@
-"""Mesh-sharded window operator: the keyed exchange is the execution path
-(port of ``flink_tpu/parallel/mesh_runtime.py``, ``MeshWindowAggOperator``).
+"""Mesh-sharded window operators: the keyed exchange is the execution path
+(port of ``flink_tpu/parallel/mesh_runtime.py``: ``MeshWindowAggOperator``,
+and ``MeshSessionWindowOperator`` at the end of this module, whose session
+fold rides the same exchange).
 
 One logical :class:`~flink_tpu_torch.operators.window_agg.WindowAggOperator`
 over a 1-D mesh (``parallel/mesh.py``): its ``[K, P]`` rings are D row
@@ -57,15 +59,17 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from flink_tpu_torch.core.functions import (tree_leaves, tree_structure,
-                                            tree_unflatten)
+from flink_tpu_torch.core.functions import (canonical_tensor, tree_leaves,
+                                            tree_structure, tree_unflatten)
+from flink_tpu_torch.operators.session_window import SessionWindowOperator
 from flink_tpu_torch.operators.window_agg import (WindowAggOperator,
-                                                  _next_pow2, _take_rows)
+                                                  _next_pow2, _PhaseTimer,
+                                                  _take_rows)
 from flink_tpu_torch.ops.scatter import ordered_fold_counts
 from flink_tpu_torch.ops.shapes import quantize_pow2
 from flink_tpu_torch.parallel.exchange import (all_to_all_rows, bucket_plan,
@@ -384,3 +388,153 @@ class MeshWindowAggOperator(WindowAggOperator):
         except DeviceQuarantinedError as err:
             # every record is in the mirror already (delta + misses)
             self._devprobe_degrade(err)
+
+
+class MeshSessionWindowOperator(SessionWindowOperator):
+    """Session windows over a device mesh (port of JAX's
+    ``MeshSessionWindowOperator``).
+
+    - **Merge decisions stay on the host** (interval-set bookkeeping per
+      key, the ``MergingWindowSet`` role), inherited unchanged from
+      :class:`SessionWindowOperator`.
+    - **The per-batch value FOLD rides the mesh**: the host sessionizes the
+      batch (it needs the boundaries for its merge anyway), assigns each
+      batch-local session to the shard owning its key (``slot % D``) and a
+      shard-local session id, and ships (dest, sid, values) through the
+      bucketed exchange (``parallel/exchange.py``); each destination block
+      lifts what it received and folds it by session id: ``add`` leaves
+      through ``ops/scatter.py`` ``ordered_fold_counts`` (the
+      ``scatter_fold`` kernel on the card, one call a block), ``min``/
+      ``max`` leaves with ``scatter_reduce_`` from the leaf's identity.
+      Only the folded per-session accumulators come down.
+    - **Row order.** A source is a contiguous chunk of the sorted rows and
+      the bucketing is stable, so a session's rows reach its block in
+      sorted order, the order JAX's CPU scatter folds them in; the ordered
+      fold keeps it on the card, where an ``index_add_`` would not.
+    - Snapshots stay the base class's raw-key row format: mesh-size
+      independent.
+
+    Generic combines (no scatter kinds) take the base class's host fold,
+    as in JAX."""
+
+    def __init__(self, *args, mesh: Optional[DeviceMesh] = None,
+                 n_devices: Optional[int] = None, **kwargs):
+        if mesh is None:
+            mesh = make_mesh(n_devices)
+        self.mesh = mesh
+        self.n_shards = mesh.size
+        super().__init__(*args, **kwargs)
+        if self.kinds is not None and any(
+                s != () for s, k in zip(self.spec.leaf_shapes, self.kinds)):
+            raise NotImplementedError(
+                "not in this slice of flink_tpu_torch: the mesh session fold "
+                "takes scalar accumulator leaves")
+
+    # ------------------------------------------------------------ device op
+    def _mesh_fold(self, dest, sid, vleaves, treedef, cap: int,
+                   cap_sess: int) -> List[List[torch.Tensor]]:
+        """One sharded fold: each source buckets its rows by destination
+        shard, the exchange moves bucket ``[s, d]`` to block ``d``, and each
+        block folds what it received by its (host-assigned) shard-local
+        session id.  ``dest``, ``sid`` and ``vleaves`` are lists of D row
+        blocks; returns, per leaf, the D blocks' ``[cap_sess]``
+        accumulators (in the lifted leaf's dtype, as JAX's)."""
+        D = self.n_shards
+        sent_sid, sent_vals = [], []
+        for s in range(D):
+            order, flat, _valid = bucket_plan(dest[s], D, cap)
+            sent_sid.append(bucket_rows(sid[s], order, flat, D, cap,
+                                        cap_sess))
+            sent_vals.append([bucket_rows(v[s], order, flat, D, cap, 0)
+                              for v in vleaves])
+        rx_sid = all_to_all_rows(sent_sid, self.mesh)
+        rx_vals = [all_to_all_rows([sv[j] for sv in sent_vals], self.mesh)
+                   for j in range(len(vleaves))]
+        out: List[List[torch.Tensor]] = [[] for _ in self.kinds]
+        for d, dev in enumerate(self.mesh.devices):
+            lifted = tree_leaves(self.agg.lift(tree_unflatten(
+                treedef, [r[d] for r in rx_vals])))
+            planes = [torch.full((cap_sess,), np.asarray(init).item(),
+                                 dtype=l.dtype, device=dev)
+                      for l, init in zip(lifted, self.spec.leaf_inits)]
+            counts = torch.zeros(cap_sess, dtype=torch.int32, device=dev)
+            # pad rows and unfilled bucket cells carry sid = cap_sess: the
+            # fold drops ids outside [0, cap_sess)
+            ordered_fold_counts(planes, counts, rx_sid[d].contiguous(),
+                                [l.contiguous() for l in lifted], self.kinds)
+            for j, p in enumerate(planes):
+                out[j].append(p)
+        return out
+
+    # ------------------------------------------------------------ host side
+    def _sessionize(self, slots, ts, values, bounds=None):
+        if self.kinds is None:
+            return super()._sessionize(slots, ts, values, bounds)  # host fold
+        if self.distinct_column is not None and isinstance(values, dict):
+            # the distinct column only feeds the HOST-side value sets; it
+            # never ships through the exchange
+            values = {k: v for k, v in values.items()
+                      if k != self.distinct_column}
+        order, s_slots, s_ts, sess_id, firsts, lasts = \
+            bounds if bounds is not None else self._session_bounds(slots, ts)
+        n_sess = int(firsts.size)
+        b_key = s_slots[firsts]
+        b_start = s_ts[firsts]
+        b_end = s_ts[lasts] + self.gap
+
+        with _PhaseTimer(self.phase_ns, "exchange"):
+            D = self.n_shards
+            b_dest = (b_key % D).astype(np.int32)
+            # shard-local session numbering (0..n_d-1 per shard)
+            counts = np.bincount(b_dest, minlength=D)
+            base = np.zeros(D, np.int64)
+            base[1:] = np.cumsum(counts)[:-1]
+            sess_order = np.argsort(b_dest, kind="stable")
+            b_local = np.empty(n_sess, np.int64)
+            b_local[sess_order] = (np.arange(n_sess)
+                                   - base[b_dest[sess_order]])
+            cap_sess = _quantize(int(counts.max()))
+
+            # per-row routing labels (rows in sorted order)
+            row_dest = b_dest[sess_id]
+            row_sid = b_local[sess_id].astype(np.int32)
+            treedef = tree_structure(values)
+            vleaves = [np.asarray(v)[order] for v in tree_leaves(values)]
+
+            # pad rows to a multiple of D; pad rows carry sid = cap_sess
+            # (the fold drops them)
+            B = row_dest.size
+            Bp = -(-_quantize(-(-B // D) * D, D) // D) * D
+
+            def pad(a, fill, dtype):
+                out = np.full((Bp,) + a.shape[1:], fill, dtype)
+                out[:B] = a[:B]
+                return out
+
+            dest_p = pad(row_dest, 0, np.int32)
+            dest_p[B:] = np.arange(Bp - B) % D
+            sid_p = pad(row_sid, cap_sess, np.int32)
+            src = np.repeat(np.arange(D), Bp // D)
+            per_pair = np.bincount(src * D + dest_p, minlength=D * D)
+            cap = _quantize(int(per_pair.max()))
+            # the upload JAX's ``device_put`` makes: 64-bit values narrow
+            # to 32 bits (x64 off)
+            host = [torch.from_numpy(dest_p), torch.from_numpy(sid_p)] + [
+                canonical_tensor(torch.from_numpy(pad(v, 0, v.dtype)))
+                for v in vleaves]
+            self.phase_bytes["h2d"] = (self.phase_bytes.get("h2d", 0)
+                                       + sum(t.nbytes for t in host))
+            dest_b, sid_b, *val_b = [shard_rows(t, self.mesh) for t in host]
+        with _PhaseTimer(self.phase_ns, "device_dispatch"):
+            folded = self._mesh_fold(dest_b, sid_b, val_b, treedef, cap,
+                                     cap_sess)
+        with _PhaseTimer(self.phase_ns, "d2h"):
+            blocks = [torch.cat([b.cpu() for b in leaf]).numpy()
+                      for leaf in folded]
+        self.phase_bytes["d2h"] = (self.phase_bytes.get("d2h", 0)
+                                   + sum(b.nbytes for b in blocks))
+        # gather each session's folded acc from its shard block
+        flat_idx = b_dest.astype(np.int64) * cap_sess + b_local
+        accs = [l[flat_idx].astype(dt, copy=False)
+                for l, dt in zip(blocks, self.spec.leaf_dtypes)]
+        return b_key, b_start, b_end, accs

@@ -6,7 +6,11 @@ indices into the device state.  :class:`KeyIndex` is the numpy table;
 :class:`NativeKeyIndex` is the same surface over the port's C keydict
 (``csrc/host_mirror.cc``), whose handle the native window mirror shares.
 Both number new keys in order of first occurrence, so they assign equal slot
-ids, and both snapshot to ``{"reverse": int64[n]}``.
+ids, and both snapshot to ``{"reverse": int64[n]}``.  :func:`make_key_index`
+picks the operators' index from a sample key, as JAX's does: the C keydict
+for integer keys (JAX's ``KeyIndex`` binds its own C keydict when its native
+library loads), and a refusal for object keys, which come with a later
+slice.
 """
 
 from __future__ import annotations
@@ -285,3 +289,32 @@ class NativeKeyIndex:
         ki = cls(initial_capacity=max(1 << 16, 2 * rev.size + 1))
         ki.lookup_or_insert(rev)
         return ki
+
+
+#: the refusal of keys that are not integers
+OBJECT_KEYS = ("not in this slice of flink_tpu_torch: non-integer keys come "
+               "with the object-key slice")
+
+
+def make_key_index(sample_key, capacity_hint: int = 0) -> NativeKeyIndex:
+    """The key index of an operator whose keys look like ``sample_key``
+    (port of ``flink_tpu/state/keyindex.py`` ``make_key_index``): the C
+    keydict for an integer key, pre-sized to twice ``capacity_hint`` (the
+    load-factor bound), so a hinted run never rehashes.  Any other key
+    (strings, tuples) raises ``NotImplementedError``; a failing build of the
+    host layer raises too."""
+    arr = np.asarray(sample_key)
+    if arr.ndim == 0 and arr.dtype.kind in "iu":
+        return NativeKeyIndex(initial_capacity=max(1 << 16,
+                                                   2 * capacity_hint))
+    raise NotImplementedError(OBJECT_KEYS)
+
+
+def restore_key_index(snap: Dict[str, np.ndarray],
+                      kind: str = "KeyIndex") -> NativeKeyIndex:
+    """The index a snapshot's ``key_index`` (``{"reverse": ...}``) and
+    ``key_index_kind`` describe.  The operators write the kind as JAX's
+    ``"KeyIndex"``, so either package restores the other's snapshots."""
+    if kind != "KeyIndex":
+        raise NotImplementedError(OBJECT_KEYS)
+    return NativeKeyIndex.restore(snap)

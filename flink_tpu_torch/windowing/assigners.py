@@ -3,7 +3,8 @@
 A pane is the gcd span shared by every window covering it; the per-record
 hot path only computes ``pane_of(timestamps)`` (one vectorized int op) and
 state is a ``[keys, panes]`` ring.  The port carries the tumbling and the
-sliding event-time assigners and :class:`GlobalWindows`.
+sliding event-time assigners, :class:`GlobalWindows`, and the session gap
+(:class:`SessionGap`), which the session operator consumes.
 """
 
 from __future__ import annotations
@@ -128,3 +129,21 @@ class GlobalWindows(WindowAssigner):
     @staticmethod
     def create() -> "GlobalWindows":
         return GlobalWindows()
+
+
+@dataclass(frozen=True)
+class SessionGap:
+    """Session spec: windows merge while gaps < gap_ms
+    (``EventTimeSessionWindows``).  Consumed by the dedicated session
+    operator, not the paned one."""
+
+    gap_ms: int
+    is_event_time: bool = True
+
+
+def EventTimeSessionWindows(gap_ms: int) -> SessionGap:
+    return SessionGap(gap_ms, True)
+
+
+def ProcessingTimeSessionWindows(gap_ms: int) -> SessionGap:
+    return SessionGap(gap_ms, False)

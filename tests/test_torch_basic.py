@@ -155,6 +155,35 @@ def test_keyed_reduce_snapshot_is_a_copy():
         assert _bits(a) == _bits(b)
 
 
+@pytest.mark.parametrize("agg", ["sum", "tuple"])
+def test_keyed_reduce_takes_the_c_keydict_as_jax_does(agg):
+    """The keyed reduce's index is ``make_key_index``'s, as JAX's is: the
+    port's C keydict (JAX's ``KeyIndex`` binds its own C keydict when its
+    native library loads).  Slot ids, running values and snapshots are
+    unchanged: bit for bit against JAX, and a restore takes the C keydict
+    again."""
+    from flink_tpu_torch.state.keyindex import NativeKeyIndex, make_key_index
+    jop, pop = _reduce_op("jax", agg), _reduce_op("port", agg)
+    assert _reduce_drive("port", pop, REDUCE_BATCHES[:3]) \
+        == _reduce_drive("jax", jop, REDUCE_BATCHES[:3])
+    assert isinstance(pop.key_index, NativeKeyIndex)
+    assert np.array_equal(pop.key_index.reverse_keys(),
+                          jop.key_index.reverse_keys())
+    snap = pop.snapshot_state()
+    assert snap["key_index_kind"] == "KeyIndex"
+    back = _reduce_op("port", agg)
+    back.restore_state(snap)
+    assert isinstance(back.key_index, NativeKeyIndex)
+    assert _reduce_drive("port", back, REDUCE_BATCHES[3:]) \
+        == _reduce_drive("jax", jop, REDUCE_BATCHES[3:])
+    hinted = make_key_index(np.int64(7), capacity_hint=1 << 20)
+    assert isinstance(hinted, NativeKeyIndex) and hinted.num_keys == 0
+    with pytest.raises(NotImplementedError, match="object-key slice"):
+        make_key_index("a")
+    with pytest.raises(NotImplementedError, match="object-key slice"):
+        make_key_index(np.asarray([1, 2]))    # a composite key
+
+
 def test_keyed_reduce_pads_like_jax_and_refuses_object_keys():
     op = _reduce_op("port", "sum")
     assert op._K == 1024 and op.device == torch.device("cpu")

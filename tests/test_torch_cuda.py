@@ -995,3 +995,119 @@ def test_keyed_reduce_on_the_card_equals_the_cpu(cuda_device):
         runs[str(dev)] = (outs, [l.tobytes() for l in snap["leaves"]])
         rng = np.random.default_rng(17)
     assert runs[str(cuda_device)] == runs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# slice 12: the mesh session fold and the device evicting lane
+# ---------------------------------------------------------------------------
+
+def _session_batches(n_batches=6, batch=4096, n_keys=3000, seed=17):
+    """Config 4's shape, small: Zipf keys, gap-clustered timestamps,
+    random f32 values (sums that round, so the fold order shows)."""
+    rng = np.random.default_rng(seed)
+    out, t = [], 0
+    for _ in range(n_batches):
+        keys = ((rng.zipf(1.3, batch) - 1) % n_keys).astype(np.int64)
+        vals = rng.random(batch).astype(np.float32)
+        ts = t + np.sort(rng.integers(0, 800, batch)).astype(np.int64)
+        t += 1500
+        out.append((keys, vals, ts))
+    return out
+
+
+def _drive_elements(op, batches, end=True):
+    out = []
+    for keys, vals, ts in batches:
+        out += op.process_batch(RecordBatch({"k": keys, "v": vals},
+                                            timestamps=ts))
+        out += op.process_watermark(Watermark(int(ts.max()) - 1))
+    if end:
+        out += op.process_watermark(Watermark(1 << 40))
+        out += op.end_input()
+    return [tuple((c, np.asarray(b.column(c)).dtype.str,
+                   np.asarray(b.column(c)).tobytes())
+                  for c in sorted(b.columns)) for b in out]
+
+
+@pytest.mark.parametrize("agg", ["sum", "avg", "max"])
+def test_mesh_session_fold_on_four_blocks_of_one_card_equals_the_cpu(
+        cuda_device, agg):
+    """``MeshSessionWindowOperator`` over ``[cuda] * 4``: fires and
+    snapshots bit for bit against ``["cpu"] * 4``; ``scatter_fold``
+    launches on the card (one call a block a batch), none on the CPU."""
+    from flink_tpu_torch.core.functions import (AvgAggregator, MaxAggregator,
+                                                RuntimeContext)
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.mesh_runtime import \
+        MeshSessionWindowOperator
+    from flink_tpu_torch.windowing.assigners import EventTimeSessionWindows
+    make_agg = {"sum": SumAggregator, "avg": AvgAggregator,
+                "max": MaxAggregator}[agg]
+    batches = _session_batches()
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        op = MeshSessionWindowOperator(
+            EventTimeSessionWindows(300), make_agg(torch.float32),
+            key_column="k", value_column="v",
+            mesh=make_mesh(devices=[dev] * 4))
+        op.open(RuntimeContext())
+        before = sc.ordered_fold_counts.launches
+        fired = _drive_elements(op, batches[:4], end=False)
+        snap = op.snapshot_state()
+        fired += _drive_elements(op, batches[4:])
+        runs.append((fired, snap, sc.ordered_fold_counts.launches - before))
+    (gf, gs, gl), (cf, cs, cl) = runs
+    assert gf == cf and gf
+    for k in ("session_keys", "start", "end", "fired"):
+        assert np.array_equal(gs[k], cs[k])
+    for a, b in zip(gs["acc"], cs["acc"], strict=True):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert gl == 4 * len(batches) and cl == 0
+
+
+@pytest.mark.parametrize("evictor", ["count", "time"])
+@pytest.mark.parametrize("agg", ["sum", "avg", "max"])
+def test_evicting_lane_on_the_card_equals_the_cpu(cuda_device, evictor, agg):
+    """``DeviceEvictingWindowOperator`` on the card: every fire and the
+    mid-run snapshot bit for bit against the CPU, through buffer growth and
+    compaction; one ``scatter_fold`` launch a fire step on the card, none
+    on the CPU; the append runs under the watchdog's label."""
+    from flink_tpu_torch.core.functions import (AvgAggregator, MaxAggregator,
+                                                RuntimeContext)
+    from flink_tpu_torch.operators.evicting_device import \
+        DeviceEvictingWindowOperator
+    from flink_tpu_torch.runtime import device_health as dh
+    from flink_tpu_torch.windowing.assigners import SlidingEventTimeWindows
+    from flink_tpu_torch.windowing.evictors import CountEvictor, TimeEvictor
+    make_agg = {"sum": SumAggregator, "avg": AvgAggregator,
+                "max": MaxAggregator}[agg]
+    rng = np.random.default_rng(21)
+    batches = []
+    for i in range(12):
+        n = 5000 + 331 * i
+        batches.append((rng.integers(0, 2000 + 300 * i, n).astype(np.int64),
+                        rng.random(n).astype(np.float32),
+                        (i * 1000 + np.sort(rng.integers(-300, 1000, n))
+                         ).astype(np.int64)))
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        op = DeviceEvictingWindowOperator(
+            SlidingEventTimeWindows.of(2000, 1000),
+            CountEvictor.of(3) if evictor == "count" else TimeEvictor.of(400),
+            make_agg(torch.float32), key_column="k", value_column="v",
+            allowed_lateness_ms=200, initial_capacity=1 << 13,
+            initial_key_capacity=512, device=dev)
+        op.open(RuntimeContext())
+        before = sc.ordered_fold_counts.launches
+        fired = _drive_elements(op, batches[:7], end=False)
+        snap = op.snapshot_state()
+        fired += _drive_elements(op, batches[7:])
+        runs.append((fired, snap, op.fire_steps,
+                     sc.ordered_fold_counts.launches - before, op._C))
+    (gf, gs, gsteps, gl, gC), (cf, cs, csteps, cl, cC) = runs
+    assert gf == cf and gf and gC == cC
+    for k in ("vals", "keys", "panes", "ts"):
+        assert gs[k].dtype == cs[k].dtype and gs[k].tobytes() == cs[k].tobytes()
+    assert gsteps == csteps and gl == gsteps > 0 and cl == 0
+    assert "evicting-window-device.append_step" in \
+        dh.status_snapshot()["dispatch_labels"]

@@ -48,6 +48,9 @@ def test_every_module_imports_with_jax_blocked():
         "assert 'flink_tpu_torch.utils.transport' in names\n"
         "assert 'flink_tpu_torch.runtime.device_health' in names\n"
         "assert 'flink_tpu_torch.testing.chaos' in names\n"
+        "for n in ('operators.session_window', 'operators.evicting_device',"
+        " 'windowing.evictors', 'parallel.mesh_runtime'):\n"
+        "    assert 'flink_tpu_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules"
         " if sys.modules[m] is not None]\n"
@@ -66,6 +69,33 @@ def test_window_operator_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         WindowAggOperator(TumblingEventTimeWindows.of(100), SumAggregator(),
+                          key_column="k", value_column="v")
+
+
+def test_session_and_evicting_operators_default_to_the_card(monkeypatch):
+    """The evicting lane's default device is the card, and so is the mesh
+    session operator's default mesh: both raise without CUDA.  The host
+    session operator needs no device."""
+    from flink_tpu_torch.core.functions import SumAggregator
+    from flink_tpu_torch.operators.evicting_device import \
+        DeviceEvictingWindowOperator
+    from flink_tpu_torch.operators.session_window import \
+        SessionWindowOperator
+    from flink_tpu_torch.parallel.mesh_runtime import \
+        MeshSessionWindowOperator
+    from flink_tpu_torch.windowing.assigners import (EventTimeSessionWindows,
+                                                     TumblingEventTimeWindows)
+    from flink_tpu_torch.windowing.evictors import CountEvictor
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceEvictingWindowOperator(
+            TumblingEventTimeWindows.of(100), CountEvictor.of(2),
+            SumAggregator(), key_column="k", value_column="v")
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        MeshSessionWindowOperator(EventTimeSessionWindows(10),
+                                  SumAggregator(), key_column="k",
+                                  value_column="v", n_devices=4)
+    SessionWindowOperator(EventTimeSessionWindows(10), SumAggregator(),
                           key_column="k", value_column="v")
 
 
