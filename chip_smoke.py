@@ -210,6 +210,37 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``torch.profiler``): the same outputs at the same calls, each value bit
    for bit.  A/B lines: path 23 against path 22, paths 24 and 25 against
    path 5.
+9i. main paths 26-27 (slice 13), after path 25: path 26 is ``bench.py
+   --cep`` at its full size (``_cep_batches(1 << 22, 1_000_000, 1 << 18,
+   5000, seed=23)``: 16 batches of 2^18 events, keys uniform over 1M,
+   amounts uniform over [0, 600), each event's stream position in a column
+   ``e``) through ``CepOperator(vectorized="on")`` on the card: the fraud
+   pattern (``v < 30`` followed by ``v > 570`` within 20,000 ms), the
+   select ``{k, amount}``, a watermark of ``max(ts) - 1`` after each batch,
+   ``end_input`` last.  Every drain is one ``cep.vectorized_drain`` dispatch
+   under the watchdog, and each event position of a chunk of up to 65,536
+   keys one step of torch ops on the card (the block up, the flags and the
+   new block down; a flagged step replays on the numpy step).  It launches
+   no hand-written kernel.  Held to: its numpy twin (the same operator on
+   the CPU, the host step) — the same rows in the same order, bit for bit,
+   the snapshot after ``CEP_SNAPSHOT_AFTER`` batches and ``cep_stats()``;
+   an interpreted twin over the first ``CEP_INTERPRETED_BATCHES`` batches;
+   the operator on the CPU with ``FLINK_TPU_CEP_KERNEL=jit`` (the device
+   step on CPU tensors) over ``CEP_CPU_BATCHES``; an independent numpy
+   model of bait -> strike (the same set of (k, bait e, strike e) and
+   count); and the snapshot restored on the card and replayed to the end
+   (the rest of the rows bit for bit; its first drain under
+   ``torch.profiler``: the device's busy share, ops a step).  It prints
+   events/s, matches/s, drains, the partials high-water, drain walls,
+   steps a drain and replays, bytes a step, the ``auto`` calibration's
+   verdict and timings on the card, and an A/B against the numpy twin in
+   turns (twin, card, card, twin).  Path 27 is path 26's first
+   ``CEP_WEDGE_BATCHES`` batches under ``WedgedDevice`` at the third drain
+   dispatch, under a monitor whose floor is ``CEP_FLOOR_FACTOR`` times
+   path 26's worst drain: the operator degrades to the interpreted engine
+   (``degraded`` 1), its rows equal the numpy twin's in order, the
+   monitor's counters equal what was injected, and the degrade's cost is
+   printed.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the kernel line reports each kernel's launches on every
@@ -2908,6 +2939,386 @@ def slice12_path(device, label, batches, ref):
         "kernels_per_batch": ops_per_batch}
 
 
+# ---------------------------------------------------------------------------
+# slice 13: CEP (paths 26, 27)
+# ---------------------------------------------------------------------------
+
+SLICE13 = ("path 26", "path 27")
+#: ``bench.py --cep`` at its full size: ``_cep_batches(1 << 22, 1_000_000,
+#: 1 << 18, 5000, seed=23)`` and the fraud pattern within 4 windows
+CEP_RECORDS = 1 << 22
+CEP_KEYS = 1_000_000
+CEP_BATCH = 1 << 18
+CEP_WINDOW_MS = 5000
+CEP_SEED = 23
+CEP_WITHIN_MS = 4 * CEP_WINDOW_MS
+CEP_SNAPSHOT_AFTER = 8          # batches in when the snapshot is taken
+CEP_INTERPRETED_BATCHES = 4
+CEP_CPU_BATCHES = 2
+CEP_WEDGE_BATCHES = 4
+CEP_WEDGE_AT = 3                # path 27 wedges its third drain dispatch
+CEP_FLOOR_FACTOR = 4            # path 27's floor over path 26's worst drain
+CEP_LABEL = "cep.vectorized_drain"
+
+
+def make_cep_batches():
+    """Copy of ``bench.py`` ``_cep_batches`` at ``--cep``'s full size: keys
+    uniform over 1M, amounts uniform over [0, 600), timestamps sorted within
+    each 5000 ms batch."""
+    rng = np.random.default_rng(CEP_SEED)
+    batches = []
+    t = 0
+    for lo in range(0, CEP_RECORDS, CEP_BATCH):
+        b = min(CEP_BATCH, CEP_RECORDS - lo)
+        keys = rng.integers(0, CEP_KEYS, b).astype(np.int64)
+        vals = (rng.random(b) * 600.0).astype(np.float64)
+        ts = t + np.sort(rng.integers(0, CEP_WINDOW_MS, b)).astype(np.int64)
+        t += CEP_WINDOW_MS
+        batches.append((keys, vals, ts))
+    return batches
+
+
+def cep_op(device, mode="on", log=None):
+    """``bench.py``'s fraud pattern (a small bait, then a large strike on
+    the same key within 20,000 ms) and its select ``{k, amount}``.  The
+    batches carry each event's stream position in column ``e``; ``log``
+    (a list) collects ``(k, bait e, strike e)`` of every match."""
+    from flink_tpu_torch.cep import CepOperator, Pattern
+
+    pattern = (Pattern.begin("small")
+               .where(lambda c: np.asarray(c["v"]) < 30.0)
+               .followed_by("large")
+               .where(lambda c: np.asarray(c["v"]) > 570.0)
+               .within(CEP_WITHIN_MS))
+
+    def select(m):
+        small, large = m["small"][0], m["large"][0]
+        if log is not None:
+            log.append((small["k"], small["e"], large["e"]))
+        return {"k": small["k"], "amount": large["v"]}
+
+    return CepOperator(pattern, "k", select, vectorized=mode, device=device)
+
+
+def cep_drive(op, batches, start=0, stop=None, snap_after=None,
+              drain_ms=None, end=True, profile_first=None, drain_steps=None):
+    """Feed batches ``start:stop`` (a watermark of ``max(ts) - 1`` after
+    each), then ``end_input``.  Returns (rows, snapshot, seconds without
+    the snapshot, snapshot seconds): ``rows`` holds per emitting call
+    ``(call, k bytes, amount bytes, ts bytes, dtypes)``; ``drain_ms``
+    collects each watermark and end call's host wall, ``drain_steps`` the
+    operator's step count after each; ``profile_first`` (a profiler) wraps
+    the first watermark call."""
+    from flink_tpu_torch.core.batch import RecordBatch, Watermark
+
+    stop = len(batches) if stop is None else stop
+    base = sum(len(b[0]) for b in batches[:start])
+    rows, snap, snap_s = [], None, 0.0
+
+    def keep(call, out):
+        for b in out:
+            k = np.asarray(b.columns["k"])
+            amt = np.asarray(b.columns["amount"])
+            ts = np.asarray(b.timestamps)
+            rows.append((call, k.tobytes(), amt.tobytes(), ts.tobytes(),
+                         (k.dtype.str, amt.dtype.str, ts.dtype.str)))
+
+    t0 = time.perf_counter()
+    for i in range(start, stop):
+        keys, vals, ts = batches[i]
+        e = base + np.arange(keys.size, dtype=np.int64)
+        base += keys.size
+        out = op.process_batch(RecordBatch({"k": keys, "v": vals, "e": e},
+                                           timestamps=ts))
+        prof = profile_first if i == start else None
+        d0 = time.perf_counter()
+        with prof if prof is not None else contextlib.nullcontext():
+            out += op.process_watermark(Watermark(int(ts.max()) - 1))
+        if drain_ms is not None:
+            drain_ms.append((time.perf_counter() - d0) * 1e3)
+        if drain_steps is not None:
+            drain_steps.append(op.step_stats["steps"])
+        keep(i, out)
+        if snap_after is not None and i == snap_after - 1:
+            s0 = time.perf_counter()
+            snap = op.snapshot_state()
+            snap_s = time.perf_counter() - s0
+    if end:
+        d0 = time.perf_counter()
+        out = op.end_input()
+        if drain_ms is not None:
+            drain_ms.append((time.perf_counter() - d0) * 1e3)
+        keep(stop, out)
+    return rows, snap, time.perf_counter() - t0 - snap_s, snap_s
+
+
+def cep_model(batches):
+    """Independent numpy model of bait -> strike: per key in (ts, event)
+    order, each small event (v < 30) matches the first later large one
+    (v > 570) when it comes within ``CEP_WITHIN_MS``.  Returns the set of
+    ``(k, bait e, strike e)``."""
+    keys = np.concatenate([b[0] for b in batches])
+    vals = np.concatenate([b[1] for b in batches])
+    ts = np.concatenate([b[2] for b in batches])
+    e = np.arange(keys.size, dtype=np.int64)
+    order = np.lexsort((e, ts, keys))
+    k, v, t, e = keys[order], vals[order], ts[order], e[order]
+    large = np.flatnonzero(v > 570.0)
+    small = np.flatnonzero(v < 30.0)
+    nxt = np.searchsorted(large, small, side="right")
+    ok = nxt < large.size
+    s, l_ = small[ok], large[nxt[ok]]
+    hit = (k[s] == k[l_]) & (t[l_] - t[s] <= CEP_WITHIN_MS)
+    return set(zip(k[s][hit].tolist(), e[s][hit].tolist(),
+                   e[l_][hit].tolist()))
+
+
+def snap_equal(a, b) -> bool:
+    if isinstance(a, dict) and isinstance(b, dict):
+        return (list(a.keys()) == list(b.keys())
+                and all(snap_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(snap_equal(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.array_equal(np.asarray(a), np.asarray(b))
+    return a == b
+
+
+def cep_calibration(device) -> None:
+    """The ``auto`` engine calibration, measured on the card."""
+    from flink_tpu_torch.cep import vectorized as V
+
+    V._reset_calibration()
+    verdict = V.calibrated_vectorized_cep(device)
+    m = V.last_measurement[device.type]
+    print(f"path 26 auto calibration on the card: "
+          f"{'vectorized' if verdict else 'interpreted'} (batched drain "
+          f"{m['vectorized_s'] * 1e3:.3f} ms vs interpreted "
+          f"{m['interpreted_s'] * 1e3:.3f} ms; 4096 keys x 4 events, best of "
+          f"2 after one warm run)")
+    V._reset_calibration()
+
+
+def path26(device, batches):
+    """Path 26: the ``bench.py --cep`` stream through ``CepOperator(
+    vectorized="on")`` with the device step on the card, held to its numpy
+    twin, an interpreted twin, the same operator on the CPU, an independent
+    model and a replay of its mid-run snapshot.  Returns (launches, numbers,
+    the twin's rows of the first ``CEP_WEDGE_BATCHES`` batches)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_tpu_torch.runtime import device_health
+
+    label = "path 26"
+    n_events = sum(len(b[0]) for b in batches)
+    # turn 1 of the A/B: the numpy twin (the host step on the CPU)
+    device_health.set_monitor(device_health.DeviceHealthMonitor())
+    twin = cep_op(torch.device("cpu"))
+    twin_rows, twin_snap, twin_s1, _ = cep_drive(
+        twin, batches, snap_after=CEP_SNAPSHOT_AFTER)
+    check(twin._vec.kernel == "numpy", f"{label}: twin kernel "
+          f"{twin._vec.kernel}")
+    # turn 2: the main path on the card, every launch count at 0 before
+    mon = device_health.DeviceHealthMonitor()
+    device_health.set_monitor(mon)
+    log, drain_ms = [], []
+    op = cep_op(device, log=log)
+    torch.cuda.synchronize()
+    reset_launches()
+    rows, snap, card_s1, snap_s = cep_drive(
+        op, batches, snap_after=CEP_SNAPSHOT_AFTER, drain_ms=drain_ms)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    stats, steps = op.cep_stats(), dict(op.step_stats)
+    check(op._vec.kernel == "device" and op.device.type == "cuda",
+          f"{label}: kernel {op._vec.kernel} on {op.device}")
+    check(all(v == 0 for v in launches.values()),
+          f"{label}: launches {launches}; CEP runs no hand-written kernel")
+    check(steps["steps"] > 0 and steps["h2d_bytes"] > 0,
+          f"{label}: the device step did not run: {steps}")
+    labels = dict(mon.label_counts)
+    check(set(labels) == {CEP_LABEL}
+          and 0 < labels[CEP_LABEL] <= stats["vectorized_drains"]
+          and mon.counters["quarantines"] == 0
+          and mon.counters["watchdog_timeouts"] == 0,
+          f"{label}: monitor {labels} {mon.counters}")
+    # turns 3 and 4: card, then twin, without snapshots
+    _, _, card_s2, _ = cep_drive(cep_op(device), batches)
+    device_health.set_monitor(device_health.DeviceHealthMonitor())
+    _, _, twin_s2, _ = cep_drive(cep_op(torch.device("cpu")), batches)
+    device_health.set_monitor(mon)
+    # the numpy twin: rows, order, snapshot and stats
+    check(rows == twin_rows and rows,
+          f"{label}: the card's rows differ from the numpy twin's")
+    tstats = twin.cep_stats()
+    for k in ("matches", "partials_high_water", "vectorized_drains",
+              "interpreted_drains", "degraded", "engine"):
+        check(stats[k] == tstats[k], f"{label}: cep_stats {k} {stats[k]} vs "
+              f"twin {tstats[k]}")
+    check(stats["degraded"] == 0 and stats["engine"] == "vectorized",
+          f"{label}: stats {stats}")
+    check(snap_equal(snap, twin_snap),
+          f"{label}: the snapshot after {CEP_SNAPSHOT_AFTER} batches differs "
+          f"from the numpy twin's")
+    del twin_snap
+    # the independent model
+    model = cep_model(batches)
+    check(len(log) == len(set(log)) == len(model) == stats["matches"]
+          and set(log) == model,
+          f"{label}: {len(log)} matches ({len(set(log))} distinct) against "
+          f"the model's {len(model)}; {len(set(log) ^ model)} differ")
+    # the interpreted twin over the first batches
+    n_int = CEP_INTERPRETED_BATCHES
+    off = cep_op(torch.device("cpu"), mode="off")
+    int_rows, _, int_s, _ = cep_drive(off, batches, stop=n_int, end=False)
+    check(int_rows == [r for r in rows if r[0] < n_int] and int_rows,
+          f"{label}: the interpreted twin's first {n_int} batches differ")
+    # the same operator on the CPU with the device step forced
+    n_cpu = CEP_CPU_BATCHES
+    prev = os.environ.get("FLINK_TPU_CEP_KERNEL")
+    os.environ["FLINK_TPU_CEP_KERNEL"] = "jit"
+    try:
+        cpu = cep_op(torch.device("cpu"))
+        cpu_rows, _, _, _ = cep_drive(cpu, batches, stop=n_cpu, end=False)
+    finally:
+        if prev is None:
+            os.environ.pop("FLINK_TPU_CEP_KERNEL")
+        else:
+            os.environ["FLINK_TPU_CEP_KERNEL"] = prev
+    check(cpu._vec.kernel == "device" and cpu.step_stats["steps"] > 0,
+          f"{label}: the CPU run's kernel {cpu._vec.kernel}")
+    check(cpu_rows == [r for r in rows if r[0] < n_cpu] and cpu_rows,
+          f"{label}: the device step on the CPU differs over {n_cpu} batches")
+    # replay from the snapshot; its first drain under torch.profiler
+    rop = cep_op(device)
+    r0 = time.perf_counter()
+    rop.restore_state(snap)
+    restore_s = time.perf_counter() - r0
+    before = dict(rop.step_stats)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    replay_ms, replay_steps = [], []
+    replay, _, _, _ = cep_drive(rop, batches, start=CEP_SNAPSHOT_AFTER,
+                                drain_ms=replay_ms, profile_first=prof,
+                                drain_steps=replay_steps)
+    check(replay == [r for r in rows if r[0] >= CEP_SNAPSHOT_AFTER]
+          and replay, f"{label}: the replay from the snapshot differs")
+    busy_ms, dev = device_busy_ms(prof)
+    n_ops = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0)
+    check(n_ops > 0, f"{label}: the profiled drain ran nothing on the card")
+    del snap
+    prof_steps = replay_steps[0] - before["steps"]
+    share = busy_ms / replay_ms[0]
+    n_drains = len(drain_ms)
+    p50 = float(np.percentile(drain_ms, 50))
+    p99 = float(np.percentile(drain_ms, 99))
+    eps = n_events / card_s1
+    print(f"{label}: {n_events} events in {card_s1:.3f} s = {eps:.1f} "
+          f"events/s, {stats['matches'] / card_s1:.1f} matches/s "
+          f"({stats['matches']} matches = the numpy twin's rows in order, bit "
+          f"for bit; the model's (k, bait, strike) set); launches {launches}")
+    print(f"{label} drains: {stats['vectorized_drains']} (guarded "
+          f"{labels[CEP_LABEL]}), partials high-water "
+          f"{stats['partials_high_water']}; drain host wall p50 {p50:.3f} ms "
+          f"p99 {p99:.3f} ms (max {max(drain_ms):.3f}) over {n_drains} "
+          f"calls; snapshot {snap_s * 1e3:.3f} ms, restore "
+          f"{restore_s * 1e3:.3f} ms")
+    print(f"{label} steps: {steps['steps'] / n_drains:.2f} a drain "
+          f"({steps['steps']} in all), {steps['replayed']} replayed on the "
+          f"numpy step (flags); h2d {steps['h2d_bytes'] / steps['steps']:.0f} "
+          f"B and d2h {steps['d2h_bytes'] / steps['steps']:.0f} B a step")
+    print(f"{label} profiled drain (the replay's first): wall "
+          f"{replay_ms[0]:.3f} ms, device busy {busy_ms:.3f} ms = "
+          f"{100 * share:.2f}% (idle {100 - 100 * share:.2f}%); {n_ops} "
+          f"device ops over {prof_steps} steps = "
+          f"{n_ops / max(prof_steps, 1):.1f} a step; top device ops (ms): "
+          + "; ".join(f"{k[:50]} {t / 1e3:.3f}" for t, k in dev[:6]))
+    print(f"{label} checks: the interpreted twin's first {n_int} batches "
+          f"({int_s:.3f} s) and the device step on the CPU over {n_cpu} "
+          f"batches equal the card's rows in order; the replay from the "
+          f"snapshot after {CEP_SNAPSHOT_AFTER} batches equals the run's "
+          f"rest, bit for bit")
+    a1, a2 = n_events / card_s1, n_events / card_s2
+    b1, b2 = n_events / twin_s1, n_events / twin_s2
+    print(f"A/B path 26 (device step) vs its numpy twin, same batches, one "
+          f"process, turns twin, card, card, twin: events/s {a1:.1f}, {a2:.1f} "
+          f"vs {b1:.1f}, {b2:.1f} ({(a1 + a2) / (b1 + b2):.3f}x)")
+    cep_calibration(device)
+    device_health.set_monitor(None)
+    numbers = {"events_per_s": eps, "max_drain_ms": max(drain_ms),
+               "drain_ms": drain_ms}
+    return launches, numbers, [r for r in twin_rows
+                               if r[0] < CEP_WEDGE_BATCHES]
+
+
+def path27(device, batches, numbers26, want):
+    """Path 27: path 26's first batches with ``WedgedDevice`` at the third
+    ``cep.vectorized_drain`` dispatch, under a monitor whose floor is
+    ``CEP_FLOOR_FACTOR`` times path 26's worst clean drain: the operator
+    degrades to the interpreted engine, and its rows equal the numpy twin's
+    in order."""
+    import torch
+
+    from flink_tpu_torch.runtime import device_health
+    from flink_tpu_torch.testing import chaos
+
+    label = "path 27"
+    floor = max(CEP_FLOOR_FACTOR * numbers26["max_drain_ms"] / 1e3, 2.0)
+    mon = device_health.DeviceHealthMonitor(
+        device_health.WatchdogConfig(deadline_floor_s=floor,
+                                     first_dispatch_grace_s=max(60.0, floor)),
+        heal_async=False)
+    device_health.set_monitor(mon)
+    inj = chaos.FaultInjector(seed=27)
+    wedge = chaos.WedgedDevice(at=CEP_WEDGE_AT)
+    inj.inject("device.dispatch", wedge)
+    op = cep_op(device)
+    drain_ms = []
+    torch.cuda.synchronize()
+    reset_launches()
+    try:
+        with chaos.installed(inj):
+            rows, _, elapsed, _ = cep_drive(op, batches,
+                                            stop=CEP_WEDGE_BATCHES,
+                                            drain_ms=drain_ms, end=False)
+    finally:
+        wedge.heal()
+        device_health.set_monitor(None)
+    launches = read_launches()
+    stats = op.cep_stats()
+    check(all(v == 0 for v in launches.values()),
+          f"{label}: launches {launches}")
+    check(stats["degraded"] == 1 and stats["engine"] == "interpreted",
+          f"{label}: stats {stats}")
+    check(rows == want and rows,
+          f"{label}: the degraded rows differ from the numpy twin's")
+    expect = dict(QUIET, quarantines=1, watchdog_timeouts=1,
+                  dispatches=CEP_WEDGE_AT)
+    got = {k: mon.counters[k] for k in expect}
+    check(got == expect and dict(mon.label_counts) == {CEP_LABEL:
+                                                       CEP_WEDGE_AT},
+          f"{label}: monitor {got} {dict(mon.label_counts)}, expected "
+          f"{expect}")
+    at = CEP_WEDGE_AT - 1
+    clean = numbers26["drain_ms"]
+    print(f"{label}: {sum(len(b[0]) for b in batches[:CEP_WEDGE_BATCHES])} "
+          f"events in {elapsed:.3f} s; the wedge at drain {CEP_WEDGE_AT} "
+          f"quarantined after the {floor:.3f} s floor ({CEP_FLOOR_FACTOR}x "
+          f"path 26's worst drain); degraded {stats['degraded']}, engine "
+          f"{stats['engine']}; rows equal the numpy twin's in order; monitor "
+          f"{got}, labels {dict(mon.label_counts)}; launches {launches}")
+    print(f"{label} degrade cost: the wedged call {drain_ms[at]:.3f} ms "
+          f"(the floor, the decode to per-key NFAs, the interpreted drain) "
+          f"against path 26's {clean[at]:.3f} ms; the drain after the "
+          f"quarantine {drain_ms[at + 1]:.3f} ms interpreted against "
+          f"{clean[at + 1]:.3f} ms")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -3045,6 +3456,12 @@ def main() -> None:
               f"fire {a['d2h_per_fire']:.0f} vs {b['d2h_per_fire']:.0f} B; "
               f"state on the card: element buffer {a['buffer_bytes']} B vs "
               f"ring {b['ring_bytes']} B")
+    cep_batches = make_cep_batches()
+    launches["path 26"], numbers["path 26"], cep_want = path26(device,
+                                                              cep_batches)
+    launches["path 27"] = path27(device, cep_batches, numbers["path 26"],
+                                 cep_want)
+    del cep_batches, cep_want
     pipeline_ab(device, "path 9", "path 3", ab_want["path 3"])
     guard_ab(device, batches, ab_want)
     mesh_ab(device, batches, ab_want, card)
@@ -3113,14 +3530,14 @@ def main() -> None:
     kernels.append(scatter_fold_phase(device, rng))
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]]
-                   for label in ORDER + SLICE11 + SLICE12}
+                   for label in ORDER + SLICE11 + SLICE12 + SLICE13}
         kernel["launches_by_path"] = by_path
         kernel["launches"] = sum(by_path.values())
         print(f"{kernel['name']} launches by path: {by_path}")
     for part in ("single", "multi"):
         kernels[-1][f"launches_by_path_{part}"] = by_path = {
             label: launches[label][f"scatter_fold_{part}"]
-            for label in ORDER + SLICE11 + SLICE12}
+            for label in ORDER + SLICE11 + SLICE12 + SLICE13}
         print(f"scatter_fold launches through ordered_fold_counts"
               f"{'_multi' if part == 'multi' else ''} by path: {by_path}")
     for label in ("path 1", "path 3"):

@@ -34,11 +34,21 @@ the live raw elements ``vals`` f32, ``keys`` int32, absolute ``panes`` and
 the dtypes JAX holds them in with x64 off: a 64-bit leaf (the port's
 ``SumAggregator(torch.int64)``) narrows to 32 bits, as JAX would have
 folded it.
+
+CEP snapshots (``CepOperator``, either engine: ``buffers`` key -> event
+entries ``(ts, eid, bits, ubits, row)``, ``nfas`` key -> ``(partials,
+skip_until_ts, rows)``, ``last_rows``, ``next_event_id``, ``watermark``)
+carry partial matches as instances of the owning package's ``_Partial``,
+which the other package cannot import.  :func:`cep_snapshot_from_jax`
+rebuilds them field by field (``stage_i``, ``count``, ``events``,
+``first_ts``, ``greedy_from``) as the port's; :func:`cep_snapshot_to_jax`
+gives tuples in that field order, or instances of the class passed in.
+Rows, bits and the scalars cross as they are.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
@@ -270,3 +280,49 @@ def evicting_snapshot_from_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
 def evicting_snapshot_to_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
     """A port ``DeviceEvictingWindowOperator`` snapshot -> JAX's."""
     return _normalize_evicting(snap, "port")
+
+
+_PARTIAL_FIELDS = ("stage_i", "count", "events", "first_ts", "greedy_from")
+
+
+def _cep_snapshot(snap: Dict[str, Any], partial: Callable,
+                  source: str) -> Dict[str, Any]:
+    missing = [k for k in ("buffers", "nfas", "next_event_id", "watermark")
+               if k not in snap]
+    if missing:
+        raise ValueError(f"{source} CEP snapshot lacks {missing}")
+
+    def convert(pm):
+        fields = (tuple(pm) if isinstance(pm, tuple)
+                  else tuple(getattr(pm, f) for f in _PARTIAL_FIELDS))
+        stage_i, count, events, first_ts, greedy_from = fields
+        return partial(int(stage_i), int(count),
+                       tuple((int(s), int(e)) for s, e in events),
+                       int(first_ts), int(greedy_from))
+
+    return {
+        "buffers": {k: [tuple(e) for e in v]
+                    for k, v in snap["buffers"].items()},
+        "nfas": {k: ([convert(pm) for pm in partials], int(skip_ts),
+                     dict(rows))
+                 for k, (partials, skip_ts, rows) in snap["nfas"].items()},
+        "last_rows": dict(snap.get("last_rows", {})),
+        "next_event_id": int(snap["next_event_id"]),
+        "watermark": int(snap["watermark"]),
+    }
+
+
+def cep_snapshot_from_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX ``CepOperator`` snapshot -> the port's (its ``_Partial``
+    instances rebuilt as the port's)."""
+    from flink_tpu_torch.cep.operator import _Partial
+    return _cep_snapshot(snap, _Partial, "JAX")
+
+
+def cep_snapshot_to_jax(snap: Dict[str, Any],
+                        partial: Optional[Callable] = None) -> Dict[str, Any]:
+    """A port ``CepOperator`` snapshot -> JAX's layout.  Each partial match
+    becomes ``partial(stage_i, count, events, first_ts, greedy_from)`` —
+    pass JAX's ``_Partial`` — or, without ``partial``, that tuple."""
+    return _cep_snapshot(snap, partial if partial is not None
+                         else (lambda *fields: fields), "port")

@@ -1111,3 +1111,189 @@ def test_evicting_lane_on_the_card_equals_the_cpu(cuda_device, evictor, agg):
     assert gsteps == csteps and gl == gsteps > 0 and cl == 0
     assert "evicting-window-device.append_step" in \
         dh.status_snapshot()["dispatch_labels"]
+
+
+# ---------------------------------------------------------------------------
+# CEP: the vectorized engine's step on the card (torch ops, no kernel)
+# ---------------------------------------------------------------------------
+
+def _cep_pattern(within=20000):
+    from flink_tpu_torch.cep import Pattern
+    return (Pattern.begin("small").where(lambda c: np.asarray(c["v"]) < 30.0)
+            .followed_by("large").where(lambda c: np.asarray(c["v"]) > 570.0)
+            .within(within))
+
+
+def _cep_loop_pattern():
+    from flink_tpu_torch.cep import Pattern
+    kind = lambda x: (lambda c: np.asarray(c["kind"]) == x)  # noqa: E731
+    return (Pattern.begin("a").where(kind(0)).one_or_more().until(kind(3))
+            .not_followed_by("nb").where(kind(1))
+            .followed_by("e").where(kind(2)).within(40))
+
+
+def _cep_batches(n_batches, n_keys, size, seed, kinds=False):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_batches):
+        cols = {"k": rng.integers(0, n_keys, size).astype(np.int64),
+                "v": rng.random(size) * 600.0}
+        if kinds:
+            cols["kind"] = rng.integers(0, 5, size).astype(np.int64)
+        ts = i * 50 + np.sort(rng.integers(0, 50, size)).astype(np.int64)
+        out.append((cols, ts))
+    return out
+
+
+def _cep_run(op, batches, snap_at=None):
+    rows, snap = [], None
+    for j, (cols, ts) in enumerate(batches):
+        out = op.process_batch(RecordBatch(dict(cols), timestamps=ts))
+        out += op.process_watermark(Watermark(int(ts.max()) - 1))
+        rows += [(tuple((c, np.asarray(b.columns[c])[i].item())
+                        for c in sorted(b.columns)),
+                  int(np.asarray(b.timestamps)[i]))
+                 for b in out for i in range(len(b))]
+        if j == snap_at:
+            snap = op.snapshot_state()
+    for b in op.end_input():
+        rows += [(tuple((c, np.asarray(b.columns[c])[i].item())
+                        for c in sorted(b.columns)),
+                  int(np.asarray(b.timestamps)[i])) for i in range(len(b))]
+    return rows, snap
+
+
+def test_cep_device_step_on_the_card_equals_the_cpu(cuda_device):
+    """Every step of two seeded runs (the blocks the operator really feeds,
+    with partial and ring growth): the step body on the card equals the
+    same body on CPU tensors bit for bit — new block, match plane,
+    candidate rings, flags — and ``step_device`` on the card equals
+    ``step_numpy``."""
+    from flink_tpu_torch.cep import operator as cop
+    from flink_tpu_torch.cep import vectorized as cv
+
+    real = cv.step_device
+    seen = {"steps": 0}
+
+    def checked(tab, m, block, inputs, device, counters=None, planes=None):
+        outs = []
+        for dev in (cuda_device, torch.device("cpu")):
+            blk = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                        for a in block)
+            inp = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in inputs]
+            inp[2] = inp[2].long()
+            new_block, mm, c_ev, c_eln, flags = cv.device_step(tab, m, blk,
+                                                               tuple(inp))
+            outs.append([a.cpu().numpy() for a in (*new_block, mm, c_ev,
+                                                   c_eln, flags)])
+        for a, b in zip(*outs):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        res, m_out = real(tab, m, block, inputs, cuda_device, counters,
+                          planes)
+        ref, m_ref = cv.step_numpy(tab, m, block, inputs)
+        assert m_out == m_ref
+        for a, b in zip(res.block, ref.block):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        assert np.array_equal(res.match_kc, ref.match_kc)
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(res.match_ev, ref.match_ev))
+        seen["steps"] += 1
+        return res, m_out
+
+    for pattern, kinds in ((_cep_pattern(60), False),
+                           (_cep_loop_pattern(), True)):
+        op = cop.CepOperator(pattern, "k", lambda m: {"n": len(m)},
+                             vectorized="on", device=cuda_device)
+        op._resolve_engine()
+        assert op._vec.kernel == "device"
+        batches = _cep_batches(6, 300, 2000, 3, kinds=kinds)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(cv, "step_device", checked)
+            _cep_run(op, batches)
+    assert seen["steps"] > 10
+
+
+def test_cep_vectorized_operator_on_the_card_equals_the_numpy_engine(
+        cuda_device):
+    """``CepOperator(vectorized="on")`` on the card (the device step)
+    against the same operator on the CPU with the numpy step and with the
+    interpreted engine: rows, order, ``cep_stats()`` counters and the
+    mid-run snapshot; the card's snapshot restores into the CPU operator
+    and finishes with the same rows."""
+    from flink_tpu_torch.cep import operator as cop
+
+    batches = _cep_batches(8, 2000, 4000, 5, kinds=True)
+    runs = {}
+    for label, device, mode in (("card", cuda_device, "on"),
+                                ("numpy", "cpu", "on"),
+                                ("interpreted", "cpu", "off")):
+        for pattern in (_cep_pattern(120), _cep_loop_pattern()):
+            op = cop.CepOperator(pattern, "k",
+                                 lambda m: {"k": next(iter(m.values()))[0]["k"],
+                                            "n": sum(len(r) for r in m.values())},
+                                 vectorized=mode, device=device)
+            rows, snap = _cep_run(op, batches, snap_at=3)
+            st = op.cep_stats()
+            runs.setdefault(label, []).append(
+                (rows, st["matches"], st["partials_high_water"], snap,
+                 dict(op.step_stats)))
+    for (cr, cm, ch, cs, cstats), (nr, nm, nh, ns, _), (ir, im, ih, _s, _) in \
+            zip(runs["card"], runs["numpy"], runs["interpreted"]):
+        assert cr == nr == ir and cr
+        assert cm == nm == im and ch == nh == ih
+        assert cstats["steps"] > 0 and cstats["h2d_bytes"] > 0
+        assert list(cs["nfas"]) == list(ns["nfas"])
+        for k in cs["nfas"]:
+            assert cs["nfas"][k][:2] == ns["nfas"][k][:2]
+    op = cop.CepOperator(_cep_pattern(120), "k",
+                         lambda m: {"k": next(iter(m.values()))[0]["k"],
+                                    "n": sum(len(r) for r in m.values())},
+                         vectorized="on", device="cpu")
+    op.restore_state(runs["card"][0][3])
+    rest, _ = _cep_run(op, batches[4:])
+    full = runs["numpy"][0][0]
+    assert rest == full[len(full) - len(rest):]
+
+
+def test_cep_wedge_on_the_card_degrades_digest_identical(cuda_device):
+    """A ``WedgedDevice`` at the third ``cep.vectorized_drain`` dispatch on
+    the card: the operator quarantines, degrades to the interpreted engine
+    and its rows equal an unfaulted card run's; the monitor counts one
+    timeout and one quarantine."""
+    from flink_tpu_torch.cep import operator as cop
+    from flink_tpu_torch.runtime import device_health as dh
+    from flink_tpu_torch.testing import chaos
+
+    batches = _cep_batches(6, 500, 3000, 8)
+    prev = dh.get_monitor(create=False)
+    results = []
+    try:
+        for inject in (False, True):
+            mon = dh.DeviceHealthMonitor(
+                dh.WatchdogConfig(deadline_floor_s=2.0,
+                                  first_dispatch_grace_s=60.0),
+                heal_async=False)
+            dh.set_monitor(mon)
+            inj = chaos.FaultInjector(seed=1)
+            wedge = chaos.WedgedDevice(at=3)
+            if inject:
+                inj.inject("device.dispatch", wedge)
+            op = cop.CepOperator(_cep_pattern(120), "k",
+                                 lambda m: {"k": m["small"][0]["k"]},
+                                 vectorized="on", device=cuda_device)
+            try:
+                with chaos.installed(inj):
+                    rows, _ = _cep_run(op, batches)
+            finally:
+                wedge.heal()
+            results.append((rows, op.cep_stats(), dict(mon.counters)))
+    finally:
+        dh.set_monitor(prev)
+    (clean, cst, cmon), (wedged, wst, wmon) = results
+    assert wedged == clean and clean
+    assert cst["degraded"] == 0 and cst["engine"] == "vectorized"
+    assert wst["degraded"] == 1 and wst["engine"] == "interpreted"
+    assert wst["matches"] == cst["matches"]
+    assert wmon["quarantines"] == 1 and wmon["watchdog_timeouts"] == 1
+    assert cmon["quarantines"] == 0
