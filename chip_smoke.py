@@ -241,6 +241,38 @@ Phases, each fatal on failure (exit code 1, no result line):
    (``degraded`` 1), its rows equal the numpy twin's in order, the
    monitor's counters equal what was injected, and the degrade's cost is
    printed.
+9j. join phase and main paths 28-31 (slice 14), after path 27.  The join
+   phase holds ``ops/join_kernels.device_join_pairs`` (torch ops on the
+   card: a stable sort of the right keys, two binary searches, the
+   prefix-sum expansion) to its plain version on CPU copies exactly, in
+   order and dtype: 2^20 x 2^20 keys uniform over 1M, a skewed case (one
+   key on 0.1% of each side's rows, about 1.1M pairs from it), right keys
+   half absent from the left, and empty sides; and times count, emit and
+   the download (CUDA events) beside the plain version, the host lane's
+   numpy ``_join_pairs`` and the bound.  Paths 28-30 run on the stream's
+   first ``TABLE_BATCHES`` batches (the joins' right side a seed-8 stream
+   of the same shape, each side with its stream position in ``e``); each
+   path's mid-run snapshot is restored on the card and replayed bit for
+   bit, the replay's first call under ``torch.profiler`` (the card's busy
+   share).  Path 28 is ``ChangelogGroupAggOperator("k", {s: sum(v), n:
+   count, mn: min(v), mx: max(v)})`` on the card (8 f32 planes of 2^20;
+   the add words fold through ``scatter_fold``), held to the same operator
+   on the CPU over ``TABLE_CPU_BATCHES`` batches bit for bit and to a
+   numpy model batch by batch (counts, min and max exactly, sums to
+   ``DS_STEP_RTOL`` a batch).  Path 29 is the two-level aggregate: path
+   28's changelog keyed by its count ``n`` into
+   ``ChangelogGroupAggOperator("n", {"keys": count},
+   consume_retractions=True)``, held to the CPU bit for bit and to
+   ``np.bincount`` of the model's counts.  Path 30 is
+   ``IntervalJoinOperator`` (-500 ms, +500 ms) with
+   ``FLINK_TPU_DEVICE_JOIN=1`` on the card, a watermark at each pair of
+   batches' largest timestamp: its rows equal the device lane on the CPU
+   in order, bit for bit, and the host lane's as a multiset of (left
+   row, right row).  Path 31 is ``StreamingJoinOperator`` (inner,
+   append-only: the ``_join_pairs`` fast path) on the card's device lane
+   over ``STREAMING_BATCHES`` pairs of batches, held as path 30 is.  Each
+   prints rows/s (the joins: input rows/s and pairs/s), the bytes over the
+   bus and the card line.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the kernel line reports each kernel's launches on every
@@ -3319,6 +3351,465 @@ def path27(device, batches, numbers26, want):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the table runtime's device half (join phase, paths 28-31)
+# ---------------------------------------------------------------------------
+
+SLICE14 = ("path 28", "path 29", "path 30", "path 31")
+TABLE_BATCHES = 16              # paths 28-30: the stream's first 16 batches
+TABLE_SNAPSHOT_AFTER = 8        # batches in when the snapshot is taken
+TABLE_CPU_BATCHES = 4           # path 28's CPU twin
+RIGHT_SEED = 8                  # the joins' right side: a seed-8 stream
+JOIN_LOWER_MS, JOIN_UPPER_MS = -500, 500
+#: path 31 keeps every row of both sides as a Python tuple (JAX's state
+#: layout), so it runs fewer batches than paths 28-30 (widths unchanged)
+STREAMING_BATCHES = 3
+STREAMING_SNAPSHOT_AFTER = 2
+JOIN_PHASE_ROWS = 1 << 20
+JOIN_HOT_SHARE = 0.001          # the skewed case's hot key, on each side
+#: path 28's aggregates: the double-single sum and count, the Dekker-pair
+#: min and max (8 f32 planes of K = 2^20 on the card)
+TABLE_AGGS = {"s": ("v", "sum"), "n": (None, "count"), "mn": ("v", "min"),
+              "mx": ("v", "max")}
+#: the sums' bound against the model's f64 sum of the per-batch f32
+#: partials: each 2Sum step of the double-single accumulator is exact but
+#: for the rounding of its f32 low word, at most 2^-24 of a low word that
+#: is itself at most half an ulp (2^-24) of the high word, so a step adds
+#: at most 2^-47 |S|; 2^-46 a step leaves a factor 2 for the f64 model's
+#: own rounding
+DS_STEP_RTOL = 2.0 ** -46
+
+
+def view_bits(batch) -> tuple:
+    """A batch's columns and timestamps, dtype and bytes each (an object
+    column by its values: the array numpy makes of them, tagged ``O``)."""
+    def bits(a):
+        a = np.asarray(a)
+        if a.dtype.kind == "O":
+            a = np.asarray(a.tolist())
+            return "O", a.dtype.str, a.tobytes()
+        return a.dtype.str, a.tobytes()
+    ts = batch.timestamps
+    return (tuple((c, bits(a)) for c, a in batch.columns.items()),
+            None if ts is None else bits(ts))
+
+
+def digest_rows(outs) -> list:
+    """(call, sha256 of a batch's view) per emitted batch."""
+    return [(i, hashlib.sha256(repr(view_bits(b)).encode()).hexdigest())
+            for i, out in outs for b in out]
+
+
+def join_phase(device):
+    """The device equi-join (``ops/join_kernels.device_join_pairs``, torch
+    ops) on the card at 2^20 x 2^20 keys drawn from 1M, and on a skewed,
+    an absent-keys and empty inputs: each held to its plain version on the
+    CPU exactly; timed (count, emit, download) beside the plain version,
+    the host lane's numpy ``_join_pairs`` and the bound."""
+    import torch
+
+    from flink_tpu_torch.operators import joins
+    from flink_tpu_torch.ops import join_kernels as jk
+
+    rng = np.random.default_rng(7)
+    n = JOIN_PHASE_ROWS
+    lk = rng.integers(0, N_KEYS, n).astype(np.int64)
+    rk = rng.integers(0, N_KEYS, n).astype(np.int64)
+    hot_l, hot_r = lk.copy(), rk.copy()
+    hot_l[rng.random(n) < JOIN_HOT_SHARE] = 123_456
+    hot_r[rng.random(n) < JOIN_HOT_SHARE] = 123_456
+    cases = {"uniform": (lk, rk), "skewed": (hot_l, hot_r),
+             "absent": (lk, rk + N_KEYS // 2),
+             "empty left": (lk[:0], rk), "empty right": (lk, rk[:0])}
+    pairs = {}
+    for name, (a, b) in cases.items():
+        got = jk.device_join_pairs(a, b, device)
+        want = jk.device_join_pairs(a, b, "cpu")
+        check(all(g.dtype == w.dtype == np.int64 and np.array_equal(g, w)
+                  for g, w in zip(got, want)),
+              f"join phase {name}: the card's pairs differ from the plain "
+              f"version's")
+        pairs[name] = got[0].size
+    hot = int(np.count_nonzero(hot_l == 123_456)) * int(
+        np.count_nonzero(hot_r == 123_456))
+    check(pairs["skewed"] >= hot > (JOIN_HOT_SHARE * n) ** 2 / 2,
+          f"join phase: skewed pairs {pairs['skewed']}, hot key {hot}")
+    numbers = {}
+    runs = 10
+    for name in ("uniform", "skewed"):
+        a, b = cases[name]
+        tl, tr = (torch.from_numpy(x).to(device) for x in (a, b))
+        ro, lo, counts = jk.spans(tl, tr)
+        n_t = counts.sum()
+        m = int(n_t)
+        cap = jk.quantize_pow2(m)
+        li, ri = jk.expand(ro, lo, counts, n_t, cap)
+        count_ms = cuda_time_ms(lambda: jk.spans(tl, tr)[2].sum(), runs)
+        emit_ms = cuda_time_ms(lambda: jk.expand(ro, lo, counts, n_t, cap),
+                               runs)
+        down_ms = cuda_time_ms(lambda: torch.stack((li[:m], ri[:m])).cpu(),
+                               runs)
+        wall_ms = host_ms(lambda: jk.device_join_pairs(a, b, device))
+        plain_ms = host_ms(lambda: jk.device_join_pairs(a, b, "cpu"), runs=2)
+        prev = os.environ.pop("FLINK_TPU_DEVICE_JOIN", None)
+        try:
+            host_lane_ms = host_ms(lambda: joins._join_pairs(a, b), runs=1)
+        finally:
+            if prev is not None:
+                os.environ["FLINK_TPU_DEVICE_JOIN"] = prev
+        # compulsory bytes: both key columns in once, both int32 index
+        # columns out once (the count is 8 bytes); no arithmetic bound
+        bytes_ = a.nbytes + b.nbytes + 8 * m + 8
+        bound_ms, bound_by, _, _ = bound(bytes_, 0)
+        kernel_ms = count_ms + emit_ms
+        numbers[name] = dict(pairs=m, count_ms=count_ms, emit_ms=emit_ms,
+                             download_ms=down_ms, wall_ms=wall_ms,
+                             plain_ms=plain_ms, host_lane_ms=host_lane_ms,
+                             bound_ms=bound_ms)
+        print(f"join phase {name}: {a.size} x {b.size} keys -> {m} pairs; "
+              f"card count {count_ms:.4f} ms + emit {emit_ms:.4f} ms = "
+              f"{kernel_ms:.4f} ms, download {down_ms:.4f} ms (CUDA events, "
+              f"median of {runs}); device_join_pairs wall {wall_ms:.3f} ms "
+              f"(host clock, upload and both syncs in); plain version "
+              f"{plain_ms:.3f} ms, host lane numpy _join_pairs "
+              f"{host_lane_ms:.3f} ms (host clock); bound {bound_ms:.4f} ms "
+              f"by {bound_by} ({bytes_} B: keys in, pairs out, once) = "
+              f"{100 * bound_ms / kernel_ms:.2f}% of count + emit; no "
+              f"library call computes an equi-join")
+    print(f"join phase checks: {', '.join(f'{k} {v} pairs' for k, v in pairs.items())}"
+          f"; each equals the plain version on CPU copies exactly, in "
+          f"order and dtype (int64)")
+    return numbers
+
+
+def table_batches(batches, seed):
+    """The joins' two sides: ``batches`` (seed 7) and a seed-``seed``
+    stream of the same shape, each with its stream position in ``e``."""
+    right = make_batches(TABLE_BATCHES * BATCH, N_KEYS, BATCH, WINDOW_MS,
+                         seed=seed)
+
+    def with_e(side):
+        out, base = [], 0
+        for k, v, ts in side:
+            out.append(({"k": k, "v": v,
+                         "e": base + np.arange(k.size, dtype=np.int64)}, ts))
+            base += k.size
+        return out
+    return with_e(batches[:TABLE_BATCHES]), with_e(right)
+
+
+def table_op(device, label):
+    from flink_tpu_torch.operators.joins import IntervalJoinOperator
+    from flink_tpu_torch.operators.sql_ops import (ChangelogGroupAggOperator,
+                                                   StreamingJoinOperator)
+    if label == "path 28":
+        return ChangelogGroupAggOperator("k", TABLE_AGGS, device=device)
+    if label == "path 29":
+        return ChangelogGroupAggOperator("n", {"keys": (None, "count")},
+                                         consume_retractions=True,
+                                         device=device)
+    if label == "path 30":
+        return IntervalJoinOperator("k", "k", JOIN_LOWER_MS, JOIN_UPPER_MS,
+                                    device=device)
+    cols = ["k", "v", "e"]
+    return StreamingJoinOperator("k", "k", "inner",
+                                 {c: "r_" + c for c in cols},
+                                 left_columns=cols, right_columns=cols,
+                                 device=device)
+
+
+def table_drive(op, label, inputs, device, start=0, stop=None,
+                snap_after=None, prof=None, wall_ms=None):
+    """Feed calls ``start:stop`` of ``inputs`` (:func:`table_call`).
+    Returns (outputs per call, the snapshot after ``snap_after`` calls,
+    seconds without the snapshot).  ``prof`` (a profiler) wraps every
+    call; ``wall_ms`` collects each call's host wall."""
+    stop = len(inputs) if stop is None else stop
+    outs, snap, snap_s = [], None, 0.0
+    t0 = time.perf_counter()
+    with prof if prof is not None else contextlib.nullcontext():
+        for i in range(start, stop):
+            outs.append((i, table_call(op, label, inputs, i, device,
+                                       wall_ms)))
+            if snap_after is not None and i == snap_after - 1:
+                s0 = time.perf_counter()
+                snap = op.snapshot_state()
+                snap_s = time.perf_counter() - s0
+    return outs, snap, time.perf_counter() - t0 - snap_s
+
+
+def table_call(op, label, inputs, i, device, wall_ms):
+    """Call ``i``: paths 28 and 29 get a batch; the joins get their left
+    and right batch ``i``, and the interval join a watermark at their
+    largest timestamp (``end_input`` after the last).  Returns its
+    outputs, the card synchronized."""
+    import torch
+
+    from flink_tpu_torch.core.batch import RecordBatch, Watermark
+
+    c0 = time.perf_counter()
+    if label in ("path 28", "path 29"):
+        out = op.process_batch(RecordBatch(inputs[i]))
+    else:
+        (lc, lts), (rc, rts) = inputs[i]
+        out = op.process_batch2(RecordBatch(lc, timestamps=lts), 0)
+        out += op.process_batch2(RecordBatch(rc, timestamps=rts), 1)
+        if label == "path 30":
+            out += op.process_watermark(
+                Watermark(int(max(lts.max(), rts.max()))))
+            if i == len(inputs) - 1:
+                out += op.end_input()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    if wall_ms is not None:
+        wall_ms.append((time.perf_counter() - c0) * 1e3)
+    return out
+
+
+def changelog_model_check(outs, batches, label):
+    """Path 28 against an independent numpy model, batch by batch: each
+    batch emits every key it touched, ``+I`` for a key seen first, else a
+    ``-U`` of its values before the batch then a ``+U`` of its values
+    after; counts, min and max equal the model's exactly
+    (``np.add.at``/``np.minimum.at``/``np.maximum.at``), each sum the
+    model's f64 sum of the per-batch f32 row-order partials to
+    ``DS_STEP_RTOL`` a batch, and each ``-U`` sum the value last emitted.
+    Returns (the model's final counts, the largest relative sum error)."""
+    cnt = np.zeros(N_KEYS, np.int64)
+    mn = np.full(N_KEYS, np.inf, np.float32)
+    mx = np.full(N_KEYS, -np.inf, np.float32)
+    tot = np.zeros(N_KEYS, np.float64)
+    emitted = np.zeros(N_KEYS, np.float64)
+    worst = 0.0
+    for b, (keys, vals, _ts) in enumerate(batches):
+        out = outs[b][1]
+        check(len(out) == 1, f"{label}: batch {b} emitted {len(out)} batches")
+        rows = out[0]
+        op_, k = rows.column("op"), rows.column("k")
+        uk = np.unique(keys)
+        seen = cnt[uk] > 0
+        old = op_ == "-U"
+        check(np.array_equal(np.sort(k[op_ == "+I"]), uk[~seen])
+              and np.array_equal(np.sort(k[old]), uk[seen])
+              and np.array_equal(k[op_ == "+U"], k[old])
+              and np.array_equal(op_[np.flatnonzero(old) + 1],
+                                 np.full(old.sum(), "+U"))
+              and (op_ == "+I").sum() + 2 * old.sum() == k.size,
+              f"{label}: batch {b} emits other keys than it touched")
+        ko = k[old]
+        check(np.array_equal(rows.column("n")[old], cnt[ko])
+              and np.array_equal(rows.column("mn")[old], mn[ko])
+              and np.array_equal(rows.column("mx")[old], mx[ko])
+              and np.array_equal(rows.column("s")[old], emitted[ko]),
+              f"{label}: batch {b}'s -U rows differ from the model before it")
+        part = np.zeros(N_KEYS, np.float32)
+        np.add.at(part, keys, vals)
+        np.add.at(cnt, keys, 1)
+        np.minimum.at(mn, keys, vals)
+        np.maximum.at(mx, keys, vals)
+        tot[uk] += part[uk]
+        kn = k[~old]
+        check(np.array_equal(rows.column("n")[~old], cnt[kn])
+              and np.array_equal(rows.column("mn")[~old], mn[kn])
+              and np.array_equal(rows.column("mx")[~old], mx[kn]),
+              f"{label}: batch {b}'s counts, min or max differ from the "
+              f"model")
+        got = rows.column("s")[~old]
+        err = np.abs(got - tot[kn])
+        check(bool(np.all(err <= (b + 1) * DS_STEP_RTOL * np.abs(tot[kn]))),
+              f"{label}: batch {b}'s sums are off the model's by more than "
+              f"{(b + 1) * DS_STEP_RTOL} relative")
+        nz = tot[kn] != 0
+        if nz.any():
+            worst = max(worst, float((err[nz] / np.abs(tot[kn][nz])).max()))
+        emitted[kn] = got
+    return cnt, worst
+
+
+def profiled_busy(prof, wall_ms):
+    from torch.autograd import DeviceType
+    busy_ms, dev = device_busy_ms(prof)
+    n_ops = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0)
+    return busy_ms, busy_ms / wall_ms, n_ops, dev[:5]
+
+
+def slice14_path(device, label, inputs, ctx):
+    """Drive one path of slice 14 on the card with every launch count at 0
+    just before and read just after; hold it to its CPU twin, its model or
+    its other lane, and a replay of its mid-run snapshot; print its
+    numbers.  Returns (launches, numbers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_tpu_torch.ops import join_kernels as jk
+
+    join = label in ("path 30", "path 31")
+    snap_at = (STREAMING_SNAPSHOT_AFTER if label == "path 31"
+               else TABLE_SNAPSHOT_AFTER)
+    prev_env = os.environ.get("FLINK_TPU_DEVICE_JOIN")
+    os.environ["FLINK_TPU_DEVICE_JOIN"] = "1"
+    try:
+        op = table_op(device, label)
+        jk.transfer_bytes.update(h2d=0, d2h=0)
+        wall_ms = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        outs, snap, elapsed = table_drive(op, label, inputs, device,
+                                          snap_after=snap_at,
+                                          wall_ms=wall_ms)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        moved = dict(jk.transfer_bytes)
+        peak = torch.cuda.max_memory_allocated() - base
+        digests_ = digest_rows(outs)
+        # the CPU twin: the same operator and lane on the CPU
+        n_cpu = TABLE_CPU_BATCHES if label == "path 28" else len(inputs)
+        cpu = torch.device("cpu")
+        cpu_outs, _, cpu_s = table_drive(table_op(cpu, label), label,
+                                         inputs, cpu, stop=n_cpu)
+        cpu_d = digest_rows(cpu_outs)
+        check(cpu_d == [d for d in digests_ if d[0] < n_cpu] and cpu_d,
+              f"{label}: the card's rows over {n_cpu} calls differ from the "
+              f"CPU's in their bits")
+        # the replay from the snapshot, under the profiler
+        rop = table_op(device, label)
+        r0 = time.perf_counter()
+        rop.restore_state(snap)
+        restore_s = time.perf_counter() - r0
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        rep, _, replay_s = table_drive(rop, label, inputs, device,
+                                       start=snap_at, prof=prof)
+        check(digest_rows(rep) == [d for d in digests_ if d[0] >= snap_at]
+              and rep, f"{label}: the replay from the snapshot after "
+              f"{snap_at} calls differs from the run's rest")
+    finally:
+        if prev_env is None:
+            os.environ.pop("FLINK_TPU_DEVICE_JOIN", None)
+        else:
+            os.environ["FLINK_TPU_DEVICE_JOIN"] = prev_env
+    busy_ms, share, n_ops, top = profiled_busy(prof, replay_s * 1e3)
+    check(n_ops > 0, f"{label}: the profiled replay ran nothing on the card")
+    n_rows = sum(len(b) for _, out in outs for b in out)
+    numbers = {"elapsed_s": elapsed, "busy_share": share, "rows": n_rows}
+    what = ""
+    if label == "path 28":
+        check(launches["scatter_fold"] > 0
+              and launches["probe"] == launches["probe_fold"] == 0,
+              f"{label}: launches {launches}")
+        cnt, worst = changelog_model_check(outs, ctx["batches"], label)
+        ctx["counts"] = cnt
+        ctx["changelog"] = [b for _, out in outs for b in out]
+        st = op.step_stats
+        n_in = st["rows"]
+        numbers.update(records_per_s=n_in / elapsed,
+                       d2h_per_batch=st["d2h_bytes"] / st["steps"],
+                       h2d_per_batch=st["h2d_bytes"] / st["steps"])
+        what = (f"{n_in} records = {n_in / elapsed:.1f} records/s, "
+                f"{n_rows} changelog rows; groups touched "
+                f"{st['groups'] / st['steps']:.0f} a batch; h2d "
+                f"{numbers['h2d_per_batch']:.0f} B and d2h (the [U] old/new "
+                f"words) {numbers['d2h_per_batch']:.0f} B a batch; model: "
+                f"counts, min, max exact, sums within {worst:.3e} relative "
+                f"(bound {DS_STEP_RTOL:.3e} a batch)")
+    elif label == "path 29":
+        check(launches["scatter_fold"] > 0
+              and launches["probe"] == launches["probe_fold"] == 0,
+              f"{label}: launches {launches}")
+        final = op.snapshot_state()
+        rev = final["key_index"]["reverse"]
+        got = final["state"][0].astype(np.float64) + final["state"][1]
+        want = np.bincount(ctx["counts"])[rev]
+        check(np.array_equal(got, want),
+              f"{label}: its final state differs from np.bincount of the "
+              f"model's counts")
+        st = op.step_stats
+        n_in = st["rows"]
+        numbers.update(records_per_s=n_in / elapsed,
+                       d2h_per_batch=st["d2h_bytes"] / st["steps"])
+        what = (f"{n_in} changelog rows in = {n_in / elapsed:.1f} rows/s, "
+                f"{n_rows} rows out; {rev.size} distinct counts; final state "
+                f"= np.bincount of the model's counts; d2h "
+                f"{numbers['d2h_per_batch']:.0f} B a batch")
+    else:
+        check(all(v == 0 for v in launches.values()),
+              f"{label}: launches {launches}; the device join runs no "
+              f"hand-written kernel")
+        n_in = sum(lc["k"].size + rc["k"].size
+                   for (lc, _), (rc, _) in inputs)
+        # the host lane: the same pairs as a multiset
+        os.environ.pop("FLINK_TPU_DEVICE_JOIN", None)
+        try:
+            host, _, host_s = table_drive(table_op(device, label), label,
+                                          inputs, device)
+        finally:
+            if prev_env is not None:
+                os.environ["FLINK_TPU_DEVICE_JOIN"] = prev_env
+
+        def pairs(o):
+            return np.sort(np.concatenate(
+                [np.asarray(b.column("e"), np.int64) * (1 << 32)
+                 + np.asarray(b.column("r_e"), np.int64)
+                 for _, out in o for b in out]))
+        card_pairs = pairs(outs)
+        check(np.array_equal(card_pairs, pairs(host)) and card_pairs.size,
+              f"{label}: the device lane's pairs differ from the host "
+              f"lane's as a multiset")
+        numbers.update(records_per_s=n_in / elapsed,
+                       pairs_per_s=card_pairs.size / elapsed,
+                       d2h=moved["d2h"], h2d=moved["h2d"],
+                       host_lane_s=host_s, cpu_s=cpu_s)
+        what = (f"{n_in} input rows = {n_in / elapsed:.1f} rows/s, "
+                f"{card_pairs.size} joined pairs = "
+                f"{card_pairs.size / elapsed:.1f} pairs/s; the join moved "
+                f"h2d {moved['h2d']} B (keys) and d2h {moved['d2h']} B (index "
+                f"pairs); the host lane's run {host_s:.3f} s gives the same "
+                f"pairs as a multiset, the device lane on the CPU "
+                f"{cpu_s:.3f} s the same rows in order")
+    p50 = float(np.percentile(wall_ms, 50))
+    p99 = float(np.percentile(wall_ms, 99))
+    print(f"{label}: {elapsed:.3f} s; {what}; launches {launches}; peak "
+          f"device memory {peak} B over what was allocated before it")
+    print(f"{label} calls: host wall p50 {p50:.3f} ms p99 {p99:.3f} ms over "
+          f"{len(wall_ms)}; the CPU twin over {n_cpu} calls bit for bit; the "
+          f"snapshot after {snap_at} calls restored ({restore_s * 1e3:.3f} "
+          f"ms) and replayed bit for bit")
+    n_rep = len(inputs) - snap_at
+    print(f"{label} profiled replay ({n_rep} calls): wall "
+          f"{replay_s * 1e3:.3f} ms, device busy {busy_ms:.3f} ms = "
+          f"{100 * share:.2f}% (idle {100 - 100 * share:.2f}%), "
+          f"{n_ops / n_rep:.1f} device ops a call; top (ms): "
+          + "; ".join(f"{k[:40]} {t / 1e3:.3f}" for t, k in top))
+    print(f"{label} card: {ctx['card']}")
+    return launches, numbers
+
+
+def slice14(device, batches, card):
+    """Paths 28-31 over the stream's first ``TABLE_BATCHES`` batches (and
+    a seed-``RIGHT_SEED`` right side for the joins)."""
+    left, right = table_batches(batches, RIGHT_SEED)
+    ctx = {"batches": batches[:TABLE_BATCHES], "card": card}
+    launches, numbers = {}, {}
+    agg_in = [cols for cols, _ in left]
+    launches["path 28"], numbers["path 28"] = slice14_path(
+        device, "path 28", [{"k": c["k"], "v": c["v"]} for c in agg_in], ctx)
+    level2 = [{"op": b.column("op"),
+               "n": np.asarray(b.column("n")).astype(np.int64)}
+              for b in ctx.pop("changelog")]
+    launches["path 29"], numbers["path 29"] = slice14_path(
+        device, "path 29", level2, ctx)
+    del level2
+    pairs = list(zip(left, right))
+    launches["path 30"], numbers["path 30"] = slice14_path(
+        device, "path 30", pairs, ctx)
+    launches["path 31"], numbers["path 31"] = slice14_path(
+        device, "path 31", pairs[:STREAMING_BATCHES], ctx)
+    return launches, numbers
+
+
 def main() -> None:
     try:
         import torch
@@ -3462,6 +3953,10 @@ def main() -> None:
     launches["path 27"] = path27(device, cep_batches, numbers["path 26"],
                                  cep_want)
     del cep_batches, cep_want
+    join_phase(device)
+    slice14_launches, slice14_numbers = slice14(device, batches, card)
+    launches.update(slice14_launches)
+    numbers.update(slice14_numbers)
     pipeline_ab(device, "path 9", "path 3", ab_want["path 3"])
     guard_ab(device, batches, ab_want)
     mesh_ab(device, batches, ab_want, card)
@@ -3530,14 +4025,15 @@ def main() -> None:
     kernels.append(scatter_fold_phase(device, rng))
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]]
-                   for label in ORDER + SLICE11 + SLICE12 + SLICE13}
+                   for label in ORDER + SLICE11 + SLICE12 + SLICE13
+                   + SLICE14}
         kernel["launches_by_path"] = by_path
         kernel["launches"] = sum(by_path.values())
         print(f"{kernel['name']} launches by path: {by_path}")
     for part in ("single", "multi"):
         kernels[-1][f"launches_by_path_{part}"] = by_path = {
             label: launches[label][f"scatter_fold_{part}"]
-            for label in ORDER + SLICE11 + SLICE12 + SLICE13}
+            for label in ORDER + SLICE11 + SLICE12 + SLICE13 + SLICE14}
         print(f"scatter_fold launches through ordered_fold_counts"
               f"{'_multi' if part == 'multi' else ''} by path: {by_path}")
     for label in ("path 1", "path 3"):
@@ -3546,7 +4042,8 @@ def main() -> None:
         check(launches[label]["probe_fold"] > 0,
               f"{label}: no probe_fold launch")
     for label in (*DEVICE_PATHS, *PAGED_PATHS, *FAULTS, "path 8", "path 9",
-                  *SLICE11_SCATTER, "path 23", "path 24", "path 25"):
+                  *SLICE11_SCATTER, "path 23", "path 24", "path 25",
+                  "path 28", "path 29"):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
     check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")

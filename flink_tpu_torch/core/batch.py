@@ -122,6 +122,34 @@ class RecordBatch(StreamElement):
         return self._rows(indices)
 
     @staticmethod
+    def concat(batches) -> "RecordBatch":
+        """Row-wise concatenation of batches with the same columns (empty
+        batches skipped; an all-empty list gives its first batch)."""
+        all_batches = list(batches)
+        batches = [b for b in all_batches if len(b)]
+        if not batches:
+            return all_batches[0] if all_batches else RecordBatch({})
+        if len(batches) == 1:
+            return batches[0]
+        first = batches[0]
+        names = set(first.columns)
+        for b in batches[1:]:
+            if set(b.columns) != names:
+                raise ValueError(f"concat of heterogeneous batches: "
+                                 f"{sorted(names)} vs {sorted(b.columns)}")
+            for attr in ("timestamps", "key_ids", "key_groups"):
+                if (getattr(b, attr) is None) != (getattr(first, attr) is None):
+                    raise ValueError(f"concat of batches with inconsistent "
+                                     f"{attr} presence")
+        cols = {n: np.concatenate([np.asarray(b.columns[n]) for b in batches])
+                for n in first.columns}
+        meta = [None if getattr(first, a) is None
+                else np.concatenate([np.asarray(getattr(b, a))
+                                     for b in batches])
+                for a in ("timestamps", "key_ids", "key_groups")]
+        return RecordBatch(cols, *meta)
+
+    @staticmethod
     def from_rows(rows: List[Mapping[str, Any]],
                   timestamps: Optional[List[int]] = None) -> "RecordBatch":
         """List of dict rows -> columnar batch."""

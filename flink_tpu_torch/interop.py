@@ -44,6 +44,16 @@ rebuilds them field by field (``stage_i``, ``count``, ``events``,
 ``first_ts``, ``greedy_from``) as the port's; :func:`cep_snapshot_to_jax`
 gives tuples in that field order, or instances of the class passed in.
 Rows, bits and the scalars cross as they are.
+
+``ChangelogGroupAggOperator`` snapshots (``key_index`` ``{"reverse":
+int64[n]}`` with ``key_index_kind``, ``state`` a list of f32 ``[n]`` words,
+(hi, lo) per aggregate column; or the legacy ``groups`` dict) cross over
+through :func:`changelog_agg_snapshot_from_jax` and
+:func:`changelog_agg_snapshot_to_jax`, which fix dtypes and refuse object
+keys.  The join operators' snapshots (``IntervalJoinOperator``,
+``WindowJoinOperator``, ``SqlJoinOperator``, ``StreamingJoinOperator``) are
+the same numpy and object arrays in both packages and restore across as
+they are.
 """
 
 from __future__ import annotations
@@ -326,3 +336,36 @@ def cep_snapshot_to_jax(snap: Dict[str, Any],
     pass JAX's ``_Partial`` — or, without ``partial``, that tuple."""
     return _cep_snapshot(snap, partial if partial is not None
                          else (lambda *fields: fields), "port")
+
+
+def _changelog_agg_snapshot(snap: Dict[str, Any], source: str
+                            ) -> Dict[str, Any]:
+    if "groups" in snap:
+        return {"groups": {k: dict(v) for k, v in snap["groups"].items()}}
+    if "key_index" not in snap:
+        return {}
+    if snap.get("key_index_kind") != "KeyIndex":
+        raise ValueError(f"{source} snapshot key index is "
+                         f"{snap.get('key_index_kind')!r}; only int64 keys "
+                         f"(KeyIndex) cross over in this slice")
+    rev = np.ascontiguousarray(snap["key_index"]["reverse"], np.int64)
+    out: Dict[str, Any] = {"key_index": {"reverse": rev},
+                           "key_index_kind": "KeyIndex"}
+    if "state" in snap:
+        out["state"] = [np.ascontiguousarray(a, np.float32)
+                        for a in snap["state"]]
+        rows = {a.shape for a in out["state"]}
+        if rows != {(rev.size,)}:
+            raise ValueError(f"{source} changelog snapshot words {rows} do "
+                             f"not match {rev.size} keys")
+    return out
+
+
+def changelog_agg_snapshot_from_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX ``ChangelogGroupAggOperator`` snapshot -> the port's."""
+    return _changelog_agg_snapshot(snap, "JAX")
+
+
+def changelog_agg_snapshot_to_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
+    """A port ``ChangelogGroupAggOperator`` snapshot -> JAX's."""
+    return _changelog_agg_snapshot(snap, "port")

@@ -1297,3 +1297,59 @@ def test_cep_wedge_on_the_card_degrades_digest_identical(cuda_device):
     assert wst["matches"] == cst["matches"]
     assert wmon["quarantines"] == 1 and wmon["watchdog_timeouts"] == 1
     assert cmon["quarantines"] == 0
+
+
+def test_device_join_on_the_card_equals_the_cpu(cuda_device):
+    """``device_join_pairs`` on the card (torch ops) against its plain
+    version: uniform keys with absent ones, a skewed key, and empties;
+    pairs, order and dtype exactly."""
+    from flink_tpu_torch.ops import join_kernels as jk
+
+    rng = np.random.default_rng(28)
+    lk = rng.integers(0, 5000, 40_000).astype(np.int64)
+    rk = rng.integers(2500, 7500, 30_000).astype(np.int64)
+    lk[rng.random(lk.size) < 0.01] = 2 ** 40 + 3
+    rk[rng.random(rk.size) < 0.01] = 2 ** 40 + 3
+    for a, b in ((lk, rk), (lk[:0], rk), (lk, rk[:0]), (rk, lk)):
+        want = jk.device_join_pairs(a, b, device="cpu")
+        got = jk.device_join_pairs(a, b, device=cuda_device)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == np.int64
+            np.testing.assert_array_equal(g, w)
+    tl = torch.from_numpy(lk).to(cuda_device)
+    tr = torch.from_numpy(rk).to(cuda_device)
+    n = int(jk.pair_count(tl, tr))
+    li, ri, pn = jk.pair_emit(tl, tr, n + 100)
+    pli, pri, ppn = jk.pair_emit(tl.cpu(), tr.cpu(), n + 100)
+    assert int(pn) == int(ppn) == n
+    np.testing.assert_array_equal(li.cpu().numpy(), pli.numpy())
+    np.testing.assert_array_equal(ri.cpu().numpy(), pri.numpy())
+
+
+def test_changelog_agg_on_the_card_equals_the_cpu(cuda_device):
+    """``ChangelogGroupAggOperator`` (sum, count, min, max) on the card
+    against the same operator on the CPU over two batches: rows and
+    snapshot words bit for bit; the add words fold through
+    ``scatter_fold``."""
+    from flink_tpu_torch.operators.sql_ops import ChangelogGroupAggOperator
+
+    aggs = {"s": ("v", "sum"), "n": (None, "count"), "mn": ("v", "min"),
+            "mx": ("v", "max")}
+    rng = np.random.default_rng(29)
+    card = ChangelogGroupAggOperator("k", aggs, device=cuda_device)
+    cpu = ChangelogGroupAggOperator("k", aggs, device="cpu")
+    sc.ordered_fold_counts_multi.launches = 0
+    for _ in range(2):
+        k = rng.integers(0, 100_000, 1 << 16).astype(np.int64)
+        v = rng.random(1 << 16).astype(np.float32)
+        got = card.process_batch(RecordBatch({"k": k, "v": v}))
+        want = cpu.process_batch(RecordBatch({"k": k, "v": v}))
+        assert len(got) == len(want) == 1
+        for c in want[0].columns:
+            a, b = np.asarray(got[0].column(c)), np.asarray(want[0].column(c))
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), c
+    torch.cuda.synchronize()
+    assert sc.ordered_fold_counts_multi.launches == 4
+    a, b = card.snapshot_state(), cpu.snapshot_state()
+    assert all(x.tobytes() == y.tobytes() for x, y in zip(a["state"],
+                                                          b["state"]))
