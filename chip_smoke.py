@@ -273,6 +273,43 @@ Phases, each fatal on failure (exit code 1, no result line):
    over ``STREAMING_BATCHES`` pairs of batches, held as path 30 is.  Each
    prints rows/s (the joins: input rows/s and pairs/s), the bytes over the
    bus and the card line.
+9k. main paths 32-36 (slice 15), after path 31.  The graph is Graph500's
+   Kronecker (R-MAT) graph at scale 22 (4,194,304 vertices, 67,108,864
+   directed edges, edge factor 16, initiator 0.57/0.19/0.19/0.05, labels
+   permuted, self loops and duplicates kept, SSSP weights uniform in [0,
+   1)), made on the card from ``GRAPH_SEED`` and copied to the host for
+   the models.  Path 32 is ``Graph.pagerank`` (damping 0.85, 10
+   supersteps, ``tol=0``) on the directed graph: held to a scipy.sparse
+   f64 power iteration with JAX's dangling redistribution
+   (``PAGERANK_RTOL``), the ranks summing to 1; its sum combine at these
+   shapes (67 M messages into 4 M vertices, one ``scatter_fold`` launch)
+   equals the CPU's ``index_add_`` bit for bit and is timed beside
+   ``index_add_`` and its bound; it prints supersteps, wall, CUDA-event
+   time a superstep (p50/p99, the same supersteps through
+   ``scatter_gather`` with an event at each), edges traversed per second,
+   launches, the card's busy share over a profiled run and peak device
+   memory.  Path 33 is BFS from 2 seeded roots of non-zero degree, WCC
+   and SSSP from the first root, on the graph taken undirected (Graph500
+   kernels 2 and 3): levels and component labels (the least vertex id of
+   each) equal scipy's BFS and weak components exactly, distances scipy's
+   f64 Dijkstra within ``SSSP_RTOL``; each prints supersteps, edges
+   traversed per second and the converged check's host wait.  Path 34 is
+   path 32's PageRank and path 33's BFS over ``MESH_BLOCKS`` edge shards on
+   the card (no interconnect): BFS equal to path 33's, PageRank within
+   ``PAGERANK_RTOL`` of path 32's, each timed against its single-device
+   twin in turns.  Path 35 is the dense family on a scale-12 graph of the
+   same generator (all-pairs distances with eccentricity, closeness and
+   diameter/radius, Jaccard, Adamic-Adar, HITS, label propagation)
+   against scipy and numpy models (distances, Jaccard and labels
+   exactly; the f32 scores within ``SCORE_RTOL`` and ``HITS_ATOL``), and
+   the CPU bit for bit at scale 10 for everything whose order is fixed.
+   Path 36 is a ``KeyedProcessFunction`` tumbling sum (per (window, key):
+   a ``SumAggregator`` ``AggregatingState`` and a count ``ValueState``, an
+   event-time timer at the window's end that emits and clears) over the
+   1M-key stream's first 16 batches: held to ``reference`` (rtol
+   ``RTOL``) and to the f32 record-order reference bit for bit, a twin
+   over ``ChangelogKeyedStateBackend`` bit for bit, and the snapshot after
+   batch 8 restored and replayed bit for bit; its numbers are the host's.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the kernel line reports each kernel's launches on every
@@ -1368,19 +1405,23 @@ def reset_launches() -> None:
     dk.probe_fold.launches = 0
     sc.ordered_fold_counts.launches = 0
     sc.ordered_fold_counts_multi.launches = 0
+    sc.ordered_fold.launches = 0
 
 
 def read_launches():
-    """Launches per kernel; ``scatter_fold`` sums its two wrappers' counts,
-    each also given alone (``_single``: ``ordered_fold_counts``,
-    ``_multi``: ``ordered_fold_counts_multi``)."""
+    """Launches per kernel; ``scatter_fold`` sums its three wrappers'
+    counts, each also given alone (``_single``: ``ordered_fold_counts``,
+    ``_multi``: ``ordered_fold_counts_multi``, ``_plane``:
+    ``ordered_fold``, the graph library's sum combine)."""
     from flink_tpu_torch.ops import scatter as sc
     from flink_tpu_torch.state import device_keyindex as dk
     single = sc.ordered_fold_counts.launches
     multi = sc.ordered_fold_counts_multi.launches
+    plane = sc.ordered_fold.launches
     return {"probe": dk.probe.launches, "probe_fold": dk.probe_fold.launches,
-            "scatter_fold": single + multi, "scatter_fold_single": single,
-            "scatter_fold_multi": multi}
+            "scatter_fold": single + multi + plane,
+            "scatter_fold_single": single, "scatter_fold_multi": multi,
+            "scatter_fold_plane": plane}
 
 
 def lane_of(op) -> dict:
@@ -2705,8 +2746,8 @@ def slice12_drive(op, batches, start=0, snap_at=None, fire_ms=None,
     taken after batch ``snap_at`` and the buffer rows' high-water (the
     evicting lane's).  ``fire_ms`` collects the host ms of each watermark
     call that fired."""
-    from flink_tpu_torch.core.batch import MAX_WATERMARK, RecordBatch, \
-        Watermark
+    from flink_tpu_torch.core.batch import (MAX_WATERMARK, RecordBatch,
+                                            Watermark)
     fired, snap, high = [], None, 0
     end = len(batches) if stop is None else stop
     for i in range(start, end):
@@ -3810,6 +3851,743 @@ def slice14(device, batches, card):
     return launches, numbers
 
 
+SLICE15 = ("path 32", "path 33", "path 34", "path 35", "path 36")
+#: the Graph500 Kronecker (R-MAT) graph: scale, edge factor, initiator
+GRAPH_SCALE = 22
+GRAPH_EDGE_FACTOR = 16
+RMAT_ABC = (0.57, 0.19, 0.19)   # D = 0.05
+GRAPH_SEED = 15
+PAGERANK_ITERS = 10             # Graphalytics' PR iterations
+DAMPING = 0.85
+BFS_ROOTS = 2
+DENSE_SCALE = 12                # path 35: _DENSE_LIMIT vertices
+DENSE_CPU_SCALE = 10            # path 35's CPU twin
+HITS_ITERS = 20
+LABEL_ITERS = 10
+#: f32 PageRank against the f64 model (10 supersteps of f32 sums)
+PAGERANK_RTOL = 1e-4
+#: f32 Bellman-Ford against f64 Dijkstra (paths of a few dozen f32 adds)
+SSSP_RTOL = 1e-5
+#: the dense family's f32 scores: Adamic-Adar against the f64 product,
+#: HITS (unit vectors) absolute against the f64 power iteration
+SCORE_RTOL = 1e-5
+HITS_ATOL = 1e-5
+PROCESS_BATCHES = 16
+PROCESS_SNAPSHOT_AFTER = 8
+#: path 36's composite key: window index << KEY_BITS | key
+KEY_BITS = 20
+
+
+def rmat_edges(scale, edge_factor, seed, device):
+    """Graph500's Kronecker generator on ``device``: ``edge_factor <<
+    scale`` directed edges, each of ``scale`` bits drawn from the
+    initiator (A, B, C, D), vertex labels permuted from the seed, self
+    loops and duplicates kept; SSSP weights uniform in [0, 1) (Graph500
+    kernel 3).  Returns int32 ``src``, ``dst`` and f32 ``w`` tensors."""
+    import torch
+    a, b, c = RMAT_ABC
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    m = edge_factor << scale
+    src = torch.zeros(m, dtype=torch.int64, device=device)
+    dst = torch.zeros(m, dtype=torch.int64, device=device)
+    for bit in range(scale):
+        r = torch.rand(m, generator=g, device=device)
+        src |= (r >= a + b).to(torch.int64) << bit
+        dst |= (((r >= a) & (r < a + b)) | (r >= a + b + c)).to(
+            torch.int64) << bit
+    perm = torch.randperm(1 << scale, generator=g, device=device)
+    w = torch.rand(m, generator=g, device=device)
+    return perm[src].to(torch.int32), perm[dst].to(torch.int32), w
+
+
+def graph_roots(src_h, dst_h, n, k, seed):
+    """``k`` distinct roots of non-zero degree, drawn from the seed
+    (Graph500 skips zero-degree roots)."""
+    deg = np.bincount(src_h, minlength=n) + np.bincount(dst_h, minlength=n)
+    rng = np.random.default_rng(seed)
+    return [int(r) for r in rng.choice(np.flatnonzero(deg), k,
+                                       replace=False)]
+
+
+def pagerank_model(src_h, dst_h, n):
+    """Independent PageRank: scipy.sparse f64 power iteration with the
+    dangling mass spread over every vertex (JAX's formula)."""
+    import scipy.sparse as sp
+    at = sp.coo_matrix((np.ones(src_h.size), (dst_h, src_h)),
+                       shape=(n, n)).tocsr()           # counts duplicates
+    deg = np.bincount(src_h, minlength=n).astype(np.float64)
+    dangling = deg == 0
+    safe = np.where(dangling, 1.0, deg)
+    r = np.full(n, 1.0 / n)
+    for _ in range(PAGERANK_ITERS):
+        r = (1 - DAMPING) / n + DAMPING * (at @ (r / safe)
+                                           + r[dangling].sum() / n)
+    return r, at
+
+
+def bfs_levels_model(adj, root, n):
+    """Hop levels from ``root`` over the undirected graph (scipy's BFS
+    order and predecessors, depths by pointer jumping); -1 unreachable."""
+    from scipy.sparse import csgraph
+    order, pred = csgraph.breadth_first_order(adj, root, directed=False,
+                                              return_predecessors=True)
+    idx = np.arange(n)
+    anc = np.where(pred >= 0, pred, idx)
+    depth = (pred >= 0).astype(np.int64)
+    while (anc != anc[anc]).any() or (depth[anc] > 0).any():
+        depth = depth + depth[anc]
+        anc = anc[anc]
+    out = np.full(n, -1, np.int64)
+    out[order] = depth[order]
+    return out
+
+
+def wcc_model(adj, n):
+    """Weakly connected components, each labelled by its least vertex id."""
+    from scipy.sparse import csgraph
+    nc, lab = csgraph.connected_components(adj, directed=True,
+                                           connection="weak")
+    least = np.full(nc, n, np.int64)
+    np.minimum.at(least, lab, np.arange(n))
+    return least[lab]
+
+
+def sssp_model(src_t, dst_t, w_t, n, root):
+    """f64 Dijkstra (scipy) over the directed weighted edges, duplicates
+    reduced to their least weight first (a stable sort by (src, dst) after
+    one by weight, on the card), a weight of exactly 0 stored as the
+    smallest positive f64 (scipy reads a stored 0 as no edge)."""
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse import csgraph
+    key = src_t.to(torch.int64) * n + dst_t.to(torch.int64)
+    o1 = torch.argsort(w_t)
+    o2 = torch.argsort(key[o1], stable=True)
+    order = o1[o2]
+    ks = key[order]
+    first = torch.ones_like(ks, dtype=torch.bool)
+    first[1:] = ks[1:] != ks[:-1]
+    sel = order[first]
+    s, d = src_t[sel].cpu().numpy(), dst_t[sel].cpu().numpy()
+    w = w_t[sel].cpu().numpy().astype(np.float64)
+    w[w == 0] = np.finfo(np.float64).tiny
+    del key, o1, o2, order, ks, first, sel
+    mat = sp.coo_matrix((w, (s, d)), shape=(n, n)).tocsr()
+    return csgraph.dijkstra(mat, directed=True, indices=root)
+
+
+class _Supersteps:
+    """Counts and times the converged check (``graph._equal``, one host
+    sync a superstep): the supersteps an algorithm ran and the host
+    seconds it waited in them."""
+
+    def __init__(self):
+        from flink_tpu_torch.graph_lib import graph as gmod
+        self.mod, self.orig = gmod, gmod._equal
+        self.calls, self.seconds = 0, 0.0
+
+    def __enter__(self):
+        def timed(a, b):
+            t0 = time.perf_counter()
+            out = self.orig(a, b)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        self.mod._equal = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._equal = self.orig
+
+
+def graph_kernel_check(device, g, ranks0):
+    """``segment_combine("sum")`` at path 32's shapes (PageRank's first
+    superstep: E f32 messages into n vertices) against its plain version
+    on CPU copies, bit for bit; ``scatter_fold`` timed beside
+    ``index_add_`` and the bound."""
+    import torch
+
+    from flink_tpu_torch.graph_lib.graph import segment_combine
+    from flink_tpu_torch.ops.scatter import ordered_fold
+    n, E = g.n, g.num_edges
+    deg = torch.from_numpy(g.out_degrees().astype(np.float32)).to(device)
+    msgs = (ranks0 / torch.where(deg == 0, 1.0, deg))[g.src]
+    got = segment_combine(msgs, g.dst, n, "sum")
+    t0 = time.perf_counter()
+    want = segment_combine(msgs.cpu(), g.dst.cpu(), n, "sum")
+    plain_s = time.perf_counter() - t0
+    err = float((got.cpu() - want).abs().max())
+    check(torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)),
+          f"path 32: the sum combine of {E} messages into {n} vertices on "
+          f"the card differs from its CPU plain version in its bits (max "
+          f"abs {err})")
+    plane = torch.zeros(n, dtype=torch.float32, device=device)
+    ms = cuda_time_ms(lambda: ordered_fold(plane, g.dst, msgs), 5)
+    lib = torch.zeros(n, dtype=torch.float32, device=device)
+    lib_ms = cuda_time_ms(lambda: lib.index_add_(0, g.dst, msgs), 5)
+    # each input read once (ids, values, the plane), the plane written once
+    bytes_ = 8 * E + 8 * n
+    bms, by, _, _ = bound(bytes_, E)
+    out = {"rows": E, "cells": n, "ms": ms, "library_ms": lib_ms,
+           "plain_cpu_ms": plain_s * 1e3, "bound_ms": bms, "bound_by": by,
+           "max_abs_err": err}
+    print(f"path 32 kernel: sum combine of {E} f32 messages into {n} "
+          f"vertices equals its CPU plain version bit for bit; "
+          f"scatter_fold {ms:.4f} ms (CUDA events, median of 5), "
+          f"index_add_ {lib_ms:.4f} ms ({ms / lib_ms:.3f}x), bound "
+          f"{bms:.4f} ms ({bytes_} B, by {by}), the CPU plain version "
+          f"{plain_s * 1e3:.1f} ms on the host")
+    del msgs, got, want, plane, lib
+    return out
+
+
+def path32(device, card, G):
+    """PageRank (10 supersteps, damping 0.85, tol 0) on the directed
+    scale-22 graph."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_tpu_torch.graph_lib import Graph
+    g = G["g"]
+    n, E = g.n, g.num_edges
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    ranks = g.pagerank(damping=DAMPING, num_iterations=PAGERANK_ITERS)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(launches["scatter_fold_plane"] == PAGERANK_ITERS + 1
+          and launches["probe"] == launches["probe_fold"] == 0,
+          f"path 32: launches {launches}; want one scatter_fold a superstep "
+          f"and one for the degrees")
+    t0 = time.perf_counter()
+    model, at = pagerank_model(G["src_h"], G["dst_h"], n)
+    model_s = time.perf_counter() - t0
+    G["at"] = at
+    rel = float(np.max(np.abs(ranks - model)) / np.max(model))
+    check(ranks.dtype == np.float32 and np.isfinite(ranks).all()
+          and np.allclose(ranks, model, rtol=PAGERANK_RTOL,
+                          atol=PAGERANK_RTOL / n)
+          and abs(float(ranks.astype(np.float64).sum()) - 1.0) < 1e-4,
+          f"path 32: PageRank differs from the f64 model (max abs "
+          f"{np.max(np.abs(ranks - model))}, sum {ranks.sum()})")
+    # CUDA-event time a superstep: the same supersteps through
+    # scatter_gather, an event recorded at each (no sync in the loop)
+    deg = g.out_degrees().astype(np.float32)
+    dangling = torch.from_numpy(deg == 0).to(device)
+    safe = np.where(deg == 0, np.float32(1), deg)
+    gw = Graph(n, g.src, g.dst, (1.0 / safe)[G["src_h"]], device=device)
+    events = [torch.cuda.Event(enable_timing=True)]
+
+    def update(r, spread):
+        dm = torch.sum(torch.where(dangling, r, 0.0))
+        return (1.0 - DAMPING) / n + DAMPING * (spread + dm / n)
+
+    def mark(_a, _b):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return False
+
+    r0 = np.full(n, 1.0 / n, np.float32)
+    events[0].record()
+    timed = gw.scatter_gather(r0, lambda v, w: v * w, "sum", update,
+                              PAGERANK_ITERS, converged=mark)
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    check(np.allclose(timed, model, rtol=PAGERANK_RTOL,
+                      atol=PAGERANK_RTOL / n),
+          "path 32: the timed scatter_gather run differs from the model")
+    G["kernel"] = graph_kernel_check(device, g, torch.full(
+        (n,), 1.0 / n, dtype=torch.float32, device=device))
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    with prof:
+        t1 = time.perf_counter()
+        again = g.pagerank(damping=DAMPING, num_iterations=PAGERANK_ITERS)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t1
+    check(np.array_equal(again, ranks), "path 32: a second run differs from "
+          "the first in its bits")
+    busy_ms, share, n_ops, top = profiled_busy(prof, pwall * 1e3)
+    p50, p99 = np.percentile(step_ms, 50), np.percentile(step_ms, 99)
+    teps = E * PAGERANK_ITERS / wall
+    print(f"path 32: PageRank of the scale-{GRAPH_SCALE} Kronecker graph "
+          f"({n} vertices, {E} edges), {PAGERANK_ITERS} supersteps in "
+          f"{wall:.3f} s wall = {teps:.4e} edges traversed/s; superstep "
+          f"(CUDA events) p50 {p50:.3f} ms p99 {p99:.3f} ms; launches "
+          f"{launches}; peak device memory {peak} B over what was allocated "
+          f"before it; held to the scipy f64 model within rtol "
+          f"{PAGERANK_RTOL} (max abs / max {rel:.3e}; model {model_s:.1f} s "
+          f"on the host), ranks sum to {ranks.astype(np.float64).sum():.7f}")
+    print(f"path 32 profiled run: wall {pwall * 1e3:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms = {100 * share:.2f}% (idle "
+          f"{100 - 100 * share:.2f}%), {n_ops} device ops; top (ms): "
+          + "; ".join(f"{k[:40]} {t / 1e3:.3f}" for t, k in top))
+    print(f"path 32 card: {card}")
+    G["ranks"] = ranks
+    return launches, {"wall_s": wall, "edges_per_s": teps,
+                      "step_p50_ms": p50, "step_p99_ms": p99,
+                      "busy_share": share, "peak_bytes": peak,
+                      "kernel": G.pop("kernel")}
+
+
+def _timed(fn, label, wall_of):
+    import torch
+    torch.cuda.synchronize()
+    with _Supersteps() as ss:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    wall_of[label] = (wall, ss.calls, ss.seconds)
+    return out
+
+
+def path33(device, card, G):
+    """BFS from 2 roots, WCC, and SSSP from the first root, on the same
+    graph taken undirected (as Graph500 kernels 2 and 3 search it)."""
+    import torch
+    g = G["g"]
+    n, E = g.n, g.num_edges
+    roots = graph_roots(G["src_h"], G["dst_h"], n, BFS_ROOTS, GRAPH_SEED)
+    walls = {}
+    reset_launches()
+    levels = [_timed(lambda r=r: g.bfs_levels(r), f"bfs {r}", walls)
+              for r in roots]
+    comps = _timed(g.connected_components, "wcc", walls)
+    # Graph500 kernel 3 searches the undirected graph
+    ug = g.undirected()
+    dist = _timed(lambda: ug.sssp(roots[0]), "sssp", walls)
+    launches = read_launches()
+    check(all(v == 0 for v in launches.values()),
+          f"path 33: launches {launches}; min combines launch no "
+          f"hand-written kernel")
+    t0 = time.perf_counter()
+    at = G.pop("at")
+    for r, lv in zip(roots, levels):
+        want = bfs_levels_model(at, r, n)
+        check(lv.dtype == np.int32 and np.array_equal(lv, want),
+              f"path 33: BFS levels from {r} differ from scipy's BFS "
+              f"({int((lv != want).sum())} vertices)")
+    want = wcc_model(at, n)
+    check(comps.dtype == np.int32 and np.array_equal(comps, want),
+          f"path 33: component labels differ from scipy's weak components "
+          f"({int((comps != want).sum())} vertices)")
+    del at
+    sp_model = sssp_model(ug.src, ug.dst, ug.weights, n, roots[0])
+    del ug
+    reach = np.isfinite(sp_model)
+    check(np.array_equal(np.isfinite(dist), reach)
+          and np.allclose(dist[reach], sp_model[reach], rtol=SSSP_RTOL,
+                          atol=0),
+          f"path 33: SSSP differs from scipy's f64 Dijkstra (max rel "
+          f"{np.max(np.abs(dist[reach] - sp_model[reach]) / np.maximum(sp_model[reach], 1e-30))})")
+    model_s = time.perf_counter() - t0
+    numbers = {}
+    for label, (wall, steps, sync) in walls.items():
+        edges = 2 * E
+        numbers[label] = {"wall_s": wall, "supersteps": steps,
+                          "edges_per_s": edges * steps / wall,
+                          "sync_share": sync / wall}
+        print(f"path 33 {label}: {steps} supersteps in {wall:.3f} s = "
+              f"{edges * steps / wall:.4e} edges traversed/s ({edges} edges "
+              f"a superstep); the converged check's host wait {sync:.3f} s "
+              f"= {100 * sync / wall:.1f}% of the wall")
+    ncomp = np.unique(comps).size
+    print(f"path 33: roots {roots}; {ncomp} components (largest "
+          f"{np.bincount(np.unique(comps, return_inverse=True)[1]).max()}); "
+          f"BFS reach {[int((lv >= 0).sum()) for lv in levels]}, depth "
+          f"{[int(lv.max()) for lv in levels]}; SSSP reach {int(reach.sum())}"
+          f"; BFS and WCC equal scipy exactly, SSSP within rtol {SSSP_RTOL}"
+          f"; models {model_s:.1f} s on the host; launches {launches}")
+    print(f"path 33 card: {card}")
+    G["roots"], G["levels"] = roots, levels
+    return launches, numbers
+
+
+def path34(device, card, G):
+    """Paths 32's PageRank and 33's BFS over four edge shards on the one
+    card, each against its single-device twin in turns."""
+    import torch
+
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    g = G["g"]
+    mesh = make_mesh(devices=[device] * MESH_BLOCKS)
+    root = G["roots"][0]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = g.pagerank(damping=DAMPING, num_iterations=PAGERANK_ITERS,
+                       mesh=mesh)
+    levels = g.bfs_levels(root, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["scatter_fold_plane"] == MESH_BLOCKS * PAGERANK_ITERS + 1,
+          f"path 34: launches {launches}; want one scatter_fold a shard a "
+          f"superstep and one for the degrees")
+    check(np.array_equal(levels, G["levels"][0]),
+          "path 34: the mesh's BFS levels differ from path 33's")
+    rel = float(np.max(np.abs(ranks - G["ranks"])) / np.max(G["ranks"]))
+    check(np.allclose(ranks, G["ranks"], rtol=PAGERANK_RTOL,
+                      atol=PAGERANK_RTOL / g.n),
+          f"path 34: the mesh's PageRank differs from path 32's ({rel:.3e})")
+    turns = {}
+    for label, run in (
+            ("pagerank", lambda m: g.pagerank(
+                damping=DAMPING, num_iterations=PAGERANK_ITERS, mesh=m)),
+            ("bfs", lambda m: g.bfs_levels(root, mesh=m))):
+        t = {"twin": [], "mesh": []}
+        for who in ("twin", "mesh", "mesh", "twin"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(mesh if who == "mesh" else None)
+            torch.cuda.synchronize()
+            t[who].append(time.perf_counter() - t0)
+        turns[label] = t
+        a, b = np.mean(t["mesh"]), np.mean(t["twin"])
+        print(f"A/B path 34 {label} ({MESH_BLOCKS} edge shards on the card) "
+              f"vs its single-device twin, turns twin, mesh, mesh, twin: "
+              f"{a * 1e3:.3f} vs {b * 1e3:.3f} ms ({b / a:.3f}x the twin's "
+              f"rate)")
+    print(f"path 34: PageRank + BFS on the mesh in {wall:.3f} s; BFS equals "
+          f"path 33's exactly, PageRank path 32's within rtol "
+          f"{PAGERANK_RTOL} (max abs / max {rel:.3e}); launches {launches}")
+    print(f"path 34 card: {card}")
+    return launches, {"wall_s": wall, "turns": turns}
+
+
+def dense_models(src_h, dst_h, n):
+    """Independent models of the dense family: all-pairs hop distances
+    (scipy BFS from every vertex), Jaccard and Adamic-Adar (scipy.sparse
+    products of the 0/1 adjacency), HITS (f64 power iteration) and label
+    propagation (numpy)."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+    keep = src_h != dst_h
+    a = sp.coo_matrix((np.ones(int(keep.sum())), (src_h[keep], dst_h[keep])),
+                      shape=(n, n)).tocsr()
+    a = ((a + a.T) > 0).astype(np.float64)            # symmetric 0/1
+    d = csgraph.shortest_path(a, method="D", directed=False,
+                              unweighted=True)
+    dist = np.where(np.isfinite(d), d, -1).astype(np.int32)
+    deg = np.asarray(a.sum(axis=1)).ravel()
+    common = np.asarray((a @ a.T)[src_h, dst_h]).ravel()
+    union = (deg[src_h] + deg[dst_h] - common).astype(np.float32)
+    common32 = common.astype(np.float32)
+    jac = np.where(union > 0, common32 / np.maximum(union, np.float32(1)),
+                   np.float32(0))
+    inv_log = np.where(deg > 1, 1.0 / np.log(np.maximum(deg, 2.0)), 0.0)
+    aa = np.asarray((a @ sp.diags(inv_log) @ a.T)[src_h, dst_h]).ravel()
+    cnt = sp.coo_matrix((np.ones(src_h.size), (src_h, dst_h)),
+                        shape=(n, n)).tocsr()
+    hub = np.full(n, 1 / np.sqrt(n))
+    for _ in range(HITS_ITERS):
+        auth = cnt.T @ hub
+        auth /= max(np.linalg.norm(auth), 1e-12)
+        hub = cnt @ auth
+        hub /= max(np.linalg.norm(hub), 1e-12)
+    return {"dist": dist, "jaccard": jac, "adamic_adar": aa, "hub": hub,
+            "auth": auth, "deg_nl": np.bincount(src_h[keep], minlength=n)
+            + np.bincount(dst_h[keep], minlength=n)}
+
+
+def label_model(src_h, dst_h, labels):
+    """Max-label adoption over the undirected edges (numpy), to a fixed
+    point or ``LABEL_ITERS`` rounds."""
+    s = np.concatenate([src_h, dst_h])
+    d = np.concatenate([dst_h, src_h])
+    lab = labels.astype(np.int64)
+    low = np.iinfo(np.int32).min
+    for _ in range(LABEL_ITERS):
+        comb = np.full(lab.size, low, np.int64)
+        np.maximum.at(comb, d, lab[s])
+        new = np.where(comb > low, np.maximum(lab, comb), lab)
+        if np.array_equal(new, lab):
+            break
+        lab = new
+    return lab.astype(np.int32)
+
+
+def path35(device, card):
+    """The dense analysis family on a scale-12 graph of the same
+    generator, and the CPU twin at scale 10."""
+    import torch
+
+    from flink_tpu_torch.graph_lib import Graph
+    src, dst, _ = rmat_edges(DENSE_SCALE, GRAPH_EDGE_FACTOR, GRAPH_SEED,
+                             device)
+    n = 1 << DENSE_SCALE
+    src_h, dst_h = src.cpu().numpy().copy(), dst.cpu().numpy().copy()
+    g = Graph(n, src, dst, device=device)
+    labels = np.random.default_rng(GRAPH_SEED).permutation(n)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    times = {}
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t
+        return out
+
+    dist = run("all_pairs", g.all_pairs_distances)
+    ecc = g.eccentricity(distances=dist)
+    close_c = g.closeness_centrality(distances=dist)
+    dr = g.diameter_radius(distances=dist)
+    jac = run("jaccard", g.jaccard_similarity)
+    aa = run("adamic_adar", g.adamic_adar)
+    hub, auth = run("hits", lambda: g.hits(HITS_ITERS))
+    lab = run("label_propagation",
+              lambda: g.label_propagation(labels, LABEL_ITERS))
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["scatter_fold_plane"] == 2 * HITS_ITERS,
+          f"path 35: launches {launches}; want two scatter_fold a HITS "
+          f"superstep")
+    t1 = time.perf_counter()
+    m = dense_models(src_h, dst_h, n)
+    check(np.array_equal(dist, m["dist"]),
+          f"path 35: all-pairs distances differ from scipy's "
+          f"({int((dist != m['dist']).sum())} pairs)")
+    want_ecc = np.where(m["dist"] >= 0, m["dist"], 0).max(axis=1)
+    check(np.array_equal(ecc, want_ecc.astype(np.int32)),
+          "path 35: eccentricity differs from the model's")
+    live = want_ecc[m["deg_nl"] > 0]
+    check(dr == {"diameter": int(live.max()), "radius": int(live.min())},
+          f"path 35: diameter/radius {dr} differ from the model's")
+    reach = (m["dist"] >= 0).sum(axis=1) - 1.0
+    dsum = np.where(m["dist"] > 0, m["dist"], 0).sum(axis=1)
+    want_c = ((reach / max(n - 1, 1))
+              * np.where(dsum > 0, reach / np.maximum(dsum, 1), 0.0))
+    check(np.array_equal(close_c, want_c.astype(np.float32)),
+          "path 35: closeness differs from the model's")
+    check(jac.dtype == np.float32 and np.array_equal(jac, m["jaccard"]),
+          f"path 35: Jaccard differs from the scipy model "
+          f"({int((jac != m['jaccard']).sum())} edges)")
+    check(np.allclose(aa, m["adamic_adar"], rtol=SCORE_RTOL, atol=1e-6),
+          f"path 35: Adamic-Adar differs from the f64 product (max abs "
+          f"{np.max(np.abs(aa - m['adamic_adar']))})")
+    herr = max(float(np.max(np.abs(hub - m["hub"]))),
+               float(np.max(np.abs(auth - m["auth"]))))
+    check(herr <= HITS_ATOL, f"path 35: HITS differs from the f64 power "
+          f"iteration by {herr}")
+    check(np.array_equal(lab, label_model(src_h, dst_h, labels)),
+          "path 35: label propagation differs from the numpy model")
+    model_s = time.perf_counter() - t1
+    # the CPU twin at scale 10: everything whose order is fixed, bit for bit
+    cs, cd, _ = rmat_edges(DENSE_CPU_SCALE, GRAPH_EDGE_FACTOR, GRAPH_SEED,
+                           device)
+    nc = 1 << DENSE_CPU_SCALE
+    card_g = Graph(nc, cs, cd, device=device)
+    cpu_g = Graph(nc, cs.cpu(), cd.cpu(), device="cpu")
+    lab_c = np.random.default_rng(GRAPH_SEED).permutation(nc)
+    t2 = time.perf_counter()
+    for name, fn in (("all_pairs", lambda x: x.all_pairs_distances()),
+                     ("jaccard", lambda x: x.jaccard_similarity()),
+                     ("label_propagation",
+                      lambda x: x.label_propagation(lab_c, LABEL_ITERS)),
+                     ("bfs", lambda x: x.bfs_levels([0, 5]))):
+        a, b = fn(card_g), fn(cpu_g)
+        check(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+              f"path 35: {name} at scale {DENSE_CPU_SCALE} differs between "
+              f"the card and the CPU")
+    cpu_s = time.perf_counter() - t2
+    print(f"path 35: the dense family on the scale-{DENSE_SCALE} graph ({n} "
+          f"vertices, {src.numel()} edges) in {wall:.3f} s: "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in times.items())
+          + f"; diameter {dr['diameter']} radius {dr['radius']}; distances, "
+          f"eccentricity, closeness, Jaccard and labels equal the models "
+          f"exactly, Adamic-Adar within rtol {SCORE_RTOL}, HITS within "
+          f"{herr:.2e} (bound {HITS_ATOL}); models {model_s:.1f} s on the "
+          f"host; the scale-{DENSE_CPU_SCALE} CPU twin bit for bit "
+          f"({cpu_s:.1f} s); launches {launches}")
+    print(f"path 35 card: {card}")
+    return launches, {"wall_s": wall, "times": times}
+
+
+def process_function():
+    """The headline tumbling sum as a ``KeyedProcessFunction``: per key (a
+    composite of the window's index and the key, the heap having no
+    namespaces, as Flink's window state is namespaced by window) a
+    ``SumAggregator`` ``AggregatingState`` and a count ``ValueState``; an
+    event-time timer at the window's end emits (key, window, sum, count)
+    and clears."""
+    from flink_tpu_torch.core.batch import RecordBatch
+    from flink_tpu_torch.core.functions import SumAggregator
+    from flink_tpu_torch.operators.process import KeyedProcessFunction
+    from flink_tpu_torch.state.api import (AggregatingStateDescriptor,
+                                           ValueStateDescriptor)
+
+    class WindowSum(KeyedProcessFunction):
+        def __init__(self):
+            self.sum_d = AggregatingStateDescriptor(
+                "sum", SumAggregator(np.float32))
+            self.cnt_d = ValueStateDescriptor("count", dtype=np.int64,
+                                              default=0)
+
+        def process_batch(self, ctx, batch):
+            ctx.state(self.sum_d).add_rows(ctx.slots, batch.column("v"))
+            u, first, c = np.unique(ctx.slots, return_index=True,
+                                    return_counts=True)
+            cnt = ctx.state(self.cnt_d)
+            cnt.put_rows(u, cnt.get_rows(u)[0] + c)
+            ends = (np.asarray(batch.timestamps)[first] // WINDOW_MS + 1) \
+                * WINDOW_MS - 1
+            ctx.timer_service.register_event_time_timers(u, ends)
+            return None
+
+        def on_timer_batch(self, ctx, slots, timestamps):
+            s, _ = ctx.state(self.sum_d).get_rows(slots)
+            n, _ = ctx.state(self.cnt_d).get_rows(slots)
+            ctx.state(self.sum_d).clear_rows(slots)
+            ctx.state(self.cnt_d).clear_rows(slots)
+            ck = np.asarray(ctx.keys_of(slots), np.int64)
+            return [RecordBatch({
+                "k": ck & ((1 << KEY_BITS) - 1),
+                "window_start": (ck >> KEY_BITS) * WINDOW_MS,
+                "result": s, "count": n}, timestamps=np.asarray(timestamps))]
+
+    return WindowSum()
+
+
+def process_drive(op, batches, start=0, snap_after=None, fire_ms=None):
+    """Feed ``batches[start:]`` (composite key column ``kw``) with a
+    watermark of ``max(ts) - 1`` after each, then the end of input;
+    returns (fired batches, snapshot after ``snap_after`` batches)."""
+    from flink_tpu_torch.core.batch import (MAX_WATERMARK, RecordBatch,
+                                            Watermark)
+    fired, snap = [], None
+    for i in range(start, len(batches)):
+        keys, vals, ts = batches[i]
+        kw = (ts // WINDOW_MS) << KEY_BITS | keys
+        op.process_batch(RecordBatch({"kw": kw, "v": vals}, timestamps=ts))
+        t0 = time.perf_counter()
+        out = op.process_watermark(Watermark(int(ts.max()) - 1))
+        if out and fire_ms is not None:
+            fire_ms.append((time.perf_counter() - t0) * 1e3)
+        fired += out
+        if snap_after is not None and i + 1 == snap_after:
+            snap = op.snapshot_state()
+    fired += op.process_watermark(Watermark(MAX_WATERMARK))
+    return fired, snap
+
+
+def path36(card, batches):
+    """The keyed process path over the 1M-key stream's first 16 batches:
+    the heap (host numpy, as JAX's), its changelog twin, and a replay of
+    the snapshot after batch 8."""
+    from flink_tpu_torch.core.functions import RuntimeContext
+    from flink_tpu_torch.operators.process import KeyedProcessOperator
+    from flink_tpu_torch.state.changelog import ChangelogKeyedStateBackend
+    from flink_tpu_torch.state.heap import HeapKeyedStateBackend
+    batches = batches[:PROCESS_BATCHES]
+
+    def make(changelog=False):
+        be = HeapKeyedStateBackend()
+        op = KeyedProcessOperator(
+            process_function(), "kw",
+            backend=ChangelogKeyedStateBackend(be) if changelog else be)
+        op.open(RuntimeContext())
+        return op
+
+    reset_launches()
+    fire_ms = []
+    op = make()
+    t0 = time.perf_counter()
+    fired, snap = process_drive(op, batches,
+                                snap_after=PROCESS_SNAPSHOT_AFTER,
+                                fire_ms=fire_ms)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(all(v == 0 for v in launches.values()),
+          f"path 36: launches {launches}; the heap is host numpy")
+    expect = reference(batches)
+    check_fires(fired, expect, "path 36")
+    check_fires_bits(fired, reference_f32(batches), "path 36")
+    for b in fired:
+        w = int(b.column("window_start")[0])
+        keys = np.asarray(b.column("k"))
+        check(np.array_equal(np.asarray(b.column("count")), expect[w][1][keys]),
+              f"path 36 window {w}: counts differ from the reference")
+
+    def bits(out):
+        return [(b.column("k").tobytes(), b.column("window_start").tobytes(),
+                 b.column("result").tobytes(), b.column("count").tobytes())
+                for b in out]
+
+    t1 = time.perf_counter()
+    twin, _ = process_drive(make(changelog=True), batches)
+    twin_s = time.perf_counter() - t1
+    check(bits(twin) == bits(fired), "path 36: the changelog twin's rows "
+          "differ from the heap's in their bits")
+    rop = make()
+    t2 = time.perf_counter()
+    rop.restore_state(snap)
+    restore_ms = (time.perf_counter() - t2) * 1e3
+    rest, _ = process_drive(rop, batches, start=PROCESS_SNAPSHOT_AFTER)
+    later = [b for b in fired
+             if int(b.column("window_start")[0])
+             >= min(int(x.column("window_start")[0]) for x in rest)]
+    check(bits(rest) == bits(later) and rest,
+          "path 36: the replay from the snapshot after batch "
+          f"{PROCESS_SNAPSHOT_AFTER} differs from the run's rest")
+    n_rec = sum(len(k) for k, _, _ in batches)
+    p50, p99 = np.percentile(fire_ms, 50), np.percentile(fire_ms, 99)
+    print(f"path 36: KeyedProcessOperator (heap, host numpy as in JAX: these "
+          f"are the host's numbers) over {len(batches)} batches, {n_rec} "
+          f"records in {wall:.3f} s = {n_rec / wall:.1f} records/s; "
+          f"{len(fired)} fires, {sum(len(b) for b in fired)} rows, fire "
+          f"p50/p99 {p50:.1f}/{p99:.1f} ms; held to the reference (rtol "
+          f"{RTOL}) and the f32 record-order reference bit for bit; the "
+          f"changelog twin ({twin_s:.3f} s) bit for bit; the snapshot after "
+          f"batch {PROCESS_SNAPSHOT_AFTER} restored in {restore_ms:.1f} ms "
+          f"and replayed bit for bit; launches {launches}")
+    print(f"path 36 card: {card}")
+    return launches, {"records_per_s": n_rec / wall, "fire_p50_ms": p50,
+                      "fire_p99_ms": p99}
+
+
+def slice15(device, batches, card):
+    """Paths 32-36: the graph library on the scale-22 Kronecker graph and
+    the keyed process path."""
+    import torch
+    t0 = time.perf_counter()
+    src, dst, w = rmat_edges(GRAPH_SCALE, GRAPH_EDGE_FACTOR, GRAPH_SEED,
+                             device)
+    from flink_tpu_torch.graph_lib import Graph
+    n = 1 << GRAPH_SCALE
+    G = {"g": Graph(n, src, dst, w, device=device),
+         "src_h": src.cpu().numpy(), "dst_h": dst.cpu().numpy()}
+    torch.cuda.synchronize()
+    print(f"slice 15 graph: scale {GRAPH_SCALE}, {n} vertices, "
+          f"{src.numel()} edges (edge factor {GRAPH_EDGE_FACTOR}, initiator "
+          f"{RMAT_ABC}), made on the card and copied to the host in "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches, numbers = {}, {}
+    for label, fn in (("path 32", path32), ("path 33", path33),
+                      ("path 34", path34)):
+        t1 = time.perf_counter()
+        launches[label], numbers[label] = fn(device, card, G)
+        print(f"{label} took {time.perf_counter() - t1:.1f} s of command time")
+    del G, src, dst, w
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    launches["path 35"], numbers["path 35"] = path35(device, card)
+    print(f"path 35 took {time.perf_counter() - t1:.1f} s of command time")
+    t1 = time.perf_counter()
+    launches["path 36"], numbers["path 36"] = path36(card, batches)
+    print(f"path 36 took {time.perf_counter() - t1:.1f} s of command time")
+    print(f"slice 15 took {time.perf_counter() - t0:.1f} s of command time")
+    return launches, numbers
+
+
 def main() -> None:
     try:
         import torch
@@ -3957,6 +4735,9 @@ def main() -> None:
     slice14_launches, slice14_numbers = slice14(device, batches, card)
     launches.update(slice14_launches)
     numbers.update(slice14_numbers)
+    slice15_launches, slice15_numbers = slice15(device, batches, card)
+    launches.update(slice15_launches)
+    numbers.update(slice15_numbers)
     pipeline_ab(device, "path 9", "path 3", ab_want["path 3"])
     guard_ab(device, batches, ab_want)
     mesh_ab(device, batches, ab_want, card)
@@ -4023,19 +4804,22 @@ def main() -> None:
     # host tensors would otherwise perturb the paths' host-bound timings
     kernels.append(probe_fold_phase(device, rng, dki))
     kernels.append(scatter_fold_phase(device, rng))
+    every_path = ORDER + SLICE11 + SLICE12 + SLICE13 + SLICE14 + SLICE15
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]]
-                   for label in ORDER + SLICE11 + SLICE12 + SLICE13
-                   + SLICE14}
+                   for label in every_path}
         kernel["launches_by_path"] = by_path
         kernel["launches"] = sum(by_path.values())
         print(f"{kernel['name']} launches by path: {by_path}")
-    for part in ("single", "multi"):
+    wrapper = {"single": "ordered_fold_counts",
+               "multi": "ordered_fold_counts_multi", "plane": "ordered_fold"}
+    for part, name in wrapper.items():
         kernels[-1][f"launches_by_path_{part}"] = by_path = {
             label: launches[label][f"scatter_fold_{part}"]
-            for label in ORDER + SLICE11 + SLICE12 + SLICE13 + SLICE14}
-        print(f"scatter_fold launches through ordered_fold_counts"
-              f"{'_multi' if part == 'multi' else ''} by path: {by_path}")
+            for label in every_path}
+        print(f"scatter_fold launches through {name} by path: {by_path}")
+    # the graph library's sum combine at path 32's shapes
+    kernels[-1]["graph"] = numbers["path 32"]["kernel"]
     for label in ("path 1", "path 3"):
         check(launches[label]["probe"] > 0, f"{label}: no probe launch")
     for label in ("path 2", "path 4"):
@@ -4043,7 +4827,7 @@ def main() -> None:
               f"{label}: no probe_fold launch")
     for label in (*DEVICE_PATHS, *PAGED_PATHS, *FAULTS, "path 8", "path 9",
                   *SLICE11_SCATTER, "path 23", "path 24", "path 25",
-                  "path 28", "path 29"):
+                  "path 28", "path 29", "path 32", "path 34", "path 35"):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
     check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")

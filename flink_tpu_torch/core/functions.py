@@ -8,9 +8,9 @@ An aggregate is a commutative monoid over accumulators:
     get_result(acc)     accumulator -> output value
 
 Where the JAX package uses pytrees, the port uses plain Python structures:
-an accumulator is either one leaf (a tensor or numpy array) or a dict of
-leaves, flattened in sorted-key order (the order ``jax.tree_util`` uses), so
-leaf ``j`` here is leaf ``j`` there and snapshots line up.  The port carries
+an accumulator is one leaf (a tensor or numpy array) or dicts, tuples and
+lists of leaves, flattened as ``jax.tree_util`` flattens them (dict keys
+sorted), so leaf ``j`` here is leaf ``j`` there and snapshots line up.  The port carries
 the add/min/max aggregates (sum, min, max, count, average, and a tuple of
 them) and :class:`LambdaReduce`, a reduce by any function, which has no
 scatter kinds and folds through ``ops/scatter.py`` ``scatter_generic``.
@@ -33,23 +33,105 @@ SCATTER_UFUNCS = {"add": np.add, "min": np.minimum, "max": np.maximum}
 
 
 def tree_leaves(tree) -> list:
-    """Leaves of a leaf-or-dict accumulator/value structure, dict keys sorted."""
+    """Leaves of an accumulator/value structure, flattened as
+    ``jax.tree_util.tree_leaves`` flattens it: dict keys sorted, tuples and
+    lists in order, nested to any depth, ``None`` with no leaf."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
-        return [tree[k] for k in sorted(tree)]
+        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [l for t in tree for l in tree_leaves(t)]
     return [tree]
 
 
-def tree_structure(tree) -> Optional[Tuple[str, ...]]:
-    """None for a single leaf, else the sorted dict keys."""
-    return tuple(sorted(tree)) if isinstance(tree, dict) else None
+def tree_structure(tree):
+    """None for a single leaf, else a hashable description of the nesting
+    (dict keys sorted) that :func:`tree_unflatten` rebuilds."""
+    if tree is None:
+        return ("none",)
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, tree_structure(tree[k]))
+                              for k in sorted(tree)))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree).__name__,
+                tuple(tree_structure(t) for t in tree))
+    return None
 
 
-def tree_unflatten(structure: Optional[Tuple[str, ...]], leaves):
-    leaves = list(leaves)
+def tree_unflatten(structure, leaves):
+    it = iter(list(leaves))
+
+    def build(st):
+        if st is None:
+            return next(it)
+        kind, parts = st[0], st[1] if len(st) > 1 else ()
+        if kind == "none":
+            return None
+        if kind == "dict":
+            return {k: build(sub) for k, sub in parts}
+        items = [build(sub) for sub in parts]
+        return tuple(items) if kind == "tuple" else items
+
+    out = build(structure)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the structure holds")
+    return out
+
+
+def tree_leaf_names(structure) -> Tuple[str, ...]:
+    """Each leaf's path, spelled as ``jax.tree_util.keystr`` spells it
+    ("" for a single leaf, "['sum']" for a dict field, "[0]" for a tuple's
+    first item)."""
     if structure is None:
-        (leaf,) = leaves
-        return leaf
-    return dict(zip(structure, leaves))
+        return ("",)
+    kind = structure[0]
+    if kind == "none":
+        return ()
+    if kind == "dict":
+        return tuple(f"[{k!r}]" + n for k, sub in structure[1]
+                     for n in tree_leaf_names(sub))
+    return tuple(f"[{i}]" + n for i, sub in enumerate(structure[1])
+                 for n in tree_leaf_names(sub))
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` over every leaf of a structure."""
+    return tree_unflatten(tree_structure(tree),
+                          [fn(l) for l in tree_leaves(tree)])
+
+
+def to_tensors(tree):
+    """numpy leaves (arrays or scalars) -> CPU tensors of the same dtype, so
+    an aggregate's tensor functions see JAX's operand dtypes.  Leaves
+    torch cannot hold (strings, objects) stay numpy."""
+    def conv(a):
+        a = np.asarray(a)
+        if a.dtype.kind not in "biuf":
+            return a
+        return torch.from_numpy(np.array(a))   # a copy: never aliases
+    return tree_map(conv, tree)
+
+
+def to_numpy(tree):
+    """Tensor leaves -> numpy arrays (a 0-d tensor -> a 0-d array)."""
+    return tree_map(lambda t: t.cpu().numpy() if isinstance(t, torch.Tensor)
+                    else np.asarray(t), tree)
+
+
+def combine_rows(agg: "AggregateFunction", a, b) -> Tuple[np.ndarray, ...]:
+    """``agg.combine_leaves`` of two leaf tuples of numpy scalars or arrays,
+    as numpy arrays of the dtypes the combine produced (JAX's host merge
+    calls its combine on numpy scalars and keeps what comes out)."""
+    out = agg.combine_leaves(tuple(to_tensors(x) for x in a),
+                             tuple(to_tensors(x) for x in b))
+    return tuple(to_numpy(x) for x in out)
+
+
+def host_result(agg: "AggregateFunction", spec, leaves):
+    """``agg.get_result`` over numpy accumulator leaves, as numpy."""
+    return to_numpy(agg.get_result(spec.unflatten(
+        [to_tensors(l) for l in leaves])))
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -111,7 +193,7 @@ class RichFunction(Function):
 class AccSpec:
     """Static description of an accumulator (shapes, numpy dtypes, identity)."""
 
-    structure: Optional[Tuple[str, ...]]
+    structure: Any   # tree_structure of the identity (None: one leaf)
     leaf_shapes: Tuple[Tuple[int, ...], ...]
     leaf_dtypes: Tuple[np.dtype, ...]
     leaf_inits: Tuple[np.ndarray, ...]
@@ -200,8 +282,7 @@ class AggregateFunction(RichFunction, abc.ABC):
             structure = tree_structure(ident)
             leaves = [torch.as_tensor(l).cpu().numpy()
                       for l in tree_leaves(ident)]
-            names = (("",) if structure is None
-                     else tuple(f"['{k}']" for k in structure))
+            names = tree_leaf_names(structure)
             cached = AccSpec(structure=structure,
                              leaf_shapes=tuple(l.shape for l in leaves),
                              leaf_dtypes=tuple(l.dtype for l in leaves),

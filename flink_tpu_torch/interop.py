@@ -54,6 +54,19 @@ keys.  The join operators' snapshots (``IntervalJoinOperator``,
 ``WindowJoinOperator``, ``SqlJoinOperator``, ``StreamingJoinOperator``) are
 the same numpy and object arrays in both packages and restore across as
 they are.
+
+Keyed-state backend snapshots (``state/heap.py`` ``HeapKeyedStateBackend``;
+``KeyedProcessOperator``'s, which add ``timers`` on raw keys) are the same
+numpy trees in both packages and restore across as they are, with one
+exception: JAX without x64 holds a 64-bit accumulator leaf (an aggregating
+or reducing state over ``SumAggregator(int64)``, say) as 32 bits, so
+:func:`heap_snapshot_to_jax` narrows such leaves and their ``leaf_schema``
+(the port restores JAX's 32-bit leaves by widening them, as schema
+evolution allows).  A ``ChangelogKeyedStateBackend`` snapshot's log also
+holds the state descriptors, which are code of the package that wrote it
+(a reducing descriptor holds its aggregate):
+:func:`changelog_snapshot_from_jax` and :func:`changelog_snapshot_to_jax`
+put the restoring job's own descriptors in their place, by state name.
 """
 
 from __future__ import annotations
@@ -369,3 +382,67 @@ def changelog_agg_snapshot_from_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
 def changelog_agg_snapshot_to_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
     """A port ``ChangelogGroupAggOperator`` snapshot -> JAX's."""
     return _changelog_agg_snapshot(snap, "port")
+
+
+# ---------------------------------------------------------------------------
+# keyed-state backends: the heap, the process operator, the changelog
+# ---------------------------------------------------------------------------
+
+def heap_snapshot_to_jax(snap: Dict[str, Any]) -> Dict[str, Any]:
+    """A port keyed-backend snapshot (or a process operator's) -> JAX's:
+    every 64-bit accumulator leaf of an aggregating or reducing state, and
+    its ``leaf_schema`` entry, narrowed to 32 bits.  Everything else crosses
+    as it is."""
+    out = dict(snap)
+    for field, schema in snap.items():
+        if not (field.startswith("state.")
+                and field.endswith(".leaf_schema")):
+            continue
+        rows_field = field[:-len("leaf_schema")] + "rows"
+        narrow = [np.dtype(_X64_OFF.get(np.dtype(e["dtype"]),
+                                        np.dtype(e["dtype"])))
+                  for e in schema]
+        out[field] = [dict(e, dtype=d.name) for e, d in zip(schema, narrow)]
+        if rows_field in snap:
+            out[rows_field] = tuple(np.asarray(r).astype(d, copy=False)
+                                    for r, d in zip(snap[rows_field],
+                                                    narrow))
+    return out
+
+
+def _changelog_snapshot(snap: Dict[str, Any], descriptors: Dict[str, Any],
+                        convert: Callable) -> Dict[str, Any]:
+    if not snap.get("changelog_backend"):
+        return convert(snap)
+    log = []
+    for entry in snap.get("changelog", []):
+        if entry[0] == "register":
+            name = entry[1].name
+            if name not in descriptors:
+                raise ValueError(f"no descriptor for the changelog's state "
+                                 f"{name!r}: pass the restoring job's own")
+            entry = ("register", descriptors[name])
+        log.append(entry)
+    out = dict(snap)
+    out["changelog"] = log
+    if snap.get("materialized") is not None:
+        out["materialized"] = convert(snap["materialized"])
+    return out
+
+
+def changelog_snapshot_from_jax(snap: Dict[str, Any],
+                                descriptors: Dict[str, Any]
+                                ) -> Dict[str, Any]:
+    """A JAX ``ChangelogKeyedStateBackend`` snapshot (or a process
+    operator's over one) -> the port's: each logged registration takes the
+    port descriptor of its state's name from ``descriptors``."""
+    return _changelog_snapshot(snap, descriptors, dict)
+
+
+def changelog_snapshot_to_jax(snap: Dict[str, Any],
+                              descriptors: Dict[str, Any]) -> Dict[str, Any]:
+    """A port ``ChangelogKeyedStateBackend`` snapshot -> JAX's: the logged
+    registrations take the JAX descriptors in ``descriptors`` (by state
+    name) and the materialized base goes through
+    :func:`heap_snapshot_to_jax`."""
+    return _changelog_snapshot(snap, descriptors, heap_snapshot_to_jax)

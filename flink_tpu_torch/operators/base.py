@@ -1,4 +1,4 @@
-"""Stream operator contract, batched (minimal port of ``flink_tpu/operators/base.py``).
+"""Stream operator contract, batched (port of ``flink_tpu/operators/base.py``).
 
 An operator consumes a ``RecordBatch`` and returns the elements it emits;
 the executor owns ordering and forwards watermarks after the operator saw them.
@@ -6,10 +6,53 @@ the executor owns ordering and forwards watermarks after the operator saw them.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Any, Dict, List, Optional
 
 from flink_tpu_torch.core.batch import RecordBatch, StreamElement, Watermark
 from flink_tpu_torch.core.functions import RuntimeContext
+
+#: checkpoint id of the snapshot being taken, visible to any operator inside
+#: the snapshot call tree (a runtime sets it around ``snapshot_state()``;
+#: 2PC sinks stage their transactions under it).  A ContextVar, so
+#: concurrent subtask threads stay isolated.
+_CURRENT_CHECKPOINT_ID: contextvars.ContextVar[Optional[int]] = \
+    contextvars.ContextVar("flink_tpu_torch_current_checkpoint_id",
+                           default=None)
+
+#: True while the snapshot being taken may ship delta increments instead of
+#: full state (incremental checkpointing on, and the cut neither a
+#: savepoint nor a final snapshot).  Operators with delta tracking (the
+#: changelog-backed ``KeyedProcessOperator``) read it in ``snapshot_state``.
+_SNAPSHOT_INCREMENTAL: contextvars.ContextVar[bool] = \
+    contextvars.ContextVar("flink_tpu_torch_snapshot_incremental",
+                           default=False)
+
+
+def current_checkpoint_id() -> Optional[int]:
+    """Checkpoint id of the in-progress snapshot, or None outside one."""
+    return _CURRENT_CHECKPOINT_ID.get()
+
+
+def snapshot_is_incremental() -> bool:
+    """May the in-progress snapshot ship a delta increment?  False outside
+    a snapshot, for savepoints and for final snapshots."""
+    return _SNAPSHOT_INCREMENTAL.get()
+
+
+@contextlib.contextmanager
+def snapshot_scope(checkpoint_id: Optional[int], incremental: bool = False):
+    """Runtimes wrap an operator's ``snapshot_state()`` in this scope, so
+    sinks can tie staged transactions to the checkpoint id and
+    delta-tracking operators know whether increments are allowed."""
+    tok = _CURRENT_CHECKPOINT_ID.set(checkpoint_id)
+    tok2 = _SNAPSHOT_INCREMENTAL.set(incremental)
+    try:
+        yield
+    finally:
+        _SNAPSHOT_INCREMENTAL.reset(tok2)
+        _CURRENT_CHECKPOINT_ID.reset(tok)
 
 
 class StreamOperator:

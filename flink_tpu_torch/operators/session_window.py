@@ -26,7 +26,7 @@ this one keeps its state on the host and needs no device; the mesh subclass
 to the card.  The host fold calls the same numpy functions on the same
 arrays as JAX's, so its bits are JAX's.  The aggregate's ``lift``,
 ``combine_leaves`` and ``get_result`` take tensors in the port: the operator
-converts at that boundary (:func:`_to_tensors`, :func:`_to_numpy`) and
+converts at that boundary (:func:`to_tensors`, :func:`to_numpy`) and
 keeps every dtype, so a merge of two f32 accumulators stays f32, and a
 combine of an f32 accumulator with an f64 value widens as numpy's does.
 
@@ -43,14 +43,14 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from flink_tpu_torch.core import keygroups
 from flink_tpu_torch.core.batch import (LONG_MIN, RecordBatch, StreamElement,
                                         TaggedBatch, Watermark)
 from flink_tpu_torch.core.functions import (SCATTER_UFUNCS, AggregateFunction,
-                                            tree_leaves, tree_structure,
-                                            tree_unflatten)
+                                            combine_rows, host_result,
+                                            to_numpy, to_tensors, tree_leaves,
+                                            tree_map)
 from flink_tpu_torch.operators.base import StreamOperator
 from flink_tpu_torch.operators.window_agg import _PhaseTimer
 from flink_tpu_torch.state.keyindex import NativeKeyIndex, make_key_index
@@ -60,45 +60,6 @@ from flink_tpu_torch.windowing.assigners import SessionGap
 PROCESSING_TIME = ("not in this slice of flink_tpu_torch: processing-time "
                    "sessions come with the runtime-stack slice (the clock "
                    "seam)")
-
-
-def tree_map(fn: Callable, tree):
-    """``fn`` over every leaf of a leaf-or-dict structure."""
-    return tree_unflatten(tree_structure(tree),
-                          [fn(l) for l in tree_leaves(tree)])
-
-
-def _to_tensors(tree):
-    """numpy leaves (arrays or scalars) -> CPU tensors of the same dtype, so
-    the aggregate's tensor functions see JAX's operand dtypes.  Leaves
-    torch cannot hold (strings, objects) stay numpy."""
-    def conv(a):
-        a = np.asarray(a)
-        if a.dtype.kind not in "biuf":
-            return a
-        return torch.from_numpy(np.array(a))   # a copy: never aliases
-    return tree_map(conv, tree)
-
-
-def _to_numpy(tree):
-    """Tensor leaves -> numpy arrays (a 0-d tensor -> a 0-d array)."""
-    return tree_map(lambda t: t.cpu().numpy() if isinstance(t, torch.Tensor)
-                    else np.asarray(t), tree)
-
-
-def combine_rows(agg: AggregateFunction, a, b) -> Tuple[np.ndarray, ...]:
-    """``agg.combine_leaves`` of two leaf tuples of numpy scalars or arrays,
-    as numpy arrays of the dtypes the combine produced (JAX's host merge
-    calls its combine on numpy scalars and keeps what comes out)."""
-    out = agg.combine_leaves(tuple(_to_tensors(x) for x in a),
-                             tuple(_to_tensors(x) for x in b))
-    return tuple(_to_numpy(x) for x in out)
-
-
-def host_result(agg: AggregateFunction, spec, leaves):
-    """``agg.get_result`` over numpy accumulator leaves, as numpy."""
-    return _to_numpy(agg.get_result(spec.unflatten(
-        [_to_tensors(l) for l in leaves])))
 
 
 class _SessionStore:
@@ -343,7 +304,7 @@ class SessionWindowOperator(StreamOperator):
         precomputed ``_session_bounds`` result."""
         order, s_slots, s_ts, sess_id, firsts, lasts = \
             bounds if bounds is not None else self._session_bounds(slots, ts)
-        lifted = tree_leaves(_to_numpy(self.agg.lift(_to_tensors(values))))
+        lifted = tree_leaves(to_numpy(self.agg.lift(to_tensors(values))))
         lifted = [np.asarray(l)[order] for l in lifted]
         n_sess = int(firsts.size)
         b_key = s_slots[firsts]

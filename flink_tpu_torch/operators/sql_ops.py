@@ -28,7 +28,8 @@ from flink_tpu_torch import DeviceLike, resolve_device
 from flink_tpu_torch.core.batch import RecordBatch, StreamElement
 from flink_tpu_torch.operators.base import StreamOperator
 from flink_tpu_torch.operators.joins import _join_pairs
-from flink_tpu_torch.ops.scatter import ordered_fold_counts_multi
+from flink_tpu_torch.ops.scatter import (ordered_fold_counts_multi,
+                                         total_order)
 from flink_tpu_torch.ops.shapes import quantize_pow2
 from flink_tpu_torch.state.keyindex import make_key_index, restore_key_index
 
@@ -432,24 +433,17 @@ class StreamingJoinOperator(StreamOperator):
         self.stale_retractions = int(snap.get("stale_retractions", 0))
 
 
-def _total_order(x: torch.Tensor) -> torch.Tensor:
-    """f32 -> int32 keys in IEEE total order (-0.0 below +0.0); the map is
-    its own inverse on the keys' bits."""
-    b = x.contiguous().view(torch.int32)
-    return b ^ ((b >> 31) & 0x7FFFFFFF)
-
-
 def _scatter_extremum(init: float, inv, vals, U: int, mode: str):
     """Per-group IEEE minimum/maximum of ``vals`` over ``init`` (XLA's
     scatter min/max, which order -0.0 below +0.0), reduced on int32 total-
     order keys so neither device's float ``amin``/``amax`` picks a zero's
     sign by row order."""
-    keys = _total_order(torch.full((U,), init, dtype=torch.float32,
+    keys = total_order(torch.full((U,), init, dtype=torch.float32,
                                    device=vals.device))
-    keys.scatter_reduce_(0, inv, _total_order(vals),
+    keys.scatter_reduce_(0, inv, total_order(vals),
                          reduce="amin" if mode == "min" else "amax",
                          include_self=True)
-    return _total_order(keys).view(torch.float32)
+    return total_order(keys).view(torch.float32)
 
 
 def _seg_extremum(hi, lo, inv, U: int, mode: str, identity: float):

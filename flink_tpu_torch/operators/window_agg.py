@@ -169,6 +169,8 @@ from flink_tpu_torch.state.device_keyindex import (DeviceKeyIndex,
                                                    calibrated_device_probe,
                                                    probe, probe_fold,
                                                    probe_fold_available)
+from flink_tpu_torch.state.evolution import (acc_leaf_schema,
+                                             migrate_acc_leaves)
 from flink_tpu_torch.state.keyindex import KeyIndex, NativeKeyIndex
 from flink_tpu_torch.state.native_mirror import (NativeWindowMirror,
                                                  calibrated_shards, ineligible)
@@ -189,8 +191,6 @@ _LATER = {
     "object_keys": "non-integer keys come with the object-key slice",
     "processing_time": "processing-time windows come with the runtime-stack "
                        "slice",
-    "evolution": "accumulator schema evolution on restore comes with the "
-                 "checkpoint slice",
 }
 
 
@@ -3318,10 +3318,6 @@ class WindowAggOperator(StreamOperator):
             out.append(s2)
         return out
 
-    def _leaf_schema(self) -> List[Dict[str, str]]:
-        return [{"name": n, "dtype": np.dtype(d).name}
-                for n, d in zip(self.spec.leaf_names, self.spec.leaf_dtypes)]
-
     def snapshot_state(self) -> Dict[str, Any]:
         """Dense numpy snapshot, served from the host mirror or, with
         ``snapshot_source="device"``, downloaded from the replica (paged:
@@ -3365,7 +3361,7 @@ class WindowAggOperator(StreamOperator):
                     counts, leaves = self._device_columns(panes, n)
             snap["leaves"] = leaves
             snap["counts"] = counts
-            snap["leaf_schema"] = self._leaf_schema()
+            snap["leaf_schema"] = acc_leaf_schema(self.spec)
         if self._pager is not None:
             snap["paging_stats"] = self.paging_stats()
         if self._count_baselines:
@@ -3442,14 +3438,21 @@ class WindowAggOperator(StreamOperator):
             w: [np.asarray(l).copy() for l in leaves]
             for w, leaves in (snap.get("value_baselines") or {}).items()}
         if "leaves" in snap:
-            schema = snap.get("leaf_schema")
-            if (schema is not None and list(schema) != self._leaf_schema()) \
-                    or len(snap["leaves"]) != self.spec.num_leaves:
-                raise _later("evolution")
             counts_np = np.asarray(snap["counts"])
             n = counts_np.shape[0]
             panes = np.asarray(snap["panes"], np.int64)
-            restored = [np.asarray(l) for l in snap["leaves"]]
+
+            def fill(j, _n=n, _np=len(panes)):
+                # an ADDED accumulator field: identity rows [n, panes, ...]
+                init = np.asarray(self.spec.leaf_inits[j],
+                                  self.spec.leaf_dtypes[j])
+                return np.broadcast_to(
+                    init, (_n, _np) + tuple(self.spec.leaf_shapes[j])).copy()
+
+            # leaves by field name: kept, widened, added or dropped as the
+            # aggregate evolved (narrowing raises SchemaEvolutionError)
+            restored = [np.asarray(l) for l in migrate_acc_leaves(
+                snap["leaves"], snap.get("leaf_schema"), self.spec, fill)]
             # allocated either way, so time and fire guards see live state
             self._ensure_alloc()
             if self._pager is not None:

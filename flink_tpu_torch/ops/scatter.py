@@ -21,6 +21,8 @@ JAX computes these as XLA scatters outside any Pallas kernel.  Here:
   counts fold through the hand-written kernel ``csrc/scatter_fold.cu``,
   which partitions the rows once for every plane and adds each cell's rows
   in row order, so the card's planes are bit-equal to the CPU's.
+  :func:`ordered_fold` is the same kernel with one plane and no counts
+  (the graph library's sum combine).
   :func:`scatter_plan` cuts its cells into tiles sized to the rows;
   :func:`fold_plan` cuts them into the tiles of ``csrc/probe_fold.cu``
   (with ``csrc/ordered_fold.cuh``).
@@ -64,6 +66,21 @@ def _identity_fill(kind: str, dtype: torch.dtype):
 
 def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask.reshape(mask.shape + (1,) * (like.ndim - 1))
+
+
+#: float dtype -> the integer dtype of its total-order keys
+TOTAL_ORDER_KEYS = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def total_order(x: torch.Tensor) -> torch.Tensor:
+    """f32/f64 values -> int32/int64 keys in IEEE total order (-0.0 below
+    +0.0, as XLA's scatter min/max order them), and keys -> the values'
+    bits (view them back as the float): the map is its own inverse.  A
+    min/max over the keys picks a zero's sign by value, not by row order."""
+    b = x.contiguous()
+    if b.dtype.is_floating_point:
+        b = b.view(TOTAL_ORDER_KEYS[b.dtype])
+    return b ^ ((b >> (b.element_size() * 8 - 1)) & torch.iinfo(b.dtype).max)
 
 
 def scatter_fast(state_leaves, slot_ids, lifted_leaves, kinds: Sequence[str]):
@@ -434,6 +451,57 @@ def ordered_fold_counts(flat_leaves, flat_counts, slot_ids, lifted_leaves,
 
 #: kernel launches of :func:`ordered_fold_counts` (CPU calls do not count)
 ordered_fold_counts.launches = 0
+
+
+def ordered_fold(plane, slot_ids, values):
+    """``plane[f] += values[i]`` for every row ``i`` with ``f = slot_ids[i]``
+    in ``[0, len(plane))``, in place and in row order in every cell, with
+    no count plane: the graph library's sum combine (one superstep's
+    messages into its vertices).  ``plane`` is flat and contiguous,
+    ``values`` one value a row (cast to the plane's dtype first, or widened
+    exactly by the kernel); ids outside the plane drop.
+
+    CPU tensors take the plain version, ``index_add_`` (sequential, as
+    XLA's CPU scatter).  CUDA tensors launch ``csrc/scatter_fold.cu`` once
+    with one source, one plane and no count plane (none for no rows), or
+    raise; nothing falls back.  ``ordered_fold.launches`` counts launches.
+    """
+    if slot_ids.device.type == "cpu":
+        scatter_fast((plane,), slot_ids, (values,), ("add",))
+        return plane
+    if slot_ids.device.type != "cuda":
+        raise ValueError(f"the ordered fold runs on cpu or cuda, not "
+                         f"{slot_ids.device}")
+    if plane.dtype not in _SCATTER_FOLD_KINDS or plane.ndim != 1 \
+            or not plane.is_contiguous():
+        raise TypeError(f"the ordered fold folds into a flat contiguous f32, "
+                        f"f64, i32 or i64 plane, not {plane.dtype} "
+                        f"{tuple(plane.shape)}")
+    if slot_ids.dtype not in (torch.int32, torch.int64) \
+            or slot_ids.ndim != 1 or not slot_ids.is_contiguous():
+        raise ValueError("the ordered fold takes contiguous 1-D int32 or "
+                         "int64 flat ids")
+    if values.shape != slot_ids.shape:
+        raise ValueError(f"{tuple(values.shape)} values for "
+                         f"{tuple(slot_ids.shape)} ids")
+    if plane.device != slot_ids.device or values.device != slot_ids.device:
+        raise ValueError(f"ordered fold tensors on {plane.device}, "
+                         f"{values.device} and {slot_ids.device}")
+    if plane.shape[0] >= 2 ** 31 \
+            or slot_ids.shape[0] >= 2 ** 31 - SCATTER_PART_ROWS:
+        raise ValueError(f"the ordered fold takes fewer than 2^31 cells and "
+                         f"2^31 - {SCATTER_PART_ROWS} rows, got "
+                         f"{plane.shape[0]} and {slot_ids.shape[0]}")
+    if slot_ids.shape[0] and plane.shape[0]:
+        launch_ordered_fold_steps(slot_ids, [_fold_source(plane, values)],
+                                  [(plane, 0)], [],
+                                  sum(SCATTER_FOLD_STEPS.values()))
+        ordered_fold.launches += 1
+    return plane
+
+
+#: kernel launches of :func:`ordered_fold` (CPU calls do not count)
+ordered_fold.launches = 0
 
 
 # ---------------------------------------------------------------------------

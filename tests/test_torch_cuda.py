@@ -1353,3 +1353,120 @@ def test_changelog_agg_on_the_card_equals_the_cpu(cuda_device):
     a, b = card.snapshot_state(), cpu.snapshot_state()
     assert all(x.tobytes() == y.tobytes() for x, y in zip(a["state"],
                                                           b["state"]))
+
+
+# ---------------------------------------------------------------------------
+# the graph library (slice 15)
+# ---------------------------------------------------------------------------
+
+def _rmat_edges(scale, edge_factor, seed):
+    """A small Kronecker (R-MAT) edge list, initiator (0.57, 0.19, 0.19,
+    0.05), labels permuted from the seed."""
+    rng = np.random.default_rng(seed)
+    m = edge_factor << scale
+    src = np.zeros(m, np.int64)
+    dst = np.zeros(m, np.int64)
+    for bit in range(scale):
+        r = rng.random(m)
+        i_bit = r > 0.57 + 0.19
+        j_bit = ((r > 0.57) & (r <= 0.76)) | (r > 0.95)
+        src |= i_bit.astype(np.int64) << bit
+        dst |= j_bit.astype(np.int64) << bit
+    perm = rng.permutation(1 << scale)
+    return np.stack([perm[src], perm[dst]], 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int32, torch.int64])
+def test_graph_sum_combine_on_the_card_equals_the_cpu(cuda_device, dtype):
+    """The sum combine folds through ``scatter_fold`` in edge order: bit
+    for bit the CPU's ``index_add_``, with a hot vertex and vector
+    messages; min/max exactly."""
+    from flink_tpu_torch.graph_lib.graph import segment_combine
+    rng = np.random.default_rng(15)
+    n, e = 1 << 16, 1 << 20
+    dst = rng.integers(0, n, e).astype(np.int32)
+    dst[::4] = 17                                # a hot vertex
+    vals = rng.standard_normal(e) * 1e3
+    cases = [vals, np.stack([vals, -vals[::-1]], 1)]
+    for msgs in cases:
+        m = torch.from_numpy(msgs).to(dtype)
+        want = segment_combine(m, torch.from_numpy(dst), n, "sum")
+        before = sc.ordered_fold.launches
+        got = segment_combine(m.to(cuda_device),
+                              torch.from_numpy(dst).to(cuda_device), n,
+                              "sum")
+        assert sc.ordered_fold.launches == before + 1
+        assert torch.equal(got.cpu(), want)
+        for kind in ("min", "max"):
+            assert torch.equal(
+                segment_combine(m.to(cuda_device),
+                                torch.from_numpy(dst).to(cuda_device), n,
+                                kind).cpu(),
+                segment_combine(m, torch.from_numpy(dst), n, kind))
+
+
+def test_graph_algorithms_on_the_card_equal_the_cpu(cuda_device):
+    """Every order-free algorithm exactly; PageRank and HITS to rtol 1e-5
+    (their sum and norm reductions group differently on the card; the
+    per-vertex sums are bit-equal)."""
+    from flink_tpu_torch.graph_lib import Graph
+    e = _rmat_edges(12, 8, 3)
+    rng = np.random.default_rng(5)
+    w = rng.random(len(e)).astype(np.float32)
+    card = Graph.from_edges(e, num_vertices=4096, weights=w,
+                            device=cuda_device)
+    cpu = Graph.from_edges(e, num_vertices=4096, weights=w, device="cpu")
+    before = sc.ordered_fold.launches
+    np.testing.assert_array_equal(card.out_degrees(), cpu.out_degrees())
+    np.testing.assert_array_equal(card.connected_components(),
+                                  cpu.connected_components())
+    np.testing.assert_array_equal(card.bfs_levels([0, 9]),
+                                  cpu.bfs_levels([0, 9]))
+    np.testing.assert_array_equal(card.sssp(3), cpu.sssp(3))
+    labels = rng.integers(0, 100, 4096)
+    np.testing.assert_array_equal(card.label_propagation(labels),
+                                  cpu.label_propagation(labels))
+    np.testing.assert_array_equal(card.jaccard_similarity(),
+                                  cpu.jaccard_similarity())
+    small = Graph.from_edges(e[:3000] % 512, num_vertices=512,
+                             device=cuda_device)
+    small_cpu = Graph.from_edges(e[:3000] % 512, num_vertices=512,
+                                 device="cpu")
+    np.testing.assert_array_equal(small.all_pairs_distances(),
+                                  small_cpu.all_pairs_distances())
+    np.testing.assert_allclose(card.pagerank(num_iterations=10),
+                               cpu.pagerank(num_iterations=10), rtol=1e-5)
+    for a, b in zip(card.hits(10), cpu.hits(10)):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-9)
+    np.testing.assert_allclose(card.adamic_adar(), cpu.adamic_adar(),
+                               rtol=1e-5, atol=1e-6)
+    assert sc.ordered_fold.launches > before
+
+
+def test_graph_mesh_on_the_card_equals_single(cuda_device):
+    """Four edge shards on one card: min combines equal the single device
+    exactly; at one shard, every combine bit for bit."""
+    from flink_tpu_torch.graph_lib import Graph
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    e = _rmat_edges(11, 8, 4)
+    g = Graph.from_edges(e, num_vertices=2048, device=cuda_device)
+    for d in (1, 4):
+        mesh = make_mesh(devices=[cuda_device] * d)
+        np.testing.assert_array_equal(g.bfs_levels(0, mesh=mesh),
+                                      g.bfs_levels(0))
+        np.testing.assert_allclose(g.pagerank(num_iterations=10, mesh=mesh),
+                                   g.pagerank(num_iterations=10),
+                                   rtol=1e-5)
+    one = make_mesh(devices=[cuda_device])
+    init = np.random.default_rng(2).random(2048).astype(np.float32)
+
+    def msg(v, _w):
+        return v * 0.5
+
+    def update(v, c):
+        return v * 0.25 + c
+
+    np.testing.assert_array_equal(
+        g.scatter_gather(init, msg, "sum", update, 4, mesh=one),
+        g.scatter_gather(init, msg, "sum", update, 4))

@@ -51,7 +51,10 @@ def test_every_module_imports_with_jax_blocked():
         "for n in ('operators.session_window', 'operators.evicting_device',"
         " 'windowing.evictors', 'parallel.mesh_runtime', 'cep',"
         " 'cep.pattern', 'cep.operator', 'cep.vectorized',"
-        " 'ops.join_kernels', 'operators.joins', 'operators.sql_ops'):\n"
+        " 'ops.join_kernels', 'operators.joins', 'operators.sql_ops',"
+        " 'graph_lib', 'graph_lib.graph', 'state.api', 'state.evolution',"
+        " 'state.heap', 'state.changelog', 'runtime.timers',"
+        " 'operators.process'):\n"
         "    assert 'flink_tpu_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules"
