@@ -21,9 +21,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    three-plane interface, with host-made starts), and the plain version's
    time;
 4. main path 1: the 1M-key tumbling-sum workload of ``bench.py`` (seed 7,
-   1,000,000 keys, 2^18 records per batch, 5000 ms windows), 40 batches
+   1,000,000 keys, 2^18 records per batch, 5000 ms windows), 24 batches
+   (``bench.py`` runs 64; cut for the time limit)
    through ``WindowAggOperator(device="cuda", device_probe="on")`` (scatter
-   sync, one batch at a time) with a snapshot every 16 batches and
+   sync, one batch at a time) with a snapshot every 8 batches and
    ``end_input``; every fire is held against an independent numpy reference
    (per window ``np.bincount`` in f64 over the same records);
 5. restore and replay of path 1: the first snapshot restored into a fresh
@@ -33,7 +34,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    cells, as in the reference, so its sums agree to 1e-6); a profiled
    replay gives the device's busy share and must equal the first replay
    bit for bit;
-6. main path 2: the same 40 batches through the fused super-batch lane,
+6. main path 2: the same 24 batches through the fused super-batch lane,
    ``device_sync="deferred"``, ``superbatch=8``: the same checks, plus
    launches of ``probe_fold`` and a scan depth above 1;
 7. restore and replay of path 2, as in phase 5;
@@ -115,12 +116,12 @@ Phases, each fatal on failure (exit code 1, no result line):
 9e. main paths 11-13, the device watchdog (slice 9), each under a fast
    monitor (0.25 s deadline floor, 30 s grace for a new geometry, no
    background healer) and a fault schedule of the port's own injector
-   (``FAULTS``): path 11 is path 5 with ``WedgedDevice(at=12)`` (batch
-   11's fold wedges; the tier migrates its ring to the host mirror, the
-   batches up to the re-promotion fold there, the snapshot at batch 15 is
-   taken degraded, the schedule heals after batch 19 and the state goes
-   back on the card at batch 31's barrier); path 12 is path 3 with a wedge
-   in batch 11's guarded probe step (the f64 delta ring is salvaged from
+   (``FAULTS``): path 11 is path 5 with ``WedgedDevice(at=7)`` (batch
+   6's fold wedges; the tier migrates its ring to the host mirror, the
+   batches up to the re-promotion fold there, the snapshot at batch 7 is
+   taken degraded, the schedule heals after batch 9 and the state goes
+   back on the card at batch 15's barrier); path 12 is path 3 with a wedge
+   in batch 6's guarded probe step (the f64 delta ring is salvaged from
    the card; heal and re-promotion as path 11, then ``verify_mirror``);
    path 13 is path 7 whose third dispatch fails with an OOM (one forced
    page-out, no quarantine).  Windows the quarantine did not touch must
@@ -310,6 +311,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``RTOL``) and to the f32 record-order reference bit for bit, a twin
    over ``ChangelogKeyedStateBackend`` bit for bit, and the snapshot after
    batch 8 restored and replayed bit for bit; its numbers are the host's.
+9l. main paths 37-39 (slice 16), after path 36: ``BASELINE.json`` config 1
+   (SocketWindowWordCount) at ``bench.py`` ``run_config1``'s full size:
+   2^22 words, Zipf(1.3) over a 30,000-word vocabulary from seed 11, 10
+   words a line, 4096 lines a batch (``make_lines``, a copy of
+   ``_make_lines``), string keys through ``ObjectKeyIndex``.  Path 37 is
+   ``WindowAggOperator(TumblingEventTimeWindows.of(5000),
+   SumAggregator(float32))`` on the host tier with the numpy mirror,
+   scatter sync, tokenization in the timed region: every (word, window)
+   count equals an exact Python-dict count (below 2^24, exact in f32), a
+   device-emit-tier twin fires the same counts, and the halfway snapshot
+   restores and replays bit for bit (a second, profiled replay gives the
+   card's idle share).  Path 38 is the same WordCount as a DataStream job
+   on ``LocalExecutor`` (lines -> ``flat_map`` -> timestamps ->
+   ``key_by("word")`` -> tumbling 5000 ms -> ``sum`` -> collect): its rows
+   equal path 37's.  Path 39 is ``examples/socket_window_word_count.py``'s
+   shape: the lines over a loopback socket from a server thread the smoke
+   starts, ``TumblingProcessingTimeWindows.of(5000)`` and ``count``,
+   bounded by the server closing (``SOCKET_MAX_WALL_MS`` guard): per-word
+   totals equal the input's.  Each launches ``scatter_fold`` and neither
+   probe kernel.  After path 23, the mesh session fold's vector leaves (a
+   [3] sum, [2] min and max) over ``MESH_BLOCKS`` blocks of the card equal
+   the CPU mesh bit for bit on path 23's first batches.
+
+Each phase and path prints its command time on a line of its own.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the kernel line reports each kernel's launches on every
@@ -340,8 +365,8 @@ N_KEYS = 1_000_000              # bench.py --keys default
 KEY_CAPACITY = 1 << 20
 BATCH = 1 << 18
 WINDOW_MS = 5000
-N_BATCHES = 40
-SNAPSHOT_EVERY = 16
+N_BATCHES = 24
+SNAPSHOT_EVERY = 8
 PANES = 16                      # the operator's pane ring at these windows
 SUPERBATCH = 8
 RTOL = 1e-6   # f32 results against the reference's f64 sums
@@ -405,16 +430,18 @@ DEVICE_PATHS = {"path 5": "path 3", "path 6": "path 3"}
 #: and whose fires it is held to; ``schedule(chaos, fired)`` is injected
 #: on ``device.dispatch`` before batch ``inject_at`` (``fired``: the
 #: point's firings so far), and heals after batch ``heal_at``.  Path 11
-#: wedges the device tier's 12th dispatch (batch 11's fold); path 12
-#: wedges batch 11's guarded probe step (the probe lane has one or two
+#: wedges the device tier's 7th dispatch (batch 6's fold); path 12
+#: wedges batch 6's guarded probe step (the probe lane has one or two
 #: dispatches a batch, so the point is counted when the batch starts);
-#: path 13's third dispatch (batch 1's first half) fails with an OOM
+#: path 13's third dispatch (batch 1's first half) fails with an OOM.
+#: The snapshot after batch 7 is taken degraded, the schedules heal after
+#: batch 9 and the state goes back on the card at batch 15's barrier
 OOM_ACTION = ("fail", "RESOURCE_EXHAUSTED: out of memory allocating the "
               "replica fold's scratch (injected)")
 FAULTS = {
-    "path 11": dict(base="path 5", inject_at=0, heal_at=19,
-                    schedule=lambda ch, fired: ch.WedgedDevice(at=12)),
-    "path 12": dict(base="path 3", inject_at=11, heal_at=19,
+    "path 11": dict(base="path 5", inject_at=0, heal_at=9,
+                    schedule=lambda ch, fired: ch.WedgedDevice(at=7)),
+    "path 12": dict(base="path 3", inject_at=6, heal_at=9,
                     schedule=lambda ch, fired: ch.WedgedDevice(at=fired + 1)),
     "path 13": dict(base="path 7", inject_at=0, heal_at=None,
                     schedule=lambda ch, fired: ch.ActionSequence(
@@ -435,8 +462,8 @@ PATHS["path 14"] = dict(PATHS["path 3"], native_shards=MESH_BLOCKS,
                         mesh_blocks=MESH_BLOCKS)
 PATHS["path 15"] = dict(PATHS["path 5"], mesh_blocks=MESH_BLOCKS)
 PATHS["path 17"] = dict(PATHS["path 7"], mesh_blocks=MESH_BLOCKS)
-FAULTS["path 16"] = dict(base="path 15", inject_at=0, heal_at=19,
-                         schedule=lambda ch, fired: ch.WedgedDevice(at=12))
+FAULTS["path 16"] = dict(base="path 15", inject_at=0, heal_at=9,
+                         schedule=lambda ch, fired: ch.WedgedDevice(at=7))
 PATHS["path 16"] = dict(PATHS["path 15"])
 DEVICE_PATHS["path 15"] = "path 3"
 PAGED_PATHS["path 17"] = "path 5"
@@ -3835,19 +3862,26 @@ def slice14(device, batches, card):
     ctx = {"batches": batches[:TABLE_BATCHES], "card": card}
     launches, numbers = {}, {}
     agg_in = [cols for cols, _ in left]
+    t1 = time.perf_counter()
     launches["path 28"], numbers["path 28"] = slice14_path(
         device, "path 28", [{"k": c["k"], "v": c["v"]} for c in agg_in], ctx)
+    print(f"path 28 took {time.perf_counter() - t1:.1f} s of command time")
     level2 = [{"op": b.column("op"),
                "n": np.asarray(b.column("n")).astype(np.int64)}
               for b in ctx.pop("changelog")]
+    t1 = time.perf_counter()
     launches["path 29"], numbers["path 29"] = slice14_path(
         device, "path 29", level2, ctx)
+    print(f"path 29 took {time.perf_counter() - t1:.1f} s of command time")
     del level2
     pairs = list(zip(left, right))
-    launches["path 30"], numbers["path 30"] = slice14_path(
-        device, "path 30", pairs, ctx)
-    launches["path 31"], numbers["path 31"] = slice14_path(
-        device, "path 31", pairs[:STREAMING_BATCHES], ctx)
+    for label, inputs in (("path 30", pairs),
+                          ("path 31", pairs[:STREAMING_BATCHES])):
+        t1 = time.perf_counter()
+        launches[label], numbers[label] = slice14_path(device, label, inputs,
+                                                       ctx)
+        print(f"{label} took {time.perf_counter() - t1:.1f} s of command "
+              f"time")
     return launches, numbers
 
 
@@ -4588,6 +4622,467 @@ def slice15(device, batches, card):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# slice 16: object keys and the local job path (paths 37-39)
+# ---------------------------------------------------------------------------
+
+SLICE16 = ("path 37", "path 38", "path 39")
+#: ``bench.py`` ``run_config1`` at its full (non-smoke) size: SocketWindow-
+#: WordCount's words, Zipf(1.3) over a 30,000-word vocabulary, 10 words a
+#: line, 4096 lines a batch, batch ``i``'s lines at ``i`` s plus a sorted
+#: offset under 1 s, tumbling 5000 ms windows
+WORDS = 1 << 22
+VOCAB = 30_000
+WORD_SEED = 11
+WORDS_PER_LINE = 10
+LINES_PER_BATCH = 4096
+WORD_WINDOW_MS = 5000
+#: path 39 stops the job if the server has not closed by then
+SOCKET_MAX_WALL_MS = 300_000
+#: the extra check of the mesh session fold's vector leaves: the first
+#: batches of path 23's stream, on ``MESH_BLOCKS`` blocks of the card and
+#: of the CPU
+VECTOR_LEAF_BATCHES = 8
+
+
+def make_lines(n_words: int, vocab: int, seed: int = WORD_SEED):
+    """Copy of ``bench.py`` ``_make_lines``: text lines of 10 words, Zipf
+    word frequencies; returns ``[(lines, ts_ms)]``."""
+    rng = np.random.default_rng(seed)
+    words = np.asarray([f"w{i:05d}" for i in range(vocab)], object)
+    ranks = rng.zipf(1.3, n_words).astype(np.int64) % vocab
+    flat = words[ranks]
+    lines = [" ".join(flat[i:i + WORDS_PER_LINE])
+             for i in range(0, n_words, WORDS_PER_LINE)]
+    batches = []
+    t = 0
+    for lo in range(0, len(lines), LINES_PER_BATCH):
+        chunk = lines[lo:lo + LINES_PER_BATCH]
+        ts = t + np.sort(rng.integers(0, 1000, len(chunk))).astype(np.int64)
+        t += 1000
+        batches.append((chunk, ts))
+    return batches
+
+
+def tokenize(lines, ts=None):
+    """A batch of lines -> (words, the line of each word, each word's
+    timestamp): the flatMap of WordCount, in numpy where it can be."""
+    per_line = [line.split() for line in lines]
+    counts = np.fromiter(map(len, per_line), np.int64, len(per_line))
+    words = np.asarray([w for ws in per_line for w in ws], object)
+    src = np.repeat(np.arange(len(per_line)), counts)
+    return words, src, (None if ts is None else np.asarray(ts)[src])
+
+
+def word_counts(batches):
+    """The exact count of every (word, window start): a Python dict."""
+    counts = {}
+    for lines, ts in batches:
+        for line, t in zip(lines, ts.tolist()):
+            w0 = t // WORD_WINDOW_MS * WORD_WINDOW_MS
+            for w in line.split():
+                counts[(w, w0)] = counts.get((w, w0), 0) + 1
+    return counts
+
+
+def word_rows(fired, key="k", value="result"):
+    """{(word, window start): value} of fired batches; fails on a (word,
+    window) fired twice."""
+    rows = {}
+    for b in fired:
+        ws = np.asarray(b.column("window_start"))
+        for w, s, v in zip(np.asarray(b.column(key)).tolist(), ws.tolist(),
+                           np.asarray(b.column(value)).tolist()):
+            check((w, s) not in rows, f"({w}, {s}) fired twice")
+            rows[(w, s)] = v
+    return rows
+
+
+def fire_bits(fired):
+    """Each fire as (window start, its words sorted, the values' f64 bits
+    in that order): the host tier fires from its f64 mirror, the device
+    tier its f32 cells, and the counts are integers below 2^24, exact in
+    both."""
+    out = []
+    for b in fired:
+        keys = np.asarray(b.column("k"))
+        order = np.argsort(keys, kind="stable")
+        out.append((int(np.asarray(b.column("window_start"))[0]),
+                    tuple(keys[order].tolist()),
+                    np.asarray(b.column("result"), np.float64)[order]
+                    .tobytes()))
+    return out
+
+
+def wordcount_op(device, tier="host"):
+    """Path 37's operator: the 5000 ms tumbling sum of ones, f32, scatter
+    sync; the host tier with the numpy mirror (the object index takes no C
+    mirror and no device probe), or its device-tier twin."""
+    import torch
+
+    from flink_tpu_torch.core.functions import RuntimeContext, SumAggregator
+    from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
+    op = WindowAggOperator(
+        TumblingEventTimeWindows.of(WORD_WINDOW_MS),
+        SumAggregator(torch.float32), key_column="k", value_column="v",
+        emit_tier=tier,
+        snapshot_source="mirror" if tier == "host" else "device",
+        device_sync="scatter", device_probe="on", superbatch=1,
+        pipeline_depth=0, device=device)
+    op.open(RuntimeContext())
+    return op
+
+
+def wordcount_drive(op, batches, start=0, snap_at=None, fire_ms=None):
+    """Tokenize and feed batches ``start:``, a watermark of the batch's
+    last timestamp - 1 after each; returns (fired, snapshot taken after
+    batch ``snap_at``)."""
+    from flink_tpu_torch.core.batch import RecordBatch, Watermark
+    fired, snap = [], None
+    for i, (lines, ts) in enumerate(batches[start:], start):
+        words, _, wts = tokenize(lines, ts)
+        fired += op.process_batch(RecordBatch(
+            {"k": words, "v": np.ones(words.size, np.float32)},
+            timestamps=wts))
+        f0 = time.perf_counter()
+        out = op.process_watermark(Watermark(int(wts[-1]) - 1))
+        if out and fire_ms is not None:
+            fire_ms.append((time.perf_counter() - f0) * 1e3)
+        fired += out
+        if i == snap_at:
+            fired += op.prepare_snapshot_pre_barrier()
+            snap = op.snapshot_state()
+    f0 = time.perf_counter()
+    tail = op.end_input()
+    if fire_ms is not None:
+        fire_ms.append((time.perf_counter() - f0) * 1e3)
+    return fired + tail, snap
+
+
+def path37(device, card, batches, counts):
+    """Path 37: WordCount on ``WindowAggOperator`` with string keys."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_tpu_torch.state.keyindex import ObjectKeyIndex
+    mid = len(batches) // 2
+    op = wordcount_op(device)
+    fire_ms = []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    fired, snap = wordcount_drive(op, batches, snap_at=mid, fire_ms=fire_ms)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_words = int(sum(np.asarray(b.column("result")).sum() for b in fired))
+    check(isinstance(op.key_index, ObjectKeyIndex)
+          and not op.native_mirror_active
+          and op.device_probe_stats()["enabled"] == 0,
+          "path 37: not the object index on the numpy mirror without the "
+          "probe")
+    check(launches["scatter_fold"] > 0 and launches["probe"] == 0
+          and launches["probe_fold"] == 0,
+          f"path 37: launches {launches}; the object-key lane folds through "
+          f"scatter_fold and probes nothing on the card")
+    rows = word_rows(fired)
+    check(rows == {k: float(v) for k, v in counts.items()},
+          f"path 37: {len(rows)} (word, window) counts, the dict "
+          f"{len(counts)}; they differ")
+    print(f"path 37 fires equal the exact dict count of every (word, "
+          f"window): {len(rows)} rows in {len(fired)} fires, "
+          f"{op.key_index.num_keys} distinct words, {n_words} words")
+    # the device emit tier's twin, bit for bit
+    twin = wordcount_op(device, "device")
+    tfired, _ = wordcount_drive(twin, batches)
+    check(fire_bits(tfired) == fire_bits(fired),
+          "path 37: the device-tier twin's fires differ")
+    print(f"path 37 device-tier twin: {len(tfired)} fires equal the host "
+          f"tier's exactly (the same words, the same counts)")
+    # a replay from the halfway snapshot, then a profiled one
+    want = fire_bits([b for b in fired
+                      if int(np.asarray(b.column("window_start"))[0])
+                      >= (mid + 1) * 1000 // WORD_WINDOW_MS * WORD_WINDOW_MS])
+
+    def replay_once(prof=None):
+        rop = wordcount_op(device)
+        torch.cuda.synchronize()
+        r0 = time.perf_counter()
+        with prof if prof is not None else contextlib.nullcontext():
+            rop.restore_state(snap)
+            out, _ = wordcount_drive(rop, batches, start=mid + 1)
+            torch.cuda.synchronize()
+        return time.perf_counter() - r0, fire_bits(out)
+    rwall, got = replay_once()
+    check(got[-len(want):] == want and len(got) >= len(want) > 0,
+          "path 37: the replay from the halfway snapshot differs")
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    _, again = replay_once(prof)
+    check(again == got, "path 37: a second replay differs from the first")
+    busy_ms, _ = device_busy_ms(prof)
+    idle = 100 - 100 * busy_ms / (rwall * 1e3)
+    phases = sorted(op.phase_ns.items(), key=lambda kv: -kv[1])
+    numbers = {"words_per_s": n_words / wall, "wall_s": wall,
+               "fire_p50_ms": float(np.percentile(fire_ms, 50)),
+               "fire_p99_ms": float(np.percentile(fire_ms, 99)),
+               "phase_ms": {k: v / 1e6 for k, v in op.phase_ns.items()},
+               "replay_idle_pct": idle}
+    print(f"path 37 (WordCount, string keys, host tier): {n_words} words in "
+          f"{wall:.3f} s = {numbers['words_per_s']:.1f} words/s "
+          f"(tokenization included); fire p50/p99 "
+          f"{numbers['fire_p50_ms']:.3f}/{numbers['fire_p99_ms']:.3f} ms; "
+          f"phases " + ", ".join(f"{k} {v / 1e6:.1f} ms" for k, v in phases)
+          + f"; restore+replay from batch {mid}: {len(want)} fires equal bit "
+          f"for bit, wall {rwall * 1e3:.1f} ms, the card busy "
+          f"{busy_ms:.3f} ms = idle {idle:.2f}%; {card}")
+    return launches, numbers, rows
+
+
+def path38(device, card, batches, want_rows):
+    """Path 38: path 37's WordCount as a DataStream job on LocalExecutor."""
+    import torch
+
+    from flink_tpu_torch.connectors.sources import GeneratorSource
+    from flink_tpu_torch.core.functions import SumAggregator
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.windowing import TumblingEventTimeWindows
+
+    def line_batch(split, b, n):
+        lines, ts = batches[b]
+        return {"line": np.asarray(lines, object), "t": ts}
+
+    def split(cols):
+        words, src, wts = tokenize(np.asarray(cols["line"]).tolist(),
+                                   cols["t"])
+        return ({"word": words, "v": np.ones(words.size, np.float32),
+                 "t": wts}, src)
+
+    env = StreamExecutionEnvironment(device=device)
+    sink = (env.from_source(GeneratorSource(line_batch, len(batches),
+                                            LINES_PER_BATCH), "lines")
+            .flat_map(split, "split")
+            .assign_timestamps_and_watermarks(0, timestamp_column="t")
+            .key_by("word")
+            .window(TumblingEventTimeWindows.of(WORD_WINDOW_MS))
+            .aggregate(SumAggregator(torch.float32), value_column="v",
+                       output_column="v", emit_tier="host")
+            .collect())
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = env.execute("wordcount")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    rows = {}
+    for r in sink.rows():
+        check((r["word"], r["window_start"]) not in rows,
+              f"path 38: ({r['word']}, {r['window_start']}) fired twice")
+        rows[(r["word"], r["window_start"])] = r["v"]
+    check(rows == want_rows, f"path 38: {len(rows)} rows differ from path "
+          f"37's {len(want_rows)}")
+    check(launches["scatter_fold"] > 0 and launches["probe"] == 0
+          and launches["probe_fold"] == 0, f"path 38: launches {launches}")
+    n_words = int(sum(want_rows.values()))
+    numbers = {"wall_s": wall, "words_per_s": n_words / wall,
+               "records_emitted": result.records_emitted}
+    # where the job's wall goes: the window operator's own phases, and the
+    # host work around it timed again alone over the same batches
+    window_op = next(m for rv in env._last_executor.running.values()
+                     for m in getattr(rv.operator, "operators",
+                                      [rv.operator])
+                     if hasattr(m, "phase_ns"))
+    from flink_tpu_torch.core import keygroups
+    t1 = time.perf_counter()
+    tokenized = [tokenize(lines, ts) for lines, ts in batches]
+    tok_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    for words, _, _ in tokenized:
+        keygroups.assign_to_key_group(keygroups.hash_keys(words), 128)
+    kg_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    sink.rows()
+    rows_s = time.perf_counter() - t1
+    print(f"path 38 breakdown: the window operator's phases "
+          + ", ".join(f"{k} {v / 1e6:.1f} ms" for k, v in sorted(
+              window_op.phase_ns.items(), key=lambda kv: -kv[1]))
+          + f"; alone on the host: tokenization {tok_s * 1e3:.1f} ms, key "
+          f"groups (string hashes) {kg_s * 1e3:.1f} ms, the sink's rows "
+          f"{rows_s * 1e3:.1f} ms")
+    print(f"path 38 (WordCount as a DataStream job on LocalExecutor: lines "
+          f"-> flat_map -> timestamps -> key_by(word) -> tumbling 5000 ms "
+          f"-> sum -> collect): {len(rows)} rows equal path 37's; job wall "
+          f"{wall:.3f} s = {numbers['words_per_s']:.1f} words/s; {card}")
+    return launches, numbers
+
+
+def path39(device, card, batches, counts):
+    """Path 39: ``examples/socket_window_word_count.py``'s shape: a
+    loopback server thread sends the lines and closes; the job counts words
+    in 5000 ms processing-time windows."""
+    import socket
+    import threading
+
+    import torch
+
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.windowing import TumblingProcessingTimeWindows
+
+    payload = "".join(line + "\n" for lines, _ in batches
+                      for line in lines).encode()
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    port = srv.getsockname()[1]
+
+    def serve():
+        try:
+            conn, _ = srv.accept()
+            with conn:
+                conn.sendall(payload)
+        finally:
+            srv.close()
+    server = threading.Thread(target=serve, daemon=True)
+    server.start()
+
+    def split(cols):
+        words, src, _ = tokenize(np.asarray(cols["line"]).tolist())
+        return {"word": words}, src
+
+    env = StreamExecutionEnvironment(device=device)
+    sink = (env.socket_text_stream("127.0.0.1", port, LINES_PER_BATCH)
+            .flat_map(split, "split").key_by("word")
+            .window(TumblingProcessingTimeWindows.of(WORD_WINDOW_MS))
+            .count().collect())
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    env.execute("socket-wordcount", max_wall_ms=SOCKET_MAX_WALL_MS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    server.join(timeout=30)
+    check(not server.is_alive(), "path 39: the server thread is still up")
+    totals, windows = {}, set()
+    for r in sink.rows():
+        totals[r["word"]] = totals.get(r["word"], 0) + int(r["count"])
+        windows.add(r["window_start"])
+    want = {}
+    for (w, _), c in counts.items():
+        want[w] = want.get(w, 0) + c
+    check(totals == want, f"path 39: per-word totals of {len(totals)} words "
+          f"differ from the input's {len(want)}")
+    check(launches["scatter_fold"] > 0 and launches["probe"] == 0
+          and launches["probe_fold"] == 0, f"path 39: launches {launches}")
+    n_words = sum(want.values())
+    numbers = {"wall_s": wall, "words_per_s": n_words / wall,
+               "windows": len(windows), "bytes": len(payload)}
+    print(f"path 39 (socket WordCount, processing-time 5000 ms windows, "
+          f"count): {len(payload)} bytes over loopback, {n_words} words "
+          f"into {len(windows)} windows; per-word totals equal the input's; "
+          f"job wall {wall:.3f} s = {numbers['words_per_s']:.1f} words/s; "
+          f"{card}")
+    return launches, numbers
+
+
+def vector_leaf_check(device, session_batches) -> None:
+    """The mesh session fold's vector leaves (a 3-vector sum and 2-vector
+    min and max) over ``MESH_BLOCKS`` blocks of the card against the CPU,
+    on path 23's first batches: every fire and the snapshot bit for bit,
+    the sum leaf through ``ordered_fold`` (``scatter_fold``) on the card."""
+    import torch
+
+    from flink_tpu_torch.core.batch import RecordBatch, Watermark
+    from flink_tpu_torch.core.functions import (AggregateFunction,
+                                                RuntimeContext)
+    from flink_tpu_torch.ops import scatter as sc
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.mesh_runtime import \
+        MeshSessionWindowOperator
+    from flink_tpu_torch.windowing.assigners import EventTimeSessionWindows
+
+    class VectorStats(AggregateFunction):
+        def identity(self):
+            return {"s": torch.zeros(3),
+                    "lo": torch.full((2,), float("inf")),
+                    "hi": torch.full((2,), float("-inf"))}
+
+        def lift(self, values):
+            v = torch.as_tensor(values, dtype=torch.float32)
+            pair = torch.stack([v, -v], 1)
+            return {"s": torch.stack([v, v * v, torch.ones_like(v)], 1),
+                    "lo": pair, "hi": pair}
+
+        def combine(self, a, b):
+            return {"s": a["s"] + b["s"],
+                    "lo": torch.minimum(a["lo"], b["lo"]),
+                    "hi": torch.maximum(a["hi"], b["hi"])}
+
+        def get_result(self, acc):
+            return acc["s"][..., 0] + acc["lo"][..., 0] + acc["hi"][..., 1]
+
+        def scatter_kinds(self):
+            return {"s": "add", "lo": "min", "hi": "max"}
+
+    runs = []
+    t0 = time.perf_counter()
+    for dev in (device, torch.device("cpu")):
+        op = MeshSessionWindowOperator(
+            EventTimeSessionWindows(SESSION_GAP_MS), VectorStats(),
+            key_column="k", value_column="v",
+            mesh=make_mesh(devices=[dev] * MESH_BLOCKS))
+        op.open(RuntimeContext())
+        before = sc.ordered_fold.launches
+        out = []
+        for keys, vals, ts in session_batches[:VECTOR_LEAF_BATCHES]:
+            out += op.process_batch(RecordBatch({"k": keys, "v": vals},
+                                                timestamps=ts))
+            out += op.process_watermark(Watermark(int(ts.max()) - 1))
+        out += op.process_watermark(Watermark(1 << 40))
+        snap = op.snapshot_state()
+        runs.append(([tuple((c, np.asarray(b.column(c)).tobytes())
+                            for c in sorted(b.columns)) for b in out],
+                     [np.asarray(a).tobytes() for a in snap["acc"]],
+                     sc.ordered_fold.launches - before))
+    (gf, gs, gl), (cf, cs, cl) = runs
+    check(gf == cf and gf and gs == cs,
+          "vector leaves: the mesh on the card differs from the CPU mesh")
+    check(gl == MESH_BLOCKS * VECTOR_LEAF_BATCHES and cl == 0,
+          f"vector leaves: {gl} ordered_fold launches on the card")
+    print(f"vector-leaf mesh session fold (a [3] sum, [2] min and max) on "
+          f"{MESH_BLOCKS} blocks of the card: {len(gf)} fires over path "
+          f"23's first {VECTOR_LEAF_BATCHES} batches and the snapshot equal "
+          f"the CPU mesh's bit for bit; {gl} scatter_fold launches; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def slice16(device, card):
+    """Paths 37-39: WordCount with string keys on the operator, as a
+    DataStream job, and from a socket in processing-time windows."""
+    t0 = time.perf_counter()
+    batches = make_lines(WORDS, VOCAB)
+    counts = word_counts(batches)
+    print(f"slice 16 stream: {WORDS} words in {len(batches)} batches of "
+          f"{LINES_PER_BATCH} lines, {len(counts)} (word, window) counts "
+          f"(made and counted in {time.perf_counter() - t0:.1f} s)")
+    launches, numbers = {}, {}
+    t1 = time.perf_counter()
+    launches["path 37"], numbers["path 37"], rows = path37(device, card,
+                                                           batches, counts)
+    print(f"path 37 took {time.perf_counter() - t1:.1f} s of command time")
+    t1 = time.perf_counter()
+    launches["path 38"], numbers["path 38"] = path38(device, card, batches,
+                                                     rows)
+    print(f"path 38 took {time.perf_counter() - t1:.1f} s of command time")
+    t1 = time.perf_counter()
+    launches["path 39"], numbers["path 39"] = path39(device, card, batches,
+                                                     counts)
+    print(f"path 39 took {time.perf_counter() - t1:.1f} s of command time")
+    print(f"slice 16 took {time.perf_counter() - t0:.1f} s of command time")
+    return launches, numbers
+
+
 def main() -> None:
     try:
         import torch
@@ -4597,6 +5092,7 @@ def main() -> None:
         fail(f"cannot import the port ({err}): run from the repository root")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a GPU")
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     card = card_line()
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
@@ -4611,6 +5107,7 @@ def main() -> None:
     launches, fires, numbers, mids, replays = {}, {}, {}, {}, {}
     ab_want = {}
     for label in ORDER:
+        t1 = time.perf_counter()
         if label == "path 8":
             reset_verdicts()
         launches[label], mid, after, fires[label], numbers[label] = \
@@ -4686,10 +5183,15 @@ def main() -> None:
         for done in [k for k in fires if k not in needed]:
             del fires[done]
             del mids[done]
+        print(f"{label} took {time.perf_counter() - t1:.1f} s of command "
+              f"time (its checks and replays included)")
     del fires, mids
     for label in SLICE11:
+        t1 = time.perf_counter()
         launches[label], numbers[label] = slice11_path(device, batches,
                                                        expect, label)
+        print(f"{label} took {time.perf_counter() - t1:.1f} s of command "
+              f"time")
         a, b = numbers[label], numbers["path 5"]
         print(f"A/B {label} vs path 5, same batches, one process: records/s "
               f"{a['records_per_s']:.1f} vs {b['records_per_s']:.1f} "
@@ -4699,6 +5201,7 @@ def main() -> None:
     session_batches = make_session_batches()
     session_ref = {"model": session_model(session_batches)}
     for label in SLICE12:
+        t1 = time.perf_counter()
         stream = session_batches if label in ("path 22", "path 23") \
             else batches
         launches[label], fired_12, numbers[label] = slice12_path(
@@ -4706,6 +5209,9 @@ def main() -> None:
         if label == "path 22":
             session_ref["path 22"] = fired_12
         del fired_12
+        print(f"{label} took {time.perf_counter() - t1:.1f} s of command "
+              f"time")
+    vector_leaf_check(device, session_batches)
     a, b = numbers["path 23"], numbers["path 22"]
     print(f"A/B path 23 (mesh, {MESH_BLOCKS} blocks on the card) vs path 22 "
           f"(host), same batches, one process: records/s "
@@ -4726,22 +5232,37 @@ def main() -> None:
               f"state on the card: element buffer {a['buffer_bytes']} B vs "
               f"ring {b['ring_bytes']} B")
     cep_batches = make_cep_batches()
+    t1 = time.perf_counter()
     launches["path 26"], numbers["path 26"], cep_want = path26(device,
                                                               cep_batches)
+    print(f"path 26 took {time.perf_counter() - t1:.1f} s of command time")
+    t1 = time.perf_counter()
     launches["path 27"] = path27(device, cep_batches, numbers["path 26"],
                                  cep_want)
+    print(f"path 27 took {time.perf_counter() - t1:.1f} s of command time")
     del cep_batches, cep_want
+    t1 = time.perf_counter()
     join_phase(device)
+    print(f"join phase took {time.perf_counter() - t1:.1f} s of command "
+          f"time")
     slice14_launches, slice14_numbers = slice14(device, batches, card)
     launches.update(slice14_launches)
     numbers.update(slice14_numbers)
     slice15_launches, slice15_numbers = slice15(device, batches, card)
     launches.update(slice15_launches)
     numbers.update(slice15_numbers)
-    pipeline_ab(device, "path 9", "path 3", ab_want["path 3"])
-    guard_ab(device, batches, ab_want)
-    mesh_ab(device, batches, ab_want, card)
-    healer_phase()
+    slice16_launches, slice16_numbers = slice16(device, card)
+    launches.update(slice16_launches)
+    numbers.update(slice16_numbers)
+    for name, phase in (("pipeline A/B", lambda: pipeline_ab(
+            device, "path 9", "path 3", ab_want["path 3"])),
+            ("guard A/B", lambda: guard_ab(device, batches, ab_want)),
+            ("mesh A/B", lambda: mesh_ab(device, batches, ab_want, card)),
+            ("healer phase", healer_phase)):
+        t1 = time.perf_counter()
+        phase()
+        print(f"{name} took {time.perf_counter() - t1:.1f} s of command "
+              f"time")
     for label, twin in TWIN.items():
         a, b = numbers[label], numbers[twin]
         host = lambda n: sum(n["phase_ms"].get(k, 0.0)  # noqa: E731
@@ -4804,7 +5325,8 @@ def main() -> None:
     # host tensors would otherwise perturb the paths' host-bound timings
     kernels.append(probe_fold_phase(device, rng, dki))
     kernels.append(scatter_fold_phase(device, rng))
-    every_path = ORDER + SLICE11 + SLICE12 + SLICE13 + SLICE14 + SLICE15
+    every_path = (ORDER + SLICE11 + SLICE12 + SLICE13 + SLICE14 + SLICE15
+                  + SLICE16)
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]]
                    for label in every_path}
@@ -4827,7 +5349,8 @@ def main() -> None:
               f"{label}: no probe_fold launch")
     for label in (*DEVICE_PATHS, *PAGED_PATHS, *FAULTS, "path 8", "path 9",
                   *SLICE11_SCATTER, "path 23", "path 24", "path 25",
-                  "path 28", "path 29", "path 32", "path 34", "path 35"):
+                  "path 28", "path 29", "path 32", "path 34", "path 35",
+                  *SLICE16):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
     check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")
@@ -4842,6 +5365,8 @@ def main() -> None:
               or numbers[label]["lane"]["emit_tier"] == "device",
               f"{label}: no probe launch")
 
+    print(f"the smoke took {time.perf_counter() - t_start:.1f} s of command "
+          f"time, the build included")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

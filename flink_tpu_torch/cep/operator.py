@@ -31,9 +31,9 @@ non-deterministic relaxed (``followedByAny``) contiguity, NOT-patterns
 on ``within``-window close), ``times``/``oneOrMore``/``optional``
 quantifiers with ``greedy()`` and ``until()``, ``within``, NO_SKIP and
 SKIP_PAST_LAST_EVENT after-match strategies (``NFA.java:86``,
-``Quantifier.java``).  Interpreted keys are any hashable values; the
-vectorized engine maps integer keys through the C keydict and refuses
-other keys (``state/keyindex.py`` ``OBJECT_KEYS``).
+``Quantifier.java``).  Keys are any hashable values; the vectorized engine
+maps them to slots through ``state/keyindex.py`` ``make_key_index`` (the C
+keydict for integer keys, an ``ObjectKeyIndex`` for others).
 
 ``CEP``/``PatternStream`` (the DataStream entry) and the drain's tracing
 span come with the runtime stack slice.

@@ -1,8 +1,9 @@
 """Stream elements, batched (numpy-only copy of ``flink_tpu/core/batch.py``).
 
 The unit of flow is a columnar :class:`RecordBatch` of host numpy arrays;
-control elements such as :class:`Watermark` flow individually and in order
-between batches.  After a ``keyBy`` a batch also carries its key slot ids
+control elements (:class:`Watermark`, :class:`CheckpointBarrier`,
+:class:`LatencyMarker`, :class:`StreamStatus`, :class:`EndOfInput`) flow
+individually and in order between batches.  After a ``keyBy`` a batch also carries its key slot ids
 and key groups; a :class:`TaggedBatch` is bound for one side output.
 """
 
@@ -32,6 +33,40 @@ class Watermark(StreamElement):
     """Event-time watermark: no element with ts <= this will arrive later."""
 
     timestamp: int
+
+
+@dataclass(frozen=True)
+class StreamStatus(StreamElement):
+    """Channel idleness marker (``StreamStatus`` analog): idle channels are
+    excluded from watermark alignment."""
+
+    idle: bool
+
+
+@dataclass(frozen=True)
+class LatencyMarker(StreamElement):
+    """Latency-tracking probe (``LatencyMarker.java``): flows through
+    operators without entering user functions; ``source`` names the
+    emitting vertex."""
+
+    marked_time: float
+    source_id: int = 0
+    subtask_index: int = 0
+    source: str = ""
+
+
+@dataclass(frozen=True)
+class CheckpointBarrier(StreamElement):
+    """In-band checkpoint barrier (``CheckpointBarrier.java``)."""
+
+    checkpoint_id: int
+    timestamp: int
+    is_savepoint: bool = False
+
+
+@dataclass(frozen=True)
+class EndOfInput(StreamElement):
+    """End of a bounded stream."""
 
 
 @dataclass(frozen=True)

@@ -167,16 +167,57 @@ class Function:
 
 
 class RuntimeContext:
-    """Runtime info handed to rich functions (``RuntimeContext.java`` analog)."""
+    """Runtime info handed to rich functions (``RuntimeContext.java``
+    analog): the task, its metric group (``metrics/groups.py``), its slot's
+    managed-memory accountant (``runtime/memory.py``, None outside a managed
+    slot) and the user's accumulators."""
 
     def __init__(self, task_name: str = "task", subtask_index: int = 0,
                  parallelism: int = 1, max_parallelism: int = 128,
-                 metrics=None):
+                 metrics=None,
+                 external_resources: Optional[Dict[str, Any]] = None,
+                 memory_manager=None):
         self.task_name = task_name
         self.subtask_index = subtask_index
         self.parallelism = parallelism
         self.max_parallelism = max_parallelism
         self.metrics = metrics
+        self._external_resources = external_resources or {}
+        self.memory_manager = memory_manager
+
+    def get_external_resource_infos(self, name: str):
+        """``RuntimeContext.getExternalResourceInfos`` analog."""
+        return self._external_resources.get(name, [])
+
+    # -- accumulators (user counters, ``Accumulator``/``IntCounter`` analog)
+    def add_accumulator(self, name: str, start: float = 0.0) -> "Accumulator":
+        accs = getattr(self, "_accumulators", None)
+        if accs is None:
+            accs = self._accumulators = {}
+        if name not in accs:
+            accs[name] = Accumulator(name, start)
+        return accs[name]
+
+    def get_accumulator(self, name: str) -> "Accumulator":
+        return self.add_accumulator(name)
+
+    def accumulator_results(self) -> Dict[str, float]:
+        return {n: a.value for n, a in
+                getattr(self, "_accumulators", {}).items()}
+
+
+class Accumulator:
+    """Distributed user counter (``IntCounter``/``DoubleCounter`` analog):
+    per-subtask adds merge at job completion (``JobExecutionResult``)."""
+
+    __slots__ = ("name", "value")
+
+    def __init__(self, name: str, start: float = 0.0):
+        self.name = name
+        self.value = start
+
+    def add(self, v: float = 1.0) -> None:
+        self.value += v
 
 
 class RichFunction(Function):

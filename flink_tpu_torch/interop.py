@@ -6,6 +6,7 @@ JAX operator's mirror-sourced snapshot):
 
     pane_base, max_pane, last_fired_window, watermark, late_dropped, P
     key_index = {"reverse": int64[n]}, key_index_kind = "KeyIndex"
+        (object keys: {"reverse": object[n]}, "ObjectKeyIndex")
     panes int64[m], counts int32[n, m], leaves [f32[n, m], ...], leaf_schema
 
 so :func:`snapshot_from_jax` and :func:`snapshot_to_jax` mostly validate and
@@ -15,7 +16,7 @@ each slice's arrays fixed like the dense ones.  Count-trigger registers
 cross over both ways (``count_baselines``: window -> int64 ``[n]``;
 ``value_baselines``: window -> one array per accumulator leaf, in the leaf
 dtypes).  Snapshot features this slice does not carry (incremental
-increments, object keys) are refused.
+increments) are refused.
 
 The basic operators' keyed snapshots (``KeyedReduceOperator``:
 ``keys``/``key_index_kind``/``leaves``; ``ExtremumByOperator``:
@@ -87,6 +88,33 @@ def _optional_int(v):
     return None if v is None else int(v)
 
 
+def _key_reverse(reverse, kind: str, source: str) -> np.ndarray:
+    """A snapshot's slot -> key table in the dtype its index kind holds:
+    int64 for ``"KeyIndex"``, a 1-D object array for ``"ObjectKeyIndex"``
+    (JAX's builds its table with ``np.asarray(list, object)``, which makes
+    tuple keys the rows of a 2-D array; they come back as tuples)."""
+    if kind == "KeyIndex":
+        return np.ascontiguousarray(reverse, np.int64)
+    if kind != "ObjectKeyIndex":
+        raise ValueError(f"{source} snapshot key index is {kind!r}")
+    reverse = np.asarray(reverse, object)
+    out = np.empty(len(reverse), object)
+    out[:] = ([tuple(r) for r in reverse.tolist()] if reverse.ndim > 1
+              else reverse.tolist())
+    return out
+
+
+def _key_index_part(snap: Dict[str, Any], source: str, out: Dict[str, Any],
+                    field: str = "key_index") -> np.ndarray:
+    """Carry ``snap[field]`` and its ``key_index_kind`` into ``out``; returns
+    the slot -> key table."""
+    kind = snap.get("key_index_kind", "KeyIndex")
+    rev = _key_reverse(snap[field]["reverse"], kind, source)
+    out[field] = {"reverse": rev}
+    out["key_index_kind"] = kind
+    return rev
+
+
 def _normalize(snap: Dict[str, Any], source: str) -> Dict[str, Any]:
     for key in _REFUSED:
         if snap.get(key):
@@ -99,13 +127,7 @@ def _normalize(snap: Dict[str, Any], source: str) -> Dict[str, Any]:
     out: Dict[str, Any] = {k: _optional_int(snap.get(k, 0))
                            for k in _SCALARS}
     if "key_index" in snap:
-        if snap.get("key_index_kind") != "KeyIndex":
-            raise ValueError(f"{source} snapshot key index is "
-                             f"{snap.get('key_index_kind')!r}; only int64 "
-                             f"keys (KeyIndex) cross over in this slice")
-        out["key_index"] = {"reverse": np.ascontiguousarray(
-            snap["key_index"]["reverse"], np.int64)}
-        out["key_index_kind"] = "KeyIndex"
+        _key_index_part(snap, source, out)
     _baselines(snap, out)
     if SLICES_KEY in snap:
         # validate the slices as the dense state they tile, then carry them
@@ -168,22 +190,11 @@ def _baselines(snap: Dict[str, Any], out: Dict[str, Any]) -> None:
             for w, leaves in snap["value_baselines"].items()}
 
 
-def _keyed_index(snap: Dict[str, Any], source: str) -> Dict[str, Any]:
-    kind = snap.get("key_index_kind", "KeyIndex")
-    if kind != "KeyIndex":
-        raise ValueError(f"{source} snapshot key index is {kind!r}; only "
-                         f"int64 keys (KeyIndex) cross over in this slice")
-    return {"reverse": np.ascontiguousarray(snap["keys"]["reverse"],
-                                            np.int64)}
-
-
 def _normalize_keyed(snap: Dict[str, Any], source: str) -> Dict[str, Any]:
     if snap.get("empty", True):
         return {"empty": True}
-    out: Dict[str, Any] = {"empty": False,
-                           "keys": _keyed_index(snap, source),
-                           "key_index_kind": "KeyIndex"}
-    n = out["keys"]["reverse"].size
+    out: Dict[str, Any] = {"empty": False}
+    n = _key_index_part(snap, source, out, "keys").size
     if "leaves" in snap:
         out["leaves"] = [np.ascontiguousarray(l) for l in snap["leaves"]]
         rows = [l.shape[0] for l in out["leaves"]]
@@ -276,13 +287,7 @@ def _normalize_evicting(snap: Dict[str, Any], source: str) -> Dict[str, Any]:
                                      "last_fired_window", "watermark")}
     out["late_dropped"] = int(snap.get("late_dropped", 0))
     if "key_index" in snap:
-        if snap.get("key_index_kind") != "KeyIndex":
-            raise ValueError(f"{source} snapshot key index is "
-                             f"{snap.get('key_index_kind')!r}; only int64 "
-                             f"keys (KeyIndex) cross over in this slice")
-        out["key_index"] = {"reverse": np.ascontiguousarray(
-            snap["key_index"]["reverse"], np.int64)}
-        out["key_index_kind"] = "KeyIndex"
+        _key_index_part(snap, source, out)
     if "vals" in snap:
         cols = {"vals": np.float32, "keys": np.int32, "panes": np.int64,
                 "ts": np.int64}
@@ -357,13 +362,8 @@ def _changelog_agg_snapshot(snap: Dict[str, Any], source: str
         return {"groups": {k: dict(v) for k, v in snap["groups"].items()}}
     if "key_index" not in snap:
         return {}
-    if snap.get("key_index_kind") != "KeyIndex":
-        raise ValueError(f"{source} snapshot key index is "
-                         f"{snap.get('key_index_kind')!r}; only int64 keys "
-                         f"(KeyIndex) cross over in this slice")
-    rev = np.ascontiguousarray(snap["key_index"]["reverse"], np.int64)
-    out: Dict[str, Any] = {"key_index": {"reverse": rev},
-                           "key_index_kind": "KeyIndex"}
+    out: Dict[str, Any] = {}
+    rev = _key_index_part(snap, source, out)
     if "state" in snap:
         out["state"] = [np.ascontiguousarray(a, np.float32)
                         for a in snap["state"]]

@@ -67,11 +67,19 @@ class StreamOperator:
     #: the side-output tag whose ``TaggedBatch`` elements this operator
     #: takes through :meth:`process_tagged` (None: it drops them)
     accepts_tag: Optional[str] = None
+    #: two-input operators receive batches through :meth:`process_batch2`
+    is_two_input: bool = False
 
     def open(self, ctx: RuntimeContext) -> None:
         self.ctx = ctx
 
     def process_batch(self, batch: RecordBatch) -> List[StreamElement]:
+        raise NotImplementedError
+
+    def process_batch2(self, batch: RecordBatch,
+                       input_index: int) -> List[StreamElement]:
+        """Two-input path (``processElement1/2``); called only when
+        :attr:`is_two_input` is True."""
         raise NotImplementedError
 
     def process_tagged(self, batch: RecordBatch) -> List[StreamElement]:
@@ -80,6 +88,12 @@ class StreamOperator:
 
     def process_watermark(self, watermark: Watermark) -> List[StreamElement]:
         """Called on watermark advance; returns fired elements."""
+        return []
+
+    def on_processing_time(self, timestamp_ms: int) -> List[StreamElement]:
+        """Processing-time tick (``onProcessingTime``): the runtime reads
+        the clock seam between source rounds and hands every operator the
+        time; returns what fired."""
         return []
 
     def end_input(self) -> List[StreamElement]:
@@ -109,3 +123,8 @@ class StreamOperator:
 
     def close(self) -> None:
         pass
+
+    def metric_group(self):
+        """The operator's metric group (``ctx.metrics``), or None before
+        :meth:`open` or outside a runtime that registers metrics."""
+        return getattr(getattr(self, "ctx", None), "metrics", None)

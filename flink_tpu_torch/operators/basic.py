@@ -32,14 +32,14 @@ from flink_tpu_torch.core.watermarks import WatermarkGenerator
 from flink_tpu_torch.operators.base import StreamOperator
 from flink_tpu_torch.operators.window_agg import _PhaseTimer
 from flink_tpu_torch.ops.scatter import segment_running_fold
-from flink_tpu_torch.state.keyindex import (NativeKeyIndex, make_key_index,
+from flink_tpu_torch.state.keyindex import (key_index_kind, make_key_index,
                                             restore_key_index)
 
 
-def _key_index(keys: np.ndarray, snap=None) -> NativeKeyIndex:
+def _key_index(keys: np.ndarray, snap=None):
     """The key index, as JAX's operators pick it (``make_key_index``): a
     fresh one for ``keys``, or restored from ``snap``.  Integer keys take
-    the C keydict; non-integer keys belong to the object-key slice."""
+    the C keydict, other keys an ``ObjectKeyIndex``."""
     if snap is not None:
         return restore_key_index(snap["keys"],
                                  snap.get("key_index_kind", "KeyIndex"))
@@ -173,7 +173,7 @@ class KeyedReduceOperator(StreamOperator):
     tensors on ``device`` (the card unless the CPU is asked for); ``K``
     doubles from ``max(1024, initial_key_capacity)`` as keys arrive.
     ``phase_ns`` times the host's share of each batch: ``probe`` (the key
-    index: the C keydict, as JAX's ``make_key_index`` picks),
+    index, as JAX's ``make_key_index`` picks it),
     ``device_dispatch`` (padding, uploads and the step's launches) and
     ``emit`` (the running values' download and the output batch)."""
 
@@ -190,7 +190,7 @@ class KeyedReduceOperator(StreamOperator):
         self.device = resolve_device(device)
         self.spec = agg.acc_spec()
         self._K = max(1 << 10, initial_key_capacity)
-        self.key_index: Optional[NativeKeyIndex] = None
+        self.key_index = None    # NativeKeyIndex or ObjectKeyIndex
         self._leaves = None
         self.phase_ns: Dict[str, int] = {}
 
@@ -277,7 +277,7 @@ class KeyedReduceOperator(StreamOperator):
         n = self.key_index.num_keys
         return {"empty": False,
                 "keys": self.key_index.snapshot(),
-                "key_index_kind": "KeyIndex",
+                "key_index_kind": key_index_kind(self.key_index),
                 # a copy: on the CPU ``.cpu()`` would alias the live state
                 "leaves": [l[:n].cpu().numpy().copy()
                            for l in self._leaves]}
@@ -338,11 +338,12 @@ class SinkOperator(StreamOperator):
         return []
 
     def on_latency_marker(self, marker) -> None:
-        """Source-to-sink latency sample: reads the runtime's clock seam,
-        which the runtime-stack slice brings."""
+        """Source-to-sink latency sample (through the clock seam,
+        ``utils/clock.py``): comes with the rest of the local job path."""
         raise NotImplementedError(
-            "not in this slice of flink_tpu_torch: latency markers and the "
-            "clock seam come with the runtime-stack slice")
+            "not in this slice of flink_tpu_torch: latency markers come with "
+            "the rest of the runtime-stack slice's local job path (ROADMAP "
+            "Queue A item 8.1)")
 
     def end_input(self) -> List[StreamElement]:
         # transactional sinks commit their last epoch at the end of input
@@ -383,7 +384,7 @@ class ExtremumByOperator(StreamOperator):
         self.value_column = value_column
         self.is_min = is_min
         self.name = name
-        self.key_index: Optional[NativeKeyIndex] = None
+        self.key_index = None    # NativeKeyIndex or ObjectKeyIndex
         self._vals = np.zeros(0, np.float64)   # slot -> extreme value
         self._rows = np.zeros(0, object)       # slot -> extreme row dict
 
@@ -447,7 +448,7 @@ class ExtremumByOperator(StreamOperator):
         n = self.key_index.num_keys
         return {"empty": False,
                 "keys": self.key_index.snapshot(),
-                "key_index_kind": "KeyIndex",
+                "key_index_kind": key_index_kind(self.key_index),
                 "state.vals": self._vals[:n].copy(),
                 "state.rows": self._rows[:n].copy()}
 

@@ -38,7 +38,7 @@ from flink_tpu_torch.core.functions import (SCATTER_UFUNCS, AggregateFunction,
                                             RuntimeContext, tree_leaves)
 from flink_tpu_torch.operators.base import StreamOperator
 from flink_tpu_torch.operators.basic import _key_index
-from flink_tpu_torch.state.keyindex import NativeKeyIndex
+from flink_tpu_torch.state.keyindex import key_index_kind
 
 
 class CountSlideWindowOperator(StreamOperator):
@@ -64,7 +64,7 @@ class CountSlideWindowOperator(StreamOperator):
         self.output_column = output_column
         self.name = name
         self._K = max(64, initial_key_capacity)
-        self.key_index: Optional[NativeKeyIndex] = None
+        self.key_index = None    # NativeKeyIndex or ObjectKeyIndex
         self._ring: Optional[np.ndarray] = None      # f64 [K, size]
         self._count: Optional[np.ndarray] = None     # i64 [K]
         self._fired: Optional[np.ndarray] = None     # i64 [K] slide multiples
@@ -165,7 +165,7 @@ class CountSlideWindowOperator(StreamOperator):
         snap: Dict[str, Any] = {}
         if self.key_index is not None:
             snap["key_index"] = self.key_index.snapshot()
-            snap["key_index_kind"] = "KeyIndex"
+            snap["key_index_kind"] = key_index_kind(self.key_index)
             n = self.key_index.num_keys
             snap["ring"] = self._ring[:n].copy()
             snap["count"] = self._count[:n].copy()

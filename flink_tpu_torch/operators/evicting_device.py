@@ -67,7 +67,7 @@ from flink_tpu_torch.ops.scatter import _identity_fill, ordered_fold_counts
 from flink_tpu_torch.ops.shapes import next_pow2 as _next_pow2
 from flink_tpu_torch.runtime import device_health
 from flink_tpu_torch.runtime.device_health import DeviceQuarantinedError
-from flink_tpu_torch.state.keyindex import (NativeKeyIndex, make_key_index,
+from flink_tpu_torch.state.keyindex import (key_index_kind, make_key_index,
                                             restore_key_index)
 from flink_tpu_torch.windowing.assigners import WindowAssigner
 from flink_tpu_torch.windowing.evictors import (CountEvictor, Evictor,
@@ -120,7 +120,7 @@ class DeviceEvictingWindowOperator(StreamOperator):
         self.name = name
         self._C = _next_pow2(initial_capacity)
         self._K = _next_pow2(initial_key_capacity)
-        self.key_index: Optional[NativeKeyIndex] = None
+        self.key_index = None    # NativeKeyIndex or ObjectKeyIndex
         self._vals = None          # f32 [C]
         self._keys = None          # i32 [C]  (K = invalid row)
         self._panes = None         # i32 [C], RELATIVE to _pane_epoch
@@ -468,7 +468,7 @@ class DeviceEvictingWindowOperator(StreamOperator):
         }
         if self.key_index is not None:
             snap["key_index"] = self.key_index.snapshot()
-            snap["key_index_kind"] = "KeyIndex"
+            snap["key_index_kind"] = key_index_kind(self.key_index)
         if self._vals is not None and self._count:
             n = self._count
             ep = self._pane_epoch or 0

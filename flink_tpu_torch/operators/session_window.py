@@ -35,7 +35,8 @@ Allowed lateness follows the reference: a fired session is retained until
 merges in and re-fires the (possibly larger) session; records beyond it are
 dropped and counted, or shipped to ``late_output_tag`` as a
 :class:`TaggedBatch`.  Processing-time sessions raise
-``NotImplementedError``: the clock seam comes with the runtime-stack slice.
+``NotImplementedError``: they come with the rest of the local job path
+(ROADMAP Queue A item 8.1), over the clock seam ``utils/clock.py``.
 """
 
 from __future__ import annotations
@@ -53,13 +54,14 @@ from flink_tpu_torch.core.functions import (SCATTER_UFUNCS, AggregateFunction,
                                             tree_map)
 from flink_tpu_torch.operators.base import StreamOperator
 from flink_tpu_torch.operators.window_agg import _PhaseTimer
-from flink_tpu_torch.state.keyindex import NativeKeyIndex, make_key_index
+from flink_tpu_torch.state.keyindex import make_key_index
 from flink_tpu_torch.windowing.assigners import SessionGap
 
 #: the refusal of processing-time sessions
 PROCESSING_TIME = ("not in this slice of flink_tpu_torch: processing-time "
-                   "sessions come with the runtime-stack slice (the clock "
-                   "seam)")
+                   "sessions come with the rest of the runtime-stack slice's "
+                   "local job path (ROADMAP Queue A item 8.1; the clock "
+                   "seam is utils/clock.py)")
 
 
 class _SessionStore:
@@ -157,7 +159,7 @@ class SessionWindowOperator(StreamOperator):
         self.name = name
         self.spec = agg.acc_spec()
         self.kinds = agg.scatter_kind_leaves()
-        self.key_index: Optional[NativeKeyIndex] = None
+        self.key_index = None    # NativeKeyIndex or ObjectKeyIndex
         self.store = _SessionStore(self.spec)
         self.late_output_tag = late_output_tag
         #: DISTINCT aggregates over merging windows: per-session value SETS

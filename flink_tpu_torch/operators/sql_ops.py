@@ -31,7 +31,8 @@ from flink_tpu_torch.operators.joins import _join_pairs
 from flink_tpu_torch.ops.scatter import (ordered_fold_counts_multi,
                                          total_order)
 from flink_tpu_torch.ops.shapes import quantize_pow2
-from flink_tpu_torch.state.keyindex import make_key_index, restore_key_index
+from flink_tpu_torch.state.keyindex import (key_index_kind, make_key_index,
+                                            restore_key_index)
 
 
 class SqlJoinOperator(StreamOperator):
@@ -542,8 +543,11 @@ def changelog_rows(key_column: str, names: List[str], keys: np.ndarray,
     by group, a first row where ``first_op`` is set (``"+I"``, ``"-D"`` or
     ``"-U"``, from the old values where ``first_old``, else the new), and
     after it a ``"+U"`` row of the new values where ``pair``.  Columns
-    ``op`` (``<U2``), the key (the keys' dtype) and ``names`` (f64); None
-    when no group emits."""
+    ``op`` (``<U2``), the key and ``names`` (f64); None when no group
+    emits.  The key column has the keys' dtype, except that object keys
+    take the dtype numpy infers from their values (strings come out
+    ``<U``), as JAX's rows do: it builds them through
+    ``RecordBatch.from_rows``."""
     reps = (first_op != "").astype(np.int64) + pair
     total = int(reps.sum())
     if not total:
@@ -552,8 +556,11 @@ def changelog_rows(key_column: str, names: List[str], keys: np.ndarray,
     second = np.zeros(total, bool)
     second[np.cumsum(reps)[pair] - 1] = True
     old = ~second & first_old[g]
+    key_col = keys[g]
+    if key_col.dtype == object:
+        key_col = np.asarray(key_col.tolist())
     cols = {"op": np.where(second, "+U", first_op[g]).astype("<U2"),
-            key_column: keys[g]}
+            key_column: key_col}
     for nm, o, n in zip(names, olds, news):
         cols[nm] = np.where(old, o[g], n[g])
     return RecordBatch(cols)
@@ -573,8 +580,8 @@ class ChangelogGroupAggOperator(StreamOperator):
     whose dense slot id is new (slot ids are insertion-ordered, so "new
     since the previous batch" is a host-known comparison), ``-U``/``+U``
     pairs for changed ones.  The ``op`` column carries the change kind.
-    Slots come from ``state/keyindex.make_key_index`` (integer keys; other
-    keys raise the object-key refusal).  ``step_stats`` counts steps, rows,
+    Slots come from ``state/keyindex.make_key_index`` (the C keydict for
+    integer keys, an ``ObjectKeyIndex`` for others).  ``step_stats`` counts steps, rows,
     touched groups and the bytes each step moved over the bus."""
 
     #: combine modes per aggregate kind
@@ -766,7 +773,7 @@ class ChangelogGroupAggOperator(StreamOperator):
         if self.key_index is not None:
             n = self.key_index.num_keys
             snap["key_index"] = self.key_index.snapshot()
-            snap["key_index_kind"] = "KeyIndex"
+            snap["key_index_kind"] = key_index_kind(self.key_index)
             if self._state is not None:
                 words = torch.stack([a[:n] for a in self._state]).cpu().numpy()
                 snap["state"] = list(words)

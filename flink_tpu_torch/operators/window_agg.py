@@ -127,6 +127,14 @@ subtracted where a purge over sliding windows is logical
 ride snapshots, rescales and restores.  Count triggers keep the hot path
 serial (no pipeline, no super-batch), as in JAX.
 
+**Object keys** (strings, bytes, tuples) take ``state/keyindex.py``
+``ObjectKeyIndex`` with the numpy mirror and no device probe, as in JAX (the
+C keydict and the probe table hold int64 keys); the fold of every lane still
+runs on the card.  **Processing-time windows** (``TumblingProcessingTime
+Windows``/``SlidingProcessingTimeWindows``) stamp each batch's records with
+the clock seam's time (``utils/clock.py``), fire on the runtime's tick
+(:meth:`on_processing_time`), and gate lateness on processing time.
+
 Options of the JAX operator that belong to later slices raise
 ``NotImplementedError`` here (see :data:`_LATER`); nothing falls back.
 """
@@ -171,26 +179,27 @@ from flink_tpu_torch.state.device_keyindex import (DeviceKeyIndex,
                                                    probe_fold_available)
 from flink_tpu_torch.state.evolution import (acc_leaf_schema,
                                              migrate_acc_leaves)
-from flink_tpu_torch.state.keyindex import KeyIndex, NativeKeyIndex
+from flink_tpu_torch.state.keyindex import (KeyIndex, NativeKeyIndex,
+                                            ObjectKeyIndex, key_index_kind,
+                                            restore_key_index)
 from flink_tpu_torch.state.native_mirror import (NativeWindowMirror,
                                                  calibrated_shards, ineligible)
 from flink_tpu_torch.state.paging import DevicePager, identity_grid
 from flink_tpu_torch.state.redistribute import (merge_keyed_snapshots,
                                                 split_keyed_snapshot)
 from flink_tpu_torch.state.shard_layout import densify_keyed_snapshot
-from flink_tpu_torch.utils import transport
+from flink_tpu_torch.utils import clock, transport
 from flink_tpu_torch.windowing.assigners import GlobalWindows, WindowAssigner
 from flink_tpu_torch.windowing.triggers import (EventTimeTrigger, NeverTrigger,
                                                 Trigger)
 
 #: what this slice leaves out, and the later slice that brings it
 _LATER = {
-    "late_output": "late side outputs come with the runtime-stack slice",
+    "late_output": "late side outputs come with the rest of the "
+                   "runtime-stack slice's local job path (ROADMAP Queue A "
+                   "item 8.1)",
     "incremental": "incremental snapshots come with the checkpoint slice",
     "queryable": "queryable views come with the serving slice",
-    "object_keys": "non-integer keys come with the object-key slice",
-    "processing_time": "processing-time windows come with the runtime-stack "
-                       "slice",
 }
 
 
@@ -482,7 +491,6 @@ class WindowAggOperator(StreamOperator):
         refusals = [
             ("late_output", late_output_tag is not None),
             ("queryable", queryable is not None),
-            ("processing_time", not assigner.is_event_time),
         ]
         for what, refused in refusals:
             if refused:
@@ -638,7 +646,7 @@ class WindowAggOperator(StreamOperator):
         self._pager: Optional[DevicePager] = (
             DevicePager(paging, self.spec, self._K) if paging is not None
             else None)
-        self.key_index = None        # KeyIndex, or NativeKeyIndex
+        self.key_index = None   # KeyIndex, NativeKeyIndex or ObjectKeyIndex
         self._leaves = None          # tuple of [K, P, *leaf] device tensors
         self._counts = None          # int32 [K, P]
         #: count triggers: window id -> int64 [<=K] count already fired per
@@ -655,6 +663,8 @@ class WindowAggOperator(StreamOperator):
         self.last_fired_window: Optional[int] = None
         self.watermark: int = LONG_MIN
         self.late_dropped: int = 0
+        #: processing time as the runtime last ticked it (monotone)
+        self._proc_time: int = LONG_MIN
 
         # ---- device-resident key probe lane
         self._dki: Optional[DeviceKeyIndex] = None
@@ -843,12 +853,22 @@ class WindowAggOperator(StreamOperator):
         from the first batch or a restore on)."""
         return self._nm is not None
 
-    def _bind_key_index(self, snap=None) -> None:
-        """A fresh key index (restored from ``snap`` if given) and, with
-        native_emit on the host tier, the C mirror sharing its keydict (the
-        device tier binds the keydict alone, as JAX does).  The old mirror
-        is dropped first: it pins the old keydict, never the new one."""
+    def _bind_key_index(self, snap=None, kind: str = "KeyIndex",
+                        object_keys: bool = False) -> None:
+        """A fresh key index (restored from ``snap`` of ``kind`` if given)
+        and, with native_emit on the host tier, the C mirror sharing its
+        keydict (the device tier binds the keydict alone, as JAX does).
+        Object keys take an :class:`ObjectKeyIndex` and keep the numpy
+        mirror: the C keydict holds int64 keys only (JAX's
+        ``_try_native_mirror``).  The old mirror is dropped first: it pins
+        the old keydict, never the new one."""
         self._nm = None
+        if snap is not None and kind == "ObjectKeyIndex":
+            self.key_index = restore_key_index(snap, kind)
+            return
+        if snap is None and object_keys:
+            self.key_index = ObjectKeyIndex()
+            return
         cls = NativeKeyIndex if self.native_emit else KeyIndex
         self.key_index = (cls.restore(snap) if snap is not None else
                           cls(initial_capacity=max(1 << 16, 2 * self._K)))
@@ -923,6 +943,7 @@ class WindowAggOperator(StreamOperator):
         self.last_fired_window = None
         self.watermark = LONG_MIN
         self.late_dropped = 0
+        self._proc_time = LONG_MIN
         self.phase_ns = {}
         self.phase_bytes = {}
         self.phase_shard_ns = {}
@@ -957,13 +978,15 @@ class WindowAggOperator(StreamOperator):
     # ----------------------------------------------- device-resident probe
     def _devprobe_eligible(self) -> bool:
         """Static eligibility, as JAX's: not "off", the host emit tier,
-        scalar add/min/max accumulator leaves (the delta fold contract) and
-        no paging (the pager needs every record's key id on the host)."""
+        integer keys (the probe table holds int64 keys), scalar
+        add/min/max accumulator leaves (the delta fold contract) and no
+        paging (the pager needs every record's key id on the host)."""
         return (self.device_probe != "off"
                 and self.emit_tier == "host"
                 and self._pager is None
                 and self.kinds is not None
                 and all(tuple(s) == () for s in self.spec.leaf_shapes)
+                and not isinstance(self.key_index, ObjectKeyIndex)
                 and not self.trigger.fires_on_count)
 
     def _devprobe_active(self, sync: str) -> bool:
@@ -2230,19 +2253,28 @@ class WindowAggOperator(StreamOperator):
         cols = batch.columns
         keys = np.asarray(cols[self.key_column])
         if self.key_index is None:
-            if keys.dtype.kind not in "iu":
-                raise _later("object_keys")
-            self._bind_key_index()
-        if batch.timestamps is None:
-            raise ValueError("event-time window requires timestamps")
-        ts = np.asarray(batch.timestamps, np.int64)
+            sample = np.asarray(keys[0] if keys.ndim else keys)
+            self._bind_key_index(object_keys=not (
+                sample.ndim == 0 and sample.dtype.kind in "iu"))
+        if self.assigner.is_event_time:
+            if batch.timestamps is None:
+                raise ValueError(
+                    "event-time window requires timestamps "
+                    "(assign_timestamps_and_watermarks upstream)")
+            ts = np.asarray(batch.timestamps, np.int64)
+        else:
+            ts = np.full(len(batch), self._now_ms(), np.int64)
         global_windows = isinstance(self.assigner, GlobalWindows)
         panes = self.assigner.pane_of(ts)
 
         # ---- late-beyond-lateness drop, judged like the reference's
         # WindowOperator.isElementLate: a record is late iff its pane's last
-        # covering window's cleanup time (end - 1 + lateness) was passed
-        gate_now = self.watermark
+        # covering window's cleanup time (end - 1 + lateness) was passed.
+        # The gate's clock is the assigner's time domain: processing time
+        # ticks on event-time operators too and is never compared with
+        # event-time panes
+        gate_now = (self.watermark if self.assigner.is_event_time
+                    else self._proc_time)
         if gate_now != LONG_MIN and not global_windows:
             p0, p1 = int(panes.min()), int(panes.max())
             cand = (np.arange(p0, p1 + 1, dtype=np.int64)
@@ -2292,7 +2324,7 @@ class WindowAggOperator(StreamOperator):
                     out.extend(self._fire_count_in_panes(np.unique(panes)))
         # ---- late re-fire: windows already passed by the watermark that
         # this batch updated fire again (EventTimeTrigger.onElement FIRE)
-        if (self.trigger.fires_on_time
+        if (self.trigger.fires_on_time and self.assigner.is_event_time
                 and self.last_fired_window is not None
                 and self.assigner.windows_of_pane(pmin)[0]
                 <= self.last_fired_window):
@@ -2448,7 +2480,7 @@ class WindowAggOperator(StreamOperator):
         self.watermark = max(self.watermark, watermark.timestamp)
         if ((self._pipe_pending() or self._fused_stage)
                 and not self.async_fire and self.lateness == 0
-                and self.trigger.fires_on_time
+                and self.trigger.fires_on_time and self.assigner.is_event_time
                 and not isinstance(self.assigner, GlobalWindows)
                 and self.last_fired_window is not None
                 and self._fired_horizon(self.watermark)
@@ -2459,10 +2491,11 @@ class WindowAggOperator(StreamOperator):
             # the staged batches parked (the pipeline's overlap comes from
             # here on task loops that send a watermark after every batch)
             return []
-        if not self.trigger.fires_on_time:
+        if not (self.trigger.fires_on_time and self.assigner.is_event_time):
             # count triggers do not FIRE on time, but window state still
             # retires at window end + lateness (the reference registers
-            # cleanup timers whatever the trigger)
+            # cleanup timers whatever the trigger); processing-time windows
+            # fire on the runtime's tick (on_processing_time)
             self.flush_pipeline()
             if (self.trigger.fires_on_count
                     and not isinstance(self.assigner, GlobalWindows)
@@ -2471,6 +2504,20 @@ class WindowAggOperator(StreamOperator):
                 self._expire_panes(self.watermark)
             return []
         return self._advance_time(self.watermark)
+
+    def on_processing_time(self, timestamp_ms: int) -> List[StreamElement]:
+        """The runtime's processing-time tick: processing-time windows whose
+        end it passed fire (``ProcessingTimeTrigger``); monotone, so a
+        clock stepped back never rewinds it."""
+        self._proc_time = max(self._proc_time, int(timestamp_ms))
+        if self.assigner.is_event_time or not self.trigger.fires_on_time:
+            return []
+        return self._advance_time(self._proc_time)
+
+    def _now_ms(self) -> int:
+        """Processing time of a batch's records: the clock seam's wall
+        clock (``utils/clock.py``)."""
+        return clock.now_ms()
 
     def prepare_snapshot_pre_barrier(self) -> List[StreamElement]:
         """Advance the staged batches and drain every pending async fire, so
@@ -3342,7 +3389,7 @@ class WindowAggOperator(StreamOperator):
         }
         if self.key_index is not None:
             snap["key_index"] = self.key_index.snapshot()
-            snap["key_index_kind"] = "KeyIndex"
+            snap["key_index_kind"] = key_index_kind(self.key_index)
         if (self._leaves is not None or self._degraded) \
                 and self.pane_base is not None and self.key_index is not None:
             n = self.key_index.num_keys
@@ -3415,9 +3462,8 @@ class WindowAggOperator(StreamOperator):
         self._devprobe_resolved = None
         self._nm = None          # rebinds to the restored key index below
         if "key_index" in snap:
-            if snap["key_index_kind"] != "KeyIndex":
-                raise _later("object_keys")
-            self._bind_key_index(snap["key_index"])
+            self._bind_key_index(snap["key_index"],
+                                 snap.get("key_index_kind", "KeyIndex"))
             # (a paged ring stays at its K_cap)
             self._K = self._round_key_capacity(
                 max(self.key_index.num_keys, 1))

@@ -18,9 +18,9 @@ two-function contract kept so the two can be held together step by step:
 JAX factorizes the keys to dense codes first only because ``jnp`` is 32-bit
 there; the pairs do not depend on the code values (a left row's matches all
 share its key and come out in ascending right row), so the port sorts the
-raw int64 keys.  Keys that are not integers raise the port's object-key
-refusal (``state/keyindex.py`` ``OBJECT_KEYS``); the host lane
-(``operators/joins._join_pairs``) takes any key.
+raw int64 keys.  Keys that are not integers are factorized first, as JAX's
+are (:func:`join_codes`, through ``state/keyindex.py`` ``ObjectKeyIndex``),
+so the card still sorts dense int64 codes.
 
 CUDA tensors run the torch ops; CPU tensors take the plain version
 (:func:`plain_pair_spans`, :func:`plain_pair_expand`: numpy, the expansion
@@ -37,24 +37,40 @@ import torch
 
 from flink_tpu_torch import DeviceLike, resolve_device
 from flink_tpu_torch.ops.shapes import quantize_pow2
-from flink_tpu_torch.state.keyindex import OBJECT_KEYS
+from flink_tpu_torch.state.keyindex import ObjectKeyIndex
 
 
-def int_keys(keys) -> np.ndarray:
-    """``keys`` as a contiguous int64 array.  An object array passes when
-    every element is an integer (a column built from row tuples); any other
-    key raises the object-key refusal."""
+def _int_column(keys):
+    """``keys`` as a contiguous int64 array, or None when they are not
+    integers.  An object array passes when every element is an integer (a
+    column built from row tuples)."""
     a = np.asarray(keys)
     if a.dtype.kind == "O":
         try:
             a = np.asarray(a.tolist())
         except (OverflowError, ValueError):
-            raise NotImplementedError(OBJECT_KEYS) from None
+            return None
         if a.size == 0:
             a = a.astype(np.int64)
     if a.dtype.kind not in "iu":
-        raise NotImplementedError(OBJECT_KEYS)
+        return None
     return np.ascontiguousarray(a, np.int64)
+
+
+def join_codes(lk, rk) -> Tuple[np.ndarray, np.ndarray]:
+    """Both key columns as int64 the card can sort.  Integer keys pass as
+    they are; other keys are factorized through an ``ObjectKeyIndex`` as
+    JAX's ``device_join_pairs`` does: the left keys numbered in first-seen
+    order, each right key its left code, or a distinct negative code when
+    no left row has it (it joins with nothing)."""
+    li, ri = _int_column(lk), _int_column(rk)
+    if li is not None and ri is not None:
+        return li, ri
+    ki = ObjectKeyIndex()
+    lcodes = ki.lookup_or_insert(np.asarray(lk, object)).astype(np.int64)
+    rcodes = ki.lookup(np.asarray(rk, object)).astype(np.int64)
+    return lcodes, np.where(rcodes < 0, -(np.arange(rcodes.size) + 2),
+                            rcodes)
 
 
 def spans(lk: torch.Tensor, rk: torch.Tensor):
@@ -145,11 +161,12 @@ def device_join_pairs(lk, rk, device: DeviceLike = None
     ``operators.joins._join_pairs``: int64 ``(left_idx, right_idx)`` of every
     cross pair with equal keys, left-major, each left row's matches in
     ascending right row.  Runs on ``device`` (``None``: the card, raising
-    without one); integer keys only (see :func:`int_keys`)."""
+    without one); keys that are not integers are factorized first
+    (:func:`join_codes`)."""
     dev = resolve_device(device)
     if np.size(lk) == 0 or np.size(rk) == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
-    lk, rk = int_keys(lk), int_keys(rk)
+    lk, rk = join_codes(lk, rk)
     if dev.type == "cpu":
         ro, lo, counts = plain_pair_spans(lk, rk)
         n = int(counts.sum())

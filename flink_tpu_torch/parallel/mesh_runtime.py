@@ -70,7 +70,8 @@ from flink_tpu_torch.operators.session_window import SessionWindowOperator
 from flink_tpu_torch.operators.window_agg import (WindowAggOperator,
                                                   _next_pow2, _PhaseTimer,
                                                   _take_rows)
-from flink_tpu_torch.ops.scatter import ordered_fold_counts
+from flink_tpu_torch.ops.scatter import (ordered_fold, ordered_fold_counts,
+                                         scatter_fast)
 from flink_tpu_torch.ops.shapes import quantize_pow2
 from flink_tpu_torch.parallel.exchange import (all_to_all_rows, bucket_plan,
                                                bucket_rows)
@@ -405,7 +406,9 @@ class MeshSessionWindowOperator(SessionWindowOperator):
       lifts what it received and folds it by session id: ``add`` leaves
       through ``ops/scatter.py`` ``ordered_fold_counts`` (the
       ``scatter_fold`` kernel on the card, one call a block), ``min``/
-      ``max`` leaves with ``scatter_reduce_`` from the leaf's identity.
+      ``max`` leaves with ``scatter_reduce_`` from the leaf's identity.  A
+      leaf of shape ``[n, *s]`` folds as ``cap_sess * prod(s)`` flat cells
+      (:meth:`_fold_vector_leaf`; sums through ``ordered_fold``).
       Only the folded per-session accumulators come down.
     - **Row order.** A source is a contiguous chunk of the sorted rows and
       the bucketing is stable, so a session's rows reach its block in
@@ -424,11 +427,6 @@ class MeshSessionWindowOperator(SessionWindowOperator):
         self.mesh = mesh
         self.n_shards = mesh.size
         super().__init__(*args, **kwargs)
-        if self.kinds is not None and any(
-                s != () for s, k in zip(self.spec.leaf_shapes, self.kinds)):
-            raise NotImplementedError(
-                "not in this slice of flink_tpu_torch: the mesh session fold "
-                "takes scalar accumulator leaves")
 
     # ------------------------------------------------------------ device op
     def _mesh_fold(self, dest, sid, vleaves, treedef, cap: int,
@@ -454,17 +452,43 @@ class MeshSessionWindowOperator(SessionWindowOperator):
         for d, dev in enumerate(self.mesh.devices):
             lifted = tree_leaves(self.agg.lift(tree_unflatten(
                 treedef, [r[d] for r in rx_vals])))
-            planes = [torch.full((cap_sess,), np.asarray(init).item(),
-                                 dtype=l.dtype, device=dev)
-                      for l, init in zip(lifted, self.spec.leaf_inits)]
+            planes = [torch.as_tensor(np.asarray(init), dtype=l.dtype).to(
+                dev).expand((cap_sess,) + tuple(l.shape[1:])).contiguous()
+                for l, init in zip(lifted, self.spec.leaf_inits)]
+            rx = rx_sid[d].contiguous()
+            scalar = [j for j, l in enumerate(lifted) if l.ndim == 1]
             counts = torch.zeros(cap_sess, dtype=torch.int32, device=dev)
             # pad rows and unfilled bucket cells carry sid = cap_sess: the
             # fold drops ids outside [0, cap_sess)
-            ordered_fold_counts(planes, counts, rx_sid[d].contiguous(),
-                                [l.contiguous() for l in lifted], self.kinds)
+            ordered_fold_counts([planes[j] for j in scalar], counts, rx,
+                                [lifted[j].contiguous() for j in scalar],
+                                [self.kinds[j] for j in scalar])
+            for j, l in enumerate(lifted):
+                if l.ndim > 1:
+                    self._fold_vector_leaf(planes[j], rx, l, self.kinds[j])
             for j, p in enumerate(planes):
                 out[j].append(p)
         return out
+
+    @staticmethod
+    def _fold_vector_leaf(plane: torch.Tensor, sid: torch.Tensor,
+                          lifted: torch.Tensor, kind: str) -> None:
+        """Fold a ``[n, *s]`` leaf into its ``[cap_sess, *s]`` plane, in
+        place, as ``cap_sess * prod(s)`` flat cells: row ``i``'s element
+        ``e`` goes to cell ``sid[i] * prod(s) + e``, so each cell still
+        takes its rows in row order (JAX's ``.at[sid].add``).  ``add``
+        folds through ``ops/scatter.py`` ``ordered_fold`` (``scatter_fold``
+        on the card); ``min``/``max`` through ``scatter_reduce_``.  Ids
+        past the plane (pad rows) drop."""
+        m = int(np.prod(plane.shape[1:]))
+        cells = plane.view(-1)
+        ids = (sid.to(torch.int64)[:, None] * m + torch.arange(
+            m, device=sid.device)).reshape(-1)
+        vals = lifted.reshape(-1)
+        if kind == "add":
+            ordered_fold(cells, ids, vals)
+        else:
+            scatter_fast((cells,), ids, (vals,), (kind,))
 
     # ------------------------------------------------------------ host side
     def _sessionize(self, slots, ts, values, bounds=None):

@@ -24,14 +24,14 @@ on a device.  The port's aggregates compute on tensors, so an aggregating
 state converts at the aggregate's boundary (``lift``, ``combine_leaves``,
 ``get_result``) and keeps every dtype; the folds themselves are the same
 numpy calls as JAX's.  Keys go through ``state/keyindex.py``
-``make_key_index``: integer keys take the C keydict, other keys raise the
-port's object-key refusal.  A snapshot names its index ``"KeyIndex"``, as
-JAX's does, so either package restores the other's.
+``make_key_index``: integer keys take the C keydict, other keys an
+``ObjectKeyIndex``.  A snapshot names its index as JAX's does
+(``"KeyIndex"`` or ``"ObjectKeyIndex"``), so either package restores the
+other's.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -52,18 +52,19 @@ from flink_tpu_torch.state.evolution import (AFTER_MIGRATION, INCOMPATIBLE,
                                              resolve_compatibility,
                                              schema_of_backend,
                                              schema_of_descriptor)
-from flink_tpu_torch.state.keyindex import (NativeKeyIndex, make_key_index,
+from flink_tpu_torch.state.keyindex import (key_index_kind, make_key_index,
                                             restore_key_index)
+from flink_tpu_torch.utils import clock
 
 _ABSENT = -1
 
 
 def _now_ms() -> int:
-    """TTL's default clock, the wall clock in ms.  Backends read it at each
-    call, so a test patches this module's ``_now_ms``; JAX's reads its
-    clock seam (``utils/clock.py``), which comes with the runtime-stack
-    slice."""
-    return int(time.time() * 1000)
+    """TTL's default clock: the clock seam's wall clock in ms
+    (``utils/clock.py``), so a chaos skew schedule steers expiry.  Backends
+    read it at each call, so a test may also patch this module's
+    ``_now_ms``."""
+    return clock.now_ms()
 
 
 def _segment_order_spans(slots: np.ndarray):
@@ -631,7 +632,7 @@ class HeapKeyedStateBackend:
         self.max_parallelism = max_parallelism
         # None: the module's _now_ms, read at each call (tests patch it)
         self._clock = clock if clock is not None else (lambda: _now_ms())
-        self._index: Optional[NativeKeyIndex] = None
+        self._index = None       # NativeKeyIndex or ObjectKeyIndex
         self._states: Dict[str, _HeapStateBase] = {}
         self._descs: Dict[str, StateDescriptor] = {}
         self._pending_restore: Dict[str, Dict[str, Any]] = {}
@@ -733,7 +734,7 @@ class HeapKeyedStateBackend:
         n = self.num_keys
         snap: Dict[str, Any] = {
             "key_index": self._index.snapshot(),
-            "key_index_kind": "KeyIndex",
+            "key_index_kind": key_index_kind(self._index),
             "num_keys": n,
             "state_names": sorted(set(self._states) | set(self._pending_restore)),
         }

@@ -9,8 +9,9 @@ Both number new keys in order of first occurrence, so they assign equal slot
 ids, and both snapshot to ``{"reverse": int64[n]}``.  :func:`make_key_index`
 picks the operators' index from a sample key, as JAX's does: the C keydict
 for integer keys (JAX's ``KeyIndex`` binds its own C keydict when its native
-library loads), and a refusal for object keys, which come with a later
-slice.
+library loads), and :class:`ObjectKeyIndex` for any other key (strings,
+bytes, tuples), numbered in first-seen order by :func:`factorize`, numpy's
+counterpart of the ``pd.factorize`` JAX's index is built on.
 """
 
 from __future__ import annotations
@@ -291,30 +292,183 @@ class NativeKeyIndex:
         return ki
 
 
-#: the refusal of keys that are not integers
-OBJECT_KEYS = ("not in this slice of flink_tpu_torch: non-integer keys come "
-               "with the object-key slice")
+def _code_units(fixed: np.ndarray) -> np.ndarray:
+    """A ``U``/``S`` column as its ``[n, width]`` matrix of code units (the
+    padding is zeros, so two strings are equal iff their rows are)."""
+    unit = np.uint32 if fixed.dtype.kind == "U" else np.uint8
+    width = fixed.dtype.itemsize // np.dtype(unit).itemsize
+    return np.ascontiguousarray(fixed).view(unit).reshape(fixed.size, width)
 
 
-def make_key_index(sample_key, capacity_hint: int = 0) -> NativeKeyIndex:
+def _factorize_fixed(fixed: np.ndarray):
+    """``(first, inv)`` of a 1-D ``U``/``S`` column: ``first[j]`` the first
+    row of distinct value ``j`` (values in any order), ``inv`` each row's
+    value.  A 64-bit hash of the code units groups the rows (one sort of
+    int64); the rows are then checked against their group's first row, and
+    a collision falls back to numpy's sort of the strings."""
+    if fixed.dtype.itemsize == 0:        # every value is the empty string
+        return np.zeros(1, np.intp), np.zeros(fixed.size, np.intp)
+    units = _code_units(fixed)
+    h = np.zeros(fixed.size, np.uint64)
+    with np.errstate(over="ignore"):
+        for j in range(units.shape[1]):
+            h ^= units[:, j]
+            h *= np.uint64(0x100000001B3)
+    _, first, inv = unique_first(_mix64(h).view(np.int64),
+                                 return_inverse=True)
+    if not (units == units[first[inv]]).all():
+        _, first, inv = np.unique(fixed, return_index=True,
+                                  return_inverse=True)
+    return first, inv.reshape(-1)
+
+
+def _is_null(k) -> bool:
+    """A null key as ``pd.factorize`` sees one: None or a float NaN."""
+    return k is None or (isinstance(k, (float, np.floating)) and k != k)
+
+
+def factorize(keys) -> tuple:
+    """``(codes, uniques)`` of a key column, as ``pd.factorize`` gives them
+    (numpy only): ``uniques`` an object array in order of first occurrence,
+    ``codes`` int64 per row, -1 for a null key (None, NaN).  String and
+    bytes columns (``U``/``S`` arrays, or object arrays of ``str`` or of
+    ``bytes`` alone) group their rows in bulk; tuples and mixed objects,
+    which do not sort, go row by row through a dict (equal keys by Python's
+    ``==``, so ``1``, ``1.0`` and ``True`` are one key, as in pandas)."""
+    arr = np.asarray(keys)
+    if arr.ndim != 1:                    # composite keys: one tuple a row
+        col = np.empty(len(arr), object)
+        col[:] = [tuple(r) for r in arr.tolist()]
+        arr = col
+    if arr.size == 0:
+        return np.zeros(0, np.int64), np.empty(0, object)
+    if arr.dtype.kind == "O" and arr.size:
+        items = arr.tolist()
+        kinds = set(map(type, items))
+        # numpy drops trailing NULs of U/S cells: such keys stay objects
+        if kinds <= {str, np.str_} and "\0" not in "".join(items):
+            arr = arr.astype("U")
+        elif kinds <= {bytes, np.bytes_} and b"\0" not in b"".join(items):
+            arr = arr.astype("S")
+    if arr.dtype.kind in "US":
+        first, inv = _factorize_fixed(arr)
+        order = np.argsort(first)
+        rank = np.empty(order.size, np.int64)
+        rank[order] = np.arange(order.size)
+        uniques = np.empty(order.size, object)
+        uniques[:] = arr[first[order]].tolist()
+        return rank[inv], uniques
+    seen: Dict[object, int] = {}
+    codes = np.empty(arr.size, np.int64)
+    for i, k in enumerate(arr.tolist() if arr.dtype.kind != "O" else arr):
+        if _is_null(k):
+            codes[i] = -1
+            continue
+        c = seen.get(k)
+        if c is None:
+            c = seen[k] = len(seen)
+        codes[i] = c
+    uniques = np.empty(len(seen), object)
+    uniques[:] = list(seen)
+    return codes, uniques
+
+
+class ObjectKeyIndex:
+    """Object (string, bytes, tuple, mixed) key -> dense int32 slot, numbered
+    in order of first occurrence (port of JAX's ``ObjectKeyIndex``, which
+    numbers through ``pd.factorize``; :func:`factorize` is its numpy
+    counterpart).  The dict is touched once per distinct key of a batch.
+    Null keys (None, NaN) raise ``ValueError`` on insert, as in JAX; the
+    snapshot is ``{"reverse": object[n]}``, the same as JAX's."""
+
+    def __init__(self):
+        self._dict: Dict[object, int] = {}
+        self._reverse = np.empty(0, object)
+        self._n = 0
+
+    @property
+    def num_keys(self) -> int:
+        return self._n
+
+    def reverse_keys(self) -> np.ndarray:
+        """slot id -> raw key, length num_keys (an object array)."""
+        return self._reverse[:self._n]
+
+    def _append(self, new: list) -> None:
+        need = self._n + len(new)
+        if need > self._reverse.size:
+            grown = np.empty(max(need, 2 * self._reverse.size), object)
+            grown[:self._n] = self._reverse[:self._n]
+            self._reverse = grown
+        self._reverse[self._n:need] = new
+        self._n = need
+
+    def lookup_or_insert(self, keys: np.ndarray) -> np.ndarray:
+        codes, uniques = factorize(keys)
+        if (codes < 0).any():
+            raise ValueError("null/NaN keys are not allowed in keyed streams")
+        ids = np.empty(uniques.size, np.int32)
+        d = self._dict
+        new = []
+        for i, k in enumerate(uniques):
+            sid = d.get(k)
+            if sid is None:
+                sid = d[k] = self._n + len(new)
+                new.append(k)
+            ids[i] = sid
+        if new:
+            self._append(new)
+        return ids[codes]
+
+    def lookup(self, keys: np.ndarray) -> np.ndarray:
+        """Batch lookup; int32 slot ids, -1 for absent or null keys."""
+        codes, uniques = factorize(keys)
+        ids = np.fromiter((self._dict.get(k, -1) for k in uniques), np.int32,
+                          uniques.size)
+        out = np.full(codes.shape, -1, np.int32)
+        hit = codes >= 0
+        out[hit] = ids[codes[hit]]
+        return out
+
+    def snapshot(self) -> Dict[str, np.ndarray]:
+        return {"reverse": self.reverse_keys().copy()}
+
+    @classmethod
+    def restore(cls, snap) -> "ObjectKeyIndex":
+        ki = cls()
+        rev = list(snap["reverse"])
+        ki._dict = {k: i for i, k in enumerate(rev)}
+        ki._append(rev)
+        return ki
+
+
+def key_index_kind(index) -> str:
+    """The ``key_index_kind`` a snapshot of ``index`` carries, in JAX's
+    spelling: ``"ObjectKeyIndex"``, or ``"KeyIndex"`` for the integer
+    tables (numpy or C: they snapshot alike)."""
+    return ("ObjectKeyIndex" if isinstance(index, ObjectKeyIndex)
+            else "KeyIndex")
+
+
+def make_key_index(sample_key, capacity_hint: int = 0):
     """The key index of an operator whose keys look like ``sample_key``
     (port of ``flink_tpu/state/keyindex.py`` ``make_key_index``): the C
     keydict for an integer key, pre-sized to twice ``capacity_hint`` (the
-    load-factor bound), so a hinted run never rehashes.  Any other key
-    (strings, tuples) raises ``NotImplementedError``; a failing build of the
-    host layer raises too."""
+    load-factor bound), so a hinted run never rehashes; any other key
+    (strings, bytes, tuples, a composite sample that parses as an int
+    array) an :class:`ObjectKeyIndex`.  A failing build of the host layer
+    raises."""
     arr = np.asarray(sample_key)
     if arr.ndim == 0 and arr.dtype.kind in "iu":
         return NativeKeyIndex(initial_capacity=max(1 << 16,
                                                    2 * capacity_hint))
-    raise NotImplementedError(OBJECT_KEYS)
+    return ObjectKeyIndex()
 
 
-def restore_key_index(snap: Dict[str, np.ndarray],
-                      kind: str = "KeyIndex") -> NativeKeyIndex:
+def restore_key_index(snap: Dict[str, np.ndarray], kind: str = "KeyIndex"):
     """The index a snapshot's ``key_index`` (``{"reverse": ...}``) and
-    ``key_index_kind`` describe.  The operators write the kind as JAX's
-    ``"KeyIndex"``, so either package restores the other's snapshots."""
-    if kind != "KeyIndex":
-        raise NotImplementedError(OBJECT_KEYS)
+    ``key_index_kind`` describe, in JAX's spelling, so either package
+    restores the other's snapshots."""
+    if kind == "ObjectKeyIndex":
+        return ObjectKeyIndex.restore(snap)
     return NativeKeyIndex.restore(snap)

@@ -18,27 +18,22 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 
 from flink_tpu_torch.core import keygroups
-from flink_tpu_torch.state.keyindex import KeyIndex
+from flink_tpu_torch.state.keyindex import KeyIndex, ObjectKeyIndex
 
 
-def _restore_index(snap: Dict[str, Any]) -> KeyIndex:
-    if snap.get("key_index_kind", "KeyIndex") != "KeyIndex":
-        raise NotImplementedError(
-            "not in this slice of flink_tpu_torch: non-integer keys come "
-            "with the object-key slice")
-    return KeyIndex.restore(snap["key_index"] if "key_index" in snap
-                            else snap["keys"])
+def _restore_index(snap: Dict[str, Any]):
+    cls = (ObjectKeyIndex if snap.get("key_index_kind") == "ObjectKeyIndex"
+           else KeyIndex)
+    return cls.restore(snap["key_index"] if "key_index" in snap
+                       else snap["keys"])
 
 
 def _index_snapshot_of(keys: np.ndarray, kind: str):
-    """A fresh index over ``keys``: (its snapshot, ``row_order``), where
-    ``row_order[slot]`` is the position in ``keys`` that owns the slot (row
-    arrays are permuted by it to stay slot-aligned)."""
-    if kind != "KeyIndex":
-        raise NotImplementedError(
-            "not in this slice of flink_tpu_torch: non-integer keys come "
-            "with the object-key slice")
-    idx = KeyIndex()
+    """A fresh index of ``kind`` over ``keys``: (its snapshot,
+    ``row_order``), where ``row_order[slot]`` is the position in ``keys``
+    that owns the slot (row arrays are permuted by it to stay
+    slot-aligned)."""
+    idx = ObjectKeyIndex() if kind == "ObjectKeyIndex" else KeyIndex()
     n = len(keys)
     if n:
         slots = idx.lookup_or_insert(np.asarray(keys))

@@ -20,10 +20,12 @@ Usage::
         op.process_batch(batch)
     assert inj.history("device.dispatch")[:2] == ["fail", "fail"]
 
-This copy holds what the watchdog and its tests use.  The other schedules
-(partitions, slow disks, clock skew, kill schedules, truncated writes) and
-the TCP-level ``FreezableProxy`` come with the runtime stack.  Standard
-library only.
+This copy holds what the watchdog and its tests use, and the clock seam's
+hook :func:`skew` (``utils/clock.py`` reads every clock through it; it
+returns 0 unless an installed schedule answers ``("skew", ms)``).  The
+other schedules (partitions, slow disks, the ``ClockSkew`` schedule, kill
+schedules, truncated writes) and the TCP-level ``FreezableProxy`` come
+with the runtime stack.  Standard library only.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 __all__ = [
     "InjectedFault", "FaultSchedule", "FailTimes", "ActionSequence",
     "WedgedDevice", "FaultInjector", "install", "uninstall", "installed",
-    "fire", "active", "blocked",
+    "fire", "active", "blocked", "skew",
 ]
 
 #: actions a schedule may return for one firing
@@ -217,6 +219,15 @@ class FaultInjector:
         raise InjectedFault(f"injected fault at {point} (firing {n}, "
                             f"ctx={ctx or {}})")
 
+    def skew(self, point: str, **ctx) -> float:
+        """Clock-reading twin of :meth:`fire`: the schedule's skew offset in
+        ms (``("skew", off)`` actions), 0.0 otherwise.  Each reading
+        advances the point's counter, RNG and history like a firing."""
+        _sched, act, _n = self._consult(point, ctx)
+        if isinstance(act, tuple) and act[0] == "skew":
+            return float(act[1])
+        return 0.0
+
     def blocked(self, point: str, **ctx) -> bool:
         """Is the point's schedule in a persistent drop state?  Polling it
         advances no counter, RNG or history."""
@@ -287,3 +298,12 @@ def blocked(point: str, **ctx) -> bool:
     untouched)."""
     inj = _ACTIVE
     return inj is not None and inj.blocked(point, **ctx)
+
+
+def skew(point: str, **ctx) -> float:
+    """The clock seam's hook (``utils/clock.py``): the skew offset in ms of
+    an installed schedule at ``point``; 0.0 with no injector or schedule."""
+    inj = _ACTIVE
+    if inj is None:
+        return 0.0
+    return inj.skew(point, **ctx)

@@ -3,8 +3,9 @@
 A pane is the gcd span shared by every window covering it; the per-record
 hot path only computes ``pane_of(timestamps)`` (one vectorized int op) and
 state is a ``[keys, panes]`` ring.  The port carries the tumbling and the
-sliding event-time assigners, :class:`GlobalWindows`, and the session gap
-(:class:`SessionGap`), which the session operator consumes.
+sliding assigners over event and processing time, :class:`GlobalWindows`,
+and the session gap (:class:`SessionGap`), which the session operator
+consumes.
 """
 
 from __future__ import annotations
@@ -106,6 +107,31 @@ class TumblingEventTimeWindows(SlidingEventTimeWindows):
     @staticmethod
     def of(size_ms: int, offset_ms: int = 0) -> "TumblingEventTimeWindows":
         return TumblingEventTimeWindows(size_ms, offset_ms)
+
+
+class SlidingProcessingTimeWindows(SlidingEventTimeWindows):
+    """``SlidingProcessingTimeWindows.of(size, slide[, offset])``: the
+    sliding panes over processing time (each record's pane is the one that
+    holds the wall clock when its batch arrives)."""
+
+    is_event_time = False
+
+    @staticmethod
+    def of(size_ms: int, slide_ms: int,
+           offset_ms: int = 0) -> "SlidingProcessingTimeWindows":
+        return SlidingProcessingTimeWindows(size_ms, slide_ms, offset_ms)
+
+
+class TumblingProcessingTimeWindows(SlidingProcessingTimeWindows):
+    """``TumblingProcessingTimeWindows.of(size[, offset])``."""
+
+    def __init__(self, size_ms: int, offset_ms: int = 0):
+        super().__init__(size_ms, size_ms, offset_ms)
+
+    @staticmethod
+    def of(size_ms: int,
+           offset_ms: int = 0) -> "TumblingProcessingTimeWindows":
+        return TumblingProcessingTimeWindows(size_ms, offset_ms)
 
 
 class GlobalWindows(WindowAssigner):

@@ -58,6 +58,17 @@ class EventTimeTrigger(Trigger):
         return EventTimeTrigger()
 
 
+class ProcessingTimeTrigger(Trigger):
+    """FIRE when processing time passes the window end
+    (``ProcessingTimeTrigger.java``)."""
+
+    fires_on_time = True
+
+    @staticmethod
+    def create() -> "ProcessingTimeTrigger":
+        return ProcessingTimeTrigger()
+
+
 class CountTrigger(Trigger):
     """FIRE when a key's window holds >= n elements (``CountTrigger.java``),
     evaluated after each micro-batch against the device counts.

@@ -45,6 +45,8 @@ SIDES = {
 
 def _bits(a):
     a = np.asarray(a)
+    if a.dtype == object:           # object cells by value, not by address
+        return a.dtype.str, a.shape, tuple(a.tolist())
     return a.dtype.str, a.shape, a.tobytes()
 
 
@@ -178,19 +180,38 @@ def test_keyed_reduce_takes_the_c_keydict_as_jax_does(agg):
         == _reduce_drive("jax", jop, REDUCE_BATCHES[3:])
     hinted = make_key_index(np.int64(7), capacity_hint=1 << 20)
     assert isinstance(hinted, NativeKeyIndex) and hinted.num_keys == 0
-    with pytest.raises(NotImplementedError, match="object-key slice"):
-        make_key_index("a")
-    with pytest.raises(NotImplementedError, match="object-key slice"):
-        make_key_index(np.asarray([1, 2]))    # a composite key
+    # strings and composite keys (a sample that parses as an int array)
+    # take the object index, as JAX's make_key_index routes them
+    from flink_tpu_torch.state.keyindex import ObjectKeyIndex
+    assert isinstance(make_key_index("a"), ObjectKeyIndex)
+    assert isinstance(make_key_index(np.asarray([1, 2])), ObjectKeyIndex)
+
+
+def _string_keyed(batches):
+    return [(np.char.add("k", k.astype(str)).astype(object), v, ts)
+            for k, v, ts in batches]
 
 
 def test_keyed_reduce_pads_like_jax_and_refuses_object_keys():
+    """Padding as JAX's; string keys (which the object-key slice admits)
+    run bit for bit against JAX through both packages' ``ObjectKeyIndex``,
+    and their snapshot restores across the packages."""
     op = _reduce_op("port", "sum")
     assert op._K == 1024 and op.device == torch.device("cpu")
     assert op.snapshot_state() == {"empty": True}
-    with pytest.raises(NotImplementedError, match="object-key slice"):
-        op.process_batch(RecordBatch({"k": np.array(["a", "b"], object),
-                                      "v": np.ones(2, np.float32)}))
+    batches = _string_keyed(REDUCE_BATCHES)
+    jop, pop = _reduce_op("jax", "sum"), _reduce_op("port", "sum")
+    assert _reduce_drive("port", pop, batches[:4]) \
+        == _reduce_drive("jax", jop, batches[:4])
+    snap = pop.snapshot_state()
+    assert snap["key_index_kind"] == "ObjectKeyIndex"
+    back = _reduce_op("jax", "sum")
+    back.restore_state(keyed_snapshot_to_jax(snap))
+    fwd = _reduce_op("port", "sum")
+    fwd.restore_state(keyed_snapshot_from_jax(jop.snapshot_state()))
+    want = _reduce_drive("jax", jop, batches[4:])
+    assert _reduce_drive("jax", back, batches[4:]) == want
+    assert _reduce_drive("port", fwd, batches[4:]) == want
 
 
 # ---------------------------------------------------------------------------

@@ -11,10 +11,10 @@ the same order with the same timestamps, ``cep_stats()``, and the snapshots
 :func:`~flink_tpu_torch.interop.cep_snapshot_to_jax`).  The half-way
 snapshot of each package restores into the other and finishes the stream
 with the rows of the uninterrupted run.  Each case also asserts the
-reference test's own expectation on the port's rows.  Integer-keyed cases
-run the port's interpreted, numpy-step and device-step (CPU tensors)
-engines; string-keyed cases run the interpreted engine (the batched
-engine refuses object keys).  ``split_snapshot``/``merge_snapshots`` equal
+reference test's own expectation on the port's rows.  Every case runs the
+port's interpreted, numpy-step and device-step (CPU tensors) engines,
+string-keyed cases too (the batched engine maps them through
+``ObjectKeyIndex``).  ``split_snapshot``/``merge_snapshots`` equal
 JAX's.
 """
 
@@ -115,9 +115,7 @@ def _feed(side, op, pieces, start=0, stop=None, snap_after=None):
 def _run_case(build, rows, select):
     """Both packages, every engine the keys allow, two cuts; returns the
     port's rows of the one-batch cut (for the reference's assertion)."""
-    int_keys = not isinstance(rows[0]["k"], str)
-    engines = ([("off", None), ("on", "numpy"), ("on", "device")]
-               if int_keys else [("off", None)])
+    engines = [("off", None), ("on", "numpy"), ("on", "device")]
     cuts = {"one batch": [rows], "row by row": [[r] for r in rows]}
     first = None
     for cut, pieces in cuts.items():

@@ -158,7 +158,8 @@ def _feed(side, op, chunks, wms, snap_at=(), end=True):
     out, snaps = [], []
     for j, (chunk, wm) in enumerate(zip(chunks, wms)):
         if chunk:
-            ks = np.asarray([e[0] for e in chunk], np.int64)
+            ks = np.asarray([e[0] for e in chunk])
+            ks = ks.astype(np.int64 if ks.dtype.kind in "iu" else object)
             kk = np.asarray([e[1] for e in chunk], object)
             ts = np.asarray([e[2] for e in chunk], np.int64)
             out += op.process_batch(S["RB"]({"k": ks, "kind": kk},
@@ -631,23 +632,29 @@ def test_cep_and_pattern_stream_refuse_until_the_runtime_stack():
 
 
 def test_vectorized_engine_refuses_object_keys():
-    """String keys: the vectorized engine raises the object-key refusal
-    (it never switches engines quietly); ``vectorized="off"`` takes them
-    and equals JAX."""
-    from flink_tpu_torch.state.keyindex import OBJECT_KEYS
+    """String keys (the name is from when the engine refused them): the
+    vectorized engine maps them through ``ObjectKeyIndex`` (``_VecState.
+    map_keys``) and its matches, with both step kernels, equal JAX's
+    interpreted engine; snapshots restore across the packages."""
+    from flink_tpu_torch.state.keyindex import ObjectKeyIndex
 
-    p = (ppat.Pattern.begin("a").where(_is("a"))
-         .followed_by("b").where(_is("b")))
-    batch = RecordBatch({"k": np.asarray(["u", "u"], object),
-                         "kind": np.asarray(["a", "b"], object)},
-                        timestamps=np.arange(2, dtype=np.int64))
-    with pytest.raises(NotImplementedError) as err:
-        _op("port", p, "on").process_batch(batch)
-    assert str(err.value) == OBJECT_KEYS
-    op = _op("port", p, "off")
-    op.process_batch(batch)
-    out = op.process_watermark(Watermark(10))
-    assert [r["k"] for b in out for r in b.to_rows()] == ["u"]
+    chunks, wms = _stream(21)
+    chunks = [[(f"u{k}", kind, t) for k, kind, t in c] for c in chunks]
+    for kernel, name in [(kernel, name) for kernel in ("numpy", "device")
+                         for name in ("followed_by", "times_1_3",
+                                      "not_followed_by")]:
+        want, jsnaps = _feed("jax", _op("jax", _corpus(
+            "jax", "no_skip")[name], "off"),
+            chunks, wms, snap_at=(len(chunks) // 2,))
+        op = _op("port", _corpus(
+            "port", "no_skip")[name], "on",
+            kernel=kernel)
+        got, snaps = _feed("port", op, chunks, wms,
+                           snap_at=(len(chunks) // 2,))
+        assert got == want and want, (kernel, name)
+        assert isinstance(op._vec.index, ObjectKeyIndex)
+        assert _snap_eq(_neutral(snaps[0], "port"),
+                        _neutral(jsnaps[0], "jax"))
 
 
 def test_operator_defaults_to_the_card(monkeypatch):

@@ -36,11 +36,16 @@ def _pair(aggs=AGGS, key="k", **kw):
             psql.ChangelogGroupAggOperator(key, aggs, device="cpu", **kw))
 
 
+def _cell_bits(a):
+    a = np.asarray(a)       # object cells by value, not by address
+    return tuple(a.tolist()) if a.dtype == object else a.tobytes()
+
+
 def _bits(out):
     rows = []
     for b in out:
         rows.append(tuple((c, np.asarray(b.column(c)).dtype.str,
-                           np.asarray(b.column(c)).tobytes())
+                           _cell_bits(b.column(c)))
                           for c in b.columns))
     return rows
 
@@ -48,7 +53,7 @@ def _bits(out):
 def _snap_bits(snap):
     out = {k: v for k, v in snap.items() if k not in ("key_index", "state")}
     if "key_index" in snap:
-        out["reverse"] = np.asarray(snap["key_index"]["reverse"]).tobytes()
+        out["reverse"] = _cell_bits(snap["key_index"]["reverse"])
     if "state" in snap:
         out["state"] = [(np.asarray(a).dtype.str, np.asarray(a).tobytes())
                         for a in snap["state"]]
@@ -170,11 +175,17 @@ def test_refusals():
     with pytest.raises(ValueError, match="unsupported changelog aggregate"):
         psql.ChangelogGroupAggOperator("k", {"m": ("v", "avg")},
                                        device="cpu")
-    op = psql.ChangelogGroupAggOperator("k", AGGS, device="cpu")
-    with pytest.raises(NotImplementedError, match="non-integer keys"):
-        op.process_batch(RecordBatch({"k": np.array(["a"], object),
-                                      "v": np.array([1.0]),
-                                      "w": np.array([1.0])}))
+    # string keys (the object-key slice): the changelog equals JAX's
+    rng = np.random.default_rng(4)
+    jop, pop = _pair()
+    batches = []
+    for _ in range(3):
+        cols = _batch(rng, 40, 300)
+        cols["k"] = np.char.add("g", cols["k"].astype(str)).astype(object)
+        batches.append(cols)
+    assert any(_run(jop, pop, batches))
+    assert _snap_bits(pop.snapshot_state()) \
+        == _snap_bits(jop.snapshot_state())
 
 
 def test_default_device_is_the_card(monkeypatch):
@@ -229,13 +240,24 @@ def test_empty_and_object_key_snapshots():
     jop, pop = _pair()
     assert pop.snapshot_state() == jop.snapshot_state() == {}
     assert changelog_agg_snapshot_from_jax({}) == {}
-    with pytest.raises(ValueError, match="ObjectKeyIndex"):
+    # object-key snapshots cross both ways since the object-key slice
+    rng = np.random.default_rng(6)
+    cols = _batch(rng, 20, 200)
+    cols["k"] = np.char.add("g", cols["k"].astype(str)).astype(object)
+    more = _batch(rng, 30, 200)
+    more["k"] = np.char.add("g", more["k"].astype(str)).astype(object)
+    _run(jop, pop, [cols])
+    fwd = _pair()[1]
+    fwd.restore_state(changelog_agg_snapshot_from_jax(jop.snapshot_state()))
+    back = _pair()[0]
+    back.restore_state(changelog_agg_snapshot_to_jax(pop.snapshot_state()))
+    want = jop.process_batch(JaxBatch(more))
+    assert _bits(fwd.process_batch(RecordBatch(more))) == _bits(want)
+    assert _bits(back.process_batch(JaxBatch(more))) == _bits(want)
+    with pytest.raises(ValueError, match="NoSuchIndex"):
         changelog_agg_snapshot_from_jax(
             {"key_index": {"reverse": ["a"]},
-             "key_index_kind": "ObjectKeyIndex", "state": []})
-    with pytest.raises(NotImplementedError, match="non-integer keys"):
-        pop.restore_state({"key_index": {"reverse": ["a"]},
-                           "key_index_kind": "ObjectKeyIndex"})
+             "key_index_kind": "NoSuchIndex", "state": []})
 
 
 def test_legacy_groups_restore_equals_jax():

@@ -355,8 +355,9 @@ def test_rescale_split_and_merge_carry_baselines(case):
 def test_the_generic_and_count_refusals_are_lifted():
     assert "generic" not in _LATER and "count" not in _LATER
     # (the evolution refusal went with the heap slice's state/evolution.py)
-    assert set(_LATER) == {"late_output", "incremental", "queryable",
-                           "object_keys", "processing_time"}
+    # (object keys and processing time went with the object-key and the
+    # local-job slices)
+    assert set(_LATER) == {"late_output", "incremental", "queryable"}
 
 
 @pytest.mark.parametrize("side", list(SIDES))

@@ -1470,3 +1470,134 @@ def test_graph_mesh_on_the_card_equals_single(cuda_device):
     np.testing.assert_array_equal(
         g.scatter_gather(init, msg, "sum", update, 4, mesh=one),
         g.scatter_gather(init, msg, "sum", update, 4))
+
+
+# ---------------------------------------------------------------------------
+# object keys, the local job path, vector leaves on the mesh
+# ---------------------------------------------------------------------------
+
+def _word_batches(n_batches=8, n=40960, vocab=30000, seed=11):
+    """WordCount's shape, small: Zipf(1.3) words, f32 ones."""
+    rng = np.random.default_rng(seed)
+    words = np.asarray([f"w{i:05d}" for i in range(vocab)], object)
+    return [(words[rng.zipf(1.3, n) % vocab], np.ones(n, np.float32),
+             i * 1000 + np.sort(rng.integers(0, 1000, n)).astype(np.int64))
+            for i in range(n_batches)]
+
+
+@pytest.mark.parametrize("tier", ["host", "device"])
+def test_string_key_operator_on_the_card_equals_the_cpu(cuda_device, tier):
+    """String keys (``ObjectKeyIndex``, the numpy mirror, no device probe):
+    the window operator on the card fires the CPU's rows bit for bit, and
+    its fold launches ``scatter_fold``; ``probe`` stays at 0."""
+    from flink_tpu_torch.state.keyindex import ObjectKeyIndex
+    batches = _word_batches()
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        op = WindowAggOperator(
+            TumblingEventTimeWindows.of(5000), SumAggregator(torch.float32),
+            key_column="k", value_column="v", emit_tier=tier,
+            snapshot_source="mirror" if tier == "host" else "device",
+            device_sync="scatter", device_probe="on", superbatch=1,
+            device=dev)
+        before = (sc.ordered_fold_counts.launches, dk.probe.launches)
+        out = []
+        for keys, vals, ts in batches:
+            out += op.process_batch(RecordBatch({"k": keys, "v": vals},
+                                                timestamps=ts))
+            out += op.process_watermark(Watermark(int(ts.max()) - 1))
+        out += op.end_input()
+        assert isinstance(op.key_index, ObjectKeyIndex)
+        runs.append(([(list(b.column("k")),
+                       np.asarray(b.column("result")).tobytes())
+                      for b in out],
+                     sc.ordered_fold_counts.launches - before[0],
+                     dk.probe.launches - before[1]))
+    (g, gl, gp), (c, cl, cp) = runs
+    assert g == c and g
+    assert gl == len(batches) and cl == 0 and gp == cp == 0
+
+
+def test_datastream_job_on_the_card_equals_the_cpu(cuda_device):
+    """A string-keyed window job through the DataStream API on
+    ``LocalExecutor`` (the sum of each word's timestamps a window, in f64):
+    the card's rows equal the CPU's, and the card's fold launched
+    ``scatter_fold``."""
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    keys, _, ts = _word_batches(n_batches=1, n=20000)[0]
+    rows = {}
+    for dev in (cuda_device, "cpu"):
+        env = StreamExecutionEnvironment(device=dev)
+        before = sc.ordered_fold_counts.launches
+        rows[str(dev)] = (
+            env.from_collection(columns={"word": keys, "t": ts * 5},
+                                batch_size=4096)
+            .assign_timestamps_and_watermarks(0, timestamp_column="t")
+            .key_by("word").window(TumblingEventTimeWindows.of(5000))
+            .sum("t", dtype=torch.float64)
+            .execute_and_collect(),
+            sc.ordered_fold_counts.launches - before)
+    (g, gl), (c, cl) = rows["cuda"], rows["cpu"]
+    assert g == c and len(g) > 1000 and gl > 0 and cl == 0
+
+
+def _vector_stats():
+    """An aggregate with non-scalar leaves (port only): per session the
+    3-vector sum ``(v, v*v, 1)`` and the 2-vector min and max of
+    ``(v, -v)``."""
+    from flink_tpu_torch.core.functions import AggregateFunction
+
+    class VectorStats(AggregateFunction):
+        def identity(self):
+            return {"s": torch.zeros(3),
+                    "lo": torch.full((2,), float("inf")),
+                    "hi": torch.full((2,), float("-inf"))}
+
+        def lift(self, values):
+            v = torch.as_tensor(values, dtype=torch.float32)
+            pair = torch.stack([v, -v], 1)
+            return {"s": torch.stack([v, v * v, torch.ones_like(v)], 1),
+                    "lo": pair, "hi": pair}
+
+        def combine(self, a, b):
+            return {"s": a["s"] + b["s"],
+                    "lo": torch.minimum(a["lo"], b["lo"]),
+                    "hi": torch.maximum(a["hi"], b["hi"])}
+
+        def get_result(self, acc):
+            return acc["s"][..., 0] + acc["lo"][..., 0] + acc["hi"][..., 1]
+
+        def scatter_kinds(self):
+            return {"s": "add", "lo": "min", "hi": "max"}
+
+    return VectorStats()
+
+
+def test_mesh_vector_leaves_on_four_blocks_of_one_card_equal_the_cpu(
+        cuda_device):
+    """The mesh session fold's vector leaves over ``[cuda] * 4``: fires and
+    snapshots bit for bit against ``["cpu"] * 4``; the sum leaf's cells
+    fold through ``ordered_fold`` (``scatter_fold``) on the card."""
+    from flink_tpu_torch.core.functions import RuntimeContext
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.mesh_runtime import \
+        MeshSessionWindowOperator
+    from flink_tpu_torch.windowing.assigners import EventTimeSessionWindows
+    batches = _session_batches()
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        op = MeshSessionWindowOperator(
+            EventTimeSessionWindows(300), _vector_stats(),
+            key_column="k", value_column="v",
+            mesh=make_mesh(devices=[dev] * 4))
+        op.open(RuntimeContext())
+        before = sc.ordered_fold.launches
+        fired = _drive_elements(op, batches[:4], end=False)
+        snap = op.snapshot_state()
+        fired += _drive_elements(op, batches[4:])
+        runs.append((fired, snap, sc.ordered_fold.launches - before))
+    (gf, gs, gl), (cf, cs, cl) = runs
+    assert gf == cf and gf
+    for a, b in zip(gs["acc"], cs["acc"], strict=True):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert gl == 4 * len(batches) and cl == 0

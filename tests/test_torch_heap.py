@@ -12,10 +12,11 @@ bits (``interop.heap_snapshot_to_jax`` narrows the port's for JAX).
 
 Left out, with the modules they need: ``test_state_backend_selectable_via_
 config`` and ``test_unknown_backend_rejected`` (the config factory and the
-DataStream API, ROADMAP item 8).  ``test_string_keys_use_object_index`` is
-replaced by a check that a string key raises the port's object-key refusal
-(object keys, ROADMAP item 11); the changelog cases that key by strings
-key by integers here.
+DataStream API, ROADMAP item 8).  ``test_string_keys_use_object_index``
+runs as ``test_string_keys_raise_the_object_key_refusal`` (the name it had
+while object keys were refused): string keys through both packages'
+``ObjectKeyIndex``; the changelog cases that key by strings key by integers
+here.
 """
 
 import numpy as np
@@ -35,7 +36,6 @@ from flink_tpu_torch.state import api as papi
 from flink_tpu_torch.state import changelog as pchangelog
 from flink_tpu_torch.state import heap as pheap
 from flink_tpu_torch.state import redistribute as predist
-from flink_tpu_torch.state.keyindex import OBJECT_KEYS
 
 SIDES = {
     "jax": dict(api=japi, heap=jheap, fn=jfn, cl=jchangelog, rd=jredist,
@@ -454,15 +454,32 @@ def test_ttl_default_clock_reads_the_module_clock(monkeypatch):
 
 
 def test_string_keys_raise_the_object_key_refusal():
-    """``test_string_keys_use_object_index``'s place: object keys come with
-    their own slice (ROADMAP item 11)."""
-    b = pheap.HeapKeyedStateBackend()
-    b.get_state(papi.ValueStateDescriptor("v", dtype=np.float64, default=0.0))
-    with pytest.raises(NotImplementedError, match="non-integer keys"):
-        b.key_slots(np.array(["a", "b", "a"], dtype=object))
-    with pytest.raises(NotImplementedError) as err:
+    """``test_string_keys_use_object_index``: string keys take the object
+    index in both packages (the name is from when the port refused them);
+    slots, values, reverse keys and the snapshot are equal bit for bit,
+    and the snapshot restores across the packages both ways."""
+    def run(S):
+        b = backend(S)
+        st = b.get_state(S["api"].ValueStateDescriptor(
+            "v", dtype=np.float64, default=0.0))
+        slots = b.key_slots(np.array(["a", "b", "a"], dtype=object))
+        st.put_rows(slots, np.array([1.0, 2.0, 3.0]))
         b.set_current_key("a")
-    assert str(err.value) == OBJECT_KEYS
+        keys = b.slot_keys(b.key_slots(np.array(["a", "b"], dtype=object)))
+        return (slots, st.value(), np.sort(keys), type(b._index).__name__,
+                b.snapshot())
+    snap = both(run)[-1]
+    jsnap = run(SIDES["jax"])[-1]
+
+    def reread(S, s):
+        b = backend(S)
+        st = b.get_state(S["api"].ValueStateDescriptor(
+            "v", dtype=np.float64, default=0.0))
+        b.restore(s)
+        b.set_current_key("b")
+        return st.value(), b.key_slots(np.array(["c", "a"], dtype=object))
+    same(reread(SIDES["jax"], interop.heap_snapshot_to_jax(snap)),
+         reread(SIDES["port"], jsnap))
 
 
 def test_restore_then_snapshot_preserves_unregistered_state():

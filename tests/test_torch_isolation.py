@@ -1,7 +1,8 @@
 """The port stands alone: ``flink_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package, its C host layer builds from
-its own source with its own symbol names, and the port's entry points
-never fall back to the CPU on their own."""
+neither JAX nor anything of the JAX package, nor pandas (the card's machine
+has none), its C host layer builds from its own source with its own symbol
+names, and the port's entry points never fall back to the CPU on their
+own."""
 
 import ast
 import os
@@ -33,13 +34,22 @@ def test_no_jax_and_no_jax_package_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_no_port_module_imports_pandas():
+    bad = [str(p.relative_to(REPO)) for p in SOURCES
+           if any(m.split(".")[0] == "pandas"
+                  for m in _imported_modules(p))]
+    assert not bad, f"{bad} import pandas"
+
+
 def test_every_module_imports_with_jax_blocked():
     """Import every port module (and chip_smoke) in a fresh interpreter
-    where ``jax`` and ``flink_tpu`` cannot be imported at all."""
+    where ``jax``, ``flink_tpu`` and ``pandas`` cannot be imported at
+    all."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flink_tpu'] = None\n"
+        "sys.modules['pandas'] = None\n"
         "import flink_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "flink_tpu_torch.__path__, 'flink_tpu_torch.')]\n"
@@ -54,7 +64,12 @@ def test_every_module_imports_with_jax_blocked():
         " 'ops.join_kernels', 'operators.joins', 'operators.sql_ops',"
         " 'graph_lib', 'graph_lib.graph', 'state.api', 'state.evolution',"
         " 'state.heap', 'state.changelog', 'runtime.timers',"
-        " 'operators.process'):\n"
+        " 'operators.process', 'config.config_option', 'config.options',"
+        " 'utils.clock', 'core.types', 'connectors.sources',"
+        " 'connectors.sinks', 'operators.chain', 'graph.transformations',"
+        " 'graph.stream_graph', 'runtime.memory', 'metrics', 'metrics.core',"
+        " 'metrics.groups', 'runtime.executor', 'datastream',"
+        " 'datastream.api', 'windowing', 'state'):\n"
         "    assert 'flink_tpu_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules"
@@ -65,6 +80,37 @@ def test_every_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 14
+
+
+def test_canonical_flow_runs_with_jax_and_pandas_blocked():
+    """The verify skill's canonical flow (string keys) as a
+    ``flink_tpu_torch`` job on ``LocalExecutor``, in a fresh interpreter
+    where ``jax``, ``flink_tpu`` and ``pandas`` cannot be imported."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'flink_tpu', 'pandas'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from flink_tpu_torch.core.functions import SumAggregator\n"
+        "from flink_tpu_torch.datastream import StreamExecutionEnvironment\n"
+        "from flink_tpu_torch.windowing import TumblingEventTimeWindows\n"
+        "env = StreamExecutionEnvironment.get_execution_environment("
+        "device='cpu')\n"
+        "rows = [{'k': k, 'v': 1.0, 'ts': t} for t in range(0, 1000, 10)"
+        " for k in ('a', 'b')]\n"
+        "res = (env.from_collection(rows, timestamp_column='ts')"
+        ".assign_timestamps_and_watermarks(0, timestamp_column='ts')"
+        ".key_by('k').window(TumblingEventTimeWindows.of(100))"
+        ".aggregate(SumAggregator(torch.float32), value_column='v')"
+        ".execute_and_collect())\n"
+        "assert len(res) == 20 and {r['result'] for r in res} == {10.0}\n"
+        "assert sorted({r['k'] for r in res}) == ['a', 'b']\n"
+        "print('rows', len(res))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["rows", "20"]
 
 
 def test_window_operator_default_device_raises_without_cuda(monkeypatch):

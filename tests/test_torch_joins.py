@@ -32,7 +32,6 @@ from flink_tpu_torch.core.batch import RecordBatch, Watermark
 from flink_tpu_torch.operators import joins as pjoins
 from flink_tpu_torch.operators import sql_ops as psql
 from flink_tpu_torch.ops import join_kernels as pk
-from flink_tpu_torch.state.keyindex import OBJECT_KEYS
 from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
 
 LANES = ["host", "device"]
@@ -169,19 +168,22 @@ def test_device_join_pairs_empties():
 
 
 def test_device_lane_refuses_object_keys():
-    """Keys that are not integers raise the port's object-key refusal on the
-    device lane; an object column of integers (rows built from tuples)
-    joins like its int64 array."""
-    with pytest.raises(NotImplementedError, match="non-integer keys"):
-        pk.device_join_pairs(np.array(["a", "b"], object),
-                             np.array(["a"], object), device="cpu")
-    with pytest.raises(NotImplementedError) as err:
-        pk.device_join_pairs(np.array([1.5, 2.0]), np.array([1.5]),
-                             device="cpu")
-    assert str(err.value) == OBJECT_KEYS
-    with pytest.raises(NotImplementedError):
-        pk.device_join_pairs(np.array([1, "a"], object), np.array([1]),
-                             device="cpu")
+    """Keys that are not integers (strings, floats, mixed objects) are
+    factorized to dense codes on the device lane, as JAX's are (the name is
+    from when the port refused them), and give JAX's pairs; an object
+    column of integers (rows built from tuples) joins like its int64
+    array."""
+    rng = np.random.default_rng(12)
+    words = np.array(["ab", "cd", "ef", "gh", "ij", "kl"], object)
+    for lk, rk in ((rng.choice(words, 60), rng.choice(words[2:], 45)),
+                   (np.array([1.5, 2.0, 1.5]), np.array([1.5, 3.0])),
+                   (np.array([1, "a", 1], object), np.array([1, "b"],
+                                                            object))):
+        got = pk.device_join_pairs(lk, rk, device="cpu")
+        want = jk.device_join_pairs(lk, rk)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == np.int64
+            np.testing.assert_array_equal(g, w)
     lk = np.array([3, 1, 3, 2], np.int64)
     rk = np.array([np.int64(3), 2, 3], object)
     got = pk.device_join_pairs(lk.astype(object), rk, device="cpu")
@@ -401,12 +403,15 @@ def test_sql_join_object_keys_on_the_host_lane(how, monkeypatch):
         op.process_batch2(side["RB"](rcols), 1)
         outs[name] = op.end_input()
     assert _views(outs["port"]) == _views(outs["jax"])
+    # the device lane factorizes the string keys (the object-key slice),
+    # as JAX's device lane does
     monkeypatch.setenv("FLINK_TPU_DEVICE_JOIN", "1")
-    op = psql.SqlJoinOperator("k", "k2", how, device="cpu")
-    op.process_batch2(RecordBatch(lcols), 0)
-    op.process_batch2(RecordBatch(rcols), 1)
-    with pytest.raises(NotImplementedError, match="non-integer keys"):
-        op.end_input()
+    for name, side in SIDES.items():
+        op = side["sql"].SqlJoinOperator("k", "k2", how, **side["kw"])
+        op.process_batch2(side["RB"](lcols), 0)
+        op.process_batch2(side["RB"](rcols), 1)
+        outs[name] = op.end_input()
+    assert _views(outs["port"]) == _views(outs["jax"])
 
 
 def test_sql_join_outer_over_an_empty_side(lane):

@@ -60,6 +60,8 @@ SIDES = {
 
 def _bits(a):
     a = np.asarray(a)
+    if a.dtype == object:           # object cells by value, not by address
+        return a.dtype.str, a.shape, tuple(a.tolist())
     return a.dtype.str, a.shape, a.tobytes()
 
 
@@ -557,12 +559,22 @@ def test_processing_time_and_object_keys_raise():
                               pfn.SumAggregator(), key_column="k",
                               value_column="v")
     assert "clock seam" in PROCESSING_TIME
-    op = make_op("port")
-    op.open(pfn.RuntimeContext())
-    with pytest.raises(NotImplementedError, match="object-key slice"):
-        op.process_batch(RecordBatch({"k": np.asarray(["a", "b"]),
-                                      "v": np.ones(2)},
-                                     timestamps=np.zeros(2, np.int64)))
+    # string keys run since the object-key slice: bit for bit against JAX,
+    # on the single operator and on a mesh of 4
+    rng = np.random.default_rng(31)
+    for mesh in (None, 4):
+        h = Both(lambda s: make_op(s, gap=40, mesh=mesh))
+        for i in range(4):
+            keys = np.char.add("s", rng.integers(0, 30, 300).astype(str))
+            ts = (i * 100 + np.sort(rng.integers(0, 100, 300))).astype(
+                np.int64)
+            vals = rng.random(300)
+            h._both(lambda side: h.ops[side].process_batch(
+                SIDES[side]["RB"]({"k": keys.astype(object), "v": vals},
+                                  timestamps=ts)))
+            h.wm(int(ts.max()) - 1)
+        h.snapshot()
+        assert h.wm(1 << 40) or h.out
 
 
 # ---------------------------------------------------------------------------
@@ -722,3 +734,68 @@ def test_int64_accumulators_cross_as_jax_holds_them():
             SIDES[s]["WM"](1 << 40))
     assert sums(fired["port"]) == sums(fired["jax"]) and fired["port"]
     assert sums(tail["port"]) == sums(tail["jax"]) and tail["port"]
+
+
+# ---------------------------------------------------------------------------
+# vector accumulator leaves on the mesh
+# ---------------------------------------------------------------------------
+
+def _vector_agg(side):
+    """An aggregate with non-scalar leaves: per session the 3-vector sum
+    ``(v, v*v, 1)`` and the 2-vector min and max of ``(v, -v)``."""
+    S = SIDES[side]
+    fn = S["fn"]
+    xp = jnp if side == "jax" else __import__("torch")
+    f32 = jnp.float32 if side == "jax" else xp.float32
+
+    class VectorStats(fn.AggregateFunction):
+        def identity(self):
+            inf = float("inf")
+            return {"s": xp.zeros((3,), dtype=f32),
+                    "lo": xp.full((2,), inf, dtype=f32),
+                    "hi": xp.full((2,), -inf, dtype=f32)}
+
+        def lift(self, values):
+            v = xp.asarray(values, dtype=f32)
+            pair = xp.stack([v, -v], 1)
+            return {"s": xp.stack([v, v * v, xp.ones_like(v)], 1),
+                    "lo": pair, "hi": pair}
+
+        def combine(self, a, b):
+            return {"s": a["s"] + b["s"],
+                    "lo": xp.minimum(a["lo"], b["lo"]),
+                    "hi": xp.maximum(a["hi"], b["hi"])}
+
+        def get_result(self, acc):
+            return acc["s"][..., 0] + acc["lo"][..., 0] + acc["hi"][..., 1]
+
+        def scatter_kinds(self):
+            return {"s": "add", "lo": "min", "hi": "max"}
+
+    return VectorStats()
+
+
+@pytest.mark.parametrize("D", [1, 4, 8])
+def test_mesh_vector_leaves_bit_for_bit(D):
+    """A sum leaf of shape [3] and min/max leaves of shape [2] fold on the
+    port's ``["cpu"] * D`` mesh (as ``cap_sess * prod(s)`` flat cells) bit
+    for bit against JAX's ``make_mesh(D)``, snapshots included; the
+    results also equal the single operator's sessions."""
+    batches = _zipf_session_batches(n_batches=5, batch=400, n_keys=90)
+    h = Both(lambda s: make_op(s, gap=120, mesh=D, agg=_vector_agg,
+                               output_column="result"))
+    for i, (keys, vals, ts) in enumerate(batches):
+        h.batch(keys, vals, ts)
+        h.wm(int(ts.max()) - 1)
+        if i == 2:
+            h.snapshot()
+    h.wm(1 << 40)
+    single = Both(lambda s: make_op(s, gap=120, agg=_vector_agg,
+                                    output_column="result"))
+    _drive(single, batches)
+    single.wm(1 << 40)
+
+    def rows(out):
+        return sorted((int(r["k"]), int(r["window_start"]),
+                       int(r["window_end"])) for e in out for r in e.to_rows())
+    assert rows(h.out) == rows(single.out) and len(rows(h.out)) > 30

@@ -42,7 +42,8 @@ from flink_tpu_torch.core.batch import RecordBatch, Watermark
 from flink_tpu_torch.core.functions import RuntimeContext, SumAggregator
 from flink_tpu_torch.interop import snapshot_from_jax, snapshot_to_jax
 from flink_tpu_torch.operators.window_agg import WindowAggOperator
-from flink_tpu_torch.windowing.assigners import TumblingEventTimeWindows
+from flink_tpu_torch.windowing.assigners import (
+    TumblingEventTimeWindows, TumblingProcessingTimeWindows)
 from test_torch_calibration import verdicts  # noqa: F401 — the fixture
 
 RTOL = ATOL = 1e-6
@@ -249,23 +250,22 @@ def test_interop_refuses_what_the_slice_does_not_carry(port_run):
     snap["__increment__"] = {"base": 1}
     with pytest.raises(ValueError, match="__increment__"):
         snapshot_from_jax(snap)
+    # object keys cross over since the object-key slice; an index kind
+    # neither package writes does not
     snap = dict(port_run[2], key_index_kind="ObjectKeyIndex")
-    with pytest.raises(ValueError, match="ObjectKeyIndex"):
+    assert snapshot_to_jax(snap)["key_index"]["reverse"].dtype == object
+    snap = dict(port_run[2], key_index_kind="NoSuchIndex")
+    with pytest.raises(ValueError, match="NoSuchIndex"):
         snapshot_to_jax(snap)
-
-
-class _ProcessingTimeWindows(TumblingEventTimeWindows):
-    """A processing-time assigner's declaration (the runtime-stack slice
-    ports them)."""
-
-    is_event_time = False
 
 
 @pytest.mark.parametrize("kw", [
     {"queryable": "q"},
     # sharding is accepted since the mesh, count triggers since the
-    # count-trigger slice
-    {"assigner": _ProcessingTimeWindows(100)},
+    # count-trigger slice, processing time since the local job path's:
+    # its late side outputs still raise
+    {"assigner": TumblingProcessingTimeWindows.of(100),
+     "late_output_tag": "late"},
     {"late_output_tag": "late"},
 ])
 def test_later_slices_refuse_honestly(kw):
