@@ -334,6 +334,31 @@ Phases, each fatal on failure (exit code 1, no result line):
    [3] sum, [2] min and max) over ``MESH_BLOCKS`` blocks of the card equal
    the CPU mesh bit for bit on path 23's first batches.
 
+9m. main paths 40-44 (slice 17), after path 39: the rest of the local
+   job path and the DataStream API's routes, each through
+   ``StreamExecutionEnvironment`` and ``LocalExecutor``.  Path 40 is the
+   1M-key stream's 24 batches with late rows (from batch 6 on, a seed-41
+   generator moves 8,192 rows of each batch back by 1,000-16,000 ms) through
+   ``window(tumbling 5000).allowed_lateness(2000).side_output_late_data(
+   "late")``, on the device tier (40a) and the host tier with the probe on
+   (40b): the fires and late re-fires equal a numpy model (40a bit for bit,
+   40b to ``RTOL``), the side output is the model's beyond-lateness rows in
+   order, ``late_dropped`` is 0, and an untagged twin drops exactly those
+   rows and fires 40a's rows bit for bit.  Path 41 is the environment's
+   routes: its mesh (``make_mesh(devices=[card] * 4)``) for the window sum
+   (41a, held to paths 14 and 15) and for config 4's sessions (41b, path
+   23's rows), and ``.evictor(CountEvictor.of(1))`` with ``sum`` (the
+   device lane, path 24's model) and ``apply`` (the host lane over 2
+   batches).  Path 42 is ``CEP.pattern(...).select(vectorized="on")`` over
+   the CEP stream's first 4 batches, equal to ``CepOperator`` driven
+   directly and ``cep_model``.  Path 43 is the interval join (path 30's
+   pairs) and the window join (a numpy model) through the API with
+   ``FLINK_TPU_DEVICE_JOIN=1``.  Path 44 is path 36's process function on
+   ``state.backend: spill`` with an 8 MiB budget over the first batch: the
+   heap's fires bit for bit, the snapshot after the batch restored,
+   persisted, compacted and fired bit for bit; host C and numpy, the card
+   idle.
+
 Each phase and path prints its command time on a line of its own.
 
 Each main path runs with every launch count set to 0 just before it and
@@ -3823,6 +3848,7 @@ def slice14_path(device, label, inputs, ctx):
                  + np.asarray(b.column("r_e"), np.int64)
                  for _, out in o for b in out]))
         card_pairs = pairs(outs)
+        HELD[label] = card_pairs
         check(np.array_equal(card_pairs, pairs(host)) and card_pairs.size,
               f"{label}: the device lane's pairs differ from the host "
               f"lane's as a multiset")
@@ -5083,6 +5109,718 @@ def slice16(device, card):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# slice 17: the rest of the local job path and the DataStream routes (paths
+# 40-44)
+# ---------------------------------------------------------------------------
+
+SLICE17 = ("path 40", "path 41", "path 42", "path 43", "path 44")
+#: path 40's late rows: from batch ``LATE_FROM`` on, a seed-``LATE_SEED``
+#: generator moves ``LATE_ROWS`` rows of each batch (1/32) back by a
+#: uniform draw in ``LATE_SHIFT_MS``; the window allows ``LATENESS_MS``
+LATE_SEED = 41
+LATE_FROM = 6
+LATE_ROWS = 8192
+LATE_SHIFT_MS = (1000, 16_000)
+LATENESS_MS = 2000
+#: path 41c's host evicting lane (``apply``) runs over the first batches
+EVICT_APPLY_BATCHES = 2
+#: path 42: the CEP stream's first batches through the DataStream API
+CEP_JOB_BATCHES = 4
+#: path 43: the window join's first batches of each side
+WINDOW_JOIN_BATCHES = 4
+#: path 44: the keyed process function on the spill backend, over the
+#: stream's first batch (cut from 2: the path took 68.1 s of command time
+#: over 2 batches on the H100's host, over the 60 s it may take); the
+#: snapshot after it restores and fires the end of input
+SPILL_BATCHES = 1
+SPILL_SNAPSHOT_AFTER = 1
+SPILL_BUDGET = 8 << 20
+#: results of earlier paths that slice 17 is held to
+HELD = {}
+
+
+def sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def timed_calls(cls, name: str, record: list, before=None):
+    """Every call of ``cls.name`` during the block appends (host ms, whether
+    it returned anything) to ``record``, after calling ``before()`` (when
+    given) untimed."""
+    orig = getattr(cls, name)
+
+    def timed(self, *args, **kwargs):
+        if before is not None:
+            before()
+        t0 = time.perf_counter()
+        out = orig(self, *args, **kwargs)
+        record.append(((time.perf_counter() - t0) * 1e3, bool(out)))
+        return out
+
+    setattr(cls, name, timed)
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+def job_operators(env) -> list:
+    """The operators of the environment's last job, chains unrolled."""
+    return [m for rv in env._last_executor.running.values()
+            for m in getattr(rv.operator, "operators", [rv.operator])]
+
+
+def job_operator(env, cls):
+    ops = [m for m in job_operators(env) if type(m) is cls]
+    check(len(ops) == 1, f"the job ran {len(ops)} {cls.__name__}")
+    return ops[0]
+
+
+def stream_columns(batches, e=False):
+    """One column dict over ``batches`` (``e``: each row's stream
+    position)."""
+    cols = {"k": np.concatenate([b[0] for b in batches]),
+            "v": np.concatenate([b[1] for b in batches]),
+            "ts": np.concatenate([b[2] for b in batches])}
+    if e:
+        cols["e"] = np.arange(cols["k"].size, dtype=np.int64)
+    return cols
+
+
+def keyed_job(env, batches, batch_size=None, e=False):
+    """``batches`` as one collection source (``BATCH`` rows a batch, or
+    ``batch_size``), timestamps from ``ts``, keyed by ``k``."""
+    return (env.from_collection(columns=stream_columns(batches, e),
+                                batch_size=batch_size or BATCH)
+            .assign_timestamps_and_watermarks(0, timestamp_column="ts")
+            .key_by("k"))
+
+
+def late_batches(batches):
+    """Path 40's stream: ``batches`` with late rows from batch
+    ``LATE_FROM`` on."""
+    rng = np.random.default_rng(LATE_SEED)
+    out = []
+    for i, (k, v, ts) in enumerate(batches):
+        if i >= LATE_FROM:
+            ts = ts.copy()
+            rows = rng.choice(ts.size, LATE_ROWS, replace=False)
+            ts[rows] -= rng.integers(*LATE_SHIFT_MS, LATE_ROWS)
+        out.append((k, v, ts))
+    return out
+
+
+def late_model(batches, n_keys=None):
+    """Independent numpy semantics of a tumbling sum with allowed lateness
+    and a late side output: per batch, rows whose window's cleanup time
+    (end - 1 + lateness) the watermark passed go to the side output; the
+    rest fold into their window (f32 cells in record order, ``np.add.at``;
+    f64 sums and counts); a window the watermark fired that the batch
+    touched fires again with its whole contents; then the watermark
+    (``max(ts) - 1``, cumulative) fires the windows it passed, and the end
+    fires the rest.  Returns (fires as ``(window start, keys ascending, f32
+    cells, f64 sums, counts, re-fire?)`` in order, the side rows per batch
+    as ``(k, v, ts)``)."""
+    n_keys = n_keys or N_KEYS
+    cells, sums, cnts, fired = {}, {}, {}, set()
+    fires, side = [], []
+    wm = None
+
+    def fire(w, refire=False):
+        keys = np.flatnonzero(cnts[w])
+        fires.append((w, keys, cells[w][keys], sums[w][keys],
+                      cnts[w][keys], refire))
+
+    for keys, vals, ts in batches:
+        starts = ts // WINDOW_MS * WINDOW_MS
+        late = (np.zeros(ts.size, bool) if wm is None
+                else starts + WINDOW_MS - 1 + LATENESS_MS <= wm)
+        if late.any():
+            side.append((keys[late], vals[late], ts[late]))
+        k, v, s = keys[~late], vals[~late], starts[~late]
+        touched = np.unique(s).tolist()
+        for w in touched:
+            m = s == w
+            if w not in cells:
+                cells[w] = np.zeros(n_keys, np.float32)
+                sums[w] = np.zeros(n_keys)
+                cnts[w] = np.zeros(n_keys, np.int64)
+            np.add.at(cells[w], k[m], v[m])
+            sums[w] += np.bincount(k[m], weights=v[m].astype(np.float64),
+                                   minlength=n_keys)
+            cnts[w] += np.bincount(k[m], minlength=n_keys)
+        if wm is not None:
+            for w in touched:
+                if w in fired and w + WINDOW_MS - 1 + LATENESS_MS > wm:
+                    fire(w, refire=True)
+        top = int(ts.max()) - 1
+        wm = top if wm is None else max(wm, top)
+        for w in sorted(cells):
+            if w not in fired and w + WINDOW_MS - 1 <= wm:
+                fire(w)
+                fired.add(w)
+        for w in [w for w in cells
+                  if w in fired and w + WINDOW_MS - 1 + LATENESS_MS <= wm]:
+            del cells[w], sums[w], cnts[w]
+    for w in sorted(cells):
+        if w not in fired:
+            fire(w)
+    return fires, side
+
+
+def check_late_fires(label, fired, model, bits):
+    """Every fire against the model in order: the window, its keys (as a
+    set), the f32 cells bit for bit (``bits``: the device tier) or the f64
+    sums to ``RTOL`` (the host tier's f64 mirror)."""
+    check(len(fired) == len(model), f"{label}: {len(fired)} fires, the "
+          f"model {len(model)}")
+    for b, (w, keys, cells, sums, _, _) in zip(fired, model):
+        k = np.asarray(b.column("k"))
+        r = np.asarray(b.column("result"))
+        order = np.argsort(k, kind="stable")
+        check(int(np.asarray(b.column("window_start"))[0]) == w
+              and np.array_equal(k[order], keys),
+              f"{label} window {w}: its keys differ from the model's")
+        ok = (r[order].tobytes() == cells.tobytes() if bits
+              else np.allclose(r[order], sums, rtol=RTOL, atol=0))
+        check(ok, f"{label} window {w}: results differ from the model "
+              f"(max abs {np.max(np.abs(r[order] - sums))})")
+
+
+def side_rows(batches):
+    """The side output's rows, concatenated in arrival order."""
+    if not batches:
+        return np.zeros(0, np.int64), np.zeros(0, np.float32), \
+            np.zeros(0, np.int64)
+    return (np.concatenate([np.asarray(b.column("k")) for b in batches]),
+            np.concatenate([np.asarray(b.column("v")) for b in batches]),
+            np.concatenate([np.asarray(b.timestamps) for b in batches]))
+
+
+def late_job(device, batches, tier, tag=True):
+    """Path 40's job: the window sum with allowed lateness and (``tag``) a
+    late side output.  Returns (fires, side batches, the window operator,
+    wall s, launches, fire ms)."""
+    import torch
+
+    from flink_tpu_torch.core.functions import SumAggregator
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    from flink_tpu_torch.windowing import TumblingEventTimeWindows
+
+    env = StreamExecutionEnvironment(device=device)
+    w = (keyed_job(env, batches)
+         .window(TumblingEventTimeWindows.of(WINDOW_MS))
+         .allowed_lateness(LATENESS_MS))
+    if tag:
+        w = w.side_output_late_data("late")
+    agg = w.aggregate(SumAggregator(torch.float32), value_column="v",
+                      emit_tier=tier, device_probe="on")
+    main = agg.collect()
+    late = agg.get_side_output("late").collect() if tag else None
+    fire_ms = []
+    sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    with timed_calls(WindowAggOperator, "process_watermark", fire_ms):
+        env.execute("late-data")
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    op = job_operator(env, WindowAggOperator)
+    return (list(main.batches), list(late.batches) if tag else [], op, wall,
+            launches, [ms for ms, fired in fire_ms if fired])
+
+
+def path40(device, card, batches):
+    """Path 40: late data at full width as a DataStream job, on the device
+    tier (40a) and the host tier with the probe on (40b)."""
+    stream = late_batches(batches)
+    t0 = time.perf_counter()
+    model, side = late_model(stream)
+    model_s = time.perf_counter() - t0
+    want = tuple(np.concatenate([s[i] for s in side]) for i in range(3))
+    n_refires = sum(f[5] for f in model)
+    n_records = sum(len(b[0]) for b in stream)
+    launches, numbers, sides = {}, {}, {}
+    for lane, tier in (("40a", "device"), ("40b", "host")):
+        fired, late, op, wall, ln, fire_ms = late_job(device, stream, tier)
+        launches[lane] = ln
+        check_late_fires(f"path {lane}", fired, model, bits=tier == "device")
+        got = side_rows(late)
+        check(all(a.tobytes() == b.tobytes() for a, b in zip(got, want))
+              and got[0].size == want[0].size,
+              f"path {lane}: the side output ({got[0].size} rows) differs "
+              f"from the model's beyond-lateness rows ({want[0].size})")
+        check(op.late_dropped == 0 and op.late_output_tag == "late",
+              f"path {lane}: late_dropped {op.late_dropped} with the tag")
+        check(op.emit_tier == tier, f"path {lane}: emit tier {op.emit_tier}")
+        check(ln["scatter_fold"] > 0, f"path {lane}: launches {ln}")
+        if tier == "host":
+            check(ln["probe"] > 0, f"path {lane}: no probe launch: {ln}")
+        sides[lane] = got
+        p50, p99 = np.percentile(fire_ms, 50), np.percentile(fire_ms, 99)
+        numbers[lane] = {"records_per_s": n_records / wall, "wall_s": wall,
+                         "fire_p50_ms": p50, "fire_p99_ms": p99}
+        print(f"path {lane} ({tier} tier{', probe on' if tier == 'host' else ''}"
+              f"): {n_records} records through the job in {wall:.3f} s = "
+              f"{n_records / wall:.1f} records/s; {len(fired)} fires "
+              f"({n_refires} late re-fires) equal the model "
+              f"({'bit for bit' if tier == 'device' else f'rtol {RTOL}'}); "
+              f"{got[0].size} rows to the side output, equal to the model's "
+              f"beyond-lateness rows in order; late_dropped 0; fire p50/p99 "
+              f"{p50:.3f}/{p99:.3f} ms over {len(fire_ms)} firing calls; "
+              f"launches {ln}; {card}")
+        print(f"path {lane} phase_ns: " + json.dumps(op.phase_ns,
+                                                     sort_keys=True))
+        if lane == "40a":
+            main_a = digests(fired)
+    check(all(a.tobytes() == b.tobytes()
+              for a, b in zip(sides["40a"], sides["40b"])),
+          "path 40: the device and host tiers' side outputs differ")
+    fired, late, op, wall, ln, _ = late_job(device, stream, "device",
+                                            tag=False)
+    check(op.late_dropped == want[0].size and not late,
+          f"path 40: the untagged twin dropped {op.late_dropped} rows, the "
+          f"side output held {want[0].size}")
+    check(digests(fired) == main_a, "path 40: the untagged twin's fires "
+          "differ from 40a's in their bits")
+    print(f"path 40: the untagged twin (device tier) drops "
+          f"{op.late_dropped} rows (late_dropped) = the side output's and "
+          f"fires 40a's rows bit for bit ({wall:.3f} s); the model took "
+          f"{model_s:.1f} s")
+    total = {k: launches["40a"][k] + launches["40b"][k]
+             for k in launches["40a"]}
+    numbers.update(late_rows=int(want[0].size), refires=int(n_refires))
+    return total, numbers
+
+
+def path41(device, card, batches, session_batches):
+    """Path 41: the environment's routes on one card: the mesh (41a: the
+    window sum, 41b: sessions) and the evicting lanes (41c)."""
+    import torch
+
+    from flink_tpu_torch.core.functions import SumAggregator
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.operators.evicting_device import \
+        DeviceEvictingWindowOperator
+    from flink_tpu_torch.operators.evicting_window import \
+        EvictingWindowOperator
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.mesh_runtime import (
+        MeshSessionWindowOperator, MeshWindowAggOperator)
+    from flink_tpu_torch.windowing import (CountEvictor,
+                                           EventTimeSessionWindows,
+                                           TumblingEventTimeWindows)
+    launches, numbers = {}, {}
+
+    def run(lane, env, stream, cls):
+        sink = stream.collect()
+        sync(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        env.execute(lane)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches[lane] = read_launches()
+        check(launches[lane]["scatter_fold"] > 0,
+              f"path {lane}: launches {launches[lane]}")
+        return list(sink.batches), job_operator(env, cls), wall
+
+    # 41a: the window sum on the environment's mesh
+    env = StreamExecutionEnvironment(
+        device=device, mesh=make_mesh(devices=[device] * MESH_BLOCKS))
+    fired, op, wall = run("41a", env, keyed_job(env, batches)
+                          .window(TumblingEventTimeWindows.of(WINDOW_MS))
+                          .aggregate(SumAggregator(torch.float32),
+                                     value_column="v", device_probe="on"),
+                          MeshWindowAggOperator)
+    # the environment's mesh route leaves the emit tier to auto (JAX's
+    # API refuses emit_tier with a mesh): the host tier on a card, whose
+    # fires are path 14's bit for bit, and path 15's (the device tier) to
+    # the tolerance between the tiers
+    d = digests(fired)
+    same, other = (("path 14", "path 15") if op.emit_tier == "host"
+                   else ("path 15", "path 14"))
+    check(d == HELD[same], f"path 41a: the job's fires differ from {same}'s "
+          f"(the {op.emit_tier} tier on the mesh, driven directly) in their "
+          f"bits")
+    check([x[:2] for x in d] == [x[:2] for x in HELD[other]]
+          and all(abs(a[2] - b[2]) <= DEVICE_VS_HOST_RTOL * abs(b[2])
+                  for a, b in zip(d, HELD[other])),
+          f"path 41a: the job's fires differ from {other}'s")
+    n = sum(len(b[0]) for b in batches)
+    numbers["41a"] = {"records_per_s": n / wall, "wall_s": wall}
+    print(f"path 41a (StreamExecutionEnvironment(mesh=make_mesh(devices="
+          f"[card] * {MESH_BLOCKS})), the window sum): {n} records in "
+          f"{wall:.3f} s = {n / wall:.1f} records/s; {op.emit_tier} tier on "
+          f"{op.n_shards} blocks; {len(fired)} fires equal {same}'s bit "
+          f"for bit and {other}'s (keys in the same order, sums to rtol "
+          f"{DEVICE_VS_HOST_RTOL}); launches {launches['41a']}; {card}")
+    # 41b: sessions on the environment's mesh
+    env = StreamExecutionEnvironment(
+        device=device, mesh=make_mesh(devices=[device] * MESH_BLOCKS))
+    fired, op, wall = run("41b", env, keyed_job(env, session_batches,
+                                                batch_size=SESSION_BATCH)
+                          .window(EventTimeSessionWindows(SESSION_GAP_MS))
+                          .aggregate(SumAggregator(torch.float32),
+                                     value_column="v"),
+                          MeshSessionWindowOperator)
+    rows = session_rows(fired)
+    check(rows == HELD["path 23"], f"path 41b: {len(rows)} sessions differ "
+          f"from path 23's {len(HELD['path 23'])} (key, start, end, bits)")
+    n = sum(len(b[0]) for b in session_batches)
+    numbers["41b"] = {"records_per_s": n / wall, "wall_s": wall}
+    print(f"path 41b (the environment's mesh, EventTimeSessionWindows("
+          f"{SESSION_GAP_MS})): {n} records in {wall:.3f} s = "
+          f"{n / wall:.1f} records/s; {len(rows)} sessions equal path 23's "
+          f"bit for bit; launches {launches['41b']}; {card}")
+    # 41c: the evictor's two lanes
+    env = StreamExecutionEnvironment(device=device)
+    fired, op, wall = run("41c", env, keyed_job(env, batches)
+                          .window(TumblingEventTimeWindows.of(WINDOW_MS))
+                          .evictor(CountEvictor.of(1))
+                          .sum("v", dtype=torch.float32),
+                          DeviceEvictingWindowOperator)
+    from flink_tpu_torch.core.batch import RecordBatch
+    as_result = [(i, RecordBatch({"k": b.column("k"),
+                                  "window_start": b.column("window_start"),
+                                  "result": b.column("v")}))
+                 for i, b in enumerate(fired)]
+    how = check_evictions("path 41c", as_result,
+                          evict_model(batches, "path 24"))
+    n = sum(len(b[0]) for b in batches)
+    numbers["41c"] = {"records_per_s": n / wall, "wall_s": wall}
+    first = batches[:EVICT_APPLY_BATCHES]
+    env = StreamExecutionEnvironment(device=device)
+    sink = (keyed_job(env, first)
+            .window(TumblingEventTimeWindows.of(WINDOW_MS))
+            .evictor(CountEvictor.of(1))
+            .apply(lambda k, w, rows: {"k": k, "window_start": w.start,
+                                       "result": np.float32(rows[-1]["v"])})
+            .collect())
+    reset_launches()
+    t0 = time.perf_counter()
+    env.execute("apply")
+    apply_s = time.perf_counter() - t0
+    apply_launches = read_launches()
+    job_operator(env, EvictingWindowOperator)
+    check(all(v == 0 for v in apply_launches.values()),
+          f"path 41c: the host lane launched {apply_launches}")
+    applied = [(i, RecordBatch({c: np.asarray(b.column(c))
+                                for c in ("k", "window_start", "result")}))
+               for i, b in enumerate(sink.batches)]
+    how_apply = check_evictions("path 41c apply", applied,
+                                evict_model(first, "path 24"))
+    n_first = sum(len(b[0]) for b in first)
+    n_keys = sum(len(b) for b in sink.batches)
+    numbers["41c"].update(apply_s=apply_s, apply_records_per_s=n_first
+                          / apply_s)
+    print(f"path 41c: .evictor(CountEvictor.of(1)).sum() lands on "
+          f"DeviceEvictingWindowOperator: {n} records in {wall:.3f} s = "
+          f"{n / wall:.1f} records/s, {how} against path 24's model; "
+          f".evictor(CountEvictor.of(1)).apply(fn) lands on the host "
+          f"EvictingWindowOperator: {n_first} records, {n_keys} (key, "
+          f"window) calls of fn in {apply_s:.3f} s = "
+          f"{n_first / apply_s:.1f} records/s, {how_apply}; launches "
+          f"{launches['41c']} (apply: {apply_launches}); {card}")
+    total = {k: sum(launches[x][k] for x in launches)
+             for k in launches["41a"]}
+    return total, numbers
+
+
+def session_rows(fired) -> list:
+    """Every session row as (key, start, end, result bits), sorted."""
+    out = []
+    for b in fired:
+        res = np.asarray(b.column("result"))
+        out.extend(zip(np.asarray(b.column("k")).tolist(),
+                       np.asarray(b.column("window_start")).tolist(),
+                       np.asarray(b.column("window_end")).tolist(),
+                       [r.tobytes() for r in res]))
+    return sorted(out)
+
+
+def path42(device, card, cep_batches):
+    """Path 42: ``CEP.pattern(keyed, pattern).select(fn, vectorized="on")``
+    as a DataStream job over the CEP stream's first batches, the step on
+    the card."""
+    from flink_tpu_torch.cep import CEP, CepOperator
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    batches = cep_batches[:CEP_JOB_BATCHES]
+    log = []
+    op_proto = cep_op(device, "on", log)
+    env = StreamExecutionEnvironment(device=device)
+    ks = (env.from_collection(columns=stream_columns(batches, e=True),
+                              batch_size=CEP_BATCH)
+          .assign_timestamps_and_watermarks(0, timestamp_column="ts")
+          .key_by("k"))
+    sink = CEP.pattern(ks, op_proto.pattern).select(
+        op_proto.select_fn, vectorized="on").collect()
+    drain_ms = []
+    sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    with timed_calls(CepOperator, "process_watermark", drain_ms):
+        env.execute("cep")
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    op = job_operator(env, CepOperator)
+    check(op._engine == "vectorized" and op.device.type == "cuda",
+          f"path 42: the CEP operator ran {op._engine} on {op.device}")
+
+    def rows_of(batches_out):
+        return sorted(zip(
+            np.concatenate([np.asarray(b.column("k")) for b in batches_out]
+                           ).tolist(),
+            np.concatenate([np.asarray(b.column("amount"))
+                            for b in batches_out]).tolist(),
+            np.concatenate([np.asarray(b.timestamps)
+                            for b in batches_out]).tolist()))
+    got = rows_of(sink.batches)
+    direct_rows, _, direct_s, _ = cep_drive(cep_op(device, "on"), batches,
+                                            stop=CEP_JOB_BATCHES)
+    want = []
+    for _, k, amt, ts, (kd, ad, td) in direct_rows:
+        want.extend(zip(np.frombuffer(k, kd).tolist(),
+                        np.frombuffer(amt, ad).tolist(),
+                        np.frombuffer(ts, td).tolist()))
+    check(got == sorted(want) and got, f"path 42: the job's {len(got)} "
+          f"matches differ from CepOperator's {len(want)} driven directly")
+    model = cep_model(batches)
+    check(set(log) == model and len(log) == len(model),
+          f"path 42: {len(log)} matches, the model {len(model)}")
+    n = sum(len(b[0]) for b in batches)
+    p50, p99 = np.percentile([ms for ms, _ in drain_ms], [50, 99])
+    print(f"path 42 (CEP.pattern(keyed, fraud).select(vectorized=\"on\") as "
+          f"a DataStream job, the step on the card): {n} events in "
+          f"{wall:.3f} s = {n / wall:.1f} events/s; {len(got)} matches equal "
+          f"CepOperator driven directly ({direct_s:.3f} s) and the model; "
+          f"drain p50/p99 {p50:.3f}/{p99:.3f} ms over {len(drain_ms)} "
+          f"watermark calls; launches {launches}; {card}")
+    return launches, {"events_per_s": n / wall, "drain_p50_ms": p50,
+                      "drain_p99_ms": p99}
+
+
+def path43(device, card, batches):
+    """Path 43: the interval and window joins' DataStream routes with the
+    device lane on (``FLINK_TPU_DEVICE_JOIN=1``)."""
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.operators.joins import (IntervalJoinOperator,
+                                                 WindowJoinOperator)
+    from flink_tpu_torch.windowing import TumblingEventTimeWindows
+    left = batches[:TABLE_BATCHES]
+    right = make_batches(TABLE_BATCHES * BATCH, N_KEYS, BATCH, WINDOW_MS,
+                         seed=RIGHT_SEED)
+    prev = os.environ.get("FLINK_TPU_DEVICE_JOIN")
+    os.environ["FLINK_TPU_DEVICE_JOIN"] = "1"
+    try:
+        env = StreamExecutionEnvironment(device=device)
+        sink = (keyed_job(env, left, e=True)
+                .interval_join(keyed_job(env, right, e=True))
+                .between(JOIN_LOWER_MS, JOIN_UPPER_MS).process().collect())
+        sync(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        env.execute("interval-join")
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        job_operator(env, IntervalJoinOperator)
+        lv = np.concatenate([b[1] for b in left])
+        rv = np.concatenate([b[1] for b in right])
+        e = np.concatenate([np.asarray(b.column("e")) for b in sink.batches])
+        re_ = np.concatenate([np.asarray(b.column("r_e"))
+                              for b in sink.batches])
+        check(all(np.concatenate([np.asarray(b.column(c)) for b in
+                                  sink.batches]).tobytes() == want.tobytes()
+                  for c, want in (("v", lv[e]), ("r_v", rv[re_]))),
+              "path 43: the interval join's values are not its inputs'")
+        pairs = np.sort(e * (1 << 32) + re_)
+        check(np.array_equal(pairs, HELD["path 30"]) and pairs.size,
+              f"path 43: the interval join's {pairs.size} pairs differ from "
+              f"path 30's {HELD['path 30'].size}")
+        n_in = sum(len(b[0]) for b in left) + sum(len(b[0]) for b in right)
+        print(f"path 43 interval join (key_by(k).interval_join().between("
+              f"{JOIN_LOWER_MS}, {JOIN_UPPER_MS}).process(), the device "
+              f"lane): {n_in} rows in {wall:.3f} s, {pairs.size} pairs = "
+              f"{pairs.size / wall:.1f} pairs/s, equal to path 30's "
+              f"(operator driven directly); launches {launches}; {card}")
+        wl, wr = left[:WINDOW_JOIN_BATCHES], right[:WINDOW_JOIN_BATCHES]
+        env = StreamExecutionEnvironment(device=device)
+        sink = (keyed_job(env, wl, e=True)
+                .join(keyed_job(env, wr, e=True)).where("k").equal_to("k")
+                .window(TumblingEventTimeWindows.of(WINDOW_MS))
+                .apply(lambda c: {"e": c["e"], "r_e": c["r_e"],
+                                  "window_start": c["window_start"]})
+                .collect())
+        reset_launches()
+        t0 = time.perf_counter()
+        env.execute("window-join")
+        sync(device)
+        wwall = time.perf_counter() - t0
+        wlaunches = read_launches()
+        job_operator(env, WindowJoinOperator)
+    finally:
+        if prev is None:
+            os.environ.pop("FLINK_TPU_DEVICE_JOIN", None)
+        else:
+            os.environ["FLINK_TPU_DEVICE_JOIN"] = prev
+    got = np.sort(np.concatenate(
+        [np.asarray(b.column("e")) * (1 << 32) + np.asarray(b.column("r_e"))
+         for b in sink.batches]))
+    # the model: every (left, right) row pair of one key and one window
+    lk = np.concatenate([b[0] for b in wl])
+    lw = np.concatenate([b[2] for b in wl]) // WINDOW_MS
+    rk = np.concatenate([b[0] for b in wr])
+    rw = np.concatenate([b[2] for b in wr]) // WINDOW_MS
+    lcode, rcode = lw * N_KEYS + lk, rw * N_KEYS + rk
+    order = np.argsort(rcode, kind="stable")
+    lo = np.searchsorted(rcode[order], lcode, "left")
+    hi = np.searchsorted(rcode[order], lcode, "right")
+    cnt = hi - lo
+    li = np.repeat(np.arange(lcode.size), cnt)
+    ri = order[np.repeat(lo - np.cumsum(cnt) + cnt, cnt)
+               + np.arange(cnt.sum())]
+    want = np.sort(li.astype(np.int64) * (1 << 32) + ri)
+    digest = hashlib.sha256(got.tobytes()).hexdigest()
+    check(np.array_equal(got, want) and got.size,
+          f"path 43: the window join's {got.size} pairs differ from the "
+          f"model's {want.size}")
+    print(f"path 43 window join (join().where(k).equal_to(k).window("
+          f"tumbling {WINDOW_MS}).apply(fn), the device lane) over "
+          f"{WINDOW_JOIN_BATCHES} batches a side: {got.size} pairs in "
+          f"{wwall:.3f} s = {got.size / wwall:.1f} pairs/s; pair count and "
+          f"digest {digest[:16]} equal the numpy model; launches "
+          f"{wlaunches}; {card}")
+    total = {k: launches[k] + wlaunches[k] for k in launches}
+    return total, {"pairs_per_s": pairs.size / wall,
+                   "window_pairs_per_s": got.size / wwall}
+
+
+def path44(card, batches):
+    """Path 44: path 36's process function on the spill keyed backend
+    (``state.backend: spill``, an 8 MiB budget): host C and numpy, the card
+    idle."""
+    from flink_tpu_torch.config.config_option import Configuration
+    from flink_tpu_torch.config.options import StateOptions
+    from flink_tpu_torch.core.functions import RuntimeContext
+    from flink_tpu_torch.operators.process import KeyedProcessOperator
+    from flink_tpu_torch.state import make_keyed_backend
+    from flink_tpu_torch.state.heap import HeapKeyedStateBackend
+    from flink_tpu_torch.state.spill import SpillKeyedStateBackend
+    batches = batches[:SPILL_BATCHES]
+    cfg = Configuration()
+    cfg.set(StateOptions.BACKEND, "spill")
+
+    # the configured route, then the backend it builds with the path's
+    # budget (make_keyed_backend takes none, as JAX's)
+    routed = make_keyed_backend(cfg)
+    check(type(routed) is SpillKeyedStateBackend,
+          f"path 44: state.backend spill made {type(routed).__name__}")
+    routed.close()
+
+    def make(spill=True):
+        be = (SpillKeyedStateBackend(None, mem_budget=SPILL_BUDGET) if spill
+              else HeapKeyedStateBackend())
+        op = KeyedProcessOperator(process_function(), "kw", backend=be)
+        op.open(RuntimeContext())
+        return op, be
+
+    def bits(out):
+        return [(b.column("k").tobytes(), b.column("window_start").tobytes(),
+                 b.column("result").tobytes(), b.column("count").tobytes())
+                for b in out]
+
+    op, be = make()
+    reset_launches()
+    calls, sizes = [], []
+    t0 = time.perf_counter()
+    with timed_calls(KeyedProcessOperator, "process_watermark", calls,
+                     lambda: sizes.append((be.store.mem_used(),
+                                           be.store.log_bytes()))):
+        fired, snap = process_drive(op, batches,
+                                    snap_after=SPILL_SNAPSHOT_AFTER)
+    wall = time.perf_counter() - t0
+    fire_ms = [ms for ms, out in calls if out]
+    # the store before the end of input's fire, when it holds every key
+    resident, log = sizes[-1]
+    launches = read_launches()
+    check(all(v == 0 for v in launches.values()),
+          f"path 44: launches {launches}; the spill tier is host C")
+    heap, _ = make(spill=False)
+    twin, _ = process_drive(heap, batches)
+    check(bits(fired) == bits(twin) and fired, "path 44: the spill backend's "
+          "fires differ from the heap's (path 36's backend) in their bits")
+    check_fires(fired, reference(batches), "path 44")
+    # the snapshot restored into a fresh backend, made durable and
+    # compacted with every key in it, then replayed
+    rop, rbe = make()
+    r0 = time.perf_counter()
+    rop.restore_state(snap)
+    restore_ms = (time.perf_counter() - r0) * 1e3
+    p0 = time.perf_counter()
+    rbe.persist()
+    persist_ms = (time.perf_counter() - p0) * 1e3
+    c0 = time.perf_counter()
+    reclaimed = rbe.compact()
+    compact_ms = (time.perf_counter() - c0) * 1e3
+    rest, _ = process_drive(rop, batches, start=SPILL_SNAPSHOT_AFTER)
+    check(bits(rest) == bits(fired), "path 44: the replay from the snapshot "
+          f"after batch {SPILL_SNAPSHOT_AFTER} differs from the run")
+    n = sum(len(b[0]) for b in batches)
+    p50, p99 = np.percentile(fire_ms, [50, 99])
+    print(f"path 44: KeyedProcessOperator on the spill backend "
+          f"(state.backend spill, an {SPILL_BUDGET >> 20} MiB budget; host C "
+          f"and numpy, the card idle) over {len(batches)} batches: {n} "
+          f"records in {wall:.3f} s = {n / wall:.1f} records/s; fire p50/p99 "
+          f"{p50:.1f}/{p99:.1f} ms over {len(fire_ms)} firing calls; before "
+          f"the fires {resident} B resident "
+          f"and {log} B of log; the fires equal the heap backend's bit for "
+          f"bit and the reference (rtol {RTOL}); the snapshot after batch "
+          f"{SPILL_SNAPSHOT_AFTER} restored ({restore_ms:.1f} ms) into a "
+          f"fresh backend, persisted ({persist_ms:.1f} ms) and compacted "
+          f"({compact_ms:.1f} ms, {reclaimed} B reclaimed) replays bit for "
+          f"bit; launches "
+          f"{launches}; {card}")
+    for o in (op, rop):
+        o.close()
+    return launches, {"records_per_s": n / wall, "resident_bytes": resident,
+                      "log_bytes": log, "persist_ms": persist_ms,
+                      "compact_ms": compact_ms}
+
+
+def slice17(device, card, batches):
+    """Paths 40-44: the rest of the local job path and the DataStream
+    routes."""
+    t0 = time.perf_counter()
+    launches, numbers = {}, {}
+    t1 = time.perf_counter()
+    launches["path 40"], numbers["path 40"] = path40(device, card, batches)
+    print(f"path 40 took {time.perf_counter() - t1:.1f} s of command time")
+    t1 = time.perf_counter()
+    launches["path 41"], numbers["path 41"] = path41(
+        device, card, batches, make_session_batches())
+    print(f"path 41 took {time.perf_counter() - t1:.1f} s of command time")
+    t1 = time.perf_counter()
+    launches["path 42"], numbers["path 42"] = path42(device, card,
+                                                     make_cep_batches())
+    print(f"path 42 took {time.perf_counter() - t1:.1f} s of command time")
+    t1 = time.perf_counter()
+    launches["path 43"], numbers["path 43"] = path43(device, card, batches)
+    print(f"path 43 took {time.perf_counter() - t1:.1f} s of command time")
+    t1 = time.perf_counter()
+    launches["path 44"], numbers["path 44"] = path44(card, batches)
+    print(f"path 44 took {time.perf_counter() - t1:.1f} s of command time")
+    print(f"slice 17 took {time.perf_counter() - t0:.1f} s of command time")
+    return launches, numbers
+
+
 def main() -> None:
     try:
         import torch
@@ -5208,6 +5946,8 @@ def main() -> None:
             device, label, stream, session_ref)
         if label == "path 22":
             session_ref["path 22"] = fired_12
+        if label == "path 23":
+            HELD["path 23"] = session_rows([b for _, b in fired_12])
         del fired_12
         print(f"{label} took {time.perf_counter() - t1:.1f} s of command "
               f"time")
@@ -5254,6 +5994,10 @@ def main() -> None:
     slice16_launches, slice16_numbers = slice16(device, card)
     launches.update(slice16_launches)
     numbers.update(slice16_numbers)
+    HELD.update({k: ab_want[k] for k in ("path 14", "path 15")})
+    slice17_launches, slice17_numbers = slice17(device, card, batches)
+    launches.update(slice17_launches)
+    numbers.update(slice17_numbers)
     for name, phase in (("pipeline A/B", lambda: pipeline_ab(
             device, "path 9", "path 3", ab_want["path 3"])),
             ("guard A/B", lambda: guard_ab(device, batches, ab_want)),
@@ -5326,7 +6070,7 @@ def main() -> None:
     kernels.append(probe_fold_phase(device, rng, dki))
     kernels.append(scatter_fold_phase(device, rng))
     every_path = (ORDER + SLICE11 + SLICE12 + SLICE13 + SLICE14 + SLICE15
-                  + SLICE16)
+                  + SLICE16 + SLICE17)
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]]
                    for label in every_path}
@@ -5350,10 +6094,11 @@ def main() -> None:
     for label in (*DEVICE_PATHS, *PAGED_PATHS, *FAULTS, "path 8", "path 9",
                   *SLICE11_SCATTER, "path 23", "path 24", "path 25",
                   "path 28", "path 29", "path 32", "path 34", "path 35",
-                  *SLICE16):
+                  *SLICE16, "path 40", "path 41"):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
     check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")
+    check(launches["path 40"]["probe"] > 0, "path 40: no probe launch")
     check(launches["path 14"]["probe"] > 0
           and launches["path 14"]["scatter_fold"] > 0,
           "path 14: no probe or scatter_fold launch")

@@ -35,8 +35,8 @@ SKIP_PAST_LAST_EVENT after-match strategies (``NFA.java:86``,
 maps them to slots through ``state/keyindex.py`` ``make_key_index`` (the C
 keydict for integer keys, an ``ObjectKeyIndex`` for others).
 
-``CEP``/``PatternStream`` (the DataStream entry) and the drain's tracing
-span come with the runtime stack slice.
+``CEP.pattern(keyed, pattern).select(fn)`` is the DataStream entry; the
+drain's tracing span comes with the observability slice.
 """
 
 from __future__ import annotations
@@ -1422,15 +1422,30 @@ def _harvest_block(tab, block, keymask, now):
 
 
 
+class CEP:
+    """Entry point (``CEP.java``): ``CEP.pattern(keyed_stream, pattern)``."""
 
-#: the refusal of the DataStream entry (``CEP.pattern(...).select(...)``)
-LATER_DATASTREAM = ("not in this slice of flink_tpu_torch: CEP and "
-                    "PatternStream build DataStreams, which come with the "
-                    "runtime stack slice (ROADMAP Queue A item 8); drive "
-                    "CepOperator directly")
+    @staticmethod
+    def pattern(keyed_stream, pattern: Pattern) -> "PatternStream":
+        return PatternStream(keyed_stream, pattern)
 
 
-def __getattr__(name: str):
-    if name in ("CEP", "PatternStream"):
-        raise NotImplementedError(f"{name}: {LATER_DATASTREAM}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+class PatternStream:
+    """``CEP.pattern(...)``: ``select`` appends a :class:`CepOperator` on the
+    keyed stream, its batched engine's step on the environment's device."""
+
+    def __init__(self, keyed_stream, pattern: Pattern):
+        self.keyed = keyed_stream
+        self.pattern = pattern
+
+    def select(self, fn: Callable[[Dict[str, List[dict]]], dict],
+               name: str = "cep-select", vectorized: str = "auto"):
+        from flink_tpu_torch.datastream.api import DataStream
+        key_col = self.keyed.key_column
+        pat = self.pattern
+        env = self.keyed.env
+        t = self.keyed._then(
+            name, lambda _v=vectorized: CepOperator(
+                pat, key_col, fn, name, vectorized=_v,
+                device=env.operator_device()))
+        return DataStream(env, t)

@@ -12,11 +12,14 @@ The environment's ``device`` (None: the card) goes to every device operator
 it builds, through :func:`flink_tpu_torch.resolve_device` when the job's
 operators are built: a job on the CPU asks for it (``device="cpu"``), and
 nothing falls back on its own.  Host operators (map, filter, keyBy,
-timestamps, sessions, sinks) need no device.  The routes whose modules come
-with later slices raise ``NotImplementedError`` and name their item of
-``ROADMAP.md`` Queue A: the MiniCluster (8.4); two-input, async and
-iteration operators, the host evicting lane, the window and interval joins
-and the environment's mesh (8.2); late side outputs (8.1).
+timestamps, sessions, sinks, the two-input, async, iteration and host
+evicting operators) need no device.  The joins take it unresolved: their
+device lane (``FLINK_TPU_DEVICE_JOIN=1``) resolves it when it runs.  The
+environment's ``mesh`` (a :class:`flink_tpu_torch.parallel.mesh.DeviceMesh`)
+routes keyed windows and sessions to the mesh operators
+(``parallel/mesh_runtime.py``), whose blocks sit on the mesh's devices.
+The MiniCluster route raises ``NotImplementedError`` and names its item of
+``ROADMAP.md`` Queue A (8.4).
 """
 
 from __future__ import annotations
@@ -52,24 +55,13 @@ from flink_tpu_torch.windowing.triggers import Trigger
 
 __all__ = ["StreamExecutionEnvironment", "DataStream", "KeyedStream",
            "WindowedStream", "DataStreamSink", "SlidingCountWindowedStream",
-           "LATER"]
+           "IterativeStream", "ConnectedStreams", "JoinBuilder",
+           "IntervalJoinBuilder", "LATER"]
 
 #: the routes of the JAX API whose modules later slices bring, by the item
 #: of ROADMAP.md Queue A that clears each
 LATER = {
     "cluster": "the MiniCluster comes with the cluster runtime (8.4)",
-    "mesh": "the environment's mesh comes with the DataStream routing to "
-            "the mesh operators (8.2)",
-    "two_input": "two-input operators (connect, broadcast state) come with "
-                 "the host operators (8.2)",
-    "async": "async I/O comes with the host operators (8.2)",
-    "iteration": "streaming iterations come with the host operators (8.2)",
-    "joins": "the window and interval joins' DataStream routes come with "
-             "8.2",
-    "host_evicting": "the host evicting lane (apply over raw elements) "
-                     "comes with the host operators (8.2)",
-    "late_output": "late side outputs come with the rest of the local job "
-                   "path (8.1)",
 }
 
 
@@ -85,8 +77,6 @@ class StreamExecutionEnvironment:
     def __init__(self, config: Optional[Configuration] = None,
                  parallelism: int = 1, max_parallelism: int = 128,
                  mesh=None, device: DeviceLike = None):
-        if mesh is not None:
-            raise _later("mesh")
         self.config = config or Configuration()
         self.parallelism = parallelism
         self.max_parallelism = max_parallelism
@@ -94,11 +84,23 @@ class StreamExecutionEnvironment:
         self._sinks: List[Transformation] = []
         self.checkpoint_interval_ms = 0
         self.checkpoint_storage = None
-        self.mesh = None
+        #: a DeviceMesh: keyed window and session state splits over it by
+        #: key group, and keyed records ride the bucketed exchange
+        #: (parallel/mesh_runtime.py)
+        self.mesh = mesh
 
     def set_mesh(self, mesh=None, n_devices: Optional[int] = None
                  ) -> "StreamExecutionEnvironment":
-        raise _later("mesh")
+        """Run keyed window aggregations sharded over a device mesh (key
+        groups -> mesh positions).  With no arguments, a mesh over every
+        visible card; ``n_devices`` more cards than are visible raises (a
+        mesh passed in, ``make_mesh(devices=["cuda:0"] * 4)``, puts several
+        blocks on one card)."""
+        if mesh is None:
+            from flink_tpu_torch.parallel.mesh import make_mesh
+            mesh = make_mesh(n_devices)
+        self.mesh = mesh
+        return self
 
     @staticmethod
     def get_execution_environment(
@@ -286,22 +288,46 @@ class DataStream:
         """Route everything to subtask 0 (``GlobalPartitioner`` analog)."""
         return self._repartition("global", Partitioning.GLOBAL)
 
-    def iterate(self, max_wait_ms: int = 200):
-        raise _later("iteration")
+    def iterate(self, max_wait_ms: int = 200) -> "IterativeStream":
+        """Streaming iteration (``DataStream.iterate`` analog): returns a
+        stream that unions this one with a feedback edge; wire the loop body
+        back with ``close_with(feedback_stream)``."""
+        from flink_tpu_torch.operators.iteration import (FeedbackQueue,
+                                                         FeedbackSource)
+
+        q = FeedbackQueue()
+        fb = self.env.from_source(FeedbackSource(q, max_wait_ms),
+                                  "iteration-head")
+        unioned = self.union(fb)
+        return IterativeStream(self.env, unioned.transformation, q)
 
     # ------------------------------------------------- two-input operations
-    def connect(self, other: "DataStream"):
-        raise _later("two_input")
+    def connect(self, other: "DataStream") -> "ConnectedStreams":
+        """Two streams, one two-input operator (``ConnectedStreams``)."""
+        return ConnectedStreams(self.env, self, other)
 
     def connect_broadcast(self, rules: "DataStream", fn,
-                          name: str = "broadcast-connect"):
-        raise _later("two_input")
+                          name: str = "broadcast-connect") -> "DataStream":
+        """Broadcast state pattern: ``rules`` replicates to every subtask;
+        ``fn`` is a BroadcastProcessFunction."""
+        from flink_tpu_torch.operators.co import BroadcastConnectOperator
 
-    def join(self, other: "DataStream"):
-        raise _later("joins")
+        t = Transformation(
+            name=name,
+            operator_factory=lambda: BroadcastConnectOperator(fn, name),
+            inputs=[self.transformation, rules.transformation],
+            input_partitionings=[Partitioning.FORWARD, Partitioning.BROADCAST],
+            input_key_columns=[None, None],
+            parallelism=self.env.parallelism, chainable=False,
+            max_parallelism=self.env.max_parallelism)
+        return DataStream(self.env, t)
 
-    def co_group(self, other: "DataStream"):
-        raise _later("joins")
+    def join(self, other: "DataStream") -> "JoinBuilder":
+        """``a.join(b).where(k).equal_to(k2).window(w).apply(fn)``."""
+        return JoinBuilder(self.env, self, other, cogroup=False)
+
+    def co_group(self, other: "DataStream") -> "JoinBuilder":
+        return JoinBuilder(self.env, self, other, cogroup=True)
 
     def get_side_output(self, tag) -> "DataStream":
         """Side-output stream of an upstream process function
@@ -315,8 +341,16 @@ class DataStream:
         return DataStream(self.env, t)
 
     def async_wait(self, fn, capacity: int = 16, timeout_ms: int = 60_000,
-                   ordered: bool = True, name: str = "async-wait"):
-        raise _later("async")
+                   ordered: bool = True,
+                   name: str = "async-wait") -> "DataStream":
+        """Async I/O (``AsyncDataStream.orderedWait/unorderedWait``):
+        ``fn(cols) -> cols`` runs on a worker pool, one task a batch."""
+        from flink_tpu_torch.operators.async_io import AsyncWaitOperator
+
+        t = self._then(name, lambda: AsyncWaitOperator(
+            fn, capacity=capacity, timeout_ms=timeout_ms, ordered=ordered,
+            name=name), chainable=False)
+        return DataStream(self.env, t)
 
     # -------------------------------------------------------------- sinks
     def add_sink(self, sink: Sink, name: str = "sink") -> "DataStreamSink":
@@ -340,6 +374,142 @@ class DataStream:
         sink = self.collect()
         self.env.execute(job_name)
         return sink.rows()
+
+
+class IterativeStream(DataStream):
+    """Result of ``iterate()``: a stream with an open feedback edge."""
+
+    def __init__(self, env, transformation, queue):
+        super().__init__(env, transformation)
+        self.queue = queue
+
+    def close_with(self, feedback: DataStream) -> None:
+        """Attach the feedback edge (``IterativeStream.closeWith``)."""
+        from flink_tpu_torch.operators.iteration import FeedbackSinkOperator
+
+        q = self.queue
+        t = feedback._then("iteration-tail",
+                           lambda: FeedbackSinkOperator(q), chainable=False)
+        t.is_sink = True
+        self.env._register_sink(t)
+
+
+class ConnectedStreams:
+    """``DataStream.connect`` result: map/flat_map/process over two inputs."""
+
+    def __init__(self, env: StreamExecutionEnvironment, left: DataStream,
+                 right: DataStream):
+        self.env = env
+        self.left = left
+        self.right = right
+
+    def _two_input(self, name: str, factory) -> DataStream:
+        t = Transformation(
+            name=name, operator_factory=factory,
+            inputs=[self.left.transformation, self.right.transformation],
+            parallelism=self.env.parallelism, chainable=False,
+            max_parallelism=self.env.max_parallelism)
+        return DataStream(self.env, t)
+
+    def map(self, fn1, fn2, name: str = "co-map") -> DataStream:
+        from flink_tpu_torch.operators.co import CoMapOperator
+        return self._two_input(name, lambda: CoMapOperator(fn1, fn2, name))
+
+    def flat_map(self, fn1, fn2, name: str = "co-flat-map") -> DataStream:
+        from flink_tpu_torch.operators.co import CoFlatMapOperator
+        return self._two_input(name,
+                               lambda: CoFlatMapOperator(fn1, fn2, name))
+
+    def process(self, fn, name: str = "co-process") -> DataStream:
+        from flink_tpu_torch.operators.co import CoProcessOperator
+        return self._two_input(name, lambda: CoProcessOperator(fn, name))
+
+
+class JoinBuilder:
+    """``a.join(b).where(k).equal_to(k).window(w).apply(fn)``: the
+    JoinedStreams/CoGroupedStreams fluent chain, onto
+    :class:`flink_tpu_torch.operators.joins.WindowJoinOperator`."""
+
+    def __init__(self, env, left: DataStream, right: DataStream,
+                 cogroup: bool):
+        self.env = env
+        self.left = left
+        self.right = right
+        self.cogroup = cogroup
+        self._left_key: Optional[str] = None
+        self._right_key: Optional[str] = None
+        self._assigner: Optional[WindowAssigner] = None
+
+    def where(self, key_column: str) -> "JoinBuilder":
+        self._left_key = key_column
+        return self
+
+    def equal_to(self, key_column: str) -> "JoinBuilder":
+        self._right_key = key_column
+        return self
+
+    def window(self, assigner: WindowAssigner) -> "JoinBuilder":
+        self._assigner = assigner
+        return self
+
+    def apply(self, fn=None, name: str = "window-join") -> DataStream:
+        from flink_tpu_torch.operators.joins import WindowJoinOperator
+
+        if self._left_key is None or self._right_key is None:
+            raise ValueError("join needs .where(...) and .equal_to(...)")
+        assigner = self._assigner
+        if assigner is None:
+            raise ValueError("join needs .window(...)")
+        if self.cogroup and fn is None:
+            raise ValueError("co_group needs an apply function "
+                             "fn(key, window, left_rows, right_rows)")
+        lk, rk, cg = self._left_key, self._right_key, self.cogroup
+        device = self.env.device
+        t = Transformation(
+            name=name,
+            operator_factory=lambda: WindowJoinOperator(
+                assigner, lk, rk, apply_fn=fn, cogroup=cg, name=name,
+                device=device),
+            inputs=[self.left.transformation, self.right.transformation],
+            input_partitionings=[Partitioning.HASH, Partitioning.HASH],
+            input_key_columns=[lk, rk],
+            parallelism=self.env.parallelism, chainable=False,
+            max_parallelism=self.env.max_parallelism)
+        return DataStream(self.env, t)
+
+
+class IntervalJoinBuilder:
+    """``a.interval_join(b).between(lo, hi).process(fn)``, onto
+    :class:`flink_tpu_torch.operators.joins.IntervalJoinOperator`."""
+
+    def __init__(self, env, left: "KeyedStream", right: "KeyedStream"):
+        self.env = env
+        self.left = left
+        self.right = right
+        self._lower = 0
+        self._upper = 0
+
+    def between(self, lower_ms: int, upper_ms: int) -> "IntervalJoinBuilder":
+        self._lower, self._upper = lower_ms, upper_ms
+        return self
+
+    def process(self, fn=None, name: str = "interval-join") -> DataStream:
+        from flink_tpu_torch.operators.joins import IntervalJoinOperator
+
+        lk = self.left.key_column
+        rk = self.right.key_column
+        lo, hi = self._lower, self._upper
+        device = self.env.device
+        t = Transformation(
+            name=name,
+            operator_factory=lambda: IntervalJoinOperator(
+                lk, rk, lo, hi, output_fn=fn, name=name, device=device),
+            inputs=[self.left.transformation, self.right.transformation],
+            input_partitionings=[Partitioning.HASH, Partitioning.HASH],
+            input_key_columns=[lk, rk],
+            parallelism=self.env.parallelism, chainable=False,
+            max_parallelism=self.env.max_parallelism)
+        return DataStream(self.env, t)
 
 
 class DataStreamSink:
@@ -366,8 +536,9 @@ class KeyedStream(DataStream):
         super().__init__(env, transformation)
         self.key_column = key_column
 
-    def interval_join(self, other: "KeyedStream"):
-        raise _later("joins")
+    def interval_join(self, other: "KeyedStream") -> IntervalJoinBuilder:
+        """``a.interval_join(b).between(lo, hi).process()``."""
+        return IntervalJoinBuilder(self.env, self, other)
 
     def count_window(self, size: int, slide: Optional[int] = None):
         """``countWindow(size[, slide])`` analog.  Without ``slide``:
@@ -393,7 +564,8 @@ class KeyedStream(DataStream):
     def process(self, fn, name: str = "keyed-process") -> "DataStream":
         """Run a ``KeyedProcessFunction`` (keyed state + timers) on this
         stream (``KeyedStream.process`` analog).  The keyed backend follows
-        ``state.backend`` in the environment config (heap / changelog)."""
+        ``state.backend`` in the environment config (heap / spill /
+        changelog)."""
         from flink_tpu_torch.operators.process import KeyedProcessOperator
         from flink_tpu_torch.state import make_keyed_backend
         key_col = self.key_column
@@ -530,6 +702,7 @@ class WindowedStream:
         self.assigner = assigner
         self._trigger: Optional[Trigger] = None
         self._allowed_lateness = 0
+        self._late_tag: Optional[str] = None
         self._evictor = None
 
     def trigger(self, trigger: Trigger) -> "WindowedStream":
@@ -541,17 +714,56 @@ class WindowedStream:
         return self
 
     def side_output_late_data(self, tag) -> "WindowedStream":
-        raise _later("late_output")
+        """Route beyond-lateness records to a side output instead of
+        dropping them (``sideOutputLateData`` analog); read them downstream
+        with ``get_side_output(tag)``."""
+        from flink_tpu_torch.core.batch import OutputTag
+
+        self._late_tag = tag.name if isinstance(tag, OutputTag) else str(tag)
+        return self
 
     def evictor(self, evictor) -> "WindowedStream":
-        """Window path with eviction (``evictor(...)`` analog): ``aggregate``/
-        ``sum``/``count``/... with a Count/Time evictor run the device lane
-        (``operators/evicting_device.py``)."""
+        """Raw-element window path with eviction (``evictor(...)`` analog):
+        ``aggregate``/``sum``/``count``/... with a Count/Time evictor run the
+        device lane (``operators/evicting_device.py``); any evictor works
+        with the host ``apply`` lane (``operators/evicting_window.py``)."""
         self._evictor = evictor
         return self
 
     def apply(self, fn, name: str = "window-apply") -> DataStream:
-        raise _later("host_evicting")
+        """``fn(key, window, rows) -> row dict`` over the window's raw
+        (evicted) rows: the WindowFunction path, on the host (it buffers
+        elements; ``aggregate``/``reduce`` are the incremental lanes)."""
+        from flink_tpu_torch.operators.evicting_window import \
+            EvictingWindowOperator
+
+        if self._trigger is not None:
+            raise ValueError("custom triggers are not supported on the "
+                             "raw-element apply() path yet; use aggregate()")
+        if self._late_tag is not None:
+            raise ValueError("side_output_late_data is not supported on the "
+                             "raw-element apply() path yet; use aggregate()")
+        # the fire-time compute is the user's row function, so the buffers
+        # stay on the host; a mesh adds no parallelism to it
+        if self.keyed.env.mesh is not None:
+            import warnings
+            warnings.warn(
+                "raw-element apply() buffers and fires on the host (user "
+                "row function): the env mesh adds no device parallelism to "
+                "this operator; scale it with process parallelism (key-group"
+                " partitioned, rescale-safe)", stacklevel=2)
+        assigner = self.assigner
+        key_col = self.keyed.key_column
+        ev = self._evictor
+        lateness = self._allowed_lateness
+
+        def factory():
+            # evictors can hold per-fire scratch: every subtask gets its own
+            return EvictingWindowOperator(assigner, copy.deepcopy(ev),
+                                          key_col, fn, name,
+                                          allowed_lateness_ms=lateness)
+
+        return DataStream(self.keyed.env, self.keyed._then(name, factory))
 
     def aggregate(self, agg: AggregateFunction,
                   value_column: Optional[str] = None,
@@ -578,9 +790,11 @@ class WindowedStream:
         keyed, assigner = self.keyed, self.assigner
         env = keyed.env
         trigger, lateness = self._trigger, self._allowed_lateness
+        late_tag = self._late_tag
         ev = self._evictor
         if (paging is not None or emit_tier is not None) and (
-                ev is not None or not hasattr(assigner, "pane_of")):
+                ev is not None or env.mesh is not None
+                or not hasattr(assigner, "pane_of")):
             raise ValueError("paging/emit_tier apply to the (unsharded) "
                              "pane-ring window operator — not evictors, "
                              "session windows or mesh-sharded state")
@@ -602,7 +816,7 @@ class WindowedStream:
                     "evictors require a pane-based window assigner "
                     "(tumbling/sliding); session windows do not support "
                     "evictors")
-            if trigger is not None:
+            if trigger is not None or late_tag is not None:
                 raise ValueError("custom triggers / side outputs are not "
                                  "supported with evictors")
             if value_column is None:
@@ -613,6 +827,12 @@ class WindowedStream:
                 else:
                     raise ValueError(
                         "evictor()+aggregate() needs value_column")
+            if env.mesh is not None:
+                import warnings
+                warnings.warn(
+                    "evictor()+aggregate() runs on a single device (the "
+                    "element buffer is not mesh-sharded yet); the env mesh "
+                    "is ignored for this operator", stacklevel=2)
             evictor_proto, evictor_vc = ev, value_column
 
             def factory():
@@ -633,20 +853,40 @@ class WindowedStream:
                     "(sessions fire when the gap closes); remove .trigger()")
             from flink_tpu_torch.operators.session_window import \
                 SessionWindowOperator
+            session_mesh = env.mesh
 
             def factory():
-                return SessionWindowOperator(
-                    assigner, agg, key_column=keyed.key_column,
+                kwargs = dict(
+                    key_column=keyed.key_column,
                     value_column=value_column, value_selector=value_selector,
                     allowed_lateness_ms=lateness,
-                    output_column=output_column, name=name)
+                    output_column=output_column, name=name,
+                    late_output_tag=late_tag)
+                if session_mesh is not None:
+                    from flink_tpu_torch.parallel.mesh_runtime import \
+                        MeshSessionWindowOperator
+                    return MeshSessionWindowOperator(
+                        assigner, agg, mesh=session_mesh, **kwargs)
+                return SessionWindowOperator(assigner, agg, **kwargs)
         else:
+            mesh = env.mesh
+
             def factory():
                 kwargs = dict(
                     assigner=assigner, agg=agg, key_column=keyed.key_column,
                     value_column=value_column, value_selector=value_selector,
                     allowed_lateness_ms=lateness, trigger=trigger,
-                    output_column=output_column, name=name)
+                    output_column=output_column, name=name,
+                    late_output_tag=late_tag)
+                if mesh is not None:
+                    # the blocks sit on the mesh's devices
+                    from flink_tpu_torch.parallel.mesh_runtime import \
+                        MeshWindowAggOperator
+                    return MeshWindowAggOperator(mesh=mesh,
+                                                 device_probe=device_probe,
+                                                 queryable=queryable,
+                                                 superbatch=superbatch,
+                                                 **kwargs)
                 if emit_tier is not None:
                     kwargs["emit_tier"] = emit_tier
                 return WindowAggOperator(paging=paging,

@@ -71,7 +71,7 @@ _INT32_MIN = -(2 ** 31)
 
 #: the refusal of ``as_dataset``
 NO_DATASET = ("not in this slice of flink_tpu_torch: Graph.as_dataset comes "
-              "with the DataSet API (the runtime-stack slice)")
+              "with the DataSet API (ROADMAP Queue A item 8.2b)")
 
 
 def combine_identity(kind: str, dtype: torch.dtype):

@@ -224,10 +224,11 @@ def host_mirror_lib() -> ctypes.CDLL:
 
 
 def spill_store_lib() -> ctypes.CDLL:
-    """``csrc/spill_store.cc`` (the paging tier's spill store) with every
-    entry point's C signature declared."""
+    """``csrc/spill_store.cc`` (the paging tier's cell store and the spill
+    keyed backend's key-value store) with every entry point's C signature
+    declared."""
     lib = load(SPILL_SOURCE)
-    if lib.ftt_spill_log_bytes.argtypes is not None:   # declared last
+    if lib.ftt_spill_kv_compact.argtypes is not None:   # declared last
         return lib
     i64, ci, vp, cp = (ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_char_p)
@@ -242,6 +243,20 @@ def spill_store_lib() -> ctypes.CDLL:
         "ftt_spill_count": (i64, [vp]),
         "ftt_spill_mem_used": (i64, [vp]),
         "ftt_spill_log_bytes": (i64, [vp]),
+        "ftt_spill_kv_open": (vp, [cp, i64]),
+        "ftt_spill_kv_close": (None, [vp]),
+        "ftt_spill_kv_put": (ci, [vp, cp, i64, cp, i64]),
+        "ftt_spill_kv_get": (i64, [vp, cp, i64, vp, i64]),
+        "ftt_spill_kv_delete": (ci, [vp, cp, i64]),
+        "ftt_spill_kv_count": (i64, [vp]),
+        "ftt_spill_kv_mem_used": (i64, [vp]),
+        "ftt_spill_kv_log_bytes": (i64, [vp]),
+        "ftt_spill_kv_log_garbage": (i64, [vp]),
+        "ftt_spill_kv_iter_begin": (vp, [vp]),
+        "ftt_spill_kv_iter_next": (i64, [vp, vp, i64]),
+        "ftt_spill_kv_iter_end": (None, [vp]),
+        "ftt_spill_kv_flush": (ci, [vp]),
+        "ftt_spill_kv_compact": (i64, [vp]),
     }
     with _lock:
         for name, (restype, argtypes) in sigs.items():

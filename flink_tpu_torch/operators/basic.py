@@ -338,12 +338,18 @@ class SinkOperator(StreamOperator):
         return []
 
     def on_latency_marker(self, marker) -> None:
-        """Source-to-sink latency sample (through the clock seam,
-        ``utils/clock.py``): comes with the rest of the local job path."""
-        raise NotImplementedError(
-            "not in this slice of flink_tpu_torch: latency markers come with "
-            "the rest of the runtime-stack slice's local job path (ROADMAP "
-            "Queue A item 8.1)")
+        """Source-to-sink latency sample (``LatencyStats`` at the sink),
+        read through the clock seam (``utils/clock.py``), so a chaos skew
+        covers latency tracking; a skew-negative sample clamps to 0.  The
+        newest samples stay in ``latencies_ms`` (past 1024, the oldest 512
+        go)."""
+        from flink_tpu_torch.utils import clock
+
+        self.latencies_ms = getattr(self, "latencies_ms", [])
+        self.latencies_ms.append(max(
+            0.0, (clock.now_ms_f() / 1000.0 - marker.marked_time) * 1000.0))
+        if len(self.latencies_ms) > 1024:
+            del self.latencies_ms[:512]
 
     def end_input(self) -> List[StreamElement]:
         # transactional sinks commit their last epoch at the end of input

@@ -34,9 +34,14 @@ Allowed lateness follows the reference: a fired session is retained until
 ``end + lateness`` passes the watermark; a late record inside that horizon
 merges in and re-fires the (possibly larger) session; records beyond it are
 dropped and counted, or shipped to ``late_output_tag`` as a
-:class:`TaggedBatch`.  Processing-time sessions raise
-``NotImplementedError``: they come with the rest of the local job path
-(ROADMAP Queue A item 8.1), over the clock seam ``utils/clock.py``.
+:class:`TaggedBatch`.
+
+Processing-time sessions (``ProcessingTimeSessionWindows``) stamp each
+batch's records with the arrival time from the clock seam
+(``utils/clock.py``; the last tick once one came), fire on the runtime's
+tick (:meth:`on_processing_time`, clamped monotone so a clock stepped back
+neither rewinds gap progress nor closes sessions early), fire nothing on a
+watermark, and fire every open session at the end of input, as JAX's.
 """
 
 from __future__ import annotations
@@ -46,8 +51,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from flink_tpu_torch.core import keygroups
-from flink_tpu_torch.core.batch import (LONG_MIN, RecordBatch, StreamElement,
-                                        TaggedBatch, Watermark)
+from flink_tpu_torch.core.batch import (LONG_MAX, LONG_MIN, RecordBatch,
+                                        StreamElement, TaggedBatch, Watermark)
 from flink_tpu_torch.core.functions import (SCATTER_UFUNCS, AggregateFunction,
                                             combine_rows, host_result,
                                             to_numpy, to_tensors, tree_leaves,
@@ -55,13 +60,8 @@ from flink_tpu_torch.core.functions import (SCATTER_UFUNCS, AggregateFunction,
 from flink_tpu_torch.operators.base import StreamOperator
 from flink_tpu_torch.operators.window_agg import _PhaseTimer
 from flink_tpu_torch.state.keyindex import make_key_index
+from flink_tpu_torch.utils import clock
 from flink_tpu_torch.windowing.assigners import SessionGap
-
-#: the refusal of processing-time sessions
-PROCESSING_TIME = ("not in this slice of flink_tpu_torch: processing-time "
-                   "sessions come with the rest of the runtime-stack slice's "
-                   "local job path (ROADMAP Queue A item 8.1; the clock "
-                   "seam is utils/clock.py)")
 
 
 class _SessionStore:
@@ -139,12 +139,10 @@ class SessionWindowOperator(StreamOperator):
                  late_output_tag: Optional[str] = None,
                  distinct_specs: Optional[Dict[str, str]] = None,
                  distinct_column: Optional[str] = None):
-        if not session.is_event_time:
-            raise NotImplementedError(PROCESSING_TIME)
         #: sideOutputLateData: beyond-lateness records ship as TaggedBatch
         #: instead of dropping (the drop counter stays untouched for them)
         self.gap = int(session.gap_ms)
-        self.is_event_time = True
+        self.is_event_time = session.is_event_time
         self.agg = agg
         self.key_column = key_column
         if value_selector is not None:
@@ -171,6 +169,8 @@ class SessionWindowOperator(StreamOperator):
             raise ValueError("distinct_specs needs distinct_column")
         self.watermark: int = LONG_MIN
         self.late_dropped: int = 0
+        #: processing time of the last tick (processing-time sessions)
+        self._proc_time: int = LONG_MIN
         #: host wall ns per phase: ``probe`` (the key index), ``fold`` (the
         #: batch's sessionization and fold; the mesh's exchange and device
         #: fold inside it), ``merge`` (the interval-set merge), ``fire``
@@ -182,11 +182,18 @@ class SessionWindowOperator(StreamOperator):
     def process_batch(self, batch: RecordBatch) -> List[StreamElement]:
         late_out: List[StreamElement] = []
         keys = np.asarray(batch.column(self.key_column))
-        if batch.timestamps is None:
-            raise ValueError(
-                "session windows need event timestamps "
-                "(assign_timestamps_and_watermarks upstream)")
-        ts = np.asarray(batch.timestamps, np.int64)
+        if self.is_event_time:
+            if batch.timestamps is None:
+                raise ValueError(
+                    "session windows need event timestamps "
+                    "(assign_timestamps_and_watermarks upstream)")
+            ts = np.asarray(batch.timestamps, np.int64)
+        else:
+            # processing time: the arrival time (the reference's
+            # ProcessingTimeSessionWindows assigns currentProcessingTime)
+            now = clock.now_ms() if self._proc_time == LONG_MIN \
+                else self._proc_time
+            ts = np.full(len(batch), now, np.int64)
         with _PhaseTimer(self.phase_ns, "probe"):
             if self.key_index is None:
                 self.key_index = make_key_index(keys[0])
@@ -197,7 +204,7 @@ class SessionWindowOperator(StreamOperator):
         # the reference (isWindowLate after mergeWindows): a candidate-late
         # record survives if it overlaps a still-retained session, because
         # the merged window then inherits that session's cleanup time.
-        if self.watermark != LONG_MIN:
+        if self.is_event_time and self.watermark != LONG_MIN:
             late = (ts + self.gap + self.lateness) <= self.watermark
             if late.any():
                 for i in np.nonzero(late)[0]:
@@ -269,7 +276,8 @@ class SessionWindowOperator(StreamOperator):
             st.sets[row] = dset
             survivors.append(row)
             st.by_key[k] = survivors
-            if absorbed_fired and end <= self.watermark:
+            if absorbed_fired and self.is_event_time \
+                    and end <= self.watermark:
                 refire.add(row)
 
         out: List[StreamElement] = []
@@ -344,11 +352,25 @@ class SessionWindowOperator(StreamOperator):
     # ------------------------------------------------------------- firing
     def process_watermark(self, watermark: Watermark) -> List[StreamElement]:
         self.watermark = watermark.timestamp
+        if not self.is_event_time:
+            return []
         with _PhaseTimer(self.phase_ns, "fire"):
             return self._fire_due(self.watermark)
 
+    def on_processing_time(self, timestamp_ms: int) -> List[StreamElement]:
+        # monotone clamp: a clock stepped back (chaos skew) must neither
+        # rewind session gap progress nor close sessions early
+        self._proc_time = max(self._proc_time, timestamp_ms)
+        if self.is_event_time:
+            return []
+        with _PhaseTimer(self.phase_ns, "fire"):
+            return self._fire_due(self._proc_time)
+
     def end_input(self) -> List[StreamElement]:
-        return []  # MAX_WATERMARK already fired everything
+        if self.is_event_time:
+            return []  # MAX_WATERMARK already fired everything
+        with _PhaseTimer(self.phase_ns, "fire"):
+            return self._fire_due(LONG_MAX)
 
     def _fire_due(self, t: int) -> List[StreamElement]:
         st = self.store

@@ -134,6 +134,11 @@ runs on the card.  **Processing-time windows** (``TumblingProcessingTime
 Windows``/``SlidingProcessingTimeWindows``) stamp each batch's records with
 the clock seam's time (``utils/clock.py``), fire on the runtime's tick
 (:meth:`on_processing_time`), and gate lateness on processing time.
+**Late side outputs** (``late_output_tag``): records beyond the allowed
+lateness leave as a :class:`TaggedBatch` on that tag, after the fires the
+same call surfaces, on every lane (host and device tiers, ``async_fire``,
+the super-batch, paging, the pipeline, the mesh), and ``late_dropped``
+counts only what no side output takes, as in JAX.
 
 Options of the JAX operator that belong to later slices raise
 ``NotImplementedError`` here (see :data:`_LATER`); nothing falls back.
@@ -153,7 +158,7 @@ import torch
 
 from flink_tpu_torch import DeviceLike, resolve_device
 from flink_tpu_torch.core.batch import (LONG_MIN, RecordBatch, StreamElement,
-                                        Watermark)
+                                        TaggedBatch, Watermark)
 from flink_tpu_torch.core.functions import (SCATTER_UFUNCS, AggregateFunction,
                                             canonical_tensor, torch_dtype,
                                             tree_leaves, tree_structure,
@@ -195,11 +200,10 @@ from flink_tpu_torch.windowing.triggers import (EventTimeTrigger, NeverTrigger,
 
 #: what this slice leaves out, and the later slice that brings it
 _LATER = {
-    "late_output": "late side outputs come with the rest of the "
-                   "runtime-stack slice's local job path (ROADMAP Queue A "
-                   "item 8.1)",
-    "incremental": "incremental snapshots come with the checkpoint slice",
-    "queryable": "queryable views come with the serving slice",
+    "incremental": "incremental snapshots come with the checkpoint slice "
+                   "(ROADMAP Queue A item 9)",
+    "queryable": "queryable views come with the serving slice (ROADMAP "
+                 "Queue A item 10)",
 }
 
 
@@ -488,13 +492,8 @@ class WindowAggOperator(StreamOperator):
             if emit_tier != "device":
                 raise ValueError("paging pins the device emit tier (the "
                                  "host mirror is unbounded host state)")
-        refusals = [
-            ("late_output", late_output_tag is not None),
-            ("queryable", queryable is not None),
-        ]
-        for what, refused in refusals:
-            if refused:
-                raise _later(what)
+        if queryable is not None:
+            raise _later("queryable")
         if sharding is not None:
             # sharded state lives on the mesh; the operator's own device
             # (the probe table, uploads before routing) is position 0
@@ -562,6 +561,9 @@ class WindowAggOperator(StreamOperator):
         else:
             self._select = lambda cols: cols
         self.lateness = int(allowed_lateness_ms)
+        #: sideOutputLateData: beyond-lateness records ship as a TaggedBatch
+        #: on this tag instead of being dropped (and not counted)
+        self.late_output_tag = late_output_tag
         self.output_column = output_column
         self.emit_window_bounds = emit_window_bounds
         self.name = name
@@ -2290,7 +2292,15 @@ class WindowAggOperator(StreamOperator):
             else:
                 live = ~np.isin(panes, cand[is_late])
             if live.size and not live.all():
-                self.late_dropped += int(np.count_nonzero(~live))
+                if self.late_output_tag is not None:
+                    # sideOutputLateData: the rows ship, they are not
+                    # dropped, so the drop counter stays as the reference's
+                    # (WindowOperator.java:437 counts only what no side
+                    # output takes)
+                    pending = list(pending) + [TaggedBatch(
+                        self.late_output_tag, batch.select(~live))]
+                else:
+                    self.late_dropped += int(np.count_nonzero(~live))
                 batch = batch.select(live)
                 if len(batch) == 0:
                     return pending

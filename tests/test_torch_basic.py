@@ -370,10 +370,29 @@ def test_sink_operator_lifecycle_equal_jax():
     assert seen["port"] == seen["jax"]
 
 
-def test_sink_latency_marker_waits_for_the_clock_seam():
-    op = pbasic.SinkOperator(_ListSink())
-    with pytest.raises(NotImplementedError, match="runtime-stack slice"):
-        op.on_latency_marker(object())
+def test_sink_latency_marker_waits_for_the_clock_seam(monkeypatch):
+    """Latency samples at the sink read the clock seam (a test clock in
+    both packages here): the same samples as JAX's, a skew-negative sample
+    clamped to 0, and the list trimmed past 1024 as JAX's."""
+    from flink_tpu.core.batch import LatencyMarker as JaxMarker
+    from flink_tpu.utils import clock as jclock
+    from flink_tpu_torch.core.batch import LatencyMarker
+    from flink_tpu_torch.utils import clock as pclock
+
+    now = [5_000.25]
+    for c in (jclock, pclock):
+        monkeypatch.setattr(c, "now_ms_f", lambda: now[0])
+    seen = {}
+    for side, Marker in (("jax", JaxMarker), ("port", LatencyMarker)):
+        S = SIDES[side]
+        op = S["basic"].SinkOperator(_ListSink())
+        for i in range(1100):
+            marked = 4.0 + (i % 7) * 0.0001 if i != 1000 else 9.0
+            op.on_latency_marker(Marker(marked_time=marked))
+        seen[side] = list(op.latencies_ms)
+    assert seen["port"] == seen["jax"]
+    assert len(seen["port"]) == 1100 - 512
+    assert min(seen["port"]) == 0.0 and max(seen["port"]) > 1000.0
 
 
 # ---------------------------------------------------------------------------

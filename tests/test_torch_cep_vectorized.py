@@ -618,17 +618,22 @@ def test_measured_calibration_reports_both_timings(monkeypatch):
 
 
 def test_cep_and_pattern_stream_refuse_until_the_runtime_stack():
+    """The name is from when the DataStream entry refused: since the local
+    job path's slice ``CEP`` and ``PatternStream`` are the package's, with
+    JAX's exports, and ``CEP.pattern(keyed, pattern)`` is a
+    ``PatternStream`` over that stream (its jobs are held to JAX's in
+    ``tests/test_torch_job_routes.py``)."""
     import flink_tpu_torch.cep as pcep
     for name in ("CEP", "PatternStream"):
-        with pytest.raises(NotImplementedError, match="runtime stack"):
-            getattr(pcep, name)
-        with pytest.raises(NotImplementedError, match="runtime stack"):
-            getattr(pop, name)
-    assert "CEP" not in pcep.__all__ and "PatternStream" not in pcep.__all__
+        assert getattr(pcep, name) is getattr(pop, name)
+    assert not hasattr(pop, "LATER_DATASTREAM")
     with pytest.raises(AttributeError):
         getattr(pcep, "NoSuchName")
     assert set(pcep.__all__) == set(__import__(
-        "flink_tpu.cep", fromlist=["x"]).__all__) - {"CEP", "PatternStream"}
+        "flink_tpu.cep", fromlist=["x"]).__all__)
+    ps = pcep.CEP.pattern("a keyed stream", "a pattern")
+    assert isinstance(ps, pcep.PatternStream)
+    assert (ps.keyed, ps.pattern) == ("a keyed stream", "a pattern")
 
 
 def test_vectorized_engine_refuses_object_keys():

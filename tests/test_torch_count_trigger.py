@@ -356,8 +356,9 @@ def test_the_generic_and_count_refusals_are_lifted():
     assert "generic" not in _LATER and "count" not in _LATER
     # (the evolution refusal went with the heap slice's state/evolution.py)
     # (object keys and processing time went with the object-key and the
-    # local-job slices)
-    assert set(_LATER) == {"late_output", "incremental", "queryable"}
+    # local-job slices, late side outputs with the rest of the local job
+    # path)
+    assert set(_LATER) == {"incremental", "queryable"}
 
 
 @pytest.mark.parametrize("side", list(SIDES))

@@ -1601,3 +1601,131 @@ def test_mesh_vector_leaves_on_four_blocks_of_one_card_equal_the_cpu(
     for a, b in zip(gs["acc"], cs["acc"], strict=True):
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
     assert gl == 4 * len(batches) and cl == 0
+
+
+def _late_stream(n_batches=8, B=4096, seed=41):
+    """Batches with per-batch watermarks; from batch 3 on every other batch
+    moves 1/8 of its rows beyond the lateness and 1/16 within it."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_batches):
+        k = rng.integers(0, 3000, B).astype(np.int64)
+        v = rng.random(B).astype(np.float32)
+        ts = i * 500 + np.sort(rng.integers(0, 500, B)).astype(np.int64)
+        if i >= 3 and i % 2 == 1:
+            ts[: B // 8] -= 2500
+            ts[B // 8: B // 8 + B // 16] -= 600
+        out.append((k, v, ts))
+    return out
+
+
+def _late_views(out):
+    views = []
+    for e in out:
+        if hasattr(e, "tag"):
+            b = e.batch
+            views.append(("late", e.tag, np.asarray(b.column("k")).tobytes(),
+                          np.asarray(b.column("v")).tobytes(),
+                          np.asarray(b.timestamps).tobytes()))
+        elif len(e):
+            views.append(("fire", np.asarray(e.column("k")).tobytes(),
+                          np.asarray(e.column("result")).tobytes()))
+    return views
+
+
+@pytest.mark.parametrize("async_fire", [False, True])
+def test_late_side_output_on_the_card_equals_the_cpu(cuda_device,
+                                                     async_fire):
+    """The device tier with ``late_output_tag`` on the card: every fire and
+    side output, in order, equals the CPU's; nothing is counted dropped."""
+    from flink_tpu_torch.core.functions import RuntimeContext
+    runs = []
+    for dev in (cuda_device, "cpu"):
+        op = WindowAggOperator(
+            TumblingEventTimeWindows.of(1000), SumAggregator(),
+            key_column="k", value_column="v", allowed_lateness_ms=700,
+            late_output_tag="late", emit_tier="device",
+            snapshot_source="device", device_sync="scatter",
+            async_fire=async_fire, device=dev)
+        op.open(RuntimeContext())
+        before = sc.ordered_fold_counts.launches
+        out = []
+        for k, v, ts in _late_stream():
+            out += op.process_batch(RecordBatch({"k": k, "v": v},
+                                                timestamps=ts))
+            out += op.process_watermark(Watermark(int(ts.max()) - 1))
+        out += op.end_input()
+        runs.append((_late_views(out), op.late_dropped,
+                     sc.ordered_fold_counts.launches - before))
+    (g, gd, gl), (c, cd, cl) = runs
+    assert g == c and gd == cd == 0 and gl > 0 and cl == 0
+    assert sum(v[0] == "late" for v in g) == 3
+
+
+def test_cep_select_on_the_card_equals_the_cpu(cuda_device):
+    """``CEP.pattern(keyed, pattern).select(fn, vectorized="on")`` through
+    the DataStream API: the card's matches equal the CPU's."""
+    from flink_tpu_torch.cep import CEP, Pattern
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    rng = np.random.default_rng(23)
+    n = 20000
+    cols = {"k": rng.integers(0, 500, n).astype(np.int64),
+            "amount": rng.integers(1, 1000, n).astype(np.int64),
+            "ts": np.sort(rng.integers(0, 100_000, n)).astype(np.int64)}
+    pattern = (Pattern.begin("small")
+               .where(lambda c: np.asarray(c["amount"]) < 20)
+               .followed_by("large")
+               .where(lambda c: np.asarray(c["amount"]) > 900)
+               .within(5000))
+    rows = []
+    for dev in (cuda_device, "cpu"):
+        env = StreamExecutionEnvironment(device=dev)
+        ks = (env.from_collection(columns=cols, timestamp_column="ts",
+                                  batch_size=4096)
+              .assign_timestamps_and_watermarks(0, timestamp_column="ts")
+              .key_by("k"))
+        rows.append(CEP.pattern(ks, pattern).select(
+            lambda m: {"k": m["small"][0]["k"],
+                       "t0": m["small"][0]["ts"],
+                       "t1": m["large"][0]["ts"]}, vectorized="on")
+            .execute_and_collect())
+    assert rows[0] == rows[1] and rows[0]
+
+
+def test_env_mesh_on_four_blocks_of_one_card_equals_the_mesh_operator(
+        cuda_device):
+    """``StreamExecutionEnvironment(mesh=make_mesh(devices=[cuda] * 4))``
+    routes the window sum to the mesh operator: its rows equal the mesh
+    operator driven by hand over the same batches on the card."""
+    from flink_tpu_torch.core.functions import RuntimeContext
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.parallel.mesh import make_mesh
+    from flink_tpu_torch.parallel.mesh_runtime import MeshWindowAggOperator
+    batches = _late_stream(n_batches=6, seed=3)
+    batches = [(k, v, np.sort(ts)) for k, v, ts in batches]
+    cols = {"k": np.concatenate([b[0] for b in batches]),
+            "v": np.concatenate([b[1] for b in batches]),
+            "t": np.concatenate([b[2] for b in batches])}
+    env = StreamExecutionEnvironment(
+        device=cuda_device, mesh=make_mesh(devices=[cuda_device] * 4))
+    rows = (env.from_collection(columns=cols, batch_size=4096)
+            .assign_timestamps_and_watermarks(0, timestamp_column="t")
+            .key_by("k").window(TumblingEventTimeWindows.of(1000))
+            .aggregate(SumAggregator(torch.float32), value_column="v")
+            .execute_and_collect())
+    op = MeshWindowAggOperator(
+        TumblingEventTimeWindows.of(1000), SumAggregator(torch.float32),
+        key_column="k", value_column="v",
+        mesh=make_mesh(devices=[cuda_device] * 4))
+    op.open(RuntimeContext())
+    out = []
+    wm = None
+    for k, v, t in batches:
+        out += op.process_batch(RecordBatch({"k": k, "v": v}, timestamps=t))
+        wm = int(t.max())
+        out += op.process_watermark(Watermark(wm))
+    out += op.process_watermark(Watermark(2 ** 63 - 1))
+    want = [r for b in out for r in b.to_rows()]
+    got = [{c: x for c, x in r.items() if c != "__ts__"} for r in rows]
+    key = lambda r: (r["window_start"], r["k"])  # noqa: E731
+    assert sorted(got, key=key) == sorted(want, key=key) and got

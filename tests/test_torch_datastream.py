@@ -3,8 +3,7 @@
 ``flink_tpu.datastream`` on the CPU.
 
 Every case of ``tests/test_datastream.py`` but ``test_side_output_late_
-data`` (late side outputs come with the rest of the local job path) runs as
-a scenario through both packages' environments on the same numpy inputs
+data`` (it is in ``tests/test_torch_late_output.py``) runs as a scenario through both packages' environments on the same numpy inputs
 (:func:`both`): the collected rows must be equal, in order, and the
 reference test's own expectation is asserted on the port's rows.  The port's
 environment runs its device operators on ``device="cpu"``.  The API's
@@ -14,7 +13,7 @@ here are exact in both.
 
 Also here: the verify skill's canonical flow with string keys, processing-
 time windows through the clock seam (a test clock, so windows fall where the
-test puts them), the routes of the JAX API that later slices bring (each
+test puts them), the route of the JAX API that a later slice brings (it
 raises and names its item), the keyed-process route over the configured
 backend, periodic checkpoints into any ``store(id, snapshot)`` object, and
 the socket source on a loopback server.
@@ -472,36 +471,34 @@ def test_keyed_process_route_over_the_configured_backend(backend):
     assert both(run)
 
 
-def test_spill_backend_and_later_routes_raise():
-    """Routes of the JAX API whose modules come with later slices raise and
-    name their item; nothing falls back."""
+def test_spill_backend_and_later_routes_raise(monkeypatch):
+    """The name is from when the spill backend and most routes raised.
+    Only the MiniCluster route still raises and names its item (8.4); the
+    spill backends build (their state is held to JAX's in
+    ``tests/test_torch_spill_state.py``), and ``set_mesh()`` without cards
+    raises as ``make_mesh`` does; nothing falls back."""
+    from flink_tpu_torch.datastream.api import LATER
+    assert set(LATER) == {"cluster"}
     env = pds.StreamExecutionEnvironment(device="cpu")
-    s = env.from_collection(columns={"k": np.zeros(2, np.int64),
-                                     "v": np.ones(2)})
-    ks = s.key_by("k")
-    for call, item in [
-            (lambda: env.execute_cluster(), "8.4"),
-            (lambda: env.set_mesh(), "8.2"),
-            (lambda: pds.StreamExecutionEnvironment(mesh=object()), "8.2"),
-            (lambda: s.connect(s), "8.2"),
-            (lambda: s.connect_broadcast(s, None), "8.2"),
-            (lambda: s.join(s), "8.2"),
-            (lambda: s.co_group(s), "8.2"),
-            (lambda: s.iterate(), "8.2"),
-            (lambda: s.async_wait(None), "8.2"),
-            (lambda: ks.interval_join(ks), "8.2"),
-            (lambda: ks.window(pwin.TumblingEventTimeWindows.of(10))
-             .apply(None), "8.2"),
-            (lambda: ks.window(pwin.TumblingEventTimeWindows.of(10))
-             .side_output_late_data("late"), "8.1")]:
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="8.4"):
+        env.execute_cluster()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        env.set_mesh()
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        env.set_mesh(n_devices=4)
     from flink_tpu_torch.state import make_keyed_backend
+    from flink_tpu_torch.state.changelog import ChangelogKeyedStateBackend
+    from flink_tpu_torch.state.spill import SpillKeyedStateBackend
     for name in ("spill", "changelog-spill"):
         cfg = Configuration()
         cfg.set(StateOptions.BACKEND, name)
-        with pytest.raises(NotImplementedError, match="8.1"):
-            make_keyed_backend(cfg)
+        b = make_keyed_backend(cfg)
+        inner = b.inner if name == "changelog-spill" else b
+        assert isinstance(inner, SpillKeyedStateBackend)
+        assert isinstance(b, ChangelogKeyedStateBackend) \
+            == (name == "changelog-spill")
+        inner.close()
     cfg = Configuration()
     cfg.set(StateOptions.BACKEND, "nope")
     with pytest.raises(ValueError, match="unknown state.backend"):

@@ -2,8 +2,7 @@
 ``MemoryManager.java`` analog): the accounting cases of
 ``tests/test_memory_manager.py`` through both packages (``side``), and the
 slot's manager handed to a keyed process function by the local executor.
-The spill-backend cases wait for the port's spill keyed backend (ROADMAP
-Queue A item 8.1)."""
+The spill-backend cases are in ``tests/test_torch_spill_state.py``."""
 
 import numpy as np
 import pytest

@@ -41,8 +41,7 @@ from flink_tpu_torch.core import functions as pfn
 from flink_tpu_torch.core.batch import RecordBatch, Watermark
 from flink_tpu_torch.interop import (session_snapshot_from_jax,
                                      session_snapshot_to_jax)
-from flink_tpu_torch.operators.session_window import (PROCESSING_TIME,
-                                                      SessionWindowOperator)
+from flink_tpu_torch.operators.session_window import SessionWindowOperator
 from flink_tpu_torch.parallel.mesh import make_mesh
 from flink_tpu_torch.parallel.mesh_runtime import MeshSessionWindowOperator
 from flink_tpu_torch.windowing import assigners as pas
@@ -110,6 +109,14 @@ def make_op(side, gap=10, lateness=0, agg="sum", mesh=None, **kw):
     if mesh is not None:
         return S["Mesh"](*args, mesh=S["mesh"](mesh), **kw)
     return S["Op"](*args, **kw)
+
+
+def S_proc(side, gap=10):
+    """A processing-time session operator of one package."""
+    S = SIDES[side]
+    return S["Op"](S["win"].ProcessingTimeSessionWindows(gap),
+                   _agg(side, "sum"), key_column="k", value_column="v",
+                   output_column="v")
 
 
 class Both:
@@ -553,12 +560,31 @@ def test_snapshots_cross_packages_mid_run(direction):
     assert rows(h.out) == rows(h2.out) and h.out
 
 
-def test_processing_time_and_object_keys_raise():
-    with pytest.raises(NotImplementedError, match="runtime-stack slice"):
-        SessionWindowOperator(pas.ProcessingTimeSessionWindows(10),
-                              pfn.SumAggregator(), key_column="k",
-                              value_column="v")
-    assert "clock seam" in PROCESSING_TIME
+def test_processing_time_and_object_keys_raise(monkeypatch):
+    """The name is from when both refused.  Processing-time sessions run
+    since the local job path's slice: records take the clock seam's time
+    (a test clock in both packages), ticks fire and clamp monotone, a
+    watermark fires nothing and ``end_input`` fires the rest, bit for bit
+    against JAX."""
+    from flink_tpu.utils import clock as jclock
+    from flink_tpu_torch.utils import clock as pclock
+    now = [1_000]
+    for c in (jclock, pclock):
+        monkeypatch.setattr(c, "now_ms", lambda: now[0])
+    h = Both(lambda s: S_proc(s))
+    h.batch([1, 2, 1], [1, 2, 3], [0, 0, 0])       # stamped 1000
+    now[0] = 1_005
+    h.batch([1, 3], [4, 5], [0, 0])                 # no tick yet: 1005
+    assert h.wm(1 << 40) == []                      # watermarks fire nothing
+    assert h._both(lambda s: h.ops[s].on_processing_time(1_009)) == []
+    fired = h._both(lambda s: h.ops[s].on_processing_time(1_010))
+    assert len(fired) == 1 and len(fired[0]) == 1   # key 2's session
+    h._both(lambda s: h.ops[s].on_processing_time(900))   # clamped
+    h.batch([4], [6], [0])                          # the tick's 1010
+    h.snapshot()
+    assert h._both(lambda s: h.ops[s].end_input())
+    assert h.fired() == [(1, 1000, 1015, 8.0), (2, 1000, 1010, 2.0),
+                         (3, 1005, 1015, 5.0), (4, 1010, 1020, 6.0)]
     # string keys run since the object-key slice: bit for bit against JAX,
     # on the single operator and on a mesh of 4
     rng = np.random.default_rng(31)

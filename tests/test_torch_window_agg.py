@@ -262,11 +262,11 @@ def test_interop_refuses_what_the_slice_does_not_carry(port_run):
 @pytest.mark.parametrize("kw", [
     {"queryable": "q"},
     # sharding is accepted since the mesh, count triggers since the
-    # count-trigger slice, processing time since the local job path's:
-    # its late side outputs still raise
+    # count-trigger slice, processing time and late side outputs since the
+    # local job path's: queryable views still raise with either
     {"assigner": TumblingProcessingTimeWindows.of(100),
-     "late_output_tag": "late"},
-    {"late_output_tag": "late"},
+     "queryable": "q"},
+    {"late_output_tag": "late", "queryable": "q"},
 ])
 def test_later_slices_refuse_honestly(kw):
     kw = dict(kw)
