@@ -8,8 +8,9 @@ Phases, each fatal on failure (exit code 1, no result line):
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build of every kernel of the port's main paths from
    ``flink_tpu_torch/csrc`` with nvcc (``sm_90a``), one nvcc per source, and
-   of the C host layer (``csrc/host_mirror.cc``: the keydict and the window
-   value mirror) with g++, all started together;
+   of the C host code with g++ (``csrc/host_mirror.cc``: the keydict and
+   the window value mirror; ``csrc/spill_store.cc``; ``csrc/codec.cc``: the
+   batch codec's FLZ blocks, varints and CRCs), all started together;
 3. kernel phase, probe: the device key probe (``csrc/probe.cu``, which
    hashes the int64 keys on the card) at the main path's shapes — a table of
    1M keys at capacity 2^21 (an interleaved ``[cap, 4]`` bucket array),
@@ -212,8 +213,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    for bit.  A/B lines: path 23 against path 22, paths 24 and 25 against
    path 5.
 9i. main paths 26-27 (slice 13), after path 25: path 26 is ``bench.py
-   --cep`` at its full size (``_cep_batches(1 << 22, 1_000_000, 1 << 18,
-   5000, seed=23)``: 16 batches of 2^18 events, keys uniform over 1M,
+   --cep``'s stream (``_cep_batches(1 << 22, 1_000_000, 1 << 18, 5000,
+   seed=23)`` cut to its first 8 batches of 2^18 events, keys uniform over 1M,
    amounts uniform over [0, 600), each event's stream position in a column
    ``e``) through ``CepOperator(vectorized="on")`` on the card: the fraud
    pattern (``v < 30`` followed by ``v > 570`` within 20,000 ms), the
@@ -359,6 +360,36 @@ Phases, each fatal on failure (exit code 1, no result line):
    persisted, compacted and fired bit for bit; host C and numpy, the card
    idle.
 
+9n. main paths 45-47 (slice 18), after path 44: the batch side.  Path 45
+   is TPC-H Query 3 as Flink's ``TPCHQuery3`` runs it on the DataSet API:
+   customer, orders and lineitem at SF ``TPCH_SF`` (150,000, 1,500,000 and
+   ~6.0 M rows from ``TPCH_SEED`` after dbgen's distributions), segment
+   BUILDING and date 1995-03-15: the filters, customer join orders join
+   lineitem, revenue summed by (orderkey, date, priority), the top 10, with
+   ``FLINK_TPU_DEVICE_JOIN=1`` (the joins on the card) and a row budget of
+   ``TPCH_BUDGET_ROWS`` (the lineitem join out of core: grace buckets in the
+   port's FTB files).  Held to a host-lane twin (the joined rows as a
+   multiset, the result's keys and order exactly, revenue to
+   ``TPCH_RTOL``), a replay of the card lane bit for bit (profiled: the
+   card's busy share), a numpy model of Q3, and ``stream_batches()``.  Path
+   46 is Flink's ``ConnectedComponents`` on the DataSet API: a delta
+   iteration (workset join edges, group-by min, join the solution set,
+   filter) over path 32's Kronecker generator at scale ``CC_SCALE``
+   undirected, whose edges come from the card through
+   ``Graph.as_dataset``; the labels equal ``Graph.connected_components``
+   on the card and scipy's weak components.  Path 47 is the State
+   Processor API: path 5's and path 14's operators over the stream's 24
+   batches, snapshotted inside the open window, stored through
+   ``FileCheckpointStorage``, loaded and read with ``read_window_state``
+   (``group_by("key").sum("acc0")`` equal to the f32 record-order
+   reference bit for bit for path 5, the reference to ``RTOL`` for path
+   14); ``BOOT_KEYS`` keys bootstrapped with ``SavepointWriter.
+   with_keyed_state`` into path 36's count state and restored into path
+   36's job on ``LocalExecutor``: its fires equal an un-bootstrapped run's
+   plus the bootstrap values.  Paths 45 and 46 launch no hand-written
+   kernel (the join's device work is torch ops); path 47 launches
+   ``scatter_fold`` through path 5's and path 14's operators.
+
 Each phase and path prints its command time on a line of its own.
 
 Each main path runs with every launch count set to 0 just before it and
@@ -402,6 +433,9 @@ SOURCES = ("probe.cu", "probe_fold.cu", "scatter_fold.cu")
 #: beside them with g++
 HOST_SOURCE = "host_mirror.cc"
 SPILL_SOURCE = "spill_store.cc"
+#: the batch codec of paths 45-47's spill files and savepoints' frames
+CODEC_SOURCE = "codec.cc"
+HOST_SOURCES = (HOST_SOURCE, SPILL_SOURCE, CODEC_SOURCE)
 #: host threads of the C probe + fold pass on paths 3 and 4 (pinned)
 NATIVE_SHARDS = min(4, os.cpu_count() or 1)
 
@@ -688,22 +722,23 @@ def build_kernels():
     together, then load each."""
     from flink_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES) + 2) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + len(HOST_SOURCES)) as pool:
         list(pool.map(lambda f: f(), [lambda s=s: build.build(s)
                                       for s in SOURCES]
                       + [lambda s=s: build.build_host(s)
-                         for s in (HOST_SOURCE, SPILL_SOURCE)]))
+                         for s in HOST_SOURCES]))
     build.probe_lib()
     build.probe_fold_lib()
     build.scatter_fold_lib()
     build.spill_store_lib()
+    build.codec_lib()
     host = build.host_mirror_lib()
-    print(f"build: {', '.join(SOURCES)}, {HOST_SOURCE}, {SPILL_SOURCE} in "
+    print(f"build: {', '.join(SOURCES + HOST_SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s wall (nvcc " + ", ".join(
               f"{s} {build.build_seconds.get(s, 0.0):.2f} s"
               for s in SOURCES) + "; g++ " + ", ".join(
               f"{s} {build.build_seconds.get(s, 0.0):.2f} s"
-              for s in (HOST_SOURCE, SPILL_SOURCE)) + ")")
+              for s in HOST_SOURCES) + ")")
     print(f"host layer: ftt_hw_threads() = {host.ftt_hw_threads()}, "
           f"os.cpu_count() = {os.cpu_count()}, native_shards = "
           f"{NATIVE_SHARDS} on paths 3 and 4")
@@ -3069,15 +3104,16 @@ def slice12_path(device, label, batches, ref):
 # ---------------------------------------------------------------------------
 
 SLICE13 = ("path 26", "path 27")
-#: ``bench.py --cep`` at its full size: ``_cep_batches(1 << 22, 1_000_000,
-#: 1 << 18, 5000, seed=23)`` and the fraud pattern within 4 windows
-CEP_RECORDS = 1 << 22
+#: ``bench.py --cep``'s stream: ``_cep_batches(1 << 22, 1_000_000, 1 << 18,
+#: 5000, seed=23)`` cut to its first 2^21 events (8 batches, widths
+#: unchanged) for the time limit, and the fraud pattern within 4 windows
+CEP_RECORDS = 1 << 21
 CEP_KEYS = 1_000_000
 CEP_BATCH = 1 << 18
 CEP_WINDOW_MS = 5000
 CEP_SEED = 23
 CEP_WITHIN_MS = 4 * CEP_WINDOW_MS
-CEP_SNAPSHOT_AFTER = 8          # batches in when the snapshot is taken
+CEP_SNAPSHOT_AFTER = 4          # batches in when the snapshot is taken
 CEP_INTERPRETED_BATCHES = 4
 CEP_CPU_BATCHES = 2
 CEP_WEDGE_BATCHES = 4
@@ -3456,8 +3492,8 @@ RIGHT_SEED = 8                  # the joins' right side: a seed-8 stream
 JOIN_LOWER_MS, JOIN_UPPER_MS = -500, 500
 #: path 31 keeps every row of both sides as a Python tuple (JAX's state
 #: layout), so it runs fewer batches than paths 28-30 (widths unchanged)
-STREAMING_BATCHES = 3
-STREAMING_SNAPSHOT_AFTER = 2
+STREAMING_BATCHES = 2
+STREAMING_SNAPSHOT_AFTER = 1
 JOIN_PHASE_ROWS = 1 << 20
 JOIN_HOT_SHARE = 0.001          # the skewed case's hot key, on each side
 #: path 28's aggregates: the double-single sum and count, the Dekker-pair
@@ -5821,6 +5857,545 @@ def slice17(device, card, batches):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# slice 18: the batch side (paths 45-47)
+# ---------------------------------------------------------------------------
+
+SLICE18 = ("path 45", "path 46", "path 47")
+#: TPC-H at this scale factor (dbgen's sizes: 150,000 customers and
+#: 1,500,000 orders a unit, 1-7 lines an order)
+TPCH_SF = 1.0
+TPCH_SEED = 45
+#: Q3's substitution parameters (the TPC-H specification's defaults)
+TPCH_SEGMENT = "BUILDING"
+TPCH_DATE = int(np.datetime64("1995-03-15", "D").astype(np.int64))
+TPCH_SEGMENTS = np.asarray(["AUTOMOBILE", "BUILDING", "FURNITURE",
+                            "HOUSEHOLD", "MACHINERY"])
+#: the batch runtime's row budget on path 45: Q3's filtered inputs to the
+#: lineitem join are ~3.4 M rows at SF 1, under the default 2^22, so the
+#: path halves it for that join to run out of core (grace buckets in FTB
+#: files)
+TPCH_BUDGET_ROWS = 1 << 21
+#: revenue against the host lane and the numpy model: sums over the same
+#: rows in another order
+TPCH_RTOL = 1e-12
+#: path 46: Graph500's Kronecker graph (path 32's generator and seed) at
+#: this scale, undirected (cut from 20: each superstep re-spills every edge
+#: through the grace join on the host, ~4x scale 18's ~55 s at 20)
+CC_SCALE = 18
+CC_MAX_SUPERSTEPS = 64
+#: path 47: the keys bootstrapped and the batches of path 36's job
+BOOT_KEYS = N_KEYS
+BOOT_BATCHES = 8
+
+
+def make_tpch(sf=None, seed=TPCH_SEED):
+    """Customer, orders and lineitem columns after dbgen's distributions:
+    5 market segments; sparse order keys (8 of each 32); each order's
+    customer one whose key is not a multiple of 3; order dates uniform over
+    1992-01-01..1998-08-02; 1-7 lines an order; ship date = order date +
+    1..121 days; quantity 1..50 of a part at its retail price; discount
+    0.00..0.10.  Dates are days since 1970-01-01."""
+    sf = TPCH_SF if sf is None else sf
+    rng = np.random.default_rng(seed)
+    n_cust, n_ord = int(150_000 * sf), int(1_500_000 * sf)
+    custkey = np.arange(1, n_cust + 1, dtype=np.int64)
+    segment = TPCH_SEGMENTS[rng.integers(0, 5, n_cust)]
+    i = np.arange(n_ord, dtype=np.int64)
+    orderkey = (i // 8) * 32 + i % 8 + 1
+    ordering = custkey[custkey % 3 != 0]
+    o_cust = ordering[rng.integers(0, ordering.size, n_ord)]
+    lo = int(np.datetime64("1992-01-01", "D").astype(np.int64))
+    hi = int(np.datetime64("1998-08-02", "D").astype(np.int64))
+    odate = rng.integers(lo, hi + 1, n_ord).astype(np.int64)
+    lines = rng.integers(1, 8, n_ord)
+    n_li = int(lines.sum())
+    part = rng.integers(1, int(200_000 * sf) + 1, n_li)
+    price = (90_000 + (part // 10) % 20_001 + 100 * (part % 1000)) / 100.0
+    qty = rng.integers(1, 51, n_li)
+    return {
+        "customer": {"c_custkey": custkey, "c_mktsegment": segment},
+        "orders": {"o_orderkey": orderkey, "o_custkey": o_cust,
+                   "o_orderdate": odate,
+                   "o_shippriority": np.zeros(n_ord, np.int64)},
+        "lineitem": {
+            "l_orderkey": np.repeat(orderkey, lines),
+            "l_extendedprice": np.round(qty * price, 2),
+            "l_discount": rng.integers(0, 11, n_li) / 100.0,
+            "l_shipdate": np.repeat(odate, lines)
+            + rng.integers(1, 122, n_li)},
+    }
+
+
+def q3_plan(env, tables):
+    """TPC-H Query 3 as Flink's ``TPCHQuery3`` writes it on the DataSet
+    API: the three filters, customer join orders, join lineitem, revenue
+    ``l_extendedprice * (1 - l_discount)`` grouped by (l_orderkey,
+    o_orderdate, o_shippriority) and summed, the 10 largest.  Returns (the
+    joined rows, the top 10)."""
+    seg, date = TPCH_SEGMENT, TPCH_DATE
+    cust = (env.from_columns(tables["customer"])
+            .filter(lambda c: c["c_mktsegment"] == seg)
+            .project("c_custkey"))
+    orders = (env.from_columns(tables["orders"])
+              .filter(lambda c: c["o_orderdate"] < date))
+    lineitem = (env.from_columns(tables["lineitem"])
+                .filter(lambda c: c["l_shipdate"] > date))
+    joined = (cust.join(orders).where("c_custkey").equal_to("o_custkey")
+              .apply()
+              .join(lineitem).where("o_orderkey").equal_to("l_orderkey")
+              .apply())
+    top = (joined.map(lambda c: {
+               "l_orderkey": c["l_orderkey"], "o_orderdate": c["o_orderdate"],
+               "o_shippriority": c["o_shippriority"],
+               "revenue": c["l_extendedprice"] * (1 - c["l_discount"])})
+           .group_by("l_orderkey", "o_orderdate", "o_shippriority")
+           .sum("revenue")
+           .sort_partition("revenue", ascending=False)
+           .first_n(10))
+    return joined, top
+
+
+def q3_model(tables):
+    """Q3 in plain numpy (``isin`` semi-joins, ``bincount`` sums; order by
+    revenue descending, then order date): (l_orderkey, o_orderdate,
+    o_shippriority, revenue) of the top 10, and the joined row count."""
+    c, o, li = tables["customer"], tables["orders"], tables["lineitem"]
+    cust = c["c_custkey"][c["c_mktsegment"] == TPCH_SEGMENT]
+    om = (o["o_orderdate"] < TPCH_DATE) & np.isin(o["o_custkey"], cust)
+    okey = o["o_orderkey"][om]
+    lm = (li["l_shipdate"] > TPCH_DATE) & np.isin(li["l_orderkey"], okey)
+    keys, inv = np.unique(li["l_orderkey"][lm], return_inverse=True)
+    rev = np.bincount(inv, weights=li["l_extendedprice"][lm]
+                      * (1 - li["l_discount"][lm]))
+    at = np.searchsorted(okey, keys)      # order keys ascend in the table
+    date, prio = o["o_orderdate"][om][at], o["o_shippriority"][om][at]
+    top = np.lexsort((date, -rev))[:10]
+    return (keys[top], date[top], prio[top], rev[top]), int(lm.sum())
+
+
+def collect_both(top, joined):
+    """``top.collect_batch()`` through the optimizer's own executor, keeping
+    its memo: (the result, the joined rows it computed on the way)."""
+    from flink_tpu_torch.dataset import optimizer
+    optimizer._estimate(top.op)
+    memo = {}
+    return optimizer._exec(top.op, memo), memo[id(joined.op)]
+
+
+def numeric_rows(batch):
+    """A batch's rows as sorted records: a multiset, exactly."""
+    names = sorted(batch.columns)
+    cols = [np.asarray(batch.column(n)) for n in names]
+    rec = np.empty(len(batch), [(n, c.dtype) for n, c in zip(names, cols)])
+    for n, c in zip(names, cols):
+        rec[n] = c
+    return np.sort(rec, order=names)
+
+
+def batch_bits(batch):
+    return [(k, np.asarray(v).dtype.str, np.asarray(v).tobytes())
+            for k, v in batch.columns.items()]
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """Set (or, with None, clear) environment variables for the block."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def path45(device, card):
+    """Path 45: TPC-H Query 3 at SF ``TPCH_SF`` on the DataSet API, the
+    joins on the card (``FLINK_TPU_DEVICE_JOIN=1``), the lineitem join out
+    of core under ``TPCH_BUDGET_ROWS``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_tpu_torch.dataset import ExecutionEnvironment, external
+    from flink_tpu_torch.operators.joins import _join_pairs
+    from flink_tpu_torch.ops import join_kernels
+    t0 = time.perf_counter()
+    tables = make_tpch()
+    n_li = tables["lineitem"]["l_orderkey"].size
+    gen_s = time.perf_counter() - t0
+    card_env = ExecutionEnvironment(device=device)
+    with env_vars(FLINK_TPU_DEVICE_JOIN=1,
+                  FLINK_TPU_BATCH_MEMORY_ROWS=TPCH_BUDGET_ROWS):
+        joined, top = q3_plan(card_env, tables)
+        sync(device)
+        reset_launches()
+        spilled0 = external.spilled_bytes["join"]
+        join_kernels.transfer_bytes.update(h2d=0, d2h=0)
+        t1 = time.perf_counter()
+        result = top.collect_batch()
+        sync(device)
+        wall = time.perf_counter() - t1
+        launches = read_launches()
+        spilled = external.spilled_bytes["join"] - spilled0
+        bus = dict(join_kernels.transfer_bytes)
+        # the replay of the same card lane, profiled
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t2 = time.perf_counter()
+            replay, card_rows = collect_both(*q3_plan(card_env, tables)[::-1])
+            sync(device)
+            replay_ms = (time.perf_counter() - t2) * 1e3
+        streamed = list(top.stream_batches())
+    with env_vars(FLINK_TPU_DEVICE_JOIN=None,
+                  FLINK_TPU_BATCH_MEMORY_ROWS=TPCH_BUDGET_ROWS):
+        hjoined, htop = q3_plan(ExecutionEnvironment(device=device), tables)
+        t3 = time.perf_counter()
+        host, host_rows = collect_both(htop, hjoined)
+        host_wall = time.perf_counter() - t3
+    check(all(v == 0 for v in launches.values()),
+          f"path 45: launches {launches}; the join's device work is torch "
+          f"ops")
+    check(spilled > 0, "path 45: the lineitem join did not run out of core")
+    check(batch_bits(replay) == batch_bits(result),
+          "path 45: a replay of the card lane differs in its bits")
+    (mkeys, mdate, mprio, mrev), n_joined = q3_model(tables)
+    check(len(card_rows) == len(host_rows) == n_joined
+          and np.array_equal(numeric_rows(card_rows),
+                             numeric_rows(host_rows)),
+          f"path 45: the joined rows ({len(card_rows)}) differ from the "
+          f"host lane's ({len(host_rows)}) as a multiset, or from the "
+          f"model's count ({n_joined})")
+    cols = ("l_orderkey", "o_orderdate", "o_shippriority")
+    rev = np.asarray(result.column("revenue"))
+    for name, other, want_rev in (("the host lane", host, None),
+                                  ("the numpy model", None, mrev)):
+        for c, m in zip(cols, (mkeys, mdate, mprio)):
+            want = (np.asarray(other.column(c)) if other is not None else m)
+            check(np.array_equal(np.asarray(result.column(c)), want),
+                  f"path 45: {c} of the top 10 differs from {name}'s")
+        wrev = (np.asarray(other.column("revenue")) if other is not None
+                else want_rev)
+        check(np.allclose(rev, wrev, rtol=TPCH_RTOL, atol=0),
+              f"path 45: revenue differs from {name}'s beyond rtol "
+              f"{TPCH_RTOL}: {rev} vs {wrev}")
+    s_rows = [b for b in streamed if len(b)]
+    check(len(s_rows) == 1 and [c for c, _, _ in batch_bits(s_rows[0])]
+          == [c for c, _, _ in batch_bits(result)]
+          and all(np.array_equal(np.asarray(s_rows[0].column(c)),
+                                 np.asarray(result.column(c)))
+                  for c in cols)
+          and np.allclose(np.asarray(s_rows[0].column("revenue")), rev,
+                          rtol=TPCH_RTOL, atol=0),
+          "path 45: stream_batches() differs from collect_batch()")
+    # the largest join's keys (the filtered orders of the segment's
+    # customers against the filtered lineitem): the card against the host
+    c, o, li = tables["customer"], tables["orders"], tables["lineitem"]
+    lk = o["o_orderkey"][(o["o_orderdate"] < TPCH_DATE) & np.isin(
+        o["o_custkey"], c["c_custkey"][c["c_mktsegment"] == TPCH_SEGMENT])]
+    rk = li["l_orderkey"][li["l_shipdate"] > TPCH_DATE]
+    card_ms = cuda_time_ms(lambda: join_kernels.device_join_pairs(
+        lk, rk, device), 5)
+    host_join_ms = host_ms(lambda: _join_pairs(lk, rk, device), 3)
+    busy_ms, busy, n_ops, _ = profiled_busy(prof, replay_ms)
+    sync(device)
+    numbers = {"lineitem_rows_per_s": n_li / wall, "wall_s": wall,
+               "host_lane_wall_s": host_wall, "join_card_ms": card_ms,
+               "join_host_ms": host_join_ms, "spilled_bytes": spilled,
+               "busy_share": busy}
+    top_rows = [(int(k), int(d), round(float(r), 2)) for k, d, r in zip(
+        result.column("l_orderkey"), result.column("o_orderdate"), rev)]
+    print(f"path 45: TPC-H Q3 at SF {TPCH_SF} on the DataSet API (customer "
+          f"{tables['customer']['c_custkey'].size}, orders "
+          f"{tables['orders']['o_orderkey'].size}, lineitem {n_li} rows, "
+          f"made in {gen_s:.2f} s; segment {TPCH_SEGMENT}, date 1995-03-15),"
+          f" the joins on the card, row budget {TPCH_BUDGET_ROWS}: "
+          f"{len(card_rows)} joined rows, the query in {wall:.3f} s = "
+          f"{n_li / wall:.1f} lineitem rows/s (host lane {host_wall:.3f} s);"
+          f" the lineitem join out of core: {spilled} B of FTB bucket files;"
+          f" bus {bus['h2d']} B h2d, {bus['d2h']} B d2h; the largest join "
+          f"({lk.size} x {rk.size} keys) {card_ms:.3f} ms on the card (CUDA "
+          f"events, uploads and download included) vs {host_join_ms:.3f} ms"
+          f" on the host lane; a profiled replay of the card lane "
+          f"({replay_ms:.1f} ms): the card busy {busy_ms:.3f} ms = "
+          f"{100 * busy:.3f}% ({n_ops} device ops); top 10 (orderkey, date, "
+          f"revenue) {top_rows[:3]}...; joined rows equal the host lane's "
+          f"as a multiset, keys and order of the result exact against the "
+          f"host lane and the numpy model, revenue to rtol {TPCH_RTOL}, a "
+          f"replay bit for bit, stream_batches() equal; launches {launches};"
+          f" {card}")
+    return launches, numbers
+
+
+def path46(device, card):
+    """Path 46: ConnectedComponents on the DataSet API (Flink's
+    ``ConnectedComponents`` example), a delta iteration over Graph500's
+    Kronecker graph at scale ``CC_SCALE``, undirected, whose edges come
+    from the card through ``Graph.as_dataset``."""
+    import scipy.sparse as sp
+
+    from flink_tpu_torch.dataset import ExecutionEnvironment
+    from flink_tpu_torch.graph_lib import Graph
+    from flink_tpu_torch.ops import join_kernels
+    n = 1 << CC_SCALE
+    src, dst, _ = rmat_edges(CC_SCALE, GRAPH_EDGE_FACTOR, GRAPH_SEED, device)
+    g = Graph(n, src, dst, device=device).undirected()
+    del src, dst
+    t0 = time.perf_counter()
+    edges = g.as_dataset()
+    env = edges.env
+    as_dataset_s = time.perf_counter() - t0
+    E = g.num_edges
+    vertices = np.arange(n, dtype=np.int64)
+    steps = []
+
+    def step(solution, workset):
+        t = time.perf_counter()
+        cand = (workset.join(edges).where("v").equal_to("src").apply()
+                .map(lambda c: {"v": c["dst"].astype(np.int64),
+                                "label": c["label"]})
+                .group_by("v").min("label"))
+        changes = (cand.join(solution).where("v").equal_to("v").apply()
+                   .filter(lambda c: c["label"] < c["r_label"])
+                   .project("v", "label")).collect_batch()
+        b = env.from_columns(dict(changes.columns))
+        steps.append((len(workset.op.args["batch"]), len(changes),
+                      time.perf_counter() - t))
+        return b, b
+
+    with env_vars(FLINK_TPU_DEVICE_JOIN=1):
+        init = env.from_columns({"v": vertices, "label": vertices})
+        sync(device)
+        reset_launches()
+        t1 = time.perf_counter()
+        sol = init.delta_iterate(init, "v", CC_MAX_SUPERSTEPS, step) \
+            .collect_batch()
+        sync(device)
+        wall = time.perf_counter() - t1
+        launches = read_launches()
+        # the first superstep's join: the whole workset against every edge
+        lk, rk = vertices, edges.op.args["batch"].column("src")
+        card_ms = cuda_time_ms(lambda: join_kernels.device_join_pairs(
+            lk, rk, device), 3)
+    check(all(v == 0 for v in launches.values()),
+          f"path 46: launches {launches}; the join's device work is torch "
+          f"ops")
+    check(len(steps) < CC_MAX_SUPERSTEPS and steps[-1][1] == 0,
+          f"path 46: no convergence in {CC_MAX_SUPERSTEPS} supersteps")
+    labels = np.full(n, -1, np.int64)
+    labels[np.asarray(sol.column("v"))] = np.asarray(sol.column("label"))
+    t2 = time.perf_counter()
+    comps = g.connected_components()
+    wcc_s = time.perf_counter() - t2
+    check(np.array_equal(labels, np.asarray(comps, np.int64)),
+          f"path 46: labels differ from Graph.connected_components on the "
+          f"card ({int((labels != comps).sum())} vertices)")
+    s_h, d_h = g._np("src"), g._np("dst")
+    adj = sp.csr_matrix((np.ones(E, np.int8), (s_h, d_h)), shape=(n, n))
+    want = wcc_model(adj, n)
+    check(np.array_equal(labels, want),
+          f"path 46: labels differ from scipy's connected_components "
+          f"({int((labels != want).sum())} vertices)")
+    ncomp = np.unique(labels).size
+    numbers = {"supersteps": len(steps), "wall_s": wall,
+               "edges_per_s": E * len(steps) / wall, "join_card_ms": card_ms}
+    print(f"path 46: ConnectedComponents (delta iteration: workset join "
+          f"edges, group-by min, join the solution set, filter) on Graph500 "
+          f"scale {CC_SCALE} undirected ({n} vertices, {E} edges, as_dataset "
+          f"{as_dataset_s:.3f} s), the joins on the card: {len(steps)} "
+          f"supersteps in {wall:.3f} s = {E * len(steps) / wall:.4e} edges/s"
+          f"; worksets {[w for w, _, _ in steps]}, superstep s "
+          f"{[round(s, 2) for _, _, s in steps]}; {ncomp} components; the "
+          f"first superstep's join ({lk.size} x {rk.size} keys) "
+          f"{card_ms:.3f} ms on the card (CUDA events, uploads and download "
+          f"included); labels equal Graph.connected_components on the card "
+          f"({wcc_s:.3f} s) and scipy's connected_components exactly; "
+          f"launches {launches}; {card}")
+    return launches, numbers
+
+
+def window_snapshot(device, batches, label):
+    """Path ``label``'s operator over ``batches`` with a watermark after
+    each and no end of input: (its snapshot inside the open window, the
+    launches)."""
+    from flink_tpu_torch.core.batch import RecordBatch, Watermark
+    from flink_tpu_torch.runtime import device_health
+    device_health.set_monitor(device_health.DeviceHealthMonitor())
+    op = build_op(device, **PATHS[label])
+    for keys, vals, ts in batches:
+        op.process_batch(RecordBatch({"k": keys, "v": vals}, timestamps=ts))
+        op.process_watermark(Watermark(int(ts.max()) - 1))
+    op.prepare_snapshot_pre_barrier()
+    return op.snapshot_state()
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def path47(device, card, batches):
+    """Path 47: the State Processor API over the main path's state: path 5's
+    and path 14's snapshots inside a window through ``FileCheckpointStorage``
+    and ``read_window_state``; ``BOOT_KEYS`` keys bootstrapped into path
+    36's job on ``LocalExecutor``."""
+    import tempfile
+
+    from flink_tpu_torch.dataset import ExecutionEnvironment
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.runtime.checkpoint import FileCheckpointStorage
+    from flink_tpu_torch.state.api import ValueStateDescriptor
+    from flink_tpu_torch.state_processor import Savepoint, SavepointWriter
+    sync(device)
+    reset_launches()
+    snaps = {label: window_snapshot(device, batches, label)
+             for label in ("path 5", "path 14")}
+    sync(device)
+    launches = read_launches()
+    open_w = int(batches[-1][2].max()) // WINDOW_MS * WINDOW_MS
+    check(all(b[2].max() < open_w or b[2].min() >= open_w for b in batches),
+          "path 47: a batch straddles the open window's start")
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-savepoint-")
+    store = FileCheckpointStorage(tmp)
+    t0 = time.perf_counter()
+    store.store(1, snaps)
+    store_ms = (time.perf_counter() - t0) * 1e3
+    sp_bytes = dir_bytes(tmp)
+    t1 = time.perf_counter()
+    reader = Savepoint.load(FileCheckpointStorage(tmp), 1, device=device)
+    load_ms = (time.perf_counter() - t1) * 1e3
+    open_batches = [b for b in batches if b[2].min() >= open_w]
+    cells = reference_f32(open_batches)[open_w]
+    expect = reference(open_batches)[open_w]
+    read = {}
+    for label in ("path 5", "path 14"):
+        t2 = time.perf_counter()
+        rows = reader.read_window_state(label).collect_batch()
+        read_s = time.perf_counter() - t2
+        sums = reader.read_window_state(label).group_by("key") \
+            .sum("acc0").collect_batch()
+        keys = np.asarray(sums.column("key"))
+        got = np.asarray(sums.column("acc0"))
+        check(np.array_equal(np.sort(keys), np.nonzero(expect[1])[0])
+              and np.array_equal(np.asarray(rows.column("count"))[
+                  np.argsort(np.asarray(rows.column("key")))],
+                  expect[1][np.sort(keys)]),
+              f"path 47 {label}: the open window's keys or counts differ "
+              f"from the reference")
+        if label == "path 5":
+            check(got.dtype == np.float32 and np.array_equal(
+                got.view(np.uint32), cells[keys].view(np.uint32)),
+                  "path 47 path 5: the open window's sums differ from the "
+                  "f32 record-order reference in their bits")
+        else:
+            check(np.allclose(got, expect[0][keys], rtol=RTOL),
+                  "path 47 path 14: the open window's sums differ from the "
+                  f"reference beyond rtol {RTOL}")
+        read[label] = (len(rows), read_s)
+    # bootstrap path 36's count state for window 0's composite keys
+    rng = np.random.default_rng(47)
+    boot = rng.integers(1, 100, BOOT_KEYS).astype(np.int64)
+    benv = ExecutionEnvironment(device=device)
+    seed_ds = benv.from_columns({"kw": np.arange(BOOT_KEYS, dtype=np.int64),
+                                 "count": boot})
+    t3 = time.perf_counter()
+    writer = SavepointWriter.new_savepoint().with_keyed_state(
+        "proc", seed_ds, "kw", "count", "count",
+        descriptor=ValueStateDescriptor("count", dtype=np.int64, default=0))
+    boot_s = time.perf_counter() - t3
+    boot_dir = tempfile.mkdtemp(prefix="chip-smoke-bootstrap-")
+    t4 = time.perf_counter()
+    writer.write(FileCheckpointStorage(boot_dir))
+    boot_store_ms = (time.perf_counter() - t4) * 1e3
+    boot_bytes = dir_bytes(boot_dir)
+    job_batches = batches[:BOOT_BATCHES]
+
+    def job(restore):
+        env = StreamExecutionEnvironment(device=device)
+        ts = np.concatenate([b[2] for b in job_batches])
+        kw = (ts // WINDOW_MS) << KEY_BITS | np.concatenate(
+            [b[0] for b in job_batches])
+        sink = (env.from_collection(columns={
+                    "kw": kw, "v": np.concatenate([b[1] for b in job_batches]),
+                    "ts": ts}, batch_size=BATCH)
+                .assign_timestamps_and_watermarks(0, timestamp_column="ts")
+                .key_by("kw").process(process_function(), name="proc")
+                .collect())
+        snap = None
+        if restore:
+            plan = env.get_stream_graph().to_plan()
+            uid = next(v.uid for v in plan.vertices if "proc" in v.name)
+            snap = {uid: Savepoint.load(FileCheckpointStorage(boot_dir),
+                                        device=device).raw("proc")}
+        t = time.perf_counter()
+        env.execute(restore=snap)
+        wall = time.perf_counter() - t
+        rows = sink.rows()
+        k = np.asarray([r["k"] for r in rows], np.int64)
+        w = np.asarray([r["window_start"] for r in rows], np.int64)
+        order = np.lexsort((k, w))
+        return ({c: np.asarray([r[c] for r in rows])[order]
+                 for c in ("k", "window_start", "result", "count")}, wall)
+
+    plain, plain_s = job(False)
+    booted, boot_job_s = job(True)
+    w0 = booted["window_start"] == 0
+    want_count = plain["count"] + np.where(w0, boot[booted["k"]], 0)
+    check(np.array_equal(booted["k"], plain["k"])
+          and np.array_equal(booted["window_start"], plain["window_start"])
+          and booted["result"].tobytes() == plain["result"].tobytes()
+          and np.array_equal(booted["count"], want_count),
+          "path 47: the bootstrapped job's fires differ from the plain run's "
+          "plus the bootstrap values")
+    n_boot = int(w0.sum())
+    numbers = {"read_rows_per_s": {k: n / s for k, (n, s) in read.items()},
+               "boot_rows_per_s": BOOT_KEYS / boot_s,
+               "store_ms": store_ms, "load_ms": load_ms,
+               "savepoint_bytes": sp_bytes}
+    print(f"path 47: the State Processor API over the main path's state: "
+          f"path 5's and path 14's operators over {len(batches)} batches "
+          f"(snapshots inside window {open_w}) stored through "
+          f"FileCheckpointStorage in {store_ms:.1f} ms ({sp_bytes} B), "
+          f"loaded in {load_ms:.1f} ms; read_window_state "
+          + ", ".join(f"{k} {n} rows in {s:.3f} s = {n / s:.1f} rows/s"
+                      for k, (n, s) in read.items())
+          + f"; group_by(key).sum(acc0) equals the open window's f32 "
+          f"record-order reference bit for bit (path 5) and the reference to"
+          f" rtol {RTOL} (path 14); {BOOT_KEYS} keys bootstrapped in "
+          f"{boot_s:.3f} s = {BOOT_KEYS / boot_s:.1f} rows/s, written in "
+          f"{boot_store_ms:.1f} ms ({boot_bytes} B) and restored into path "
+          f"36's job on LocalExecutor over {len(job_batches)} batches "
+          f"({boot_job_s:.3f} s; the plain job {plain_s:.3f} s): its "
+          f"{len(booted['k'])} fires equal the plain run's plus the bootstrap"
+          f" values ({n_boot} of window 0's); launches {launches}; {card}")
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    shutil.rmtree(boot_dir, ignore_errors=True)
+    return launches, numbers
+
+
+def slice18(device, card, batches):
+    """Paths 45-47: the batch side."""
+    t0 = time.perf_counter()
+    launches, numbers = {}, {}
+    for label, fn in (("path 45", lambda: path45(device, card)),
+                      ("path 46", lambda: path46(device, card)),
+                      ("path 47", lambda: path47(device, card, batches))):
+        t1 = time.perf_counter()
+        launches[label], numbers[label] = fn()
+        print(f"{label} took {time.perf_counter() - t1:.1f} s of command "
+              f"time")
+    print(f"slice 18 took {time.perf_counter() - t0:.1f} s of command time")
+    return launches, numbers
+
+
 def main() -> None:
     try:
         import torch
@@ -5998,6 +6573,9 @@ def main() -> None:
     slice17_launches, slice17_numbers = slice17(device, card, batches)
     launches.update(slice17_launches)
     numbers.update(slice17_numbers)
+    slice18_launches, slice18_numbers = slice18(device, card, batches)
+    launches.update(slice18_launches)
+    numbers.update(slice18_numbers)
     for name, phase in (("pipeline A/B", lambda: pipeline_ab(
             device, "path 9", "path 3", ab_want["path 3"])),
             ("guard A/B", lambda: guard_ab(device, batches, ab_want)),
@@ -6070,7 +6648,7 @@ def main() -> None:
     kernels.append(probe_fold_phase(device, rng, dki))
     kernels.append(scatter_fold_phase(device, rng))
     every_path = (ORDER + SLICE11 + SLICE12 + SLICE13 + SLICE14 + SLICE15
-                  + SLICE16 + SLICE17)
+                  + SLICE16 + SLICE17 + SLICE18)
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]]
                    for label in every_path}
@@ -6094,7 +6672,7 @@ def main() -> None:
     for label in (*DEVICE_PATHS, *PAGED_PATHS, *FAULTS, "path 8", "path 9",
                   *SLICE11_SCATTER, "path 23", "path 24", "path 25",
                   "path 28", "path 29", "path 32", "path 34", "path 35",
-                  *SLICE16, "path 40", "path 41"):
+                  *SLICE16, "path 40", "path 41", "path 47"):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
     check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")

@@ -69,11 +69,6 @@ FOLD_CHUNK_ROWS = 1 << 27
 
 _INT32_MIN = -(2 ** 31)
 
-#: the refusal of ``as_dataset``
-NO_DATASET = ("not in this slice of flink_tpu_torch: Graph.as_dataset comes "
-              "with the DataSet API (ROADMAP Queue A item 8.2b)")
-
-
 def combine_identity(kind: str, dtype: torch.dtype):
     """The combine's identity: what an empty segment holds (JAX's
     ``segment_{sum,min,max}`` fill) and what a padding row carries."""
@@ -230,7 +225,15 @@ class Graph:
         return Graph(n, src, dst, w, device=device)
 
     def as_dataset(self):
-        raise NotImplementedError(NO_DATASET)
+        """The edges as a DataSet (``src``, ``dst`` and, when weighted,
+        ``weight``: JAX's columns and dtypes), downloaded once, in an
+        environment on the graph's device."""
+        from flink_tpu_torch.dataset import ExecutionEnvironment
+        env = ExecutionEnvironment(device=self.device)
+        cols = {"src": self._np("src"), "dst": self._np("dst")}
+        if self.weights is not None:
+            cols["weight"] = self._np("weights")
+        return env.from_columns(cols)
 
     @property
     def num_edges(self) -> int:

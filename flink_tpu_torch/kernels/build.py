@@ -5,8 +5,9 @@ Each ``csrc/*.cu`` source is compiled with ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
 plain C interface, on first use, into ``flink_tpu_torch/_build/`` (listed in
 ``.gitignore``).  The host layer ``csrc/host_mirror.cc`` (the C keydict and
-the window value mirror) and the spill store of cold-key paging
-``csrc/spill_store.cc`` build beside them with ``g++`` (:func:`build_host`);
+the window value mirror), the spill store of cold-key paging
+``csrc/spill_store.cc`` and the batch codec ``csrc/codec.cc`` (FLZ blocks,
+delta varints, CRCs) build beside them with ``g++`` (:func:`build_host`);
 they need no card, so the CPU tests build and run them.
 A library's name carries a hash of its source and flags, so an edited
 source rebuilds and concurrent builds race benignly (write to a temporary
@@ -40,6 +41,8 @@ HOST_CXX = "g++"
 HOST_SOURCE = "host_mirror.cc"
 #: the spill store's source (the storage tier of cold-key paging)
 SPILL_SOURCE = "spill_store.cc"
+#: the batch codec's source (FLZ blocks, delta varints, CRC-32/32C)
+CODEC_SOURCE = "codec.cc"
 
 #: where the CUDA toolkit installs nvcc when it is on neither path above
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
@@ -94,7 +97,8 @@ def find_host_compiler() -> str:
     found = shutil.which(HOST_CXX)
     if found is None:
         raise RuntimeError(f"{HOST_CXX} not found: the port's native host "
-                           f"code (csrc/{HOST_SOURCE}, csrc/{SPILL_SOURCE}) "
+                           f"code (csrc/{HOST_SOURCE}, csrc/{SPILL_SOURCE}, "
+                           f"csrc/{CODEC_SOURCE}) "
                            f"needs a C++17 compiler")
     return found
 
@@ -257,6 +261,30 @@ def spill_store_lib() -> ctypes.CDLL:
         "ftt_spill_kv_iter_end": (None, [vp]),
         "ftt_spill_kv_flush": (ci, [vp]),
         "ftt_spill_kv_compact": (i64, [vp]),
+    }
+    with _lock:
+        for name, (restype, argtypes) in sigs.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+    return lib
+
+
+def codec_lib() -> ctypes.CDLL:
+    """``csrc/codec.cc`` (the batch codec's delta varints, FLZ blocks and
+    CRCs) with every entry point's C signature declared."""
+    lib = load(CODEC_SOURCE)
+    if lib.ftt_crc32c.argtypes is not None:   # declared last
+        return lib
+    i64, u32, vp = ctypes.c_int64, ctypes.c_uint32, ctypes.c_void_p
+    sigs = {
+        "ftt_delta_varint_encode_i64": (i64, [vp, i64, vp, i64]),
+        "ftt_delta_varint_decode_i64": (i64, [vp, i64, i64, vp]),
+        "ftt_lz_bound": (i64, [i64]),
+        "ftt_lz_compress": (i64, [vp, i64, vp, i64]),
+        "ftt_lz_decompress": (i64, [vp, i64, vp, i64]),
+        "ftt_crc32": (u32, [vp, i64, u32]),
+        "ftt_crc32c": (u32, [vp, i64, u32]),
     }
     with _lock:
         for name, (restype, argtypes) in sigs.items():

@@ -1729,3 +1729,58 @@ def test_env_mesh_on_four_blocks_of_one_card_equals_the_mesh_operator(
     got = [{c: x for c, x in r.items() if c != "__ts__"} for r in rows]
     key = lambda r: (r["window_start"], r["k"])  # noqa: E731
     assert sorted(got, key=key) == sorted(want, key=key) and got
+
+
+def _dataset_batches(b):
+    return [(k, np.asarray(v).dtype.str, np.asarray(v).tobytes())
+            for k, v in b.columns.items()]
+
+
+def test_dataset_join_on_the_card_equals_the_cpu(cuda_device, monkeypatch):
+    """A DataSet inner join and grouped sum (single and two-column keys),
+    materialized and streamed with a budget that sends the join out of core
+    (grace buckets over the port's FTB files), through the device lane on
+    the card against the same plan on the CPU: rows, order and bits."""
+    from flink_tpu_torch.dataset import ExecutionEnvironment
+
+    monkeypatch.setenv("FLINK_TPU_DEVICE_JOIN", "1")
+    monkeypatch.setenv("FLINK_TPU_BATCH_MEMORY_ROWS", "20000")
+    rng = np.random.default_rng(45)
+    cols_l = {"k": rng.integers(0, 4000, 30_000).astype(np.int64),
+              "j": rng.integers(0, 3, 30_000).astype(np.int64),
+              "v": rng.standard_normal(30_000)}
+    cols_r = {"k": rng.integers(0, 5000, 8_000).astype(np.int64),
+              "j": rng.integers(0, 3, 8_000).astype(np.int64),
+              "w": rng.standard_normal(8_000)}
+
+    def run(device):
+        env = ExecutionEnvironment(device=device)
+        l, r = env.from_columns(cols_l), env.from_columns(cols_r)
+        out = []
+        for keys in (("k",), ("k", "j")):
+            j = l.join(r).where(*keys).equal_to(*keys).apply()
+            g = j.group_by("k").sum("v")
+            out += [_dataset_batches(j.collect_batch()),
+                    [_dataset_batches(b) for b in j.stream_batches()],
+                    _dataset_batches(g.collect_batch())]
+        return out
+
+    assert run(cuda_device) == run("cpu")
+
+
+def test_graph_as_dataset_on_the_card_equals_the_cpu(cuda_device):
+    """``as_dataset`` of a graph on the card: JAX's columns, downloaded once,
+    equal to the CPU graph's, in an environment on the card."""
+    from flink_tpu_torch.graph_lib import Graph
+
+    rng = np.random.default_rng(46)
+    src = rng.integers(0, 500, 4000)
+    dst = rng.integers(0, 500, 4000)
+    w = rng.random(4000).astype(np.float32)
+    for weights in (None, w):
+        gc = Graph(500, src, dst, weights, device=cuda_device).undirected()
+        gh = Graph(500, src, dst, weights, device="cpu").undirected()
+        dc, dh = gc.as_dataset(), gh.as_dataset()
+        assert dc.env.device == gc.device and dc.env.device.type == "cuda"
+        assert _dataset_batches(dc.collect_batch()) == \
+            _dataset_batches(dh.collect_batch())

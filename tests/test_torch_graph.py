@@ -191,19 +191,31 @@ def test_scatter_gather_custom():
 
 
 def test_dataset_interop():
-    """``from_dataset`` takes any object with ``collect_batch()`` (here
-    JAX's DataSet); ``as_dataset`` raises, naming the DataSet slice."""
+    """``from_dataset`` takes any object with ``collect_batch()`` (JAX's
+    DataSet or the port's); ``as_dataset`` gives JAX's columns, dtypes and
+    rows, in an environment on the graph's device."""
     from flink_tpu.dataset import ExecutionEnvironment
+    from flink_tpu_torch.dataset import ExecutionEnvironment as PortEnv
 
-    env = ExecutionEnvironment()
-    edges = env.from_columns({"src": [0, 1], "dst": [1, 2],
-                              "w": [1.0, 2.0]})
-    j = JaxGraph.from_dataset(edges, weight_column="w")
-    p = Graph.from_dataset(edges, weight_column="w", device="cpu")
+    cols = {"src": [0, 1], "dst": [1, 2], "w": [1.0, 2.0]}
+    j = JaxGraph.from_dataset(ExecutionEnvironment().from_columns(cols),
+                              weight_column="w")
+    p = Graph.from_dataset(PortEnv(device="cpu").from_columns(cols),
+                           weight_column="w", device="cpu")
     assert p.num_edges == j.num_edges == 2 and p.n == j.n == 3
     equal(p.weights.numpy(), np.asarray(j.weights))
-    with pytest.raises(NotImplementedError, match="DataSet"):
-        p.as_dataset()
+    for pg, jg in ((p, j), (p.undirected(), j.undirected()),
+                   (Graph.from_edges([(0, 1), (2, 0)], device="cpu"),
+                    JaxGraph.from_edges([(0, 1), (2, 0)]))):
+        pd, jd = pg.as_dataset(), jg.as_dataset()
+        assert pd.env.device == pg.device
+        pb, jb = pd.collect_batch(), jd.collect_batch()
+        assert list(pb.columns) == list(jb.columns)
+        for c in jb.columns:
+            equal(np.asarray(pb.column(c)), np.asarray(jb.column(c)))
+        assert pd.collect() == jd.collect()
+    back = p.as_dataset().collect()
+    assert len(back) == 2 and back[0]["weight"] == 1.0
 
 
 def test_empty_graph():

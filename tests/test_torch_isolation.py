@@ -71,7 +71,12 @@ def test_every_module_imports_with_jax_blocked():
         " 'metrics.groups', 'runtime.executor', 'datastream',"
         " 'datastream.api', 'windowing', 'state', 'state.spill',"
         " 'operators.co', 'operators.async_io', 'operators.iteration',"
-        " 'operators.evicting_window', 'testing', 'testing.harness'):\n"
+        " 'operators.evicting_window', 'testing', 'testing.harness',"
+        " 'native', 'native.codec', 'formats', 'connectors.util',"
+        " 'runtime.checkpoint', 'runtime.checkpoint.storage',"
+        " 'runtime.shuffle', 'dataset', 'dataset.api', 'dataset.external',"
+        " 'dataset.optimizer', 'state_processor',"
+        " 'state_processor.savepoint'):\n"
         "    assert 'flink_tpu_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules"
@@ -113,6 +118,113 @@ def test_canonical_flow_runs_with_jax_and_pandas_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split() == ["rows", "20"]
+
+
+def test_batch_side_runs_with_jax_and_pandas_blocked():
+    """A DataSet plan through the batch side (an out-of-core sort and
+    grace join over the port's FTB spill files, a hash exchange through
+    the sort-merge shuffle, a savepoint bootstrapped, stored and read
+    back) in a fresh interpreter where ``jax``, ``flink_tpu`` and
+    ``pandas`` cannot be imported."""
+    code = (
+        "import os, sys, tempfile\n"
+        "for m in ('jax', 'flink_tpu', 'pandas'):\n"
+        "    sys.modules[m] = None\n"
+        "os.environ['FLINK_TPU_BATCH_MEMORY_ROWS'] = '500'\n"
+        "import numpy as np\n"
+        "from flink_tpu_torch.dataset import ExecutionEnvironment\n"
+        "from flink_tpu_torch.dataset import external\n"
+        "from flink_tpu_torch.runtime.checkpoint import "
+        "FileCheckpointStorage\n"
+        "from flink_tpu_torch.state_processor import Savepoint, "
+        "SavepointWriter\n"
+        "env = ExecutionEnvironment(device='cpu')\n"
+        "a = env.from_columns({'k': np.arange(3000) % 700, "
+        "'v': np.arange(3000.0)})\n"
+        "b = env.from_columns({'k': np.arange(700), 'w': np.ones(700)})\n"
+        "j = a.join(b).where('k').equal_to('k').apply()\n"
+        "assert len(j.sort_partition('v').collect()) == 3000\n"
+        "assert sum(len(x) for x in a.partition_by_hash('k')"
+        ".map_partition(lambda p: p).stream_batches()) == 3000\n"
+        "assert external.spilled_bytes['join'] > 0\n"
+        "d = tempfile.mkdtemp()\n"
+        "SavepointWriter.new_savepoint().with_keyed_state("
+        "'op', b, 'k', 'w', 's').write(FileCheckpointStorage(d))\n"
+        "rows = Savepoint.load(FileCheckpointStorage(d), device='cpu')"
+        ".read_keyed_state('op', 's').collect()\n"
+        "print('rows', len(rows))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["rows", "700"]
+
+
+def test_batch_side_defaults_to_the_card(monkeypatch):
+    """The DataSet environment's device and the savepoint reader's are the
+    card by default: the join's device lane raises without CUDA rather
+    than fall back to the CPU."""
+    import numpy as np
+
+    from flink_tpu_torch.dataset import ExecutionEnvironment
+    from flink_tpu_torch.state_processor import Savepoint, SavepointWriter
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("FLINK_TPU_DEVICE_JOIN", "1")
+    ds = ExecutionEnvironment().from_columns({"k": np.arange(3)})
+    seed = ExecutionEnvironment(device="cpu").from_columns(
+        {"k": np.arange(3), "x": np.ones(3)})
+    snap = SavepointWriter.new_savepoint().with_keyed_state(
+        "op", seed, "k", "x", "s").snapshot
+    read = Savepoint.from_snapshot(snap).read_keyed_state("op", "s")
+    for d in (ds, read):
+        assert d.env.device is None
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            d.join(d).where(*d.collect_batch().columns).equal_to(
+                *d.collect_batch().columns).apply().collect()
+
+
+def test_codec_library_builds_from_its_own_source(monkeypatch, tmp_path):
+    """The batch codec compiles from ``csrc/codec.cc`` alone (no file of
+    ``native/`` or ``flink_tpu/``, system headers only), and every entry
+    point of it, in the source and in the built library, carries the
+    ``ftt_`` prefix."""
+    import re
+
+    from flink_tpu_torch.kernels import build
+    src = Path(build.CSRC_DIR) / build.CODEC_SOURCE
+    text = src.read_text()
+    assert re.findall(r'^#include\s+"', text, re.M) == []
+    names = re.findall(r"^API\s+[\w\s\*]+?\b(\w+)\s*\(", text, re.M)
+    assert sorted(names) == sorted(
+        f"ftt_{n}" for n in ("delta_varint_encode_i64",
+                             "delta_varint_decode_i64", "lz_bound",
+                             "lz_compress", "lz_decompress", "crc32",
+                             "crc32c"))
+    read, cmds = [], []
+    real_open = open
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setitem(build.__dict__, "open", lambda p, *a, **k: (
+        read.append(os.path.realpath(p)), real_open(p, *a, **k))[1])
+    real_run = build.subprocess.run
+    monkeypatch.setattr(build.subprocess, "run", lambda cmd, *a, **k: (
+        cmds.append(list(cmd)), real_run(cmd, *a, **k))[1])
+    lib = build.codec_lib()
+    assert read == [str(src.resolve())]
+    (cmd,) = cmds
+    assert [c for c in cmd if c.endswith((".cc", ".cpp", ".h"))] == [str(src)]
+    assert not [c for c in cmd if "native" in c or "flink_tpu/" in c]
+    assert int(lib.ftt_lz_bound(255)) == 255 + 1 + 80
+    nm = shutil.which("nm")
+    if nm is None:
+        return
+    res = subprocess.run([nm, "-D", "--defined-only",
+                          build.library_path(build.CODEC_SOURCE)],
+                         capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stderr
+    strong = [line.split()[-1] for line in res.stdout.splitlines()
+              if line.split()[-2] in ("T", "D", "B", "R")]
+    assert set(strong) == set(names)
 
 
 def test_window_operator_default_device_raises_without_cuda(monkeypatch):
