@@ -214,7 +214,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    path 5.
 9i. main paths 26-27 (slice 13), after path 25: path 26 is ``bench.py
    --cep``'s stream (``_cep_batches(1 << 22, 1_000_000, 1 << 18, 5000,
-   seed=23)`` cut to its first 8 batches of 2^18 events, keys uniform over 1M,
+   seed=23)`` cut to its first 4 batches of 2^18 events, keys uniform over 1M,
    amounts uniform over [0, 600), each event's stream position in a column
    ``e``) through ``CepOperator(vectorized="on")`` on the card: the fraud
    pattern (``v < 30`` followed by ``v > 570`` within 20,000 ms), the
@@ -389,6 +389,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    plus the bootstrap values.  Paths 45 and 46 launch no hand-written
    kernel (the join's device work is torch ops); path 47 launches
    ``scatter_fold`` through path 5's and path 14's operators.
+
+9o. main paths 48-50 (slice 19), after path 47: the SQL stack, each query
+   through ``TableEnvironment(device=card)`` with plan, execute and collect
+   in the timed region (``bench.py``'s).  Path 48 is ``BASELINE.json``
+   config 5 at ``run_config5``'s full size: ``lineitem(2^22)`` (a copy of
+   ``_lineitem``, seed 19) registered with ``rowtime="ts"`` and batches of
+   2^17, its TUMBLE and HOP queries verbatim: the row counts, ``COUNT(*)``
+   exactly and the sums within ``n * U32`` of a numpy model's f64 sums,
+   every row bit for bit against a CPU twin whose window operator is
+   pinned to the card's resolved lane (``window_lane``).  Path 49 is the
+   main stream's 24 batches as a collection table under ``EVENTS_SQL``
+   (``GROUP BY k, TUMBLE(ts, 5 s)``): ``ws`` the windows' starts,
+   ``COUNT(*)`` exact, ``SUM(v)`` bit for bit against ``reference_f32`` on
+   the device tier or within ``RTOL`` of ``reference`` on the host tier,
+   its records/s beside paths 5 and 40a.  Path 50 is TPC-H Q3 as SQL
+   (``Q3_SQL``) on path 45's tables at SF ``TPCH_SF`` with
+   ``FLINK_TPU_DEVICE_JOIN=1``: the top 10 against ``q3_model`` (revenue
+   within ``2 n U32``), every row bit for bit against the CPU twin, its
+   wall beside path 45's; 50b is ``MATCH_SQL`` over path 26's first
+   batch: the interpreted engine, the CPU twin's matches, and
+   ``cep_vectorized="on"`` refused.  Each path launches ``scatter_fold``
+   (50b none).
 
 Each phase and path prints its command time on a line of its own.
 
@@ -3105,15 +3127,15 @@ def slice12_path(device, label, batches, ref):
 
 SLICE13 = ("path 26", "path 27")
 #: ``bench.py --cep``'s stream: ``_cep_batches(1 << 22, 1_000_000, 1 << 18,
-#: 5000, seed=23)`` cut to its first 2^21 events (8 batches, widths
+#: 5000, seed=23)`` cut to its first 2^20 events (4 batches, widths
 #: unchanged) for the time limit, and the fraud pattern within 4 windows
-CEP_RECORDS = 1 << 21
+CEP_RECORDS = 1 << 20
 CEP_KEYS = 1_000_000
 CEP_BATCH = 1 << 18
 CEP_WINDOW_MS = 5000
 CEP_SEED = 23
 CEP_WITHIN_MS = 4 * CEP_WINDOW_MS
-CEP_SNAPSHOT_AFTER = 4          # batches in when the snapshot is taken
+CEP_SNAPSHOT_AFTER = 2          # batches in when the snapshot is taken
 CEP_INTERPRETED_BATCHES = 4
 CEP_CPU_BATCHES = 2
 CEP_WEDGE_BATCHES = 4
@@ -5880,9 +5902,9 @@ TPCH_BUDGET_ROWS = 1 << 21
 #: rows in another order
 TPCH_RTOL = 1e-12
 #: path 46: Graph500's Kronecker graph (path 32's generator and seed) at
-#: this scale, undirected (cut from 20: each superstep re-spills every edge
-#: through the grace join on the host, ~4x scale 18's ~55 s at 20)
-CC_SCALE = 18
+#: this scale, undirected (cut from 20, then 18, for the time limit: each
+#: superstep re-spills every edge through the grace join on the host)
+CC_SCALE = 17
 CC_MAX_SUPERSTEPS = 64
 #: path 47: the keys bootstrapped and the batches of path 36's job
 BOOT_KEYS = N_KEYS
@@ -5972,6 +5994,15 @@ def q3_model(tables):
     date, prio = o["o_orderdate"][om][at], o["o_shippriority"][om][at]
     top = np.lexsort((date, -rev))[:10]
     return (keys[top], date[top], prio[top], rev[top]), int(lm.sum())
+
+
+def q3_join_keys(tables):
+    """The keys of Q3's largest join: the filtered orders of the segment's
+    customers against the filtered lineitem."""
+    c, o, li = tables["customer"], tables["orders"], tables["lineitem"]
+    lk = o["o_orderkey"][(o["o_orderdate"] < TPCH_DATE) & np.isin(
+        o["o_custkey"], c["c_custkey"][c["c_mktsegment"] == TPCH_SEGMENT])]
+    return lk, li["l_orderkey"][li["l_shipdate"] > TPCH_DATE]
 
 
 def collect_both(top, joined):
@@ -6095,12 +6126,8 @@ def path45(device, card):
           and np.allclose(np.asarray(s_rows[0].column("revenue")), rev,
                           rtol=TPCH_RTOL, atol=0),
           "path 45: stream_batches() differs from collect_batch()")
-    # the largest join's keys (the filtered orders of the segment's
-    # customers against the filtered lineitem): the card against the host
-    c, o, li = tables["customer"], tables["orders"], tables["lineitem"]
-    lk = o["o_orderkey"][(o["o_orderdate"] < TPCH_DATE) & np.isin(
-        o["o_custkey"], c["c_custkey"][c["c_mktsegment"] == TPCH_SEGMENT])]
-    rk = li["l_orderkey"][li["l_shipdate"] > TPCH_DATE]
+    # the largest join: the card against the host
+    lk, rk = q3_join_keys(tables)
     card_ms = cuda_time_ms(lambda: join_kernels.device_join_pairs(
         lk, rk, device), 5)
     host_join_ms = host_ms(lambda: _join_pairs(lk, rk, device), 3)
@@ -6396,6 +6423,360 @@ def slice18(device, card, batches):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# slice 19: the SQL stack (paths 48-50)
+# ---------------------------------------------------------------------------
+
+SLICE19 = ("path 48", "path 49", "path 50")
+#: path 48: ``BASELINE.json`` config 5 at ``bench.py`` ``run_config5``'s
+#: full size, its queries verbatim
+LINEITEM_ROWS = 1 << 22
+LINEITEM_SEED = 19
+LINEITEM_BATCH = 1 << 17
+CONFIG5_TUMBLE_SQL = (
+    "SELECT l_returnflag, "
+    "TUMBLE_START(ts, INTERVAL '5' SECOND) AS ws, "
+    "SUM(l_extendedprice * (1 - l_discount)) AS revenue, "
+    "SUM(l_quantity) AS qty, COUNT(*) AS n FROM lineitem "
+    "GROUP BY l_returnflag, TUMBLE(ts, INTERVAL '5' SECOND)")
+CONFIG5_HOP_SQL = (
+    "SELECT l_returnflag, "
+    "HOP_START(ts, INTERVAL '5' SECOND, INTERVAL '60' SECOND) AS ws, "
+    "SUM(l_extendedprice * (1 - l_discount)) AS revenue, "
+    "COUNT(*) AS n FROM lineitem "
+    "GROUP BY l_returnflag, "
+    "HOP(ts, INTERVAL '5' SECOND, INTERVAL '60' SECOND)")
+#: the queries' windows (ms)
+CONFIG5_TUMBLE_MS = 5000
+CONFIG5_HOP = (5000, 60_000)            # slide, size
+#: path 49: the north star's tumbling sum as SQL
+EVENTS_SQL = (
+    "SELECT k, TUMBLE_START(ts, INTERVAL '5' SECOND) AS ws, SUM(v) AS s, "
+    "COUNT(*) AS n FROM events GROUP BY k, TUMBLE(ts, INTERVAL '5' SECOND)")
+#: path 50: TPC-H Query 3 in the dialect the planner takes (explicit JOIN
+#: ... ON, the date as its day number), the specification's parameters
+Q3_SQL = (
+    "SELECT l_orderkey, SUM(l_extendedprice * (1 - l_discount)) AS revenue, "
+    "o_orderdate, o_shippriority FROM customer "
+    "JOIN orders ON c_custkey = o_custkey "
+    "JOIN lineitem ON l_orderkey = o_orderkey "
+    f"WHERE c_mktsegment = '{TPCH_SEGMENT}' AND o_orderdate < {TPCH_DATE} "
+    f"AND l_shipdate > {TPCH_DATE} "
+    "GROUP BY l_orderkey, o_orderdate, o_shippriority "
+    "ORDER BY revenue DESC, o_orderdate LIMIT 10")
+#: path 50b: a small amount then a large one on the same key, next to each
+#: other (SQL's strict contiguity), within 20 s; no PREV in the DEFINE
+MATCH_SQL = (
+    "SELECT k, a_e, b_e FROM events MATCH_RECOGNIZE (PARTITION BY k "
+    "ORDER BY ts MEASURES A.e AS a_e, B.e AS b_e "
+    "AFTER MATCH SKIP PAST LAST ROW PATTERN (A B) "
+    "WITHIN INTERVAL '20' SECOND DEFINE A AS v < 30, B AS v > 570)")
+
+
+def lineitem(n: int, seed: int = LINEITEM_SEED):
+    """Copy of ``bench.py`` ``_lineitem``: a TPC-H-like lineitem stream
+    (return flag A/N/R, quantity 1-50, price, discount, sorted ts over two
+    minutes)."""
+    rng = np.random.default_rng(seed)
+    flags = np.asarray(["A", "N", "R"], object)
+    return {
+        "l_returnflag": flags[rng.integers(0, 3, n)],
+        "l_quantity": rng.integers(1, 51, n).astype(np.float64),
+        "l_extendedprice": (rng.random(n) * 1000).astype(np.float64),
+        "l_discount": (rng.random(n) * 0.1).astype(np.float64),
+        "ts": np.sort(rng.integers(0, 120_000, n)).astype(np.int64),
+    }
+
+
+def config5_model(cols, hop: bool):
+    """Config 5's answer in numpy: (flag, window start) -> (count, f64
+    revenue, f64 quantity), every window covering each row (one for
+    TUMBLE, size/slide for HOP)."""
+    flags = np.asarray(["A", "N", "R"], object)
+    f = np.searchsorted(flags.astype(str), cols["l_returnflag"].astype(str))
+    ts = cols["ts"]
+    rev = cols["l_extendedprice"] * (1 - cols["l_discount"])
+    slide, size = CONFIG5_HOP if hop else (CONFIG5_TUMBLE_MS,) * 2
+    model = {}
+    for j in range(size // slide):
+        start = (ts // slide - j) * slide
+        keys, inv = np.unique(f * (1 << 40) + start + (1 << 39),
+                              return_inverse=True)
+        n = np.bincount(inv)
+        r = np.bincount(inv, weights=rev)
+        q = np.bincount(inv, weights=cols["l_quantity"])
+        for key, a, b, c in zip(keys.tolist(), n.tolist(), r.tolist(),
+                                q.tolist()):
+            fk, w = divmod(key, 1 << 40)
+            m = model.setdefault((flags[fk], w - (1 << 39)), [0, 0.0, 0.0])
+            m[0] += a
+            m[1] += b
+            m[2] += c
+    return model
+
+
+def check_config5(label, rows, model, hop):
+    """Every (flag, window) once; COUNT(*) exact, the f32 sums within
+    ``n * U32`` of the model's f64 sums of their n records."""
+    got = {(r["l_returnflag"], r["ws"]): r for r in rows}
+    check(len(got) == len(rows) == len(model) and set(got) == set(model),
+          f"{label}: {len(rows)} rows, the model {len(model)} groups")
+    worst = 0.0
+    for key, (n, rev, qty) in model.items():
+        r = got[key]
+        check(int(r["n"]) == n, f"{label} {key}: COUNT(*) {r['n']} != {n}")
+        sums = [("revenue", rev)] + ([] if hop else [("qty", qty)])
+        for name, want in sums:
+            err = abs(r[name] - want)
+            check(err <= n * U32 * want,
+                  f"{label} {key}: {name} {r[name]} vs the model's {want} "
+                  f"over {n} records")
+            worst = max(worst, err / (n * U32 * want))
+    return worst
+
+
+@contextlib.contextmanager
+def window_lane(pins):
+    """Every ``WindowAggOperator`` built inside the block takes ``pins``
+    (another run's resolved lane, ``twin_options``): a CPU twin of a query
+    runs the card's lane, so its sums are the same adds in the same
+    order.  None pins nothing."""
+    from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    orig = WindowAggOperator.__init__
+
+    def pinned(self, *args, **kwargs):
+        orig(self, *args, **{**kwargs, **pins})
+
+    if pins is not None:
+        WindowAggOperator.__init__ = pinned
+    try:
+        yield
+    finally:
+        WindowAggOperator.__init__ = orig
+
+
+def sql_run(device, tables, sql, batch_size, rowtime=None, pins=None,
+            **tenv_options):
+    """``sql`` on ``TableEnvironment(device=device)`` over ``tables``
+    (name -> columns), planned, executed and collected in the timed
+    region (``bench.py``'s): (rows, wall s, launches, the result)."""
+    from flink_tpu_torch.sql import TableEnvironment
+    tenv = TableEnvironment(device=device, **tenv_options)
+    for name, cols in tables.items():
+        tenv.register_collection(name, columns=cols, rowtime=rowtime,
+                                 batch_size=batch_size)
+    with window_lane(pins):
+        sync(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = tenv.execute_sql(sql)
+        rows = res.collect()
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    return rows, wall, launches, res
+
+
+def path48(device, card):
+    """Path 48: ``BASELINE.json`` config 5, SQL TUMBLE and HOP over the
+    lineitem stream at ``run_config5``'s full size."""
+    import torch
+
+    from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    cols = lineitem(LINEITEM_ROWS)
+    table = {"lineitem": cols}
+    cpu = torch.device("cpu")
+    launches, numbers = {}, {}
+    for name, sql, hop in (("tumble", CONFIG5_TUMBLE_SQL, False),
+                           ("hop", CONFIG5_HOP_SQL, True)):
+        rows, wall, ln, res = sql_run(device, table, sql, LINEITEM_BATCH,
+                                      rowtime="ts")
+        op = job_operator(res.env, WindowAggOperator)
+        lane = lane_of(op)
+        check(op.device.type == "cuda", f"path 48 {name}: the window "
+              f"operator runs on {op.device}")
+        check(ln["scatter_fold"] > 0, f"path 48 {name}: launches {ln}")
+        worst = check_config5(f"path 48 {name}", rows,
+                              config5_model(cols, hop), hop)
+        twin, twin_wall, twin_ln, _ = sql_run(
+            cpu, table, sql, LINEITEM_BATCH, rowtime="ts",
+            pins=twin_options(lane))
+        check(twin == rows, f"path 48 {name}: the rows differ from the CPU "
+              f"twin's (the same lane on the CPU)")
+        launches[name] = ln
+        numbers[name] = {"rows_per_s": LINEITEM_ROWS / wall, "wall_s": wall,
+                         "result_rows": len(rows), "lane": lane,
+                         "twin_wall_s": twin_wall}
+        print(f"path 48 {name}: config 5 ({LINEITEM_ROWS} lineitem rows, "
+              f"batches of {LINEITEM_BATCH}) planned, executed and collected"
+              f" in {wall:.3f} s = {LINEITEM_ROWS / wall:.1f} rows/s; "
+              f"{len(rows)} rows, COUNT(*) exact and the sums within "
+              f"n * 2^-24 of the numpy model's f64 sums (worst at "
+              f"{worst:.3f} of the bound), every row equal to the CPU "
+              f"twin's bit for bit ({twin_wall:.3f} s); the window lane "
+              f"{json.dumps(lane, sort_keys=True)}; launches {ln}; {card}")
+        print(f"path 48 {name} phase_ns: "
+              + json.dumps(op.phase_ns, sort_keys=True))
+    t, h = numbers["tumble"], numbers["hop"]
+    print(f"path 48: hop/tumble rows/s {h['rows_per_s'] / t['rows_per_s']:.3f}"
+          f" ({h['rows_per_s']:.1f} vs {t['rows_per_s']:.1f}); {card}")
+    total = {k: launches["tumble"][k] + launches["hop"][k]
+             for k in launches["tumble"]}
+    return total, numbers
+
+
+def path49(device, card, batches, expect, cells, earlier):
+    """Path 49: the north star's tumbling sum through SQL: the smoke's main
+    batches as a collection table, ``EVENTS_SQL``."""
+    from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    n_records = sum(len(b[0]) for b in batches)
+    rows, wall, ln, res = sql_run(device, {"events": stream_columns(batches)},
+                                  EVENTS_SQL, BATCH, rowtime="ts")
+    op = job_operator(res.env, WindowAggOperator)
+    lane = lane_of(op)
+    check(op.device.type == "cuda", f"path 49: the window operator runs on "
+          f"{op.device}")
+    t0 = time.perf_counter()
+    k = np.fromiter((r["k"] for r in rows), np.int64, len(rows))
+    ws = np.fromiter((r["ws"] for r in rows), np.int64, len(rows))
+    s = np.fromiter((r["s"] for r in rows), np.float64, len(rows))
+    n = np.fromiter((r["n"] for r in rows), np.float64, len(rows))
+    check(set(np.unique(ws).tolist()) == set(expect),
+          f"path 49: ws {sorted(set(ws.tolist()))} != the windows' starts "
+          f"{sorted(expect)}")
+    bits = lane["emit_tier"] == "device"
+    for w, (sums, cnt) in expect.items():
+        m = ws == w
+        keys = k[m]
+        order = np.argsort(keys)
+        check(np.array_equal(keys[order], np.flatnonzero(cnt)),
+              f"path 49 window {w}: the keys differ from the reference's")
+        check(np.array_equal(n[m], cnt[keys].astype(np.float64)),
+              f"path 49 window {w}: COUNT(*) differs from the reference's")
+        if bits:
+            got = s[m].astype(np.float32)
+            check(np.array_equal(got.view(np.uint32),
+                                 cells[w][keys].view(np.uint32)),
+                  f"path 49 window {w}: SUM(v) differs from the f32 ordered "
+                  f"reference in its bits")
+        else:
+            check(np.allclose(s[m], sums[keys], rtol=RTOL, atol=0),
+                  f"path 49 window {w}: SUM(v) differs from the reference "
+                  f"beyond rtol {RTOL}")
+    check_s = time.perf_counter() - t0
+    check(ln["scatter_fold"] > 0, f"path 49: launches {ln}")
+    rps = n_records / wall
+    p5 = earlier["path 5"]["records_per_s"]
+    p40 = earlier["path 40"]["40a"]["records_per_s"]
+    print(f"path 49: {EVENTS_SQL!r} over the main stream ({n_records} "
+          f"records, {len(batches)} batches of {BATCH}) planned, executed "
+          f"and collected in {wall:.3f} s = {rps:.1f} records/s, beside path"
+          f" 5 (the operator driven directly) {p5:.1f} ({rps / p5:.3f}x) "
+          f"and path 40a (a DataStream job) {p40:.1f} ({rps / p40:.3f}x); "
+          f"{len(rows)} rows: ws the windows' starts, COUNT(*) exact, SUM(v) "
+          + ("equal to the f32 ordered reference bit for bit" if bits else
+             f"within rtol {RTOL} of the reference")
+          + f" (checked in {check_s:.1f} s); the window lane "
+          f"{json.dumps(lane, sort_keys=True)}; launches {ln}; {card}")
+    print("path 49 phase_ns: " + json.dumps(op.phase_ns, sort_keys=True))
+    return ln, {"records_per_s": rps, "wall_s": wall,
+                "result_rows": len(rows), "lane": lane}
+
+
+def check_q3_rows(label, rows, tables):
+    """Q3's rows against ``q3_model``: the top 10's keys, dates and
+    priorities exactly, each revenue (an f32 sum of the group's n lines:
+    each line rounds once into f32, each of the n - 1 adds once) within
+    ``2 n U32`` of the model's f64 sum."""
+    (keys, date, prio, rev), _ = q3_model(tables)
+    check([r["l_orderkey"] for r in rows] == keys.tolist()
+          and [r["o_orderdate"] for r in rows] == date.tolist()
+          and [r["o_shippriority"] for r in rows] == prio.tolist(),
+          f"{label}: the top 10 differ from the numpy model's: "
+          f"{[r['l_orderkey'] for r in rows]} vs {keys.tolist()}")
+    _, rk = q3_join_keys(tables)
+    lines = np.asarray([int((rk == k).sum()) for k in keys.tolist()])
+    got = np.asarray([r["revenue"] for r in rows])
+    check(np.all(np.abs(got - rev) <= 2 * lines * U32 * rev),
+          f"{label}: revenue {got} vs the model's {rev} beyond 2 n 2^-24")
+
+
+def path50(device, card, earlier):
+    """Path 50: TPC-H Q3 as SQL at SF ``TPCH_SF``, the joins on the card;
+    50b: MATCH_RECOGNIZE over path 26's first batch."""
+    import torch
+
+    from flink_tpu_torch.cep.operator import CepOperator
+    from flink_tpu_torch.ops import join_kernels
+    cpu = torch.device("cpu")
+    tables = make_tpch()
+    n_li = tables["lineitem"]["l_orderkey"].size
+    with env_vars(FLINK_TPU_DEVICE_JOIN=1):
+        rows, wall, ln, _ = sql_run(device, tables, Q3_SQL, LINEITEM_BATCH)
+        twin, twin_wall, _, _ = sql_run(cpu, tables, Q3_SQL, LINEITEM_BATCH)
+    check(ln["scatter_fold"] > 0, f"path 50: launches {ln}")
+    check(twin == rows, "path 50: the rows differ from the CPU twin's")
+    check_q3_rows("path 50", rows, tables)
+    lk, rk = q3_join_keys(tables)
+    card_ms = cuda_time_ms(lambda: join_kernels.device_join_pairs(
+        lk, rk, device), 5)
+    p45 = earlier["path 45"]
+    print(f"path 50: TPC-H Q3 as SQL at SF {TPCH_SF} ({n_li} lineitem rows),"
+          f" the joins on the card: planned, executed and collected in "
+          f"{wall:.3f} s = {n_li / wall:.1f} lineitem rows/s, beside path 45"
+          f" (the DataSet API) {p45['wall_s']:.3f} s = "
+          f"{p45['lineitem_rows_per_s']:.1f}; the CPU twin {twin_wall:.3f} s"
+          f" with the same rows bit for bit; the top 10 equal the numpy "
+          f"model's, revenue within 2 n 2^-24 (f32 sums); the largest join "
+          f"({lk.size} x {rk.size} keys) {card_ms:.3f} ms on the card (CUDA "
+          f"events); launches {ln}; {card}")
+    # 50b: MATCH_RECOGNIZE resolves to the interpreted NFA, as in JAX
+    k, v, ts = make_cep_batches()[0]
+    events = {"events": {"k": k, "v": v, "ts": ts,
+                         "e": np.arange(k.size, dtype=np.int64)}}
+    matches, mwall, mln, res = sql_run(device, events, MATCH_SQL, CEP_BATCH,
+                                       rowtime="ts")
+    op = job_operator(res.env, CepOperator)
+    engine = op.cep_stats()["engine"]
+    check(engine == "interpreted", f"path 50b: the engine is {engine}")
+    mtwin, _, _, _ = sql_run(cpu, events, MATCH_SQL, CEP_BATCH, rowtime="ts")
+    check(matches == mtwin and len(matches) > 0,
+          f"path 50b: {len(matches)} matches, the CPU twin {len(mtwin)}")
+    try:
+        sql_run(device, events, MATCH_SQL, CEP_BATCH, rowtime="ts",
+                cep_vectorized="on")
+        refused = None
+    except ValueError as err:
+        refused = str(err)
+    check(refused is not None and "not eligible" in refused,
+          "path 50b: cep_vectorized='on' did not raise")
+    print(f"path 50b: MATCH_RECOGNIZE over path 26's first batch ({k.size} "
+          f"events): {len(matches)} matches in {mwall:.3f} s on the "
+          f"{engine} engine, equal to the CPU twin's; cep_vectorized='on' "
+          f"raises ({refused.split(':')[0]}); launches {mln}; {card}")
+    total = {key: ln[key] + mln[key] for key in ln}
+    return total, {"lineitem_rows_per_s": n_li / wall, "wall_s": wall,
+                   "twin_wall_s": twin_wall, "join_card_ms": card_ms,
+                   "matches": len(matches), "match_wall_s": mwall}
+
+
+def slice19(device, card, batches, expect, cells, earlier):
+    """Paths 48-50: the SQL stack."""
+    t0 = time.perf_counter()
+    launches, numbers = {}, {}
+    for label, fn in (
+            ("path 48", lambda: path48(device, card)),
+            ("path 49", lambda: path49(device, card, batches, expect, cells,
+                                       earlier)),
+            ("path 50", lambda: path50(device, card, earlier))):
+        t1 = time.perf_counter()
+        launches[label], numbers[label] = fn()
+        print(f"{label} took {time.perf_counter() - t1:.1f} s of command "
+              f"time")
+    print(f"slice 19 took {time.perf_counter() - t0:.1f} s of command time")
+    return launches, numbers
+
+
 def main() -> None:
     try:
         import torch
@@ -6576,6 +6957,10 @@ def main() -> None:
     slice18_launches, slice18_numbers = slice18(device, card, batches)
     launches.update(slice18_launches)
     numbers.update(slice18_numbers)
+    slice19_launches, slice19_numbers = slice19(device, card, batches,
+                                                expect, cells, numbers)
+    launches.update(slice19_launches)
+    numbers.update(slice19_numbers)
     for name, phase in (("pipeline A/B", lambda: pipeline_ab(
             device, "path 9", "path 3", ab_want["path 3"])),
             ("guard A/B", lambda: guard_ab(device, batches, ab_want)),
@@ -6648,7 +7033,7 @@ def main() -> None:
     kernels.append(probe_fold_phase(device, rng, dki))
     kernels.append(scatter_fold_phase(device, rng))
     every_path = (ORDER + SLICE11 + SLICE12 + SLICE13 + SLICE14 + SLICE15
-                  + SLICE16 + SLICE17 + SLICE18)
+                  + SLICE16 + SLICE17 + SLICE18 + SLICE19)
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]]
                    for label in every_path}
@@ -6672,7 +7057,7 @@ def main() -> None:
     for label in (*DEVICE_PATHS, *PAGED_PATHS, *FAULTS, "path 8", "path 9",
                   *SLICE11_SCATTER, "path 23", "path 24", "path 25",
                   "path 28", "path 29", "path 32", "path 34", "path 35",
-                  *SLICE16, "path 40", "path 41", "path 47"):
+                  *SLICE16, "path 40", "path 41", "path 47", *SLICE19):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
     check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")

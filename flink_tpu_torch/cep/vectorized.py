@@ -47,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from flink_tpu_torch import resolve_device
 from flink_tpu_torch.cep.pattern import AfterMatchSkipStrategy, Pattern
 from flink_tpu_torch.core.batch import LONG_MIN
 
@@ -872,21 +873,26 @@ def step_device(tab: TransitionTable, m_cap: int, block, inputs, device,
 
 
 def _device_type(device) -> str:
-    return getattr(device, "type", None) or str(device or "cpu")
+    """``device``'s type; ``None`` is the card (``resolve_device``: raises
+    without one, never the CPU)."""
+    if device is None:
+        device = resolve_device(None)
+    return getattr(device, "type", None) or str(device)
 
 
 def default_kernel(device=None) -> str:
     """Step backend pick: ``FLINK_TPU_CEP_KERNEL=numpy|np|host`` chooses
     the host step, ``jit|jax|device`` the device step; otherwise the step
-    follows the operator's device: the device step on ``cuda``, ``numpy``
-    on the CPU (the per-step dispatch loses to one fused numpy pass there,
-    JAX's CPU verdict)."""
+    follows the operator's device (``None``: the card): the device step on
+    ``cuda``, ``numpy`` on the CPU (the per-step dispatch loses to one fused
+    numpy pass there, JAX's CPU verdict)."""
+    kind = _device_type(device)
     env = os.environ.get(_ENV_KERNEL, "").lower()
     if env in ("numpy", "np", "host"):
         return "numpy"
     if env in ("jit", "jax", "device"):
         return "device"
-    return "device" if _device_type(device).startswith("cuda") else "numpy"
+    return "device" if kind.startswith("cuda") else "numpy"
 
 
 # ---------------------------------------------------------------------------
@@ -902,7 +908,8 @@ last_measurement: Dict[str, Dict[str, float]] = {}
 
 def calibrated_vectorized_cep(device=None) -> bool:
     """MEASURED verdict, cached process-wide per device type: does the
-    batched engine beat the interpreted NFA on this device?
+    batched engine beat the interpreted NFA on this device (``None``: the
+    card, raising without one)?
     ``vectorized="auto"`` asks this once; ``FLINK_TPU_CEP_VECTORIZED=
     on|off`` short-circuits (same contract as ``FLINK_TPU_DEVICE_PROBE``)."""
     kind = _device_type(device)
@@ -932,12 +939,14 @@ def _reset_calibration() -> None:
 
 def _measure_vectorized(device=None) -> bool:
     """A/B one synthetic drain (4k keys x 4 events, 2-stage pattern)
-    through both engines on ``device``; ties go to the batched engine (it
-    scales with keys, the interpreted loop does not)."""
+    through both engines on ``device`` (``None``: the card, raising
+    without one); ties go to the batched engine (it scales with keys, the
+    interpreted loop does not)."""
     from flink_tpu_torch.cep.operator import CepOperator
     from flink_tpu_torch.core.batch import RecordBatch, Watermark
 
-    dev = "cpu" if device is None else device
+    dev = resolve_device(device)
+    kind = _device_type(device)
 
     def build(mode):
         pat = (Pattern.begin("a")
@@ -964,8 +973,7 @@ def _measure_vectorized(device=None) -> bool:
     run("on")                    # warm builds/caches outside the timing
     t_vec = min(run("on") for _ in range(2))
     t_int = min(run("off") for _ in range(2))
-    last_measurement[_device_type(device)] = {"vectorized_s": t_vec,
-                                              "interpreted_s": t_int}
+    last_measurement[kind] = {"vectorized_s": t_vec, "interpreted_s": t_int}
     return t_vec <= t_int
 
 

@@ -959,3 +959,25 @@ def test_partial_codecs_equal_jax_and_each_other():
             [tuple(vars(p).values()) for p in ps]
     assert (m_cap, e_cap) == (m, e)
     assert pv.decode_partial_lists(*rows[:5], rows[6]) == lists
+
+
+def test_no_device_means_the_card(monkeypatch):
+    """``None`` is the card in the engine pick and its calibration: with no
+    card they raise instead of measuring or picking the CPU's step; the
+    CPU's verdicts, asked for by name, are unchanged."""
+    monkeypatch.delenv("FLINK_TPU_CEP_VECTORIZED", raising=False)
+    monkeypatch.delenv("FLINK_TPU_CEP_KERNEL", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(pv, "_calibrated", {})
+    for call in (pv.calibrated_vectorized_cep, pv.default_kernel,
+                 pv._measure_vectorized):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert pv._calibrated == {}
+    assert pv.default_kernel("cpu") == "numpy"
+    assert pv.default_kernel(torch.device("cuda")) == "device"
+    calls = []
+    monkeypatch.setattr(pv, "_measure_vectorized",
+                        lambda device=None: calls.append(device) or False)
+    assert pv.calibrated_vectorized_cep("cpu") is False
+    assert calls == ["cpu"] and pv._calibrated == {"cpu": False}
