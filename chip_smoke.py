@@ -412,6 +412,35 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``cep_vectorized="on"`` refused.  Each path launches ``scatter_fold``
    (50b none).
 
+9p. main paths 51-52 (slice 20), after path 50: checkpointing and the
+   MiniCluster.  Path 51 runs the operator with ``incremental_state`` on
+   four lanes (51a path 5's options, 51b path 3's, 51c path 7's at 12
+   batches, 51d path 14's at 12 batches): a cut every ``INCR_EVERY``
+   batches under ``snapshot_scope(cid, incremental=True)`` into
+   ``IncrementalCheckpointStorage(retain=3)``, confirmed but for cut
+   ``INCR_WITHHELD`` (the next cuts ship the union), beside a full
+   snapshot at the same batch into ``FileCheckpointStorage``: every
+   ``load(cid)`` equals that full snapshot bit for bit; ``load_latest()``
+   at the middle batch restored into a fresh operator and run to the end
+   equals the restore of the full snapshot bit for bit, and the
+   uninterrupted run (bit for bit on the device tiers; the host tiers'
+   window open at the cut to 1e-6, as phase 5's replays).  It prints
+   increments against re-bases, the increment's d2h bytes, cut ms p50/p99
+   and stored bytes against the full snapshot's, ``load_latest`` ms and
+   the chain.  Path 52 is the north star as a DataStream job on
+   ``execute_cluster`` at parallelism 2 on the card (one source split, so
+   every key folds in record order), checkpoints every 250 ms into
+   ``IncrementalCheckpointStorage`` with ``incremental=True``: 52a the
+   device tier, a ``CrashOnceAt`` on ``subtask.run`` failing window
+   subtask 0 once after two completed checkpoints, ``restart_attempts=1``
+   (every (key, window) present, every row, repeats included, equal to
+   ``reference_f32`` bit for bit; one restart; the card's memory back
+   within 64 MiB once the job is released); 52b the host tier with the
+   probe on, unaligned checkpoints, no failure (rows to ``RTOL``).  Each
+   prints records/s beside paths 5 and 40a, the checkpoints' count,
+   ``delta_bytes`` and duration p50/p99, recovery ms, and each subtask's
+   resolved lane.  51b, 52b launch ``probe``; every lane ``scatter_fold``.
+
 Each phase and path prints its command time on a line of its own.
 
 Each main path runs with every launch count set to 0 just before it and
@@ -6777,6 +6806,532 @@ def slice19(device, card, batches, expect, cells, earlier):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# slice 20: incremental checkpoints and the MiniCluster (paths 51-52)
+# ---------------------------------------------------------------------------
+
+SLICE20 = ("path 51", "path 52")
+#: path 51's lanes: the main path whose options each runs, and its depth
+#: (None: the main stream's ``N_BATCHES``)
+INCR_LANES = {"51a": ("path 5", None), "51b": ("path 3", None),
+              "51c": ("path 7", 12), "51d": ("path 14", 12)}
+INCR_EVERY = 2          # a cut every 2 batches
+INCR_WITHHELD = 3       # the cut whose confirmation is withheld
+INCR_RETAIN = 3
+#: path 52: the job's parallelism on the one card, its checkpoint interval,
+#: the checkpoints that must have completed before the injected crash, and
+#: the card memory a finished job may leave allocated
+JOB_PARALLELISM = 2
+JOB_CHECKPOINT_MS = 250
+CRASH_AFTER_CHECKPOINTS = 2
+JOB_MEMORY_SLACK = 64 << 20
+#: elements a channel buffers: with the default 32 the source would hand
+#: all 24 batches over and finish before the first trigger, and a job whose
+#: source finished declines every later checkpoint; two keep the source
+#: paced by the window subtasks through the job
+JOB_CHANNEL_CAPACITY = 2
+
+
+def snapshot_d2h(op) -> int:
+    """The operator's device-to-host bytes so far (a full snapshot books
+    ``d2h``, an increment's gather ``d2h_page_out``, JAX's names)."""
+    return op.phase_bytes.get("d2h", 0) + op.phase_bytes.get(
+        "d2h_page_out", 0)
+
+
+def state_equal(a, b, path="$", rtol=None) -> bool:
+    """Two snapshot trees (mesh slices densified) equal, arrays bit for bit
+    (or floats to ``rtol``)."""
+    from flink_tpu_torch.state.shard_layout import densify_keyed_snapshot
+    if isinstance(a, dict) and "pane_base" in a:
+        a, b = densify_keyed_snapshot(a), densify_keyed_snapshot(b)
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(state_equal(a[k], b[k], f"{path}.{k}", rtol)
+                        for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(state_equal(x, y, f"{path}[{i}]", rtol)
+                        for i, (x, y) in enumerate(zip(a, b))))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        if a.dtype == object:
+            return a.tolist() == b.tolist()
+        if rtol is not None and a.dtype.kind == "f":
+            return bool(np.allclose(a, b, rtol=rtol, atol=0))
+        return a.tobytes() == b.tobytes()
+    return a == b
+
+
+def check_replay(label, got, want, open_window, bits) -> None:
+    """A restored run's fires against another run's: the same windows and
+    keys; values bit for bit, or (``bits`` False: a host tier re-seeds its
+    f64 mirror from the snapshot's f32 cells, as JAX's does) the window
+    open at the cut to 1e-6 and every later one bit for bit."""
+    g, w = ({int(b.column("window_start")[0]): b for b in by_window(f)}
+            for f in (got, want))
+    check(sorted(g) == sorted(w), f"{label}: windows {sorted(g)} vs "
+          f"{sorted(w)}")
+    for ws in w:
+        gk, wk = (np.asarray(x[ws].column("k")) for x in (g, w))
+        gr, wr = (np.asarray(x[ws].column("result")) for x in (g, w))
+        check(np.array_equal(gk, wk), f"{label} window {ws}: keys differ")
+        if bits or ws > open_window:
+            check(gr.tobytes() == wr.tobytes(),
+                  f"{label} window {ws}: values differ in their bits")
+        else:
+            check(np.allclose(gr, wr, rtol=1e-6, atol=0),
+                  f"{label} window {ws}: values beyond 1e-6")
+
+
+def path51_lane(device, card, lane, batches, tmp):
+    """One lane of path 51: the operator with ``incremental_state``, a cut
+    every ``INCR_EVERY`` batches into ``IncrementalCheckpointStorage``
+    beside a full snapshot into ``FileCheckpointStorage``; the restore of
+    ``load_latest()`` at the middle batch run to the end."""
+    from flink_tpu_torch.core.batch import RecordBatch, Watermark
+    from flink_tpu_torch.operators.base import snapshot_scope
+    from flink_tpu_torch.runtime import device_health
+    from flink_tpu_torch.runtime.checkpoint.incremental import \
+        IncrementalCheckpointStorage
+    from flink_tpu_torch.runtime.checkpoint.storage import \
+        FileCheckpointStorage
+
+    base, depth = INCR_LANES[lane]
+    n = N_BATCHES if depth is None else min(depth, N_BATCHES)
+    restore_at = n // 2
+    inc_dir, full_dir = (os.path.join(tmp, lane, d) for d in ("inc", "full"))
+    inc_store = IncrementalCheckpointStorage(inc_dir, retain=INCR_RETAIN)
+    full_store = FileCheckpointStorage(full_dir, retain=INCR_RETAIN)
+    device_health.set_monitor(device_health.DeviceHealthMonitor())
+    options = dict(PATHS[base])
+    bits = options.get("emit_tier") == "device"
+    op = build_op(device, **options)
+    op.incremental_state = True
+    st = {k: [] for k in ("kind", "inc_ms", "full_ms", "inc_d2h", "full_d2h",
+                          "inc_stored", "full_stored", "inc_read_ms")}
+    held = {}
+
+    def cut(i):
+        out = op.prepare_snapshot_pre_barrier()
+        cid = (i + 1) // INCR_EVERY
+        b0 = snapshot_d2h(op)
+        r0 = op.phase_ns.get("snapshot", 0)
+        sync(device)
+        t0 = time.perf_counter()
+        with snapshot_scope(cid, incremental=True):
+            raw = op.snapshot_state()
+        sync(device)
+        st["inc_ms"].append((time.perf_counter() - t0) * 1e3)
+        # the cut's state read (the gather or the mirror's columns); the
+        # rest of the cut is the dirt's bookkeeping on the host
+        st["inc_read_ms"].append((op.phase_ns.get("snapshot", 0) - r0) / 1e6)
+        st["inc_d2h"].append(snapshot_d2h(op) - b0)
+        st["kind"].append(raw.get("kind", "full"))
+        shared = os.path.join(inc_dir, "shared")
+        old = set(os.listdir(shared)) if os.path.isdir(shared) else set()
+        inc_store.store(cid, {"w": raw})
+        st["inc_stored"].append(
+            dir_bytes(os.path.join(inc_dir, f"chk-{cid}"))
+            + sum(os.path.getsize(os.path.join(shared, f))
+                  for f in set(os.listdir(shared)) - old))
+        b0 = snapshot_d2h(op)
+        t0 = time.perf_counter()
+        full = op.snapshot_state()
+        sync(device)
+        st["full_ms"].append((time.perf_counter() - t0) * 1e3)
+        st["full_d2h"].append(snapshot_d2h(op) - b0)
+        full_store.store(cid, {"w": full})
+        st["full_stored"].append(dir_bytes(os.path.join(full_dir,
+                                                        f"chk-{cid}")))
+        check(state_equal(inc_store.load(cid)["w"], full),
+              f"path {lane}: load({cid}) differs from the full snapshot at "
+              f"batch {i}")
+        if cid != INCR_WITHHELD:
+            op.notify_checkpoint_complete(cid)
+        if i + 1 == restore_at:
+            t0 = time.perf_counter()
+            held["latest"] = inc_store.load_latest()
+            held["load_ms"] = (time.perf_counter() - t0) * 1e3
+            held["chain"] = inc_store.chain_length(
+                inc_store.checkpoint_ids()[-1])
+            held["full"] = full_store.load(cid)
+        return out
+
+    def drive(o, start, stop, cuts):
+        fired = []
+        for i in range(start, stop):
+            keys, vals, ts = batches[i]
+            fired += o.process_batch(RecordBatch({"k": keys, "v": vals},
+                                                 timestamps=ts))
+            fired += o.process_watermark(Watermark(int(ts.max()) - 1))
+            if cuts and (i + 1) % INCR_EVERY == 0:
+                fired += cut(i)
+        return fired
+
+    sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    drive(op, 0, restore_at, True)
+    after = drive(op, restore_at, n, True) + op.end_input()
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    final = op.snapshot_state()
+    open_window = int(batches[restore_at - 1][2].max()) // WINDOW_MS \
+        * WINDOW_MS
+    replays = {}
+    for name, snap in (("chain", held["latest"]["w"]),
+                       ("full", held["full"]["w"])):
+        r = build_op(device, **options)
+        r.restore_state(snap)
+        replays[name] = (drive(r, restore_at, n, False) + r.end_input(),
+                         r.snapshot_state())
+        r.close()
+    check_replay(f"path {lane} chain restore vs full restore",
+                 replays["chain"][0], replays["full"][0], open_window, True)
+    check(state_equal(replays["chain"][1], replays["full"][1]),
+          f"path {lane}: the final snapshots of the chain and full restores "
+          f"differ")
+    check_replay(f"path {lane} restore vs the uninterrupted run",
+                 replays["chain"][0], after, open_window, bits)
+    # (the pager's counters are its own run's history, not state)
+    check(state_equal(*({k: v for k, v in s.items() if k != "paging_stats"}
+                        for s in (replays["chain"][1], final)),
+                      rtol=None if bits else 1e-6),
+          f"path {lane}: the restored run's final snapshot differs from the "
+          f"uninterrupted run's")
+    op.close()
+    incs = [i for i, k in enumerate(st["kind"]) if k == "window_delta"]
+    fulls = [i for i, k in enumerate(st["kind"]) if k != "window_delta"]
+    check(incs, f"path {lane}: no cut was an increment: {st['kind']}")
+    check(launches["scatter_fold"] > 0, f"path {lane}: launches {launches}")
+    if base == "path 3":
+        check(launches["probe"] > 0, f"path {lane}: no probe launch")
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q)) if xs else 0.0
+
+    def mean(key, idx):
+        return float(np.mean([st[key][i] for i in idx])) if idx else 0.0
+
+    numbers = {
+        "increments": len(incs), "rebases": len(fulls),
+        "inc_d2h": mean("inc_d2h", incs), "full_d2h": mean("full_d2h", incs),
+        "inc_ms_p50": pct([st["inc_ms"][i] for i in incs], 50),
+        "inc_ms_p99": pct([st["inc_ms"][i] for i in incs], 99),
+        "inc_read_ms_p50": pct([st["inc_read_ms"][i] for i in incs], 50),
+        "full_ms_p50": pct(st["full_ms"], 50),
+        "full_ms_p99": pct(st["full_ms"], 99),
+        "inc_stored": mean("inc_stored", incs),
+        "full_stored": mean("full_stored", incs),
+        "load_latest_ms": held["load_ms"], "chain": held["chain"],
+        "records_per_s": sum(len(batches[i][0]) for i in range(n)) / wall}
+    print(f"path {lane} ({base}'s options, {n} batches, a cut every "
+          f"{INCR_EVERY}, cut {INCR_WITHHELD} unconfirmed): {len(incs)} "
+          f"increments, {len(fulls)} full re-bases ({st['kind']}); d2h per "
+          f"increment {numbers['inc_d2h']:.0f} B vs a full snapshot's "
+          f"{numbers['full_d2h']:.0f} B at the same batches; cut ms p50/p99 "
+          f"incremental {numbers['inc_ms_p50']:.3f}/"
+          f"{numbers['inc_ms_p99']:.3f} (its state read p50 "
+          f"{numbers['inc_read_ms_p50']:.3f}, the rest the dirt's "
+          f"bookkeeping) vs full {numbers['full_ms_p50']:.3f}"
+          f"/{numbers['full_ms_p99']:.3f}; stored per increment "
+          f"{numbers['inc_stored']:.0f} B vs FileCheckpointStorage's "
+          f"{numbers['full_stored']:.0f} B; load_latest at batch "
+          f"{restore_at} {held['load_ms']:.3f} ms over a chain of "
+          f"{held['chain']}; every load(cid) equals the full snapshot bit for "
+          f"bit, the restore run to the end equals the full restore bit for "
+          f"bit and the uninterrupted run "
+          f"{'bit for bit' if bits else 'bit for bit (its open window to 1e-6)'}"
+          f"; {numbers['records_per_s']:.1f} records/s with the cuts; "
+          f"launches {launches}; {card}")
+    # the increment's download alone, under JAX's counter names
+    print(f"path {lane} increment bytes: d2h (d2h + d2h_page_out) per cut "
+          f"{[st['inc_d2h'][i] for i in incs]} B, each full snapshot's "
+          f"{[st['full_d2h'][i] for i in incs]} B; {card}")
+    return launches, numbers
+
+
+def path51(device, card, batches):
+    """Path 51: incremental checkpoints on the operator, four lanes."""
+    import tempfile
+    launches, numbers = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_51_") as tmp:
+        for lane in INCR_LANES:
+            t1 = time.perf_counter()
+            launches[lane], numbers[lane] = path51_lane(device, card, lane,
+                                                        batches, tmp)
+            print(f"path {lane} took {time.perf_counter() - t1:.1f} s of "
+                  f"command time")
+    total = {k: sum(ln[k] for ln in launches.values())
+             for k in launches["51a"]}
+    return total, numbers
+
+
+def crash_window_subtask(chaos, uid, completed):
+    """A ``CrashOnceAt(1)`` on ``subtask.run`` that matches the window
+    vertex's subtask 0 only, once ``completed()`` checkpoints have
+    completed: the crash lands inside the job, after a restorable cut.
+    ``at`` is the firing of that subtask it failed, ``t`` when."""
+
+    class Crash(chaos.CrashOnceAt):
+        seen, at, t = 0, None, None
+
+        def matches(self, ctx):
+            if ctx.get("task") != uid or ctx.get("subtask") != 0:
+                return False
+            self.seen += 1
+            if self.at is None and completed() >= CRASH_AFTER_CHECKPOINTS:
+                self.at, self.t = self.seen, time.perf_counter()
+                return True
+            return False
+
+    return Crash(1)
+
+
+def job52(device, batches, pins, crash, unaligned, tmp):
+    """Path 52's job on the MiniCluster; returns (the environment, the
+    sink, the result, wall s, launches, the crash schedule or None, the
+    window operators' first calls)."""
+    import torch
+
+    from flink_tpu_torch.connectors.sources import (CollectionSource,
+                                                    SourceSplit)
+    from flink_tpu_torch.core.functions import SumAggregator
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    from flink_tpu_torch.runtime.checkpoint.incremental import \
+        IncrementalCheckpointStorage
+    from flink_tpu_torch.testing import chaos
+    from flink_tpu_torch.windowing import TumblingEventTimeWindows
+
+    class OneSplit(CollectionSource):
+        """The stream in one split: one source subtask reads it in order,
+        so each window subtask folds every key's records in record order
+        (the f32 bits of ``reference_f32``), however the job is cut."""
+
+        def create_splits(self, parallelism):
+            return [SourceSplit(self, 0, 1)]
+
+    env = StreamExecutionEnvironment(device=device)
+    env.set_parallelism(JOB_PARALLELISM)
+    sink = (env.from_source(OneSplit(columns=stream_columns(batches),
+                                     batch_size=BATCH), "collection-source")
+            .assign_timestamps_and_watermarks(0, timestamp_column="ts")
+            .key_by("k")
+            .window(TumblingEventTimeWindows.of(WINDOW_MS))
+            .aggregate(SumAggregator(torch.float32), value_column="v")
+            .collect())
+    uid = [v.uid for v in env.get_stream_graph().to_plan().vertices
+           if not v.is_source]
+    check(len(uid) == 1, f"path 52: the plan's non-source vertices {uid}")
+    inj, sched = None, None
+    if crash:
+        inj = chaos.FaultInjector(seed=7)
+        sched = inj.inject("subtask.run", crash_window_subtask(
+            chaos, uid[0], lambda: len(getattr(
+                getattr(env, "_last_cluster", None), "_completed_ids", ()))))
+    first = []
+    orig = WindowAggOperator.process_batch
+
+    def process_batch(self, batch):
+        if not getattr(self, "_first_call", None):
+            self._first_call = time.perf_counter()
+            first.append(self._first_call)
+        return orig(self, batch)
+
+    storage = IncrementalCheckpointStorage(tmp)
+    WindowAggOperator.process_batch = process_batch
+    try:
+        with window_lane(pins), (chaos.installed(inj) if inj is not None
+                                 else contextlib.nullcontext()):
+            sync(device)
+            reset_launches()
+            t0 = time.perf_counter()
+            res = env.execute_cluster(
+                checkpoint_interval_ms=JOB_CHECKPOINT_MS, storage=storage,
+                incremental=True, unaligned=unaligned,
+                restart_attempts=1 if crash else 0, timeout_s=600,
+                channel_capacity=JOB_CHANNEL_CAPACITY)
+            sync(device)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+    finally:
+        WindowAggOperator.process_batch = orig
+    return env, sink, res, wall, launches, sched, first
+
+
+def check_job_rows(label, sink, expect, cells, bits) -> int:
+    """Every (key, window) of the reference is present; every row equals
+    ``reference_f32`` bit for bit (``bits``) or ``reference`` to ``RTOL``,
+    repeats included.  Returns the number of repeated rows."""
+    k = np.asarray(sink.column("k"), np.int64)
+    ws = np.asarray(sink.column("window_start"), np.int64)
+    res = np.asarray(sink.column("result"))
+    check(res.dtype == np.float32 or not bits,
+          f"{label}: result dtype {res.dtype}")
+    repeats = 0
+    for w, (sums, cnt) in expect.items():
+        m = ws == w
+        keys, vals = k[m], res[m]
+        uniq = np.unique(keys)
+        check(np.array_equal(uniq, np.flatnonzero(cnt)),
+              f"{label} window {w}: keys differ from the reference's")
+        repeats += int(keys.size - uniq.size)
+        if bits:
+            check(np.array_equal(vals.view(np.uint32),
+                                 cells[w][keys].view(np.uint32)),
+                  f"{label} window {w}: a row differs from the f32 ordered "
+                  f"reference in its bits")
+        else:
+            check(np.allclose(vals, sums[keys], rtol=RTOL, atol=0),
+                  f"{label} window {w}: a row differs beyond rtol {RTOL}")
+    check(set(np.unique(ws).tolist()) == set(expect),
+          f"{label}: windows {sorted(set(ws.tolist()))}")
+    return repeats
+
+
+def path52(device, card, batches, expect, cells, earlier):
+    """Path 52: the north star as a checkpointed MiniCluster job, the
+    device tier with one injected crash (52a) and the host tier with the
+    probe on and unaligned checkpoints (52b)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    n_records = sum(len(b[0]) for b in batches)
+    launches, numbers = {}, {}
+    for lane, base, crash, unaligned in (("52a", "path 5", True, False),
+                                         ("52b", "path 3", False, True)):
+        pins = {k: v for k, v in PATHS[base].items()}
+        bits = pins.get("emit_tier") == "device"
+        gc.collect()
+        sync(device)
+        m0 = torch.cuda.memory_allocated(device) if device.type == "cuda" \
+            else 0
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{lane}_") as tmp:
+            env, sink, res, wall, ln, sched, first = job52(
+                device, batches, pins, crash, unaligned, tmp)
+            cluster = env._last_cluster
+            status = cluster.job_status()
+        check(res.state == "FINISHED", f"path {lane}: the job {res}")
+        stats = list(cluster._checkpoint_stats)
+        lanes = [lane_of(m) for t in cluster._tasks
+                 for m in getattr(t.operator, "operators", [t.operator])
+                 if isinstance(m, WindowAggOperator)]
+        devices = {str(m.device) for t in cluster._tasks
+                   for m in getattr(t.operator, "operators", [t.operator])
+                   if isinstance(m, WindowAggOperator)}
+        check(len(lanes) == JOB_PARALLELISM and all(
+            l["emit_tier"] == pins["emit_tier"] for l in lanes),
+            f"path {lane}: the window subtasks' lanes {lanes}")
+        check(devices == {str(torch.device(device))} or all(
+            d.startswith(device.type) for d in devices),
+            f"path {lane}: the window operators ran on {devices}")
+        repeats = check_job_rows(f"path {lane}", sink, expect, cells, bits)
+        incs = [s for s in status["checkpoint_stats"]
+                if s.get("incremental")]
+        check(incs, f"path {lane}: no incremental checkpoint among "
+              f"{len(stats)}")
+        check(ln["scatter_fold"] > 0, f"path {lane}: launches {ln}")
+        if not bits:
+            check(ln["probe"] > 0, f"path {lane}: no probe launch: {ln}")
+        recovery_ms = crash_at = None
+        if crash:
+            check(res.restarts == 1 and status["restarts"] == 1,
+                  f"path {lane}: restarts {res.restarts}, job_status "
+                  f"{status['restarts']}")
+            check(sched.at is not None, f"path {lane}: the crash never "
+                  f"fired")
+            after = [t for t in first if t > sched.t]
+            check(after, f"path {lane}: no record reached a window operator "
+                  f"after the restore")
+            recovery_ms = (min(after) - sched.t) * 1e3
+            crash_at = sched.at
+        m1 = torch.cuda.memory_allocated(device) if device.type == "cuda" \
+            else 0
+        # a subtask reports FINISHED just before its thread ends, and the
+        # crash schedule's condition holds the environment: wait for the
+        # threads, then drop every reference to the job (a subtask holds
+        # its cluster, the cluster every operator)
+        for task in cluster._tasks:
+            task.join(60)
+        del env, sink, cluster, status, sched, task
+        gc.collect()
+        sync(device)
+        m2 = torch.cuda.memory_allocated(device) if device.type == "cuda" \
+            else 0
+        check(m2 - m0 <= JOB_MEMORY_SLACK,
+              f"path {lane}: {m2 - m0} B of card memory still allocated "
+              f"after the job")
+        dur = [s["duration_ms"] for s in stats]
+        full_sizes = [s["state_size_bytes"] for s in incs]
+        deltas = [s["delta_bytes"] for s in incs]
+        rps = n_records / wall
+        numbers[lane] = {
+            "records_per_s": rps, "wall_s": wall, "checkpoints": len(stats),
+            "incremental_checkpoints": len(incs),
+            "delta_bytes_p50": float(np.median(deltas)),
+            "state_size_bytes_p50": float(np.median(full_sizes)),
+            "checkpoint_ms_p50": float(np.percentile(dur, 50)),
+            "checkpoint_ms_p99": float(np.percentile(dur, 99)),
+            "recovery_ms": recovery_ms, "repeats": repeats,
+            "restarts": res.restarts, "lanes": lanes,
+            "memory_after_job": m1 - m0, "memory_after_release": m2 - m0}
+        launches[lane] = ln
+        p5 = earlier["path 5"]["records_per_s"]
+        p40 = earlier["path 40"]["40a"]["records_per_s"]
+        crash_text = (f"window subtask 0 crashed at its firing {crash_at} of "
+                      f"subtask.run (after {CRASH_AFTER_CHECKPOINTS} "
+                      f"completed checkpoints), restarted once, recovery "
+                      f"{recovery_ms:.1f} ms (crash to the first record in "
+                      f"the restored window operators); " if crash else
+                      "no failure; ")
+        print(f"path {lane} ({base}'s lane pinned, parallelism "
+              f"{JOB_PARALLELISM} on the card, "
+              f"{'unaligned' if unaligned else 'aligned'} incremental "
+              f"checkpoints every {JOB_CHECKPOINT_MS} ms into "
+              f"IncrementalCheckpointStorage): {n_records} records in "
+              f"{wall:.3f} s = {rps:.1f} records/s, beside path 40a "
+              f"(LocalExecutor) {p40:.1f} ({rps / p40:.3f}x) and path 5 (the "
+              f"operator alone) {p5:.1f} ({rps / p5:.3f}x); {crash_text}"
+              f"{len(stats)} checkpoints, {len(incs)} incremental, delta_bytes"
+              f" p50 {numbers[lane]['delta_bytes_p50']:.0f} of state_size "
+              f"p50 {numbers[lane]['state_size_bytes_p50']:.0f} B, duration "
+              f"p50/p99 {numbers[lane]['checkpoint_ms_p50']:.1f}/"
+              f"{numbers[lane]['checkpoint_ms_p99']:.1f} ms; every (key, "
+              f"window) present, every row "
+              f"{'equal to the f32 ordered reference bit for bit' if bits else f'within rtol {RTOL} of the reference'}"
+              f", {repeats} repeated rows; card memory after the job "
+              f"{m1 - m0} B over the start, {m2 - m0} B once released; "
+              f"subtask lanes {json.dumps(lanes, sort_keys=True)}; launches "
+              f"{ln}; {card}")
+    total = {k: launches["52a"][k] + launches["52b"][k]
+             for k in launches["52a"]}
+    return total, numbers
+
+
+def slice20(device, card, batches, expect, cells, earlier):
+    """Paths 51-52: incremental checkpoints and the MiniCluster."""
+    t0 = time.perf_counter()
+    launches, numbers = {}, {}
+    for label, fn in (
+            ("path 51", lambda: path51(device, card, batches)),
+            ("path 52", lambda: path52(device, card, batches, expect, cells,
+                                       earlier))):
+        t1 = time.perf_counter()
+        launches[label], numbers[label] = fn()
+        print(f"{label} took {time.perf_counter() - t1:.1f} s of command "
+              f"time")
+    print(f"slice 20 took {time.perf_counter() - t0:.1f} s of command time")
+    return launches, numbers
+
+
 def main() -> None:
     try:
         import torch
@@ -6961,6 +7516,10 @@ def main() -> None:
                                                 expect, cells, numbers)
     launches.update(slice19_launches)
     numbers.update(slice19_numbers)
+    slice20_launches, slice20_numbers = slice20(device, card, batches,
+                                                expect, cells, numbers)
+    launches.update(slice20_launches)
+    numbers.update(slice20_numbers)
     for name, phase in (("pipeline A/B", lambda: pipeline_ab(
             device, "path 9", "path 3", ab_want["path 3"])),
             ("guard A/B", lambda: guard_ab(device, batches, ab_want)),
@@ -7033,7 +7592,7 @@ def main() -> None:
     kernels.append(probe_fold_phase(device, rng, dki))
     kernels.append(scatter_fold_phase(device, rng))
     every_path = (ORDER + SLICE11 + SLICE12 + SLICE13 + SLICE14 + SLICE15
-                  + SLICE16 + SLICE17 + SLICE18 + SLICE19)
+                  + SLICE16 + SLICE17 + SLICE18 + SLICE19 + SLICE20)
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]]
                    for label in every_path}
@@ -7057,11 +7616,14 @@ def main() -> None:
     for label in (*DEVICE_PATHS, *PAGED_PATHS, *FAULTS, "path 8", "path 9",
                   *SLICE11_SCATTER, "path 23", "path 24", "path 25",
                   "path 28", "path 29", "path 32", "path 34", "path 35",
-                  *SLICE16, "path 40", "path 41", "path 47", *SLICE19):
+                  *SLICE16, "path 40", "path 41", "path 47", *SLICE19,
+                  *SLICE20):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
     check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")
     check(launches["path 40"]["probe"] > 0, "path 40: no probe launch")
+    check(launches["path 51"]["probe"] > 0, "path 51: no probe launch")
+    check(launches["path 52"]["probe"] > 0, "path 52: no probe launch")
     check(launches["path 14"]["probe"] > 0
           and launches["path 14"]["scatter_fold"] > 0,
           "path 14: no probe or scatter_fold launch")

@@ -1,15 +1,18 @@
-"""Connectors: sources, sinks and the file source.
+"""Connectors: sources, sinks, the file source and the split enumerators.
 
 The external systems' connectors of ``flink_tpu/connectors`` (Kafka,
-Postgres, ...) come with the host-only edges (ROADMAP Queue A item 12):
-importing one from this package raises ``NotImplementedError`` naming that
-item, and so does the SQL DDL that would reach it.
+Postgres, the partitioned log, ...) come with the host-only edges (ROADMAP
+Queue A item 12): importing one from this package raises
+``NotImplementedError`` naming that item, and so does the SQL DDL that
+would reach it.
 """
 
 #: the connector modules of the JAX package that a later slice brings
 LATER = {
     "kafka": "the Kafka connector comes with the host-only edges (12)",
     "postgres": "the Postgres connector comes with the host-only edges (12)",
+    "partitioned_log": "the partitioned log connector comes with the "
+                       "host-only edges (12)",
 }
 
 

@@ -18,8 +18,11 @@ device lane (``FLINK_TPU_DEVICE_JOIN=1``) resolves it when it runs.  The
 environment's ``mesh`` (a :class:`flink_tpu_torch.parallel.mesh.DeviceMesh`)
 routes keyed windows and sessions to the mesh operators
 (``parallel/mesh_runtime.py``), whose blocks sit on the mesh's devices.
-The MiniCluster route raises ``NotImplementedError`` and names its item of
-``ROADMAP.md`` Queue A (8.4).
+``env.execute_cluster(...)`` runs the job on the in-process MiniCluster
+(``cluster/minicluster.py``), one thread per subtask, with aligned or
+unaligned, full or incremental checkpoints and restarts; it resolves the
+environment's device before it deploys, so it raises without a card unless
+the CPU was asked for.
 """
 
 from __future__ import annotations
@@ -59,15 +62,8 @@ __all__ = ["StreamExecutionEnvironment", "DataStream", "KeyedStream",
            "IntervalJoinBuilder", "LATER"]
 
 #: the routes of the JAX API whose modules later slices bring, by the item
-#: of ROADMAP.md Queue A that clears each
-LATER = {
-    "cluster": "the MiniCluster comes with the cluster runtime (8.4)",
-}
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"not in this slice of flink_tpu_torch: "
-                               f"{LATER[what]}")
+#: of ROADMAP.md Queue A that clears each (every route is ported)
+LATER: Dict[str, str] = {}
 
 
 class StreamExecutionEnvironment:
@@ -184,10 +180,47 @@ class StreamExecutionEnvironment:
         self._last_executor = executor
         return executor.execute(plan, restore=restore, drain=drain)
 
-    def execute_cluster(self, *args, **kwargs):
-        """The MiniCluster route of JAX's API (real parallelism, one thread
-        per subtask); it comes with the cluster runtime."""
-        raise _later("cluster")
+    def execute_cluster(self, job_name: str = "job",
+                        restore: Optional[Dict[str, Any]] = None,
+                        checkpoint_interval_ms: Optional[int] = None,
+                        storage=None, unaligned: bool = False,
+                        restart_attempts: int = 0, timeout_s: float = 300.0,
+                        tolerable_failed_checkpoints: int = 0,
+                        checkpoint_timeout_s: float = 60.0,
+                        alignment_timeout_ms: Optional[float] = None,
+                        alignment_queue_max: Optional[int] = None,
+                        channel_capacity: int = 32,
+                        incremental: bool = False):
+        """Run on the in-process MiniCluster with real parallelism (one
+        thread per subtask, channels and partitioners between them), the
+        multi-node semantics path (``MiniCluster.java`` analog); returns
+        its ``JobResult`` (the cluster is ``self._last_cluster``).
+
+        The job's device operators run on the environment's device,
+        resolved here: with none named, the card, and without one this
+        raises.  ``incremental=True`` (or ``state.backend.incremental``)
+        ships delta checkpoints; ``alignment_timeout_ms`` enables
+        aligned-with-timeout unaligned checkpoints (0 = unaligned from the
+        first barrier, like ``unaligned=True``); ``alignment_queue_max``
+        caps the per-subtask blocked-channel alignment buffer."""
+        from flink_tpu_torch.cluster.minicluster import MiniCluster
+
+        self.operator_device()
+        plan = self.get_stream_graph(job_name).to_plan()
+        cluster = MiniCluster(
+            checkpoint_storage=storage or self.checkpoint_storage,
+            checkpoint_interval_ms=(
+                checkpoint_interval_ms if checkpoint_interval_ms is not None
+                else self.checkpoint_interval_ms),
+            unaligned=unaligned, restart_attempts=restart_attempts,
+            tolerable_failed_checkpoints=tolerable_failed_checkpoints,
+            checkpoint_timeout_s=checkpoint_timeout_s,
+            alignment_timeout_ms=alignment_timeout_ms,
+            alignment_queue_max=alignment_queue_max,
+            channel_capacity=channel_capacity, config=self.config,
+            incremental=incremental)
+        self._last_cluster = cluster
+        return cluster.execute(plan, restore=restore, timeout_s=timeout_s)
 
 
 def _identity_operator_factory(name: str):

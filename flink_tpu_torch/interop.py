@@ -15,8 +15,22 @@ fix dtypes.  A mesh snapshot's per-shard slices (``shard_slices`` with its
 each slice's arrays fixed like the dense ones.  Count-trigger registers
 cross over both ways (``count_baselines``: window -> int64 ``[n]``;
 ``value_baselines``: window -> one array per accumulator leaf, in the leaf
-dtypes).  Snapshot features this slice does not carry (incremental
-increments) are refused.
+dtypes).
+
+Incremental checkpoints' increment nodes cross over both ways: a window
+operator's ``window_delta`` increment through :func:`window_delta_from_jax`
+and :func:`window_delta_to_jax` (its cells, key tail, baselines and meta
+fixed like a full snapshot's), a changelog backend's ``changelog``
+increment through :func:`changelog_increment_from_jax` and
+:func:`changelog_increment_to_jax` (its logged registrations take the
+restoring job's descriptors, as the full changelog snapshot's do).  A
+MiniCluster checkpoint tree (``{uid: {"subtasks": [...]}}`` with
+``__job__`` and ``__enumerators__``) crosses through
+:func:`job_checkpoint_from_jax` and :func:`job_checkpoint_to_jax`: each
+subtask's operator state goes through the converter of its kind (chains
+member by member), source positions and valves cross as they are, and the
+persisted in-flight elements of unaligned channel state are rebuilt as
+the other package's stream elements.
 
 The basic operators' keyed snapshots (``KeyedReduceOperator``:
 ``keys``/``key_index_kind``/``leaves``; ``ExtremumByOperator``:
@@ -81,7 +95,6 @@ from flink_tpu_torch.state.shard_layout import (LAYOUT_KEY, SLICES_KEY,
 
 _SCALARS = ("pane_base", "max_pane", "last_fired_window", "watermark",
             "late_dropped", "P")
-_REFUSED = ("__increment__",)
 
 
 def _optional_int(v):
@@ -116,10 +129,8 @@ def _key_index_part(snap: Dict[str, Any], source: str, out: Dict[str, Any],
 
 
 def _normalize(snap: Dict[str, Any], source: str) -> Dict[str, Any]:
-    for key in _REFUSED:
-        if snap.get(key):
-            raise ValueError(f"{source} snapshot carries {key!r}, which this "
-                             f"slice of the port does not restore")
+    if snap.get("__increment__"):
+        return _normalize_window_delta(snap, source)
     missing = [k for k in ("pane_base", "max_pane", "last_fired_window",
                            "watermark", "P") if k not in snap]
     if missing:
@@ -446,3 +457,197 @@ def changelog_snapshot_to_jax(snap: Dict[str, Any],
     name) and the materialized base goes through
     :func:`heap_snapshot_to_jax`."""
     return _changelog_snapshot(snap, descriptors, heap_snapshot_to_jax)
+
+
+# ---------------------------------------------------------------------------
+# incremental checkpoints: increment nodes and MiniCluster checkpoint trees
+# ---------------------------------------------------------------------------
+
+def _normalize_window_delta(inc: Dict[str, Any], source: str
+                            ) -> Dict[str, Any]:
+    if inc.get("kind") != "window_delta":
+        raise ValueError(f"{source} snapshot carries __increment__ of kind "
+                         f"{inc.get('kind')!r}, not a window_delta")
+    meta = inc["meta"]
+    kind = inc.get("key_index_kind", "KeyIndex")
+    out: Dict[str, Any] = {
+        "__increment__": 1, "kind": "window_delta",
+        "checkpoint_id": int(inc["checkpoint_id"]), "n": int(inc["n"]),
+        "base_n": int(inc["base_n"]), "has_grid": bool(inc["has_grid"]),
+        "meta": {k: _optional_int(meta.get(k, 0)) for k in _SCALARS},
+        "key_index_kind": kind,
+        "key_tail": _key_reverse(inc["key_tail"], kind, source),
+    }
+    leaf_meta = [(np.asarray(init, np.dtype(d)), str(np.dtype(d)),
+                  tuple(int(x) for x in shape))
+                 for init, d, shape in inc.get("leaf_meta", ())]
+    out["leaf_meta"] = leaf_meta
+    dtypes = [np.dtype(d) for _init, d, _shape in leaf_meta]
+    cells = []
+    for c in inc.get("cells", ()):
+        gids = np.ascontiguousarray(c["gids"], np.int64)
+        cell = {"pane": int(c["pane"]), "gids": gids,
+                "counts": np.ascontiguousarray(c["counts"], np.int32),
+                "leaves": [np.ascontiguousarray(l, dtypes[j]
+                                                if j < len(dtypes) else None)
+                           for j, l in enumerate(c["leaves"])]}
+        rows = {a.shape[0] for a in [cell["counts"], *cell["leaves"]]}
+        if rows - {gids.size}:
+            raise ValueError(f"{source} increment cell of pane "
+                             f"{cell['pane']} has rows {rows} for "
+                             f"{gids.size} keys")
+        cells.append(cell)
+    out["cells"] = cells
+    if "leaf_schema" in inc:
+        out["leaf_schema"] = [{"name": str(e["name"]),
+                               "dtype": str(e["dtype"])}
+                              for e in inc["leaf_schema"]]
+    if inc.get("paging_stats") is not None:
+        out["paging_stats"] = {str(k): int(v)
+                               for k, v in inc["paging_stats"].items()}
+    _baselines({"count_baselines": inc.get("count_baselines"),
+                "value_baselines": inc.get("value_baselines"),
+                "leaf_schema": out.get("leaf_schema")}, out)
+    out.setdefault("count_baselines", {})
+    out.setdefault("value_baselines", {})
+    out["cb_drops"] = sorted(int(w) for w in inc.get("cb_drops", ()))
+    out["vb_drops"] = sorted(int(w) for w in inc.get("vb_drops", ()))
+    return out
+
+
+def window_delta_from_jax(inc: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX window operator's ``window_delta`` increment -> the port's."""
+    return _normalize_window_delta(inc, "JAX")
+
+
+def window_delta_to_jax(inc: Dict[str, Any]) -> Dict[str, Any]:
+    """A port window operator's ``window_delta`` increment -> JAX's."""
+    return _normalize_window_delta(inc, "port")
+
+
+def _changelog_increment(inc: Dict[str, Any], descriptors: Dict[str, Any],
+                         source: str) -> Dict[str, Any]:
+    if inc.get("kind") != "changelog":
+        raise ValueError(f"{source} increment is {inc.get('kind')!r}, not "
+                         f"a changelog increment")
+    suffix = _changelog_snapshot(
+        {"changelog_backend": True, "changelog": inc.get("log_suffix", [])},
+        descriptors, dict)["changelog"]
+    return {"__increment__": 1, "kind": "changelog",
+            "checkpoint_id": int(inc["checkpoint_id"]),
+            "log_base": int(inc["log_base"]), "log_suffix": suffix,
+            "extras": dict(inc.get("extras", {}))}
+
+
+def changelog_increment_from_jax(inc: Dict[str, Any],
+                                 descriptors: Optional[Dict[str, Any]] = None
+                                 ) -> Dict[str, Any]:
+    """A JAX changelog backend's ``changelog`` increment (or a process
+    operator's, its timers in ``extras``) -> the port's: the suffix's
+    logged registrations take the port descriptors in ``descriptors``."""
+    return _changelog_increment(inc, descriptors or {}, "JAX")
+
+
+def changelog_increment_to_jax(inc: Dict[str, Any],
+                               descriptors: Optional[Dict[str, Any]] = None
+                               ) -> Dict[str, Any]:
+    """A port ``changelog`` increment -> JAX's (registrations take the JAX
+    descriptors in ``descriptors``)."""
+    return _changelog_increment(inc, descriptors or {}, "port")
+
+
+def _operator_state(snap: Any, source: str, descriptors: Dict[str, Any]
+                    ) -> Any:
+    """One subtask's operator state through the converter of its kind: a
+    chain member by member, a window snapshot or increment, a changelog
+    increment or snapshot; every other state (sources, sinks, the heap,
+    joins, sessions' numpy trees) as it is."""
+    if not isinstance(snap, dict):
+        return snap
+    if snap.get("__increment__"):
+        if snap.get("kind") == "changelog":
+            return _changelog_increment(snap, descriptors, source)
+        return _normalize_window_delta(snap, source)
+    if "pane_base" in snap and "P" in snap:
+        return _normalize(snap, source)
+    if snap.get("changelog_backend"):
+        return _changelog_snapshot(snap, descriptors, dict)
+    if any(k.startswith("op") and k[2:].isdigit() for k in snap):
+        return {k: (_operator_state(v, source, descriptors)
+                    if k.startswith("op") and k[2:].isdigit() else v)
+                for k, v in snap.items()}
+    return snap
+
+
+def _element(el: Any, batch_module) -> Any:
+    """A stream element of either package as ``batch_module``'s class of
+    the same name (``core/batch.py`` of the receiving package)."""
+    name = type(el).__name__
+    cls = getattr(batch_module, name)
+    if name == "RecordBatch":
+        out = cls({k: np.asarray(v) for k, v in el.columns.items()},
+                  timestamps=(None if el.timestamps is None
+                              else np.asarray(el.timestamps)))
+        for f in ("key_ids", "key_groups"):
+            v = getattr(el, f, None)
+            if v is not None:
+                setattr(out, f, np.asarray(v))
+        return out
+    if name == "TaggedBatch":
+        return cls(el.tag, _element(el.batch, batch_module))
+    fields = getattr(el, "__dataclass_fields__", None)
+    if fields is None:
+        raise ValueError(f"no converter for the stream element {name}")
+    return cls(**{f: getattr(el, f) for f in fields})
+
+
+def _job_checkpoint(tree: Dict[str, Any], source: str,
+                    descriptors: Dict[str, Any], batch_module
+                    ) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for uid, entry in tree.items():
+        if uid.startswith("__") or not isinstance(entry, dict) \
+                or "subtasks" not in entry:
+            out[uid] = entry
+            continue
+        subs = []
+        for sub in entry["subtasks"]:
+            if not isinstance(sub, dict):
+                subs.append(sub)
+                continue
+            sub = dict(sub)
+            if "operator" in sub:
+                sub["operator"] = _operator_state(sub["operator"], source,
+                                                  descriptors)
+            cs = sub.get("channel_state")
+            if isinstance(cs, dict) and cs.get("elements"):
+                if batch_module is None:
+                    raise ValueError("the checkpoint holds in-flight "
+                                     "elements: pass the receiving "
+                                     "package's core.batch module")
+                cs = dict(cs)
+                cs["elements"] = [(i, _element(el, batch_module))
+                                  for i, el in cs["elements"]]
+                sub["channel_state"] = cs
+            subs.append(sub)
+        out[uid] = dict(entry, subtasks=subs)
+    return out
+
+
+def job_checkpoint_from_jax(tree: Dict[str, Any],
+                            descriptors: Optional[Dict[str, Any]] = None
+                            ) -> Dict[str, Any]:
+    """A JAX MiniCluster checkpoint (resolved, or raw with increment nodes)
+    -> the port's: operator states by kind, in-flight elements as the
+    port's stream elements."""
+    from flink_tpu_torch.core import batch
+    return _job_checkpoint(tree, "JAX", descriptors or {}, batch)
+
+
+def job_checkpoint_to_jax(tree: Dict[str, Any],
+                          descriptors: Optional[Dict[str, Any]] = None,
+                          batch_module=None) -> Dict[str, Any]:
+    """A port MiniCluster checkpoint -> JAX's.  A tree with unaligned
+    channel state needs ``batch_module``, the JAX package's
+    ``core.batch``, to rebuild its in-flight elements."""
+    return _job_checkpoint(tree, "port", descriptors or {}, batch_module)

@@ -140,6 +140,18 @@ same call surfaces, on every lane (host and device tiers, ``async_fire``,
 the super-batch, paging, the pipeline, the mesh), and ``late_dropped``
 counts only what no side output takes, as in JAX.
 
+**Incremental checkpoints** (``incremental_state``, set by the
+MiniCluster): every mutation marks its ``(key, pane)`` cells or count/value
+baseline windows dirty, as JAX's operator marks them, and a cut under
+``snapshot_scope(cid, incremental=True)`` ships the union of the dirt of
+every unconfirmed cut as a ``window_delta`` increment
+(``runtime/checkpoint/delta.py`` resolves it), or a full re-base when there
+is no confirmed base or the dirt exceeds ``incr_rebase_ratio`` of the grid.
+The device tier downloads the dirty rows x dirty panes in one gather, so
+the bytes follow the dirt, not the state.  The batch marks go in on the
+caller's thread before the pipelined hot stage or the super-batch stage
+takes the batch, so every lane marks the same cells.
+
 Options of the JAX operator that belong to later slices raise
 ``NotImplementedError`` here (see :data:`_LATER`); nothing falls back.
 """
@@ -163,7 +175,9 @@ from flink_tpu_torch.core.functions import (SCATTER_UFUNCS, AggregateFunction,
                                             canonical_tensor, torch_dtype,
                                             tree_leaves, tree_structure,
                                             tree_unflatten)
-from flink_tpu_torch.operators.base import StreamOperator
+from flink_tpu_torch.operators.base import (StreamOperator,
+                                            current_checkpoint_id,
+                                            snapshot_is_incremental)
 from flink_tpu_torch.operators.fused_step import (MAX_STAGED_ROWS,
                                                   SuperBatchStage,
                                                   calibrated_super_shards,
@@ -200,8 +214,6 @@ from flink_tpu_torch.windowing.triggers import (EventTimeTrigger, NeverTrigger,
 
 #: what this slice leaves out, and the later slice that brings it
 _LATER = {
-    "incremental": "incremental snapshots come with the checkpoint slice "
-                   "(ROADMAP Queue A item 9)",
     "queryable": "queryable views come with the serving slice (ROADMAP "
                  "Queue A item 10)",
 }
@@ -220,6 +232,23 @@ def _add_counts(flat_counts: torch.Tensor, ids: torch.Tensor,
     keep = (ids >= 0) & (ids < cells)
     flat_counts.index_add_(0, torch.where(keep, ids, 0).to(torch.int64),
                            keep.to(flat_counts.dtype))
+
+
+def _distinct_ids(parts) -> np.ndarray:
+    """``np.unique`` of the concatenated non-negative int64 id arrays
+    ``parts`` (sorted, distinct), through a bitmap when the ids are dense
+    (the delta checkpoints' key-id sets: a sort of 10^5-10^6 ids costs
+    tens of ms on the host, the bitmap a pass over it)."""
+    ids = parts[0] if len(parts) == 1 else np.concatenate(parts)
+    ids = np.asarray(ids, np.int64)
+    if ids.size == 0:
+        return ids.copy()
+    top = int(ids.max()) + 1
+    if top > 8 * ids.size + 4096:
+        return np.unique(ids)
+    seen = np.zeros(top, bool)
+    seen[ids] = True
+    return np.flatnonzero(seen).astype(np.int64, copy=False)
 
 
 def _take_rows(values, idx: np.ndarray):
@@ -708,6 +737,13 @@ class WindowAggOperator(StreamOperator):
         #: OOM page-out
         self._active_rows = None
 
+        # ---- incremental (delta) checkpoints: the runtime turns them on;
+        # off, they cost one attribute check a batch
+        self.incremental_state = False
+        #: a full re-base when the dirty cells exceed this share of the grid
+        self.incr_rebase_ratio = 0.5
+        self._incr_clear()
+
     # ------------------------------------------------------------------ state
     def _alloc(self, K: int, P: int):
         return self._new_ring(K, P, self.spec.leaf_inits,
@@ -960,6 +996,7 @@ class WindowAggOperator(StreamOperator):
         self._drop_delta()
         self._devprobe_resolved = None
         self._dp_stats = {k: 0 for k in self._dp_stats}
+        self._incr_clear()      # a fresh state has no confirmed delta base
         if self._pager is not None:
             self._pager.reset()
 
@@ -2310,6 +2347,11 @@ class WindowAggOperator(StreamOperator):
 
         pmin, pmax = int(panes.min()), int(panes.max())
         values = self._select(cols)
+        if self.incremental_state:
+            # every (key, pane) the batch touches stays dirty until a cut
+            # holding it is confirmed; raw keys resolve to key ids at the
+            # cut (the index is append-only)
+            self._incr_mark_batch(keys, panes)
         if self.pipeline_depth > 0 and not self.trigger.fires_on_count:
             # the two-stage pipeline: the hot stage runs on the worker while
             # this thread returns to its loop; every state read below and
@@ -2629,9 +2671,12 @@ class WindowAggOperator(StreamOperator):
         if self._count_baselines or self._value_baselines:
             # count-trigger registers of windows wholly behind retention
             lo_w = self.assigner.windows_of_pane(self.pane_base)[0]
-            for reg in (self._count_baselines, self._value_baselines):
+            for reg, drops in ((self._count_baselines, self._incr_cb_drops),
+                               (self._value_baselines, self._incr_vb_drops)):
                 for w in [w for w in reg if w < lo_w]:
                     del reg[w]
+                    if self.incremental_state:
+                        drops.add(w)
 
     # ------------------------------------------------------------------ fires
     def _fire_window(self, window_id: int) -> List[StreamElement]:
@@ -2804,8 +2849,11 @@ class WindowAggOperator(StreamOperator):
         if not force and not self.trigger.purges_on_fire:
             # FIRE only: the state persists, so "n more elements" is
             # tracked by a baseline of already-fired counts per key
-            base = self._count_baselines[0] = self._grown(
-                self._count_baselines.get(0), ka)
+            old = self._count_baselines.get(0)
+            base = self._count_baselines[0] = self._grown(old, ka)
+            if self.incremental_state and base is not old:
+                # a full snapshot packs the register from its creation on
+                self._incr_cb_dirty.add(0)
             over = (counts0 - base[:ka]) >= thr
         else:
             over = counts0 >= thr
@@ -2817,10 +2865,14 @@ class WindowAggOperator(StreamOperator):
                          self.assigner.window_bounds(0), fired)
         if base is not None:
             base[:ka] = np.where(fired, counts0, base[:ka])
+            if self.incremental_state:
+                self._incr_cb_dirty.add(0)
         if self.trigger.purges_on_fire and out:
             self._purge_keys_step(fired)
             for arr in self._mirror.values():   # whole key rows purged
                 arr[:fired.size][fired[:arr.size]] = False
+            # purged rows are identity in every retained pane now
+            self._incr_mark_gids(np.flatnonzero(fired), self._live_panes())
         return out
 
     def _fire_count_in_panes(self, touched_panes) -> List[StreamElement]:
@@ -2850,6 +2902,7 @@ class WindowAggOperator(StreamOperator):
             marr = self._mirror.get(int(p))
             if marr is not None:
                 marr[:fired.size][fired[:marr.size]] = False
+            self._incr_mark_gids(np.flatnonzero(fired), [int(p)])
         return out
 
     def _fire_count_sliding(self, touched_panes) -> List[StreamElement]:
@@ -2888,6 +2941,10 @@ class WindowAggOperator(StreamOperator):
                         over & (counts_w > 0)))
                 base[:ka] = np.where(over, counts_w, base[:ka])
             self._count_baselines[w] = base
+            if self.incremental_state:
+                # the register exists (zero-grown included): a full
+                # snapshot would pack it, so the increment ships it too
+                self._incr_cb_dirty.add(w)
         return out
 
     def _fire_acc_step(self, pane_slots: np.ndarray,
@@ -2935,6 +2992,8 @@ class WindowAggOperator(StreamOperator):
             sel = over.reshape((-1,) + (1,) * (b.ndim - 1))
             b[:ka] = np.where(sel, c, b[:ka])
         self._value_baselines[w] = vb
+        if self.incremental_state:
+            self._incr_vb_dirty.add(w)
         return out
 
     def _purge_keys_step(self, fired: np.ndarray) -> None:
@@ -3219,16 +3278,19 @@ class WindowAggOperator(StreamOperator):
         n = self.key_index.num_keys if self.key_index is not None else 0
         return self._pager.stats(n)
 
-    def _paged_snapshot_rows(self, n: int, panes: np.ndarray):
+    def _paged_snapshot_rows(self, n: int, panes: np.ndarray,
+                             bytes_key: str = "d2h"):
         """Dense gid-indexed snapshot arrays merging both tiers: counts
         int32 [n, m] + one [n, m, *leaf] per ACC leaf; the resident rows in
-        one gather, the spilled cells filled in from the store."""
+        one gather (booked under ``bytes_key``), the spilled cells filled
+        in from the store."""
         m = int(panes.size)
         counts = np.zeros((n, m), np.int32)
         leaves = identity_grid(self.spec, n, m)
         rows, gids = self._pager.resident_pairs()
         if rows.size:
-            res_counts, res_leaves = self._gather_rows(rows, panes, "d2h")
+            res_counts, res_leaves = self._gather_rows(rows, panes,
+                                                       bytes_key)
             counts[gids] = res_counts
             for dst, src in zip(leaves, res_leaves):
                 dst[gids] = src
@@ -3267,6 +3329,201 @@ class WindowAggOperator(StreamOperator):
                     self._mirror_mark(int(p), nz)
 
     # -------------------------------------------------------------- snapshots
+    # ------------------------------------ incremental (delta) checkpoints
+    def _incr_clear(self) -> None:
+        """Reset all delta tracking: the next cut must be a full re-base
+        (restore, reset: any point where the link from the confirmed base
+        to the stored increment chain is cut)."""
+        self._incr_keychunks: List = []       # live (raw keys, panes) pairs
+        self._incr_gid_cells: Dict[int, List[np.ndarray]] = {}  # pane->gids
+        self._incr_cb_dirty: set = set()
+        self._incr_vb_dirty: set = set()
+        self._incr_cb_drops: set = set()
+        self._incr_vb_drops: set = set()
+        #: cuts taken but not yet confirmed: [(cid, cells, cbd, vbd,
+        #: cb_drops, vb_drops, num_keys_at_cut)]; every later cut ships the
+        #: union of these with the live dirt, so a crash between a cut and
+        #: its confirmation never loses a mutation
+        self._incr_unconfirmed: List = []
+        self._incr_last_confirmed: Optional[int] = None
+        self._incr_confirmed_n = 0
+
+    def _incr_mark_batch(self, keys: np.ndarray, panes: np.ndarray) -> None:
+        self._incr_keychunks.append((np.array(keys, copy=True),
+                                     np.array(panes, copy=True)))
+        if len(self._incr_keychunks) > 512:
+            # bound the live memory between cuts: coalesce into the key-id
+            # map, once the staged and in-flight batches hold their ids
+            self.flush_pipeline()
+            self._incr_coalesce_live()
+
+    def _incr_mark_gids(self, gids: np.ndarray, panes) -> None:
+        """Product mark: every (key id, pane) cell of gids x panes is
+        dirty."""
+        if not self.incremental_state or len(gids) == 0:
+            return
+        g = np.asarray(gids, np.int64).copy()
+        for p in np.asarray(panes).tolist():
+            self._incr_gid_cells.setdefault(int(p), []).append(g)
+
+    def _incr_coalesce_live(self) -> None:
+        """Resolve the live raw-key chunks to key ids, into the cell map."""
+        chunks, self._incr_keychunks = self._incr_keychunks, []
+        if self.key_index is None:
+            return
+        for keys, panes in chunks:
+            gids = np.asarray(self.key_index.lookup(keys), np.int64)
+            ok = gids >= 0
+            if not ok.all():
+                gids, panes = gids[ok], panes[ok]
+            if not gids.size:
+                continue
+            p0, p1 = int(panes.min()), int(panes.max())
+            for p in (range(p0, p1 + 1) if p1 - p0 < 64
+                      else np.unique(panes).tolist()):
+                g = gids[panes == p]
+                if g.size:
+                    self._incr_gid_cells.setdefault(int(p), []).append(g)
+
+    def _incr_freeze(self, cid: int) -> None:
+        """Move the live dirt into the unconfirmed ledger under ``cid``."""
+        self._incr_coalesce_live()
+        cells = {p: _distinct_ids(lst)
+                 for p, lst in self._incr_gid_cells.items()}
+        n = self.key_index.num_keys if self.key_index is not None else 0
+        self._incr_unconfirmed.append(
+            (cid, cells, self._incr_cb_dirty, self._incr_vb_dirty,
+             self._incr_cb_drops, self._incr_vb_drops, n))
+        self._incr_gid_cells = {}
+        self._incr_cb_dirty, self._incr_vb_dirty = set(), set()
+        self._incr_cb_drops, self._incr_vb_drops = set(), set()
+
+    def _incremental_snapshot(self, cid: int) -> Optional[Dict[str, Any]]:
+        """A ``window_delta`` increment covering every mutation since the
+        last confirmed cut, or None when this cut must be a full re-base
+        (no confirmed base yet, or a grid too dirty for a delta to pay).
+        Either way the live dirt is frozen under ``cid``, so the next cut
+        keeps covering it until confirmation."""
+        self._incr_freeze(cid)
+        base_n = self._incr_confirmed_n
+        if self._incr_last_confirmed is None or self.key_index is None:
+            return None
+        n = self.key_index.num_keys
+        # the union of all unconfirmed dirt (absolute values: replaying a
+        # superset, last writer wins, is harmless)
+        union: Dict[int, List[np.ndarray]] = {}
+        cbd: set = set()
+        vbd: set = set()
+        cb_drops: set = set()
+        vb_drops: set = set()
+        for (_c, ecells, ecbd, evbd, ecbdrop, evbdrop, _n) \
+                in self._incr_unconfirmed:
+            for p, g in ecells.items():
+                union.setdefault(int(p), []).append(g)
+            cbd |= ecbd
+            vbd |= evbd
+            cb_drops |= ecbdrop
+            vb_drops |= evbdrop
+        cells_map: Dict[int, np.ndarray] = {}
+        for p, lst in union.items():
+            if self.pane_base is not None and \
+                    not (self.pane_base <= p <= self.max_pane):
+                continue            # the pane expired since it was marked
+            g = lst[0] if len(lst) == 1 else _distinct_ids(lst)
+            g = np.asarray(g, np.int64)
+            g = g[g < n]
+            if g.size:
+                cells_map[int(p)] = g
+        has_grid = (self._leaves is not None or self._degraded) \
+            and self.pane_base is not None
+        if has_grid:
+            m = int(self.max_pane - self.pane_base + 1)
+            dirty_cells = sum(int(g.size) for g in cells_map.values())
+            if n and m and dirty_cells > self.incr_rebase_ratio * n * m:
+                return None          # too dirty: re-base with a full cut
+        inc: Dict[str, Any] = {
+            "__increment__": 1, "kind": "window_delta",
+            "checkpoint_id": cid, "n": n, "base_n": base_n,
+            "has_grid": has_grid,
+            "meta": {"pane_base": self.pane_base, "max_pane": self.max_pane,
+                     "last_fired_window": self.last_fired_window,
+                     "watermark": self.watermark,
+                     "late_dropped": self.late_dropped, "P": self._P},
+            "key_index_kind": key_index_kind(self.key_index),
+            "key_tail": np.asarray(
+                self.key_index.reverse_keys()[base_n:n]).copy(),
+        }
+        cell_list: List[Dict[str, Any]] = []
+        if has_grid and cells_map:
+            dirty_panes = sorted(cells_map)
+            panes_arr = np.asarray(dirty_panes, np.int64)
+            with self._phase("snapshot"):
+                if self.snapshot_source == "mirror" or self._degraded:
+                    counts, leaves = self._mirror_columns(dirty_panes, n)
+                    rows = None
+                elif self._pager is not None:
+                    counts, leaves = self._paged_snapshot_rows(
+                        n, panes_arr, "d2h_page_out")
+                    rows = None
+                else:
+                    # the device tier: one gather of the dirty rows x dirty
+                    # panes, so the download follows the dirt, not the state
+                    rows = _distinct_ids([cells_map[p] for p in dirty_panes])
+                    counts, leaves = self._gather_rows(rows, panes_arr)
+            for j, p in enumerate(dirty_panes):
+                g = cells_map[p]
+                idx = g if rows is None else np.searchsorted(rows, g)
+                cell_list.append(
+                    {"pane": p, "gids": g,
+                     "counts": counts[idx, j].copy(),
+                     "leaves": [l[idx, j].copy() for l in leaves]})
+        inc["cells"] = cell_list
+        if has_grid:
+            inc["leaf_meta"] = [
+                (np.asarray(init, np.dtype(d)), str(np.dtype(d)),
+                 tuple(shape))
+                for init, shape, d in zip(self.spec.leaf_inits,
+                                          self.spec.leaf_shapes,
+                                          self.spec.leaf_dtypes)]
+            inc["leaf_schema"] = acc_leaf_schema(self.spec)
+        else:
+            inc["leaf_meta"] = []
+        if self._pager is not None:
+            inc["paging_stats"] = self._pager.stats(n)
+        cb_vals: Dict[int, np.ndarray] = {}
+        for w in cbd:
+            b = self._count_baselines.get(w)
+            if b is None:
+                cb_drops.add(w)
+            else:
+                cb_vals[w] = np.asarray(b, np.int64).copy()
+        vb_vals: Dict[int, List[np.ndarray]] = {}
+        for w in vbd:
+            ls = self._value_baselines.get(w)
+            if ls is None:
+                vb_drops.add(w)
+            else:
+                vb_vals[w] = [np.asarray(l).copy() for l in ls]
+        inc["count_baselines"] = cb_vals
+        inc["value_baselines"] = vb_vals
+        inc["cb_drops"] = sorted(cb_drops)
+        inc["vb_drops"] = sorted(vb_drops)
+        return inc
+
+    def notify_checkpoint_complete(self, checkpoint_id: int) -> None:
+        """Delta tracking: the dirt up to a confirmed cut may be forgotten,
+        for cuts this operator froze only (savepoints and final snapshots
+        are not links of the stored increment chain and never advance
+        it)."""
+        match = next((e for e in self._incr_unconfirmed
+                      if e[0] == checkpoint_id), None)
+        if match is not None:
+            self._incr_unconfirmed = [e for e in self._incr_unconfirmed
+                                      if e[0] > checkpoint_id]
+            self._incr_last_confirmed = checkpoint_id
+            self._incr_confirmed_n = match[6]
+        super().notify_checkpoint_complete(checkpoint_id)
+
     @staticmethod
     def split_snapshot(snap: Dict[str, Any], max_parallelism: int,
                        new_parallelism: int) -> List[Dict[str, Any]]:
@@ -3389,6 +3646,14 @@ class WindowAggOperator(StreamOperator):
                 "snapshot with in-flight async fires: the runtime must call "
                 "prepare_snapshot_pre_barrier() (and forward its elements) "
                 "before snapshot_state()")
+        cid = current_checkpoint_id()
+        if self.incremental_state and cid is not None \
+                and snapshot_is_incremental():
+            inc = self._incremental_snapshot(cid)
+            if inc is not None:
+                return inc
+            # a full re-base cut: the dirt was frozen under cid, so its
+            # confirmation advances the delta base to it
         snap: Dict[str, Any] = {
             "pane_base": self.pane_base,
             "max_pane": self.max_pane,
@@ -3452,8 +3717,6 @@ class WindowAggOperator(StreamOperator):
         # restore at ANY mesh size (1 included) re-slices by this
         # operator's layout, not the writer's
         snap = densify_keyed_snapshot(snap)
-        if snap.get("__increment__"):
-            raise _later("incremental")
         self.pane_base = snap["pane_base"]
         self.max_pane = snap["max_pane"]
         self.last_fired_window = snap["last_fired_window"]
@@ -3469,6 +3732,7 @@ class WindowAggOperator(StreamOperator):
         self._writing = False
         self._dki = None         # probe table rebuilds from the key index
         self._drop_delta()
+        self._incr_clear()       # restored state: the first cut is a base
         self._devprobe_resolved = None
         self._nm = None          # rebinds to the restored key index below
         if "key_index" in snap:

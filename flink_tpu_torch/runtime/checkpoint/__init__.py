@@ -1,7 +1,11 @@
-"""Checkpoint storage (the storage module of ``flink_tpu/runtime/checkpoint``;
-the failure manager, local recovery, object stores and incremental
-checkpoints come with ROADMAP Queue A item 9)."""
+"""Checkpointing (port of ``flink_tpu/runtime/checkpoint``): storage,
+the failure manager (exported here, as JAX's package does), and the
+``delta``, ``incremental``, ``local`` and ``objectstore`` modules."""
 
+from flink_tpu_torch.runtime.checkpoint.failure import (
+    CheckpointFailureManager,
+    CheckpointFailureReason,
+)
 from flink_tpu_torch.runtime.checkpoint.storage import (
     CorruptCheckpointError,
     FileCheckpointStorage,
@@ -12,6 +16,8 @@ from flink_tpu_torch.runtime.checkpoint.storage import (
 )
 
 __all__ = [
+    "CheckpointFailureManager",
+    "CheckpointFailureReason",
     "CorruptCheckpointError",
     "FileCheckpointStorage",
     "InMemoryCheckpointStorage",

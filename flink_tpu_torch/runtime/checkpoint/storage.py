@@ -19,6 +19,7 @@ included) to numpy before a tree is pickled; the chaos points
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import pickle
@@ -195,7 +196,7 @@ class FileCheckpointStorage:
                 raise CorruptCheckpointError(
                     f"chk-{checkpoint_id}/{entry['file']}: checksum mismatch")
             try:
-                out[entry["uid"]] = pickle.loads(payload)
+                out[entry["uid"]] = loads(payload)
             except Exception as e:  # noqa: BLE001 — any unpickle error
                 raise CorruptCheckpointError(
                     f"chk-{checkpoint_id}/{entry['file']}: undecodable "
@@ -272,6 +273,23 @@ class RetryingCheckpointStorage:
     def __getattr__(self, name):
         # metadata() and backend-specific extras pass through un-retried
         return getattr(self.inner, name)
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Loads a pickle either package wrote: a class of the JAX package
+    (``flink_tpu.<module>``: an incremental checkpoint's ``BlobRef``, a
+    channel-state ``RecordBatch``) resolves to the port's class of the same
+    module and name, so the JAX package is never imported."""
+
+    def find_class(self, module: str, name: str):
+        if module == "flink_tpu" or module.startswith("flink_tpu."):
+            module = "flink_tpu_torch" + module[len("flink_tpu"):]
+        return super().find_class(module, name)
+
+
+def loads(payload: bytes) -> Any:
+    """``pickle.loads`` through :class:`_PortUnpickler`."""
+    return _PortUnpickler(io.BytesIO(payload)).load()
 
 
 def _to_numpy(tree: Any) -> Any:

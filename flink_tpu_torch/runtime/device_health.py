@@ -274,6 +274,10 @@ class _Lane:
                 att.error = e
             finally:
                 att.done.set()
+            # the thread waits for the next attempt holding no reference to
+            # this one: its thunk holds the operator, whose device state a
+            # finished job must be able to free
+            att = None
             if self._dead:
                 return
 

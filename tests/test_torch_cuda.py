@@ -1784,3 +1784,105 @@ def test_graph_as_dataset_on_the_card_equals_the_cpu(cuda_device):
         assert dc.env.device == gc.device and dc.env.device.type == "cuda"
         assert _dataset_batches(dc.collect_batch()) == \
             _dataset_batches(dh.collect_batch())
+
+
+def _incremental_cuts(device, batches):
+    """The device tier with incremental state on: a cut every second batch
+    under the incremental scope, every one confirmed but the third."""
+    from flink_tpu_torch.operators.base import snapshot_scope
+
+    op = WindowAggOperator(TumblingEventTimeWindows.of(1000),
+                           SumAggregator(torch.float32), key_column="k",
+                           value_column="v", emit_tier="device",
+                           snapshot_source="device", device_sync="scatter",
+                           device_probe="off", device=device)
+    op.incremental_state = True
+    cuts = []
+    for i, (k, v, ts) in enumerate(batches):
+        op.process_batch(RecordBatch({"k": k, "v": v}, timestamps=ts))
+        op.process_watermark(Watermark(int(ts.max()) - 1200))
+        if i % 2 == 1:
+            with snapshot_scope(i, incremental=True):
+                cuts.append(op.snapshot_state())
+            if i != 5:
+                op.notify_checkpoint_complete(i)
+    return cuts, op
+
+
+def test_incremental_cut_on_the_card_equals_the_cpu(cuda_device):
+    """The device tier's ``window_delta`` increments (one gather of the
+    dirty rows x dirty panes on the card) equal the CPU's bit for bit, and
+    their chain resolves to the same full snapshot."""
+    from flink_tpu_torch.runtime.checkpoint import delta
+
+    rng = np.random.default_rng(47)
+    batches = [(rng.integers(0, 3000 // (4 if i else 1), 4000),
+                rng.random(4000).astype(np.float32),
+                i * 300 + np.sort(rng.integers(0, 300, 4000)))
+               for i in range(12)]
+    got, gop = _incremental_cuts(cuda_device, batches)
+    want, wop = _incremental_cuts("cpu", batches)
+    assert "window_delta" in [c.get("kind") for c in got]
+    assert [c.get("kind") for c in got] == [c.get("kind") for c in want]
+
+    def same(a, b):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys()
+            return all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            assert len(a) == len(b)
+            return all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+            return True
+        assert a == b
+        return True
+
+    assert same(got, want)
+    assert same(delta.resolve_chain(got), delta.resolve_chain(want))
+    assert gop.phase_bytes["d2h_page_out"] == wop.phase_bytes["d2h_page_out"]
+
+
+def test_minicluster_job_on_the_card_equals_the_cpu(cuda_device):
+    """A parallelism-2 windowed job with incremental checkpoints on the
+    MiniCluster: its operators run on the card (the device tier pinned) and
+    its rows equal the CPU twin's bit for bit."""
+    import tempfile
+
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.runtime.checkpoint.incremental import \
+        IncrementalCheckpointStorage
+
+    rng = np.random.default_rng(48)
+    n = 40000
+    cols = {"k": rng.integers(0, 5000, n).astype(np.int64),
+            "v": rng.random(n).astype(np.float32),
+            "t": np.sort(rng.integers(0, 20000, n)).astype(np.int64)}
+
+    def run(device):
+        env = StreamExecutionEnvironment(device=device)
+        env.set_parallelism(2)
+        sink = (env.from_collection(columns=cols, timestamp_column="t",
+                                    batch_size=2000)
+                .assign_timestamps_and_watermarks(0, timestamp_column="t")
+                .key_by("k").window(TumblingEventTimeWindows.of(5000))
+                .aggregate(SumAggregator(torch.float32), value_column="v",
+                           emit_tier="device", device_probe="off")
+                .collect())
+        with tempfile.TemporaryDirectory() as d:
+            res = env.execute_cluster(
+                checkpoint_interval_ms=20, incremental=True, timeout_s=120,
+                storage=IncrementalCheckpointStorage(d))
+        assert res.state == "FINISHED"
+        devices = {str(m.device) for t in env._last_cluster._tasks
+                   for m in getattr(t.operator, "operators", [t.operator])
+                   if isinstance(m, WindowAggOperator)}
+        return sorted((r["k"], r["window_start"],
+                       np.float32(r["result"]).tobytes())
+                      for r in sink.rows()), devices
+
+    got, gdev = run(cuda_device)
+    want, wdev = run("cpu")
+    assert gdev and all(d.startswith("cuda") for d in gdev)
+    assert wdev == {"cpu"}
+    assert got == want

@@ -473,16 +473,20 @@ def test_keyed_process_route_over_the_configured_backend(backend):
 
 def test_spill_backend_and_later_routes_raise(monkeypatch):
     """The name is from when the spill backend and most routes raised.
-    Only the MiniCluster route still raises and names its item (8.4); the
-    spill backends build (their state is held to JAX's in
+    Every route is ported now (the MiniCluster's came last, and its parity
+    is ``tests/test_torch_cluster_cases.py``'s): ``execute_cluster`` runs
+    on the CPU when asked and raises without a card otherwise; the spill
+    backends build (their state is held to JAX's in
     ``tests/test_torch_spill_state.py``), and ``set_mesh()`` without cards
     raises as ``make_mesh`` does; nothing falls back."""
     from flink_tpu_torch.datastream.api import LATER
-    assert set(LATER) == {"cluster"}
+    assert LATER == {}
     env = pds.StreamExecutionEnvironment(device="cpu")
-    with pytest.raises(NotImplementedError, match="8.4"):
-        env.execute_cluster()
+    env.from_collection(columns={"k": np.arange(4)}).collect()
+    assert env.execute_cluster(timeout_s=60).state == "FINISHED"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pds.StreamExecutionEnvironment().execute_cluster()
     with pytest.raises(RuntimeError, match="CUDA devices"):
         env.set_mesh()
     with pytest.raises(RuntimeError, match="CUDA devices"):

@@ -76,7 +76,15 @@ def test_every_module_imports_with_jax_blocked():
         " 'runtime.checkpoint', 'runtime.checkpoint.storage',"
         " 'runtime.shuffle', 'dataset', 'dataset.api', 'dataset.external',"
         " 'dataset.optimizer', 'state_processor',"
-        " 'state_processor.savepoint'):\n"
+        " 'state_processor.savepoint', 'runtime.checkpoint.delta',"
+        " 'runtime.checkpoint.incremental', 'runtime.checkpoint.local',"
+        " 'runtime.checkpoint.failure', 'runtime.checkpoint.objectstore',"
+        " 'observability', 'observability.tracing',"
+        " 'observability.latency', 'observability.assembly',"
+        " 'connectors.enumerator', 'cluster', 'cluster.channels',"
+        " 'cluster.task', 'cluster.failover', 'cluster.rpc',"
+        " 'cluster.heartbeat', 'cluster.minicluster', 'cluster.adaptive',"
+        " 'filesystems'):\n"
         "    assert 'flink_tpu_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules"
@@ -419,3 +427,51 @@ def test_spill_library_exports_only_prefixed_symbols():
     strong = [line.split()[-1] for line in res.stdout.splitlines()
               if line.split()[-2] in ("T", "D", "B", "R")]
     assert set(strong) == set(names)
+
+
+def test_checkpointed_minicluster_job_runs_with_jax_and_pandas_blocked():
+    """A windowed job on the MiniCluster (two window subtasks, incremental
+    checkpoints into ``IncrementalCheckpointStorage``, each subtask step
+    slowed by 2 ms so checkpoints complete while it runs) in a fresh
+    interpreter where ``jax``, ``flink_tpu`` and ``pandas`` cannot be
+    imported; exactly-once sums, and the stored chain resolves."""
+    code = (
+        "import sys, tempfile\n"
+        "for m in ('jax', 'flink_tpu', 'pandas'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "from flink_tpu_torch.core.functions import SumAggregator\n"
+        "from flink_tpu_torch.datastream import StreamExecutionEnvironment\n"
+        "from flink_tpu_torch.runtime.checkpoint.incremental import "
+        "IncrementalCheckpointStorage\n"
+        "from flink_tpu_torch.testing import chaos\n"
+        "from flink_tpu_torch.windowing import TumblingEventTimeWindows\n"
+        "rng = np.random.default_rng(3)\n"
+        "n = 20000\n"
+        "cols = {'k': rng.integers(0, 300, n), 'v': np.ones(n, np.float32),"
+        " 't': np.sort(rng.integers(0, 8000, n))}\n"
+        "env = StreamExecutionEnvironment(device='cpu')\n"
+        "env.set_parallelism(2)\n"
+        "sink = (env.from_collection(columns=cols, batch_size=250)"
+        ".assign_timestamps_and_watermarks(0, timestamp_column='t')"
+        ".key_by('k').window(TumblingEventTimeWindows.of(1000))"
+        ".aggregate(SumAggregator(torch.float32), value_column='v')"
+        ".collect())\n"
+        "inj = chaos.FaultInjector(seed=1)\n"
+        "inj.inject('subtask.run', chaos.DelayBy(0.002))\n"
+        "st = IncrementalCheckpointStorage(tempfile.mkdtemp())\n"
+        "with chaos.installed(inj):\n"
+        "    res = env.execute_cluster(storage=st, incremental=True,"
+        " checkpoint_interval_ms=10, timeout_s=60)\n"
+        "assert res.state == 'FINISHED', res\n"
+        "final = {}\n"
+        "for r in sink.rows():\n"
+        "    final[(r['k'], r['window_start'])] = r['result']\n"
+        "assert sum(final.values()) == n\n"
+        "assert res.completed_checkpoints and st.load_latest() is not None\n"
+        "print('checkpoints', len(res.completed_checkpoints) > 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["checkpoints", "True"]
