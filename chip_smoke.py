@@ -272,7 +272,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    in order, bit for bit, and the host lane's as a multiset of (left
    row, right row).  Path 31 is ``StreamingJoinOperator`` (inner,
    append-only: the ``_join_pairs`` fast path) on the card's device lane
-   over ``STREAMING_BATCHES`` pairs of batches, held as path 30 is.  Each
+   over the first halves (``STREAMING_ROWS``) of ``STREAMING_BATCHES``
+   pairs of batches, held as path 30 is.  Each
    prints rows/s (the joins: input rows/s and pairs/s), the bytes over the
    bus and the card line.
 9k. main paths 32-36 (slice 15), after path 31.  The graph is Graph500's
@@ -355,7 +356,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    directly and ``cep_model``.  Path 43 is the interval join (path 30's
    pairs) and the window join (a numpy model) through the API with
    ``FLINK_TPU_DEVICE_JOIN=1``.  Path 44 is path 36's process function on
-   ``state.backend: spill`` with an 8 MiB budget over the first batch: the
+   ``state.backend: spill`` with an 8 MiB budget over the first half of
+   the first batch (``SPILL_ROWS``): the
    heap's fires bit for bit, the snapshot after the batch restored,
    persisted, compacted and fired bit for bit; host C and numpy, the card
    idle.
@@ -440,6 +442,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    prints records/s beside paths 5 and 40a, the checkpoints' count,
    ``delta_bytes`` and duration p50/p99, recovery ms, and each subtask's
    resolved lane.  51b, 52b launch ``probe``; every lane ``scatter_fold``.
+9q. main path 53 (slice 21), after path 52: the north star as a ``ProcessCluster`` job on the
+   card: ``PC_BATCHES`` (48) batches of the main stream in one split
+   (``chip_smoke:job53``, which every worker imports), parallelism 2 on 2
+   worker processes, each spawned with the coordinator's ``--device``,
+   pinning path 3's lane (the host tier, the probe on) and counting its
+   own launches, start-up and data-plane bytes into a file at its exit;
+   the source's worker sends half the keyed records to the other over the
+   TCP data plane; aligned incremental checkpoints every 250 ms into
+   ``IncrementalCheckpointStorage``; after two completed cuts, while
+   window subtask 0 runs, its worker is SIGKILLed, respawned on the card
+   and restored in place while the other worker keeps its pid.  Checks:
+   ``FINISHED`` with one recovery; every (key, window) present, every row
+   equal to ``reference``'s f64 sums bit for bit (the host tier's sums of
+   f32 values are exact), but the windows the restored cut held open,
+   which restart from its f32 cells, to ``RTOL``; no repeats; each final
+   worker launched ``probe`` and ``scatter_fold`` on the card; no worker
+   alive after the job; the card's free memory back within 64 MiB.  It
+   prints records/s beside 52a and 52b, recovery ms (kill to the respawned
+   worker's first record), the respawned worker's start-up (its CUDA
+   context and kernel load apart), the cuts (count, p50/p99, source
+   offsets), the bytes over the data plane and each worker's launches.
 
 Each phase and path prints its command time on a line of its own.
 
@@ -3542,8 +3565,11 @@ TABLE_CPU_BATCHES = 4           # path 28's CPU twin
 RIGHT_SEED = 8                  # the joins' right side: a seed-8 stream
 JOIN_LOWER_MS, JOIN_UPPER_MS = -500, 500
 #: path 31 keeps every row of both sides as a Python tuple (JAX's state
-#: layout), so it runs fewer batches than paths 28-30 (widths unchanged)
+#: layout), so it runs fewer batches than paths 28-30 (widths unchanged),
+#: and each batch's first half (cut from the whole batch when slice 21's
+#: path 53 took the smoke over its 900 s target)
 STREAMING_BATCHES = 2
+STREAMING_ROWS = BATCH // 2
 STREAMING_SNAPSHOT_AFTER = 1
 JOIN_PHASE_ROWS = 1 << 20
 JOIN_HOT_SHARE = 0.001          # the skewed case's hot key, on each side
@@ -3988,8 +4014,10 @@ def slice14(device, batches, card):
     print(f"path 29 took {time.perf_counter() - t1:.1f} s of command time")
     del level2
     pairs = list(zip(left, right))
-    for label, inputs in (("path 30", pairs),
-                          ("path 31", pairs[:STREAMING_BATCHES])):
+    halves = [tuple(({c: a[:STREAMING_ROWS] for c, a in cols.items()},
+                     ts[:STREAMING_ROWS]) for cols, ts in pair)
+              for pair in pairs[:STREAMING_BATCHES]]
+    for label, inputs in (("path 30", pairs), ("path 31", halves)):
         t1 = time.perf_counter()
         launches[label], numbers[label] = slice14_path(device, label, inputs,
                                                        ctx)
@@ -5217,10 +5245,13 @@ CEP_JOB_BATCHES = 4
 #: path 43: the window join's first batches of each side
 WINDOW_JOIN_BATCHES = 4
 #: path 44: the keyed process function on the spill backend, over the
-#: stream's first batch (cut from 2: the path took 68.1 s of command time
-#: over 2 batches on the H100's host, over the 60 s it may take); the
-#: snapshot after it restores and fires the end of input
+#: first half of the stream's first batch (cut from 2 batches: the path
+#: took 68.1 s of command time over 2 on the H100's host, over the 60 s it
+#: may take; then from the whole batch when slice 21's path 53 took the
+#: smoke over its 900 s target); the snapshot after it restores and fires
+#: the end of input
 SPILL_BATCHES = 1
+SPILL_ROWS = BATCH // 2
 SPILL_SNAPSHOT_AFTER = 1
 SPILL_BUDGET = 8 << 20
 #: results of earlier paths that slice 17 is held to
@@ -5801,7 +5832,8 @@ def path44(card, batches):
     from flink_tpu_torch.state import make_keyed_backend
     from flink_tpu_torch.state.heap import HeapKeyedStateBackend
     from flink_tpu_torch.state.spill import SpillKeyedStateBackend
-    batches = batches[:SPILL_BATCHES]
+    batches = [tuple(a[:SPILL_ROWS] for a in b)
+               for b in batches[:SPILL_BATCHES]]
     cfg = Configuration()
     cfg.set(StateOptions.BACKEND, "spill")
 
@@ -7092,39 +7124,50 @@ def crash_window_subtask(chaos, uid, completed):
     return Crash(1)
 
 
-def job52(device, batches, pins, crash, unaligned, tmp):
-    """Path 52's job on the MiniCluster; returns (the environment, the
-    sink, the result, wall s, launches, the crash schedule or None, the
-    window operators' first calls)."""
-    import torch
-
+def one_split(columns):
+    """The stream in one split: one source subtask reads it in order, so
+    each window subtask folds every key's records in record order (the f32
+    bits of ``reference_f32``), however the job is cut."""
     from flink_tpu_torch.connectors.sources import (CollectionSource,
                                                     SourceSplit)
-    from flink_tpu_torch.core.functions import SumAggregator
-    from flink_tpu_torch.datastream import StreamExecutionEnvironment
-    from flink_tpu_torch.operators.window_agg import WindowAggOperator
-    from flink_tpu_torch.runtime.checkpoint.incremental import \
-        IncrementalCheckpointStorage
-    from flink_tpu_torch.testing import chaos
-    from flink_tpu_torch.windowing import TumblingEventTimeWindows
 
     class OneSplit(CollectionSource):
-        """The stream in one split: one source subtask reads it in order,
-        so each window subtask folds every key's records in record order
-        (the f32 bits of ``reference_f32``), however the job is cut."""
-
         def create_splits(self, parallelism):
             return [SourceSplit(self, 0, 1)]
 
-    env = StreamExecutionEnvironment(device=device)
-    env.set_parallelism(JOB_PARALLELISM)
-    sink = (env.from_source(OneSplit(columns=stream_columns(batches),
-                                     batch_size=BATCH), "collection-source")
+    return OneSplit(columns=columns, batch_size=BATCH)
+
+
+def north_star_job(env, batches):
+    """The north star as a job on ``env``: ``batches`` in one split, event
+    time from ``ts``, keyed by ``k``, 5000 ms tumbling windows, an f32 sum;
+    returns the collect sink."""
+    import torch
+
+    from flink_tpu_torch.core.functions import SumAggregator
+    from flink_tpu_torch.windowing import TumblingEventTimeWindows
+    return (env.from_source(one_split(stream_columns(batches)),
+                            "collection-source")
             .assign_timestamps_and_watermarks(0, timestamp_column="ts")
             .key_by("k")
             .window(TumblingEventTimeWindows.of(WINDOW_MS))
             .aggregate(SumAggregator(torch.float32), value_column="v")
             .collect())
+
+
+def job52(device, batches, pins, crash, unaligned, tmp):
+    """Path 52's job on the MiniCluster; returns (the environment, the
+    sink, the result, wall s, launches, the crash schedule or None, the
+    window operators' first calls)."""
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    from flink_tpu_torch.runtime.checkpoint.incremental import \
+        IncrementalCheckpointStorage
+    from flink_tpu_torch.testing import chaos
+
+    env = StreamExecutionEnvironment(device=device)
+    env.set_parallelism(JOB_PARALLELISM)
+    sink = north_star_job(env, batches)
     uid = [v.uid for v in env.get_stream_graph().to_plan().vertices
            if not v.is_source]
     check(len(uid) == 1, f"path 52: the plan's non-source vertices {uid}")
@@ -7164,9 +7207,11 @@ def job52(device, batches, pins, crash, unaligned, tmp):
     return env, sink, res, wall, launches, sched, first
 
 
-def check_job_rows(label, sink, expect, cells, bits) -> int:
+def check_job_rows(label, sink, expect, cells, bits, exact=()) -> int:
     """Every (key, window) of the reference is present; every row equals
-    ``reference_f32`` bit for bit (``bits``) or ``reference`` to ``RTOL``,
+    ``reference_f32`` bit for bit (``bits``), or, in the windows of
+    ``exact``, ``reference`` bit for bit (the host tier's f64 sums of f32
+    values, exact in f64 at these counts), else ``reference`` to ``RTOL``,
     repeats included.  Returns the number of repeated rows."""
     k = np.asarray(sink.column("k"), np.int64)
     ws = np.asarray(sink.column("window_start"), np.int64)
@@ -7185,6 +7230,11 @@ def check_job_rows(label, sink, expect, cells, bits) -> int:
             check(np.array_equal(vals.view(np.uint32),
                                  cells[w][keys].view(np.uint32)),
                   f"{label} window {w}: a row differs from the f32 ordered "
+                  f"reference in its bits")
+        elif w in exact:
+            check(vals.dtype == np.float64 and np.array_equal(
+                vals.view(np.uint64), sums[keys].view(np.uint64)),
+                  f"{label} window {w}: a row differs from the f64 "
                   f"reference in its bits")
         else:
             check(np.allclose(vals, sums[keys], rtol=RTOL, atol=0),
@@ -7329,6 +7379,401 @@ def slice20(device, card, batches, expect, cells, earlier):
         print(f"{label} took {time.perf_counter() - t1:.1f} s of command "
               f"time")
     print(f"slice 20 took {time.perf_counter() - t0:.1f} s of command time")
+    return launches, numbers
+
+
+# ---------------------------------------------------------------------------
+# slice 21: the north star as a process cluster job (path 53)
+# ---------------------------------------------------------------------------
+
+SLICE21 = ("path 53",)
+#: path 53: worker processes on the one card (the window vertex's
+#: parallelism stays ``JOB_PARALLELISM``), the main path whose lane each
+#: worker pins (52b's: the host tier with the device probe on), the
+#: checkpoint interval, and the environment variable that names the
+#: directory each worker writes its numbers to
+PC_WORKERS = 2
+PC_LANE = "path 3"
+PC_CHECKPOINT_MS = JOB_CHECKPOINT_MS
+#: the job's depth: the main stream run on to twice its batches.  A
+#: channel holds 32 elements (16 batches, each with its watermark), so an
+#: aligned barrier waits behind up to 16 batches: over 24 batches the
+#: second cut completes (~3 s a cut on the H100, its storage included) only
+#: after window subtask 0 has finished, and the kill would find nothing to
+#: recover; over 48 about 30 batches remain behind it
+PC_BATCHES = 2 * N_BATCHES
+PC_OUT = "CHIP_SMOKE_PATH53_OUT"
+#: ... and the one that carries the stream's sizes (the smoke's, so a
+#: rehearsal's shrunk sizes reach the workers too)
+PC_SIZES = "CHIP_SMOKE_PATH53_SIZES"
+#: a worker's numbers (``path53_worker``), in the worker's own process
+_PATH53 = {}
+
+
+def _process_start_s() -> float:
+    """This process's start, in epoch seconds (``/proc``: the start tick
+    after boot, and the boot time)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        boot = next(int(line.split()[1]) for line in f
+                    if line.startswith("btime"))
+    return boot + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def path53_worker() -> None:
+    """In a path 53 worker, once: pin every window operator to
+    ``PC_LANE``'s options, open the CUDA context and load the kernels
+    (timed: the worker's start-up), set the launch counts to 0, count the
+    bytes of every frame the TCP data plane sends, note each window
+    operator's first record, and write it all to ``PC_OUT`` when the worker
+    exits.  The smoke's in-process pins and counters do not reach a
+    worker: this runs in it."""
+    if _PATH53:
+        return
+    import atexit
+
+    import torch
+
+    import flink_tpu_torch
+    from flink_tpu_torch.cluster import net
+    from flink_tpu_torch.kernels import build
+    from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    t_enter = time.time()
+    card = flink_tpu_torch.resolve_device().type == "cuda"
+    _PATH53.update(pid=os.getpid(), started_s=_process_start_s(),
+                   enter_s=t_enter, first_record_s=None, lanes=[], batches=0,
+                   devices=[], net_bytes=0, net_frames=0,
+                   index=int(sys.argv[sys.argv.index("--index") + 1]),
+                   attempt=os.environ.get("FLINK_TPU_ATTEMPT"))
+    t0 = time.perf_counter()
+    if card:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+    _PATH53["cuda_context_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for lib in ((build.probe_lib, build.probe_fold_lib,
+                 build.scatter_fold_lib) if card else ()) + (
+            build.host_mirror_lib, build.codec_lib):
+        lib()
+    _PATH53["kernel_load_ms"] = (time.perf_counter() - t0) * 1e3
+    pins = PATHS[PC_LANE]
+    init, process_batch = (WindowAggOperator.__init__,
+                           WindowAggOperator.process_batch)
+
+    def pinned(self, *args, **kwargs):
+        init(self, *args, **{**kwargs, **pins})
+
+    def first(self, batch):
+        _PATH53["batches"] += 1
+        if getattr(self, "_path53_seen", False):
+            return process_batch(self, batch)
+        self._path53_seen = True
+        if _PATH53["first_record_s"] is None:
+            _PATH53["first_record_s"] = time.time()
+        out = process_batch(self, batch)
+        _PATH53["lanes"].append(lane_of(self))
+        _PATH53["devices"].append(str(self.device))
+        return out
+
+    send = net._send_frame
+
+    def counted(sock, ftype, payload):
+        _PATH53["net_bytes"] += net._HDR.size + len(payload)
+        _PATH53["net_frames"] += 1
+        send(sock, ftype, payload)
+
+    WindowAggOperator.__init__ = pinned
+    WindowAggOperator.process_batch = first
+    net._send_frame = counted
+    reset_launches()
+
+    def dump():
+        _PATH53["launches"] = read_launches()
+        with open(os.path.join(os.environ[PC_OUT],
+                               f"worker-{os.getpid()}.json"), "w") as f:
+            json.dump(_PATH53, f)
+
+    atexit.register(dump)
+
+
+def job53():
+    """Path 53's job (``chip_smoke:job53``), built by the coordinator and
+    by every worker, which imports this module (the coordinator ships its
+    ``sys.path``): ``north_star_job`` over the main stream's first
+    ``PC_BATCHES`` batches.  A worker (its
+    coordinator sets ``FLINK_TPU_ATTEMPT``) first arms ``path53_worker``.
+    No device is named: a worker's operators take the device its
+    coordinator shipped."""
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    if "FLINK_TPU_ATTEMPT" in os.environ:
+        path53_worker()
+    sizes = json.loads(os.environ.get(PC_SIZES) or "{}")
+    globals().update(sizes)
+    env = StreamExecutionEnvironment()
+    env.set_parallelism(JOB_PARALLELISM)
+    north_star_job(env, make_batches(N_BATCHES * BATCH, N_KEYS, BATCH,
+                                     WINDOW_MS))
+    return env.get_stream_graph("path-53")
+
+
+def job53_rows(rows):
+    """A process cluster's collected rows (dicts) as the columns
+    ``check_job_rows`` reads."""
+    cols = {name: np.array([r[name] for r in rows])
+            for name in ("k", "window_start", "result")}
+
+    class Rows:
+        def column(self, name):
+            return cols[name]
+
+    return Rows()
+
+
+def kill_after_checkpoints(pc, index, source_uid, victim, killed):
+    """Note each completed cut's source offset; once
+    ``CRASH_AFTER_CHECKPOINTS`` cuts have completed while subtask
+    ``victim`` still runs, SIGKILL worker ``index``, its host
+    (``killed``: every worker's pid then, when, the cut it will
+    restore)."""
+    import signal
+    t0 = time.monotonic()
+    deadline = t0 + 600
+    killed["cuts"] = cuts = []
+    while time.monotonic() < deadline and not killed.get("stop"):
+        done = list(pc._completed_ids)
+        if len(done) > len(cuts):
+            tree = pc._latest_resolved or {}
+            sub = (tree.get(source_uid) or {}).get("subtasks") or [{}]
+            cuts.append((done[-1], (sub[0] or {}).get("source_offset"),
+                         bool((sub[0] or {}).get("finished")),
+                         round(time.monotonic() - t0, 3),
+                         pc._states.get(victim)))
+        procs = getattr(pc, "_procs", None)
+        if len(done) >= CRASH_AFTER_CHECKPOINTS and procs \
+                and all(p.poll() is None for p in procs) \
+                and pc._states.get(victim) == "RUNNING":
+            killed["pids"] = [p.pid for p in procs]
+            killed["cut"], killed["tree"] = done[-1], pc._latest_resolved
+            killed["t"] = time.time()
+            os.kill(procs[index].pid, signal.SIGKILL)
+            return
+        time.sleep(0.002)
+
+
+def path53(device, card, earlier):
+    """Path 53: the north star as a ``ProcessCluster`` job on the card
+    (``PC_BATCHES`` batches of the main stream), two worker processes (half
+    the keyed records cross between them over the TCP data plane), aligned
+    incremental checkpoints, the worker that hosts window subtask 0
+    SIGKILLed after two completed checkpoints and recovered in place."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from flink_tpu_torch.cluster.distributed import (ProcessCluster,
+                                                     assign_subtasks,
+                                                     build_plan,
+                                                     subtask_counts_of)
+    from flink_tpu_torch.runtime.checkpoint.incremental import \
+        IncrementalCheckpointStorage
+    job = "chip_smoke:job53"
+    here = os.path.dirname(os.path.abspath(__file__))
+    batches = make_batches(PC_BATCHES * BATCH, N_KEYS, BATCH, WINDOW_MS)
+    expect = reference(batches)
+    n_records = sum(len(b[0]) for b in batches)
+    os.environ[PC_SIZES] = json.dumps({"N_KEYS": N_KEYS, "BATCH": BATCH,
+                                       "N_BATCHES": PC_BATCHES})
+    plan = build_plan(job)
+    counts, _ = subtask_counts_of(plan)
+    window = [v.uid for v in plan.vertices if not v.is_source]
+    check(len(window) == 1, f"path 53: the plan's non-source vertices "
+          f"{window}")
+    source_uid = plan.vertices[0].uid
+    assign = assign_subtasks(plan, counts, PC_WORKERS)
+    victim, source = assign[(window[0], 0)], assign[(source_uid, 0)]
+    check(victim != source, "path 53: window subtask 0 shares the source's "
+          "worker, so no record would cross the data plane to it")
+    del plan
+    sync(device)
+    free0 = torch.cuda.mem_get_info(device)[0] if device.type == "cuda" \
+        else 0
+    spawned, killed = [], {}
+    cut, cut_offset = set(), None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_53_") as tmp:
+        os.environ[PC_OUT] = tmp
+        try:
+            storage = IncrementalCheckpointStorage(os.path.join(tmp, "ckpt"))
+            pc = ProcessCluster(job, n_workers=PC_WORKERS,
+                                checkpoint_storage=storage,
+                                checkpoint_interval_ms=PC_CHECKPOINT_MS,
+                                incremental=True, restart_attempts=1,
+                                extra_sys_path=(here,), device=device)
+            spawn = pc._spawn_worker
+
+            def spawn_timed(index, cport):
+                proc = spawn(index, cport)
+                spawned.append((index, proc.pid, time.time()))
+                return proc
+
+            pc._spawn_worker = spawn_timed
+            chaos_thread = threading.Thread(
+                target=kill_after_checkpoints,
+                args=(pc, victim, source_uid, (window[0], 0), killed))
+            chaos_thread.start()
+            t0 = time.perf_counter()
+            res = pc.run(timeout_s=600)
+            wall = time.perf_counter() - t0
+            killed["stop"] = True
+            chaos_thread.join()
+            # the windows open at the restored cut: their panes restart from
+            # the snapshot's f32 cells, as the reference restores them
+            snap = killed.pop("tree", None)
+            if snap is not None:
+                cut_offset = snap[source_uid]["subtasks"][0].get(
+                    "source_offset")
+                for sub in snap[window[0]]["subtasks"]:
+                    for op in sub["operator"].values():
+                        if isinstance(op, dict) and "pane_base" in op:
+                            cut |= {p * WINDOW_MS for p in range(
+                                op["pane_base"], op["max_pane"] + 1)}
+                del snap
+            workers = []
+            for name in sorted(os.listdir(tmp)):
+                if name.startswith("worker-"):
+                    with open(os.path.join(tmp, name)) as f:
+                        workers.append(json.load(f))
+        finally:
+            del os.environ[PC_OUT], os.environ[PC_SIZES]
+    final_pids = [p.pid for p in pc._procs]
+    by_pid = {w["pid"]: w for w in workers}
+    finals = [by_pid.get(pid, {}) for pid in final_pids]
+    respawned = finals[victim]
+    respawn_t = [t for i, pid, t in spawned if pid == final_pids[victim]]
+    first = respawned.get("first_record_s")
+    recovery_ms = ((first - killed["t"]) * 1e3
+                   if first and killed.get("t") else None)
+    startup_ms = ((first - respawn_t[0]) * 1e3
+                  if first and respawn_t else None)
+    to_plan_ms = ((respawned["enter_s"] - respawn_t[0]) * 1e3
+                  if respawned and respawn_t else None)
+    stats = list(pc._checkpoint_stats)
+    dur = [st["duration_ms"] for st in stats] or [float("nan")]
+    incs = [st for st in stats if st.get("incremental")]
+    launches = {k: sum(w.get("launches", {}).get(k, 0) for w in finals)
+                for k in ("probe", "probe_fold", "scatter_fold",
+                          "scatter_fold_single", "scatter_fold_multi",
+                          "scatter_fold_plane")}
+    net_bytes = sum(w.get("net_bytes", 0) for w in finals)
+    rps = n_records / wall
+    a, b = (earlier["path 52"][lane]["records_per_s"]
+            for lane in ("52a", "52b"))
+    ms = lambda v: "n/a" if v is None else f"{v:.1f}"  # noqa: E731
+    numbers = {
+        "records_per_s": rps, "wall_s": wall, "recovery_ms": recovery_ms,
+        "respawn_startup_ms": startup_ms, "respawn_to_plan_ms": to_plan_ms,
+        "respawn_cuda_context_ms": respawned.get("cuda_context_ms"),
+        "respawn_kernel_load_ms": respawned.get("kernel_load_ms"),
+        "checkpoints": len(stats), "incremental_checkpoints": len(incs),
+        "checkpoint_ms_p50": float(np.percentile(dur, 50)),
+        "checkpoint_ms_p99": float(np.percentile(dur, 99)),
+        "cuts": killed.get("cuts"), "restored_cut": killed.get("cut"),
+        "restored_cut_offset": cut_offset, "net_bytes": net_bytes,
+        "batches_by_worker": {w.get("index"): w.get("batches")
+                              for w in finals},
+        "launches_by_worker": {w.get("index"): w.get("launches")
+                               for w in finals}}
+    print(f"path 53 (north star as a ProcessCluster job: {PC_WORKERS} worker "
+          f"processes on the card, window parallelism {JOB_PARALLELISM}, "
+          f"{PC_LANE}'s lane pinned in each worker, aligned incremental "
+          f"checkpoints every {PC_CHECKPOINT_MS} ms into "
+          f"IncrementalCheckpointStorage): {res['state']}, {n_records} "
+          f"records in {wall:.3f} s = {rps:.1f} records/s, beside path 52a "
+          f"{a:.1f} ({rps / a:.3f}x) and 52b {b:.1f} ({rps / b:.3f}x) in this "
+          f"call; cuts completed (id, source offset in batches, source "
+          f"finished, s after the start, window subtask 0's state) "
+          f"{killed.get('cuts')}; worker {victim} (window subtask "
+          f"0) SIGKILLed after {CRASH_AFTER_CHECKPOINTS} and respawned "
+          f"(recoveries {res['recoveries']}), pids {killed.get('pids')} -> "
+          f"{final_pids}; restored cut {killed.get('cut')} at source offset "
+          f"{cut_offset} of {len(batches)} batches; recovery "
+          f"{ms(recovery_ms)} ms (kill to the respawned worker's first "
+          f"record); its start-up {ms(startup_ms)} ms (spawn to first "
+          f"record: {ms(to_plan_ms)} ms to its plan, CUDA context "
+          f"{ms(respawned.get('cuda_context_ms'))} ms, kernel load "
+          f"{ms(respawned.get('kernel_load_ms'))} ms); {len(stats)} "
+          f"checkpoints ({len(incs)} incremental), duration p50/p99 "
+          f"{numbers['checkpoint_ms_p50']:.1f}/"
+          f"{numbers['checkpoint_ms_p99']:.1f} ms; {net_bytes} B over the "
+          f"TCP data plane (the final workers' frames); window batches by "
+          f"worker {numbers['batches_by_worker']}; launches by worker "
+          f"{json.dumps(numbers['launches_by_worker'], sort_keys=True)}; "
+          f"{card}")
+    check(res["state"] == "FINISHED",
+          f"path 53: the job {res['state']}: {res['error']}")
+    check(killed.get("pids") is not None, "path 53: the kill never fired: "
+          f"{len(pc._completed_ids)} checkpoints completed, not "
+          f"{CRASH_AFTER_CHECKPOINTS} while window subtask 0 ran")
+    check(res["recoveries"] == 1, f"path 53: recoveries "
+          f"{res['recoveries']}")
+    check(final_pids[source] == killed["pids"][source]
+          and final_pids[victim] != killed["pids"][victim],
+          f"path 53: pids before the kill {killed['pids']}, after "
+          f"{final_pids}: the survivor must keep its pid")
+    alive = [p.pid for p in pc._procs if p.poll() is None]
+    check(not alive, f"path 53: worker processes {alive} outlived the job")
+    check(all(finals), f"path 53: numbers from workers {sorted(by_pid)}, "
+          f"final workers {final_pids}")
+    check(first is not None, "path 53: the respawned worker's window "
+          "operator got no record (the restored cut held the whole stream)")
+    for w in finals:
+        ln = w["launches"]
+        check(ln["probe"] > 0 and ln["scatter_fold"] > 0,
+              f"path 53: worker {w['index']} (pid {w['pid']}) launches {ln}")
+        check(w["lanes"] and all(l["emit_tier"] == "host"
+                                 and l["device_probe"] for l in w["lanes"]),
+              f"path 53: worker {w['index']}'s window lanes {w['lanes']}")
+        check(all(d.startswith("cuda") for d in w["devices"]),
+              f"path 53: worker {w['index']}'s window operators ran on "
+              f"{w['devices']}")
+    t1 = time.perf_counter()
+    exact = set(expect) - cut
+    check(exact, f"path 53: every window {sorted(expect)} was open at the "
+          f"restored cut")
+    repeats = check_job_rows("path 53", job53_rows(res["rows"]), expect,
+                             None, bits=False, exact=exact)
+    numbers["rows_check_s"] = time.perf_counter() - t1
+    numbers["repeats"] = repeats
+    check(repeats == 0, f"path 53: {repeats} repeated rows")
+    del res["rows"]
+    free1 = free0
+    for _ in range(100):       # a context's release trails its process
+        free1 = torch.cuda.mem_get_info(device)[0] \
+            if device.type == "cuda" else 0
+        if free0 - free1 <= JOB_MEMORY_SLACK:
+            break
+        time.sleep(0.1)
+    numbers["memory_after_job"] = free0 - free1
+    check(free0 - free1 <= JOB_MEMORY_SLACK,
+          f"path 53: the card has {free0 - free1} B less free memory after "
+          f"the job than before it")
+    print(f"path 53: every (key, window) present, windows {sorted(exact)} "
+          f"equal to the f64 reference bit for bit, "
+          f"{sorted(cut & set(expect))} (open at the restored cut, "
+          f"re-seeded from its f32 cells) within rtol {RTOL}, {repeats} "
+          f"repeated rows (checked in {numbers['rows_check_s']:.1f} s); no "
+          f"worker alive after the job; card memory free after it "
+          f"{free0 - free1} B below the start; {card}")
+    return launches, numbers
+
+
+def slice21(device, card, earlier):
+    """Path 53: the distributed runtime."""
+    t0 = time.perf_counter()
+    launches, numbers = {}, {}
+    launches["path 53"], numbers["path 53"] = path53(device, card, earlier)
+    print(f"path 53 took {time.perf_counter() - t0:.1f} s of command time")
     return launches, numbers
 
 
@@ -7520,6 +7965,9 @@ def main() -> None:
                                                 expect, cells, numbers)
     launches.update(slice20_launches)
     numbers.update(slice20_numbers)
+    slice21_launches, slice21_numbers = slice21(device, card, numbers)
+    launches.update(slice21_launches)
+    numbers.update(slice21_numbers)
     for name, phase in (("pipeline A/B", lambda: pipeline_ab(
             device, "path 9", "path 3", ab_want["path 3"])),
             ("guard A/B", lambda: guard_ab(device, batches, ab_want)),
@@ -7592,7 +8040,8 @@ def main() -> None:
     kernels.append(probe_fold_phase(device, rng, dki))
     kernels.append(scatter_fold_phase(device, rng))
     every_path = (ORDER + SLICE11 + SLICE12 + SLICE13 + SLICE14 + SLICE15
-                  + SLICE16 + SLICE17 + SLICE18 + SLICE19 + SLICE20)
+                  + SLICE16 + SLICE17 + SLICE18 + SLICE19 + SLICE20
+                  + SLICE21)
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]]
                    for label in every_path}
@@ -7617,13 +8066,14 @@ def main() -> None:
                   *SLICE11_SCATTER, "path 23", "path 24", "path 25",
                   "path 28", "path 29", "path 32", "path 34", "path 35",
                   *SLICE16, "path 40", "path 41", "path 47", *SLICE19,
-                  *SLICE20):
+                  *SLICE20, *SLICE21):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
     check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")
     check(launches["path 40"]["probe"] > 0, "path 40: no probe launch")
     check(launches["path 51"]["probe"] > 0, "path 51: no probe launch")
     check(launches["path 52"]["probe"] > 0, "path 52: no probe launch")
+    check(launches["path 53"]["probe"] > 0, "path 53: no probe launch")
     check(launches["path 14"]["probe"] > 0
           and launches["path 14"]["scatter_fold"] > 0,
           "path 14: no probe or scatter_fold launch")

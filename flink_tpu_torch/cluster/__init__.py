@@ -1,22 +1,16 @@
-"""The in-process cluster runtime: channels, subtasks, failover, the
-MiniCluster, its control-plane pieces (RPC, heartbeats) and the restore
-guard of adaptive scheduling.
+"""The cluster runtime (port of ``flink_tpu/cluster``): channels, subtasks,
+failover, the in-process MiniCluster and its control-plane pieces (RPC,
+heartbeats), the process cluster (``distributed``: a coordinator and its
+worker processes, started as ``python -m flink_tpu_torch worker``), its
+TCP data plane (``net``), high availability (``ha``), the coordination
+endpoints of a session cluster (``coordination``) and adaptive scheduling
+with the reactive autoscaler (``adaptive``).
 
-The multi-process half of ``flink_tpu/cluster`` (the process cluster, its
-network layer, HA and coordination) comes with the distributed runtime
-(ROADMAP Queue A item 8.4b): reaching one of those modules through this
-package raises ``NotImplementedError`` naming that item.
+The process cluster's coordinator resolves its device once and ships it to
+every worker it spawns (``--device``); a worker's environments and
+operators that name no device take it, and a worker told ``cuda`` that
+sees no card fails its start.
 """
 
-#: the cluster modules of the JAX package that a later slice brings
-LATER = {
-    name: f"the {name} module comes with the distributed runtime (8.4b)"
-    for name in ("distributed", "net", "ha", "coordination")
-}
-
-
-def __getattr__(name: str):
-    if name in LATER:
-        raise NotImplementedError(f"not in this slice of flink_tpu_torch: "
-                                  f"{LATER[name]}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+#: the cluster modules of the JAX package that a later slice brings: none
+LATER: dict = {}

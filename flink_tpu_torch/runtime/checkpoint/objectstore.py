@@ -23,9 +23,8 @@ ZooKeeper-ephemeral-node analog, ``ZooKeeperLeaderElectionDriver``):
   - ``POST /lease/{name}/renew``    body {holder, token, ttl_ms}
   - ``POST /lease/{name}/release``  body {holder, token}
   - ``GET  /lease/{name}``          current state
-Cross-host leader election (JAX's ``cluster/ha.py`` LeaseLeaderElection,
-which the port's distributed runtime brings: ROADMAP Queue A item 8.4b)
-rides these endpoints, with fencing tokens guarding split-brain writers.
+Cross-host leader election (``cluster/ha.py`` LeaseLeaderElection) rides
+these endpoints, with fencing tokens guarding split-brain writers.
 
 The port's copy of ``flink_tpu/runtime/checkpoint/objectstore.py`` (host Python, as JAX's).
 """

@@ -27,14 +27,21 @@ Usage::
 
 The clock seam's hook :func:`skew` (``utils/clock.py`` reads every clock
 through it) returns 0 unless an installed schedule answers ``("skew",
-ms)``.  The ``ClockSkew``, ``KillDuringRescale`` and ``KillCoordinator``
-schedules and the TCP-level ``FreezableProxy`` come with the distributed
-runtime (ROADMAP Queue A item 8.4b).  Standard library only.
+ms)``, as :class:`ClockSkew` does.  The distributed runtime adds its own
+points: ``rescale.redistribute`` / ``rescale.redeploy`` (the rescale
+lifecycle: :class:`KillDuringRescale`'s prey), ``restore.fetch`` (a
+worker's read of its shipped state) and ``ha.lease`` (the HA store's
+renewal write: :class:`TruncatedWrite` tears it, :class:`KillCoordinator`
+fails the n-th renewal outright, so a standby takes over at epoch + 1);
+the TCP channels fire ``channel.recv`` as the in-process ones do.  :class:`FreezableProxy` is the TCP-level
+injector for real-socket paths: a one-link partition where bytes neither
+flow nor error while both endpoints stay up.  Standard library only.
 """
 
 from __future__ import annotations
 
 import random
+import socket
 import threading
 import time
 from contextlib import contextmanager
@@ -43,8 +50,9 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 __all__ = [
     "InjectedFault", "FaultSchedule", "FailTimes", "CrashOnceAt", "DelayBy",
     "SlowDisk", "SlowConsumer", "ActionSequence", "Partition",
-    "FailWithProbability", "WedgedDevice", "TruncatedWrite",
-    "FaultInjector", "install", "uninstall", "installed",
+    "FailWithProbability", "WedgedDevice", "ClockSkew", "KillDuringRescale",
+    "KillCoordinator", "TruncatedWrite",
+    "FaultInjector", "FreezableProxy", "install", "uninstall", "installed",
     "fire", "active", "blocked", "skew", "truncated",
 ]
 
@@ -257,7 +265,7 @@ class ActionSequence(FaultSchedule):
 
 class Partition(FaultSchedule):
     """Suppress delivery until healed (``drop`` while active) — the
-    logical-link partition.
+    logical-link partition; :class:`FreezableProxy` is its TCP twin.
 
     ``direction`` makes the partition ASYMMETRIC: only firings whose
     context carries a matching ``direction=...`` are dropped; everything
@@ -350,6 +358,100 @@ class FailWithProbability(FaultSchedule):
 
     def action(self, n: int, rng: random.Random) -> Action:
         return FAIL if rng.random() < self.p else OK
+
+
+class ClockSkew(FaultSchedule):
+    """Seeded clock skew applied per clock READING (``clock.wall`` /
+    ``clock.monotonic`` points, consumed via :func:`skew`): offset =
+    cumulative step ``jumps`` + linear ``drift_ms_per_read`` + seeded
+    jitter in ``[-jitter_ms, +jitter_ms]``.
+
+    ``jumps`` is a sequence of ``(reading_n, delta_ms)``: from the n-th
+    reading onward the clock is additionally offset by ``delta_ms``
+    (negative = backward step, positive = forward jump).  Pure function of
+    (seed, point, reading count) — two runs with one seed see identical
+    skewed clocks.  ``times`` bounds the skewed period (NTP "recovers"
+    afterwards)."""
+
+    def __init__(self, jumps: Sequence[Tuple[int, float]] = (),
+                 drift_ms_per_read: float = 0.0, jitter_ms: float = 0.0,
+                 times: Optional[int] = None):
+        self.jumps = list(jumps)
+        self.drift = float(drift_ms_per_read)
+        self.jitter = float(jitter_ms)
+        self.times = times
+
+    def action(self, n: int, rng: random.Random) -> Action:
+        # ALWAYS draw: the RNG stream must advance identically per reading
+        # regardless of the recovered/skewed branch (SlowDisk invariant)
+        j = (2.0 * rng.random() - 1.0) * self.jitter
+        if self.times is not None and n > self.times:
+            return OK
+        off = sum(d for at, d in self.jumps if n >= at)
+        return ("skew", off + self.drift * n + j)
+
+
+class KillDuringRescale(FaultSchedule):
+    """Kill (or stall, then kill) INSIDE the rescale window — fired at the
+    ``rescale.redistribute`` point, which the rescale lifecycle hits after
+    the pre-rescale cut is taken and before the job redeploys at the new
+    parallelism.  Deterministic: the ``at``-th rescale through the point
+    dies (``times`` consecutive rescales when given), everything else
+    proceeds.  ``stall_s`` sleeps before the kill so partition/stall
+    composites can hold the window open.  The rescale lifecycle is
+    expected to absorb the kill: re-trigger the redistribution from the
+    same pre-rescale checkpoint (idempotent — the cut is immutable), or
+    roll back to the old parallelism past its retry budget; either way
+    zero records may be lost or duplicated."""
+
+    def __init__(self, at: int = 1, times: int = 1, stall_s: float = 0.0):
+        if times < 1:
+            raise ValueError("KillDuringRescale: times must be >= 1")
+        self.at = at
+        self.times = times
+        self.stall_s = stall_s
+
+    def action(self, n: int, rng: random.Random) -> Action:
+        if self.at <= n < self.at + self.times:
+            if self.stall_s > 0:
+                # one composite firing: stall first (holds the rescale
+                # window open), then die — FaultInjector sleeps on the
+                # delay branch, so model it as a slow kill message
+                time.sleep(self.stall_s)
+            return (FAIL, f"killed during rescale (firing {n})")
+        return OK
+
+
+class KillCoordinator(FaultSchedule):
+    """Kill the LEADER coordinator — fired at the ``ha.lease`` point,
+    which the HA store hits on every lease renewal write.  Deterministic:
+    the ``at``-th renewal (``times`` consecutive renewals when given)
+    fails outright, so the :class:`~flink_tpu_torch.runtime.ha.LeaseRenewer`
+    invokes its ``on_lost`` demotion and the leader stands down exactly
+    as if the process died mid-flight: the lease ages out, a standby
+    acquires it at epoch + 1, recovers the job from the HA store's
+    completed-checkpoint pointer and resumes triggering.  ``stall_s``
+    sleeps before the kill (a wedged-then-dead leader whose lease file
+    goes stale while it still holds sockets open).  The cluster is
+    expected to absorb the kill with zero lost and zero duplicated
+    records: every stale-epoch completion, deploy and 2PC commit the
+    zombie attempts afterwards is fenced."""
+
+    def __init__(self, at: int = 1, times: int = 1, stall_s: float = 0.0):
+        if times < 1:
+            raise ValueError("KillCoordinator: times must be >= 1")
+        self.at = at
+        self.times = times
+        self.stall_s = stall_s
+
+    def action(self, n: int, rng: random.Random) -> Action:
+        if self.at <= n < self.at + self.times:
+            if self.stall_s > 0:
+                # composite firing: hold the lease stale first, then die —
+                # same slow-kill modeling as KillDuringRescale
+                time.sleep(self.stall_s)
+            return (FAIL, f"coordinator killed at lease renewal {n}")
+        return OK
 
 
 class FaultInjector:
@@ -541,7 +643,7 @@ def blocked(point: str, **ctx) -> bool:
 
 def skew(point: str, **ctx) -> float:
     """Clock-reading hook (``utils/clock.py``): current skew offset in ms
-    from an installed skew schedule; 0.0 when no injector or
+    from an installed :class:`ClockSkew` schedule; 0.0 when no injector or
     no schedule — near-zero cost on the unskewed path."""
     inj = _ACTIVE
     if inj is None:
@@ -556,3 +658,109 @@ def truncated(point: str, nbytes: int, **ctx) -> int:
     if inj is None:
         return nbytes
     return inj.truncated(point, nbytes, **ctx)
+
+
+# ---------------------------------------------------------------------------
+# TCP-level injector
+# ---------------------------------------------------------------------------
+
+class FreezableProxy:
+    """TCP proxy that can stop forwarding bytes (packets 'drop' while both
+    endpoints' sockets stay open) — a one-link network partition.
+
+    Interpose it on a component's path to a real-socket service (object
+    store, Kafka broker, worker control plane) and call :meth:`freeze` /
+    :meth:`heal`; iptables-free, in-process, deterministic.
+
+    :meth:`freeze` takes an optional ``direction`` for ASYMMETRIC
+    partitions: ``"a->b"`` blackholes only client→server bytes (requests
+    vanish, responses would flow), ``"b->a"`` only server→client
+    (requests arrive, responses vanish), ``"both"`` (default) the classic
+    full blackhole."""
+
+    DIRECTIONS = ("both", "a->b", "b->a")
+
+    def __init__(self, target_host: str, target_port: int):
+        self.target = (target_host, target_port)
+        self._srv = socket.create_server(("127.0.0.1", 0))
+        self.port = self._srv.getsockname()[1]
+        self.url = f"http://127.0.0.1:{self.port}"
+        self._frozen = {"a->b": threading.Event(),
+                        "b->a": threading.Event()}
+        self._stop = threading.Event()
+        self._threads = []
+        t = threading.Thread(target=self._accept_loop, daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    def freeze(self, direction: str = "both") -> None:
+        if direction not in self.DIRECTIONS:
+            raise ValueError(f"direction must be one of {self.DIRECTIONS}")
+        for d, ev in self._frozen.items():
+            if direction in ("both", d):
+                ev.set()
+
+    def heal(self, direction: str = "both") -> None:
+        if direction not in self.DIRECTIONS:
+            raise ValueError(f"direction must be one of {self.DIRECTIONS}")
+        for d, ev in self._frozen.items():
+            if direction in ("both", d):
+                ev.clear()
+
+    def _accept_loop(self) -> None:
+        self._srv.settimeout(0.2)
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._srv.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            try:
+                up = socket.create_connection(self.target, timeout=5)
+            except OSError:
+                conn.close()
+                continue
+            for a, b, d in ((conn, up, "a->b"), (up, conn, "b->a")):
+                t = threading.Thread(target=self._pump, args=(a, b, d),
+                                     daemon=True)
+                t.start()
+                self._threads.append(t)
+
+    def _pump(self, src: socket.socket, dst: socket.socket,
+              direction: str) -> None:
+        frozen = self._frozen[direction]
+        src.settimeout(0.2)
+        while not self._stop.is_set():
+            try:
+                data = src.recv(65536)
+            except socket.timeout:
+                continue
+            except OSError:
+                break
+            if not data:
+                break
+            if frozen.is_set():
+                # blackhole: this direction's bytes are DROPPED on the
+                # floor (never queued — a heal must not deliver stale
+                # in-flight traffic the sender already gave up on); the
+                # sender neither errors nor progresses, exactly the
+                # packets-vanish partition, while the opposite pump may
+                # still be forwarding
+                continue
+            try:
+                dst.sendall(data)
+            except OSError:
+                break
+        for s in (src, dst):
+            try:
+                s.close()
+            except OSError:
+                pass
+
+    def stop(self) -> None:
+        self._stop.set()
+        try:
+            self._srv.close()
+        except OSError:
+            pass

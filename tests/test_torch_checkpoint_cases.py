@@ -11,9 +11,9 @@ backend cuts log suffixes, the storages resolve their chains, and the
 records (operator outputs and snapshots, increments, resolved chains,
 storage loads, fault histories) must be equal, floats bit for bit.  The
 checked-in savepoint fixture JAX wrote (``tests/fixtures/savepoint_v1``)
-loads in the port.  ``test_process_cluster_incremental_end_to_end`` waits
-for the process cluster (ROADMAP Queue A item 8.4b; its counterpart is in
-``tests/test_torch_cluster_cases.py``).
+loads in the port.  ``test_process_cluster_incremental_end_to_end`` runs
+a two-worker process cluster in each package (the port's workers on the
+CPU, shipped by the coordinator).
 """
 
 import pytest

@@ -26,8 +26,14 @@ snapshots, increments and their resolution, storage loads and fault
 histories.  Calls nested inside a recorded call are not recorded again.
 
 The port's run resolves a device nobody names to the CPU (the reference
-cases name none) and pins the DataStream API's default aggregate dtype to
-f32, the dtype JAX folds its default in (x64 off).
+cases name none; a process cluster's coordinator ships that device to its
+workers) and pins the DataStream API's default aggregate dtype to f32, the
+dtype JAX folds its default in (x64 off).  The process cluster's, HA's,
+chaos' and rescale's reference files run in their own files through this
+harness (``tests/test_torch_distributed_cases.py``, ``_ha_cases``,
+``_chaos_cases``, ``_rescale_cases``), keeping their reference marks
+(``cases(..., marks=True)``); a counterpart may patch a case's source
+(``check_case(..., patches=...)``) and says why.
 ``tests/test_torch_checkpoint.py`` holds that ``execute_cluster`` raises
 without a card.  The cases that cannot run this
 way have counterparts at the end of this file (:data:`OWN_COUNTERPART`).
@@ -64,8 +70,30 @@ ALSO = {"test_streams_advanced": ("test_window_join_parallel_cluster",
 #: ``tests/test_torch_storage.py`` (the eight storage cases of
 #: ``test_chaos.py`` it mirrors)
 OWN_COUNTERPART = {
-    # ROADMAP Queue A item 8.4b: the process cluster
-    "test_incremental_checkpoints::test_process_cluster_incremental_end_to_end",
+    # an unused import of the partitioned log (item 12), and the REST panel
+    # (item 10): tests/test_torch_rescale_cases.py runs the rest of each
+    "test_adaptive::test_adaptive_rescale_mid_job",
+    "test_rescale_under_fire::test_autoscaler_status_gauges_and_panel",
+    # ROADMAP Queue C item 6: the autoscaler's decisions race the
+    # machine's load in either package; tests/test_torch_rescale_cases.py
+    # runs both packages with the decisions scripted
+    "test_rescale_under_fire::test_acceptance_autoscaled_2_4_2_exactly_once",
+    "test_rescale_under_fire::test_acceptance_kill_during_rescale_is_"
+    "idempotent",
+    "test_rescale_under_fire::test_acceptance_rollback_on_redeploy_failure",
+    "test_rescale_under_fire::test_acceptance_worker_killed_mid_redeploy",
+    # item 12: the fraud scenario (tests/test_torch_ha_cases.py)
+    "test_ha::test_coordinator_kill_at_peak_recovers_exactly_once",
+    # its kill races the job's end in either package (the dead worker's
+    # region may have finished first): tests/test_torch_distributed_cases.py
+    # runs it on both with the map slowed so the kill lands mid-run
+    "test_distributed::test_region_scoped_recovery_survivor_regions_never_"
+    "restart",
+    # item 12: the CLI's job-script, SQL and info subcommands
+    # (tests/test_torch_distributed_cases.py)
+    "test_coordination::test_cli_run_script",
+    "test_coordination::test_cli_sql",
+    "test_coordination::test_cli_info",
     # its size bound races the end-of-input fire in either package:
     # tests/test_torch_checkpoint.py runs it on both with the race taken out
     "test_incremental_checkpoints::test_minicluster_incremental_end_to_end",
@@ -96,6 +124,7 @@ FIXTURE_PARAMS = {"impl": ["objectstore"]}
 RECORDED = [
     ("datastream.api", "DataStream", "execute_and_collect"),
     ("cluster.minicluster", "MiniCluster", "execute"),
+    ("cluster.distributed", "ProcessCluster", "run"),
     ("runtime.checkpoint.delta", "apply_increments", None),
     ("runtime.checkpoint.delta", "resolve_chain", None),
     ("runtime.checkpoint.delta", "state_size", None),
@@ -137,13 +166,13 @@ RECORDED = [
 ]
 
 #: what a case that runs threads records (see the module's docstring)
-THREADED_RECORDED = {"MiniCluster.execute"}
+THREADED_RECORDED = {"MiniCluster.execute", "ProcessCluster.run"}
 
 #: a case whose source names one of these runs threads
 THREADED = re.compile(
-    r"execute_cluster|MiniCluster|Subtask\(|SourceSubtask|Heartbeat|"
-    r"Gateway|RpcEndpoint|LocalChannel|_run_backpressured|_window_job|"
-    r"_backpressure_job|threading|Thread\(")
+    r"execute_cluster|MiniCluster|ProcessCluster|Subtask\(|SourceSubtask|"
+    r"Heartbeat|Gateway|RpcEndpoint|LocalChannel|_run_backpressured|"
+    r"_window_job|_backpressure_job|threading|Thread\(")
 
 
 def plain(v, tmp=None):
@@ -169,6 +198,9 @@ def plain(v, tmp=None):
         return ("array", str(v.dtype) if v.dtype != object else "object",
                 [plain(x, tmp) for x in items] if v.ndim
                 else plain(items, tmp))
+    if isinstance(v, dict) and "rows" in v and "completed_checkpoints" in v:
+        # a process cluster's result: its state, as a JobResult's
+        return ("ProcessCluster.run", v["state"])
     if isinstance(v, dict):
         return {plain(k, tmp): plain(x, tmp) for k, x in v.items()}
     if isinstance(v, (list, tuple)):
@@ -291,8 +323,13 @@ CUT = {"test_unaligned": "    # the server-rendered panel renders"}
 _SOURCES = {}
 
 
-def _source(ref: str, side: str) -> str:
+def _source(ref: str, side: str, patches=()) -> str:
+    """The reference file's source for one package, with the
+    ``(old, new)`` replacements of a counterpart (each must apply)."""
     src = (TESTS / f"{ref}.py").read_text()
+    for old, new in patches:
+        assert old in src, f"{ref}: the patched text is gone: {old!r}"
+        src = src.replace(old, new)
     if ref in CUT:
         # cut the marked block up to the end of its function
         src = re.sub(rf"^{re.escape(CUT[ref])}.*?(?=^\S)", "", src,
@@ -308,13 +345,13 @@ def _source(ref: str, side: str) -> str:
     return src
 
 
-def _module(ref: str, side: str) -> types.ModuleType:
+def _module(ref: str, side: str, patches=()) -> types.ModuleType:
     """A fresh module of the reference file ``ref``: as written (``jax``),
     or importing the port in place of the JAX package (``port``)."""
-    key = (ref, side)
+    key = (ref, side, tuple(patches))
     if key not in _SOURCES:
-        _SOURCES[key] = compile(_source(ref, side), str(TESTS / f"{ref}.py"),
-                                "exec")
+        _SOURCES[key] = compile(_source(ref, side, patches),
+                                str(TESTS / f"{ref}.py"), "exec")
     mod = types.ModuleType(f"{ref}__{side}")
     mod.__file__ = str(TESTS / f"{ref}.py")
     exec(_SOURCES[key], mod.__dict__)
@@ -335,11 +372,26 @@ def _grid(marks):
     return grid
 
 
-def cases(files):
+#: the reference marks a case keeps with ``cases(..., marks=True)``
+KEPT_MARKS = ("slow", "chaos")
+
+
+def _marks(mod, fn):
+    """The :data:`KEPT_MARKS` of a reference case: its module's
+    ``pytestmark`` and its own."""
+    own = getattr(mod, "pytestmark", [])
+    own = own if isinstance(own, list) else [own]
+    return [getattr(pytest.mark, m.name) for m in
+            own + list(getattr(fn, "pytestmark", []))
+            if m.name in KEPT_MARKS]
+
+
+def cases(files, marks=False):
     """``(id, reference file, class or None, function name, parametrize
     kwargs)`` for every case of the reference ``files`` (a mapping: only
     the cases it names of each), parametrized ones expanded (fixture
-    parameters by :data:`FIXTURE_PARAMS`)."""
+    parameters by :data:`FIXTURE_PARAMS`); with ``marks``, each case keeps
+    its reference's ``slow`` and ``chaos`` marks."""
     out = []
     for ref in files:
         mod = _module(ref, "jax")
@@ -361,10 +413,11 @@ def cases(files):
             for name, values in FIXTURE_PARAMS.items():
                 if name in inspect.signature(fn).parameters:
                     grid = [{**g, name: v} for g in grid for v in values]
+            kept = _marks(mod, fn) if marks else []
             for g in grid:
                 pid = "-".join(str(v) for v in g.values())
                 out.append(pytest.param(
-                    ref, cls, fn_name, g,
+                    ref, cls, fn_name, g, marks=kept,
                     id=f"{cid}[{pid}]" if pid else cid))
     return out
 
@@ -385,7 +438,7 @@ def _with_helpers(ref: str, src: str, depth: int = 3) -> str:
     return src
 
 
-def _run(ref, cls, fn_name, params, side, tmp_path_factory):
+def _run(ref, cls, fn_name, params, side, tmp_path_factory, patches=()):
     """The case through one package; returns its record (the case's own
     exception, if it raises, is the last entry)."""
     mp = pytest.MonkeyPatch()
@@ -402,7 +455,7 @@ def _run(ref, cls, fn_name, params, side, tmp_path_factory):
         if side == "port":
             _cpu_when_unnamed(mp)
             _f32_defaults(mp)
-        mod = _module(ref, side)
+        mod = _module(ref, side, patches)
         case_mp = pytest.MonkeyPatch()
         finalizers.append(case_mp.undo)
 
@@ -423,6 +476,8 @@ def _run(ref, cls, fn_name, params, side, tmp_path_factory):
                 return params[name]
             if name == "tmp_path":
                 return tmp
+            if name == "tmp_path_factory":
+                return tmp_path_factory
             if name == "monkeypatch":
                 return case_mp
             return fixture_value(mod.__dict__[name], name)
@@ -447,12 +502,13 @@ def _run(ref, cls, fn_name, params, side, tmp_path_factory):
     return rec.log
 
 
-def check_case(ref, cls, fn_name, params, tmp_path_factory, pin):
+def check_case(ref, cls, fn_name, params, tmp_path_factory, pin,
+               patches=()):
     """One reference case through both packages; the records must be
-    equal."""
+    equal.  A counterpart passes ``patches`` (see :func:`_source`)."""
     pin(taxed=False, shards=1, super_shards=1, depth=1, probe=False)
-    want = _run(ref, cls, fn_name, params, "jax", tmp_path_factory)
-    got = _run(ref, cls, fn_name, params, "port", tmp_path_factory)
+    want = _run(ref, cls, fn_name, params, "jax", tmp_path_factory, patches)
+    got = _run(ref, cls, fn_name, params, "port", tmp_path_factory, patches)
     assert len(got) == len(want), (got[-1:], want[-1:])
     for i, (g, w) in enumerate(zip(got, want)):
         assert g == w, f"record {i} of {fn_name} differs"
@@ -468,18 +524,6 @@ def test_reference_case(ref, cls, fn_name, params, tmp_path_factory,
 # ---------------------------------------------------------------------------
 # the counterparts of OWN_COUNTERPART's cases
 # ---------------------------------------------------------------------------
-
-def test_process_cluster_waits_for_8_4b():
-    """``test_process_cluster_incremental_end_to_end`` drives the process
-    cluster, which comes with ROADMAP Queue A item 8.4b; its MiniCluster
-    twin (``test_minicluster_incremental_end_to_end``) runs above."""
-    from flink_tpu_torch import cluster
-    with pytest.raises(NotImplementedError, match="8.4b"):
-        cluster.distributed
-    from flink_tpu_torch.cluster import adaptive
-    with pytest.raises(NotImplementedError, match="8.4b"):
-        adaptive.ReactiveAutoscaler()
-
 
 def test_job_status_surfaces_backpressure_rest_panel_waits_for_10():
     """``test_job_status_and_rest_panel_surface_backpressure`` up to its

@@ -1886,3 +1886,132 @@ def test_minicluster_job_on_the_card_equals_the_cpu(cuda_device):
     assert gdev and all(d.startswith("cuda") for d in gdev)
     assert wdev == {"cpu"}
     assert got == want
+
+
+PROCESS_JOB = '''
+"""A keyed tumbling f32 sum in one source split (each key folds in record
+order), the window operators pinned to the device tier; a map slows each
+batch so checkpoints complete while the stream runs."""
+import time
+
+import numpy as np
+import torch
+
+from flink_tpu_torch.connectors.sources import CollectionSource, SourceSplit
+from flink_tpu_torch.core.functions import SumAggregator
+from flink_tpu_torch.datastream import StreamExecutionEnvironment
+from flink_tpu_torch.operators.window_agg import WindowAggOperator
+from flink_tpu_torch.windowing import TumblingEventTimeWindows
+
+PINS = dict(emit_tier="device", snapshot_source="device",
+            device_sync="scatter", superbatch=1)
+_init = WindowAggOperator.__init__
+
+
+def _pinned(self, *args, **kwargs):
+    _init(self, *args, **{**kwargs, **PINS})
+
+
+WindowAggOperator.__init__ = _pinned
+
+
+class OneSplit(CollectionSource):
+    def create_splits(self, parallelism):
+        return [SourceSplit(self, 0, 1)]
+
+
+def _slow(cols):
+    time.sleep(0.02)
+    return cols
+
+
+def build():
+    rng = np.random.default_rng(21)
+    n = 60 * 4096
+    cols = {"k": rng.integers(0, 20000, n).astype(np.int64),
+            "v": rng.random(n).astype(np.float32),
+            "ts": np.repeat(np.arange(60) * 500, 4096).astype(np.int64)}
+    env = StreamExecutionEnvironment()
+    env.set_parallelism(2)
+    (env.from_source(OneSplit(columns=cols, batch_size=4096), "source")
+        .map(_slow)
+        .assign_timestamps_and_watermarks(0, timestamp_column="ts")
+        .key_by("k")
+        .window(TumblingEventTimeWindows.of(5000))
+        .aggregate(SumAggregator(torch.float32), value_column="v")
+        .collect())
+    return env.get_stream_graph("process-job")
+'''
+
+
+def _process_job_rows(tmp_path, device, kill):
+    """Run ``PROCESS_JOB`` on a 2-worker process cluster on ``device``,
+    SIGKILLing the worker of window subtask 0 after two completed
+    checkpoints when ``kill``; returns (rows sorted, the result, the
+    cluster)."""
+    import os
+    import signal
+    import sys
+    import threading
+    import time
+
+    from flink_tpu_torch.cluster.distributed import (ProcessCluster,
+                                                     assign_subtasks,
+                                                     build_plan,
+                                                     subtask_counts_of)
+    (tmp_path / "process_job_mod.py").write_text(PROCESS_JOB)
+    sys.path.insert(0, str(tmp_path))
+    try:
+        plan = build_plan("process_job_mod:build")
+        counts, _ = subtask_counts_of(plan)
+        window = [v.uid for v in plan.vertices if not v.is_source
+                  and "window" in v.uid]
+        victim = assign_subtasks(plan, counts, 2)[(window[0], 0)]
+        pc = ProcessCluster("process_job_mod:build", n_workers=2,
+                            checkpoint_interval_ms=20, restart_attempts=1,
+                            extra_sys_path=(str(tmp_path),), device=device)
+        killed = {}
+
+        def chaos():
+            end = time.monotonic() + 120
+            while time.monotonic() < end and kill:
+                procs = getattr(pc, "_procs", None)
+                if len(pc._completed_ids) >= 2 and procs \
+                        and all(p.poll() is None for p in procs):
+                    killed["pid"] = procs[victim].pid
+                    os.kill(procs[victim].pid, signal.SIGKILL)
+                    return
+                time.sleep(0.002)
+
+        th = threading.Thread(target=chaos)
+        th.start()
+        res = pc.run(timeout_s=300)
+        th.join()
+    finally:
+        sys.path.remove(str(tmp_path))
+        sys.modules.pop("process_job_mod", None)
+    assert res["state"] == "FINISHED", res["error"]
+    if kill:
+        assert "pid" in killed and res["recoveries"] == 1, res["recoveries"]
+    rows = sorted((r["window_start"], r["k"],
+                   np.float32(r["result"]).view(np.uint32).item())
+                  for r in res["rows"])
+    return rows, res, pc
+
+
+def test_process_cluster_job_on_the_card_equals_the_cpu(cuda_device,
+                                                        tmp_path):
+    """A 2-worker ``ProcessCluster`` keyed window job on the card (the
+    device tier: its folds launch ``scatter_fold``), a worker SIGKILLed
+    once and respawned on the card, equals its CPU twin (the same job on
+    ``--device cpu`` workers, unfaulted) bit for bit; no worker process
+    outlives either job."""
+    (tmp_path / "card").mkdir()
+    (tmp_path / "cpu").mkdir()
+    got, res, pc = _process_job_rows(tmp_path / "card", cuda_device, True)
+    want, _, cpu = _process_job_rows(tmp_path / "cpu", "cpu", False)
+    assert got == want
+    assert len(got) > 20000
+    for cluster in (pc, cpu):
+        assert all(p.poll() is not None for p in cluster._procs)
+    assert "--device cuda" in " ".join(pc._procs[0].args)
