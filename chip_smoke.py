@@ -135,7 +135,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    their degraded snapshot under a healthy and a still quarantined
    monitor.  Then the guard's A/B (paths 3, 5 and 9 with
    ``FLINK_TPU_DEVICE_WATCHDOG=off`` against the default, same batches,
-   turns on, off, off, on, twice: records/s, phases, dispatches a batch, the
+   turns on, off, off, on: records/s, phases, dispatches a batch, the
    hand-off to the lane and back), the round trip of an empty guarded
    thunk, and the healer's subprocess probe on the card;
 9f. main paths 14-17, the key-group mesh (slice 10): a
@@ -157,7 +157,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    fires equal path 11's bit for bit.  Path 17 is path 7 on the mesh (the
    ring's 2^18 rows as 4 blocks of 2^16): its fires equal path 7's by key
    and every paging counter path 7's.  Then each mesh path is timed
-   against its twin in turns (twin, mesh, mesh, twin);
+   against its twin in turns (twin, mesh, mesh, twin; path 17 against path
+   7 in one turn each);
 10. kernel phase, scatter_fold: the ordered fold (``csrc/scatter_fold.cu``)
    at path 5's shapes — 2^18 int32 flat ids (about 2% dropped) into an f32
    ``[2^20, 16]`` replica and int32 counts with non-zero contents, and a
@@ -291,8 +292,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    time a superstep (p50/p99, the same supersteps through
    ``scatter_gather`` with an event at each), edges traversed per second,
    launches, the card's busy share over a profiled run and peak device
-   memory.  Path 33 is BFS from 2 seeded roots of non-zero degree, WCC
-   and SSSP from the first root, on the graph taken undirected (Graph500
+   memory.  Path 33 is BFS from ``BFS_ROOTS`` (1) seeded root of non-zero
+   degree, WCC and SSSP from that root, on the graph taken undirected (Graph500
    kernels 2 and 3): levels and component labels (the least vertex id of
    each) equal scipy's BFS and weak components exactly, distances scipy's
    f64 Dijkstra within ``SSSP_RTOL``; each prints supersteps, edges
@@ -356,8 +357,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    directly and ``cep_model``.  Path 43 is the interval join (path 30's
    pairs) and the window join (a numpy model) through the API with
    ``FLINK_TPU_DEVICE_JOIN=1``.  Path 44 is path 36's process function on
-   ``state.backend: spill`` with an 8 MiB budget over the first half of
-   the first batch (``SPILL_ROWS``): the
+   ``state.backend: spill`` with an 8 MiB budget over the first quarter
+   of the first batch (``SPILL_ROWS``): the
    heap's fires bit for bit, the snapshot after the batch restored,
    persisted, compacted and fired bit for bit; host C and numpy, the card
    idle.
@@ -401,7 +402,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    exactly and the sums within ``n * U32`` of a numpy model's f64 sums,
    every row bit for bit against a CPU twin whose window operator is
    pinned to the card's resolved lane (``window_lane``).  Path 49 is the
-   main stream's 24 batches as a collection table under ``EVENTS_SQL``
+   main stream's first ``SQL_BATCHES`` (12) batches as a collection table
+   under ``EVENTS_SQL``
    (``GROUP BY k, TUMBLE(ts, 5 s)``): ``ws`` the windows' starts,
    ``COUNT(*)`` exact, ``SUM(v)`` bit for bit against ``reference_f32`` on
    the device tier or within ``RTOL`` of ``reference`` on the host tier,
@@ -409,8 +411,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    (``Q3_SQL``) on path 45's tables at SF ``TPCH_SF`` with
    ``FLINK_TPU_DEVICE_JOIN=1``: the top 10 against ``q3_model`` (revenue
    within ``2 n U32``), every row bit for bit against the CPU twin, its
-   wall beside path 45's; 50b is ``MATCH_SQL`` over path 26's first
-   batch: the interpreted engine, the CPU twin's matches, and
+   wall beside path 45's; 50b is ``MATCH_SQL`` over the first
+   ``MATCH_EVENTS`` events of path 26's first batch: the interpreted
+   engine, the CPU twin's matches, and
    ``cep_vectorized="on"`` refused.  Each path launches ``scatter_fold``
    (50b none).
 
@@ -463,6 +466,36 @@ Phases, each fatal on failure (exit code 1, no result line):
    worker's first record), the respawned worker's start-up (its CUDA
    context and kernel load apart), the cuts (count, p50/p99, source
    offsets), the bytes over the data plane and each worker's launches.
+9r. main paths 54-55 (slice 22), after path 53: serving and observability.
+   Path 54 runs the main stream through path 5's operator (54a, the device
+   tier) and path 3's (54b, the host tier with the probe on) with
+   ``queryable="north_star"``, its view registered in a
+   ``QueryableStateService`` behind a ``QueryableStateServer`` on
+   127.0.0.1 (the binary columnar protocol), a snapshot every 8 batches
+   fed to the service's ``CheckpointReplica``.  While the task thread
+   runs, a client thread sends live lookups of 4096 uniform keys (numpy,
+   seed 54) as fast as it can.  Checks: after each fire every key it
+   emitted, looked up live in requests of 65,536, reads that fire's row bit
+   for bit; at each snapshot 65,536 uniform keys at checkpoint consistency
+   read the numpy combine of the snapshot's panes bit for bit; 54a launches
+   ``scatter_fold``, 54b ``probe``.  It prints lookups/s, request p50/p99
+   (the client's clock), serve p50/p99 (``service.stats()``), the cache's
+   hit rate, the replica's lag and ingest ms, and records/s beside a twin
+   without the view and the view without the client.  Path 55 runs the
+   main stream's first ``OBS_BATCHES`` (8) batches as the north star job
+   on a MiniCluster (parallelism 2, path 5's lane pinned) with
+   ``metrics.tracing.enabled`` and a ``RestServer`` over it; with the
+   sources held (they keep answering barriers) it GETs ``/overview``,
+   ``/jobs``, ``/jobs/<id>`` and its ``checkpoints``, ``metrics``,
+   ``backpressure`` and ``flamegraph``, and the dashboard (each 200, of the
+   reference's shape), scrapes a ``PrometheusReporter`` and runs ``python
+   -m flink_tpu_torch status`` against the server.  After the job: rows
+   bit-equal to the f32 ordered reference, the journal's ``hot_stage``
+   spans per phase summing to the window subtasks' ``phase_ns`` exactly,
+   its Chrome export's ``checkpoint`` spans as many as
+   ``_checkpoint_stats``.  It prints the journal's events and drops, the
+   GETs' p50/p99 ms, and tracing's cost: path 5's operator with the journal
+   off and on in alternating pairs.
 
 Each phase and path prints its command time on a line of its own.
 
@@ -605,6 +638,9 @@ PAGED_REPLAY_CAPACITY["path 17"] = 1 << 19
 #: path 14's snapshot too, densified), and is timed against in turns
 MESH_TWIN = {"path 14": "path 3", "path 15": "path 5", "path 16": "path 11",
              "path 17": "path 7"}
+#: the mesh paths whose A/B runs one turn each, twin then mesh: the paged
+#: pair's runs take about 7 s each (four turns before slice 22)
+MESH_AB_ONE_PAIR = ("path 17",)
 #: the mesh sizes path 15's mid-run snapshot is restored at (rescale)
 RESCALE_BLOCKS = (2, 1)
 #: the watchdog's paths on the device tier (their untouched windows also
@@ -2114,22 +2150,25 @@ def ab_run(device, batches, label):
 
 def mesh_ab(device, batches, want, card) -> dict:
     """Each mesh path against its single-block twin on the same batches,
-    in turns twin, mesh, mesh, twin, each run's fires bit-equal to its
-    path's main run: records/s and their median ratio, beside the card's
-    nvidia-smi line."""
+    in turns twin, mesh, mesh, twin (the paged pair, ``MESH_AB_ONE_PAIR``,
+    in one turn each), each run's fires bit-equal to its path's main run:
+    records/s and their median ratio, beside the card's nvidia-smi
+    line."""
     n = sum(len(b[0]) for b in batches)
     ratios = {}
     for label, twin in MESH_TWIN.items():
         rate = {twin: [], label: []}
-        for side in (twin, label, label, twin):
+        turns = ((twin, label) if label in MESH_AB_ONE_PAIR
+                 else (twin, label, label, twin))
+        for side in turns:
             wall, got = ab_run(device, batches, side)
             check(got == want[side], f"A/B {side}: fires differ from "
                   f"{side}'s run")
             rate[side].append(n / wall)
         ratios[label] = np.median(rate[label]) / np.median(rate[twin])
         print(f"A/B {label} ({MESH_BLOCKS} blocks on one card) vs {twin} "
-              f"(one block), same batches, turns {twin}, {label}, {label}, "
-              f"{twin}: records/s " + ", ".join(
+              f"(one block), same batches, turns {', '.join(turns)}: "
+              f"records/s " + ", ".join(
                   f"{k} " + " / ".join(f"{r:.1f}" for r in v)
                   for k, v in rate.items())
               + f" (median ratio {ratios[label]:.3f}x); every run bit-equal "
@@ -2199,14 +2238,15 @@ def guard_run(device, batches, label, guarded):
 
 def guard_ab(device, batches, want) -> dict:
     """The guard's cost: each of ``GUARD_AB`` with the watchdog on and off,
-    on the same batches, in turns on, off, off, on, twice, each run's fires
+    on the same batches, in turns on, off, off, on (twice before slice 22,
+    whose paths took the time), each run's fires
     bit-equal to the path's main run; records/s, the phases, dispatches a
     batch and a dispatch's hand-off times."""
     n = sum(len(b[0]) for b in batches)
     result = {}
     for label in GUARD_AB:
         runs = {True: [], False: []}
-        for guarded in (True, False, False, True) * 2:
+        for guarded in (True, False, False, True):
             wall, got, phase, dispatches, hot, marks = guard_run(
                 device, batches, label, guarded)
             check(got == want[label], f"guard A/B {label} (watchdog "
@@ -2220,7 +2260,7 @@ def guard_ab(device, batches, want) -> dict:
         ratio = (np.median([x[0] for x in runs[True]])
                  / np.median([x[0] for x in runs[False]]))
         print(f"A/B guard {label} watchdog on vs off, same batches, turns "
-              f"on, off, off, on, twice: records/s on "
+              f"on, off, off, on: records/s on "
               + " / ".join(f"{x[0]:.1f}" for x in runs[True]) + ", off "
               + " / ".join(f"{x[0]:.1f}" for x in runs[False])
               + f" (median ratio {ratio:.3f}x); "
@@ -3188,8 +3228,10 @@ CEP_WINDOW_MS = 5000
 CEP_SEED = 23
 CEP_WITHIN_MS = 4 * CEP_WINDOW_MS
 CEP_SNAPSHOT_AFTER = 2          # batches in when the snapshot is taken
-CEP_INTERPRETED_BATCHES = 4
-CEP_CPU_BATCHES = 2
+#: the interpreted twin's and the CPU run's depths: one batch each (four
+#: and two before slice 22, whose paths took their time)
+CEP_INTERPRETED_BATCHES = 1
+CEP_CPU_BATCHES = 1
 CEP_WEDGE_BATCHES = 4
 CEP_WEDGE_AT = 3                # path 27 wedges its third drain dispatch
 CEP_FLOOR_FACTOR = 4            # path 27's floor over path 26's worst drain
@@ -3559,8 +3601,10 @@ def path27(device, batches, numbers26, want):
 # ---------------------------------------------------------------------------
 
 SLICE14 = ("path 28", "path 29", "path 30", "path 31")
-TABLE_BATCHES = 16              # paths 28-30: the stream's first 16 batches
-TABLE_SNAPSHOT_AFTER = 8        # batches in when the snapshot is taken
+#: paths 28-30: the stream's first 8 batches (16 before slice 22, whose
+#: paths took their time), the snapshot after 4
+TABLE_BATCHES = 8
+TABLE_SNAPSHOT_AFTER = 4        # batches in when the snapshot is taken
 TABLE_CPU_BATCHES = 4           # path 28's CPU twin
 RIGHT_SEED = 8                  # the joins' right side: a seed-8 stream
 JOIN_LOWER_MS, JOIN_UPPER_MS = -500, 500
@@ -3571,7 +3615,7 @@ JOIN_LOWER_MS, JOIN_UPPER_MS = -500, 500
 STREAMING_BATCHES = 2
 STREAMING_ROWS = BATCH // 2
 STREAMING_SNAPSHOT_AFTER = 1
-JOIN_PHASE_ROWS = 1 << 20
+JOIN_PHASE_ROWS = 1 << 19       # each side's keys (2^20 before slice 22)
 JOIN_HOT_SHARE = 0.001          # the skewed case's hot key, on each side
 #: path 28's aggregates: the double-single sum and count, the Dekker-pair
 #: min and max (8 f32 planes of K = 2^20 on the card)
@@ -4034,7 +4078,7 @@ RMAT_ABC = (0.57, 0.19, 0.19)   # D = 0.05
 GRAPH_SEED = 15
 PAGERANK_ITERS = 10             # Graphalytics' PR iterations
 DAMPING = 0.85
-BFS_ROOTS = 2
+BFS_ROOTS = 1                   # two before slice 22 (its time)
 DENSE_SCALE = 12                # path 35: _DENSE_LIMIT vertices
 DENSE_CPU_SCALE = 10            # path 35's CPU twin
 HITS_ITERS = 20
@@ -4322,8 +4366,9 @@ def _timed(fn, label, wall_of):
 
 
 def path33(device, card, G):
-    """BFS from 2 roots, WCC, and SSSP from the first root, on the same
-    graph taken undirected (as Graph500 kernels 2 and 3 search it)."""
+    """BFS from ``BFS_ROOTS`` roots, WCC, and SSSP from the first root, on
+    the same graph taken undirected (as Graph500 kernels 2 and 3 search
+    it)."""
     import torch
     g = G["g"]
     n, E = g.n, g.num_edges
@@ -5251,7 +5296,7 @@ WINDOW_JOIN_BATCHES = 4
 #: smoke over its 900 s target); the snapshot after it restores and fires
 #: the end of input
 SPILL_BATCHES = 1
-SPILL_ROWS = BATCH // 2
+SPILL_ROWS = BATCH // 4         # a quarter batch since slice 22
 SPILL_SNAPSHOT_AFTER = 1
 SPILL_BUDGET = 8 << 20
 #: results of earlier paths that slice 17 is held to
@@ -6511,6 +6556,9 @@ CONFIG5_HOP_SQL = (
 CONFIG5_TUMBLE_MS = 5000
 CONFIG5_HOP = (5000, 60_000)            # slide, size
 #: path 49: the north star's tumbling sum as SQL
+#: path 49's depth: the main stream's first 12 batches (24 before slice
+#: 22: its 3.57 M result rows as Python dicts took 21 s of PR 22's call 2)
+SQL_BATCHES = 12
 EVENTS_SQL = (
     "SELECT k, TUMBLE_START(ts, INTERVAL '5' SECOND) AS ws, SUM(v) AS s, "
     "COUNT(*) AS n FROM events GROUP BY k, TUMBLE(ts, INTERVAL '5' SECOND)")
@@ -6525,6 +6573,10 @@ Q3_SQL = (
     f"AND l_shipdate > {TPCH_DATE} "
     "GROUP BY l_orderkey, o_orderdate, o_shippriority "
     "ORDER BY revenue DESC, o_orderdate LIMIT 10")
+#: path 50b's events: the first quarter of path 26's first batch (the
+#: whole batch before slice 22: the interpreted engine and its CPU twin took
+#: 34 s of path 50's 38 s in PR 22's call 2)
+MATCH_EVENTS = CEP_BATCH // 4
 #: path 50b: a small amount then a large one on the same key, next to each
 #: other (SQL's strict contiguity), within 20 s; no PREV in the DEFINE
 MATCH_SQL = (
@@ -6686,10 +6738,13 @@ def path48(device, card):
     return total, numbers
 
 
-def path49(device, card, batches, expect, cells, earlier):
+def path49(device, card, batches, earlier):
     """Path 49: the north star's tumbling sum through SQL: the smoke's main
-    batches as a collection table, ``EVENTS_SQL``."""
+    batches (its first ``SQL_BATCHES``) as a collection table,
+    ``EVENTS_SQL``, held to ``reference`` and ``reference_f32`` of those
+    batches."""
     from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    expect, cells = reference(batches), reference_f32(batches)
     n_records = sum(len(b[0]) for b in batches)
     rows, wall, ln, res = sql_run(device, {"events": stream_columns(batches)},
                                   EVENTS_SQL, BATCH, rowtime="ts")
@@ -6764,7 +6819,8 @@ def check_q3_rows(label, rows, tables):
 
 def path50(device, card, earlier):
     """Path 50: TPC-H Q3 as SQL at SF ``TPCH_SF``, the joins on the card;
-    50b: MATCH_RECOGNIZE over path 26's first batch."""
+    50b: MATCH_RECOGNIZE over the first ``MATCH_EVENTS`` events of path
+    26's first batch."""
     import torch
 
     from flink_tpu_torch.cep.operator import CepOperator
@@ -6792,7 +6848,7 @@ def path50(device, card, earlier):
           f"({lk.size} x {rk.size} keys) {card_ms:.3f} ms on the card (CUDA "
           f"events); launches {ln}; {card}")
     # 50b: MATCH_RECOGNIZE resolves to the interpreted NFA, as in JAX
-    k, v, ts = make_cep_batches()[0]
+    k, v, ts = (a[:MATCH_EVENTS] for a in make_cep_batches()[0])
     events = {"events": {"k": k, "v": v, "ts": ts,
                          "e": np.arange(k.size, dtype=np.int64)}}
     matches, mwall, mln, res = sql_run(device, events, MATCH_SQL, CEP_BATCH,
@@ -6811,8 +6867,8 @@ def path50(device, card, earlier):
         refused = str(err)
     check(refused is not None and "not eligible" in refused,
           "path 50b: cep_vectorized='on' did not raise")
-    print(f"path 50b: MATCH_RECOGNIZE over path 26's first batch ({k.size} "
-          f"events): {len(matches)} matches in {mwall:.3f} s on the "
+    print(f"path 50b: MATCH_RECOGNIZE over path 26's first {k.size} "
+          f"events: {len(matches)} matches in {mwall:.3f} s on the "
           f"{engine} engine, equal to the CPU twin's; cep_vectorized='on' "
           f"raises ({refused.split(':')[0]}); launches {mln}; {card}")
     total = {key: ln[key] + mln[key] for key in ln}
@@ -6821,13 +6877,13 @@ def path50(device, card, earlier):
                    "matches": len(matches), "match_wall_s": mwall}
 
 
-def slice19(device, card, batches, expect, cells, earlier):
+def slice19(device, card, batches, earlier):
     """Paths 48-50: the SQL stack."""
     t0 = time.perf_counter()
     launches, numbers = {}, {}
     for label, fn in (
             ("path 48", lambda: path48(device, card)),
-            ("path 49", lambda: path49(device, card, batches, expect, cells,
+            ("path 49", lambda: path49(device, card, batches[:SQL_BATCHES],
                                        earlier)),
             ("path 50", lambda: path50(device, card, earlier))):
         t1 = time.perf_counter()
@@ -7400,7 +7456,9 @@ PC_CHECKPOINT_MS = JOB_CHECKPOINT_MS
 #: aligned barrier waits behind up to 16 batches: over 24 batches the
 #: second cut completes (~3 s a cut on the H100, its storage included) only
 #: after window subtask 0 has finished, and the kill would find nothing to
-#: recover; over 48 about 30 batches remain behind it
+#: recover; over 48 about 30 batches remain behind it (over 36 window
+#: subtask 0 had finished when cut 2 completed at source offset 19: PR
+#: 22's call 3)
 PC_BATCHES = 2 * N_BATCHES
 PC_OUT = "CHIP_SMOKE_PATH53_OUT"
 #: ... and the one that carries the stream's sizes (the smoke's, so a
@@ -7777,6 +7835,507 @@ def slice21(device, card, earlier):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# slice 22: serving and observability (paths 54-55)
+# ---------------------------------------------------------------------------
+
+SLICE22 = ("path 54", "path 55")
+#: path 54's variants and the main path whose options each runs
+SERVE_LANES = {"54a": "path 5", "54b": "path 3"}
+SERVE_STATE = "north_star"
+SERVE_LOAD_KEYS = 4096          # keys a request of the load client
+SERVE_CHECK_KEYS = 1 << 16      # keys a request of the fire and replica checks
+SERVE_SEED = 54
+#: path 55: the job's depth (the main stream's first batches), the
+#: endpoints it GETs while the job runs, and the tracing-cost pairs
+OBS_BATCHES = 8
+OBS_ENDPOINTS = ("/overview", "/jobs", "/jobs/{id}",
+                 "/jobs/{id}/checkpoints", "/jobs/{id}/metrics",
+                 "/jobs/{id}/backpressure", "/jobs/{id}/flamegraph", "/")
+TRACE_AB_PAIRS = 2
+
+
+def serve_load(port, stop, out) -> None:
+    """The load client: batched live lookups of ``SERVE_LOAD_KEYS`` uniform
+    random keys (numpy, seed ``SERVE_SEED``) over the binary protocol, as
+    fast as it can until ``stop``; fills ``out`` with the keys looked up,
+    the seconds and each request's ms by its own clock."""
+    from flink_tpu_torch.queryable import QueryableStateClientPool
+    rng = np.random.default_rng(SERVE_SEED)
+    pool = QueryableStateClientPool("127.0.0.1", port, protocol="binary")
+    ms, n = [], 0
+    t0 = time.perf_counter()
+    try:
+        while not stop.is_set():
+            keys = rng.integers(0, N_KEYS, SERVE_LOAD_KEYS, dtype=np.int64)
+            r0 = time.perf_counter()
+            pool.get_batch_columnar(SERVE_STATE, keys)
+            ms.append((time.perf_counter() - r0) * 1e3)
+            n += keys.size
+    except Exception as err:  # noqa: BLE001 — reported, and fatal below
+        out["error"] = repr(err)
+    finally:
+        pool.close()
+    out.update(keys=n, seconds=time.perf_counter() - t0, ms=ms)
+
+
+def serve_drive(op, batches, on_fire=None, on_snapshot=None):
+    """The main stream through ``op`` (a watermark after each batch, a
+    snapshot every ``SNAPSHOT_EVERY``, ``end_input``); the checks between
+    calls are not timed.  Returns the seconds spent in the operator's
+    calls."""
+    from flink_tpu_torch.core.batch import RecordBatch, Watermark
+    spent, cid = 0.0, 0
+    for i, (keys, vals, ts) in enumerate(batches):
+        t0 = time.perf_counter()
+        out = op.process_batch(RecordBatch({"k": keys, "v": vals},
+                                           timestamps=ts))
+        out += op.process_watermark(Watermark(int(ts.max()) - 1))
+        snap = None
+        if (i + 1) % SNAPSHOT_EVERY == 0:
+            out += op.prepare_snapshot_pre_barrier()
+            snap = op.snapshot_state()
+            cid += 1
+            op.notify_checkpoint_complete(cid)
+        spent += time.perf_counter() - t0
+        if on_fire is not None:
+            on_fire(out)
+        if snap is not None and on_snapshot is not None:
+            on_snapshot(cid, snap)
+    t0 = time.perf_counter()
+    out = op.end_input()
+    spent += time.perf_counter() - t0
+    if on_fire is not None:
+        on_fire(out)
+    return spent
+
+
+def served_fire_check(pool, label, out) -> int:
+    """Every key of the newest window's fire batches in ``out``, looked up
+    live in requests of ``SERVE_CHECK_KEYS``: each answer is that batch's
+    row bit for bit, with its window's bounds.  Returns the keys checked."""
+    fired = [b for b in out if "result" in getattr(b, "columns", {})]
+    if not fired:
+        return 0
+    newest = max(int(np.asarray(b.column("window_start"))[0])
+                 for b in fired)
+    n = 0
+    for b in fired:
+        if int(np.asarray(b.column("window_start"))[0]) != newest:
+            continue
+        keys = np.asarray(b.column("k"), np.int64)
+        vals = np.asarray(b.column("result"))
+        for lo in range(0, keys.size, SERVE_CHECK_KEYS):
+            sl = slice(lo, lo + SERVE_CHECK_KEYS)
+            found, cols, _ = pool.get_batch_columnar(SERVE_STATE, keys[sl])
+            check(found.all() and cols["result"].dtype == vals.dtype
+                  and cols["result"].tobytes() == vals[sl].tobytes()
+                  and (cols["window_start"] == newest).all(),
+                  f"{label}: a live answer differs from window {newest}'s "
+                  f"fire")
+        n += keys.size
+    return n
+
+
+def replica_check(pool, label, cid, snap, rng) -> None:
+    """``SERVE_CHECK_KEYS`` uniform keys at checkpoint consistency: each
+    answer is a numpy combine of the snapshot's panes for that key (the
+    key's row of counts and f32 sums: found where any pane counts, the
+    panes' f32 sum), and the tags name checkpoint ``cid``."""
+    keys = rng.integers(0, N_KEYS, SERVE_CHECK_KEYS, dtype=np.int64)
+    found, cols, tags = pool.get_batch_columnar(SERVE_STATE, keys,
+                                                consistency="checkpoint")
+    rev = np.asarray(snap["key_index"]["reverse"], np.int64)
+    counts = np.asarray(snap["counts"])
+    sums = np.asarray(snap["leaves"][0])
+    rev = rev[: counts.shape[0]]
+    order = np.argsort(rev, kind="stable")
+    pos = np.minimum(np.searchsorted(rev[order], keys), rev.size - 1)
+    slot = order[pos]
+    seen = rev[slot] == keys
+    live = seen & (counts[slot].sum(axis=1) > 0)
+    want = np.add.reduce(sums[slot[live]], axis=1)
+    check(tags.get("checkpoint_id") == cid and np.array_equal(found, live)
+          and cols["result"][live].tobytes() == want.tobytes(),
+          f"{label}: the replica's answers at checkpoint {cid} differ from "
+          f"the numpy combine of its snapshot ({int((found != live).sum())} "
+          f"found bits)")
+
+
+def path54_lane(device, card, batches, label, base):
+    """One variant of path 54: ``base``'s operator without the view (the
+    twin) and with it (no client) in turns twin, view, view, twin, timed;
+    then with the live view served by a ``QueryableStateService`` behind a
+    TCP server, under a load client's lookups, checked at every fire and
+    snapshot."""
+    import threading
+
+    from flink_tpu_torch.queryable import (QueryableStateClientPool,
+                                           QueryableStateService,
+                                           QueryableStateSpec)
+    from flink_tpu_torch.runtime import device_health
+    n_records = sum(len(b[0]) for b in batches)
+    rate, top = {"twin": [], "view": []}, []
+    for run in ("twin", "view", "view", "twin"):
+        device_health.set_monitor(device_health.DeviceHealthMonitor())
+        op = build_op(device, **PATHS[base], **(
+            {"queryable": SERVE_STATE} if run == "view" else {}))
+        sync(device)
+        rate[run].append(n_records / serve_drive(op, batches))
+        name = max(op.phase_ns, key=op.phase_ns.get)
+        top.append(f"{run} {name} {op.phase_ns[name] / 1e6:.1f}")
+        op.close()
+    device_health.set_monitor(device_health.DeviceHealthMonitor())
+    op = build_op(device, queryable=SERVE_STATE, **PATHS[base])
+    service = QueryableStateService()
+    service.register_views(SERVE_STATE, [op.queryable_view()],
+                           parallelism=1, max_parallelism=128)
+    service.add_replica(SERVE_STATE, QueryableStateSpec.from_operator(
+        SERVE_STATE, "window", op))
+    server = service.start_server(host="127.0.0.1")
+    pool = QueryableStateClientPool("127.0.0.1", server.port,
+                                    protocol="binary")
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    stop, load = threading.Event(), {}
+    fire_keys, ingest_ms, snaps = [0], [], [0]
+
+    def on_fire(out):
+        fire_keys[0] += served_fire_check(pool, label, out)
+
+    def on_snapshot(cid, snap):
+        t0 = time.perf_counter()
+        service.on_checkpoint_complete(cid, {"window": {"subtasks": [snap]}})
+        check(service.drain_feed(60.0), f"{label}: checkpoint {cid} was "
+              f"not ingested")
+        ingest_ms.append((time.perf_counter() - t0) * 1e3)
+        replica_check(pool, label, cid, snap, rng)
+        snaps[0] += 1
+
+    loader = threading.Thread(target=serve_load,
+                              args=(server.port, stop, load),
+                              name="path54-load", daemon=True)
+    try:
+        sync(device)
+        reset_launches()
+        loader.start()
+        spent = serve_drive(op, batches, on_fire, on_snapshot)
+        sync(device)
+        launches = read_launches()
+        stop.set()
+        loader.join(60)
+        st = service.stats()
+    finally:
+        stop.set()
+        pool.close()
+        service.close()
+        op.close()
+    check("error" not in load and load.get("keys", 0) > 0,
+          f"{label}: the load client failed: {load.get('error')}")
+    check(fire_keys[0] > 0 and snaps[0] == len(batches) // SNAPSHOT_EVERY,
+          f"{label}: {fire_keys[0]} fire keys checked, {snaps[0]} replica "
+          f"checks")
+    kernel = "scatter_fold" if PATHS[base].get("emit_tier") == "device" \
+        else "probe"
+    check(launches[kernel] > 0, f"{label}: no {kernel} launch: {launches}")
+    lat = np.asarray(load["ms"])
+    numbers = {
+        "records_per_s": n_records / spent,
+        "twin_records_per_s": rate["twin"],
+        "view_records_per_s": rate["view"],
+        "view_cost": float(np.median(rate["view"])
+                           / np.median(rate["twin"])),
+        "lookups_per_s": load["keys"] / load["seconds"],
+        "lookup_p50_ms": float(np.percentile(lat, 50)),
+        "lookup_p99_ms": float(np.percentile(lat, 99)),
+        "serve_p50_ms": st["serve_p50_ms"], "serve_p99_ms": st["serve_p99_ms"],
+        "cache_hit_rate": st["cache_hit_rate"],
+        "replica_lag_ms": st["replica_lag_ms"],
+        "replica_lag_checkpoints": st["replica_lag_checkpoints"],
+        "ingest_ms": ingest_ms, "fire_keys_checked": fire_keys[0]}
+    print(f"path {label} ({base}'s options, queryable={SERVE_STATE!r}, a "
+          f"QueryableStateService behind a binary TCP server on 127.0.0.1): "
+          f"{n_records} records, {numbers['records_per_s']:.1f} records/s "
+          f"over the operator's calls under the load client; the load "
+          f"client {load['keys']} keys in {len(lat)} requests of "
+          f"{SERVE_LOAD_KEYS} = {numbers['lookups_per_s']:.1f} lookups/s, "
+          f"request p50/p99 {numbers['lookup_p50_ms']:.3f}/"
+          f"{numbers['lookup_p99_ms']:.3f} ms (client clock); serve p50/p99 "
+          f"{st['serve_p50_ms']}/{st['serve_p99_ms']} ms (service.stats()); "
+          f"cache hit rate {st['cache_hit_rate']}; every key of every fire "
+          f"({fire_keys[0]} keys, requests of {SERVE_CHECK_KEYS}) read its "
+          f"fire's row bit for bit; {snaps[0]} checkpoints ingested in "
+          + "/".join(f"{x:.1f}" for x in ingest_ms)
+          + f" ms, each replica's {SERVE_CHECK_KEYS} answers the numpy "
+          f"combine of its snapshot bit for bit; replica lag "
+          f"{st['replica_lag_checkpoints']} checkpoints, "
+          f"{st['replica_lag_ms']} ms; launches {launches}; {card}")
+    twin, view = np.median(rate["twin"]), np.median(rate["view"])
+    print(f"A/B path {label} view cost, same batches, one process, turns "
+          f"twin (no view), view (no client), view, twin: records/s twin "
+          + " / ".join(f"{r:.1f}" for r in rate["twin"]) + " vs view "
+          + " / ".join(f"{r:.1f}" for r in rate["view"])
+          + f" (median ratio {view / twin:.3f}x; each run's largest phase, "
+          f"ms: {', '.join(top)}); under the load client "
+          f"{numbers['records_per_s']:.1f} "
+          f"({numbers['records_per_s'] / twin:.3f}x the twin's median)")
+    return launches, numbers
+
+
+def path54(device, card, batches):
+    """Path 54: serving, in two variants (54a path 5's device tier, 54b
+    path 3's host tier with the probe on)."""
+    launches, numbers = {}, {}
+    for lane, base in SERVE_LANES.items():
+        launches[lane], numbers[lane] = path54_lane(device, card, batches,
+                                                    lane, base)
+    total = {k: sum(launches[v][k] for v in launches)
+             for k in launches["54a"]}
+    return total, numbers
+
+
+def rest_get(url, timings):
+    """GET ``url``: (status, content type, body); its ms appended to
+    ``timings``."""
+    import urllib.request
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=60) as r:
+        body, status = r.read(), r.status
+        ctype = r.headers.get("Content-Type", "")
+    timings.append((time.perf_counter() - t0) * 1e3)
+    return status, ctype, body
+
+
+def rest_shape(path, ctype, body) -> bool:
+    """The reference's answer shape of each endpoint path 55 reads."""
+    if path == "/":
+        return ctype.startswith("text/html") and b"<html" in body
+    doc = json.loads(body)
+    need = {"/overview": {"jobs_total", "jobs_running", "jobs_finished",
+                          "jobs_failed"},
+            "/jobs": {"jobs"},
+            "/jobs/{id}": {"id", "name", "state", "vertices"},
+            "/jobs/{id}/checkpoints": {"completed", "count", "history"},
+            "/jobs/{id}/metrics": {"records_in", "records_out",
+                                   "latency_ms"},
+            "/jobs/{id}/backpressure": {"vertices", "checkpoints"},
+            "/jobs/{id}/flamegraph": {"name", "value", "children"}}[path]
+    return isinstance(doc, dict) and need <= set(doc)
+
+
+def trace_cost(device, batches, card) -> dict:
+    """Tracing's cost: path 5's operator over the main stream with the
+    span journal off and on, in alternating pairs (off, on, on, off, ...)
+    in this process; records/s of each run."""
+    from flink_tpu_torch.observability import tracing
+    from flink_tpu_torch.runtime import device_health
+    n_records = sum(len(b[0]) for b in batches)
+    rate = {"off": [], "on": []}
+    spans = 0
+    for i in range(TRACE_AB_PAIRS):
+        for run in (("off", "on") if i % 2 == 0 else ("on", "off")):
+            device_health.set_monitor(device_health.DeviceHealthMonitor())
+            op = build_op(device, **PATHS["path 5"])
+            journal = tracing.SpanJournal(1 << 16) if run == "on" else None
+            tracing.install(journal)
+            try:
+                sync(device)
+                spent = serve_drive(op, batches)
+                sync(device)
+            finally:
+                tracing.uninstall()
+            op.close()
+            rate[run].append(n_records / spent)
+            if journal is not None:
+                spans = journal.recorded
+                check(journal.dropped == 0, "path 55: the journal dropped "
+                      "spans of path 5's run")
+    off, on = np.median(rate["off"]), np.median(rate["on"])
+    print(f"A/B path 55 tracing cost on path 5's operator, same batches, one "
+          f"process, alternating pairs: records/s journal off "
+          + " / ".join(f"{r:.1f}" for r in rate["off"]) + " vs on "
+          + " / ".join(f"{r:.1f}" for r in rate["on"])
+          + f" (median ratio {on / off:.3f}x; {spans} spans a traced run); "
+          f"{card}")
+    return {"off": rate["off"], "on": rate["on"], "ratio": on / off}
+
+
+def path55(device, card, batches):
+    """Path 55: the north star as a job on the MiniCluster (parallelism 2,
+    52a's device tier) with ``metrics.tracing.enabled`` on and a
+    ``RestServer`` over it: the endpoints, the dashboard, a Prometheus
+    scrape and ``python -m flink_tpu_torch status`` while it runs, then
+    its Chrome trace against ``phase_ns`` and the checkpoint stats."""
+    import threading
+
+    from flink_tpu_torch.cluster.minicluster import MiniCluster
+    from flink_tpu_torch.config.config_option import Configuration
+    from flink_tpu_torch.config.options import MetricOptions
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.metrics.reporters import PrometheusReporter
+    from flink_tpu_torch.observability import tracing
+    from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    from flink_tpu_torch.rest.server import JobRegistry, RestServer
+    from flink_tpu_torch.runtime import device_health
+    from flink_tpu_torch.runtime.checkpoint.storage import \
+        InMemoryCheckpointStorage
+    label = "path 55"
+    stream = batches[:OBS_BATCHES]
+    n_records = sum(len(b[0]) for b in stream)
+    device_health.set_monitor(device_health.DeviceHealthMonitor())
+    cfg = Configuration()
+    cfg.set(MetricOptions.TRACING_ENABLED, True)
+    env = StreamExecutionEnvironment(config=cfg, device=device)
+    env.set_parallelism(JOB_PARALLELISM)
+    pins = dict(PATHS["path 5"])
+    timings, seen = [], {}
+    # the cluster adopts this journal: it records past the job's end, so a
+    # cut that completes while the last subtask winds down keeps its span
+    # (a ring the cluster owns is released when ``execute`` returns)
+    journal = tracing.install(tracing.SpanJournal(
+        MetricOptions.TRACING_BUFFER.default))
+    with window_lane(pins):
+        sink = north_star_job(env, stream)
+        plan = env.get_stream_graph("north-star").to_plan()
+        mc = MiniCluster(checkpoint_storage=InMemoryCheckpointStorage(
+            retain=3), checkpoint_interval_ms=JOB_CHECKPOINT_MS,
+            channel_capacity=JOB_CHANNEL_CAPACITY, config=cfg)
+        registry = JobRegistry()
+        job_id = registry.register("north-star", mc)
+        server = RestServer(registry).start()
+        result = {}
+        runner = threading.Thread(
+            target=lambda: result.update(res=mc.execute(plan, timeout_s=600)),
+            name="path55-job", daemon=True)
+        try:
+            sync(device)
+            reset_launches()
+            t0 = time.perf_counter()
+            runner.start()
+            deadline = time.monotonic() + 120
+            while not (mc.job_status()["state"] == "RUNNING"
+                       and getattr(mc, "_source_tasks", None)):
+                check(time.monotonic() < deadline and runner.is_alive(),
+                      f"{label}: the job never ran")
+                time.sleep(0.005)
+            # hold the sources (they keep answering barriers) so every read
+            # lands while the job runs
+            for t in mc._source_tasks:
+                t._paused.set()
+            try:
+                for path in OBS_ENDPOINTS:
+                    status, ctype, body = rest_get(
+                        server.url + path.format(id=job_id), timings)
+                    check(status == 200 and rest_shape(path, ctype, body),
+                          f"{label}: GET {path}: {status}, a body not of "
+                          f"the reference's shape")
+                    seen[path] = len(body)
+                scrape = PrometheusReporter(
+                    registry=mc.metrics_registry).scrape()
+                check("# TYPE" in scrape
+                      and "numberOfCompletedCheckpoints" in scrape
+                      and "device_health_state" in scrape,
+                      f"{label}: the Prometheus scrape lacks the job's "
+                      f"checkpoint or device-health metrics")
+                repo = os.path.dirname(os.path.abspath(__file__))
+                cli = subprocess.run(
+                    [sys.executable, "-m", "flink_tpu_torch", "status",
+                     "--url", server.url, job_id], capture_output=True,
+                    text=True, timeout=300, cwd=repo)
+                check(cli.returncode == 0
+                      and json.loads(cli.stdout)["state"] == "RUNNING",
+                      f"{label}: python -m flink_tpu_torch status: "
+                      f"{cli.returncode} {cli.stdout[-300:]} "
+                      f"{cli.stderr[-300:]}")
+                check(mc.job_status()["state"] == "RUNNING",
+                      f"{label}: the job ended before the reads did")
+            finally:
+                for t in mc._source_tasks:
+                    t._paused.clear()
+            runner.join(600)
+            for t in mc._tasks:
+                t.join(60)
+            sync(device)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            server.stop()
+            tracing.uninstall()
+    res = result.get("res")
+    check(res is not None and res.state == "FINISHED",
+          f"{label}: the job {res}")
+    check_job_rows(label, sink, reference(stream), reference_f32(stream),
+                   bits=True)
+    ops = [m for t in mc._tasks
+           for m in getattr(t.operator, "operators", [t.operator])
+           if isinstance(m, WindowAggOperator)]
+    check(len(ops) == JOB_PARALLELISM
+          and all(o.emit_tier == "device" for o in ops),
+          f"{label}: the window subtasks' tiers {[o.emit_tier for o in ops]}")
+    check(launches["scatter_fold"] > 0, f"{label}: launches {launches}")
+    check(mc._trace_journal is journal, f"{label}: the cluster did not adopt "
+          f"the installed journal")
+    spans = journal.spans()
+    hot = {}
+    for ph, _ts, dur, name, cat, _tid, _args in spans:
+        if cat == "hot_stage":
+            hot[name] = hot.get(name, 0) + dur
+    phase = {}
+    for o in ops:
+        for k, v in o.phase_ns.items():
+            phase[k] = phase.get(k, 0) + v
+    check(journal.dropped == 0 and hot == phase,
+          f"{label}: the hot_stage spans per phase {hot} do not sum to the "
+          f"window subtasks' phase_ns {phase} ({journal.dropped} dropped)")
+    trace = mc.trace_events()
+    events = trace["traceEvents"]
+    n_ckpt = sum(1 for e in events if e.get("name") == "checkpoint"
+                 and e.get("ph") == "X")
+    stats = list(mc._checkpoint_stats)
+    check(n_ckpt == len(stats) > 0,
+          f"{label}: {n_ckpt} checkpoint spans against {len(stats)} "
+          f"completed checkpoints")
+    check(sum(1 for e in events if e.get("cat") == "hot_stage")
+          == sum(1 for s in spans if s[4] == "hot_stage"),
+          f"{label}: the Chrome export lost hot_stage spans")
+    ms = np.asarray(timings)
+    cost = trace_cost(device, batches, card)
+    numbers = {"records_per_s": n_records / wall, "wall_s": wall,
+               "events": journal.recorded, "dropped": journal.dropped,
+               "rest_p50_ms": float(np.percentile(ms, 50)),
+               "rest_p99_ms": float(np.percentile(ms, 99)),
+               "checkpoints": len(stats), "trace_cost": cost}
+    print(f"path 55 (the north star on the MiniCluster, parallelism "
+          f"{JOB_PARALLELISM}, path 5's lane pinned, metrics.tracing.enabled"
+          f", a RestServer over it): {n_records} records in {wall:.3f} s "
+          f"(the reads with the sources held included); {len(timings)} GETs "
+          f"while it ran, each 200 of the reference's shape "
+          f"({json.dumps(seen)} B), request p50/p99 "
+          f"{numbers['rest_p50_ms']:.3f}/{numbers['rest_p99_ms']:.3f} ms; a "
+          f"Prometheus scrape of {len(scrape)} B; `python -m flink_tpu_torch "
+          f"status` answered RUNNING; the journal {journal.recorded} events, "
+          f"{journal.dropped} dropped; the hot_stage spans per phase sum to "
+          f"the window subtasks' phase_ns (ns) {json.dumps(phase)}; "
+          f"{n_ckpt} checkpoint spans = {len(stats)} completed checkpoints; "
+          f"rows equal the f32 ordered reference bit for bit; launches "
+          f"{launches}; {card}")
+    return launches, numbers
+
+
+def slice22(device, card, batches):
+    """Paths 54-55: serving and observability."""
+    t0 = time.perf_counter()
+    launches, numbers = {}, {}
+    for label, fn in (
+            ("path 54", lambda: path54(device, card, batches)),
+            ("path 55", lambda: path55(device, card, batches))):
+        t1 = time.perf_counter()
+        launches[label], numbers[label] = fn()
+        print(f"{label} took {time.perf_counter() - t1:.1f} s of command "
+              f"time")
+    print(f"slice 22 took {time.perf_counter() - t0:.1f} s of command time")
+    return launches, numbers
+
+
 def main() -> None:
     try:
         import torch
@@ -7958,7 +8517,7 @@ def main() -> None:
     launches.update(slice18_launches)
     numbers.update(slice18_numbers)
     slice19_launches, slice19_numbers = slice19(device, card, batches,
-                                                expect, cells, numbers)
+                                                numbers)
     launches.update(slice19_launches)
     numbers.update(slice19_numbers)
     slice20_launches, slice20_numbers = slice20(device, card, batches,
@@ -7968,6 +8527,9 @@ def main() -> None:
     slice21_launches, slice21_numbers = slice21(device, card, numbers)
     launches.update(slice21_launches)
     numbers.update(slice21_numbers)
+    slice22_launches, slice22_numbers = slice22(device, card, batches)
+    launches.update(slice22_launches)
+    numbers.update(slice22_numbers)
     for name, phase in (("pipeline A/B", lambda: pipeline_ab(
             device, "path 9", "path 3", ab_want["path 3"])),
             ("guard A/B", lambda: guard_ab(device, batches, ab_want)),
@@ -8041,7 +8603,7 @@ def main() -> None:
     kernels.append(scatter_fold_phase(device, rng))
     every_path = (ORDER + SLICE11 + SLICE12 + SLICE13 + SLICE14 + SLICE15
                   + SLICE16 + SLICE17 + SLICE18 + SLICE19 + SLICE20
-                  + SLICE21)
+                  + SLICE21 + SLICE22)
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]]
                    for label in every_path}
@@ -8066,7 +8628,7 @@ def main() -> None:
                   *SLICE11_SCATTER, "path 23", "path 24", "path 25",
                   "path 28", "path 29", "path 32", "path 34", "path 35",
                   *SLICE16, "path 40", "path 41", "path 47", *SLICE19,
-                  *SLICE20, *SLICE21):
+                  *SLICE20, *SLICE21, *SLICE22):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
     check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")
@@ -8074,6 +8636,7 @@ def main() -> None:
     check(launches["path 51"]["probe"] > 0, "path 51: no probe launch")
     check(launches["path 52"]["probe"] > 0, "path 52: no probe launch")
     check(launches["path 53"]["probe"] > 0, "path 53: no probe launch")
+    check(launches["path 54"]["probe"] > 0, "path 54: no probe launch")
     check(launches["path 14"]["probe"] > 0
           and launches["path 14"]["scatter_fold"] > 0,
           "path 14: no probe or scatter_fold launch")

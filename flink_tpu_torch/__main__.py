@@ -1,17 +1,20 @@
 """Command-line entry point (port of ``flink_tpu/__main__.py``): the
-process cluster's two subcommands.
+process cluster's two subcommands and the REST client commands.
 
     python -m flink_tpu_torch worker --index I --workers N --job mod:fn \\
         --coordinator host:port [--device cuda|cpu]
     python -m flink_tpu_torch coordinate --job mod:fn --workers N \\
         [--listen host:port] [--checkpoint-dir D] [--ha-dir H]
+    python -m flink_tpu_torch list|status|cancel|savepoint|stop \\
+        --url http://host:port [job_id]
 
 ``worker`` is the TaskExecutor process a ``ProcessCluster`` spawns (it
 passes its own device as ``--device``); ``coordinate`` is a coordinator
-that waits for workers started by hand, each on its own ``--device``.  The
-other subcommands of the JAX package's CLI come with later slices and
-raise ``NotImplementedError`` naming their item of ROADMAP Queue A: the
-REST client commands with the REST views (10), the rest with the
+that waits for workers started by hand, each on its own ``--device``;
+``list``, ``status``, ``cancel``, ``savepoint`` and ``stop`` talk to a
+running REST endpoint (``rest/server.py``).  The other subcommands of the
+JAX package's CLI come with a later slice and raise
+``NotImplementedError`` naming their item of ROADMAP Queue A, the
 host-only edges (12).
 """
 
@@ -35,9 +38,60 @@ LATER = {
     "kafka": "the Kafka broker comes with the host-only edges (12)",
     "quickstart": "the project skeleton comes with the CLI of the "
                   "host-only edges (12)",
-    **{name: "the REST client commands come with the REST views (10)"
-       for name in ("list", "status", "cancel", "savepoint", "stop")},
 }
+
+
+def _cmd_rest(args) -> int:
+    """Cluster commands against a running REST endpoint
+    (``flink list/cancel/savepoint`` parity)."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    base = args.url.rstrip("/")
+
+    def req(path, method="GET"):
+        """-> (status_code, parsed body); non-2xx responses are DATA here
+        (the server answers 404/409 with JSON bodies), not tracebacks."""
+        rq = urllib.request.Request(base + path, method=method)
+        try:
+            with urllib.request.urlopen(rq, timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            try:
+                return e.code, json.loads(e.fp.read())
+            except (ValueError, OSError):
+                return e.code, {"error": str(e)}
+
+    if args.cmd == "list":
+        _st, body = req("/jobs")
+        for j in body.get("jobs", []):
+            print(f"{j['id']}  {j['state']:<10} {j['name']}")
+        return 0
+    if args.cmd == "status":
+        st, body = req(f"/jobs/{args.job_id}")
+        print(json.dumps(body, indent=2))
+        return 0 if st == 200 else 1
+    if args.cmd == "cancel":
+        st, body = req(f"/jobs/{args.job_id}", "PATCH")
+        print(body.get("status", body.get("error")))
+        return 0 if st < 400 else 1
+    if args.cmd == "savepoint":
+        st, body = req(f"/jobs/{args.job_id}/savepoints", "POST")
+        if body.get("status") == "completed":
+            print(f"completed: checkpoint {body.get('checkpoint_id')}")
+            return 0
+        print(body.get("status", body.get("error")))
+        return 1
+    if args.cmd == "stop":
+        # stop-with-savepoint (`flink stop` analog)
+        st, body = req(f"/jobs/{args.job_id}/stop", "POST")
+        if body.get("status") == "stopped":
+            print(f"stopped: checkpoint {body.get('checkpoint_id')}")
+            return 0
+        print(body.get("status", body.get("error")))
+        return 1
+    return 2
 
 
 def _cmd_worker(args) -> int:
@@ -93,8 +147,9 @@ def _cmd_coordinate(args) -> int:
 
 
 def build_parser() -> "argparse.ArgumentParser":
-    """The CLI surface: ``worker`` and ``coordinate`` (:func:`main`
-    refuses the JAX CLI's other subcommands, naming their item)."""
+    """The CLI surface: ``worker``, ``coordinate`` and the REST client
+    commands (:func:`main` refuses the JAX CLI's other subcommands, naming
+    their item)."""
     p = argparse.ArgumentParser(prog="flink_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     pw = sub.add_parser(
@@ -130,6 +185,15 @@ def build_parser() -> "argparse.ArgumentParser":
                           "takes over at epoch + 1)")
     pco.add_argument("--timeout", type=float, default=86400.0)
     pco.set_defaults(fn=_cmd_coordinate)
+    for name, needs_job in (("list", False), ("status", True),
+                            ("cancel", True), ("savepoint", True),
+                            ("stop", True)):
+        pc = sub.add_parser(name, help=f"{name} jobs via the REST endpoint")
+        pc.add_argument("--url", required=True,
+                        help="REST endpoint, e.g. http://127.0.0.1:8081")
+        if needs_job:
+            pc.add_argument("job_id")
+        pc.set_defaults(fn=_cmd_rest)
     return p
 
 

@@ -35,8 +35,9 @@ SKIP_PAST_LAST_EVENT after-match strategies (``NFA.java:86``,
 maps them to slots through ``state/keyindex.py`` ``make_key_index`` (the C
 keydict for integer keys, an ``ObjectKeyIndex`` for others).
 
-``CEP.pattern(keyed, pattern).select(fn)`` is the DataStream entry; the
-drain's tracing span comes with the observability slice.
+``CEP.pattern(keyed, pattern).select(fn)`` is the DataStream entry; each
+vectorized drain records a ``cep.vectorized_drain`` span when the span
+journal is installed.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from flink_tpu_torch import DeviceLike, resolve_device
 from flink_tpu_torch.core.batch import (LONG_MIN, RecordBatch, StreamElement,
                                   Watermark)
 from flink_tpu_torch.cep.pattern import AfterMatchSkipStrategy, Pattern
+from flink_tpu_torch.observability import tracing
 from flink_tpu_torch.operators.base import StreamOperator
 
 
@@ -746,7 +748,9 @@ class CepOperator(StreamOperator):
                 self._degrade_to_interpreted("device quarantined")
                 return self._drain_interpreted(up_to_ts)
             try:
-                return self._drain_vectorized(up_to_ts)
+                with tracing.span("cep.vectorized_drain", cat="cep",
+                                  up_to_ts=int(up_to_ts)):
+                    return self._drain_vectorized(up_to_ts)
             except device_health.DeviceQuarantinedError:
                 self._degrade_to_interpreted(
                     "vectorized drain dispatch quarantined")

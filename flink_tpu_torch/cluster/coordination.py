@@ -19,10 +19,8 @@ which is the seam ``RpcService.connect`` isolates (SURVEY §5.8).
 The Dispatcher persists submitted job graphs through
 :class:`flink_tpu_torch.cluster.ha.HaServices` and recovers them on start —
 leader failover re-submits unfinished jobs (``Dispatcher`` recovery path).
-
-The job history archive (``history_dir``) comes with the REST views
-(ROADMAP Queue A item 10): naming one raises ``NotImplementedError``
-naming that item.
+A ``history_dir`` archives every terminal job for the history server
+(``rest/history.py``).
 """
 
 from __future__ import annotations
@@ -274,13 +272,6 @@ class JobMasterEndpoint(RpcEndpoint):
         return base
 
 
-def _refuse_history(history_dir: Optional[str]) -> None:
-    if history_dir is not None:
-        raise NotImplementedError(
-            "not in this slice of flink_tpu_torch: the job history archive "
-            "comes with the REST views (10)")
-
-
 class DispatcherEndpoint(RpcEndpoint):
     """Job submission front door (``Dispatcher.java:100``): persists job
     graphs (HA), spawns one JobMaster per job, recovers on leader start."""
@@ -296,7 +287,6 @@ class DispatcherEndpoint(RpcEndpoint):
         self.ha = ha_services
         self.checkpoint_storage_factory = checkpoint_storage_factory
         #: archive terminal jobs here for the HistoryServer (FsJobArchivist)
-        _refuse_history(history_dir)
         self.history_dir = history_dir
         #: rebuilds an ExecutionPlan from the picklable job spec persisted in
         #: HA (plans themselves hold operator closures — the durable artifact
@@ -355,6 +345,14 @@ class DispatcherEndpoint(RpcEndpoint):
             self._results[job_id] = result
             if self.ha is not None and result.state == "FINISHED":
                 self.ha.remove_job(job_id)
+            if self.history_dir is not None:
+                from flink_tpu_torch.rest.history import archive_job
+                try:
+                    status = await_future(self._jobs[job_id].job_status())
+                except Exception:  # noqa: BLE001 — archive the bare result
+                    status = {"state": result.state,
+                              "error": getattr(result, "error", None)}
+                archive_job(self.history_dir, job_id, status)
         self.run_async(record)
 
     def list_jobs(self) -> List[str]:
@@ -394,7 +392,6 @@ class StandaloneSessionCluster:
                  checkpoint_storage_factory: Optional[Callable[[str], Any]] = None,
                  plan_builder: Optional[Callable[[Any], Any]] = None,
                  history_dir: Optional[str] = None):
-        _refuse_history(history_dir)   # before any endpoint starts
         self.rpc = RpcService()
         self.rm = ResourceManagerEndpoint(self.rpc)
         self.rm_gw = self.rpc.start_endpoint(self.rm)

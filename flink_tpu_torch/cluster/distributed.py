@@ -46,8 +46,9 @@ raises at start: the attempt fails, nothing falls back to the CPU.
 Workers started by hand (``coordinate`` with ``spawn=False``) each take
 their own ``--device``.
 
-The queryable serving tier comes with ROADMAP Queue A item 10: its entry
-points here raise naming the item, as the MiniCluster's do.
+Each worker serves its own ``queryable=<name>`` views and replica shards
+behind a local server and registers its endpoints with the coordinator,
+whose own replicas tail the checkpoint stream.
 """
 
 from __future__ import annotations
@@ -65,7 +66,6 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from flink_tpu_torch import DeviceLike, resolve_device, set_process_device
-from flink_tpu_torch.cluster.minicluster import _later_queryable
 
 _LEN = struct.Struct("<I")
 
@@ -331,6 +331,14 @@ class _WorkerRuntime:
         self.sock.settimeout(None)
         self._send_lock = threading.Lock()
         self._lock = threading.Lock()
+        #: per-worker queryable serving: THIS worker's live
+        #: views + its own subtasks' replica shards behind a local
+        #: QueryableStateServer; the coordinator aggregates every
+        #: worker's (state -> subtasks -> endpoint) registration into the
+        #: routing table clients fan out on
+        self.qservice = None
+        self._q_states: Dict[str, Dict[str, Any]] = {}
+        self._q_acks: Dict[Tuple[str, int], Dict[str, Any]] = {}
         self.tasks: List[Any] = []
         self._terminal = set()
         self._done_sent = False
@@ -442,6 +450,25 @@ class _WorkerRuntime:
             # restart restores from here without touching remote storage
             self.local_store.store(checkpoint_id, vertex_uid,
                                    subtask_index, snapshot)
+        if self.qservice is not None and any(
+                info["uid"] == vertex_uid for info in self._q_states.values()):
+            # stash for the worker-local replica tier: on notify-complete
+            # the stashed snapshots feed THIS worker's replica shards (the
+            # worker never sees the coordinator-assembled checkpoint).
+            # An incremental ack resolves against the previous stash so
+            # the replica tier always ingests dense state; an unresolvable
+            # chain just skips the stash (the replica stays one cut stale)
+            from flink_tpu_torch.runtime.checkpoint import delta
+            stash = snapshot
+            if delta.tree_has_increment(stash):
+                try:
+                    stash = delta.apply_increments(
+                        self._q_acks.get((vertex_uid, subtask_index)),
+                        stash)
+                except delta.IncrementChainError:
+                    stash = None
+            if stash is not None:
+                self._q_acks[(vertex_uid, subtask_index)] = stash
         self._send(("ack", checkpoint_id, vertex_uid, subtask_index,
                     snapshot, self._leader_epoch))
 
@@ -733,21 +760,81 @@ class _WorkerRuntime:
                 t.latency_marker_interval_ms = lat_ms
             t.start(snap)
         if opts.get("queryable_serving", True):
-            self._wire_worker_queryable()
+            self._wire_worker_queryable(plan, counts)
         if not self.tasks:
             self._done_sent = True
             self._send(("worker_done", self.index))
         return True
 
-    def _wire_worker_queryable(self) -> None:
-        """The per-worker serving tier's registration of this worker's
-        ``queryable=<name>`` views: it comes with ROADMAP Queue A item 10,
-        so a deployed operator that publishes a view raises here."""
+    def _wire_worker_queryable(self, plan, counts: Dict[str, int]) -> None:
+        """Per-worker serving tier: front THIS worker's live
+        views and its own subtasks' checkpoint-replica shards behind a
+        local :class:`QueryableStateServer`, and register the (state ->
+        local subtasks -> endpoint) mapping with the coordinator — the
+        routing table clients use to skip the coordinator entirely.
+
+        Views register with the job's FULL parallelism (foreign subtasks
+        are None entries): routing geometry is global, ownership is
+        local.  Redeploys re-register wholesale; the server (and its
+        port) survives in-place recoveries, so only a worker PROCESS
+        restart moves an endpoint — the stale-map case the client's
+        evict-then-refresh retry handles."""
+        regs: Dict[str, Dict[str, Any]] = {}
+        max_par = {v.uid: v.max_parallelism for v in plan.vertices}
         for t in self.tasks:
             op = getattr(t, "operator", None)
             for member in getattr(op, "operators", [op]):
-                if getattr(member, "queryable", None) is not None:
-                    raise _later_queryable()
+                qname = getattr(member, "queryable", None)
+                view = getattr(member, "queryable_view", lambda: None)()
+                if qname is None or view is None:
+                    continue
+                entry = regs.setdefault(qname, {
+                    "uid": t.vertex_uid, "op": member, "views": {}})
+                entry["views"][t.subtask_index] = view
+        if not regs:
+            return
+        from flink_tpu_torch.queryable.replica import QueryableStateSpec
+        from flink_tpu_torch.queryable.service import QueryableStateService
+        if self.qservice is None:
+            self.qservice = QueryableStateService()
+        advertise: Dict[str, Dict[str, Any]] = {}
+        for name, entry in regs.items():
+            uid = entry["uid"]
+            p = counts.get(uid, len(entry["views"]))
+            mp = max_par.get(uid, 128)
+            views = [entry["views"].get(i) for i in range(p)]
+            self.qservice.register_views(name, views, parallelism=p,
+                                         max_parallelism=mp)
+            if name not in self.qservice.registry.replicas():
+                self.qservice.add_replica(
+                    name, QueryableStateSpec.from_operator(
+                        name, uid, entry["op"]), max_parallelism=mp)
+            self._q_states[name] = {
+                "uid": uid, "parallelism": p, "max_parallelism": mp,
+                "subtasks": sorted(entry["views"])}
+            advertise[name] = dict(self._q_states[name])
+        server = self.qservice.start_server(host=self.server.host)
+        self._send(("qserve", self.index, advertise,
+                    self.advertise_host, server.port, self._leader_epoch))
+
+    def _feed_worker_replicas(self, checkpoint_id: int) -> None:
+        """notify-complete -> feed this worker's replica shards from the
+        stashed ack snapshots: every queryable uid's assembled entry
+        carries the GLOBAL subtask list with only the local ones filled,
+        so the replica's routing parallelism matches the job while its
+        shards cover exactly this worker's key-group ranges."""
+        if self.qservice is None or not self._q_states:
+            return
+        assembled: Dict[str, Any] = {}
+        for info in self._q_states.values():
+            uid, p = info["uid"], info["parallelism"]
+            if uid in assembled:
+                continue
+            subs = [self._q_acks.get((uid, i)) for i in range(p)]
+            if any(s is not None for s in subs):
+                assembled[uid] = {"subtasks": subs}
+        if assembled:
+            self.qservice.on_checkpoint_complete(checkpoint_id, assembled)
 
     # -- main loop ---------------------------------------------------------
     def run(self) -> int:
@@ -812,6 +899,7 @@ class _WorkerRuntime:
                     self.local_store.confirm(msg[1])
                 for t in self.tasks:
                     t.commands.put(("notify_complete", msg[1]))
+                self._feed_worker_replicas(msg[1])
             elif kind == "split_assign":
                 uid, idx, split, done = msg[1:5]
                 q = self._split_queues.get((uid, idx))
@@ -907,12 +995,14 @@ class _WorkerRuntime:
             t.join(timeout_s=10)
         for w in self._remote_writers:
             w.close()
+        if self.qservice is not None:
+            self.qservice.close()
         self.server.stop()
         return 0
 
 
 # --------------------------------------------------------------------------
-# coordinator (worker processes enter via `python -m flink_tpu_torch worker`,
+# coordinator (worker processes enter via `python -m flink_tpu worker`,
 # which constructs a _WorkerRuntime directly — see __main__._cmd_worker)
 # --------------------------------------------------------------------------
 
@@ -1011,8 +1101,9 @@ class ProcessCluster:
                           "tracing": tracing,
                           "latency_interval_ms": latency_interval_ms,
                           "trace_capacity": trace_capacity,
-                          # per-worker serving (item 10): a worker whose
-                          # operators publish views refuses the deploy
+                          # per-worker serving: workers with queryable
+                          # operators stand up local servers and register
+                          # their endpoints here at deploy
                           "queryable_serving": queryable_serving,
                           # incremental checkpoints: workers flip
                           # delta-tracking on in their operators/backends;
@@ -1106,6 +1197,11 @@ class ProcessCluster:
         self._next_cid = 1
         self._completed_ids: List[int] = []
         self._counts: Dict[str, int] = {}
+        #: queryable serving tier: checkpoint-consistency read
+        #: replicas fed by this coordinator's checkpoint stream (live views
+        #: live in the worker processes — the coordinator serves the
+        #: replica tier; see enable_queryable)
+        self.queryable = None
         self._reset_attempt()
 
     def _reset_attempt(self) -> None:
@@ -1132,24 +1228,66 @@ class ProcessCluster:
         self._all_done = threading.Event()
         self._conns: Dict[int, socket.socket] = {}
         self._send_locks: Dict[int, threading.Lock] = {}
+        #: per-worker serving registrations: state -> {uid, parallelism,
+        #: max_parallelism, endpoints: {subtask: (host, port)}} — the
+        #: routing table the coordinator's server advertises to clients
+        self._qserve_states: Dict[str, Dict[str, Any]] = {}
 
     # -- queryable serving tier -------------------------------------------
-    def enable_queryable(self, *_args, **_kwargs):
-        """Checkpoint-consistency read replicas of a vertex's keyed state:
-        they come with the serving tier (ROADMAP Queue A item 10)."""
-        raise _later_queryable()
+    def enable_queryable(self, name: str, uid: str, agg, key_column: str,
+                         output_column: str = "result",
+                         max_parallelism: int = 128):
+        """Serve ``uid``'s keyed window state at checkpoint consistency:
+        a :class:`~flink_tpu_torch.queryable.replica.CheckpointReplica` fed by
+        this coordinator's checkpoint stream (and, when a checkpoint
+        storage is configured, able to tail it from any process).  Live
+        reads live inside the worker processes and are not proxied here —
+        the replica tier is exactly what a cross-process serving fleet
+        reads, so queries never touch a worker's hot path.  Returns the
+        service; call :meth:`queryable_stats` for the staleness view and
+        ``start_queryable_server`` for the TCP front end."""
+        from flink_tpu_torch.queryable.replica import QueryableStateSpec
+        from flink_tpu_torch.queryable.service import QueryableStateService
+        if self.queryable is None:
+            self.queryable = QueryableStateService()
+        self.queryable.add_replica(
+            name, QueryableStateSpec(name, uid, key_column, agg,
+                                     output_column=output_column),
+            storage=self.checkpoint_storage, max_parallelism=max_parallelism)
+        return self.queryable
 
-    def start_queryable_server(self, *_args, **_kwargs):
-        """The TCP front end of the serving tier (item 10)."""
-        raise _later_queryable()
+    def start_queryable_server(self, host: str = "127.0.0.1",
+                               port: int = 0):
+        if self.queryable is None:
+            from flink_tpu_torch.queryable.service import QueryableStateService
+            self.queryable = QueryableStateService()
+        server = self.queryable.start_server(host=host, port=port)
+        # replay the worker endpoint map collected so far: a client's
+        # {"routing": true} against this server routes live reads straight
+        # to the owning workers (the coordinator serves only the replica
+        # tier and the map itself)
+        with self._lock:
+            # copy the INNER endpoints dict too: the qserve handler keeps
+            # mutating the live one under this lock while the registry
+            # iterates the replayed copy under its own
+            snapshot = {name: {**info, "endpoints": dict(info["endpoints"])}
+                        for name, info in self._qserve_states.items()}
+        for name, info in snapshot.items():
+            self.queryable.set_state_endpoints(
+                name, info["endpoints"], parallelism=info["parallelism"],
+                max_parallelism=info["max_parallelism"])
+        return server
 
     def queryable_stats(self):
-        """The serving tier's staleness view (item 10)."""
-        raise _later_queryable()
+        return self.queryable.stats() if self.queryable is not None else None
 
-    def queryable_endpoints(self):
-        """The workers' serving endpoints (item 10)."""
-        raise _later_queryable()
+    def queryable_endpoints(self) -> Dict[str, Dict[int, Tuple[str, int]]]:
+        """state -> {subtask: (host, port)} as registered by the workers'
+        per-worker serving tiers (empty until a deploy with queryable
+        operators completes)."""
+        with self._lock:
+            return {name: dict(info["endpoints"])
+                    for name, info in self._qserve_states.items()}
 
     # -- cross-process trace assembly --------------------------------------
     def collect_trace(self, timeout_s: float = 15.0) -> Dict[str, Any]:
@@ -1934,6 +2072,38 @@ class ProcessCluster:
             elif kind == "recovery_stats":
                 with self._lock:
                     self.recovery_stats.append((msg[1], msg[2], msg[3]))
+            elif kind == "qserve":
+                # per-worker serving registration: merge this worker's
+                # (state -> local subtasks) at its advertised endpoint
+                # into the routing map (a respawned worker re-registers
+                # with its NEW port — stale client maps self-heal on
+                # their next refresh)
+                widx, advertise, host, port = msg[1:5]
+                q_epoch = msg[5] if len(msg) > 5 else 0
+                if q_epoch and self._epoch and q_epoch < self._epoch:
+                    with self._lock:
+                        self.fenced_worker_msgs += 1
+                    continue
+                with self._lock:
+                    for name, info in advertise.items():
+                        entry = self._qserve_states.setdefault(
+                            name, {"uid": info["uid"],
+                                   "parallelism": info["parallelism"],
+                                   "max_parallelism":
+                                       info["max_parallelism"],
+                                   "endpoints": {}})
+                        entry["parallelism"] = info["parallelism"]
+                        entry["max_parallelism"] = info["max_parallelism"]
+                        entry["endpoints"].update(
+                            {int(i): (host, int(port))
+                             for i in info["subtasks"]})
+                if self.queryable is not None:
+                    for name, info in advertise.items():
+                        self.queryable.set_state_endpoints(
+                            name, {int(i): (host, int(port))
+                                   for i in info["subtasks"]},
+                            parallelism=info["parallelism"],
+                            max_parallelism=info["max_parallelism"])
             elif kind == "final":
                 _, uid, i, snap = msg
                 with self._lock:
@@ -2131,6 +2301,10 @@ class ProcessCluster:
         self.failure_manager.on_checkpoint_success(p.cid)
         self._completed_ids.append(p.cid)
         self._latest_resolved = resolved
+        if self.queryable is not None:
+            # feed the read replicas off the checkpoint stream (enqueue
+            # only; the service's ingest thread parses the snapshot)
+            self.queryable.on_checkpoint_complete(p.cid, resolved)
         # aggregate the subtasks' channel-state (v1) alignment accounting
         # (one shared reader of the schema: task.aggregate_channel_state)
         from flink_tpu_torch.cluster.task import aggregate_channel_state

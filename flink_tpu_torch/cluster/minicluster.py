@@ -25,9 +25,9 @@ quarantine degrades every subtask on the card.  On region failover the
 cancelled subtasks close their operators (device state, pager rings and C
 mirrors are freed) before the restarted attempt builds its own.
 
-The queryable serving tier (``queryable=<name>`` operators) comes with
-ROADMAP Queue A item 10: the port's operators refuse ``queryable=``, and
-the registration here raises naming the item if it is ever reached.
+Every ``queryable=<name>`` operator's live views register with the job's
+serving tier (``queryable/service.py``) at deploy, with a checkpoint
+replica per state fed by the completed checkpoints.
 """
 
 from __future__ import annotations
@@ -44,12 +44,6 @@ from flink_tpu_torch.core.functions import RuntimeContext
 from flink_tpu_torch.graph.stream_graph import ExecutionPlan, PlanVertex
 from flink_tpu_torch.observability import tracing
 from flink_tpu_torch.utils import clock
-
-
-def _later_queryable() -> NotImplementedError:
-    return NotImplementedError(
-        "not in this slice of flink_tpu_torch: queryable views and their "
-        "serving tier come with the serving slice (ROADMAP Queue A item 10)")
 
 
 @dataclass
@@ -729,9 +723,11 @@ class MiniCluster(TaskListener):
                         self.changelog_materialization_threshold
 
     def _wire_queryable(self, plan: ExecutionPlan) -> None:
-        """The serving tier's registration of every ``queryable=<name>``
-        operator's live views: it comes with ROADMAP Queue A item 10, so a
-        deployed operator that publishes a view raises here."""
+        """Register every ``queryable=<name>`` operator's live views with
+        the serving tier and stand up a checkpoint replica per state.
+        Re-deploys (restarts, region recovery) RE-register views — the
+        rebuilt operators publish fresh — while replicas persist (their
+        last ingested checkpoint keeps serving through the restart)."""
         regs: Dict[str, Dict[str, Any]] = {}
         for t in self._tasks:
             op = t.operator
@@ -743,13 +739,41 @@ class MiniCluster(TaskListener):
                 entry = regs.setdefault(qname, {"uid": t.vertex_uid,
                                                 "views": {}, "op": member})
                 entry["views"][t.subtask_index] = view
-        if regs:
-            raise _later_queryable()
+        if not regs:
+            return
+        if self.queryable is None:
+            from flink_tpu_torch.metrics.groups import queryable_metrics
+            from flink_tpu_torch.queryable.service import QueryableStateService
+            self.queryable = QueryableStateService()
+            queryable_metrics(self.job_metric_group,
+                              lambda: (self.queryable.stats()
+                                       if self.queryable else None))
+        max_par = {v.uid: v.max_parallelism
+                   for v in plan.vertices} if plan is not None else {}
+        for name, entry in regs.items():
+            p = self._subtask_counts.get(entry["uid"], len(entry["views"]))
+            views = [entry["views"].get(i) for i in range(p)]
+            from flink_tpu_torch.queryable.view import WindowReadView
+            views = [v if v is not None else WindowReadView(
+                entry["op"].key_column) for v in views]
+            self.queryable.register_views(
+                name, views, parallelism=p,
+                max_parallelism=max_par.get(entry["uid"], 128))
+            if name not in self.queryable.registry.replicas():
+                from flink_tpu_torch.queryable.replica import QueryableStateSpec
+                self.queryable.add_replica(
+                    name, QueryableStateSpec.from_operator(
+                        name, entry["uid"], entry["op"]),
+                    max_parallelism=max_par.get(entry["uid"], 128),
+                    replicas=self.queryable_replicas)
 
     def start_queryable_server(self, host: str = "127.0.0.1", port: int = 0):
-        """The job's TCP queryable-state server: comes with the serving
-        tier (ROADMAP Queue A item 10)."""
-        raise _later_queryable()
+        """Start (or return) the job's TCP queryable-state server
+        (``KvStateServerImpl`` analog) fronting the serving tier."""
+        if self.queryable is None:
+            from flink_tpu_torch.queryable.service import QueryableStateService
+            self.queryable = QueryableStateService()
+        return self.queryable.start_server(host=host, port=port)
 
     def _iter_paged_operators(self):
         for t in getattr(self, "_tasks", []):

@@ -819,7 +819,10 @@ class WindowedStream:
         device-resident key probe ("auto" calibrates); ``superbatch``
         stages N micro-batches into one pass (0 = calibrated, 1 = off) —
         all bit-identical to the serial defaults, as in JAX.
-        ``queryable`` raises in the operator (the serving slice)."""
+        ``queryable`` registers the operator's state under that name with
+        the queryable serving tier: fired values become readable over the
+        batched lookup protocol and REST at ``live`` and (when checkpoints
+        run) ``checkpoint`` consistency."""
         keyed, assigner = self.keyed, self.assigner
         env = keyed.env
         trigger, lateness = self._trigger, self._allowed_lateness

@@ -152,8 +152,9 @@ the bytes follow the dirt, not the state.  The batch marks go in on the
 caller's thread before the pipelined hot stage or the super-batch stage
 takes the batch, so every lane marks the same cells.
 
-Options of the JAX operator that belong to later slices raise
-``NotImplementedError`` here (see :data:`_LATER`); nothing falls back.
+``queryable=<name>`` publishes every fire's emitted ``(keys, values)``
+arrays into a live-read view (``queryable/view.py``): the host arrays the
+fire already made, so serving reads no device state.
 """
 
 from __future__ import annotations
@@ -175,6 +176,7 @@ from flink_tpu_torch.core.functions import (SCATTER_UFUNCS, AggregateFunction,
                                             canonical_tensor, torch_dtype,
                                             tree_leaves, tree_structure,
                                             tree_unflatten)
+from flink_tpu_torch.observability import tracing
 from flink_tpu_torch.operators.base import (StreamOperator,
                                             current_checkpoint_id,
                                             snapshot_is_incremental)
@@ -212,16 +214,8 @@ from flink_tpu_torch.windowing.assigners import GlobalWindows, WindowAssigner
 from flink_tpu_torch.windowing.triggers import (EventTimeTrigger, NeverTrigger,
                                                 Trigger)
 
-#: what this slice leaves out, and the later slice that brings it
-_LATER = {
-    "queryable": "queryable views come with the serving slice (ROADMAP "
-                 "Queue A item 10)",
-}
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"not in this slice of flink_tpu_torch: "
-                               f"{_LATER[what]}")
+#: options of the JAX operator that the port still refuses (none left)
+_LATER: Dict[str, str] = {}
 
 
 def _add_counts(flat_counts: torch.Tensor, ids: torch.Tensor,
@@ -419,7 +413,9 @@ class _EventSet:
 
 
 class _PhaseTimer:
-    """Accumulates host wall time into a dict entry (phase breakdown)."""
+    """Accumulates host wall time into a dict entry (phase breakdown).
+    When the span journal is installed, each timed region also records a
+    ``hot_stage`` span named by the phase, of the same duration."""
 
     __slots__ = ("_d", "_k", "_t0")
 
@@ -432,8 +428,11 @@ class _PhaseTimer:
         return self
 
     def __exit__(self, *exc):
-        self._d[self._k] = (self._d.get(self._k, 0)
-                            + time.perf_counter_ns() - self._t0)
+        t1 = time.perf_counter_ns()
+        self._d[self._k] = self._d.get(self._k, 0) + t1 - self._t0
+        j = tracing._JOURNAL       # one attribute read and a None check off
+        if j is not None:
+            j.record("X", self._t0, t1 - self._t0, self._k, "hot_stage")
         return False
 
 
@@ -521,8 +520,6 @@ class WindowAggOperator(StreamOperator):
             if emit_tier != "device":
                 raise ValueError("paging pins the device emit tier (the "
                                  "host mirror is unbounded host state)")
-        if queryable is not None:
-            raise _later("queryable")
         if sharding is not None:
             # sharded state lives on the mesh; the operator's own device
             # (the probe table, uploads before routing) is position 0
@@ -736,6 +733,17 @@ class WindowAggOperator(StreamOperator):
         #: paged: the ring rows of the batch in flight, protected from the
         #: OOM page-out
         self._active_rows = None
+
+        # ---- queryable serving: when named, every fire's emitted (keys,
+        # values) arrays publish into a live-read view, tagged with the
+        # watermark and the last completed checkpoint; None costs one
+        # attribute check a fire
+        self.queryable = queryable
+        self._qview = None
+        self._last_completed_checkpoint: Optional[int] = None
+        if queryable is not None:
+            from flink_tpu_torch.queryable.view import WindowReadView
+            self._qview = WindowReadView(key_column)
 
         # ---- incremental (delta) checkpoints: the runtime turns them on;
         # off, they cost one attribute check a batch
@@ -2267,6 +2275,14 @@ class WindowAggOperator(StreamOperator):
             cols.update(result)
         else:
             cols[self.output_column] = result
+        if self._qview is not None:
+            # every fire path (host mirror, device gather, async fire, paged
+            # chunks, degraded tier, mesh) comes through here, so a live read
+            # is the fire's own values
+            self._qview.publish(
+                keys, {c: v for c, v in cols.items()
+                       if c != self.key_column},
+                window, self.watermark, self._last_completed_checkpoint)
         if self.emit_window_bounds:
             cols["window_start"] = np.broadcast_to(np.int64(window.start),
                                                    (n,))
@@ -3511,10 +3527,13 @@ class WindowAggOperator(StreamOperator):
         return inc
 
     def notify_checkpoint_complete(self, checkpoint_id: int) -> None:
-        """Delta tracking: the dirt up to a confirmed cut may be forgotten,
-        for cuts this operator froze only (savepoints and final snapshots
-        are not links of the stored increment chain and never advance
-        it)."""
+        """Tags the last completed checkpoint for the queryable view. Delta
+        tracking: the dirt up to a confirmed cut may be forgotten, for cuts
+        this operator froze only (savepoints and final snapshots are not
+        links of the stored increment chain and never advance it)."""
+        if self._last_completed_checkpoint is None \
+                or checkpoint_id > self._last_completed_checkpoint:
+            self._last_completed_checkpoint = checkpoint_id
         match = next((e for e in self._incr_unconfirmed
                       if e[0] == checkpoint_id), None)
         if match is not None:
@@ -3523,6 +3542,12 @@ class WindowAggOperator(StreamOperator):
             self._incr_last_confirmed = checkpoint_id
             self._incr_confirmed_n = match[6]
         super().notify_checkpoint_complete(checkpoint_id)
+
+    def queryable_view(self):
+        """The live-read view (``queryable/view.WindowReadView``) when this
+        operator was built with ``queryable=<name>``, else None. Reading it
+        takes no barrier."""
+        return self._qview
 
     @staticmethod
     def split_snapshot(snap: Dict[str, Any], max_parallelism: int,

@@ -25,6 +25,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from flink_tpu_torch.observability import tracing
 from flink_tpu_torch.parallel.mesh import DeviceMesh, shard_rows
 
 
@@ -142,8 +143,12 @@ class ResizingExchange:
         """-> (rx_leaves, rx_valid, cap_used).  Every input row is
         delivered exactly once; raises only if ``max_cap`` cannot hold the
         skew."""
+        rows = (sum(int(d.shape[0]) for d in dest)
+                if isinstance(dest, (list, tuple)) else int(dest.shape[0]))
         while True:
-            rx, valid, overflow = self._fn(dest, *leaves)
+            with tracing.span("mesh.exchange", cat="exchange",
+                              cap=self.cap, rows=rows):
+                rx, valid, overflow = self._fn(dest, *leaves)
             if max(int(o.max()) for o in overflow) == 0:
                 return rx, valid, self.cap
             if self.cap >= self.max_cap:

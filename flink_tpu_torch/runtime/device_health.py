@@ -68,6 +68,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
+from flink_tpu_torch.observability import tracing
 from flink_tpu_torch.testing import chaos
 
 __all__ = [
@@ -417,6 +418,8 @@ class DeviceHealthMonitor:
                 self._replace_lane()
                 with self._lock:
                     self.counters["watchdog_timeouts"] += 1
+                tracing.instant("device_health.wedge", cat="device_health",
+                                label=label, deadline_s=round(deadline, 1))
                 self._quarantine(f"{label} exceeded {deadline:.1f}s "
                                  f"watchdog deadline (wedged)")
                 raise DeviceQuarantinedError(
@@ -470,9 +473,14 @@ class DeviceHealthMonitor:
         deadline = (max(self.config.deadline_floor_s,
                         self.config.first_dispatch_grace_s)
                     if deadline_s is None else deadline_s)
+        t0 = time.perf_counter_ns()
         lane = self._lane()
         att = lane.submit(fn, fire_chaos=False)
-        if not att.done.wait(timeout=deadline):
+        done = att.done.wait(timeout=deadline)
+        tracing.complete("device_health.salvage", t0,
+                         time.perf_counter_ns(), cat="device_health",
+                         label=label, completed=bool(done))
+        if not done:
             att.abandoned = True
             self._replace_lane()
             with self._lock:
@@ -492,6 +500,8 @@ class DeviceHealthMonitor:
                 self._state = QUARANTINED
                 self.counters["quarantines"] += 1
                 start_healer = self.heal_async
+                tracing.instant("device_health.quarantine",
+                                cat="device_health", reason=reason)
             self.last_failure = reason
         if start_healer:
             self._start_healer()
@@ -517,6 +527,8 @@ class DeviceHealthMonitor:
                 if self._state == QUARANTINED:
                     self._state = HEALTHY
                     self.counters["heals"] += 1
+                    tracing.instant("device_health.heal",
+                                    cat="device_health")
         return ok
 
     def probe_with_backoff(self, attempts: int = 2,

@@ -38,6 +38,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from flink_tpu_torch.observability import tracing
 from flink_tpu_torch.state.spill import PaneSpillStore
 
 #: flags bit: the (key, pane) cell was marked in the host emit mirror
@@ -212,24 +213,26 @@ class DevicePager:
         non-zero or its mirror bit is set; cells go to the store victim by
         victim, pane by pane (the JAX pager's order, which the store's
         eviction to its log follows)."""
-        gids = self.gid_of[victim_rows]
         panes = np.asarray(panes, np.int64)
-        mirror_bits = np.asarray(mirror_bits, bool)
-        keep = (np.asarray(counts) != 0) | mirror_bits
-        vi, pj = np.nonzero(keep)                 # row-major: victim, pane
-        if vi.size:
-            self.store.put_many(
-                gids[vi], panes[pj],
-                np.where(mirror_bits[vi, pj], MIRROR_BIT, 0),
-                np.asarray(counts)[vi, pj], [l[vi, pj] for l in leaves])
-            for j, p in enumerate(panes.tolist()):
-                self._mark_spilled(p, gids[keep[:, j]])
-        self.row_of[gids] = -1
-        self.gid_of[victim_rows] = -1
-        self._ref[victim_rows] = 0
-        self._free_push(np.asarray(victim_rows, np.int64))
-        self._n_resident -= int(victim_rows.size)
-        self.evictions += int(victim_rows.size)
+        with tracing.span("paging.page_out", cat="paging",
+                          keys=int(victim_rows.size), panes=int(panes.size)):
+            gids = self.gid_of[victim_rows]
+            mirror_bits = np.asarray(mirror_bits, bool)
+            keep = (np.asarray(counts) != 0) | mirror_bits
+            vi, pj = np.nonzero(keep)             # row-major: victim, pane
+            if vi.size:
+                self.store.put_many(
+                    gids[vi], panes[pj],
+                    np.where(mirror_bits[vi, pj], MIRROR_BIT, 0),
+                    np.asarray(counts)[vi, pj], [l[vi, pj] for l in leaves])
+                for j, p in enumerate(panes.tolist()):
+                    self._mark_spilled(p, gids[keep[:, j]])
+            self.row_of[gids] = -1
+            self.gid_of[victim_rows] = -1
+            self._ref[victim_rows] = 0
+            self._free_push(np.asarray(victim_rows, np.int64))
+            self._n_resident -= int(victim_rows.size)
+            self.evictions += int(victim_rows.size)
 
     def _free_push(self, rows: np.ndarray) -> None:
         self._free[self._n_free: self._n_free + rows.size] = rows
@@ -284,6 +287,8 @@ class DevicePager:
         gids = np.asarray(gids, np.int64)
         panes = np.asarray(panes, np.int64)
         R, m = int(gids.size), int(panes.size)
+        tracing.instant("paging.page_in", cat="paging", keys=R, panes=m,
+                        promote=bool(delete))
         counts = np.zeros((R, m), np.int32)
         bits = np.zeros((R, m), bool)
         leaves = identity_grid(self.spec, R, m)

@@ -357,8 +357,9 @@ def test_the_generic_and_count_refusals_are_lifted():
     # (the evolution refusal went with the heap slice's state/evolution.py)
     # (object keys and processing time went with the object-key and the
     # local-job slices, late side outputs with the rest of the local job
-    # path, incremental snapshots with the checkpoint slice)
-    assert set(_LATER) == {"queryable"}
+    # path, incremental snapshots with the checkpoint slice, queryable
+    # views with the serving slice)
+    assert set(_LATER) == set()
 
 
 @pytest.mark.parametrize("side", list(SIDES))

@@ -2015,3 +2015,54 @@ def test_process_cluster_job_on_the_card_equals_the_cpu(cuda_device,
     for cluster in (pc, cpu):
         assert all(p.poll() is not None for p in cluster._procs)
     assert "--device cuda" in " ".join(pc._procs[0].args)
+
+
+def _served_run(device):
+    """The small seeded stream through a device-tier operator with
+    ``queryable=`` and the span journal installed: after each call that
+    fires, the view's answers for every key of the newest fire batch, and
+    the run's ``hot_stage`` span sums and ``phase_ns``."""
+    from flink_tpu_torch.observability import tracing
+    journal = tracing.SpanJournal(1 << 16)
+    tracing.install(journal)
+    try:
+        op = _device_tier(device, queryable="sums")
+        view = op.queryable_view()
+        answers = []
+
+        def served(out):
+            fired = [b for b in out if "result" in getattr(b, "columns", {})]
+            if fired:
+                keys = np.asarray(fired[-1].column("k"))
+                found, cols, tags = view.lookup_batch_columnar(keys)
+                assert found.all()
+                assert cols["result"].tobytes() == \
+                    np.asarray(fired[-1].column("result")).tobytes()
+                answers.append((keys.tobytes(), cols["result"].tobytes(),
+                                tags))
+
+        for _, batch, ts in _small_batches():
+            served(op.process_batch(batch))
+            served(op.process_watermark(Watermark(int(ts.max()) - 1)))
+        served(op.end_input())
+    finally:
+        tracing.uninstall()
+    sums = {}
+    for ph, _ts, dur, name, cat, _tid, _args in journal.spans():
+        if cat == "hot_stage":
+            sums[name] = sums.get(name, 0) + dur
+    assert journal.dropped == 0
+    return answers, sums, dict(op.phase_ns)
+
+
+def test_live_view_on_the_card_equals_the_cpu(cuda_device):
+    """On the device tier, the live view answers every key of each fire
+    with that fire's row, bit for bit the CPU twin's answers; with the
+    journal on, each phase's ``hot_stage`` spans sum exactly to its
+    ``phase_ns``."""
+    got, gsums, gphase = _served_run(cuda_device)
+    want, wsums, wphase = _served_run("cpu")
+    assert len(got) == len(want) > 0
+    assert got == want
+    assert gsums == gphase and wsums == wphase
+    assert {"probe", "device_dispatch", "fire"} <= set(gphase)

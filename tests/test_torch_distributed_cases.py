@@ -251,12 +251,61 @@ def test_cli_commands_wait_for_12(cmd):
         main([cmd, "x"] if cmd != "info" else [cmd])
 
 
-@pytest.mark.parametrize("cmd", ["list", "status"])
-def test_cli_rest_commands_wait_for_10(cmd):
-    """The REST client subcommands come with the REST views (item 10)."""
-    from flink_tpu_torch.__main__ import main
-    with pytest.raises(NotImplementedError, match=r"\(10\)"):
-        main([cmd, "--url", "http://127.0.0.1:1"])
+def _finished_rest_job(side, n=2000):
+    """A finished two-subtask keyed sum on a MiniCluster of ``side``'s
+    package, registered with a started ``RestServer``: (server, job id)."""
+    import importlib
+    pkg = "flink_tpu" if side == "jax" else "flink_tpu_torch"
+    api = importlib.import_module(f"{pkg}.datastream.api")
+    mini = importlib.import_module(f"{pkg}.cluster.minicluster")
+    rest = importlib.import_module(f"{pkg}.rest.server")
+    env = api.StreamExecutionEnvironment(
+        **({"device": "cpu"} if side == "port" else {}))
+    env.set_parallelism(2)
+    (env.from_collection(columns={"k": np.arange(n) % 7, "v": np.ones(n)},
+                         batch_size=256)
+        .key_by("k").sum("v").collect())
+    plan = env.get_stream_graph("cli-job").to_plan()
+    mc = mini.MiniCluster()
+    registry = rest.JobRegistry()
+    job_id = registry.register("cli-job", mc)
+    assert mc.execute(plan, timeout_s=60).state == "FINISHED"
+    return rest.RestServer(registry).start(), job_id
+
+
+@pytest.mark.parametrize("cmd", ["list", "status", "cancel", "savepoint",
+                                 "stop"])
+def test_cli_rest_commands_on_either_server(cmd, capsys):
+    """The REST client subcommands of either package's CLI against either
+    package's REST server (a finished job): each pair gives the exit code
+    and the answer the JAX CLI gets from the JAX server (``status`` by its
+    keys and state: its times are the run's own)."""
+    import json
+
+    from flink_tpu.__main__ import main as jax_main
+    from flink_tpu_torch.__main__ import main as port_main
+    servers = {s: _finished_rest_job(s) for s in ("jax", "port")}
+    try:
+        got = {}
+        for srv, (server, job_id) in servers.items():
+            for cli, main in (("jax", jax_main), ("port", port_main)):
+                argv = [cmd, "--url", server.url] + (
+                    [job_id] if cmd != "list" else [])
+                rc = main(argv)
+                out = capsys.readouterr().out
+                if cmd == "status":
+                    body = json.loads(out)
+                    out = (sorted(body), body["state"])
+                got[srv, cli] = (rc, out)
+        want = got["jax", "jax"]
+        assert all(v == want for v in got.values()), got
+        if cmd == "list":
+            assert "cli-job" in want[1] and "FINISHED" in want[1]
+        if cmd == "status":
+            assert want[0] == 0 and want[1][1] == "FINISHED"
+    finally:
+        for server, _ in servers.values():
+            server.stop()
 
 
 # ---------------------------------------------------------------------------
@@ -395,30 +444,108 @@ def test_process_cluster_checkpoint_crosses_and_restores(
 
 
 # ---------------------------------------------------------------------------
-# what waits for the serving slice (item 10)
+# the serving tier of a process cluster and the session cluster's history
 # ---------------------------------------------------------------------------
+
+def _serving_surface(side, method):
+    """What ``method`` of a listening (not yet run) process cluster of
+    ``side``'s package returns, in a form both packages can be compared
+    by: before any queryable state, after ``enable_queryable`` and with the
+    TCP front end started (its routing table read by a client)."""
+    import importlib
+    pkg = "flink_tpu" if side == "jax" else "flink_tpu_torch"
+    dist = importlib.import_module(f"{pkg}.cluster.distributed")
+    fn = importlib.import_module(f"{pkg}.core.functions")
+    qs = importlib.import_module(f"{pkg}.queryable")
+    pc = dist.ProcessCluster("no_module:build", spawn=False)
+    before = pc.queryable_stats() if method == "queryable_stats" else None
+    agg = fn.SumAggregator(np.float32)
+    service = pc.enable_queryable("sums", "window-uid", agg, "k")
+    try:
+        if method == "enable_queryable":
+            return (type(service).__name__, sorted(service.stats()),
+                    sorted(service.registry.replicas()))
+        if method == "queryable_stats":
+            st = pc.queryable_stats()
+            return before, sorted(st), sorted(st["states"])
+        if method == "queryable_endpoints":
+            return pc.queryable_endpoints()
+        server = pc.start_queryable_server()
+        assert server.port > 0
+        pool = qs.QueryableStateClientPool("127.0.0.1", server.port)
+        try:
+            table = pool.refresh_routing()
+            ans = pool.get_batch("sums", [1, 2], consistency="checkpoint")
+        finally:
+            pool.close()
+        return sorted(table), ans["found"], ans["tags"]["consistency"]
+    finally:
+        service.close()
+
 
 @pytest.mark.parametrize("method", ["enable_queryable",
                                     "start_queryable_server",
                                     "queryable_stats",
                                     "queryable_endpoints"])
-def test_process_cluster_queryable_waits_for_10(method):
-    """The process cluster's serving tier (``enable_queryable`` and the
-    rest, JAX's ``distributed.py:1202-1256``) comes with the serving slice
-    (ROADMAP Queue A item 10), as the MiniCluster's does."""
-    from flink_tpu_torch.cluster.distributed import ProcessCluster
-    pc = ProcessCluster("no_module:build", spawn=False)
-    args = ("view", "uid", None, "k") if method == "enable_queryable" \
-        else ()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        getattr(pc, method)(*args)
+def test_process_cluster_serving_surface_equals_jax(method):
+    """The process cluster's serving tier (``enable_queryable``, the TCP
+    front end, the staleness view and the workers' endpoints, JAX's
+    ``distributed.py:1202-1256``) answers as JAX's does before a job
+    runs; the reference's ``test_process_cluster_replica_wiring`` and
+    ``test_per_worker_serving_e2e_process_cluster`` run the job."""
+    assert _serving_surface("port", method) == \
+        _serving_surface("jax", method)
 
 
-def test_session_cluster_history_waits_for_10(tmp_path):
-    """The session cluster's job history archive (JAX's
-    ``coordination.py:346``, ``rest.history``) comes with the REST views
-    (item 10): naming a ``history_dir`` raises before any endpoint
-    starts."""
-    from flink_tpu_torch.cluster.coordination import StandaloneSessionCluster
-    with pytest.raises(NotImplementedError, match=r"\(10\)"):
-        StandaloneSessionCluster(history_dir=str(tmp_path))
+@pytest.mark.parametrize("writer, reader", [("jax", "port"),
+                                            ("port", "jax")])
+def test_session_cluster_history_reads_across_packages(writer, reader,
+                                                       tmp_path):
+    """A session cluster with a ``history_dir`` archives its finished job
+    (JAX's ``coordination.py:346``, ``rest/history.py``); the other
+    package's ``HistoryServer`` serves that archive as the writer's
+    does."""
+    import importlib
+    import json
+    import time
+    import urllib.request
+
+    def pkg(side, mod):
+        return importlib.import_module(
+            ("flink_tpu" if side == "jax" else "flink_tpu_torch") + mod)
+
+    d = str(tmp_path / "archive")
+    api = pkg(writer, ".datastream.api")
+    env = api.StreamExecutionEnvironment(
+        **({"device": "cpu"} if writer == "port" else {}))
+    env.set_parallelism(1)
+    (env.from_collection(columns={"k": np.arange(3000) % 7,
+                                  "v": np.ones(3000)}, batch_size=256)
+        .key_by("k").sum("v").collect())
+    plan = env.get_stream_graph("hist-job").to_plan()
+    cluster = pkg(writer, ".cluster.coordination").StandaloneSessionCluster(
+        num_task_executors=1, slots_per_executor=1, history_dir=d)
+    try:
+        client = cluster.client()
+        job_id = client.submit(plan, parallelism=1)
+        client.wait_for_completion(job_id, timeout_s=120)
+        deadline = time.time() + 10
+        while time.time() < deadline and not pkg(
+                writer, ".rest.history").list_archived(d):
+            time.sleep(0.05)
+    finally:
+        cluster.shutdown()
+    seen = {}
+    for side in (writer, reader):
+        hs = pkg(side, ".rest.history").HistoryServer(d).start()
+        try:
+            for path in ("/jobs", f"/jobs/{job_id}", "/overview"):
+                with urllib.request.urlopen(f"{hs.url}{path}",
+                                            timeout=10) as r:
+                    seen[side, path] = json.loads(r.read())
+        finally:
+            hs.stop()
+    for path in ("/jobs", f"/jobs/{job_id}", "/overview"):
+        assert seen[reader, path] == seen[writer, path]
+    assert seen[reader, "/jobs"]["jobs"][0]["id"] == job_id
+    assert seen[reader, f"/jobs/{job_id}"]["state"] == "FINISHED"

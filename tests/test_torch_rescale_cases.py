@@ -91,28 +91,3 @@ def test_adaptive_rescale_mid_job_without_the_log_import(
                tmp_path_factory, verdicts, patches=((
                    "    from flink_tpu.connectors.partitioned_log import "
                    "LogSink, PartitionedLog\n", ""),))
-
-
-#: the REST panel's lines of ``test_autoscaler_status_gauges_and_panel``
-PANEL = ("    from flink_tpu.rest.views import autoscaler_html\n",
-         """    html = autoscaler_html(st)
-    assert 'data-metric="rescales"' in html
-    assert 'data-metric="rollbacks"' in html
-    assert "as-panel" in html and "as-path" in html
-    assert autoscaler_html({}).count("off") >= 1
-""")
-
-
-@pytest.mark.chaos
-def test_autoscaler_status_gauges_without_the_rest_panel(
-        tmp_path_factory, verdicts):  # noqa: F811
-    """``test_rescale_under_fire.py::test_autoscaler_status_gauges_and_
-    panel`` on both packages with its REST panel cut (the status keys, the
-    job-scope gauges and the deployed cluster's ``job_status`` stand); the
-    panel comes with the REST views (ROADMAP Queue A item 10)."""
-    check_case("test_rescale_under_fire", None,
-               "test_autoscaler_status_gauges_and_panel", {},
-               tmp_path_factory, verdicts,
-               patches=tuple((line, "") for line in PANEL))
-    with pytest.raises(ModuleNotFoundError):
-        __import__("flink_tpu_torch.rest")

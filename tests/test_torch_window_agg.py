@@ -263,17 +263,35 @@ def test_interop_refuses_what_the_slice_does_not_carry(port_run):
     {"queryable": "q"},
     # sharding is accepted since the mesh, count triggers since the
     # count-trigger slice, processing time and late side outputs since the
-    # local job path's: queryable views still raise with either
+    # local job path's, queryable views (the last refusal) since the
+    # serving slice's: with either of the others too
     {"assigner": TumblingProcessingTimeWindows.of(100),
      "queryable": "q"},
     {"late_output_tag": "late", "queryable": "q"},
 ])
 def test_later_slices_refuse_honestly(kw):
+    """Nothing of the JAX operator is refused any more: each combination
+    builds, and its fire at ``end_input`` publishes its rows into the
+    live view."""
+    from flink_tpu_torch.operators.window_agg import _LATER
+    assert not _LATER
     kw = dict(kw)
     assigner = kw.pop("assigner", TumblingEventTimeWindows.of(100))
     base = dict(key_column="k", value_column="v", device="cpu")
-    with pytest.raises(NotImplementedError, match="not in this slice"):
-        WindowAggOperator(assigner, SumAggregator(), **{**base, **kw})
+    op = WindowAggOperator(assigner, SumAggregator(), **{**base, **kw})
+    op.open(RuntimeContext())
+    view = op.queryable_view()
+    assert view is not None and view.published_windows == 0
+    keys = np.arange(4, dtype=np.int64)
+    out = op.process_batch(RecordBatch(
+        {"k": keys, "v": np.full(4, 2.5, np.float32)},
+        timestamps=np.full(4, 10, np.int64)))
+    out += op.end_input()
+    fired = [b for b in out if "result" in getattr(b, "columns", {})]
+    assert fired and view.published_windows == len(fired)
+    found, cols, tags = view.lookup_batch_columnar(keys)
+    assert found.all() and (cols["result"] == 2.5).all()
+    assert tags["window_start"] == int(fired[-1].column("window_start")[0])
 
 
 #: options the calibration and pipelining slice lifted from the refusals:
