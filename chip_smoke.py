@@ -495,7 +495,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    its Chrome export's ``checkpoint`` spans as many as
    ``_checkpoint_stats``.  It prints the journal's events and drops, the
    GETs' p50/p99 ms, and tracing's cost: path 5's operator with the journal
-   off and on in alternating pairs.
+   off and on in alternating pairs.  After the A/B phases, paths 56-57
+   (slice 23) run the scenario suite over the Kafka edge, each with its
+   own Kafka-wire broker on 127.0.0.1 and the calibration verdicts
+   dropped first: 56a ``feature_store`` at its full tier (500,000 records,
+   250,007 keys, every nemesis, routed binary reads at 2000 lookups/s),
+   56b ``sessionized_analytics`` at the full tier's widths over
+   ``SESSION_SCENARIO_RECORDS`` records with its SQL cross-check, 57 the
+   fraud scenario's HA kill at the peak.  Each must end ``ok`` (both legs
+   finished, nothing lost or duplicated, the control's digest), launch a
+   kernel of the port and leave no thread of its own running; each prints
+   its legs' walls, peak records/s, the autoscaler's p99, its rescales,
+   committed rows, reads and nemeses.
 
 Each phase and path prints its command time on a line of its own.
 
@@ -638,9 +649,9 @@ PAGED_REPLAY_CAPACITY["path 17"] = 1 << 19
 #: path 14's snapshot too, densified), and is timed against in turns
 MESH_TWIN = {"path 14": "path 3", "path 15": "path 5", "path 16": "path 11",
              "path 17": "path 7"}
-#: the mesh paths whose A/B runs one turn each, twin then mesh: the paged
-#: pair's runs take about 7 s each (four turns before slice 22)
-MESH_AB_ONE_PAIR = ("path 17",)
+#: the mesh paths whose A/B runs one turn each, twin then mesh: every pair
+#: since slice 23 (the paged pair's since slice 22; four turns before)
+MESH_AB_ONE_PAIR = tuple(MESH_TWIN)
 #: the mesh sizes path 15's mid-run snapshot is restored at (rescale)
 RESCALE_BLOCKS = (2, 1)
 #: the watchdog's paths on the device tier (their untouched windows also
@@ -2150,7 +2161,7 @@ def ab_run(device, batches, label):
 
 def mesh_ab(device, batches, want, card) -> dict:
     """Each mesh path against its single-block twin on the same batches,
-    in turns twin, mesh, mesh, twin (the paged pair, ``MESH_AB_ONE_PAIR``,
+    in turns twin, mesh, mesh, twin (the pairs of ``MESH_AB_ONE_PAIR``
     in one turn each), each run's fires bit-equal to its path's main run:
     records/s and their median ratio, beside the card's nvidia-smi
     line."""
@@ -2432,8 +2443,8 @@ def device_busy_ms(prof):
 
 def reset_verdicts() -> None:
     """Drop the process's calibration verdicts (transport, shard counts,
-    super-batch depth, device probe), so path 8 measures them on the
-    card."""
+    super-batch depth, device probe), so path 8 (and slice 23's scenarios)
+    measure them on the card."""
     from flink_tpu_torch.operators import fused_step
     from flink_tpu_torch.state import device_keyindex, native_mirror
     from flink_tpu_torch.utils import transport
@@ -4129,12 +4140,31 @@ def graph_roots(src_h, dst_h, n, k, seed):
                                        replace=False)]
 
 
-def pagerank_model(src_h, dst_h, n):
-    """Independent PageRank: scipy.sparse f64 power iteration with the
-    dangling mass spread over every vertex (JAX's formula)."""
+def sorted_csr(rows, cols, data, n):
+    """A scipy CSR matrix of entries already sorted by (row, col) with no
+    pair twice: the arrays as they are, so no conversion sorts them (the
+    COO conversion's host sort took most of 32's and 33's models)."""
     import scipy.sparse as sp
-    at = sp.coo_matrix((np.ones(src_h.size), (dst_h, src_h)),
-                       shape=(n, n)).tocsr()           # counts duplicates
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+    return sp.csr_matrix((data, cols, indptr), shape=(n, n))
+
+
+def pagerank_model(src_h, dst_h, n, device):
+    """Independent PageRank: scipy.sparse f64 power iteration with the
+    dangling mass spread over every vertex (JAX's formula).  The transposed
+    adjacency counts duplicate edges; its entries are sorted and counted
+    on the card (one sort of the int64 (dst, src) keys)."""
+    import torch
+    key = (torch.from_numpy(dst_h).to(device, torch.int64) * n
+           + torch.from_numpy(src_h).to(device, torch.int64))
+    uniq, cnt = torch.unique_consecutive(torch.sort(key).values,
+                                         return_counts=True)
+    del key
+    uniq = uniq.cpu().numpy()
+    at = sorted_csr(uniq // n, uniq % n, cnt.cpu().numpy().astype(np.float64),
+                    n)
+    del uniq, cnt
     deg = np.bincount(src_h, minlength=n).astype(np.float64)
     dangling = deg == 0
     safe = np.where(dangling, 1.0, deg)
@@ -4177,7 +4207,6 @@ def sssp_model(src_t, dst_t, w_t, n, root):
     reduced to their least weight first (a stable sort by (src, dst) after
     one by weight, on the card), a weight of exactly 0 stored as the
     smallest positive f64 (scipy reads a stored 0 as no edge)."""
-    import scipy.sparse as sp
     import torch
     from scipy.sparse import csgraph
     key = src_t.to(torch.int64) * n + dst_t.to(torch.int64)
@@ -4192,7 +4221,8 @@ def sssp_model(src_t, dst_t, w_t, n, root):
     w = w_t[sel].cpu().numpy().astype(np.float64)
     w[w == 0] = np.finfo(np.float64).tiny
     del key, o1, o2, order, ks, first, sel
-    mat = sp.coo_matrix((w, (s, d)), shape=(n, n)).tocsr()
+    # the selection is in (src, dst) order, one entry a pair
+    mat = sorted_csr(s, d, w, n)
     return csgraph.dijkstra(mat, directed=True, indices=root)
 
 
@@ -4284,7 +4314,7 @@ def path32(device, card, G):
           f"path 32: launches {launches}; want one scatter_fold a superstep "
           f"and one for the degrees")
     t0 = time.perf_counter()
-    model, at = pagerank_model(G["src_h"], G["dst_h"], n)
+    model, at = pagerank_model(G["src_h"], G["dst_h"], n, device)
     model_s = time.perf_counter() - t0
     G["at"] = at
     rel = float(np.max(np.abs(ranks - model)) / np.max(model))
@@ -8336,6 +8366,207 @@ def slice22(device, card, batches):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# slice 23: the Kafka edge and the scenario suite (paths 56-57)
+# ---------------------------------------------------------------------------
+
+SLICE23 = ("path 56a", "path 56b", "path 57")
+#: 56b's records, cut from the full tier's 400,000 for the time limit (its
+#: keys, batches, gap and read rate are the full tier's; 100,000 before the
+#: smoke's final cuts)
+SESSION_SCENARIO_RECORDS = 60_000
+#: seconds a path's threads (brokers, the autoscaler, queryable servers,
+#: subtasks) get to end after the harness returns
+THREAD_GRACE_S = 30.0
+
+
+def _legs(harness) -> dict:
+    """Wrap a harness's legs so the path can print each leg's wall."""
+    legs = {}
+    for name in ("_run_faulted", "_run_control"):
+        run = getattr(harness, name)
+
+        def timed(_run=run, _name=name):
+            leg = _run()
+            legs[_name.split("_")[-1]] = leg
+            return leg
+
+        setattr(harness, name, timed)
+    return legs
+
+
+#: the watchdog's own threads: a dispatch lane waits, idle and holding no
+#: operator, until the monitor's next dispatch retires it, and the healer
+#: ends with the quarantine
+MONITOR_THREADS = ("device-lane-", "device-healer")
+
+
+def _path_threads(before, label) -> int:
+    """Every thread the path started (brokers, the autoscaler, queryable
+    servers and readers, subtasks, leaders) must end: a leaked one would
+    change the later paths' times.  Returns the monitor's idle lanes."""
+    import threading
+    deadline = time.monotonic() + THREAD_GRACE_S
+    while True:
+        new = [t for t in threading.enumerate()
+               if t.ident not in before and t.is_alive()]
+        left = [t for t in new if not t.name.startswith(MONITOR_THREADS)]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    check(not left, f"{label}: threads outlived the path: "
+          f"{sorted(t.name for t in left)}")
+    return len(new)
+
+
+def scenario_path(label, card, run) -> tuple:
+    """One scenario path: launch counts set to 0, the harness's run, the
+    counts read; prints what the run reports and checks its ``ok``."""
+    import threading
+
+    from flink_tpu_torch.runtime import device_health
+    device_health.set_monitor(device_health.DeviceHealthMonitor())
+    before = {t.ident for t in threading.enumerate()}
+    reset_launches()
+    t0 = time.perf_counter()
+    res, legs = run()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    lanes = _path_threads(before, label)
+    check(res["ok"], f"{label}: the harness's check failed: "
+          f"{ {k: v for k, v in res.items() if k != 'queryable'} }")
+    check(res["records_lost"] == 0 and res["records_duplicated"] == 0
+          and res["digest_match"], f"{label}: not exactly once: {res}")
+    check(sum(res["committed_rows"].values()) > 0,
+          f"{label}: nothing committed")
+    kernels = {k: launches[k] for k in ("probe", "probe_fold",
+                                         "scatter_fold")}
+    check(sum(kernels.values()) > 0,
+          f"{label}: no kernel of the port launched: {kernels}")
+    walls = {name: leg.wall_ms for name, leg in legs.items()}
+    print(f"{label} ({card}): {res['scenario']}, {res['records']} records "
+          f"over {res['keys']} keys; legs' walls {walls} ms, the path "
+          f"{wall_s * 1000.0:.1f} ms; committed rows {res['committed_rows']}"
+          f" (control {res['control_rows']}); kernel launches {kernels}; "
+          f"{lanes} idle watchdog lanes, no other thread left")
+    return launches, dict(res, legs_wall_ms=walls, path_wall_s=wall_s)
+
+
+def _scenario_run(name, **kw):
+    from flink_tpu_torch.scenarios import ScenarioHarness, get_scenario
+
+    def run():
+        harness = ScenarioHarness(get_scenario(name), **kw)
+        legs = _legs(harness)
+        return harness.run(), legs
+    return run
+
+
+def _report_faulted(label, res) -> None:
+    q = res["queryable"]
+    print(f"{label} faulted leg: state {res['state']}, peak "
+          f"{res['peak_records_per_sec']} records/s, the autoscaler's "
+          f"latency p99 {res['latency_p99_ms']} ms; rescales "
+          f"{res['rescales']}, rollbacks {res['rollbacks']}, re-triggers "
+          f"{res['retriggers']}, parallelism path {res['parallelism_path']};"
+          f" nemeses armed {res['nemeses']}; reads: lookups "
+          f"{q.get('lookups')}, found {q.get('found')}, routed batches "
+          f"{q.get('routed_batches')}, batches {q.get('batches')}, errors "
+          f"{q.get('errors')}, reconnects {q.get('reconnects')}, JSON "
+          f"fallbacks {q.get('json_fallbacks')}, "
+          f"{q.get('lookups_per_sec')} lookups/s")
+
+
+def path56a(card):
+    """Path 56a: ``feature_store`` at its full tier, as ``bench.py``'s full
+    run does it: 500,000 records over 250,007 uniform keys, the faulted leg
+    under the autoscaler (2-4) with every nemesis (a worker kill,
+    ``KillDuringRescale``, ``SlowConsumer`` bursts, ``WedgedDevice`` on
+    ``device.dispatch`` healed after 2 s) and routed binary reads of 128
+    keys at 2000 lookups/s, the control leg unpaced."""
+    label = "path 56a"
+    launches, res = scenario_path(label, card, _scenario_run(
+        "feature_store", smoke=False, full_nemeses=True))
+    _report_faulted(label, res)
+    q = res["queryable"]
+    check(q["found"] > 0 and q["routed_batches"] > 0
+          and q["json_fallbacks"] == 0,
+          f"{label}: the routed binary reads failed: {q}")
+    check("wedged_device" in res["nemeses"],
+          f"{label}: the full tier's nemeses were not armed: "
+          f"{res['nemeses']}")
+    return launches, res
+
+
+def path56b(card):
+    """Path 56b: ``sessionized_analytics`` at the full tier's widths (50,021
+    keys, batches of 256, a 500 ms gap, 200 lookups/s, every nemesis) over
+    ``SESSION_SCENARIO_RECORDS`` records, with the SQL TUMBLE
+    cross-check."""
+    label = "path 56b"
+    launches, res = scenario_path(label, card, _scenario_run(
+        "sessionized_analytics", smoke=False,
+        records=SESSION_SCENARIO_RECORDS, full_nemeses=True))
+    _report_faulted(label, res)
+    check(res["cross_check_violations"] == [],
+          f"{label}: the SQL cross-check failed: "
+          f"{res['cross_check_violations']}")
+    return launches, res
+
+
+def path57(card):
+    """Path 57: the HA kill at the peak, as the reference's acceptance case
+    runs it: the fraud scenario's smoke tier (60,000 records over 997
+    keys); leader A killed at its lease renewal runs on as a zombie,
+    standby B takes over at epoch + 1 and restores from the HA pointer."""
+    from flink_tpu_torch.scenarios import ScenarioHarness, get_scenario
+    label = "path 57"
+
+    def run():
+        harness = ScenarioHarness(get_scenario("fraud_detection"),
+                                  smoke=True)
+        legs = _legs(harness)
+        return harness.run_ha_kill(), legs
+
+    launches, res = scenario_path(label, card, run)
+    check(res["state"] == "FINISHED"
+          and res["control_state"] == "Finished", f"{label}: {res}")
+    epochs = res["leader_epochs"]
+    check(epochs == sorted(epochs) and len(epochs) == 2
+          and epochs[1] == epochs[0] + 1, f"{label}: epochs {epochs}")
+    check(res["stale_pointer_rejected"] and res["stale_commit_fenced"]
+          and res["fenced_completions"] > 0
+          and res["restore_source"] == "ha-pointer",
+          f"{label}: the fences did not hold: {res}")
+    print(f"{label} HA: epochs {epochs}, recovery {res['recovery_ms']} ms "
+          f"(demotion to the new epoch's first cut), fenced completions "
+          f"{res['fenced_completions']}, restore from "
+          f"{res['restore_source']}, zombie {res['zombie_state']}, the "
+          f"kill leg and control {res['wall_ms']} ms")
+    return launches, res
+
+
+def slice23(card):
+    """Paths 56-57: the scenario suite over the Kafka edge.  The process's
+    calibration verdicts are dropped first, so each scenario's operators
+    measure their own lane (batches of 256 over 2-4 subtasks) as a fresh
+    process would, instead of inheriting the main path's."""
+    import gc
+    reset_verdicts()
+    gc.collect()
+    t0 = time.perf_counter()
+    launches, numbers = {}, {}
+    for label, fn in (("path 56a", lambda: path56a(card)),
+                      ("path 56b", lambda: path56b(card)),
+                      ("path 57", lambda: path57(card))):
+        t1 = time.perf_counter()
+        launches[label], numbers[label] = fn()
+        print(f"{label} took {time.perf_counter() - t1:.1f} s of command "
+              f"time")
+    print(f"slice 23 took {time.perf_counter() - t0:.1f} s of command time")
+    return launches, numbers
+
+
 def main() -> None:
     try:
         import torch
@@ -8539,6 +8770,11 @@ def main() -> None:
         phase()
         print(f"{name} took {time.perf_counter() - t1:.1f} s of command "
               f"time")
+    # after the A/B phases: slice 23 drops the calibration verdicts they
+    # run under (its scenarios calibrate their own lanes)
+    slice23_launches, slice23_numbers = slice23(card)
+    launches.update(slice23_launches)
+    numbers.update(slice23_numbers)
     for label, twin in TWIN.items():
         a, b = numbers[label], numbers[twin]
         host = lambda n: sum(n["phase_ms"].get(k, 0.0)  # noqa: E731
@@ -8603,7 +8839,7 @@ def main() -> None:
     kernels.append(scatter_fold_phase(device, rng))
     every_path = (ORDER + SLICE11 + SLICE12 + SLICE13 + SLICE14 + SLICE15
                   + SLICE16 + SLICE17 + SLICE18 + SLICE19 + SLICE20
-                  + SLICE21 + SLICE22)
+                  + SLICE21 + SLICE22 + SLICE23)
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]]
                    for label in every_path}

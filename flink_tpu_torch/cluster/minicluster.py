@@ -318,7 +318,7 @@ class MiniCluster(TaskListener):
                 p = self._pending
                 if p is not None and (vertex_uid, subtask_index) not in p.acks:
                     p.expected -= 1
-                    if len(p.acks) >= p.expected:
+                    if len(p.acks) >= p.expected and self._cut_whole(p):
                         # claims self._pending; a NEW checkpoint may start
                         # during its unlocked store, so don't clear after
                         self._complete_checkpoint(p)
@@ -338,8 +338,25 @@ class MiniCluster(TaskListener):
                             checkpoint=checkpoint_id, task=vertex_uid,
                             subtask=subtask_index)
             p.acks[(vertex_uid, subtask_index)] = snapshot
-            if len(p.acks) >= p.expected:
+            if len(p.acks) >= p.expected and self._cut_whole(p):
                 self._complete_checkpoint(p)
+
+    def _cut_whole(self, p: _PendingCheckpoint) -> bool:
+        """Caller holds ``_lock``.  Every task of the deployment has acked
+        ``p`` or finished with its final snapshot.  The ack count alone
+        (JAX's MiniCluster completes on it) has run ahead of that at a
+        stream's tail under rescales: a checkpoint completed with neither
+        an ack nor a final snapshot from a running subtask, and the
+        autoscaler's cut restored that subtask with no state, losing its
+        unfired windows.  Such a checkpoint waits for the task instead, or
+        times out."""
+        for t in self._tasks:
+            key = (t.vertex_uid, t.subtask_index)
+            if key not in p.acks and (
+                    key not in self._finished
+                    or getattr(t, "final_snapshot", None) is None):
+                return False
+        return True
 
     def decline_checkpoint(self, checkpoint_id: int, vertex_uid: str,
                            subtask_index: int, error: str) -> None:
@@ -958,7 +975,17 @@ class MiniCluster(TaskListener):
                     # the continuous-failure window restarts too
                     self.failure_manager.on_job_restart()
                     time.sleep(self._active_strategy.delay_ms() / 1000.0)
-                    self._restart_failed_region(plan, failed_uid)
+                    try:
+                        self._restart_failed_region(plan, failed_uid)
+                    except Exception as e:  # noqa: BLE001 — stays a restart
+                        # the restore's redistribute failed (a rescale's
+                        # fault point) before any task was touched: the
+                        # attempt counts as failed, and the next one
+                        # redistributes the same immutable cut again
+                        # (JAX's MiniCluster lets this escape execute())
+                        with self._lock:
+                            self._failed = (f"{failed_uid}[restart]: "
+                                            f"{type(e).__name__}: {e}")
                     continue
                 self.cancel()
                 for t in self._tasks:

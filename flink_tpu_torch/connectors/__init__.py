@@ -1,18 +1,15 @@
-"""Connectors: sources, sinks, the file source and the split enumerators.
+"""Connectors: sources, sinks, the file source, the split enumerators, the
+Kafka wire connector (``kafka``, ``kafka_v2``) and the partitioned log.
 
-The external systems' connectors of ``flink_tpu/connectors`` (Kafka,
-Postgres, the partitioned log, ...) come with the host-only edges (ROADMAP
-Queue A item 12): importing one from this package raises
+The Postgres connector of ``flink_tpu/connectors`` comes with the host-only
+edges (ROADMAP Queue A item 12): importing it from this package raises
 ``NotImplementedError`` naming that item, and so does the SQL DDL that
 would reach it.
 """
 
 #: the connector modules of the JAX package that a later slice brings
 LATER = {
-    "kafka": "the Kafka connector comes with the host-only edges (12)",
     "postgres": "the Postgres connector comes with the host-only edges (12)",
-    "partitioned_log": "the partitioned log connector comes with the "
-                       "host-only edges (12)",
 }
 
 

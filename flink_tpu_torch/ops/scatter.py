@@ -44,6 +44,7 @@ JAX computes these as XLA scatters outside any Pallas kernel.  Here:
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
@@ -204,6 +205,12 @@ def scatter_plan(n_rows: int, n_cells: int) -> Tuple[int, int, int]:
 
 #: ``scatter_fold`` scratch per (device, stream), grown to the largest call
 _SCATTER_SCRATCH: Dict[tuple, Dict[str, torch.Tensor]] = {}
+#: held from a launch's scratch lookup to the end of its enqueue: threads
+#: that launch on one stream (a cluster's subtask lanes, all on the default
+#: stream) must not interleave their partition and fold launches, or a
+#: fold reads the partition another thread's call wrote into the shared
+#: scratch (ctypes lets go of the GIL during the launch call)
+_SCATTER_LAUNCH_LOCK = threading.Lock()
 
 
 def scatter_fold_scratch(n_rows: int, n_sources: int,
@@ -330,13 +337,22 @@ def launch_ordered_fold_steps(slot_ids, sources, planes, counts,
     exactly).  :func:`ordered_fold_counts` runs both steps, a timing
     harness one at a time (the scratch carries the partition from one to
     the other).  Counts no launch."""
-    import ctypes
-
     from flink_tpu_torch.kernels.build import scatter_fold_lib
     lib = scatter_fold_lib()
     n = int(slot_ids.shape[0])
     n_cells = int(counts[0].shape[0] if counts else planes[0][0].shape[0])
     bits, _, _ = scatter_plan(n, n_cells)
+    with _SCATTER_LAUNCH_LOCK:
+        _launch_steps(lib, slot_ids, sources, planes, counts, steps, n,
+                      n_cells, bits)
+
+
+def _launch_steps(lib, slot_ids, sources, planes, counts, steps: int, n: int,
+                  n_cells: int, bits: int) -> None:
+    """The enqueue of :func:`launch_ordered_fold_steps`, under
+    :data:`_SCATTER_LAUNCH_LOCK`."""
+    import ctypes
+
     scratch = scatter_fold_scratch(n, len(sources), slot_ids.device)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     src_ptrs = (vp * max(1, len(sources)))(*[s.data_ptr() for s in sources])

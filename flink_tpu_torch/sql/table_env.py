@@ -12,8 +12,8 @@ submission, like the reference's per-statement pipeline translation).
 CEP operator, the joins' device lane): ``None`` is the card and raises
 without one, so a query on the CPU asks for ``device="cpu"``.  Every
 environment it plans onto, the views' dry runs included, gets that device.
-The Kafka and Postgres connectors come with a later slice: their DDL
-raises ``NotImplementedError`` (``connectors.LATER``).
+The Postgres connector comes with a later slice: its DDL raises
+``NotImplementedError`` (``connectors.LATER``).
 """
 
 from __future__ import annotations
@@ -387,8 +387,48 @@ class TableEnvironment:
                 watermark_delay_ms=delay)
             self._sinks[name] = _FileSinkSpec(path, fmt)
             return
-        if conn in ("kafka", "postgres", "jdbc"):
-            raise later_connector("postgres" if conn == "jdbc" else conn)
+        if conn == "kafka":
+            topic = props.get("topic")
+            if not topic:
+                raise PlanError("kafka connector requires 'topic'")
+            bootstrap = props.get("properties.bootstrap.servers",
+                                  "127.0.0.1:9092")
+            host, _, port_s = bootstrap.partition(":")
+            port = int(port_s or 9092)
+            unbounded = props.get("scan.unbounded", "false") == "true"
+            fmt = props.get("format", "json")
+            decoder = None
+            is_cdc = fmt in ("debezium-json", "canal-json", "maxwell-json")
+            if is_cdc:
+                from flink_tpu_torch.formats.cdc import cdc_decoder
+                decoder = cdc_decoder(fmt)
+            elif fmt != "json":
+                raise PlanError(f"kafka format {fmt!r} not supported "
+                                f"(json, debezium-json, canal-json, "
+                                f"maxwell-json)")
+
+            def factory(env, _h=host, _p=port, _t=topic, _rt=rowtime,
+                        _dec=decoder):
+                from flink_tpu_torch.connectors.kafka import KafkaWireSource
+                return env.from_source(
+                    KafkaWireSource(_h, _p, _t, timestamp_column=_rt,
+                                    value_decoder=_dec),
+                    name=f"table:{name}")
+
+            # a CDC table IS a changelog: its rows carry the op column and
+            # downstream operators must fold retractions
+            self._catalog[name] = CatalogTable(
+                name, (["op"] + cols) if is_cdc else cols, factory,
+                rowtime=rowtime, watermark_delay_ms=delay,
+                bounded=not unbounded, changelog=is_cdc)
+            if not is_cdc:
+                self._sinks[name] = _KafkaSinkSpec(
+                    host, port, topic,
+                    key_column=props.get("sink.key-column"),
+                    num_partitions=int(props.get("sink.partitions", "1")))
+            return
+        if conn in ("postgres", "jdbc"):
+            raise later_connector("postgres")
         raise PlanError(f"unknown connector {conn!r} (have: filesystem, "
                         f"kafka, postgres)")
 
@@ -662,6 +702,29 @@ class _FileSinkSpec(_SinkSpec):
     def write(self, batches):
         from flink_tpu_torch.formats import writer_for
         return writer_for(self.fmt)(batches, self.path), self.path
+
+
+class _KafkaSinkSpec(_SinkSpec):
+    def __init__(self, host, port, topic, key_column=None,
+                 num_partitions=1):
+        self.host, self.port, self.topic = host, port, topic
+        self.key_column = key_column
+        self.num_partitions = num_partitions
+
+    def write(self, batches):
+        from flink_tpu_torch.connectors.kafka import KafkaWireSink
+        sink = KafkaWireSink(self.host, self.port, self.topic,
+                             key_column=self.key_column,
+                             num_partitions=self.num_partitions)
+        sink.open(None)
+        n = 0
+        try:
+            for b in batches:
+                sink.write_batch(b)
+                n += len(b)
+        finally:
+            sink.close()
+        return n, f"kafka://{self.host}:{self.port}/{self.topic}"
 
 
 class _DdlResult:

@@ -17,8 +17,8 @@ it the same way).
 Each run also records what the API hands back at its boundary, on the
 case's own thread, and the port's record must equal JAX's, floats bit for
 bit.  A case that runs subtask threads, channels, heartbeats or RPC (a
-MiniCluster job, a ``Subtask`` driven by hand) records its job results'
-states only: its checkpoint ids, restart timing and the order in which
+MiniCluster job, a ``Subtask`` driven by hand, a scenario's legs) records
+its job results' states only: its checkpoint ids, restart timing and the order in which
 threads interleave are the wall clock's, and its own assertions (rows as a
 multiset, exactly-once sums, what a restore holds) carry the comparison.
 Every other case records query rows (a multiset), operator outputs and
@@ -45,6 +45,7 @@ import pathlib
 import re
 import sys
 import threading
+import time
 import types
 
 import numpy as np
@@ -70,9 +71,6 @@ ALSO = {"test_streams_advanced": ("test_window_join_parallel_cluster",
 #: ``tests/test_torch_storage.py`` (the eight storage cases of
 #: ``test_chaos.py`` it mirrors)
 OWN_COUNTERPART = {
-    # an unused import of the partitioned log (item 12):
-    # tests/test_torch_rescale_cases.py runs the rest of it
-    "test_adaptive::test_adaptive_rescale_mid_job",
     # ROADMAP Queue C item 6: the autoscaler's decisions race the
     # machine's load in either package; tests/test_torch_rescale_cases.py
     # runs both packages with the decisions scripted
@@ -81,18 +79,31 @@ OWN_COUNTERPART = {
     "idempotent",
     "test_rescale_under_fire::test_acceptance_rollback_on_redeploy_failure",
     "test_rescale_under_fire::test_acceptance_worker_killed_mid_redeploy",
-    # item 12: the fraud scenario (tests/test_torch_ha_cases.py)
-    "test_ha::test_coordinator_kill_at_peak_recovers_exactly_once",
+    # ROADMAP Queue C item 6: its rescale races the machine's load in
+    # either package; tests/test_torch_scenarios_acceptance.py runs both
+    # packages with the autoscaler's decisions scripted
+    "test_scenarios::test_fraud_detection_exactly_once_under_kill",
     # its kill races the job's end in either package (the dead worker's
     # region may have finished first): tests/test_torch_distributed_cases.py
     # runs it on both with the map slowed so the kill lands mid-run
     "test_distributed::test_region_scoped_recovery_survivor_regions_never_"
     "restart",
-    # item 12: the CLI's job-script, SQL and info subcommands
-    # (tests/test_torch_distributed_cases.py)
+    # the CLI's job-script, SQL and info subcommands in tier-1
+    # (the reference's file is all slow): the port's run and sql ask for
+    # the CPU (tests/test_torch_distributed_cases.py)
     "test_coordination::test_cli_run_script",
     "test_coordination::test_cli_sql",
     "test_coordination::test_cli_info",
+    # the port's image is a CUDA base whose nvcc builds the kernels, and
+    # ships csrc/ inside its package (no native/): tests/test_torch_edges_
+    # cases.py runs these with the port's base and sources asserted
+    "test_docker_deploy::TestRendering::test_dockerfile_structure",
+    "test_docker_deploy::TestRendering::test_write_context_is_self_"
+    "contained",
+    # workers started by hand run on the card unless told --device cpu
+    # (tests/test_torch_edges_cases.py)
+    "test_deploy::test_external_workers_register_and_run",
+    "test_deploy::test_stray_connection_does_not_kill_registration",
     # 4 M records through the port's keyed sum on the CPU meet the case's
     # 120 s timeout under load: tests/test_torch_rest_cases.py runs it on
     # both packages over 1 M
@@ -100,11 +111,6 @@ OWN_COUNTERPART = {
     # its size bound races the end-of-input fire in either package:
     # tests/test_torch_checkpoint.py runs it on both with the race taken out
     "test_incremental_checkpoints::test_minicluster_incremental_end_to_end",
-    # item 12: the partitioned log connector
-    "test_end_to_end_exactly_once::test_log_to_log_exactly_once_with_chaos",
-    "test_end_to_end_exactly_once::test_log_to_log_unaligned_checkpoints",
-    "test_end_to_end_exactly_once::"
-    "test_commit_crash_window_not_truncated_by_new_attempt",
     # tests/test_torch_storage.py
     "test_chaos::test_retrying_storage_absorbs_transient_flakes",
     "test_chaos::test_retrying_storage_backoff_is_capped",
@@ -171,7 +177,8 @@ THREADED_RECORDED = {"MiniCluster.execute", "ProcessCluster.run"}
 
 #: a case whose source names one of these runs threads
 THREADED = re.compile(
-    r"execute_cluster|MiniCluster|ProcessCluster|Subtask\(|SourceSubtask|"
+    r"execute_cluster|MiniCluster|ProcessCluster|ScenarioHarness|"
+    r"Subtask\(|SourceSubtask|"
     r"Heartbeat|Gateway|RpcEndpoint|LocalChannel|_run_backpressured|"
     r"_window_job|_backpressure_job|threading|Thread\(")
 
@@ -330,12 +337,6 @@ def _source(ref: str, side: str, patches=()) -> str:
         src = src.replace(old, new)
     if side == "port":
         src = re.sub(r"\bflink_tpu\b", "flink_tpu_torch", src)
-        # the partitioned log waits for item 12: only the cases that use
-        # it name it, and they are OWN_COUNTERPART
-        src = re.sub(r"^from flink_tpu_torch\.connectors\.partitioned_log "
-                     r"import \([^)]*\)\n",
-                     "LogSink = LogSource = PartitionedLog = None\n", src,
-                     flags=re.M)
     return src
 
 
@@ -497,12 +498,15 @@ def _run(ref, cls, fn_name, params, side, tmp_path_factory, patches=()):
 
 
 def check_case(ref, cls, fn_name, params, tmp_path_factory, pin,
-               patches=()):
+               patches=(), port_patches=()):
     """One reference case through both packages; the records must be
-    equal.  A counterpart passes ``patches`` (see :func:`_source`)."""
+    equal.  A counterpart passes ``patches`` (see :func:`_source`), and
+    ``port_patches`` for the port's run alone (what the port must be told
+    that JAX is not, such as a process's ``--device``)."""
     pin(taxed=False, shards=1, super_shards=1, depth=1, probe=False)
     want = _run(ref, cls, fn_name, params, "jax", tmp_path_factory, patches)
-    got = _run(ref, cls, fn_name, params, "port", tmp_path_factory, patches)
+    got = _run(ref, cls, fn_name, params, "port", tmp_path_factory,
+               tuple(patches) + tuple(port_patches))
     assert len(got) == len(want), (got[-1:], want[-1:])
     for i, (g, w) in enumerate(zip(got, want)):
         assert g == w, f"record {i} of {fn_name} differs"
@@ -519,19 +523,63 @@ def test_reference_case(ref, cls, fn_name, params, tmp_path_factory,
 # the counterparts of OWN_COUNTERPART's cases
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["partitioned_log"])
-def test_partitioned_log_cases_wait_for_12(name):
-    """The three ``PartitionedLog`` cases of
-    ``test_end_to_end_exactly_once.py``: the log connector comes with
-    ROADMAP Queue A item 12, and importing it raises naming the item."""
-    from flink_tpu_torch import connectors
-    with pytest.raises(NotImplementedError, match=r"\(12\)"):
-        getattr(connectors, name)
-
-
 def test_s3_storage_waits_for_12():
     """The S3 cases of ``test_storage_contract.py``: S3 storage comes with
     ROADMAP Queue A item 12."""
     from flink_tpu_torch import filesystems
     with pytest.raises(NotImplementedError, match=r"\(12\)"):
         filesystems.s3
+
+
+@pytest.mark.parametrize("side", ["jax", "port"])
+def test_checkpoint_waits_for_every_running_task(side):
+    """A pending checkpoint whose ack expectation finished reports have
+    shrunk to nothing while a subtask still runs: JAX's MiniCluster
+    completes it with no state for that subtask (a hole a rescale then
+    restores); the port's waits until every task of the deployment has
+    acked or finished with its final snapshot, and completes then."""
+    import importlib
+    pkg = "flink_tpu" if side == "jax" else "flink_tpu_torch"
+    api = importlib.import_module(f"{pkg}.datastream.api")
+    mini = importlib.import_module(f"{pkg}.cluster.minicluster")
+    sources = importlib.import_module(f"{pkg}.connectors.sources")
+    gate = threading.Event()
+
+    def make(split, b, size):
+        if b == 1:
+            gate.wait(60)          # the source holds before its 2nd batch
+        return {"k": np.arange(size) % 5, "v": np.ones(size)}
+
+    env = api.StreamExecutionEnvironment(
+        **({"device": "cpu"} if side == "port" else {}))
+    env.set_parallelism(1)
+    (env.from_source(sources.GeneratorSource(make, 3, batch_size=16))
+        .map(lambda c: c).key_by("k").sum("v").collect())
+    plan = env.get_stream_graph("hole").to_plan()
+    mc = mini.MiniCluster()
+    out = {}
+    th = threading.Thread(target=lambda: out.update(r=mc.execute(
+        plan, timeout_s=60)), daemon=True)
+    th.start()
+    try:
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and not (
+                len(mc._tasks) == 2
+                and all(t.state == "RUNNING" for t in mc._tasks)):
+            time.sleep(0.01)
+        source, running = mc._tasks    # the keyed sum keeps running
+        cid = mc.trigger_checkpoint()
+        assert cid is not None
+        p = mc._pending
+        # finished reports of the source's key (its task still runs, held
+        # before its barrier) drive the expectation down to the acks
+        for _ in range(p.expected):
+            mc.task_state_changed(source.vertex_uid, source.subtask_index,
+                                  "FINISHED", None)
+        completed = cid in mc._completed_ids
+        assert completed == (side == "jax"), (side, p.expected,
+                                              len(p.acks))
+    finally:
+        gate.set()
+        th.join(timeout=60)
+    assert out["r"].state == "FINISHED"

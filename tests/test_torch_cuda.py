@@ -2066,3 +2066,52 @@ def test_live_view_on_the_card_equals_the_cpu(cuda_device):
     assert got == want
     assert gsums == gphase and wsums == wphase
     assert {"probe", "device_dispatch", "fire"} <= set(gphase)
+
+
+def test_scatter_fold_from_many_threads_on_one_stream(cuda_device):
+    """Threads folding at once on the default stream (a cluster's subtask
+    lanes) share ``scatter_fold``'s per-stream scratch: each call's
+    partition and fold launches are enqueued together, so every thread's
+    planes and counts equal the plain version's bit for bit.  Eight threads
+    fold 1500 small batches each into planes of their own."""
+    import threading
+    rng = np.random.default_rng(23)
+    n_cells, threads, calls = 1 << 14, 8, 1500
+    batches = [[(rng.integers(0, n_cells, int(rng.integers(1, 64))),
+                 rng.random(64)) for _ in range(calls)]
+               for _ in range(threads)]
+    planes = [torch.zeros(n_cells, dtype=torch.float64, device=cuda_device)
+              for _ in range(threads)]
+    counts = [torch.zeros(n_cells, dtype=torch.int32, device=cuda_device)
+              for _ in range(threads)]
+    go = threading.Barrier(threads)
+    errors = []
+
+    def fold(t):
+        try:
+            go.wait()
+            for ids, vals in batches[t]:
+                ids_t = torch.from_numpy(ids).to(cuda_device)
+                vals_t = torch.from_numpy(vals[:ids.size]).to(cuda_device)
+                sc.ordered_fold_counts((planes[t],), counts[t], ids_t,
+                                       (vals_t,), ("add",))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    workers = [threading.Thread(target=fold, args=(t,))
+               for t in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for t in range(threads):
+        want = torch.zeros(n_cells, dtype=torch.float64)
+        want_c = torch.zeros(n_cells, dtype=torch.int32)
+        for ids, vals in batches[t]:
+            (want,), want_c = sc.scatter_fold_counts(
+                (want,), want_c, torch.from_numpy(ids),
+                (torch.from_numpy(vals[:ids.size]),), ("add",))
+        assert torch.equal(counts[t].cpu(), want_c)
+        assert planes[t].cpu().numpy().tobytes() == want.numpy().tobytes()

@@ -237,18 +237,54 @@ def _alive(pid: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# the reference's CLI cases (item 12)
+# the reference's CLI cases
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("cmd", ["run", "sql", "info"])
-def test_cli_commands_wait_for_12(cmd):
+#: the CPU for the port's job-script and SQL runners: a device nobody names
+#: is the card there, and this machine has none (JAX's CLI has no flag)
+CLI_CPU = {
+    "test_cli_run_script": (
+        ('[sys.executable, "-m", "flink_tpu", "run", str(script)]',
+         '[sys.executable, "-m", "flink_tpu", "run", str(script), '
+         '"--device", "cpu"]'),),
+    "test_cli_sql": (
+        ('"--table", f"t={p}"]', '"--table", f"t={p}", "--device", "cpu"]'),),
+    "test_cli_info": (),
+}
+
+
+@pytest.mark.parametrize("fn_name", sorted(CLI_CPU))
+def test_cli_command_on_both_packages(fn_name, tmp_path_factory,
+                                      verdicts):  # noqa: F811
     """``test_coordination.py::test_cli_run_script``, ``test_cli_sql`` and
-    ``test_cli_info`` drive the job-script, SQL and info subcommands,
-    which come with the CLI of the host-only edges (ROADMAP Queue A item
-    12): the port's CLI refuses them naming the item."""
+    ``test_cli_info`` in tier-1 (the reference's file is all ``slow``):
+    ``python -m <package> run|sql|info`` as subprocesses, the port's run
+    and sql told ``--device cpu``; every assertion as written (``info``
+    reports ``native layer: ok`` for the port's host C libraries)."""
+    check_case("test_coordination", None, fn_name, {}, tmp_path_factory,
+               verdicts, port_patches=CLI_CPU[fn_name])
+
+
+def test_cli_run_and_sql_default_to_the_card(tmp_path):
+    """Without ``--device``, the port's ``run`` and ``sql`` run on the card
+    and fail without one (no CPU fallback; fresh processes, so no test's
+    device patch reaches them); ``logservice`` and ``s3`` refuse naming
+    item 12."""
     from flink_tpu_torch.__main__ import main
-    with pytest.raises(NotImplementedError, match=r"\(12\)"):
-        main([cmd, "x"] if cmd != "info" else [cmd])
+    script = tmp_path / "job.py"
+    script.write_text("import numpy as np\n"
+                      "env.from_collection(columns={'k': np.arange(4)})"
+                      ".key_by('k').sum('k').print()\n")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    for args in (["run", str(script)], ["sql", "SELECT 1"]):
+        out = subprocess.run([sys.executable, "-m", "flink_tpu_torch", *args],
+                             capture_output=True, text=True, timeout=300,
+                             env=env)
+        assert out.returncode != 0 and "CUDA device" in out.stderr, \
+            (args, out.stdout[-500:], out.stderr[-500:])
+    for cmd in ("logservice", "s3"):
+        with pytest.raises(NotImplementedError, match=r"\(12\)"):
+            main([cmd])
 
 
 def _finished_rest_job(side, n=2000):

@@ -10,8 +10,11 @@ directory either package wrote serves the other.  The data plane's batches
 travel as the port's FTB frames (``native/codec.py`` over
 ``csrc/codec.cc``), so a JAX writer and a port reader (and the other way
 round) share one channel.  ``test_coordinator_kill_at_peak_recovers_
-exactly_once`` drives the fraud scenario, which comes with the host-only
-edges (ROADMAP Queue A item 12): its counterpart holds the refusal.
+exactly_once`` drives the fraud scenario's HA kill (``scenarios/
+harness.py`` ``run_ha_kill``) on each package: leader A killed at its lease
+renewal at the diurnal peak, standby B at epoch + 1 restoring from the HA
+pointer, the zombie's completions and a stale-epoch 2PC commit fenced, the
+committed Kafka rows equal to an unfaulted control's.
 """
 
 import numpy as np
@@ -27,18 +30,6 @@ from test_torch_cluster_cases import cases, check_case
 def test_reference_case(ref, cls, fn_name, params, tmp_path_factory,
                         verdicts):  # noqa: F811 — the fixture
     check_case(ref, cls, fn_name, params, tmp_path_factory, verdicts)
-
-
-@pytest.mark.chaos
-def test_coordinator_kill_at_peak_waits_for_12():
-    """``test_ha.py::test_coordinator_kill_at_peak_recovers_exactly_once``
-    runs the fraud scenario's HA kill (``scenarios/``), which comes with
-    the host-only edges (ROADMAP Queue A item 12); the port has no
-    ``scenarios`` package yet.  The kill itself (``KillCoordinator`` at the
-    lease point, a standby at epoch + 1, fenced zombie completions) runs
-    above in the reference's other chaos cases."""
-    with pytest.raises(ModuleNotFoundError):
-        __import__("flink_tpu_torch.scenarios")
 
 
 # ---------------------------------------------------------------------------

@@ -78,16 +78,3 @@ def test_acceptance_with_scripted_decisions(fn_name, tmp_path_factory,
     decisions scripted (see the module's docstring)."""
     check_case("test_rescale_under_fire", None, fn_name, {},
                tmp_path_factory, verdicts, patches=((POLICY, SCRIPTED),))
-
-
-@pytest.mark.slow
-def test_adaptive_rescale_mid_job_without_the_log_import(
-        tmp_path_factory, verdicts):  # noqa: F811
-    """``test_adaptive.py::test_adaptive_rescale_mid_job`` imports the
-    partitioned log (``LogSink``, ``PartitionedLog``), which comes with the
-    host-only edges (ROADMAP Queue A item 12), and never uses it: both
-    packages run the case without that line."""
-    check_case("test_adaptive", None, "test_adaptive_rescale_mid_job", {},
-               tmp_path_factory, verdicts, patches=((
-                   "    from flink_tpu.connectors.partitioned_log import "
-                   "LogSink, PartitionedLog\n", ""),))

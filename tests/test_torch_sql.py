@@ -537,20 +537,16 @@ def test_count_distinct_parallel_cluster_waits_for_the_cluster_runtime():
 
 
 @pytest.mark.parametrize("ddl", [
-    "CREATE TABLE cdc (k STRING, v BIGINT) WITH ('connector' = 'kafka', "
-    "'topic' = 'cdc', 'properties.bootstrap.servers' = '127.0.0.1:9', "
-    "'format' = 'debezium-json')",
-    "CREATE TABLE numbers (n BIGINT) WITH ('connector' = 'kafka', "
-    "'topic' = 'numbers', 'properties.bootstrap.servers' = '127.0.0.1:9')",
     "CREATE TABLE people (id BIGINT, age BIGINT) WITH ("
     "'connector' = 'postgres', 'hostname' = '127.0.0.1', 'port' = '9', "
     "'table-name' = 'people', 'scan.partition.column' = 'id')",
     "CREATE TABLE people (id BIGINT) WITH ('connector' = 'jdbc', "
     "'table-name' = 'people')",
-], ids=["kafka-cdc", "kafka", "postgres", "jdbc"])
+], ids=["postgres", "jdbc"])
 def test_kafka_and_postgres_ddl_wait_for_the_connectors(ddl, tmp_path):
-    """``test_sql_ddl.py``'s Kafka and Postgres cases: the DDL raises naming
-    ROADMAP item 12, registers nothing and persists nothing."""
+    """``test_sql_ddl.py``'s Postgres case: the DDL raises naming ROADMAP
+    item 12, registers nothing and persists nothing (the Kafka cases run
+    through ``tests/test_torch_sql_cases.py``'s harness)."""
     te = ptable.TableEnvironment(device="cpu", catalog_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match=r"\(12\)"):
         te.execute_sql(ddl)
@@ -558,7 +554,7 @@ def test_kafka_and_postgres_ddl_wait_for_the_connectors(ddl, tmp_path):
     assert not (tmp_path / "catalog.json").exists()
 
 
-@pytest.mark.parametrize("name", ["postgres", "kafka"])
+@pytest.mark.parametrize("name", ["postgres"])
 def test_postgres_lookup_function_waits_for_the_connectors(name):
     """``test_temporal_lookup_join.py``'s Postgres lookup case: the
     connector module raises naming ROADMAP item 12; any other lookup
