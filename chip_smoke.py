@@ -446,14 +446,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``delta_bytes`` and duration p50/p99, recovery ms, and each subtask's
    resolved lane.  51b, 52b launch ``probe``; every lane ``scatter_fold``.
 9q. main path 53 (slice 21), after path 52: the north star as a ``ProcessCluster`` job on the
-   card: ``PC_BATCHES`` (48) batches of the main stream in one split
+   card: ``PC_BATCHES`` (24) batches of the main stream in one split
    (``chip_smoke:job53``, which every worker imports), parallelism 2 on 2
    worker processes, each spawned with the coordinator's ``--device``,
    pinning path 3's lane (the host tier, the probe on) and counting its
    own launches, start-up and data-plane bytes into a file at its exit;
    the source's worker sends half the keyed records to the other over the
    TCP data plane; aligned incremental checkpoints every 250 ms into
-   ``IncrementalCheckpointStorage``; after two completed cuts, while
+   ``IncrementalCheckpointStorage``; after the first completed cut, while
    window subtask 0 runs, its worker is SIGKILLed, respawned on the card
    and restored in place while the other worker keeps its pid.  Checks:
    ``FINISHED`` with one recovery; every (key, window) present, every row
@@ -498,8 +498,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    off and on in alternating pairs.  After the A/B phases, paths 56-57
    (slice 23) run the scenario suite over the Kafka edge, each with its
    own Kafka-wire broker on 127.0.0.1 and the calibration verdicts
-   dropped first: 56a ``feature_store`` at its full tier (500,000 records,
-   250,007 keys, every nemesis, routed binary reads at 2000 lookups/s),
+   dropped first: 56a ``feature_store`` at its full tier's widths over
+   ``FEATURE_SCENARIO_RECORDS`` (125,000) records (250,007 keys, every
+   nemesis, routed binary reads at 2000 lookups/s),
    56b ``sessionized_analytics`` at the full tier's widths over
    ``SESSION_SCENARIO_RECORDS`` records with its SQL cross-check, 57 the
    fraud scenario's HA kill at the peak.  Each must end ``ok`` (both legs
@@ -507,6 +508,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    kernel of the port and leave no thread of its own running; each prints
    its legs' walls, peak records/s, the autoscaler's p99, its rescales,
    committed rows, reads and nemeses.
+9s. path 58 (slice 24), after slice 23: the host edges on the card.  58a
+   starts ``python -m flink_tpu_torch logservice`` and ``... s3`` as
+   subprocesses, produces the main stream's first ``EDGE_BATCHES`` (8)
+   batches into a 2-partition topic through ``LogServiceSink`` (keys
+   routed by hash), and runs path 52a's job on a MiniCluster (parallelism
+   2, path 5's lane pinned, incremental checkpoints every 100 ms, window
+   subtask 0 crashed once after the first completed cut) from
+   ``LogServiceSource`` into
+   ``FileSink(format="parquet", filesystem=S3Client(...))``.  It lists the
+   bucket over SigV4, reads every committed part with ``read_parquet`` and
+   holds the rows to ``reference_f32`` bit for bit, every (key, window)
+   once, no ``.inprogress``/``.pending`` part left; one fire's first
+   65,536 rows go through Avro, ORC and SequenceFile and read back bit for
+   bit.  58b holds the first 2^16 records in an in-process
+   ``PostgresWireServer`` with SCRAM authentication and runs
+   ``TableEnvironment(device="cuda")`` with ``'connector' = 'postgres'``
+   DDL: ``INSERT INTO`` a sink table ``SELECT`` a ``TUMBLE`` sum, read
+   back with ``PostgresWireClient`` and held to numpy.  Each leg launches
+   ``scatter_fold``, prints its wall, records/s and the bytes through each
+   service, and leaves no thread or process of its own running.
 
 Each phase and path prints its command time on a line of its own.
 
@@ -7189,11 +7210,12 @@ def path51(device, card, batches):
     return total, numbers
 
 
-def crash_window_subtask(chaos, uid, completed):
+def crash_window_subtask(chaos, uid, completed,
+                         after=CRASH_AFTER_CHECKPOINTS):
     """A ``CrashOnceAt(1)`` on ``subtask.run`` that matches the window
-    vertex's subtask 0 only, once ``completed()`` checkpoints have
-    completed: the crash lands inside the job, after a restorable cut.
-    ``at`` is the firing of that subtask it failed, ``t`` when."""
+    vertex's subtask 0 only, once ``completed()`` checkpoints (``after``)
+    have completed: the crash lands inside the job, after a restorable
+    cut.  ``at`` is the firing of that subtask it failed, ``t`` when."""
 
     class Crash(chaos.CrashOnceAt):
         seen, at, t = 0, None, None
@@ -7202,7 +7224,7 @@ def crash_window_subtask(chaos, uid, completed):
             if ctx.get("task") != uid or ctx.get("subtask") != 0:
                 return False
             self.seen += 1
-            if self.at is None and completed() >= CRASH_AFTER_CHECKPOINTS:
+            if self.at is None and completed() >= after:
                 self.at, self.t = self.seen, time.perf_counter()
                 return True
             return False
@@ -7481,15 +7503,16 @@ SLICE21 = ("path 53",)
 PC_WORKERS = 2
 PC_LANE = "path 3"
 PC_CHECKPOINT_MS = JOB_CHECKPOINT_MS
-#: the job's depth: the main stream run on to twice its batches.  A
-#: channel holds 32 elements (16 batches, each with its watermark), so an
-#: aligned barrier waits behind up to 16 batches: over 24 batches the
-#: second cut completes (~3 s a cut on the H100, its storage included) only
-#: after window subtask 0 has finished, and the kill would find nothing to
-#: recover; over 48 about 30 batches remain behind it (over 36 window
-#: subtask 0 had finished when cut 2 completed at source offset 19: PR
-#: 22's call 3)
-PC_BATCHES = 2 * N_BATCHES
+#: the job's depth, the main stream's batches, and the completed cuts the
+#: kill waits for.  A channel holds 32 elements (16 batches, each with its
+#: watermark), so an aligned barrier waits behind up to 16 batches: the
+#: second cut completes (~3 s a cut on the H100, its storage included)
+#: near source offset 19 (over 24 and 36 batches window subtask 0 had
+#: finished by then on the H100), the first near offset 0 or 1.  So the
+#: kill follows the first cut, over 24 batches (48 batches and the second
+#: cut ran the whole smoke past its time limit)
+PC_BATCHES = N_BATCHES
+PC_KILL_AFTER = 1
 PC_OUT = "CHIP_SMOKE_PATH53_OUT"
 #: ... and the one that carries the stream's sizes (the smoke's, so a
 #: rehearsal's shrunk sizes reach the workers too)
@@ -7619,8 +7642,8 @@ def job53_rows(rows):
 
 
 def kill_after_checkpoints(pc, index, source_uid, victim, killed):
-    """Note each completed cut's source offset; once
-    ``CRASH_AFTER_CHECKPOINTS`` cuts have completed while subtask
+    """Note each completed cut's source offset; once ``PC_KILL_AFTER``
+    cuts have completed while subtask
     ``victim`` still runs, SIGKILL worker ``index``, its host
     (``killed``: every worker's pid then, when, the cut it will
     restore)."""
@@ -7638,7 +7661,7 @@ def kill_after_checkpoints(pc, index, source_uid, victim, killed):
                          round(time.monotonic() - t0, 3),
                          pc._states.get(victim)))
         procs = getattr(pc, "_procs", None)
-        if len(done) >= CRASH_AFTER_CHECKPOINTS and procs \
+        if len(done) >= PC_KILL_AFTER and procs \
                 and all(p.poll() is None for p in procs) \
                 and pc._states.get(victim) == "RUNNING":
             killed["pids"] = [p.pid for p in procs]
@@ -7654,7 +7677,8 @@ def path53(device, card, earlier):
     (``PC_BATCHES`` batches of the main stream), two worker processes (half
     the keyed records cross between them over the TCP data plane), aligned
     incremental checkpoints, the worker that hosts window subtask 0
-    SIGKILLed after two completed checkpoints and recovered in place."""
+    SIGKILLed after ``PC_KILL_AFTER`` completed checkpoints and recovered
+    in place."""
     import tempfile
     import threading
 
@@ -7716,14 +7740,18 @@ def path53(device, card, earlier):
             killed["stop"] = True
             chaos_thread.join()
             # the windows open at the restored cut: their panes restart from
-            # the snapshot's f32 cells, as the reference restores them
+            # the snapshot's f32 cells, as the reference restores them.  A
+            # cut can come before a window subtask's first record (the first
+            # cut near source offset 0 or 1): its snapshot holds no pane
+            # (``max_pane`` None), so no window of it was open
             snap = killed.pop("tree", None)
             if snap is not None:
                 cut_offset = snap[source_uid]["subtasks"][0].get(
                     "source_offset")
                 for sub in snap[window[0]]["subtasks"]:
                     for op in sub["operator"].values():
-                        if isinstance(op, dict) and "pane_base" in op:
+                        if isinstance(op, dict) and "pane_base" in op \
+                                and op.get("max_pane") is not None:
                             cut |= {p * WINDOW_MS for p in range(
                                 op["pane_base"], op["max_pane"] + 1)}
                 del snap
@@ -7782,7 +7810,7 @@ def path53(device, card, earlier):
           f"call; cuts completed (id, source offset in batches, source "
           f"finished, s after the start, window subtask 0's state) "
           f"{killed.get('cuts')}; worker {victim} (window subtask "
-          f"0) SIGKILLed after {CRASH_AFTER_CHECKPOINTS} and respawned "
+          f"0) SIGKILLed after {PC_KILL_AFTER} and respawned "
           f"(recoveries {res['recoveries']}), pids {killed.get('pids')} -> "
           f"{final_pids}; restored cut {killed.get('cut')} at source offset "
           f"{cut_offset} of {len(batches)} batches; recovery "
@@ -7802,7 +7830,7 @@ def path53(device, card, earlier):
           f"path 53: the job {res['state']}: {res['error']}")
     check(killed.get("pids") is not None, "path 53: the kill never fired: "
           f"{len(pc._completed_ids)} checkpoints completed, not "
-          f"{CRASH_AFTER_CHECKPOINTS} while window subtask 0 ran")
+          f"{PC_KILL_AFTER} while window subtask 0 ran")
     check(res["recoveries"] == 1, f"path 53: recoveries "
           f"{res['recoveries']}")
     check(final_pids[source] == killed["pids"][source]
@@ -8375,6 +8403,14 @@ SLICE23 = ("path 56a", "path 56b", "path 57")
 #: keys, batches, gap and read rate are the full tier's; 100,000 before the
 #: smoke's final cuts)
 SESSION_SCENARIO_RECORDS = 60_000
+#: 56a's records, cut from the full tier's 500,000 for the time limit (its
+#: keys, batches, windows, nemeses and read rate are the full tier's).  On
+#: an NVIDIA H100 80GB HBM3 at 700.00 W the whole smoke ran 1332.3 s with
+#: the full tier, and 905.4 and 984.4 s at 250,000, where 56a took 55.4 and
+#: 91.4 s (its lanes calibrated the probe off, then on): its legs' time
+#: follows the records (the diurnal curve paces each batch), so a quarter
+#: of the tier
+FEATURE_SCENARIO_RECORDS = 125_000
 #: seconds a path's threads (brokers, the autoscaler, queryable servers,
 #: subtasks) get to end after the harness returns
 THREAD_GRACE_S = 30.0
@@ -8478,15 +8514,17 @@ def _report_faulted(label, res) -> None:
 
 
 def path56a(card):
-    """Path 56a: ``feature_store`` at its full tier, as ``bench.py``'s full
-    run does it: 500,000 records over 250,007 uniform keys, the faulted leg
+    """Path 56a: ``feature_store`` at its full tier's widths, as
+    ``bench.py``'s full run takes it, over ``FEATURE_SCENARIO_RECORDS``
+    records (of the tier's 500,000) over 250,007 uniform keys, the faulted leg
     under the autoscaler (2-4) with every nemesis (a worker kill,
     ``KillDuringRescale``, ``SlowConsumer`` bursts, ``WedgedDevice`` on
     ``device.dispatch`` healed after 2 s) and routed binary reads of 128
     keys at 2000 lookups/s, the control leg unpaced."""
     label = "path 56a"
     launches, res = scenario_path(label, card, _scenario_run(
-        "feature_store", smoke=False, full_nemeses=True))
+        "feature_store", smoke=False, records=FEATURE_SCENARIO_RECORDS,
+        full_nemeses=True))
     _report_faulted(label, res)
     q = res["queryable"]
     check(q["found"] > 0 and q["routed_batches"] > 0
@@ -8565,6 +8603,497 @@ def slice23(card):
               f"time")
     print(f"slice 23 took {time.perf_counter() - t0:.1f} s of command time")
     return launches, numbers
+
+
+SLICE24 = ("path 58",)
+#: 58a's cut of the north-star stream: the first 8 of ``bench.py``'s 64
+#: batches (the main stream's first 8)
+EDGE_BATCHES = 8
+EDGE_PARTITIONS = 2
+EDGE_TOPIC = "north-star"
+EDGE_BUCKET = "north-star-sums"
+EDGE_KEYS = ("AKIA_CHIP_SMOKE", "chip-smoke-secret")
+#: rows of one fire through each of the other formats
+EDGE_FORMAT_ROWS = 1 << 16
+#: 58b's cut: the stream's first 2^16 records in the Postgres table
+EDGE_SQL_RECORDS = 1 << 16
+EDGE_SQL_USER = ("smoke", "chip-smoke-pw")
+#: seconds a CLI service gets to print its address
+EDGE_SERVICE_START_S = 120.0
+#: 58a's cuts: the job runs ~1.4 s on the card, so a cut every 100 ms,
+#: and the crash after the first completed one, land inside it (with
+#: path 52's 250 ms and two cuts the window subtask had folded its last
+#: batch first)
+EDGE_CHECKPOINT_MS = 100
+EDGE_CRASH_AFTER = 1
+EDGE_SQL = (
+    "INSERT INTO sums SELECT k, TUMBLE_START(ts, INTERVAL '5' SECOND) AS ws,"
+    " SUM(v) AS s, COUNT(*) AS n FROM events "
+    "GROUP BY k, TUMBLE(ts, INTERVAL '5' SECOND)")
+
+
+@contextlib.contextmanager
+def cli_services(label, tmp, commands):
+    """Each ``(cmd, *args)`` of ``commands`` started as a user starts it,
+    ``python -m flink_tpu_torch <cmd> <args> --port 0``, all at once;
+    yields their URLs, the address each prints first.  Every process is
+    stopped and waited for on the way out, whatever happened."""
+    import select
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    try:
+        for cmd, *args in commands:
+            with open(os.path.join(tmp, f"{cmd}.stderr"), "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-u", "-m", "flink_tpu_torch", cmd,
+                     *args, "--port", "0"], cwd=root,
+                    stdout=subprocess.PIPE, stderr=err, text=True))
+        urls = []
+        deadline = time.monotonic() + EDGE_SERVICE_START_S
+        for (cmd, *_args), proc in zip(commands, procs):
+            ready, _, _ = select.select(
+                [proc.stdout], [], [], max(0.0, deadline - time.monotonic()))
+            line = proc.stdout.readline() if ready else ""
+            if " on http://" not in line:
+                with open(os.path.join(tmp, f"{cmd}.stderr")) as err:
+                    fail(f"{label}: `python -m flink_tpu_torch {cmd}` did "
+                         f"not start: {line!r}; {err.read()[-2000:]}")
+            urls.append(line.split(" on ", 1)[1].split()[0])
+        yield urls
+    finally:
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+
+
+@contextlib.contextmanager
+def built(cls, out: list):
+    """Every instance of ``cls`` built inside the block is appended to
+    ``out``."""
+    orig = cls.__init__
+
+    def init(self, *args, **kwargs):
+        orig(self, *args, **kwargs)
+        out.append(self)
+
+    cls.__init__ = init
+    try:
+        yield
+    finally:
+        cls.__init__ = orig
+
+
+@contextlib.contextmanager
+def http_bytes(out: dict):
+    """Bytes this process sends to and reads from each HTTP service
+    (``out["host:port"] = [sent, received]``) during the block: the
+    clients of the log service and S3 call ``urllib.request.urlopen``."""
+    import threading
+    import urllib.parse
+    import urllib.request
+    lock = threading.Lock()
+    orig = urllib.request.urlopen
+
+    def count(netloc, i, n):
+        with lock:
+            out.setdefault(netloc, [0, 0])[i] += n
+
+    def urlopen(req, *args, **kwargs):
+        url = req.full_url if isinstance(req, urllib.request.Request) \
+            else req
+        netloc = urllib.parse.urlsplit(url).netloc
+        data = getattr(req, "data", None)
+        count(netloc, 0, len(data) if data else 0)
+        resp = orig(req, *args, **kwargs)
+        read = resp.read
+
+        def counted(*a, **k):
+            chunk = read(*a, **k)
+            count(netloc, 1, len(chunk))
+            return chunk
+
+        resp.read = counted
+        return resp
+
+    urllib.request.urlopen = urlopen
+    try:
+        yield
+    finally:
+        urllib.request.urlopen = orig
+
+
+class CountingSocket:
+    """A server's side of one connection, its bytes counted into
+    ``counts`` (``[received, sent]``)."""
+
+    def __init__(self, sock, counts, lock):
+        self._sock, self._counts, self._lock = sock, counts, lock
+
+    def recv(self, n, *args):
+        data = self._sock.recv(n, *args)
+        with self._lock:
+            self._counts[0] += len(data)
+        return data
+
+    def sendall(self, data, *args):
+        with self._lock:
+            self._counts[1] += len(data)
+        return self._sock.sendall(data, *args)
+
+    def __getattr__(self, name):
+        return getattr(self._sock, name)
+
+
+class Columns:
+    """Rows read back from files, as ``check_job_rows`` reads a sink."""
+
+    def __init__(self, batches):
+        self.cols = {c: np.concatenate([np.asarray(b.column(c))
+                                        for b in batches])
+                     for c in batches[0].columns} if batches else {}
+
+    def column(self, name):
+        return self.cols[name]
+
+
+def edge_job(device, url, sink, pins, crash):
+    """Path 58a's job: path 52a's on the MiniCluster, from the log service
+    into ``sink``: (environment, result, wall s, launches, the crash
+    schedule)."""
+    import tempfile
+
+    import torch
+
+    from flink_tpu_torch.connectors.log_service import LogServiceSource
+    from flink_tpu_torch.core.functions import SumAggregator
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.runtime.checkpoint.incremental import \
+        IncrementalCheckpointStorage
+    from flink_tpu_torch.testing import chaos
+    from flink_tpu_torch.windowing import TumblingEventTimeWindows
+
+    env = StreamExecutionEnvironment(device=device)
+    env.set_parallelism(JOB_PARALLELISM)
+    (env.from_source(LogServiceSource(url, EDGE_TOPIC,
+                                      timestamp_column="ts"), "log-source")
+        .assign_timestamps_and_watermarks(0, timestamp_column="ts")
+        .key_by("k")
+        .window(TumblingEventTimeWindows.of(WINDOW_MS))
+        .aggregate(SumAggregator(torch.float32), value_column="v")
+        .add_sink(sink))
+    uid = [v.uid for v in env.get_stream_graph().to_plan().vertices
+           if not v.is_source]
+    check(len(uid) == 1, f"path 58a: the plan's non-source vertices {uid}")
+    inj, sched = None, None
+    if crash:
+        inj = chaos.FaultInjector(seed=7)
+        sched = inj.inject("subtask.run", crash_window_subtask(
+            chaos, uid[0], lambda: len(getattr(
+                getattr(env, "_last_cluster", None), "_completed_ids", ())),
+            after=EDGE_CRASH_AFTER))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_58a_ckpt_") as tmp, \
+            window_lane(pins), (chaos.installed(inj) if inj is not None
+                                else contextlib.nullcontext()):
+        storage = IncrementalCheckpointStorage(tmp)
+        sync(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = env.execute_cluster(
+            checkpoint_interval_ms=EDGE_CHECKPOINT_MS, storage=storage,
+            incremental=True, restart_attempts=1 if crash else 0,
+            timeout_s=600, channel_capacity=JOB_CHANNEL_CAPACITY)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        # the subtasks' threads and the storage's compaction end before
+        # its directory goes
+        for task in env._last_cluster._tasks:
+            task.join(60)
+        storage.wait_for_compaction(60)
+    return env, res, wall, launches, sched
+
+
+def format_round_trips(label, part, tmp) -> dict:
+    """One fire's first ``EDGE_FORMAT_ROWS`` rows written and read back
+    through Avro, ORC and SequenceFile, every column bit for bit (the
+    SequenceFile's JSON values read as f64, exact for f32 values);
+    returns each format's (write ms, read ms, bytes)."""
+    from flink_tpu_torch.core.batch import RecordBatch
+    from flink_tpu_torch.formats import reader_for, writer_for
+    first = RecordBatch({c: v[:EDGE_FORMAT_ROWS]
+                         for c, v in part.cols.items()})
+    check(len(first) == EDGE_FORMAT_ROWS,
+          f"{label}: the fire holds {len(first)} rows")
+    out = {}
+    for fmt in ("avro", "orc", "seq"):
+        path = os.path.join(tmp, f"fire.{fmt}")
+        t0 = time.perf_counter()
+        writer_for(fmt)([first], path)
+        t1 = time.perf_counter()
+        back = Columns(list(reader_for(fmt)(path)))
+        t2 = time.perf_counter()
+        for c, want in first.columns.items():
+            got = np.asarray(back.column(c)).astype(want.dtype)
+            check(got.tobytes() == want.tobytes(),
+                  f"{label}: {fmt} column {c} differs after a round trip")
+        out[fmt] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                    os.path.getsize(path))
+    return out
+
+
+def path58a(device, card, batches):
+    """Path 58a: the north star between object storage and a log (see the
+    module's docstring, 9s)."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from flink_tpu_torch.connectors.file_source import FileSink
+    from flink_tpu_torch.connectors.log_service import (LogServiceClient,
+                                                        LogServiceSink)
+    from flink_tpu_torch.core.batch import RecordBatch
+    from flink_tpu_torch.filesystems import S3Client
+    from flink_tpu_torch.formats.parquet import read_parquet
+    from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    import urllib.parse
+    label = "path 58a"
+    stream = batches[:EDGE_BATCHES]
+    n_records = sum(len(b[0]) for b in stream)
+    expect, cells = reference(stream), reference_f32(stream)
+    before = {t.ident for t in threading.enumerate()}
+    pins = dict(PATHS["path 5"])
+    traffic = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_58a_") as tmp, \
+            cli_services(label, tmp, (
+                ("logservice", "--dir", os.path.join(tmp, "log")),
+                ("s3", "--dir", os.path.join(tmp, "s3"), "--access-key",
+                 EDGE_KEYS[0], "--secret-key", EDGE_KEYS[1]))) as urls, \
+            http_bytes(traffic):
+        log_url, s3_url = urls
+        t0 = time.perf_counter()
+        producer = LogServiceSink(log_url, EDGE_TOPIC,
+                                  num_partitions=EDGE_PARTITIONS,
+                                  key_column="k")
+        producer.open(type("Ctx", (), {"subtask_index": 0})())
+        for keys, vals, ts in stream:
+            producer.write_batch(RecordBatch({"k": keys, "v": vals,
+                                              "ts": ts}))
+        producer.flush()
+        produce_s = time.perf_counter() - t0
+        meta = LogServiceClient(log_url).meta(EDGE_TOPIC)
+        log_bytes = sum(meta["end_offsets"])
+        check(meta["num_partitions"] == EDGE_PARTITIONS and all(
+            meta["end_offsets"]), f"{label}: the topic {meta}")
+        s3 = S3Client(s3_url, EDGE_BUCKET, *EDGE_KEYS)
+        stage = os.path.join(tmp, "stage")
+        sink = FileSink(stage, format="parquet", filesystem=s3)
+        env, res, wall, ln, sched = edge_job(device, log_url, sink, pins,
+                                             crash=True)
+        cluster = env._last_cluster
+        check(res.state == "FINISHED" and res.restarts == 1,
+              f"{label}: the job {res}, restarts {res.restarts}")
+        check(sched.at is not None, f"{label}: the crash never fired")
+        ops = [m for t in cluster._tasks
+               for m in getattr(t.operator, "operators", [t.operator])
+               if isinstance(m, WindowAggOperator)]
+        check(len(ops) == JOB_PARALLELISM and all(
+            op.emit_tier == pins["emit_tier"]
+            and torch.device(op.device).type == device.type for op in ops),
+            f"{label}: the window subtasks {[lane_of(o) for o in ops]}")
+        lanes = [lane_of(o) for o in ops]
+        n_checkpoints = len(cluster._checkpoint_stats)
+        del env, cluster, ops
+        # the bucket over SigV4: committed parts only, each read back
+        t1 = time.perf_counter()
+        objects = s3.list_objects("")
+        keys = [str(o["key"]) for o in objects]
+        check(keys and not any(k.endswith((".inprogress", ".pending"))
+                               for k in keys),
+              f"{label}: the bucket holds {keys}")
+        left = [f for _r, _d, files in os.walk(stage) for f in files
+                if f.endswith((".inprogress", ".pending"))]
+        check(not left, f"{label}: parts left in the stage: {left}")
+        parts, s3_bytes = [], 0
+        for key in keys:
+            data = s3.get_object(key)
+            s3_bytes += len(data)
+            path = os.path.join(tmp, "part.parquet")
+            with open(path, "wb") as f:
+                f.write(data)
+            parts += [b for b in read_parquet(path) if len(b)]
+        read_s = time.perf_counter() - t1
+        rows = Columns(parts)
+        repeats = check_job_rows(label, rows, expect, cells, bits=True)
+        check(repeats == 0, f"{label}: {repeats} (window, key) rows "
+              f"committed more than once")
+        fire = Columns([parts[0]])
+        fmts = format_round_trips(label, fire, tmp)
+    lanes_idle = _path_threads(before, label)
+    check(ln["scatter_fold"] > 0, f"{label}: launches {ln}")
+    services = {name: traffic.get(urllib.parse.urlsplit(url).netloc, [0, 0])
+                for name, url in (("logservice", log_url), ("s3", s3_url))}
+    numbers = {"records_per_s": n_records / wall, "wall_s": wall,
+               "produce_s": produce_s, "read_back_s": read_s,
+               "log_bytes": log_bytes, "s3_objects": len(keys),
+               "s3_bytes": s3_bytes, "http_bytes": services,
+               "rows": int(rows.column("k").size),
+               "checkpoints": n_checkpoints, "formats": fmts,
+               "lanes": lanes}
+    print(f"{label} ({card}): {n_records} records ({EDGE_BATCHES} batches)"
+          f" produced by LogServiceSink into {EDGE_PARTITIONS} partitions "
+          f"of `python -m flink_tpu_torch logservice` in {produce_s:.3f} s "
+          f"({log_bytes} B in the log); the job "
+          f"(parallelism {JOB_PARALLELISM}, path 5's lane, window subtask 0"
+          f" crashed at its firing {sched.at} after {EDGE_CRASH_AFTER} "
+          f"completed cut and restarted once, {n_checkpoints} checkpoints "
+          f"every {EDGE_CHECKPOINT_MS} ms) in {wall:.3f} s = "
+          f"{n_records / wall:.1f} records/s; {len(keys)} parquet parts, "
+          f"{s3_bytes} B committed to `python -m flink_tpu_torch s3` and "
+          f"read back over SigV4 in {read_s:.3f} s; "
+          f"{numbers['rows']} rows, every (key, window) once, each equal to "
+          f"the f32 ordered reference bit for bit, no .inprogress/.pending "
+          f"part; HTTP bytes [sent, received] by this process: {services}; "
+          f"{EDGE_FORMAT_ROWS} rows of one fire through avro/orc/seq "
+          f"(write ms, read ms, bytes) {fmts}, bit for bit; launches {ln}; "
+          f"{lanes_idle} idle watchdog lanes, no other thread left, both "
+          f"services stopped")
+    return ln, numbers
+
+
+def path58b(device, card, batches):
+    """Path 58b: the north star as SQL over Postgres (see the module's
+    docstring, 9s)."""
+    import threading
+
+    from flink_tpu_torch.connectors.postgres import (PostgresSink,
+                                                     PostgresWireClient,
+                                                     PostgresWireServer)
+    from flink_tpu_torch.core.batch import RecordBatch
+    from flink_tpu_torch.operators.window_agg import WindowAggOperator
+    from flink_tpu_torch.sql import TableEnvironment
+    label = "path 58b"
+    cols = {c: v[:EDGE_SQL_RECORDS] for c, v in
+            stream_columns(batches[:1]).items()}
+    part = [(cols["k"], cols["v"], cols["ts"])]
+    expect = reference(part)
+    user, pw = EDGE_SQL_USER
+    before = {t.ident for t in threading.enumerate()}
+    wire, lock = [0, 0], threading.Lock()
+
+    class Server(PostgresWireServer):
+        def _serve_conn(self, sock):
+            return super()._serve_conn(CountingSocket(sock, wire, lock))
+
+    srv = Server(users={user: pw}, auth="scram-sha-256")
+    try:
+        t0 = time.perf_counter()
+        with PostgresWireClient(srv.host, srv.port, user=user,
+                                password=pw) as c:
+            c.execute("CREATE TABLE events (k int8, v float8, ts int8)")
+            c.execute("CREATE TABLE sums (k int8, ws int8, s float8, "
+                      "n int8)")
+        loader = PostgresSink(srv.host, srv.port, "events",
+                              ["k", "v", "ts"], user=user, password=pw,
+                              buffer_rows=8192)
+        loader.open(type("Ctx", (), {"subtask_index": 0})())
+        loader.write_batch(RecordBatch({"k": cols["k"],
+                                        "v": cols["v"].astype(np.float64),
+                                        "ts": cols["ts"]}))
+        loader.flush()
+        loader.close()
+        load_s = time.perf_counter() - t0
+        tenv = TableEnvironment(device=device)
+        where = (f"'connector' = 'postgres', 'hostname' = '{srv.host}', "
+                 f"'port' = '{srv.port}', 'username' = '{user}', "
+                 f"'password' = '{pw}'")
+        tenv.execute_sql(
+            "CREATE TABLE events (k BIGINT, v DOUBLE, ts BIGINT, "
+            "WATERMARK FOR ts AS ts - INTERVAL '0' SECOND) WITH ("
+            f"{where}, 'table-name' = 'events', "
+            "'scan.partition.column' = 'k')")
+        tenv.execute_sql("CREATE TABLE sums (k BIGINT, ws BIGINT, s DOUBLE,"
+                         f" n BIGINT) WITH ({where}, 'table-name' = 'sums')")
+        ops = []
+        with built(WindowAggOperator, ops):
+            sync(device)
+            reset_launches()
+            t1 = time.perf_counter()
+            written = tenv.execute_sql(EDGE_SQL).collect()
+            sync(device)
+            wall = time.perf_counter() - t1
+            ln = read_launches()
+        ops = [op for op in ops if op.device_sync_mode is not None]
+        check(len(ops) == 1 and ops[0].device.type == device.type,
+              f"{label}: the window operators that ran: "
+              f"{[str(op.device) for op in ops]}")
+        lane = lane_of(ops[0])
+        del ops
+        t2 = time.perf_counter()
+        with PostgresWireClient(srv.host, srv.port, user=user,
+                                password=pw) as c:
+            out = c.query_columns("SELECT k, ws, s, n FROM sums")
+        read_s = time.perf_counter() - t2
+    finally:
+        srv.close()
+    n_rows = int(out["k"].size)
+    check(written and written[0]["rows_written"] == n_rows,
+          f"{label}: wrote {written}, the table holds {n_rows} rows")
+    k = np.asarray(out["k"], np.int64)
+    ws = np.asarray(out["ws"], np.int64)
+    check(set(np.unique(ws).tolist()) == set(expect),
+          f"{label}: windows {sorted(set(ws.tolist()))}")
+    for w, (sums, cnt) in expect.items():
+        m = ws == w
+        keys = k[m]
+        check(np.array_equal(np.sort(keys), np.flatnonzero(cnt)),
+              f"{label} window {w}: the keys differ from the reference's")
+        check(np.array_equal(np.asarray(out["n"])[m], cnt[keys]),
+              f"{label} window {w}: a count differs from the reference")
+        check(np.allclose(np.asarray(out["s"], np.float64)[m], sums[keys],
+                          rtol=RTOL, atol=0),
+              f"{label} window {w}: a sum differs beyond rtol {RTOL}")
+    lanes_idle = _path_threads(before, label)
+    check(ln["scatter_fold"] > 0, f"{label}: launches {ln}")
+    if lane["emit_tier"] == "host" and lane.get("device_probe"):
+        check(ln["probe"] > 0, f"{label}: no probe launch: {ln}")
+    numbers = {"records_per_s": EDGE_SQL_RECORDS / wall, "wall_s": wall,
+               "load_s": load_s, "read_back_s": read_s, "rows": n_rows,
+               "server_bytes": list(wire), "lane": lane}
+    print(f"{label} ({card}): {EDGE_SQL_RECORDS} records loaded into an "
+          f"in-process PostgresWireServer (SCRAM-SHA-256) by PostgresSink "
+          f"in {load_s:.3f} s; `{EDGE_SQL}` over 'connector' = 'postgres' "
+          f"tables on TableEnvironment(device={device.type!r}) in "
+          f"{wall:.3f} s = {EDGE_SQL_RECORDS / wall:.1f} records/s; "
+          f"{n_rows} rows written and read back by PostgresWireClient in "
+          f"{read_s:.3f} s, counts exact and sums within rtol {RTOL} of the"
+          f" numpy f64 sums; the server received {wire[0]} B and sent "
+          f"{wire[1]} B over its connections (load, job, read-back); the "
+          f"window lane "
+          f"{json.dumps(lane, sort_keys=True)}; launches {ln}; "
+          f"{lanes_idle} idle watchdog lanes, no other thread left")
+    return ln, numbers
+
+
+def slice24(device, card, batches):
+    """Path 58: the host edges (object storage, the log service, the
+    formats, Postgres) around the card's window operator."""
+    t0 = time.perf_counter()
+    launches, numbers = {}, {}
+    for leg, fn in (("58a", path58a), ("58b", path58b)):
+        t1 = time.perf_counter()
+        launches[leg], numbers[leg] = fn(device, card, batches)
+        print(f"path {leg} took {time.perf_counter() - t1:.1f} s of command "
+              f"time")
+    total = {k: launches["58a"][k] + launches["58b"][k]
+             for k in launches["58a"]}
+    print(f"slice 24 took {time.perf_counter() - t0:.1f} s of command time")
+    return {"path 58": total}, {"path 58": numbers}
 
 
 def main() -> None:
@@ -8775,6 +9304,9 @@ def main() -> None:
     slice23_launches, slice23_numbers = slice23(card)
     launches.update(slice23_launches)
     numbers.update(slice23_numbers)
+    slice24_launches, slice24_numbers = slice24(device, card, batches)
+    launches.update(slice24_launches)
+    numbers.update(slice24_numbers)
     for label, twin in TWIN.items():
         a, b = numbers[label], numbers[twin]
         host = lambda n: sum(n["phase_ms"].get(k, 0.0)  # noqa: E731
@@ -8839,7 +9371,7 @@ def main() -> None:
     kernels.append(scatter_fold_phase(device, rng))
     every_path = (ORDER + SLICE11 + SLICE12 + SLICE13 + SLICE14 + SLICE15
                   + SLICE16 + SLICE17 + SLICE18 + SLICE19 + SLICE20
-                  + SLICE21 + SLICE22 + SLICE23)
+                  + SLICE21 + SLICE22 + SLICE23 + SLICE24)
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]]
                    for label in every_path}
@@ -8864,7 +9396,7 @@ def main() -> None:
                   *SLICE11_SCATTER, "path 23", "path 24", "path 25",
                   "path 28", "path 29", "path 32", "path 34", "path 35",
                   *SLICE16, "path 40", "path 41", "path 47", *SLICE19,
-                  *SLICE20, *SLICE21, *SLICE22):
+                  *SLICE20, *SLICE21, *SLICE22, *SLICE24):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
     check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")

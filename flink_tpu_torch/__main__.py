@@ -13,16 +13,17 @@
         [--listen host:port] [--checkpoint-dir D] [--ha-dir H]
     python -m flink_tpu_torch list|status|cancel|savepoint|stop \\
         --url http://host:port [job_id]
+    python -m flink_tpu_torch logservice --dir D [--host H] [--port P]
+    python -m flink_tpu_torch s3 --dir D --access-key A --secret-key S \\
+        [--region R] [--host H] [--port P]
 
 ``run`` executes a job script: the script either defines ``main(env)`` or
 just uses a module-level ``env = StreamExecutionEnvironment()`` pipeline
 (``env.execute()`` inside the script also works).  ``run``, ``sql`` and
 ``worker`` take the device as ``--device``: the card unless the CPU is
-asked for, and no card is an error.  ``repl``, ``objectstore``, ``kafka``
-and ``quickstart`` are JAX's; ``info`` reports torch, the CUDA devices it
-sees and the host C libraries.  ``logservice`` and ``s3`` come with a later
-slice and raise ``NotImplementedError`` naming their item of ROADMAP Queue
-A, the host-only edges (12).
+asked for, and no card is an error.  ``repl``, ``objectstore``, ``kafka``,
+``logservice``, ``s3`` and ``quickstart`` are JAX's; ``info`` reports
+torch, the CUDA devices it sees and the host C libraries.
 """
 
 from __future__ import annotations
@@ -31,13 +32,6 @@ import argparse
 import os
 import runpy
 import sys
-
-#: the JAX package's subcommands that a later slice brings, by item
-LATER = {
-    "logservice": "the log broker comes with the host-only edges (12)",
-    "s3": "the S3 endpoint comes with the host-only edges (12)",
-}
-
 
 def _cmd_run(args) -> int:
     from flink_tpu_torch.datastream.api import StreamExecutionEnvironment
@@ -364,6 +358,34 @@ def _cmd_objectstore(args) -> int:
     return 0
 
 
+def _cmd_logservice(args) -> int:
+    from flink_tpu_torch.connectors.log_service import LogServiceBroker
+
+    broker = LogServiceBroker(args.dir, host=args.host, port=args.port)
+    print(f"log service broker on {broker.url} (dir={args.dir})")
+    try:
+        broker.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _cmd_s3(args) -> int:
+    from flink_tpu_torch.filesystems import S3CompatibleServer
+
+    srv = S3CompatibleServer(args.dir, access_key=args.access_key,
+                             secret_key=args.secret_key,
+                             region=args.region,
+                             host=args.host, port=args.port)
+    print(f"S3-compatible endpoint on {srv.url} (dir={args.dir}, "
+          f"SigV4 region={args.region})")
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
 def _load_restore(args):
     """--restore/-s: explicit savepoint/checkpoint path (or None)."""
     if not getattr(args, "restore", None):
@@ -487,12 +509,27 @@ def build_parser() -> "argparse.ArgumentParser":
                           "takes over at epoch + 1)")
     pco.add_argument("--timeout", type=float, default=86400.0)
     pco.set_defaults(fn=_cmd_coordinate)
+    pls = sub.add_parser("logservice", help="standalone durable log broker "
+                         "(Kafka-analog service any process can dial)")
+    pls.add_argument("--dir", required=True)
+    pls.add_argument("--host", default="127.0.0.1")
+    pls.add_argument("--port", type=int, default=9092)
+    pls.set_defaults(fn=_cmd_logservice)
     pos = sub.add_parser("objectstore", help="standalone HTTP object store "
                          "(S3-analog checkpoint/savepoint backend)")
     pos.add_argument("--dir", required=True)
     pos.add_argument("--host", default="127.0.0.1")
     pos.add_argument("--port", type=int, default=9000)
     pos.set_defaults(fn=_cmd_objectstore)
+    ps3 = sub.add_parser("s3", help="S3-compatible endpoint (real SigV4 "
+                         "REST dialect) over a local directory")
+    ps3.add_argument("--dir", required=True)
+    ps3.add_argument("--access-key", required=True)
+    ps3.add_argument("--secret-key", required=True)
+    ps3.add_argument("--region", default="us-east-1")
+    ps3.add_argument("--host", default="127.0.0.1")
+    ps3.add_argument("--port", type=int, default=9001)
+    ps3.set_defaults(fn=_cmd_s3)
     pk = sub.add_parser("kafka", help="broker speaking the Kafka v0 binary "
                         "wire protocol over per-partition logs")
     pk.add_argument("--dir", default=None)
@@ -520,10 +557,6 @@ def build_parser() -> "argparse.ArgumentParser":
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in LATER:
-        raise NotImplementedError(f"not in this slice of flink_tpu_torch: "
-                                  f"{LATER[argv[0]]}")
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

@@ -11,6 +11,3 @@ every worker it spawns (``--device``); a worker's environments and
 operators that name no device take it, and a worker told ``cuda`` that
 sees no card fails its start.
 """
-
-#: the cluster modules of the JAX package that a later slice brings: none
-LATER: dict = {}

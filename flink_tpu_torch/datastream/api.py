@@ -59,11 +59,7 @@ from flink_tpu_torch.windowing.triggers import Trigger
 __all__ = ["StreamExecutionEnvironment", "DataStream", "KeyedStream",
            "WindowedStream", "DataStreamSink", "SlidingCountWindowedStream",
            "IterativeStream", "ConnectedStreams", "JoinBuilder",
-           "IntervalJoinBuilder", "LATER"]
-
-#: the routes of the JAX API whose modules later slices bring, by the item
-#: of ROADMAP.md Queue A that clears each (every route is ported)
-LATER: Dict[str, str] = {}
+           "IntervalJoinBuilder"]
 
 
 class StreamExecutionEnvironment:

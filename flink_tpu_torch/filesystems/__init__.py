@@ -1,18 +1,12 @@
-"""Remote filesystems for checkpoint storage.
+"""Pluggable filesystem protocols (``flink-filesystems/`` analog; the
+port's copy of ``flink_tpu/filesystems``).
 
-The S3 client, its S3-compatible server and ``S3CheckpointStorage``
-(``flink_tpu/filesystems/s3.py``) come with the host-only edges (ROADMAP
-Queue A item 12): reaching ``s3`` through this package raises
-``NotImplementedError`` naming that item.  The object store of
-``runtime/checkpoint/objectstore.py`` is the port's remote storage.
+``s3``: an AWS-Signature-V4 S3 client, an S3-compatible server facade over
+the object store of ``runtime/checkpoint/objectstore.py``, and
+``S3CheckpointStorage`` over the client.
 """
 
-#: the filesystem modules of the JAX package that a later slice brings
-LATER = {"s3": "S3 storage comes with the host-only edges (12)"}
+from flink_tpu_torch.filesystems.s3 import (S3Client, S3CompatibleServer,
+                                            S3SignatureError, sign_v4)
 
-
-def __getattr__(name: str):
-    if name in LATER:
-        raise NotImplementedError(f"not in this slice of flink_tpu_torch: "
-                                  f"{LATER[name]}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = ["S3Client", "S3CompatibleServer", "S3SignatureError", "sign_v4"]

@@ -1,5 +1,5 @@
-"""Record formats: CSV, JSON-lines, FTB binary (the port's copy of
-``flink_tpu/formats/__init__.py``).
+"""Record formats: CSV, JSON-lines, FTB binary, Avro, Parquet, ORC and
+SequenceFile (the port's copy of ``flink_tpu/formats/__init__.py``).
 
 Analog of ``flink-formats/*`` (Avro/Parquet/ORC/CSV/JSON): encoders/decoders
 between files and columnar ``RecordBatch``es.  Columnar-first: a format reads
@@ -9,8 +9,10 @@ the TPU runtime needs), never record-at-a-time objects.
 FTB is the framework's own binary format (``native/codec.py``):
 length-prefixed compressed column blocks in CRC-checked frames, byte for
 byte the JAX package's, so a file one package writes reads in the other.
-The Avro, Parquet, ORC and SequenceFile entries of :data:`FORMATS` raise
-``NotImplementedError`` (ROADMAP Queue A item 12).
+Avro (``formats/avro.py``), Parquet (``formats/parquet.py``), ORC
+(``formats/orc.py``) and SequenceFile (``formats/sequencefile.py``) are
+implemented from their specs in host Python, as JAX's are: no
+fastavro/pyarrow, and the same bytes from the same batches.
 """
 
 from __future__ import annotations
@@ -233,24 +235,54 @@ def read_ftb(path: str, skip_batches: int = 0,
             yield decode_batch(payload)
 
 
-#: the binary formats of ``flink_tpu/formats`` (avro, parquet, orc,
-#: sequencefile) that this package does not carry yet
-LATER_FORMATS = ("avro", "parquet", "orc", "seq")
+def _read_avro(path: str, batch_size: int = 8192, **kw):
+    from flink_tpu_torch.formats.avro import read_avro
+    return read_avro(path, batch_size=batch_size)
 
 
-def _later(fmt: str):
-    def refuse(*args, **kw):
-        raise NotImplementedError(
-            f"not in this slice of flink_tpu_torch: the {fmt!r} format "
-            f"comes with the host-only edges (ROADMAP Queue A item 12)")
-    return refuse
+def _write_avro(batches, path: str, **kw) -> int:
+    from flink_tpu_torch.formats.avro import write_avro
+    return write_avro(batches, path, **kw)
+
+
+def _read_parquet(path: str, batch_size: int = 0, **kw):
+    from flink_tpu_torch.formats.parquet import read_parquet
+    return read_parquet(path, batch_size=batch_size, **kw)
+
+
+def _write_parquet(batches, path: str, **kw) -> int:
+    from flink_tpu_torch.formats.parquet import write_parquet
+    return write_parquet(batches, path, **kw)
+
+
+def _read_orc(path: str, batch_size: int = 0, **kw):
+    from flink_tpu_torch.formats.orc import read_orc
+    return read_orc(path, batch_size=batch_size, **kw)
+
+
+def _write_orc(batches, path: str, **kw) -> int:
+    from flink_tpu_torch.formats.orc import write_orc
+    return write_orc(batches, path, **kw)
+
+
+def _read_seq(path: str, batch_size: int = 8192, **kw):
+    from flink_tpu_torch.formats.sequencefile import read_sequencefile
+    return read_sequencefile(path, batch_size=batch_size, **kw)
+
+
+def _write_seq(batches, path: str, **kw) -> int:
+    from flink_tpu_torch.formats.sequencefile import write_sequencefile
+    return write_sequencefile(batches, path, **kw)
 
 
 FORMATS = {
     "csv": (read_csv, write_csv),
     "jsonl": (read_jsonl, write_jsonl),
     "ftb": (read_ftb, write_ftb),
-    **{fmt: (_later(fmt), _later(fmt)) for fmt in LATER_FORMATS},
+    "avro": (_read_avro, _write_avro),
+    "parquet": (_read_parquet, _write_parquet),
+    "orc": (_read_orc, _write_orc),
+    "seq": (_read_seq, _write_seq),
 }
 
 

@@ -214,10 +214,6 @@ from flink_tpu_torch.windowing.assigners import GlobalWindows, WindowAssigner
 from flink_tpu_torch.windowing.triggers import (EventTimeTrigger, NeverTrigger,
                                                 Trigger)
 
-#: options of the JAX operator that the port still refuses (none left)
-_LATER: Dict[str, str] = {}
-
-
 def _add_counts(flat_counts: torch.Tensor, ids: torch.Tensor,
                 cells: int) -> None:
     """``flat_counts[id] += 1`` per row, in place, ids outside ``[0,

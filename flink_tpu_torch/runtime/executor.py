@@ -449,8 +449,8 @@ class LocalExecutor:
         if sources:
             snapshot["__sources__"] = sources
         if self.checkpoint_storage is not None:
-            # any object with ``store(id, snapshot)`` (the storage module
-            # comes with the checkpoint slice)
+            # any object with ``store(id, snapshot)`` (the storages of
+            # ``runtime/checkpoint/``)
             self.checkpoint_storage.store(checkpoint_id, snapshot)
             # checkpoint durable -> commit side effects (CheckpointListener.
             # notifyCheckpointComplete: two-phase-commit sinks publish here)

@@ -9,6 +9,3 @@ from flink_tpu_torch.security.ssl_context import (SecurityConfig,
                                                   load_security_config)
 
 __all__ = ["SecurityConfig", "generate_self_signed", "load_security_config"]
-
-#: the security modules of the JAX package that a later slice brings
-LATER: dict = {}

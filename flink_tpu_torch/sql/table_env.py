@@ -12,8 +12,8 @@ submission, like the reference's per-statement pipeline translation).
 CEP operator, the joins' device lane): ``None`` is the card and raises
 without one, so a query on the CPU asks for ``device="cpu"``.  Every
 environment it plans onto, the views' dry runs included, gets that device.
-The Postgres connector comes with a later slice: its DDL raises
-``NotImplementedError`` (``connectors.LATER``).
+The DDL's connectors are JAX's: ``filesystem``, ``kafka`` (and its CDC
+formats) and ``postgres``/``jdbc``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 
 from flink_tpu_torch import DeviceLike, resolve_device
-from flink_tpu_torch.connectors import later_connector
 from flink_tpu_torch.sql.parser import SelectStmt, parse
 from flink_tpu_torch.sql.planner import Planner, PlanError, QueryPlan
 
@@ -428,7 +427,28 @@ class TableEnvironment:
                     num_partitions=int(props.get("sink.partitions", "1")))
             return
         if conn in ("postgres", "jdbc"):
-            raise later_connector("postgres")
+            table = props.get("table-name", name)
+            host = props.get("hostname", "127.0.0.1")
+            port = int(props.get("port", "5432"))
+            user = props.get("username", "flink")
+            password = props.get("password", "")
+            part_col = props.get("scan.partition.column",
+                                 stmt.primary_key or cols[0])
+
+            def factory(env, _h=host, _p=port, _t=table, _pc=part_col,
+                        _u=user, _pw=password, _c=cols):
+                from flink_tpu_torch.connectors.postgres import PostgresSource
+                return env.from_source(
+                    PostgresSource(_h, _p, _t, partition_column=_pc,
+                                   columns=_c, user=_u, password=_pw),
+                    name=f"table:{name}")
+
+            self._catalog[name] = CatalogTable(
+                name, cols, factory, rowtime=rowtime,
+                watermark_delay_ms=delay)
+            self._sinks[name] = _PostgresSinkSpec(host, port, table, cols,
+                                                  user, password)
+            return
         raise PlanError(f"unknown connector {conn!r} (have: filesystem, "
                         f"kafka, postgres)")
 
@@ -725,6 +745,27 @@ class _KafkaSinkSpec(_SinkSpec):
         finally:
             sink.close()
         return n, f"kafka://{self.host}:{self.port}/{self.topic}"
+
+
+class _PostgresSinkSpec(_SinkSpec):
+    def __init__(self, host, port, table, columns, user, password):
+        self.host, self.port, self.table = host, port, table
+        self.columns = columns
+        self.user, self.password = user, password
+
+    def write(self, batches):
+        from flink_tpu_torch.connectors.postgres import PostgresSink
+        sink = PostgresSink(self.host, self.port, self.table,
+                            columns=self.columns, user=self.user,
+                            password=self.password)
+        n = 0
+        try:
+            for b in batches:
+                sink.write_batch(b)
+                n += len(b)
+        finally:
+            sink.close()
+        return n, f"postgres://{self.host}:{self.port}/{self.table}"
 
 
 class _DdlResult:

@@ -15,8 +15,8 @@ Replay correctness: key-slot assignment is part of the log — ``key_slots`` /
 slot ids in the restored inner backend.
 
 The applier of :meth:`ChangelogKeyedStateBackend.snapshot_increment`'s
-nodes (JAX's ``runtime/checkpoint/delta.py``) comes with the checkpoint
-slice; the increments themselves are JAX's format.
+nodes is ``runtime/checkpoint/delta.py``; the increments themselves are
+JAX's format.
 """
 
 from __future__ import annotations

@@ -111,6 +111,10 @@ OWN_COUNTERPART = {
     # its size bound races the end-of-input fire in either package:
     # tests/test_torch_checkpoint.py runs it on both with the race taken out
     "test_incremental_checkpoints::test_minicluster_incremental_end_to_end",
+    # its checkpoints come every 20 ms of the wall clock, so how many
+    # reach the bucket is the machine's: tests/test_torch_connectors_
+    # cases.py runs it on both packages with a clock of source rounds
+    "test_s3::test_s3_backs_a_streaming_job_checkpoint",
     # tests/test_torch_storage.py
     "test_chaos::test_retrying_storage_absorbs_transient_flakes",
     "test_chaos::test_retrying_storage_backoff_is_capped",
@@ -122,10 +126,9 @@ OWN_COUNTERPART = {
     "test_chaos::test_crash_mid_write_leaves_only_staging_dir",
 }
 
-#: the parametrized fixtures' values that run here: the object store only
-#: (memory and file storage are ``tests/test_torch_storage.py``'s; S3
-#: waits for item 12)
-FIXTURE_PARAMS = {"impl": ["objectstore"]}
+#: the parametrized fixtures' values that run here: the object store and
+#: S3 (memory and file storage are ``tests/test_torch_storage.py``'s)
+FIXTURE_PARAMS = {"impl": ["objectstore", "s3"]}
 
 #: (module, attribute, method or None) recorded in each package
 RECORDED = [
@@ -522,14 +525,6 @@ def test_reference_case(ref, cls, fn_name, params, tmp_path_factory,
 # ---------------------------------------------------------------------------
 # the counterparts of OWN_COUNTERPART's cases
 # ---------------------------------------------------------------------------
-
-def test_s3_storage_waits_for_12():
-    """The S3 cases of ``test_storage_contract.py``: S3 storage comes with
-    ROADMAP Queue A item 12."""
-    from flink_tpu_torch import filesystems
-    with pytest.raises(NotImplementedError, match=r"\(12\)"):
-        filesystems.s3
-
 
 @pytest.mark.parametrize("side", ["jax", "port"])
 def test_checkpoint_waits_for_every_running_task(side):

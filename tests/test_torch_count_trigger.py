@@ -39,7 +39,8 @@ from flink_tpu.windowing import triggers as jtrig
 from flink_tpu_torch.core import functions as pfn
 from flink_tpu_torch.core.batch import RecordBatch, Watermark
 from flink_tpu_torch.interop import snapshot_from_jax, snapshot_to_jax
-from flink_tpu_torch.operators.window_agg import _LATER, WindowAggOperator
+from flink_tpu_torch.operators import window_agg as pwindow
+from flink_tpu_torch.operators.window_agg import WindowAggOperator
 from flink_tpu_torch.parallel import mesh as pmesh
 from flink_tpu_torch.parallel.mesh_runtime import MeshWindowAggOperator
 from flink_tpu_torch.runtime import device_health as pdh
@@ -353,13 +354,9 @@ def test_rescale_split_and_merge_carry_baselines(case):
 # ---------------------------------------------------------------------------
 
 def test_the_generic_and_count_refusals_are_lifted():
-    assert "generic" not in _LATER and "count" not in _LATER
-    # (the evolution refusal went with the heap slice's state/evolution.py)
-    # (object keys and processing time went with the object-key and the
-    # local-job slices, late side outputs with the rest of the local job
-    # path, incremental snapshots with the checkpoint slice, queryable
-    # views with the serving slice)
-    assert set(_LATER) == set()
+    # the operator's table of refused options went with its last entry
+    # (queryable views, the serving slice): nothing of JAX's is refused
+    assert not hasattr(pwindow, "_LATER")
 
 
 @pytest.mark.parametrize("side", list(SIDES))

@@ -479,8 +479,8 @@ def test_spill_backend_and_later_routes_raise(monkeypatch):
     backends build (their state is held to JAX's in
     ``tests/test_torch_spill_state.py``), and ``set_mesh()`` without cards
     raises as ``make_mesh`` does; nothing falls back."""
-    from flink_tpu_torch.datastream.api import LATER
-    assert LATER == {}
+    from flink_tpu_torch.datastream import api
+    assert not hasattr(api, "LATER")
     env = pds.StreamExecutionEnvironment(device="cpu")
     env.from_collection(columns={"k": np.arange(4)}).collect()
     assert env.execute_cluster(timeout_s=60).state == "FINISHED"

@@ -268,9 +268,7 @@ def test_cli_command_on_both_packages(fn_name, tmp_path_factory,
 def test_cli_run_and_sql_default_to_the_card(tmp_path):
     """Without ``--device``, the port's ``run`` and ``sql`` run on the card
     and fail without one (no CPU fallback; fresh processes, so no test's
-    device patch reaches them); ``logservice`` and ``s3`` refuse naming
-    item 12."""
-    from flink_tpu_torch.__main__ import main
+    device patch reaches them)."""
     script = tmp_path / "job.py"
     script.write_text("import numpy as np\n"
                       "env.from_collection(columns={'k': np.arange(4)})"
@@ -282,9 +280,57 @@ def test_cli_run_and_sql_default_to_the_card(tmp_path):
                              env=env)
         assert out.returncode != 0 and "CUDA device" in out.stderr, \
             (args, out.stdout[-500:], out.stderr[-500:])
-    for cmd in ("logservice", "s3"):
-        with pytest.raises(NotImplementedError, match=r"\(12\)"):
-            main([cmd])
+
+
+@pytest.mark.parametrize("server", ["jax", "port"])
+@pytest.mark.parametrize("cmd", ["logservice", "s3"])
+def test_cli_log_service_and_s3_serve(cmd, server, tmp_path):
+    """``python -m <package> logservice|s3`` serves until it is stopped:
+    the other package's client produces and fetches a topic, or puts,
+    lists and gets objects signed with SigV4 (a wrong secret is refused);
+    SIGTERM ends the process."""
+    import importlib
+    import urllib.error
+    client = "flink_tpu" if server == "port" else "flink_tpu_torch"
+    pkg = "flink_tpu_torch" if server == "port" else "flink_tpu"
+    args = ["--dir", str(tmp_path / "data"), "--port", "0"]
+    if cmd == "s3":
+        args += ["--access-key", "AKIA_TEST", "--secret-key", "s3cret"]
+    proc = subprocess.Popen([sys.executable, "-u", "-m", pkg, cmd, *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env={**os.environ,
+                                            "JAX_PLATFORMS": "cpu"})
+    try:
+        line = proc.stdout.readline()
+        assert " on http://127.0.0.1:" in line, (line, proc.stderr.read()
+                                                 if proc.poll() is not None
+                                                 else "")
+        url = line.split(" on ", 1)[1].split()[0]
+        if cmd == "logservice":
+            ls = importlib.import_module(f"{client}.connectors.log_service")
+            batch = importlib.import_module(f"{client}.core.batch")
+            c = ls.LogServiceClient(url)
+            c.create_topic("t", 2)
+            end = c.append("t", 1, batch.RecordBatch(
+                {"k": np.arange(5, dtype=np.int64)}))
+            got = [b.columns["k"].tolist() for b in c.fetch("t", 1, 0)[0]]
+            assert got == [[0, 1, 2, 3, 4]]
+            assert c.meta("t")["end_offsets"] == [0, end] and end > 0
+        else:
+            s3 = importlib.import_module(f"{client}.filesystems.s3")
+            c = s3.S3Client(url, "bkt", "AKIA_TEST", "s3cret")
+            c._request("PUT").read()
+            c.put_object("a/b.bin", b"\x00\x01payload")
+            assert c.list_keys("a/") == ["a/b.bin"]
+            assert c.get_object("a/b.bin") == b"\x00\x01payload"
+            bad = s3.S3Client(url, "bkt", "AKIA_TEST", "wrong")
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                bad.get_object("a/b.bin")
+            assert ei.value.code == 403
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=30)
+    assert proc.returncode is not None
 
 
 def _finished_rest_job(side, n=2000):

@@ -6,6 +6,7 @@ own."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -475,3 +476,59 @@ def test_checkpointed_minicluster_job_runs_with_jax_and_pandas_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split() == ["checkpoints", "True"]
+
+
+#: the modules of the JAX package with no counterpart in the port, and why
+NO_COUNTERPART = {
+    # re-asserts JAX_PLATFORMS over a site hook before a process touches
+    # jax; the port chooses its device with resolve_device and
+    # set_process_device, and imports no jax
+    "utils/platform.py",
+    # the zlib stand-in for libflink_native when no compiler builds it; the
+    # port's codec raises when csrc/codec.cc does not build (no fallback)
+    "native/fallback.py",
+}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every module file of ``flink_tpu/`` has one at the same path in
+    ``flink_tpu_torch/``, apart from :data:`NO_COUNTERPART`."""
+    jax_root = REPO / "flink_tpu"
+    mods = {str(p.relative_to(jax_root)) for p in jax_root.rglob("*.py")}
+    missing = sorted(m for m in mods - NO_COUNTERPART
+                     if not (PORT / m).is_file())
+    assert not missing, f"no counterpart in flink_tpu_torch: {missing}"
+    assert all((jax_root / m).is_file() and not (PORT / m).exists()
+               for m in NO_COUNTERPART)
+
+
+#: the words of a refusal that waits for a later slice
+_WAITS = re.compile(r"ROADMAP|Queue [A-C]|\bitem \d|\(\d+(\.\d+)?\)|"
+                    r"later slice|not in this slice")
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_refusal_waits_for_a_later_slice(path):
+    """No module of the port raises ``NotImplementedError`` naming a
+    ROADMAP item or a later slice, and none keeps a ``LATER`` table of
+    refused names (nor the helper that raised from one)."""
+    tree = ast.parse(path.read_text(), str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                and node.func.id == "NotImplementedError"):
+            text = " ".join(
+                s.value for a in node.args for s in ast.walk(a)
+                if isinstance(s, ast.Constant) and isinstance(s.value, str))
+            if _WAITS.search(text):
+                bad.append(f"line {node.lineno}: {text[:80]!r}")
+        targets = (node.targets if isinstance(node, ast.Assign)
+                   else [node.target] if isinstance(node, ast.AnnAssign)
+                   else [])
+        bad += [f"line {node.lineno}: table {t.id}" for t in targets
+                if isinstance(t, ast.Name)
+                and re.fullmatch(r"_?LATER(_\w+)?", t.id)]
+        if (isinstance(node, ast.FunctionDef)
+                and re.fullmatch(r"_?later(_\w+)?", node.name)):
+            bad.append(f"line {node.lineno}: helper {node.name}")
+    assert not bad, f"{path.relative_to(REPO)}: {bad}"

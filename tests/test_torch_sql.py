@@ -16,9 +16,7 @@ What this file holds, JAX against the port on the same numpy inputs:
   ``device="cpu"``, and every environment it plans onto gets its device;
 - the reference cases that cannot run through both packages as written:
   the changelog aggregate's state is a ``torch.Tensor`` on its device where
-  JAX's is a ``jax.Array``, and the cases that wait raise
-  ``NotImplementedError`` naming the ROADMAP item that clears them (the
-  MiniCluster, 8.4; the Kafka and Postgres connectors, 12);
+  JAX's is a ``jax.Array``, and the MiniCluster's count distinct;
 - ``tests/test_cep_vectorized.py::test_match_recognize_threads_vectorized_mode``;
 - the exact SQL of the smoke's paths 48 and 50 (``chip_smoke.py``) at a
   small size: config 5 at 2^14 rows, TPC-H Q3 at SF 0.01.
@@ -536,46 +534,67 @@ def test_count_distinct_parallel_cluster_waits_for_the_cluster_runtime():
     assert run(ptable, device="cpu") == run(jtable) == {1: 1.0}
 
 
-@pytest.mark.parametrize("ddl", [
-    "CREATE TABLE people (id BIGINT, age BIGINT) WITH ("
-    "'connector' = 'postgres', 'hostname' = '127.0.0.1', 'port' = '9', "
-    "'table-name' = 'people', 'scan.partition.column' = 'id')",
-    "CREATE TABLE people (id BIGINT) WITH ('connector' = 'jdbc', "
-    "'table-name' = 'people')",
-], ids=["postgres", "jdbc"])
-def test_kafka_and_postgres_ddl_wait_for_the_connectors(ddl, tmp_path):
-    """``test_sql_ddl.py``'s Postgres case: the DDL raises naming ROADMAP
-    item 12, registers nothing and persists nothing (the Kafka cases run
-    through ``tests/test_torch_sql_cases.py``'s harness)."""
-    te = ptable.TableEnvironment(device="cpu", catalog_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match=r"\(12\)"):
-        te.execute_sql(ddl)
-    assert te.execute_sql("SHOW TABLES").collect() == []
-    assert not (tmp_path / "catalog.json").exists()
-
-
-@pytest.mark.parametrize("name", ["postgres"])
-def test_postgres_lookup_function_waits_for_the_connectors(name):
-    """``test_temporal_lookup_join.py``'s Postgres lookup case: the
-    connector module raises naming ROADMAP item 12; any other lookup
-    function joins (the reference case's rows, through a dict)."""
-    import importlib
-    connectors = importlib.import_module("flink_tpu_torch.connectors")
-    with pytest.raises(NotImplementedError, match=r"\(12\)"):
-        getattr(connectors, name)
-    dim = {1: [{"id": 1, "label": "ant"}], 2: [{"id": 2, "label": "bee"}]}
-    te = ptable.TableEnvironment(device="cpu")
-    te.register_collection("orders", columns={
-        "pid": np.asarray([2, 1, 9], np.int64),
-        "qty": np.asarray([4, 5, 6], np.int64)})
-    te.register_lookup_table("products", lambda k: dim.get(k, []),
-                             ["id", "label"], key_column="id")
-    rows = te.execute_sql(
-        "SELECT o.qty, p.label FROM orders o "
-        "LEFT JOIN products FOR SYSTEM_TIME AS OF o.pid AS p "
-        "ON o.pid = p.id").collect()
-    assert sorted((r["qty"], r["label"]) for r in rows) == [
-        (4, "bee"), (5, "ant"), (6, None)]
+@pytest.mark.parametrize("connector", ["postgres", "jdbc"])
+def test_postgres_and_jdbc_ddl_on_both_packages(connector, tmp_path):
+    """A source and a sink table of ``'connector' = 'postgres'`` or
+    ``'jdbc'`` (the same branch) over one Postgres wire server with md5
+    authentication: each package's ``INSERT INTO ... SELECT`` with a
+    ``TUMBLE`` sum writes the same rows, each registers both tables in its
+    persisted catalog, and each reads the other's result table back."""
+    from flink_tpu.connectors import postgres as jpg
+    from flink_tpu_torch.connectors import postgres as ppg
+    rng = np.random.default_rng(24)
+    k = rng.integers(0, 40, 600)
+    v = rng.integers(0, 1000, 600) / 8.0
+    ts = np.sort(rng.integers(0, 20_000, 600))
+    srv = ppg.PostgresWireServer(users={"u": "pw"})
+    try:
+        with jpg.PostgresWireClient(srv.host, srv.port, user="u",
+                                    password="pw") as c:
+            c.execute("CREATE TABLE ev (k int8, v float8, ts int8)")
+            c.execute("INSERT INTO ev (k, v, ts) VALUES " + ", ".join(
+                f"({a}, {b}, {t})" for a, b, t in zip(k, v, ts)))
+            for side in ("jax", "port"):
+                c.execute(f"CREATE TABLE out_{side} (k int8, ws int8, "
+                          f"s float8)")
+        where = (f"'connector' = '{connector}', 'hostname' = '{srv.host}', "
+                 f"'port' = '{srv.port}', 'username' = 'u', "
+                 f"'password' = 'pw'")
+        got = {}
+        for side, mod in (("jax", jtable), ("port", ptable)):
+            kw = {"device": "cpu"} if side == "port" else {}
+            te = mod.TableEnvironment(catalog_dir=str(tmp_path / side), **kw)
+            te.execute_sql(
+                "CREATE TABLE ev (k BIGINT, v DOUBLE, ts BIGINT, "
+                "WATERMARK FOR ts AS ts - INTERVAL '0' SECOND) WITH ("
+                f"{where}, 'table-name' = 'ev', "
+                "'scan.partition.column' = 'k')")
+            te.execute_sql(f"CREATE TABLE res (k BIGINT, ws BIGINT, s DOUBLE)"
+                           f" WITH ({where}, 'table-name' = 'out_{side}')")
+            assert [r["table name"] for r in
+                    te.execute_sql("SHOW TABLES").collect()] == ["ev", "res"]
+            n = te.execute_sql(
+                "INSERT INTO res SELECT k, TUMBLE_START(ts, INTERVAL '5' "
+                "SECOND) AS ws, SUM(v) AS s FROM ev "
+                "GROUP BY k, TUMBLE(ts, INTERVAL '5' SECOND)").collect()
+            got[side] = n[0]["rows_written"]
+        reads = {}
+        for side, other, mod in (("jax", "port", jpg), ("port", "jax", ppg)):
+            with mod.PostgresWireClient(srv.host, srv.port, user="u",
+                                        password="pw") as c:
+                cols = c.query_columns(f"SELECT k, ws, s FROM out_{other}")
+            reads[other] = sorted(zip(cols["k"].tolist(),
+                                      cols["ws"].tolist(),
+                                      cols["s"].tolist()))
+    finally:
+        srv.close()
+    assert got["jax"] == got["port"] == len(reads["jax"]) > 0
+    assert reads["jax"] == reads["port"]
+    want = {}
+    for a, b, t in zip(k.tolist(), v.tolist(), ts.tolist()):
+        key = (a, t // 5000 * 5000)
+        want[key] = want.get(key, 0.0) + b
+    assert {(a, w): s for a, w, s in reads["port"]} == want
 
 
 def test_match_recognize_threads_vectorized_mode():

@@ -43,15 +43,12 @@ REFERENCE_FILES = ("test_sql", "test_sql_advanced", "test_sql_over",
                    "test_streaming_join")
 
 #: reference cases that ``tests/test_torch_sql.py`` mirrors by hand: the
-#: cluster case waits for ROADMAP Queue A item 8.4 and the Postgres cases
-#: for item 12 (the port raises ``NotImplementedError`` naming it);
-#: the changelog aggregate's state is a ``jax.Array`` in JAX and a
-#: ``torch.Tensor`` in the port
+#: cluster case waits for ROADMAP Queue A item 8.4; the changelog
+#: aggregate's state is a ``jax.Array`` in JAX and a ``torch.Tensor`` in
+#: the port
 OWN_COUNTERPART = {
     "test_sql_advanced::test_count_distinct_parallel_cluster",
     "test_sql_advanced::test_changelog_agg_device_state_and_snapshot_roundtrip",
-    "test_sql_ddl::test_postgres_ddl_source_and_sink",
-    "test_temporal_lookup_join::test_postgres_lookup_function_end_to_end",
 }
 
 #: (module, attribute, method or None) recorded in each package
@@ -99,11 +96,13 @@ def plain(v, tmp=None):
     (floats by their bits), arrays and tensors as lists, batches as rows
     and timestamps, AST nodes by their repr; the case's temporary
     directory ``tmp`` reads ``<tmp>`` in strings, and a loopback address's
-    port (a Kafka DDL's broker, bound to an ephemeral port in each run)
-    ``<port>``."""
+    port (a Kafka DDL's broker or a Postgres DDL's server, bound to an
+    ephemeral port in each run) ``<port>``, in an address or in a DDL's
+    ``'port'`` property."""
     if isinstance(v, str) and tmp is not None:
-        return re.sub(r"127\.0\.0\.1:\d+", "127.0.0.1:<port>",
-                      v.replace(tmp, "<tmp>"))
+        v = re.sub(r"127\.0\.0\.1:\d+", "127.0.0.1:<port>",
+                   v.replace(tmp, "<tmp>"))
+        return re.sub(r"'port': '\d+'", "'port': '<port>'", v)
     if v is None or isinstance(v, (bool, int, str, bytes)):
         return v
     if isinstance(v, float):
