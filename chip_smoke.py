@@ -529,6 +529,22 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``scatter_fold``, prints its wall, records/s and the bytes through each
    service, and leaves no thread or process of its own running.
 
+9t. path 59 (slice 25), last: the four user programs of
+   ``flink_tpu_torch/examples/`` on the card, each run as a user runs it
+   and timed on the host's clock: ``wordcount_batch.main()`` (the top five
+   words of its text, held to numpy's counts), ``socket_window_word_count
+   .main(env, host, port)`` on a ``StreamExecutionEnvironment()`` reading
+   ``EXAMPLE_SOCKET_WORDS`` seeded Zipf words over 1000 from a local
+   one-shot text server (each word's count summed over its processing-time
+   windows equals numpy's), ``fraud_detection.main(env)`` (exactly the
+   alerts of the planted accounts 7, 21 and 33) and
+   ``distributed_wordcount.main()`` (2 worker processes on the card; every
+   one of the 1000 words counts 100).  The launches of each example are
+   printed; the socket example's windowed count folds through
+   ``scatter_fold``.  Then, outside the counted run, ``python -m
+   flink_tpu_torch run flink_tpu_torch/examples/fraud_detection.py`` as a
+   subprocess must print the same three alerts.
+
 Each phase and path prints its command time on a line of its own.
 
 Each main path runs with every launch count set to 0 just before it and
@@ -574,7 +590,9 @@ HOST_SOURCE = "host_mirror.cc"
 SPILL_SOURCE = "spill_store.cc"
 #: the batch codec of paths 45-47's spill files and savepoints' frames
 CODEC_SOURCE = "codec.cc"
-HOST_SOURCES = (HOST_SOURCE, SPILL_SOURCE, CODEC_SOURCE)
+#: the native layer's host infeed ring (``flink_tpu_torch.native``)
+RING_SOURCE = "ring.cc"
+HOST_SOURCES = (HOST_SOURCE, SPILL_SOURCE, CODEC_SOURCE, RING_SOURCE)
 #: host threads of the C probe + fold pass on paths 3 and 4 (pinned)
 NATIVE_SHARDS = min(4, os.cpu_count() or 1)
 
@@ -874,6 +892,7 @@ def build_kernels():
     build.scatter_fold_lib()
     build.spill_store_lib()
     build.codec_lib()
+    build.ring_lib()
     host = build.host_mirror_lib()
     print(f"build: {', '.join(SOURCES + HOST_SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s wall (nvcc " + ", ".join(
@@ -4683,6 +4702,14 @@ def path35(device, card):
     return launches, {"wall_s": wall, "times": times}
 
 
+def value_rows(state, slots, dtype) -> np.ndarray:
+    """A value state's rows as a ``dtype`` array: the heap backend's
+    ``get_rows`` returns (values, alive), the spill backend's (as JAX's)
+    the values alone."""
+    got = state.get_rows(slots)
+    return np.asarray(got[0] if isinstance(got, tuple) else got, dtype)
+
+
 def process_function():
     """The headline tumbling sum as a ``KeyedProcessFunction``: per key (a
     composite of the window's index and the key, the heap having no
@@ -4708,7 +4735,7 @@ def process_function():
             u, first, c = np.unique(ctx.slots, return_index=True,
                                     return_counts=True)
             cnt = ctx.state(self.cnt_d)
-            cnt.put_rows(u, cnt.get_rows(u)[0] + c)
+            cnt.put_rows(u, value_rows(cnt, u, np.int64) + c)
             ends = (np.asarray(batch.timestamps)[first] // WINDOW_MS + 1) \
                 * WINDOW_MS - 1
             ctx.timer_service.register_event_time_timers(u, ends)
@@ -4716,7 +4743,7 @@ def process_function():
 
         def on_timer_batch(self, ctx, slots, timestamps):
             s, _ = ctx.state(self.sum_d).get_rows(slots)
-            n, _ = ctx.state(self.cnt_d).get_rows(slots)
+            n = value_rows(ctx.state(self.cnt_d), slots, np.int64)
             ctx.state(self.sum_d).clear_rows(slots)
             ctx.state(self.cnt_d).clear_rows(slots)
             ck = np.asarray(ctx.keys_of(slots), np.int64)
@@ -9096,6 +9123,169 @@ def slice24(device, card, batches):
     return {"path 58": total}, {"path 58": numbers}
 
 
+SLICE25 = ("path 59",)
+#: words path 59's text server sends the socket example (10 a line, seeded
+#: Zipf(1.3) over ``EXAMPLE_VOCAB`` words)
+EXAMPLE_SOCKET_WORDS = 1 << 20
+EXAMPLE_VOCAB = 1000
+#: seconds the distributed example and the CLI's run each get
+EXAMPLE_TIMEOUT_S = 300.0
+
+
+def example_words(n_words: int, vocab: int, seed: int = 59):
+    """``n_words`` seeded Zipf words over ``vocab``, and them as text of 10
+    words a line."""
+    rng = np.random.default_rng(seed)
+    names = np.asarray([f"w{i}" for i in range(vocab)], object)
+    words = names[rng.zipf(1.3, n_words) % vocab]
+    text = "\n".join(" ".join(words[i:i + 10])
+                     for i in range(0, n_words, 10)) + "\n"
+    return words, text
+
+
+@contextlib.contextmanager
+def one_shot_text_server(text: str):
+    """A TCP server on a free 127.0.0.1 port that sends ``text`` to its
+    first client and closes; yields the port, joins its thread on the
+    way out."""
+    import socket
+    import threading
+
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    srv.settimeout(EXAMPLE_TIMEOUT_S)
+
+    def serve():
+        with srv:
+            conn, _ = srv.accept()
+            with conn:
+                conn.sendall(text.encode())
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    try:
+        yield srv.getsockname()[1]
+    finally:
+        th.join(timeout=EXAMPLE_TIMEOUT_S)
+        check(not th.is_alive(), "path 59: the text server still runs")
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k]
+            for k in ("probe", "probe_fold", "scatter_fold")}
+
+
+def path59(card):
+    """Path 59: the four examples on the card (see the module's docstring,
+    phase 9t)."""
+    import io
+
+    from flink_tpu_torch.datastream import StreamExecutionEnvironment
+    from flink_tpu_torch.examples import (distributed_wordcount,
+                                          fraud_detection,
+                                          socket_window_word_count,
+                                          wordcount_batch)
+
+    label = "path 59"
+    words, text = example_words(EXAMPLE_SOCKET_WORDS, EXAMPLE_VOCAB)
+    u, c = np.unique(words, return_counts=True)
+    socket_want = dict(zip(u.tolist(), c.tolist()))
+    tu, tc = np.unique(np.asarray(wordcount_batch.TEXT, object),
+                       return_counts=True)
+    batch_want = dict(zip(tu.tolist(), tc.tolist()))
+    walls, per_example, printed = {}, {}, {}
+    reset_launches()
+    t_path = time.perf_counter()
+
+    def timed(name, fn):
+        before = read_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            got = fn()
+        walls[name] = time.perf_counter() - t0
+        per_example[name] = launch_delta(before, read_launches())
+        printed[name] = len(out.getvalue().splitlines())
+        return got
+
+    top = timed("wordcount_batch", wordcount_batch.main)
+    check([r["count"] for r in top]
+          == sorted(batch_want.values(), reverse=True)[:5]
+          and all(batch_want[r["word"]] == r["count"] for r in top),
+          f"{label}: wordcount_batch's top five {top} differ from numpy's")
+
+    def socket_run():
+        with one_shot_text_server(text) as port:
+            env = StreamExecutionEnvironment()
+            sink = socket_window_word_count.main(env, "127.0.0.1", port)
+            env.execute()
+        return sink.rows()
+
+    rows = timed("socket_window_word_count", socket_run)
+    totals = {}
+    for r in rows:
+        totals[r["word"]] = totals.get(r["word"], 0) + int(r["count"])
+    check(totals == socket_want,
+          f"{label}: the socket example's counts differ from numpy's "
+          f"({len(totals)} words, {sum(totals.values())} counted, "
+          f"{len(socket_want)} and {EXAMPLE_SOCKET_WORDS} sent)")
+
+    def fraud_run():
+        env = StreamExecutionEnvironment()
+        sink = fraud_detection.main(env)
+        env.execute()
+        return sink.rows()
+
+    alerts = timed("fraud_detection", fraud_run)
+    planted = [a for a, _ in fraud_detection.PLANTED]
+    check(sorted(int(r["account"]) for r in alerts) == planted == [7, 21, 33],
+          f"{label}: the fraud example's alerts {alerts}")
+    res, final = timed("distributed_wordcount", lambda: (
+        distributed_wordcount.main(timeout_s=EXAMPLE_TIMEOUT_S)))
+    check(res["state"] == "FINISHED",
+          f"{label}: the distributed example ended {res['state']}: "
+          f"{res.get('error')}")
+    check({int(k): float(v) for k, v in final.items()}
+          == {w: 100.0 for w in range(distributed_wordcount.N_WORDS)},
+          f"{label}: the distributed example's counts differ from numpy's")
+    path_s = time.perf_counter() - t_path
+    launches = read_launches()
+    check(per_example["socket_window_word_count"]["scatter_fold"] > 0,
+          f"{label}: the socket example's windowed count launched no "
+          f"scatter_fold")
+    # as a user runs it, outside the counted run (its kernels run in the
+    # subprocess)
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "flink_tpu_torch", "run",
+         "flink_tpu_torch/examples/fraud_detection.py"],
+        capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)
+    walls["fraud_detection (CLI)"] = time.perf_counter() - t0
+    import re
+    cli_alerts = sorted(int(m.group(1)) for m in re.finditer(
+        r"^ALERT.*'account': (?:np\.int64\()?(\d+)", cli.stdout, re.M))
+    check(cli.returncode == 0 and cli_alerts == planted,
+          f"{label}: the CLI's fraud run (rc {cli.returncode}, alerts "
+          f"{cli_alerts}): {cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    print(card)
+    print(f"{label} walls (host clock, s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()))
+    top5 = [(r["word"], r["count"]) for r in top]
+    print(f"{label}: wordcount_batch's top five {top5}; "
+          f"the socket example {EXAMPLE_SOCKET_WORDS} words over "
+          f"{len(totals)} in {len(rows)} window rows "
+          f"({EXAMPLE_SOCKET_WORDS / walls['socket_window_word_count']:.1f}"
+          f" words/s); fraud alerts {planted}; the distributed example "
+          f"{res['state']}, {res['attempts']} attempt(s), "
+          f"{len(res['completed_checkpoints'])} checkpoint(s), "
+          f"{len(final)} words; lines printed {printed}; launches by "
+          f"example {per_example}; the path {path_s:.1f} s")
+    numbers = {"walls_s": walls, "launches_by_example": per_example,
+               "path_s": path_s}
+    return {label: launches}, {label: numbers}
+
+
 def main() -> None:
     try:
         import torch
@@ -9307,6 +9497,11 @@ def main() -> None:
     slice24_launches, slice24_numbers = slice24(device, card, batches)
     launches.update(slice24_launches)
     numbers.update(slice24_numbers)
+    t1 = time.perf_counter()
+    slice25_launches, slice25_numbers = path59(card)
+    launches.update(slice25_launches)
+    numbers.update(slice25_numbers)
+    print(f"path 59 took {time.perf_counter() - t1:.1f} s of command time")
     for label, twin in TWIN.items():
         a, b = numbers[label], numbers[twin]
         host = lambda n: sum(n["phase_ms"].get(k, 0.0)  # noqa: E731
@@ -9371,7 +9566,7 @@ def main() -> None:
     kernels.append(scatter_fold_phase(device, rng))
     every_path = (ORDER + SLICE11 + SLICE12 + SLICE13 + SLICE14 + SLICE15
                   + SLICE16 + SLICE17 + SLICE18 + SLICE19 + SLICE20
-                  + SLICE21 + SLICE22 + SLICE23 + SLICE24)
+                  + SLICE21 + SLICE22 + SLICE23 + SLICE24 + SLICE25)
     for kernel in kernels:
         by_path = {label: launches[label][kernel["name"]]
                    for label in every_path}
@@ -9396,7 +9591,7 @@ def main() -> None:
                   *SLICE11_SCATTER, "path 23", "path 24", "path 25",
                   "path 28", "path 29", "path 32", "path 34", "path 35",
                   *SLICE16, "path 40", "path 41", "path 47", *SLICE19,
-                  *SLICE20, *SLICE21, *SLICE22, *SLICE24):
+                  *SLICE20, *SLICE21, *SLICE22, *SLICE24, *SLICE25):
         check(launches[label]["scatter_fold"] > 0,
               f"{label}: no scatter_fold launch")
     check(launches["path 12"]["probe"] > 0, "path 12: no probe launch")

@@ -369,6 +369,11 @@ class _VecState:
         self.ensure_slots(int(self.index.num_keys))
         return slots
 
+    def key_of(self, slot: int):
+        """The key of ``slot``, as a Python value."""
+        k = self.index.reverse_keys()[slot]
+        return k.item() if isinstance(k, np.generic) else k
+
     def slot_keys(self) -> List[Any]:
         """Every slot's key, in slot order."""
         return self.index.reverse_keys()[:self.n_slots].tolist()

@@ -128,6 +128,10 @@ class RecordBatch(StreamElement):
     def __len__(self) -> int:
         return self._size
 
+    @property
+    def size(self) -> int:
+        return self._size
+
     def column(self, name: str):
         return self.columns[name]
 

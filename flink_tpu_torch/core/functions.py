@@ -162,6 +162,20 @@ def canonical_tensor(value) -> torch.Tensor:
     return t if narrow is None else t.to(narrow)
 
 
+def canonical_acc_dtype(dtype) -> torch.dtype:
+    """The dtype the backend stores for an accumulator leaf asked for as
+    ``dtype`` (numpy, JAX or torch): the port stores every dtype as asked,
+    64-bit ones included (JAX's, with x64 off, narrows those to 32 bits)."""
+    return torch_dtype(dtype)
+
+
+def default_float_dtype() -> torch.dtype:
+    """The widest float the backend stores, the default of the DataStream
+    API's ``.sum()``/``.min()``/``.max()``: float64 in the port (JAX's,
+    with x64 off, is float32)."""
+    return canonical_acc_dtype(np.float64)
+
+
 class Function:
     """Marker base for all user functions (``Function.java``)."""
 
@@ -375,7 +389,7 @@ class SumAggregator(ReduceFunction):
     """``.sum()`` (SumAggregator.java analog): elementwise sum, identity 0."""
 
     def __init__(self, dtype=torch.float32):
-        self._dtype = torch_dtype(dtype)
+        self._dtype = canonical_acc_dtype(dtype)
 
     def identity(self):
         return torch.zeros((), dtype=self._dtype)
@@ -399,7 +413,7 @@ def _extreme(dtype: torch.dtype, kind: str):
 
 class MinAggregator(ReduceFunction):
     def __init__(self, dtype=torch.float32):
-        self._dtype = torch_dtype(dtype)
+        self._dtype = canonical_acc_dtype(dtype)
 
     def identity(self):
         return torch.tensor(_extreme(self._dtype, "min"), dtype=self._dtype)
@@ -413,7 +427,7 @@ class MinAggregator(ReduceFunction):
 
 class MaxAggregator(ReduceFunction):
     def __init__(self, dtype=torch.float32):
-        self._dtype = torch_dtype(dtype)
+        self._dtype = canonical_acc_dtype(dtype)
 
     def identity(self):
         return torch.tensor(_extreme(self._dtype, "max"), dtype=self._dtype)
@@ -455,7 +469,7 @@ class AvgAggregator(AggregateFunction):
     """Average: ACC = (sum, count)."""
 
     def __init__(self, dtype=torch.float32):
-        self._dtype = torch_dtype(dtype)
+        self._dtype = canonical_acc_dtype(dtype)
 
     def identity(self):
         return {"sum": torch.zeros((), dtype=self._dtype),
@@ -553,3 +567,35 @@ class FlatMapFunction(Function):
 
     def flat_map(self, columns: Dict[str, Any]):
         raise NotImplementedError
+
+
+class ProcessFunction(RichFunction):
+    """Low-level host-side per-batch processing with timer access (analog of
+    ``ProcessFunction``/``KeyedProcessFunction``). Batched: receives the
+    column dict, timestamps, and a ``TimerService``-like context."""
+
+    def process_batch(self, columns: Dict[str, Any], timestamps,
+                      ctx) -> Optional[Dict[str, Any]]:
+        raise NotImplementedError
+
+    def on_timer(self, timestamp: int, ctx) -> Optional[Dict[str, Any]]:
+        return None
+
+
+def as_map(fn: Callable, jax_traceable: bool = False) -> MapFunction:
+    """A :class:`MapFunction` whose ``map`` is ``fn``.  ``jax_traceable`` is
+    JAX's flag that lets its chain fuse the map into a jitted step; the
+    port keeps it as an attribute and runs every map on the host columns."""
+    m = MapFunction()
+    m.map = fn  # type: ignore[method-assign]
+    m.jax_traceable = jax_traceable
+    return m
+
+
+def as_filter(fn: Callable, jax_traceable: bool = False) -> FilterFunction:
+    """A :class:`FilterFunction` whose ``filter`` is ``fn`` (``jax_traceable``
+    as in :func:`as_map`)."""
+    f = FilterFunction()
+    f.filter = fn  # type: ignore[method-assign]
+    f.jax_traceable = jax_traceable
+    return f

@@ -130,6 +130,13 @@ def compute_key_group_range(max_parallelism: int, parallelism: int,
     return KeyGroupRange(start, end)
 
 
+def compute_operator_index_for_key_group(max_parallelism: int,
+                                         parallelism: int,
+                                         key_group: int) -> int:
+    """``computeOperatorIndexForKeyGroup``."""
+    return key_group * parallelism // max_parallelism
+
+
 def assign_key_to_parallel_operator(key_hashes: np.ndarray,
                                     max_parallelism: int,
                                     parallelism: int) -> np.ndarray:

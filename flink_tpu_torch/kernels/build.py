@@ -6,8 +6,9 @@ Each ``csrc/*.cu`` source is compiled with ``nvcc`` for Hopper
 plain C interface, on first use, into ``flink_tpu_torch/_build/`` (listed in
 ``.gitignore``).  The host layer ``csrc/host_mirror.cc`` (the C keydict and
 the window value mirror), the spill store of cold-key paging
-``csrc/spill_store.cc`` and the batch codec ``csrc/codec.cc`` (FLZ blocks,
-delta varints, CRCs) build beside them with ``g++`` (:func:`build_host`);
+``csrc/spill_store.cc``, the batch codec ``csrc/codec.cc`` (FLZ blocks,
+delta varints, CRCs) and the host infeed ring ``csrc/ring.cc`` build beside
+them with ``g++`` (:func:`build_host`);
 they need no card, so the CPU tests build and run them.
 A library's name carries a hash of its source and flags, so an edited
 source rebuilds and concurrent builds race benignly (write to a temporary
@@ -43,6 +44,8 @@ HOST_SOURCE = "host_mirror.cc"
 SPILL_SOURCE = "spill_store.cc"
 #: the batch codec's source (FLZ blocks, delta varints, CRC-32/32C)
 CODEC_SOURCE = "codec.cc"
+#: the host infeed ring's source (a single-producer single-consumer ring)
+RING_SOURCE = "ring.cc"
 
 #: where the CUDA toolkit installs nvcc when it is on neither path above
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
@@ -98,7 +101,7 @@ def find_host_compiler() -> str:
     if found is None:
         raise RuntimeError(f"{HOST_CXX} not found: the port's native host "
                            f"code (csrc/{HOST_SOURCE}, csrc/{SPILL_SOURCE}, "
-                           f"csrc/{CODEC_SOURCE}) "
+                           f"csrc/{CODEC_SOURCE}, csrc/{RING_SOURCE}) "
                            f"needs a C++17 compiler")
     return found
 
@@ -285,6 +288,28 @@ def codec_lib() -> ctypes.CDLL:
         "ftt_lz_decompress": (i64, [vp, i64, vp, i64]),
         "ftt_crc32": (u32, [vp, i64, u32]),
         "ftt_crc32c": (u32, [vp, i64, u32]),
+    }
+    with _lock:
+        for name, (restype, argtypes) in sigs.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+    return lib
+
+
+def ring_lib() -> ctypes.CDLL:
+    """``csrc/ring.cc`` (the host infeed ring) with every entry point's C
+    signature declared."""
+    lib = load(RING_SOURCE)
+    if lib.ftt_ring_destroy.argtypes is not None:   # declared last
+        return lib
+    i64, vp = ctypes.c_int64, ctypes.c_void_p
+    sigs = {
+        "ftt_ring_create": (vp, [i64]),
+        "ftt_ring_free_space": (i64, [vp]),
+        "ftt_ring_push": (ctypes.c_int, [vp, vp, i64]),
+        "ftt_ring_pop": (i64, [vp, vp, i64]),
+        "ftt_ring_destroy": (None, [vp]),
     }
     with _lock:
         for name, (restype, argtypes) in sigs.items():

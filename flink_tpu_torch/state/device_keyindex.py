@@ -379,6 +379,11 @@ class DeviceKeyIndex:
             pidx = (pidx[unresolved] + 1) & maskv
         return buckets
 
+    @property
+    def num_loaded(self) -> int:
+        """Slots of the key index placed in the table so far."""
+        return self._n
+
     def table(self):
         """The three planes of the JAX package's table, as column views of
         :attr:`buckets`."""

@@ -214,15 +214,17 @@ class KeyIndex:
         return ki
 
 
-class NativeKeyIndex:
-    """:class:`KeyIndex`'s surface over the C keydict: one C call maps a
-    batch of keys (``lookup``/``lookup_or_insert``), and
-    :class:`~flink_tpu_torch.state.native_mirror.NativeWindowMirror` inserts
-    through the same :attr:`handle`.  The load factor is the keydict's own
-    (0.5).  ``reverse_keys`` keeps a host copy of the slot -> key table and
-    appends only the keys inserted since its last call, so calling it per
-    batch (``DeviceKeyIndex.ensure_loaded`` does) copies each key out of C
-    once.  Raises if the host layer does not build."""
+class NativeKeyIndex(KeyIndex):
+    """A :class:`KeyIndex` over the C keydict (as JAX's ``KeyIndex`` is):
+    every method is the keydict's, so none of the numpy table's state is
+    made.  One C call maps a batch of keys (``lookup``/
+    ``lookup_or_insert``), and
+    :class:`~flink_tpu_torch.state.native_mirror.NativeWindowMirror`
+    inserts through the same :attr:`handle`.  The load factor is the
+    keydict's own (0.5).  ``reverse_keys`` keeps a host copy of the slot ->
+    key table and appends only the keys inserted since its last call, so
+    calling it per batch (``DeviceKeyIndex.ensure_loaded`` does) copies
+    each key out of C once.  Raises if the host layer does not build."""
 
     def __init__(self, initial_capacity: int = 1 << 16):
         from flink_tpu_torch.kernels.build import host_mirror_lib

@@ -214,6 +214,17 @@ class NativeWindowMirror:
             raise RuntimeError("ftt_wm_create failed")
         return cls(lib, key_index, h, mdts)
 
+    @classmethod
+    def try_create(cls, key_index, spec, kinds: Optional[Sequence[str]],
+                   mirror_dtypes) -> Optional["NativeWindowMirror"]:
+        """:meth:`create`, or None where the mirror cannot serve: a key
+        index without a C keydict, or an accumulator :func:`ineligible`
+        names.  A host library that does not build still raises."""
+        if getattr(key_index, "handle", None) is None or kinds is None \
+                or ineligible(spec, kinds, mirror_dtypes) is not None:
+            return None
+        return cls.create(key_index, spec, kinds, mirror_dtypes)
+
     def __del__(self):
         h = getattr(self, "_h", None)
         if h:

@@ -139,6 +139,9 @@ class DevicePager:
     def rows(self, gids: np.ndarray) -> np.ndarray:
         return self.row_of[gids]
 
+    def resident_keys(self) -> int:
+        return self._n_resident
+
     @property
     def row_high_water(self) -> int:
         """Rows ever assigned (fresh low-water mark): bounds live rows."""

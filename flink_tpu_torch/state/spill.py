@@ -417,24 +417,11 @@ class SpillValueState(_SpillStateBase, ValueState):
         return self.desc.default if v is None else v
 
     def get_rows(self, slots: np.ndarray):
-        """(values, alive): the heap backend's contract, so a process
-        function runs on either backend.  Values take the descriptor's
-        dtype and shape when it has one (absent rows the default, else
-        zeros), else they are an object array (absent rows the default).
-        JAX's spill value state returns the object array alone."""
-        vals = [self._load(int(s)) for s in np.asarray(slots).tolist()]
-        alive = np.asarray([v is not None for v in vals], bool)
-        d = self.desc
-        if d.dtype is None:
-            out = np.empty(len(vals), dtype=object)
-            out[:] = [d.default if v is None else v for v in vals]
-            return out, alive
-        out = np.zeros((len(vals),) + d.shape, d.dtype)
-        if d.default is not None:
-            out[:] = d.default
-        for i in np.flatnonzero(alive).tolist():
-            out[i] = vals[i]
-        return out, alive
+        """The values of ``slots`` as an object array, the default where a
+        row is absent (JAX's spill value state's contract)."""
+        return np.asarray(
+            [self.value_at(int(s)) for s in np.asarray(slots).tolist()],
+            dtype=object)
 
     def put_rows(self, slots: np.ndarray, values) -> None:
         for s, v in zip(np.asarray(slots).tolist(), list(values)):

@@ -30,6 +30,13 @@ class TimeWindow:
     def max_timestamp(self) -> int:
         return self.end - 1
 
+    def intersects(self, other: "TimeWindow") -> bool:
+        return self.start <= other.end and other.start <= self.end
+
+    def cover(self, other: "TimeWindow") -> "TimeWindow":
+        return TimeWindow(min(self.start, other.start),
+                          max(self.end, other.end))
+
 
 class WindowAssigner:
     """Pane-decomposed window assigner.

@@ -36,7 +36,9 @@ harness (``tests/test_torch_distributed_cases.py``, ``_ha_cases``,
 (``check_case(..., patches=...)``) and says why.
 ``tests/test_torch_checkpoint.py`` holds that ``execute_cluster`` raises
 without a card.  The cases that cannot run this
-way have counterparts at the end of this file (:data:`OWN_COUNTERPART`).
+way have counterparts at the end of this file (:data:`OWN_COUNTERPART`);
+:data:`HAND_COUNTERPART` names the reference files and cases no harness can
+run as written, each with the port test that holds them by hand.
 """
 
 import inspect
@@ -124,6 +126,72 @@ OWN_COUNTERPART = {
     "test_chaos::test_checksum_mismatch_detected",
     "test_chaos::test_unreadable_metadata_is_corrupt_not_fatal",
     "test_chaos::test_crash_mid_write_leaves_only_staging_dir",
+    # ROADMAP Queue C item 7: JAX's async CPU dispatch can surface an async
+    # fire one call later: tests/test_torch_operator_cases.py runs it on
+    # both packages and compares the rows, not the calls
+    "test_window_agg::test_async_fire_same_results_one_call_later",
+    # the paging acceptance at 256k keys through a 64k ring: two runs in
+    # each package take ~75 s (~25 s) of the harness on the CPU;
+    # tests/test_torch_pipeline.py::test_pipeline_with_paging_64k_cap_256k_
+    # keys and tests/test_torch_mesh.py::test_mesh_paging_invariance_64k_
+    # cap_256k_keys_equals_jax run them on both packages
+    "test_pipeline_equivalence::test_pipeline_with_paging_64k_cap_256k_keys",
+    "test_mesh_invariance::test_mesh_paging_invariance_64k_cap_256k_keys",
+}
+
+#: reference files (or single cases, ``file::case``) the harness cannot run
+#: as written, each with the port test that holds its cases by hand
+#: (``tests/test_torch_isolation.py`` checks that every reference file is
+#: run through both packages or named here)
+HAND_COUNTERPART = {
+    # a JAX mesh's devices array (``mesh.devices.size``): the port's mesh
+    # is a tuple of torch devices; the key-group sharding is compared there
+    "test_parallel::test_mesh_and_sharding_specs":
+        "test_torch_parallel.py::test_key_group_sharding_equals_jax",
+    # a jax.Array's ``.sharding.device_set``: the port's sharded state is a
+    # list of row blocks, one on each mesh device
+    "test_parallel::test_sharded_state_is_actually_distributed":
+        "test_torch_parallel.py::test_sharded_state_is_actually_distributed",
+    # jnp arrays into the ring over a JAX mesh (``mesh.devices.size``);
+    # the port's ring takes numpy blocks over its own mesh
+    "test_ring::test_ring_combine_sum_monoid":
+        "test_torch_parallel.py::test_ring_combine_equals_jax",
+    "test_ring::test_ring_combine_max_monoid":
+        "test_torch_parallel.py::test_ring_combine_equals_jax",
+    "test_ring::test_ring_all_reduce_sum":
+        "test_torch_parallel.py::test_ring_all_reduce_sum_equals_jax",
+    "test_ring::test_sequence_parallel_window_total":
+        "test_torch_parallel.py::test_sharded_pane_window_total_equals_jax",
+    # JAX arrays and a jax.Device handed to the aggregators (``identity``,
+    # ``lift``, ``combine`` on ``jnp`` values, ``jax.devices()[0]``)
+    "test_functions": "test_torch_functions.py",
+    # imports lax_probe and probe_impl (NO_NAMESAKE in
+    # tests/test_torch_isolation.py) and hands jnp tables to them
+    "test_device_keyindex": "test_torch_device_keyindex.py",
+    # JAX's jitted scan lane: four cases reach jax.experimental.enable_x64
+    # (ROADMAP Queue C item 4), one reads the Pallas fold gate, one a
+    # donated buffer's ``.delete()``, one the calibration the harness pins
+    "test_fused_step": "test_torch_fused_step.py",
+    # JAX's jitted step imports jax.experimental.enable_x64 on jax 0.9
+    # (ROADMAP Queue C item 4); the port's torch step is held against the
+    # numpy step there, and against JAX's under the _jax_x64 shim
+    "test_cep_vectorized::test_jit_kernel_matches_numpy_kernel":
+        "test_torch_cep_vectorized.py::"
+        "test_device_step_kernel_matches_numpy_kernel",
+    # its deferred refresh on JAX's mesh reaches jax.experimental.
+    # enable_x64 (ROADMAP Queue C item 4); the port's 4-block deferred
+    # mesh is refreshed and verified there
+    "test_mesh_invariance::test_mesh_deferred_refresh_keeps_state_pre_"
+    "partitioned":
+        "test_torch_mesh.py::test_mesh_size_invariance_by_tier_equals_jax",
+    # jnp functions (``jnp.minimum``) and a JAX mesh (``jax.devices()``,
+    # ``jax.sharding.Mesh``) handed to the port's Graph
+    "test_graph_lib::test_mesh_connected_components_matches":
+        "test_torch_graph.py::test_mesh_connected_components_matches",
+    "test_graph_lib::test_mesh_weighted_sssp_matches":
+        "test_torch_graph.py::test_mesh_weighted_sssp_matches",
+    "test_graph_lib::test_all_pairs_on_mesh":
+        "test_torch_graph.py::test_all_pairs_on_mesh",
 }
 
 #: the parametrized fixtures' values that run here: the object store and
@@ -328,6 +396,23 @@ def _f32_defaults(monkeypatch):
             monkeypatch.setattr(cls, name, pinned)
 
 
+def _acc_dtypes_as_jax(monkeypatch):
+    """The aggregators' constructors resolve a requested dtype through
+    ``canonical_acc_dtype`` in both packages: JAX's (x64 off) narrows a
+    64-bit request to 32 bits (``SumAggregator(jnp.float64)`` folds f32),
+    the port's honours it.  The port's run pins JAX's resolution, so both
+    packages fold the same values (the port itself keeps f64)."""
+    from flink_tpu_torch.core import functions
+    narrow = {torch.float64: torch.float32, torch.int64: torch.int32}
+    real = functions.canonical_acc_dtype
+
+    def as_jax(dtype):
+        got = real(dtype)
+        return narrow.get(got, got)
+
+    monkeypatch.setattr(functions, "canonical_acc_dtype", as_jax)
+
+
 _SOURCES = {}
 
 
@@ -384,6 +469,25 @@ def _marks(mod, fn):
             if m.name in KEPT_MARKS]
 
 
+class _Pos:
+    """A parametrize value whose ``str`` names a memory address (an
+    evictor object, say), held by its place in the case's grid: each
+    package's run takes the value from its own module's grid, and the id
+    reads its class name and that place, the same in every process."""
+
+    def __init__(self, index: int, name: str, value):
+        self.index, self.name = index, name
+        self.label = f"{type(value).__name__}{index}"
+
+    def __str__(self):
+        return self.label
+
+
+def _stable(g: dict, index: int) -> dict:
+    return {k: _Pos(index, k, v) if " at 0x" in str(v) else v
+            for k, v in g.items()}
+
+
 def cases(files, marks=False):
     """``(id, reference file, class or None, function name, parametrize
     kwargs)`` for every case of the reference ``files`` (a mapping: only
@@ -402,12 +506,13 @@ def cases(files, marks=False):
         for cls, fn_name in found:
             cid = f"{ref}::{fn_name}" if cls is None \
                 else f"{ref}::{cls}::{fn_name}"
-            if cid in OWN_COUNTERPART or (isinstance(files, dict)
-                                          and fn_name not in files[ref]):
+            if cid in OWN_COUNTERPART or cid in HAND_COUNTERPART or (
+                    isinstance(files, dict) and fn_name not in files[ref]):
                 continue
             fn = (mod.__dict__[fn_name] if cls is None
                   else vars(mod.__dict__[cls])[fn_name])
-            grid = _grid(getattr(fn, "pytestmark", []))
+            grid = [_stable(g, i) for i, g in
+                    enumerate(_grid(getattr(fn, "pytestmark", [])))]
             for name, values in FIXTURE_PARAMS.items():
                 if name in inspect.signature(fn).parameters:
                     grid = [{**g, name: v} for g in grid for v in values]
@@ -436,9 +541,11 @@ def _with_helpers(ref: str, src: str, depth: int = 3) -> str:
     return src
 
 
-def _run(ref, cls, fn_name, params, side, tmp_path_factory, patches=()):
+def _run(ref, cls, fn_name, params, side, tmp_path_factory, patches=(),
+         pins=()):
     """The case through one package; returns its record (the case's own
-    exception, if it raises, is the last entry)."""
+    exception, if it raises, is the last entry).  ``pins`` are called with
+    the run's monkeypatch before the case's module is made."""
     mp = pytest.MonkeyPatch()
     tmp = tmp_path_factory.mktemp(f"{fn_name[:20]}_{side}")
     src = _source(ref, "jax").split(f"\nclass {cls}" if cls
@@ -453,7 +560,15 @@ def _run(ref, cls, fn_name, params, side, tmp_path_factory, patches=()):
         if side == "port":
             _cpu_when_unnamed(mp)
             _f32_defaults(mp)
+        for pin in pins:
+            pin(mp)
         mod = _module(ref, side, patches)
+        if any(isinstance(v, _Pos) for v in params.values()):
+            own = (mod.__dict__[fn_name] if cls is None
+                   else vars(mod.__dict__[cls])[fn_name])
+            grid = _grid(getattr(own, "pytestmark", []))
+            params = {k: grid[v.index][v.name] if isinstance(v, _Pos)
+                      else v for k, v in params.items()}
         case_mp = pytest.MonkeyPatch()
         finalizers.append(case_mp.undo)
 
@@ -501,15 +616,16 @@ def _run(ref, cls, fn_name, params, side, tmp_path_factory, patches=()):
 
 
 def check_case(ref, cls, fn_name, params, tmp_path_factory, pin,
-               patches=(), port_patches=()):
+               patches=(), port_patches=(), port_pins=()):
     """One reference case through both packages; the records must be
     equal.  A counterpart passes ``patches`` (see :func:`_source`), and
     ``port_patches`` for the port's run alone (what the port must be told
-    that JAX is not, such as a process's ``--device``)."""
+    that JAX is not, such as a process's ``--device``); ``port_pins`` pin a
+    difference of the port's run (such as :func:`_acc_dtypes_as_jax`)."""
     pin(taxed=False, shards=1, super_shards=1, depth=1, probe=False)
     want = _run(ref, cls, fn_name, params, "jax", tmp_path_factory, patches)
     got = _run(ref, cls, fn_name, params, "port", tmp_path_factory,
-               tuple(patches) + tuple(port_patches))
+               tuple(patches) + tuple(port_patches), port_pins)
     assert len(got) == len(want), (got[-1:], want[-1:])
     for i, (g, w) in enumerate(zip(got, want)):
         assert g == w, f"record {i} of {fn_name} differs"

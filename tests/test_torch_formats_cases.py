@@ -82,10 +82,15 @@ def _rows(batches):
 def test_files_byte_equal_across_packages(fmt, mod, writer, reader, opts,
                                           tmp_path, monkeypatch):
     """The same seeded batches write the same file in both packages (the
-    random sync markers of Avro and SequenceFile fixed), and each
-    package's reader gives the same rows, dtypes and bits for the file
-    the other wrote."""
+    random sync markers of Avro and SequenceFile fixed, and the clock
+    gzip stamps each page with, so the two writes cannot straddle a
+    second), and each package's reader gives the same rows, dtypes and
+    bits for the file the other wrote."""
+    import gzip
+    import types
     monkeypatch.setattr(os, "urandom", lambda n: bytes(range(n)))
+    monkeypatch.setattr(gzip, "time", types.SimpleNamespace(
+        time=lambda: 1_700_000_000.0))
     files = {}
     for pkg in ("flink_tpu", "flink_tpu_torch"):
         m = importlib.import_module(f"{pkg}.formats.{mod}")

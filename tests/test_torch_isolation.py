@@ -236,6 +236,68 @@ def test_codec_library_builds_from_its_own_source(monkeypatch, tmp_path):
     assert set(strong) == set(names)
 
 
+def test_ring_library_builds_from_its_own_source(monkeypatch, tmp_path):
+    """The host infeed ring compiles from ``csrc/ring.cc`` alone (system
+    headers only), and every entry point of it, in the source and in the
+    built library, carries the ``ftt_`` prefix."""
+    from flink_tpu_torch.kernels import build
+    src = Path(build.CSRC_DIR) / build.RING_SOURCE
+    text = src.read_text()
+    assert re.findall(r'^#include\s+"', text, re.M) == []
+    names = re.findall(r"^API\s+[\w\s\*]+?\b(\w+)\s*\(", text, re.M)
+    assert sorted(names) == sorted(f"ftt_ring_{n}" for n in (
+        "create", "free_space", "push", "pop", "destroy"))
+    read, cmds = [], []
+    real_open = open
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setitem(build.__dict__, "open", lambda p, *a, **k: (
+        read.append(os.path.realpath(p)), real_open(p, *a, **k))[1])
+    real_run = build.subprocess.run
+    monkeypatch.setattr(build.subprocess, "run", lambda cmd, *a, **k: (
+        cmds.append(list(cmd)), real_run(cmd, *a, **k))[1])
+    lib = build.ring_lib()
+    assert read == [str(src.resolve())]
+    (cmd,) = cmds
+    assert [c for c in cmd if c.endswith((".cc", ".cpp", ".h"))] == [str(src)]
+    assert not [c for c in cmd if "native" in c or "flink_tpu/" in c]
+    h = lib.ftt_ring_create(64)
+    assert int(lib.ftt_ring_free_space(h)) == 64
+    lib.ftt_ring_destroy(h)
+    nm = shutil.which("nm")
+    if nm is None:
+        return
+    res = subprocess.run([nm, "-D", "--defined-only",
+                          build.library_path(build.RING_SOURCE)],
+                         capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stderr
+    strong = [line.split()[-1] for line in res.stdout.splitlines()
+              if line.split()[-2] in ("T", "D", "B", "R")]
+    assert set(strong) == set(names)
+
+
+def test_ring_buffer_raises_when_its_source_does_not_build(monkeypatch,
+                                                           tmp_path):
+    """``native.RingBuffer`` has no Python stand-in: where ``csrc/ring.cc``
+    does not compile, constructing one raises with the compiler's output,
+    and the native layer reports itself unavailable."""
+    from flink_tpu_torch import native
+    from flink_tpu_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in Path(build.CSRC_DIR).iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    ring = csrc / build.RING_SOURCE
+    ring.write_text(ring.read_text() + "\nthis is not C++;\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(build, "_libs", {})
+    with pytest.raises(RuntimeError, match="failed for ring.cc"):
+        native.RingBuffer(1 << 10)
+    assert not native.native_available()
+    assert "ring.cc" in native.build_error()
+
+
 def test_window_operator_default_device_raises_without_cuda(monkeypatch):
     from flink_tpu_torch.core.functions import SumAggregator
     from flink_tpu_torch.operators.window_agg import WindowAggOperator
@@ -532,3 +594,216 @@ def test_no_refusal_waits_for_a_later_slice(path):
                 and re.fullmatch(r"_?later(_\w+)?", node.name)):
             bad.append(f"line {node.lineno}: helper {node.name}")
     assert not bad, f"{path.relative_to(REPO)}: {bad}"
+
+
+#: public names of the JAX package with no namesake in the port's module
+#: at the same path (``module::name`` or ``module::Class.method``): each
+#: names the port's counterpart where one does the same work, else None
+NO_NAMESAKE = {
+    # the jitted vectorized CEP step (jax.jit of JAX's array step); the
+    # port's step on the device is torch ops, run eagerly
+    "cep/vectorized.py::step_jit": "cep/vectorized.py::step_device",
+    # a shim over jax.experimental.shard_map's versions; the port's mesh
+    # runs its row blocks as lists of tensors and maps no function
+    "parallel/mesh.py::shard_map_compat": None,
+    # count XLA's compilations of the jitted probe and fused steps; the
+    # port's steps run eagerly and compile nothing
+    "operators/window_agg.py::WindowAggOperator.devprobe_step_cache_size":
+        None,
+    "operators/window_agg.py::WindowAggOperator.fused_step_cache_size":
+        None,
+    "parallel/mesh_runtime.py::MeshWindowAggOperator."
+    "devprobe_step_cache_size": None,
+    # JAX's device probe: the lax loop, the Pallas TPU kernel and their
+    # capability gates; the port's are the plain torch probe and the
+    # sm_90a kernels csrc/probe.cu and csrc/probe_fold.cu, dispatched by
+    # the keys' device
+    "state/device_keyindex.py::lax_probe":
+        "state/device_keyindex.py::torch_probe",
+    "state/device_keyindex.py::pallas_probe":
+        "state/device_keyindex.py::probe",
+    "state/device_keyindex.py::pallas_probe_available": None,
+    "state/device_keyindex.py::probe_impl":
+        "state/device_keyindex.py::probe",
+    "state/device_keyindex.py::pallas_probe_fold":
+        "state/device_keyindex.py::probe_fold",
+    "state/device_keyindex.py::pallas_probe_fold_available":
+        "state/device_keyindex.py::probe_fold_available",
+    # edge-pads the values into a power-of-two upload for a jitted step of
+    # that shape; the port's scatter fold takes the batch's B rows, and
+    # _Staging.fill copies the ids and the values in one step
+    "operators/window_agg.py::_Staging.fill_values":
+        "operators/window_agg.py::_Staging.fill",
+}
+
+#: constructor arguments of the JAX package with no namesake in the port's
+#: class: a jax sharding, and the padded row count and pytree structure of
+#: the power-of-two upload (see ``_Staging.fill_values`` above)
+NO_NAMESAKE_ARGS = {
+    "state/device_keyindex.py::DeviceKeyIndex": ("sharding",),
+    "operators/window_agg.py::_Staging": ("Bp", "treedef"),
+}
+
+
+def _port_module(rel: str):
+    import importlib
+    parts = Path(rel).with_suffix("").parts
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    return importlib.import_module(".".join(("flink_tpu_torch",) + parts))
+
+
+def _jax_names(path: Path):
+    """``(name, node)`` of every public top-level function and class of a
+    module, and ``(Class.method, node)`` of every public method of each of
+    its classes (a private class's too: those count where the port has a
+    class of that name), read from its source."""
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)) and not node.name.startswith("_"):
+            yield node.name, node
+        if isinstance(node, ast.ClassDef):
+            for b in node.body:
+                if isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                        and not b.name.startswith("_"):
+                    yield f"{node.name}.{b.name}", b
+
+
+def _resolve(mod, dotted: str):
+    obj = mod
+    for part in dotted.split("."):
+        obj = getattr(obj, part, None)
+        if obj is None:
+            return None
+    return obj
+
+
+def test_every_public_name_has_a_namesake():
+    """Every public function and class of each ``flink_tpu/`` module, and
+    every public method of its classes (of a private class, where the port
+    has one of that name), has a namesake (defined or inherited) in the
+    port's module at the same path, apart from
+    :data:`NO_NAMESAKE`; every counterpart that table names exists, and
+    every entry still names a JAX name without a namesake."""
+    jax_root = REPO / "flink_tpu"
+    missing, used = [], set()
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = str(path.relative_to(jax_root))
+        if rel in NO_COUNTERPART:
+            continue
+        mod = _port_module(rel)
+        for name, _node in _jax_names(path):
+            key = f"{rel}::{name}"
+            owner = name.split(".")[0]
+            if _resolve(mod, name) is not None or (
+                    owner.startswith("_") and _resolve(mod, owner) is None):
+                continue
+            if key in NO_NAMESAKE:
+                used.add(key)
+            else:
+                missing.append(key)
+    assert not missing, f"no namesake in flink_tpu_torch: {missing}"
+    assert used == set(NO_NAMESAKE), set(NO_NAMESAKE) - used
+    for key, counterpart in NO_NAMESAKE.items():
+        if counterpart is not None:
+            rel, name = counterpart.split("::")
+            assert _resolve(_port_module(rel), name) is not None, counterpart
+
+
+def test_every_namesake_class_takes_the_jax_constructor_arguments():
+    """Every argument of a JAX class's ``__init__`` is a parameter of the
+    port's namesake (or the port's takes ``**kwargs``), apart from
+    :data:`NO_NAMESAKE_ARGS`."""
+    import inspect
+    jax_root = REPO / "flink_tpu"
+    missing, used = [], set()
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = str(path.relative_to(jax_root))
+        if rel in NO_COUNTERPART:
+            continue
+        mod = _port_module(rel)
+        for node in ast.parse(path.read_text(), str(path)).body:
+            if not isinstance(node, ast.ClassDef):
+                continue
+            init = next((b for b in node.body
+                         if isinstance(b, ast.FunctionDef)
+                         and b.name == "__init__"), None)
+            cls = getattr(mod, node.name, None)
+            if init is None or cls is None:
+                continue
+            a = init.args
+            names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs][1:]
+            params = inspect.signature(cls).parameters
+            if any(p.kind == p.VAR_KEYWORD for p in params.values()):
+                continue
+            key = f"{rel}::{node.name}"
+            allowed = NO_NAMESAKE_ARGS.get(key, ())
+            lack = [n for n in names if n not in params and n not in allowed]
+            if lack:
+                missing.append(f"{key}{lack}")
+            if allowed:
+                used.add(key)
+                assert all(n in names and n not in params for n in allowed), \
+                    key
+    assert not missing, f"constructor arguments the port lacks: {missing}"
+    assert used == set(NO_NAMESAKE_ARGS)
+
+
+#: reference test files run through neither package's harness nor named in
+#: ``HAND_COUNTERPART``: they test the JAX package's own tooling
+NOT_PORTED = {
+    # bench.py's gates: the port's bench is a benchmark PR of its own
+    "test_bench_gate",
+    # the repo's pytest marks, over every test file
+    "test_marker_audit",
+}
+
+
+def _harness_files():
+    """The reference files some port test runs through both packages: the
+    string constants naming one in a ``tests/test_torch_*.py`` that runs a
+    case harness (``cases``/``check_case`` of
+    ``tests/test_torch_cluster_cases.py``, or its own ``_cases``), outside
+    ``HAND_COUNTERPART``."""
+    named = set()
+    for p in sorted((REPO / "tests").glob("test_torch_*.py")):
+        src = p.read_text()
+        if not re.search(r"^def (cases|_cases|check_case)\(|"
+                         r"^from test_torch_cluster_cases import", src, re.M):
+            continue
+        tree = ast.parse(src)
+        table = {id(n) for a in ast.walk(tree) if isinstance(a, ast.Assign)
+                 and any(getattr(t, "id", None) == "HAND_COUNTERPART"
+                         for t in a.targets) for n in ast.walk(a)}
+        named |= {n.value for n in ast.walk(tree)
+                  if isinstance(n, ast.Constant) and isinstance(n.value, str)
+                  and id(n) not in table
+                  and re.fullmatch(r"test_\w+", n.value)}
+    return named
+
+
+def test_every_reference_file_runs_on_both_packages_or_by_hand():
+    """Every ``tests/test_*.py`` of the JAX package is run through both
+    packages by a case harness, or named (as a whole, with the port file
+    that holds its cases, or case by case, with the port test that holds
+    each) in ``HAND_COUNTERPART``, apart from :data:`NOT_PORTED`; every
+    port file and test ``HAND_COUNTERPART`` names exists."""
+    from test_torch_cluster_cases import HAND_COUNTERPART
+    tests = REPO / "tests"
+    refs = {p.stem for p in tests.glob("test_*.py")
+            if not p.stem.startswith("test_torch_")}
+    hand = {k.split("::")[0] for k in HAND_COUNTERPART}
+    harnessed = _harness_files()
+    missing = sorted(refs - harnessed - hand - NOT_PORTED)
+    assert not missing, f"reference files with no port: {missing}"
+    assert NOT_PORTED <= refs and not NOT_PORTED & (harnessed | hand)
+    for key, held in HAND_COUNTERPART.items():
+        assert key.split("::")[0] in refs, key
+        fname, _, test = held.partition("::")
+        assert fname.startswith("test_torch_"), held
+        assert (tests / fname).is_file(), held
+        if test:
+            assert re.search(rf"^def {test}\(", (tests / fname).read_text(),
+                             re.M), held
+        else:       # a whole file: no case of it runs through a harness
+            assert key not in harnessed, key

@@ -61,12 +61,12 @@ SIDES = {
                  f32=torch.float32, redist=predist, mem=pmem,
                  changelog=pchangelog, process=pprocess,
                  Config=Configuration, StateOptions=StateOptions,
-                 make=make_keyed_backend, values=lambda r: list(r[0])),
+                 make=make_keyed_backend, values=list),
 }
 
-#: ``values``: a value state's ``get_rows`` as a list.  The port's returns
-#: (values, alive), the heap backend's contract; JAX's spill value state
-#: returns the values alone (``test_value_rows_follow_the_heap_contract``)
+#: ``values``: a value state's ``get_rows`` as a list (the values alone in
+#: either package, where the heap returns (values, alive):
+#: ``test_value_rows_follow_the_heap_contract``)
 
 #: the TTL clock of every backend here: blobs carry its time
 CLOCK_MS = 1_000_000
@@ -207,12 +207,12 @@ def test_reducing_aggregating_state(tmp_path):
 
 
 def test_value_rows_follow_the_heap_contract(tmp_path):
-    """A fault of JAX's spill backend, repaired in the port: its value
-    state's ``get_rows`` returns the values alone where the heap backend
-    (and the spill's own aggregating state) return (values, alive), so a
-    process function written for the heap (the smoke's path 36) cannot run
-    on JAX's spill backend.  The port's returns the heap's (values, alive),
-    typed by the descriptor; the stored blobs are unchanged."""
+    """A spill value state's ``get_rows`` returns the values alone (an
+    object array, the default where a row is absent) in both packages,
+    where the heap backend returns (values, alive), so a process function
+    written for the heap unpacks neither (the smoke's path 36 function
+    reads both forms on path 44).  The values equal the heap's; the stored
+    blobs are unchanged."""
     keys = np.array([5, 6, 7], np.int64)
     heap = pheap.HeapKeyedStateBackend()
     spill = pspill.SpillKeyedStateBackend(str(tmp_path / "p"))
@@ -223,14 +223,15 @@ def test_value_rows_follow_the_heap_contract(tmp_path):
         slots = be.key_slots(keys)
         st.put_rows(slots[:2], np.array([3, 4], np.int64))
     h = heap._states["n"].get_rows(heap.key_slots(keys))
-    p = spill._states["n"].get_rows(spill.key_slots(keys))
-    assert [x.tolist() for x in p] == [x.tolist() for x in h] == \
-        [[3, 4, 0], [True, True, False]]
-    assert p[0].dtype == h[0].dtype == np.int64
+    assert [x.tolist() for x in h] == [[3, 4, 0], [True, True, False]]
+    assert h[0].dtype == np.int64
     j = jax_spill._states["n"].get_rows(jax_spill.key_slots(keys))
-    assert isinstance(j, np.ndarray) and j.dtype == object
-    with pytest.raises(ValueError):
-        _, _ = j                       # the heap's unpacking fails on JAX's
+    p = spill._states["n"].get_rows(spill.key_slots(keys))
+    for got in (j, p):
+        assert isinstance(got, np.ndarray) and got.dtype == object
+        with pytest.raises(ValueError):
+            _, _ = got                 # the heap's unpacking fails on it
+    assert [int(x) for x in p] == [int(x) for x in j] == h[0].tolist()
     for be in (spill, jax_spill):
         assert be.store.get(b"n\x00" + (0).to_bytes(4, "little")) \
             is not None
